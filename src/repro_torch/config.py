@@ -1,0 +1,81 @@
+"""Model configuration for the PyTorch port.
+
+Plain frozen dataclasses with the `ModelConfig` / `DbbConfig` fields the
+serving path reads, under the same names and defaults as the JAX
+package's configs, so a config (and its ``kernel_routes`` overrides)
+carries over field for field.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+__all__ = ["DbbConfig", "ModelConfig"]
+
+
+@dataclass(frozen=True)
+class DbbConfig:
+    """Density-bound block sparsity (paper §IV-A): at most ``nnz``
+    non-zeros in every ``block`` consecutive weights along K.
+
+    apply_to names the weight families that get packed; attention
+    score/value products are activation × activation and never are.
+    """
+    block: int = 8
+    nnz: int = 4
+    enabled: bool = False
+    apply_to: Tuple[str, ...] = ("mlp", "attn_proj", "expert")
+    weight_bits: int = 8
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """The dense-LM fields the serving path reads.
+
+    gemm_impl:     "pallas" selects the fused kernel route family (the
+                   hand-written CUDA kernels on the card, their plain
+                   versions on the CPU); "xla" keeps plain torch matmuls.
+    kernel_routes: ((domain, route), ...) pins a dispatch route per
+                   domain. Precedence: REPRO_FORCE_ROUTE > kernel_routes
+                   > auto.
+    attn_impl:     "auto" lets the route table choose; "naive" pins the
+                   quadratic prefill attention.
+    kv_page_size:  decode KV page (cache slots); 0 picks
+                   gcd(cache length, 64).
+    norm:          only "nonparam_ln" (OLMo's LayerNorm without affine
+                   parameters) is ported.
+    """
+    name: str = "model"
+    family: str = "dense_lm"
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0               # 0 => d_model // num_heads
+    d_ff: int = 1024
+    vocab_size: int = 32000
+    norm: str = "rmsnorm"           # the port runs nonparam_ln only
+    act: str = "silu"
+    mlp_gated: bool = True
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    rope: bool = True
+    dbb: DbbConfig = field(default_factory=DbbConfig)
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    gemm_impl: str = "xla"
+    kernel_routes: Tuple[Tuple[str, str], ...] = ()
+    remat: str = "auto"             # read by training only; kept for parity
+    attn_impl: str = "auto"
+    sliding_window: int = 0
+    attn_logit_softcap: float = 0.0
+    kv_page_size: int = 0
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,144 @@
+// DBB structured-sparse GEMM, M-tiled: out = act(scale * (x @ W) + bias)
+// with W[K, N] given as the DBB planes values[K/8 * nnz, N] (f32) and
+// bitmask[K/8, N] (int32).
+//
+// Replaces: src/repro/kernels/dbb_gemm/kernel.py, dbb_gemm_pallas (bits=8)
+// — the prefill projections of the serving path (M = batch * prompt).
+//
+// What bounds it on the H100: at the prefill shapes (M = 512, K and N of
+// 2048-8192) the work is 2·M·K·N operations on ~62.5% of the dense weight
+// bytes, far above the card's ~295 operations per byte, so it is bound by
+// arithmetic. This first version multiplies with plain f32 FMAs (each
+// bf16 product is exact in f32, so it computes what a bf16 tensor-core
+// product with f32 accumulation computes), not with the tensor cores:
+// it is correct and simple; mma / wgmma with TMA-fed tiles is later work.
+//
+// Design: one 256-thread block owns a 128 x 128 output tile and loops
+// over K in steps of 16 (two DBB blocks). Each step every thread
+// decompresses one (DBB block, column) pair from its bitmask rank straight
+// into the shared-memory weight tile — the dense weight never exists in
+// device memory — and loads eight activations into the transposed
+// shared-memory activation tile. Each thread then accumulates an 8 x 8
+// register tile in f32; the epilogue runs on those registers before the
+// one store of the output. No state crosses blocks.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 16, TM = 8, TN = 8;
+constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
+constexpr int kBlocksPerStep = BK / repro::kDbbBlock;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dbb_gemm_kernel(const T* __restrict__ x, const float* __restrict__ values,
+                const int32_t* __restrict__ bitmask,
+                const float* __restrict__ scale,
+                const float* __restrict__ bias, T* __restrict__ out, int M,
+                int K, int N, int nnz, int act) {
+  __shared__ float xs[BK][BM + 4];  // activations, transposed
+  __shared__ float ws[BK][BN];      // decompressed weight tile
+
+  const int t = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tx = t % (BN / TN), ty = t / (BN / TN);
+  const int kb_total = K / repro::kDbbBlock;
+
+  // loader roles: activations (row, 8-wide K group), weights (block, col)
+  const int xr = t / (BK / 8), xk = (t % (BK / 8)) * 8;
+  const int wkb = t / BN, wn = t % BN;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    {  // activation tile: 128 rows x 16 K, eight per thread
+      float v[8];
+      const int m = m0 + xr, k = k0 + xk;
+      if (m < M && k < K) {
+        repro::load8(x + (size_t)m * K + k, v);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) xs[xk + i][xr] = v[i];
+    }
+    {  // weight tile: decompress one (DBB block, column) pair per thread
+      const int kb = k0 / repro::kDbbBlock + wkb, n = n0 + wn;
+      uint32_t mask = 0;
+      float slot[repro::kNnzMax];
+#pragma unroll
+      for (int s = 0; s < repro::kNnzMax; ++s) slot[s] = 0.f;
+      if (kb < kb_total && n < N) {
+        mask = (uint32_t)bitmask[(size_t)kb * N + n];
+#pragma unroll
+        for (int s = 0; s < repro::kNnzMax; ++s)
+          if (s < nnz) slot[s] = values[((size_t)kb * nnz + s) * N + n];
+      }
+      float w[repro::kDbbBlock];
+      repro::decompress_block<T>(mask, slot, nnz, w);
+#pragma unroll
+      for (int p = 0; p < repro::kDbbBlock; ++p)
+        ws[wkb * repro::kDbbBlock + p][wn] = w[p];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * (BM / TM)];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + j * (BN / TN)];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + i * (BM / TM);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + j * (BN / TN);
+      if (n < N)
+        out[(size_t)m * N + n] =
+            repro::from_f32<T>(repro::epilogue(acc[i][j], n, scale, bias, act));
+    }
+  }
+}
+
+static_assert(kBlocksPerStep * BN == kThreads, "one (block, col) per thread");
+static_assert(BM * (BK / 8) == kThreads, "one 8-wide load per thread");
+
+}  // namespace
+
+extern "C" int dbb_gemm_launch(const void* x, const void* values,
+                               const void* bitmask, const void* scale,
+                               const void* bias, void* out, int M, int K,
+                               int N, int nnz, int act, int dtype,
+                               void* stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(values);
+  const int32_t* mk = static_cast<const int32_t*>(bitmask);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  if (dtype == repro::DT_BF16) {
+    dbb_gemm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), v, mk, sc, bi,
+        static_cast<__nv_bfloat16*>(out), M, K, N, nnz, act);
+  } else {
+    dbb_gemm_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), v, mk, sc, bi, static_cast<float*>(out),
+        M, K, N, nnz, act);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,127 @@
+// DBB structured-sparse GEMM for skinny M (decode, M <= 32):
+// out = act(scale * (x @ W) + bias), W given as the DBB planes
+// values[K/8 * nnz, N] (f32) and bitmask[K/8, N] (int32).
+//
+// Replaces: src/repro/kernels/skinny/kernel.py, dbb_gemm_skinny_pallas
+// (bits=8) — every decode projection of the serving path (M = batch).
+//
+// What bounds it on the H100: bytes. At M = 8 each weight byte feeds a
+// few operations, so the time is the compressed weight stream (values +
+// bitmask) over the 3.35 TB/s memory rate; the activations are a few KB
+// and stay in L1/L2.
+//
+// Design: the weight stream is read exactly once and never expanded in
+// device memory. A block owns 16 output columns, so even N = 2048 gives
+// 128 blocks; each half-warp covers the 16 columns (a 64-byte coalesced
+// read of a values or bitmask row) and the block's half-warps split the
+// K/8 DBB blocks between them, interleaved. Per DBB block a thread loads
+// its column's mask and nnz values, decompresses the 8 dense weights in
+// registers from the bitmask rank (rounded through the activation dtype,
+// as the reference casts the tile), loads each row's 8 activations with
+// one vector load (broadcast across the half-warp) and accumulates MT f32
+// sums. The partial sums meet in shared memory, the epilogue runs on the
+// total and the block stores its columns once.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kCols = 16;                  // output columns per block
+constexpr int kSplit = 32 / kCols;         // K slices per warp
+
+template <typename T, int MT, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+dbb_gemm_skinny_kernel(const T* __restrict__ x,
+                       const float* __restrict__ values,
+                       const int32_t* __restrict__ bitmask,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, T* __restrict__ out,
+                       int M, int K, int N, int nnz, int act) {
+  constexpr int kSlices = WARPS * kSplit;
+  __shared__ float part[kSlices][MT][kCols];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int col = lane % kCols, slice = warp * kSplit + lane / kCols;
+  const int n = blockIdx.x * kCols + col;
+  const int kb_total = K / repro::kDbbBlock;
+
+  float acc[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r) acc[r] = 0.f;
+
+  if (n < N) {
+    for (int kb = slice; kb < kb_total; kb += kSlices) {
+      const uint32_t mask = (uint32_t)bitmask[(size_t)kb * N + n];
+      float slot[repro::kNnzMax];
+#pragma unroll
+      for (int s = 0; s < repro::kNnzMax; ++s)
+        slot[s] = s < nnz ? values[((size_t)kb * nnz + s) * N + n] : 0.f;
+      float w[repro::kDbbBlock];
+      repro::decompress_block<T>(mask, slot, nnz, w);
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        if (r >= M) break;
+        float xv[8];
+        repro::load8(x + (size_t)r * K + (size_t)kb * repro::kDbbBlock, xv);
+#pragma unroll
+        for (int p = 0; p < repro::kDbbBlock; ++p)
+          acc[r] = fmaf(xv[p], w[p], acc[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < MT; ++r) part[slice][r][col] = acc[r];
+  __syncthreads();
+  for (int i = threadIdx.x; i < MT * kCols; i += WARPS * 32) {
+    const int r = i / kCols, c = i % kCols, cn = blockIdx.x * kCols + c;
+    if (r >= M || cn >= N) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < kSlices; ++v) sum += part[v][r][c];
+    out[(size_t)r * N + cn] =
+        repro::from_f32<T>(repro::epilogue(sum, cn, scale, bias, act));
+  }
+}
+
+template <typename T, int MT>
+void launch(const void* x, const void* values, const void* bitmask,
+            const void* scale, const void* bias, void* out, int M, int K,
+            int N, int nnz, int act, cudaStream_t s) {
+  // 16 warps while the partial sums fit the 48 KB of static shared
+  // memory, 8 at MT = 32
+  constexpr int WARPS = MT <= 16 ? 16 : 8;
+  const dim3 grid((N + kCols - 1) / kCols);
+  dbb_gemm_skinny_kernel<T, MT, WARPS><<<grid, WARPS * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(values),
+      static_cast<const int32_t*>(bitmask), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<T*>(out), M, K, N, nnz,
+      act);
+}
+
+template <typename T>
+void dispatch_m(const void* x, const void* values, const void* bitmask,
+                const void* scale, const void* bias, void* out, int M, int K,
+                int N, int nnz, int act, cudaStream_t s) {
+  if (M <= 8)
+    launch<T, 8>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
+  else if (M <= 16)
+    launch<T, 16>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
+  else
+    launch<T, 32>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
+}
+
+}  // namespace
+
+extern "C" int dbb_gemm_skinny_launch(const void* x, const void* values,
+                                      const void* bitmask, const void* scale,
+                                      const void* bias, void* out, int M,
+                                      int K, int N, int nnz, int act,
+                                      int dtype, void* stream) {
+  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::DT_BF16)
+    dispatch_m<__nv_bfloat16>(x, values, bitmask, scale, bias, out, M, K, N,
+                              nnz, act, s);
+  else
+    dispatch_m<float>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act,
+                      s);
+  return (int)cudaGetLastError();
+}

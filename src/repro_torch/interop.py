@@ -1,0 +1,50 @@
+"""Parameter trees from the JAX package into the port, without JAX.
+
+`params_from_numpy` takes the reference's tree as nested dicts whose
+leaves are arrays (numpy, or anything ``np.asarray`` reads) and packed
+leaves read by attribute — ``values``, ``bitmask``, ``scale``, ``block``,
+``nnz``, ``k_dim``, ``bits``, ``group`` (and ``indices`` when present) —
+and returns the same tree of torch tensors and port `DbbWeight`s.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.dbb import DbbWeight
+
+__all__ = ["params_from_numpy", "tensor_from_numpy"]
+
+
+def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
+    """A torch copy of an array; uint32 (the reference's bitmask) becomes
+    int32 with the same bytes."""
+    arr = np.asarray(a)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _is_packed(leaf: Any) -> bool:
+    return all(hasattr(leaf, f) for f in ("values", "bitmask", "block",
+                                          "nnz", "k_dim"))
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """The port's tree for a reference parameter tree (see module doc)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if _is_packed(tree):
+        def opt(a):
+            return None if a is None else tensor_from_numpy(a, device)
+        return DbbWeight(
+            values=tensor_from_numpy(tree.values, device),
+            indices=opt(getattr(tree, "indices", None)),
+            bitmask=tensor_from_numpy(tree.bitmask, device),
+            scale=opt(getattr(tree, "scale", None)),
+            block=int(tree.block), nnz=int(tree.nnz), k_dim=int(tree.k_dim),
+            bits=int(getattr(tree, "bits", 8)),
+            group=int(getattr(tree, "group", 0)))
+    return tensor_from_numpy(tree, device)

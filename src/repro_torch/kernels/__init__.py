@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels (``repro_torch/csrc``) behind their wrappers,
+with a plain PyTorch version of each.
+
+dbb_gemm:  DBB structured-sparse GEMM, M-tiled (prefill projections).
+skinny:    M ≤ 32 weight-streaming GEMMs — DBB-compressed (decode
+           projections) and dense (the head GEMV).
+attn:      one-token paged decode attention; a contiguous cache is the
+           identity block table.
+epilogue:  the fused scale → bias → act → store order all of them share.
+dispatch:  route tables and the front doors the model layers call.
+build:     nvcc + ctypes loader (builds at first use, never at import).
+"""

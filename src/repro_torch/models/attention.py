@@ -1,0 +1,168 @@
+"""GQA/MHA attention: projections, the naive prefill route and one-token
+decode against the contiguous KV cache (the paged decode kernel under an
+identity block table, or the plain softmax route)."""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.dbb import DbbWeight
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.attn import (DEFAULT_PAGE, identity_block_table,
+                                      paged_decode_attention)
+from repro_torch.models.common import apply_rope, linear_init
+
+__all__ = ["attention_init", "attention_apply", "decode_attention_apply"]
+
+_NEG_INF = -1e30
+
+
+def attention_init(gen: torch.Generator, lead, cfg: ModelConfig,
+                   dtype: torch.dtype, device) -> Dict:
+    d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    return {
+        "q_proj": linear_init(gen, lead, d, hq * hd, dtype, device,
+                              bias=cfg.qkv_bias),
+        "k_proj": linear_init(gen, lead, d, hkv * hd, dtype, device,
+                              bias=cfg.qkv_bias),
+        "v_proj": linear_init(gen, lead, d, hkv * hd, dtype, device,
+                              bias=cfg.qkv_bias),
+        "o_proj": linear_init(gen, lead, hq * hd, d, dtype, device,
+                              scale=1.0 / math.sqrt(hq * hd * 2
+                                                    * cfg.num_layers)),
+    }
+
+
+def _lin(pp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Projection against a dense or packed weight. Packed weights take
+    the DBB kernels (bias fused into the epilogue); dense ones keep the
+    plain matmul (``dense_fused=False``)."""
+    w = pp["w"]
+    packed = isinstance(w, DbbWeight)
+    return dispatch.matmul(x, w, pp.get("b"),
+                           out_dtype=x.dtype if packed else None, cfg=cfg,
+                           pallas=packed, dense_fused=False)
+
+
+def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = _lin(p["q_proj"], x, cfg).reshape(b, s, hq, hd)
+    k = _lin(p["k_proj"], x, cfg).reshape(b, s, hkv, hd)
+    v = _lin(p["v_proj"], x, cfg).reshape(b, s, hkv, hd)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """q [B,T,Hkv,G,D], k [B,S,Hkv,D] → f32 scores [B,Hkv,G,T,S]."""
+    hd = q.shape[-1]
+    s = torch.einsum("bthgd,bshd->bhgts", q.float(), k.float()) / math.sqrt(hd)
+    if cfg.attn_logit_softcap > 0:
+        c = cfg.attn_logit_softcap
+        s = c * torch.tanh(s / c)
+    return s
+
+
+def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor,
+               window: int) -> torch.Tensor:
+    """Additive bias [T, S] (1-D positions) or [B, T, S] (per-row ragged
+    positions): causal (+ window); keys at negative positions are left
+    padding and masked."""
+    q = qpos[..., :, None]
+    kk = kpos[..., None, :]
+    m = (kk <= q) & (kk >= 0)
+    if window > 0:
+        m &= kk > (q - window)
+    return torch.where(m, 0.0, _NEG_INF)
+
+
+def _naive_attention(q, k, v, qpos, kpos, cfg: ModelConfig) -> torch.Tensor:
+    """q [B,T,Hq,D], k/v [B,S,Hkv,D]; the quadratic route. Probabilities
+    are cast to V's dtype for P·V with f32 accumulation."""
+    b, t, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, t, hkv, hq // hkv, hd)
+    bias = _mask_bias(qpos, kpos, cfg.sliding_window)
+    if bias.ndim == 3:                     # [B,T,S] -> [B,1,1,T,S]
+        bias = bias[:, None, None]
+    p = torch.softmax(_scores(qg, k, cfg) + bias, dim=-1)
+    o = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, t, hq, hd).to(q.dtype).contiguous()
+
+
+def attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None,
+                    ragged: bool = False,
+                    qkv: Optional[Tuple] = None) -> torch.Tensor:
+    """Full-sequence (prefill) attention + output projection. ``ragged``:
+    positions are per-row ladders of a left-padded batch. ``qkv`` reuses
+    projections the caller already made for the cache fill."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = qkv if qkv is not None else _project_qkv(p, cfg, x, positions)
+    o = dispatch.attention(q, k, v, positions, cfg, ragged=ragged)
+    return _lin(p["o_proj"], o.reshape(b, s, -1), cfg)
+
+
+def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           lengths: torch.Tensor,
+                           start: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One-token decode: x [B, 1, d]; cache_k/v [B, Smax, Hkv, D] (one
+    layer of the contiguous cache); lengths [B] the new token's slot.
+
+    The new K/V are written INTO cache_k / cache_v in place (the reference
+    returns updated copies); the slot clamps to Smax - 1 as the
+    reference's dynamic_update_slice clamps an overshooting write.
+    ``start`` [B]: first real slot of a left-padded row — RoPE runs at
+    ``lengths - start`` and slots below ``start`` are masked."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    smax = cache_k.shape[1]
+    rope_pos = lengths if start is None else lengths - start
+    q, k, v = _project_qkv(p, cfg, x, rope_pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    ins = lengths.clamp(max=smax - 1).long()
+    cache_k[rows, ins] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, ins] = v[:, 0].to(cache_v.dtype)
+
+    page = cfg.kv_page_size or math.gcd(smax, DEFAULT_PAGE)
+    route = dispatch.decode_attention_route(
+        cfg, group=g, head_dim=hd, page=page, smax=smax,
+        floating=x.dtype in (torch.float32, torch.bfloat16))
+    if route == "attn_decode_flash":
+        n_log = smax // page
+        o = paged_decode_attention(
+            q.reshape(b, hkv, g, hd),
+            cache_k.view(b * n_log, page, hkv, hd),
+            cache_v.view(b * n_log, page, hkv, hd),
+            identity_block_table(b, n_log, x.device), lengths, start,
+            window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+        return _lin(p["o_proj"], o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
+
+    qg = q.reshape(b, 1, hkv, g, hd)
+    sc = _scores(qg, cache_k, cfg)                       # [B,H,G,1,Smax]
+    kpos = torch.arange(smax, device=x.device)[None, :]
+    valid = kpos <= lengths[:, None]
+    if start is not None:
+        valid &= kpos >= start[:, None]
+    if cfg.sliding_window > 0:
+        valid &= kpos > (lengths[:, None] - cfg.sliding_window)
+    sc = sc + torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgts,bshd->bthgd", pr.to(cache_v.dtype).float(),
+                     cache_v.float())
+    o = o.reshape(b, 1, hq * hd).to(x.dtype).contiguous()
+    return _lin(p["o_proj"], o, cfg)

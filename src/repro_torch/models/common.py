@@ -1,0 +1,118 @@
+"""Shared model building blocks: init, norms, RoPE, embeddings."""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+
+__all__ = ["dtype_of", "param_dtype_of", "normal_init", "linear_init",
+           "norm_init", "norm_apply", "rope_freqs", "apply_rope",
+           "embed_init", "embed_apply", "embed_scale"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def param_dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+# ---------------------------------------------------------------------------
+# init (explicit generator; the reference's jax.random draws differ, so
+# cross-checks move weights across with `repro_torch.interop` instead)
+# ---------------------------------------------------------------------------
+
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def linear_init(gen: torch.Generator, lead, d_in: int, d_out: int,
+                dtype: torch.dtype, device, scale: Optional[float] = None,
+                bias: bool = False) -> Dict:
+    """Fan-in normal init in ``[..., K, N]`` layout (contraction first);
+    ``lead`` stacks it (the layer axis)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    p = {"w": normal_init(gen, (*lead, d_in, d_out), scale, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def _check_norm(kind: str) -> None:
+    if kind != "nonparam_ln":
+        raise NotImplementedError(
+            f"norm={kind!r}: the port has OLMo's nonparam_ln only")
+
+
+def norm_init(kind: str) -> Dict:
+    """OLMo's LayerNorm has no affine parameters: an empty dict."""
+    _check_norm(kind)
+    return {}
+
+
+def norm_apply(kind: str, p: Dict, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Non-parametric LayerNorm in f32, result in x's dtype."""
+    _check_norm(kind)
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-split layout: the first and second halves of D rotate as pairs)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions broadcastable to [..., S]; angles in
+    f32, result in x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                   # [D/2]
+    angles = positions[..., None].float() * freqs            # [..., S, D/2]
+    angles = angles[..., None, :]                            # [..., S, 1, D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
+               device) -> Dict:
+    return {"table": normal_init(gen, (vocab, d), 1.0, dtype, device)}
+
+
+def embed_apply(p: Dict, tokens: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    # gather, then cast: the same values as casting the whole table first
+    return p["table"][tokens.long()].to(dtype)
+
+
+def embed_scale(x: torch.Tensor, d_model: int) -> torch.Tensor:
+    """``x * sqrt(d_model)`` with the factor rounded to x's dtype first, as
+    the reference multiplies by a weakly typed scalar."""
+    return x * torch.tensor(d_model ** 0.5, dtype=x.dtype, device=x.device)

@@ -1,0 +1,57 @@
+"""Gated / plain MLP blocks (the main DBB surface of the model)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.epilogue import apply_act
+from repro_torch.models.common import linear_init
+
+__all__ = ["mlp_init", "mlp_apply"]
+
+
+def mlp_init(gen: torch.Generator, lead, d: int, f: int, cfg: ModelConfig,
+             dtype: torch.dtype, device) -> Dict:
+    p = {"wi": linear_init(gen, lead, d, f, dtype, device),
+         "wo": linear_init(gen, lead, f, d, dtype, device,
+                           scale=1.0 / (f ** 0.5
+                                        * (2 * cfg.num_layers) ** 0.5))}
+    if cfg.mlp_gated:
+        p["wg"] = linear_init(gen, lead, d, f, dtype, device)
+    return p
+
+
+def _fused_gemm(x: torch.Tensor, pp: Dict, act: str,
+                cfg: ModelConfig) -> torch.Tensor:
+    return dispatch.matmul(x, pp["w"], pp.get("b"), act=act,
+                           out_dtype=x.dtype, cfg=cfg, pallas=True)
+
+
+def _mlp_fused(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Every GEMM through the dispatch's kernel routes; a gated MLP's
+    activation runs in the gate GEMM's epilogue, so the pre-activation
+    never reaches memory, and the product with the up-projection is one
+    elementwise multiply."""
+    h = _fused_gemm(x, p["wi"], "none" if cfg.mlp_gated else cfg.act, cfg)
+    if cfg.mlp_gated:
+        h = _fused_gemm(x, p["wg"], cfg.act, cfg) * h
+    return _fused_gemm(h, p["wo"], "none", cfg)
+
+
+def _mlp_plain(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Plain matmuls against dense weights (the layer was decompressed)."""
+    h = x @ p["wi"]["w"].to(x.dtype)
+    if cfg.mlp_gated:
+        h = apply_act(x @ p["wg"]["w"].to(x.dtype), cfg.act) * h
+    else:
+        h = apply_act(h, cfg.act)
+    return h @ p["wo"]["w"].to(x.dtype)
+
+
+def mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if dispatch.pallas_route_active(cfg):
+        return _mlp_fused(p, cfg, x)
+    return _mlp_plain(p, cfg, x)

@@ -1,0 +1,165 @@
+"""Dense decoder LM: embeddings → layers → final norm (hidden states; the
+LM head is applied by the serving layer).
+
+Layer weights are stacked ``[L, ...]`` (packed leaves as stacked
+`DbbWeight` planes) and the layers run in a Python loop over the layer
+index — the reference's scan over the stack. On the fused route the
+packed planes of a layer go to the DBB kernels as they are; on the plain
+route each layer is decompressed transiently (one layer's dense weights
+live at a time).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.dbb import DbbWeight
+from repro_torch.core.dbb_linear import decompress
+from repro_torch.device import resolve_device
+from repro_torch.kernels.dispatch import pallas_route_active
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
+                                       embed_scale, linear_init, norm_apply,
+                                       norm_init, param_dtype_of)
+from repro_torch.models.mlp import mlp_apply, mlp_init
+
+__all__ = ["init_params", "lm_head_weight", "init_cache", "prefill",
+           "decode_step"]
+
+_FAMILIES = ("dense_lm",)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port serves {_FAMILIES}")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device="cuda") -> Dict:
+    """Random weights at the config's widths from ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the reference's fan-in scales; its
+    jax.random draws are not reproduced)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = param_dtype_of(cfg)
+    d, lead = cfg.d_model, (cfg.num_layers,)
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
+        "layers": {
+            "attn": attn.attention_init(gen, lead, cfg, dt, dev),
+            "ln_attn": norm_init(cfg.norm),
+            "ln_mlp": norm_init(cfg.norm),
+            "mlp": mlp_init(gen, lead, d, cfg.d_ff, cfg, dt, dev),
+        },
+        "final_norm": norm_init(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(gen, (), d, cfg.vocab_size, dt, dev)
+    return params
+
+
+def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """The head ``[d, V]``: the embedding table's transpose when tied."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Dict:
+    """Contiguous KV cache ``[L, B, max_len, Hkv, D]`` in the activation
+    dtype, with per-row lengths."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def _layer(tree: Any, l: int) -> Any:
+    """Layer ``l`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    if isinstance(tree, DbbWeight):
+        return tree.map(lambda a: a[l])
+    return tree[l]
+
+
+def _unpack_layer(lp: Any, cfg: ModelConfig) -> Any:
+    """On the fused route packed leaves stay packed (the kernels stream
+    them); otherwise every packed leaf is decompressed to the activation
+    dtype for this layer only."""
+    if pallas_route_active(cfg):
+        return lp
+    if isinstance(lp, dict):
+        return {k: _unpack_layer(v, cfg) for k, v in lp.items()}
+    if isinstance(lp, DbbWeight):
+        return decompress(lp, dtype=dtype_of(cfg))
+    return lp
+
+
+def _embed(params: Dict, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    return embed_scale(embed_apply(params["embed"], tokens, dtype_of(cfg)),
+                       cfg.d_model)
+
+
+def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Dict, start: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-prompt forward that fills the cache: ``tokens [B, S]`` →
+    (hidden [B, S, d], cache). The K/V of every layer are written into
+    ``cache`` IN PLACE (slots 0..S-1); the returned dict shares its
+    tensors and carries ``length + S`` (and ``start``).
+
+    start [B]: per-row left-pad counts of a ragged batch — RoPE positions
+    shift to ``t - start`` and pad keys are masked, so a row prefills as
+    it would alone."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    if start is not None:
+        positions = positions - start[:, None]
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        h = norm_apply(cfg.norm, lp["ln_attn"], x)
+        q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
+        cache["k"][l, :, :s] = k
+        cache["v"][l, :, :s] = v
+        x = x + attn.attention_apply(lp["attn"], cfg, h, positions=positions,
+                                     ragged=start is not None, qkv=(q, k, v))
+        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
+        x = x + mlp_apply(lp["mlp"], cfg, h)
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    new_cache = dict(cache, length=cache["length"] + s)
+    if start is not None:
+        new_cache["start"] = start
+    return x, new_cache
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One new token per row: ``tokens [B]`` → (hidden [B, 1, d], cache).
+    Each layer's new K/V go into ``cache`` in place; the returned dict
+    shares its tensors with ``length + 1``. A ragged cache (``start``)
+    masks the left-pad slots and shifts RoPE per row."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens[:, None])
+    start = cache.get("start")
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        h = norm_apply(cfg.norm, lp["ln_attn"], x)
+        x = x + attn.decode_attention_apply(
+            lp["attn"], cfg, h, cache["k"][l], cache["v"][l],
+            cache["length"], start=start)
+        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
+        x = x + mlp_apply(lp["mlp"], cfg, h)
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    return x, dict(cache, length=cache["length"] + 1)

@@ -1,0 +1,85 @@
+"""`ServeEngine.generate` of the port against the reference's on the same
+packed weights (smoke width, f32, attention pinned to the naive route):
+greedy token streams must be equal.
+
+Cases: a uniform batch, a ragged (left-padded) batch, and a cache length
+(prompt + new tokens) that is not a multiple of 8, where decode attention
+takes the plain route in both packages instead of the paged kernel. The
+prefill GEMMs run at M = 8·T > 32 (the M-tiled DBB route), decode at
+M = 8 (the skinny routes). No step needed the top-2-margin exclusion at
+these seeds: the streams are compared whole.
+"""
+import pytest
+import torch
+
+from test_torch_fixtures import configs, packed_params, prompts
+from repro.serve.engine import ServeEngine as JEngine
+from repro_torch.kernels.common import LAUNCHES
+from repro_torch.serve.engine import ServeEngine
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return packed_params(seed=1)
+
+
+@pytest.mark.parametrize("lengths,new", [
+    ([6] * 8, 10),                        # uniform; 6 + 10 = 16
+    ([6, 3, 6, 2, 5, 1, 6, 4], 10),       # ragged; start rides along
+    ([7, 4, 7, 7, 2, 7, 5], 10),          # 7 + 10 = 17: plain decode route
+])
+def test_generate_tokens_equal_reference(params, lengths, new):
+    jcfg, tcfg = configs()
+    jp, tp = params
+    ps = prompts(lengths, seed=len(lengths) + new)
+    want = JEngine(jcfg, jp, max_batch=8).generate(ps, max_new_tokens=new)
+    before = dict(LAUNCHES)
+    got = ServeEngine(tcfg, tp, max_batch=8, device="cpu").generate(
+        ps, max_new_tokens=new)
+    assert got == want
+    assert LAUNCHES == before             # plain versions on the CPU
+
+
+def test_plain_route_tokens_equal_kernel_route(params):
+    """gemm_impl="xla" (plain torch everywhere) gives the kernel route's
+    tokens on the same weights."""
+    _, tcfg = configs()
+    _, xcfg = configs("xla")
+    _, tp = params
+    ps = prompts([6, 3, 6, 2, 5, 1, 6, 4], seed=5)
+    a = ServeEngine(tcfg, tp, max_batch=8, device="cpu").generate(ps, 12)
+    b = ServeEngine(xcfg, tp, max_batch=8, device="cpu").generate(ps, 12)
+    assert a == b
+
+
+def test_eos_cuts_rows_and_pads_rows_are_dropped(params):
+    _, tcfg = configs()
+    _, tp = params
+    ps = prompts([5, 5, 3], seed=9)
+    eng = ServeEngine(tcfg, tp, max_batch=8, device="cpu")
+    first = eng.generate(ps, max_new_tokens=6)
+    assert len(first) == 3
+    eos = first[0][2]                     # make row 0's third token the EOS
+    eng.eos_id = eos
+    out = eng.generate(ps, max_new_tokens=6)
+    assert out[0] == first[0][:first[0].index(eos) + 1]
+    for row in out:
+        assert eos not in row[:-1]
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(params,
+                                                      monkeypatch):
+    from repro_torch.models import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = configs()
+    _, tp = params
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(tcfg, tp, max_batch=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.init_params(tcfg, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.init_cache(tcfg, 8, 16)
+    ServeEngine(tcfg, tp, max_batch=8, device="cpu")
+    registry.init_params(tcfg, seed=0, device="cpu")

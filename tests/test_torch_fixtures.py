@@ -1,0 +1,60 @@
+"""Shared set-up of the port-vs-reference model tests: smoke-width olmo-1b
+weights from the reference's `init_params`, DBB-projected and packed by the
+reference, then carried into the port with `params_from_numpy`.
+
+The embedding is scaled by 0.1 and the layer weights by 3 before packing:
+with random tied weights the residual stream is otherwise dominated by the
+token's own embedding and greedy decoding just echoes the last token,
+which would leave the layers untested.
+"""
+import jax
+import numpy as np
+
+from repro.configs import get_config
+from repro.core.dbb_linear import pack_tree
+from repro.core.sparsity import apply_dbb_to_tree
+from repro.models import registry
+from repro_torch.configs import get_config as tget
+from repro_torch.interop import params_from_numpy
+
+PIN = (("attention", "attn_naive"),)
+
+
+def configs(gemm_impl: str = "pallas"):
+    """(reference config, port config) of the slice at smoke width, f32."""
+    kw = dict(remat="none", gemm_impl=gemm_impl, kernel_routes=PIN)
+    return (get_config("olmo-1b", smoke=True).replace(**kw),
+            tget("olmo-1b", smoke=True).replace(**kw))
+
+
+def packed_params(seed: int = 0):
+    """(reference packed tree, the same tree in the port)."""
+    cfg, _ = configs()
+    p = jax.tree_util.tree_map(
+        np.asarray, registry.init_params(jax.random.PRNGKey(seed), cfg))
+    p["embed"]["table"] = p["embed"]["table"] * np.float32(0.1)
+    p["layers"] = jax.tree_util.tree_map(lambda a: a * np.float32(3.0),
+                                         p["layers"])
+    jpacked = pack_tree(apply_dbb_to_tree(p, cfg.dbb,
+                                          straight_through=False), cfg.dbb)
+    return jpacked, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jpacked))
+
+
+def prompts(lengths, seed: int = 0, vocab: int = 512):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(2, vocab, n))) for n in lengths]
+
+
+def test_fixture_weights_make_the_layers_matter():
+    """With these weights greedy decoding does not echo the prompt's last
+    token: most rows produce several distinct tokens."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+    torch.set_num_threads(1)
+    _, tcfg = configs()
+    _, tp = packed_params()
+    out = ServeEngine(tcfg, tp, max_batch=8, device="cpu").generate(
+        prompts([6] * 8), max_new_tokens=8)
+    assert sum(len(set(row)) > 2 for row in out) >= 6
