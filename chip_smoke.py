@@ -17,7 +17,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
             kernel must have launched. The prefill's last-position logits are
-            held against the plain-torch route on the same weights.
+            held against the plain-torch route on the same weights, and so
+            are the greedy tokens (a split is excused only where the plain
+            route's logits of the two tokens lie within twice the logit
+            tolerance).
 5. tokens   smoke-width f32 engine: kernel route and plain route must produce
             equal greedy tokens.
 
@@ -43,6 +46,7 @@ F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 REPS = 20
 SPIN_CYCLES = 10_000_000         # ~5 ms at the H100's clock: covers the host
 PIN = (("attention", "attn_naive"),)
+LOGIT_TOL = 1e-3                 # of max |logit|, kernel vs plain full width
 
 
 def _fail(msg: str) -> int:
@@ -342,9 +346,10 @@ def _slice_phase(torch, dev, report, out_dir):
     decode_ms = (t_total - t_prefill) / max(steps, 1) * 1e3
     n_tok = sum(len(o) for o in out)
     print(f"slice: generate 8 prompts (lengths {lens}), max_new_tokens "
-          f"{new}: {t_total * 1e3:.1f} ms total, prefill "
-          f"{t_prefill * 1e3:.1f} ms, decode {decode_ms:.3f} ms/step over "
-          f"{steps} steps, {n_tok / t_total:.1f} generated tokens/s "
+          f"{new}: {t_total * 1e3:.1f} ms total; prefill "
+          f"{t_prefill * 1e3:.1f} ms (a separate max_new_tokens=1 call); "
+          f"decode estimate {decode_ms:.3f} ms/step (total minus that call, "
+          f"over {steps} steps); {n_tok / t_total:.1f} generated tokens/s "
           f"({8 * steps / max(t_total - t_prefill, 1e-9):.1f} decode "
           f"row-steps/s)")
     print(f"slice: launches in the generate run: {counts}")
@@ -356,39 +361,76 @@ def _slice_phase(torch, dev, report, out_dir):
     if not ok:
         print("slice: FAIL: a kernel of the path never launched")
 
+    def last_logits(c, contexts):
+        """f32 head logits at the last position of each left-padded
+        context, through route config ``c``."""
+        width = max(len(t) for t in contexts)
+        toks = torch.zeros((len(contexts), width), dtype=torch.int32)
+        for i, t in enumerate(contexts):
+            toks[i, width - len(t):] = torch.tensor(t)
+        start = torch.tensor([width - len(t) for t in contexts],
+                             dtype=torch.int32, device=dev)
+        cache = registry.init_cache(c, len(contexts), width + 1, device=dev)
+        h, _ = registry.prefill(engine.params, c, toks.to(dev), cache,
+                                start=start)
+        return dispatch.matmul(h[:, -1].float().contiguous(), engine.head,
+                               cfg=c)
+
     # prefill last-position logits, kernel route vs plain route
-    max_len = max(lens)
-    toks = torch.zeros((8, max_len), dtype=torch.int32)
-    for i, p in enumerate(prompts):
-        toks[i, max_len - len(p):] = torch.tensor(p)
-    toks = toks.to(dev)
-    start = torch.tensor([max_len - n for n in lens], dtype=torch.int32,
-                         device=dev)
-    logits = {}
-    for name, c in (("kernel", cfg), ("plain", xcfg)):
-        cache = registry.init_cache(c, 8, max_len + 1, device=dev)
-        h, _ = registry.prefill(engine.params, c, toks, cache, start=start)
-        logits[name] = dispatch.matmul(
-            h[:, -1].float().contiguous(), engine.head, cfg=c, gemv=True)
+    logits = {name: last_logits(c, prompts)
+              for name, c in (("kernel", cfg), ("plain", xcfg))}
     diff = (logits["kernel"] - logits["plain"]).abs().max().item()
     scale = logits["plain"].abs().max().item()
-    lok = diff <= 5e-2 * scale
+    tol = LOGIT_TOL * scale
+    lok = diff <= tol
     print(f"slice: prefill last-position logits, kernel route vs plain "
           f"route: max abs diff {diff:.4e} of max |logit| {scale:.4e} "
-          f"(tol 5e-2 of max, bf16 activations over {cfg.num_layers} layers)"
-          f" {'ok' if lok else 'FAIL'}")
+          f"(tol {LOGIT_TOL:g} of max = {tol:.4e}, bf16 activations over "
+          f"{cfg.num_layers} layers) {'ok' if lok else 'FAIL'}")
+
+    # greedy tokens, kernel route vs plain route. Logits within tol of each
+    # other can pick different tokens only where the plain route's logits
+    # of the two lie within 2 * tol; each row is compared up to its
+    # first difference (the contexts differ after it), and that step is
+    # excused only when the gap, recomputed on the shared context, is
+    # within that bound.
     xout = ServeEngine(xcfg, packed, max_batch=8,
                        device=dev).generate(prompts, max_new_tokens=new)
-    same = sum(int(a == b) for r, s in zip(out, xout)
-               for a, b in zip(r, s))
-    total = sum(min(len(r), len(s)) for r, s in zip(out, xout))
-    print(f"slice: greedy-token agreement, kernel vs plain route: "
-          f"{same}/{total}")
+    same, total, split = 0, 0, []
+    for i, (r, s) in enumerate(zip(out, xout)):
+        j = next((j for j, (a, b) in enumerate(zip(r, s)) if a != b), None)
+        if j is None:
+            same += min(len(r), len(s))
+            total += max(len(r), len(s))
+            if len(r) != len(s):
+                split.append((i, min(len(r), len(s))))
+        else:
+            same += j
+            total += len(r)
+            split.append((i, j))
+    gaps = []
+    if split:
+        ctx = [prompts[i] + out[i][:j] for i, j in split]
+        lg = last_logits(xcfg, ctx)
+        for row, (i, j) in enumerate(split):
+            if j >= min(len(out[i]), len(xout[i])):
+                gaps.append(float("inf"))      # one route stopped early
+                continue
+            gap = lg[row, xout[i][j]] - lg[row, out[i][j]]
+            gaps.append(abs(gap.item()))
+    tok_ok = all(g <= 2 * tol for g in gaps)
+    print(f"slice: greedy tokens, kernel vs plain route: {same}/{total} "
+          f"equal; rows that split (row, step, plain-route gap): "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]} (excused where "
+          f"gap <= 2 x logit tol = {2 * tol:.4e}) "
+          f"{'ok' if tok_ok else 'FAIL'}")
     report["slice"].update(logit_max_abs_diff=diff, logit_scale=scale,
-                           token_agreement=[same, total])
+                           logit_tol=tol, token_agreement=[same, total],
+                           token_splits=[[i, j, g] for (i, j), g
+                                         in zip(split, gaps)])
     if out_dir:
         _profile(torch, engine, prompts, new, out_dir, report)
-    return counts, ok and lok
+    return counts, ok and lok and tok_ok
 
 
 def _profile(torch, engine, prompts, new, out_dir, report):

@@ -57,7 +57,6 @@ class OpSpec:
     bits: int = 8
     pallas: bool = False          # fused kernel route family is active
     dense_fused: bool = True      # call site opts dense weights into kernels
-    gemv: bool = False            # decode head GEMV hint
     float_ok: bool = True         # operands are f32 / bf16
     page: int = 0
     flash_active: bool = False
@@ -224,8 +223,8 @@ def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None
 
 def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
            out_dtype: Optional[torch.dtype] = None, cfg=None,
-           pallas: Optional[bool] = None, dense_fused: bool = True,
-           gemv: bool = False) -> torch.Tensor:
+           pallas: Optional[bool] = None, dense_fused: bool = True
+           ) -> torch.Tensor:
     """``act(scale * (x @ w) + bias)`` for a dense ``[K, N]`` tensor or a
     2-D `DbbWeight`, through the chosen route. ``pallas=None`` derives the
     route family from ``cfg``."""
@@ -241,7 +240,7 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
         domain="matmul", m=m, k=k_dim, n=n, packed=packed,
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
         bits=w.bits if packed else 8, pallas=bool(pallas),
-        dense_fused=dense_fused, gemv=gemv,
+        dense_fused=dense_fused,
         float_ok=x.dtype in (torch.float32, torch.bfloat16))
     name, _ = select(spec, routes_from_cfg(cfg))
 

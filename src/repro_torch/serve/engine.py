@@ -38,11 +38,11 @@ def greedy_from_hidden(hidden: torch.Tensor, w_head: torch.Tensor,
                        cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """hidden [B, T, d] → greedy next token [B] (int32) from the last
     position, in f32. impl="pallas" hands the head GEMV to the dispatch
-    with the ``gemv`` hint (the skinny dense kernel at B ≤ 32). Ties go to
-    the first maximum, as in the reference."""
+    (the skinny dense kernel at B ≤ 32). Ties go to the first maximum, as
+    in the reference."""
     h = hidden[:, -1].float().contiguous()
     logits = dispatch.matmul(h, w_head.float(), cfg=cfg,
-                             pallas=(impl == "pallas"), gemv=True)
+                             pallas=(impl == "pallas"))
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 

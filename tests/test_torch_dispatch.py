@@ -45,7 +45,7 @@ def _matmul_specs(cfg, m: int):
             jd.OpSpec(domain="matmul", m=m, k=d, n=cfg.vocab_size,
                       itemsize=4, out_itemsize=4, pallas=pallas, gemv=True),
             td.OpSpec(domain="matmul", m=m, k=d, n=cfg.vocab_size,
-                      pallas=pallas, gemv=True)))
+                      pallas=pallas)))
     return out
 
 
