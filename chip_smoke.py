@@ -16,18 +16,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
-            kernel must have launched. The prefill's last-position logits are
-            held against the plain-torch route on the same weights, and so
-            are the greedy tokens (a split is excused only where the plain
-            route's logits of the two tokens lie within twice the logit
-            tolerance).
-5. tokens   smoke-width f32 engine: kernel route and plain route must produce
+            kernel of generate's path (the flash prefill among them) must
+            have launched. The prefill's last-position logits are held
+            against the plain-torch route on the same weights, and so are the
+            greedy tokens (a split is excused only where the plain route's
+            logits of the two tokens lie within twice the logit tolerance).
+5. serve    the same weights through ``ServeEngine.serve``: 24 requests
+            (prompts of 16-512 tokens, budgets 8-64) through 8 slots, three
+            times on the kernel route — (a) packed prefill into the
+            contiguous cache, (b) into the paged pool, (c) packed with
+            256-token chunks — with the counts reset before and read after
+            each; every kernel of each path must have launched, (a) and (b)
+            must give equal streams, and (a) must agree with the plain
+            route's ``serve`` under the same near-tie excuse.
+6. tokens   smoke-width f32 engine: kernel route and plain route must produce
             equal greedy tokens.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``. ``--out DIR`` also writes the nvcc logs
-(``-Xptxas -v``), the full report and a torch.profiler table of the
-slice's generate (device time by kernel, device busy share) there.
+The line before the last is the per-kernel JSON record (``launches``: the
+sum over the main-path runs of phases 4 and 5; ``launches_by_path`` per
+run); the last line is ``{"ok": true, "device": {...}}``. ``--out DIR``
+also writes the nvcc logs (``-Xptxas -v``), the full report and
+torch.profiler tables of the slice's generate and of serve (a) (device
+time by kernel, device busy share) there.
 """
 from __future__ import annotations
 
@@ -45,8 +55,12 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 REPS = 20
 SPIN_CYCLES = 10_000_000         # ~5 ms at the H100's clock: covers the host
-PIN = (("attention", "attn_naive"),)
 LOGIT_TOL = 1e-3                 # of max |logit|, kernel vs plain full width
+# the kernels each main-path run must launch
+GENERATE_KERNELS = ("dbb_gemm", "dbb_gemm_skinny", "sta_gemm_skinny",
+                    "paged_decode", "flash_prefill")
+SERVE_KERNELS = ("flash_prefill_packed", "dbb_gemm", "dbb_gemm_skinny",
+                 "sta_gemm_skinny", "paged_decode")
 
 
 def _fail(msg: str) -> int:
@@ -98,15 +112,31 @@ def main() -> int:
         for f in build.BUILD_DIR.glob("*.log"):
             shutil.copy(f, os.path.join(args.out, f.name))
 
-    report = {"card": card}
-    kernels = _kernel_phase(torch, dev, report)
-    counts, ok = _slice_phase(torch, dev, report, args.out)
+    report = {"card": card, "phase_s": {}}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(torch, dev, report, *a)
+        report["phase_s"][name] = time.perf_counter() - t
+        print(f"phase {name}: {report['phase_s'][name]:.1f} s")
+        return out
+
+    kernels = timed("kernels", _kernel_phase)
+    counts, packed, ok = timed("slice", _slice_phase, args.out)
     if not ok:
         return _fail("the slice phase failed (see above)")
-    if not _token_phase(torch, dev, report):
+    by_path = {"generate": counts}
+    serve_counts, ok = timed("serve", _serve_phase, packed, args.out)
+    if not ok:
+        return _fail("the serve phase failed (see above)")
+    by_path.update(serve_counts)
+    del packed
+    if not timed("tokens", _token_phase):
         return _fail("smoke-width token equality failed")
     for entry in kernels:
-        entry["launches"] = counts[entry["name"]]
+        name = entry["name"]
+        entry["launches"] = sum(c[name] for c in by_path.values())
+        entry["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"), "w") as f:
             json.dump(dict(report, kernels=kernels), f, indent=1)
@@ -142,13 +172,14 @@ def _time_ms(torch, fn, flush) -> float:
     return statistics.median(times)
 
 
-def _close(torch, got, want, rtol: float):
-    """(max abs error, passes): |got - want| <= rtol*|want| + rtol*1e-1*max|want|
-    elementwise, in f32."""
+def _close(torch, got, want, rtol: float, atol: float = 0.0):
+    """(max abs error, passes): |got - want| <= rtol*|want| + a*max|want|
+    elementwise, in f32, with a = atol or else rtol / 10."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     scale = want.abs().max().item()
-    ok = bool((err <= rtol * want.abs() + rtol * 0.1 * scale).all())
+    a = atol or rtol * 0.1
+    ok = bool((err <= rtol * want.abs() + a * scale).all())
     return err.max().item(), ok
 
 
@@ -290,6 +321,8 @@ def _kernel_phase(torch, dev, report):
         replaces="src/repro/kernels/attn/kernel.py:372", launches=0,
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
         library_ms=lms, shapes="B8 Hkv16 G1 D128 S128 page64 bf16"))
+    kernels += _prefill_attention_kernels(torch, dev, randn, flush,
+                                          failures)
     report["kernel_failures"] = failures
     if failures:
         raise SystemExit(_fail("kernel disagrees with its plain version: "
@@ -297,21 +330,184 @@ def _kernel_phase(torch, dev, report):
     return kernels
 
 
+# bf16 attention tolerance: the kernels round each tile's unnormalised
+# probabilities to bf16 (as the Pallas kernels do), the plain versions the
+# normalised ones — up to 2^-9 relative per term over up to 2048 keys
+ATTN_RTOL, ATTN_ATOL = 2e-2, 1e-2
+
+
+def _prefill_attention_kernels(torch, dev, randn, flush, failures):
+    """flash_prefill at the three shapes the path gives it (generate's
+    prefill, a padded admission, a chunk continuation) and
+    flash_prefill_packed at one packed call; bf16, D 128, Hq = Hkv = 16.
+    Each entry sums one call of each of its shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn.ops import (flash_attention,
+                                              packed_flash_attention)
+    from repro_torch.kernels.attn.ref import (flash_prefill_ref,
+                                              packed_prefill_ref)
+    bf16, h, d = torch.bfloat16, 16, 128
+    scale = d ** -0.5
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def measure(name, label, run_kernel, run_plain, run_lib, real, mask,
+                b, t, s):
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        err, ok = _close(torch, got[real], want[real], ATTN_RTOL, ATTN_ATOL)
+        if not ok:
+            failures.append(f"{name} {label}: max err {err}")
+        ms = _time_ms(torch, run_kernel, flush)
+        pms = _time_ms(torch, run_plain, flush)
+        lms = _time_ms(torch, run_lib, flush)
+        pairs = int(mask.sum().item())          # visible query-key pairs
+        nbytes = 2 * 2 * (b * t + b * s) * h * d    # q, o; k, v (bf16)
+        ops = 4.0 * d * pairs * h
+        bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        print(f"kernel {name} {label}: max abs err {err:.3e} (tol "
+              f"{ATTN_RTOL:g} rel + {ATTN_ATOL:g} of max, bf16) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} "
+              f"ms, scaled_dot_product_attention {lms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, {pairs} visible pairs)")
+        return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                    bound_ms=bms, nbytes=nbytes, ops=ops)
+
+    def flash_case(label, b, t, s, start, q_offset):
+        q = randn(b, t, h, d, dtype=bf16)
+        k, v = randn(b, s, h, d, dtype=bf16), randn(b, s, h, d, dtype=bf16)
+        st = torch.tensor(start, **i32)
+        qo = torch.tensor(q_offset, **i32)
+        qi = torch.arange(t, device=dev)[None, :] + qo[:, None]     # [B, T]
+        kj = torch.arange(s, device=dev)[None, None, :]
+        mask = (kj <= qi[:, :, None]) & (kj >= st[:, None, None])   # [B,T,S]
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        uniform = not any(start) and not any(q_offset) and t == s
+        am = None if uniform else mask[:, None]
+        return measure(
+            "flash_prefill", label,
+            lambda: flash_attention(q, k, v, st, q_offset=qo),
+            lambda: flash_prefill_ref(qh, kh, vh, st, qo,
+                                      sm_scale=scale).transpose(1, 2),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=am, is_causal=uniform),
+            qi >= st[:, None], mask, b, t, s)
+
+    cases = [
+        flash_case("generate prefill B8 T=S=64, start 0..49", 8, 64, 64,
+                   [0, 7, 14, 21, 28, 35, 42, 49], [0] * 8),
+        flash_case("padded admission B1 T=S=512", 1, 512, 512, [0], [0]),
+        flash_case("chunk continuation B1 T256 S1024 q_offset 512", 1, 256,
+                   1024, [0], [512])]
+    entries = [_attention_entry(
+        "flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+        "src/repro/kernels/attn/kernel.py:128", cases,
+        "one call each: B8 T=S=64 ragged start; B1 T=S=512; B1 T256 S1024 "
+        "q_offset 512 (bf16, Hq=Hkv=16, D128)")]
+
+    lens = [412, 96, 301, 187, 355, 64, 270, 363]      # 8 segments, 2048
+    t = sum(lens)
+    q, k, v = (randn(t, h, d, dtype=bf16) for _ in range(3))
+    seg = torch.repeat_interleave(torch.arange(len(lens), **i32),
+                                  torch.tensor(lens, device=dev))
+    ii = torch.arange(t, device=dev)
+    mask = (ii[None, :] <= ii[:, None]) & (seg[None, :] == seg[:, None])
+    qh, kh, vh = (a.transpose(0, 1).contiguous() for a in (q, k, v))
+    packed = measure(
+        "flash_prefill_packed", f"T{t} over {len(lens)} segments {lens}",
+        lambda: packed_flash_attention(q, k, v, seg),
+        lambda: packed_prefill_ref(qh, kh, vh, seg,
+                                   sm_scale=scale).transpose(0, 1),
+        lambda: F.scaled_dot_product_attention(
+            qh[None], kh[None], vh[None], attn_mask=mask),
+        torch.ones(t, dtype=torch.bool, device=dev), mask, 1, t, t)
+    entries.append(_attention_entry(
+        "flash_prefill_packed", "src/repro_torch/csrc/flash_prefill_packed.cu",
+        "src/repro/kernels/attn/kernel.py:270", [packed],
+        f"T{t} over 8 segments (bf16, Hq=Hkv=16, D128)"))
+    return entries
+
+
+def _attention_entry(name, src, replaces, cases, shapes):
+    tot = {key: sum(c[key] for c in cases)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    _, by = _bound_ms(sum(c["nbytes"] for c in cases),
+                      sum(c["ops"] for c in cases), BF16_OPS_PER_S)
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=0, max_abs_err=max(c["err"] for c in cases),
+                bound_by=by, shapes=shapes, **tot)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-width slice
 # ---------------------------------------------------------------------------
+
+def _split_rows(out, xout):
+    """Per row, compare a kernel-route stream with the plain route's up to
+    their first difference: (equal tokens, compared tokens, [(row, step)]
+    of rows that split or stop at different lengths)."""
+    same, total, split = 0, 0, []
+    for i, (r, s) in enumerate(zip(out, xout)):
+        j = next((j for j, (a, b) in enumerate(zip(r, s)) if a != b), None)
+        if j is None:
+            same += min(len(r), len(s))
+            total += max(len(r), len(s))
+            if len(r) != len(s):
+                split.append((i, min(len(r), len(s))))
+        else:
+            same += j
+            total += len(r)
+            split.append((i, j))
+    return same, total, split
+
+
+def _split_gaps(torch, last_logits, xcfg, prompts, out, xout, split):
+    """The plain route's logit gap between the two routes' tokens at each
+    split, recomputed on the shared context (inf where one stopped)."""
+    gaps = []
+    if not split:
+        return gaps
+    ctx = [prompts[i] + out[i][:j] for i, j in split]
+    lg = torch.cat([last_logits(xcfg, ctx[a:a + 8])
+                    for a in range(0, len(ctx), 8)])
+    for row, (i, j) in enumerate(split):
+        if j >= min(len(out[i]), len(xout[i])):
+            gaps.append(float("inf"))          # one route stopped early
+            continue
+        gap = lg[row, xout[i][j]] - lg[row, out[i][j]]
+        gaps.append(abs(gap.item()))
+    return gaps
+
+
+def _logits_fn(torch, dev, engine):
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+
+    def last_logits(c, contexts):
+        """f32 head logits at the last position of each left-padded
+        context, through route config ``c``."""
+        width = max(len(t) for t in contexts)
+        toks = torch.zeros((len(contexts), width), dtype=torch.int32)
+        for i, t in enumerate(contexts):
+            toks[i, width - len(t):] = torch.tensor(t)
+        start = torch.tensor([width - len(t) for t in contexts],
+                             dtype=torch.int32, device=dev)
+        cache = registry.init_cache(c, len(contexts), width + 1, device=dev)
+        h, _ = registry.prefill(engine.params, c, toks.to(dev), cache,
+                                start=start)
+        return dispatch.matmul(h[:, -1].float().contiguous(), engine.head,
+                               cfg=c)
+    return last_logits
 
 def _slice_phase(torch, dev, report, out_dir):
     from repro_torch.configs import get_config
     from repro_torch.core.dbb_linear import pack_tree, tree_footprint_bytes
     from repro_torch.core.sparsity import apply_dbb_to_tree
-    from repro_torch.kernels import dispatch
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.models import registry
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas",
-                                        kernel_routes=PIN)
+    cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas")
     xcfg = cfg.replace(gemm_impl="xla")
     t0 = time.perf_counter()
     packed = pack_tree(apply_dbb_to_tree(
@@ -357,24 +553,10 @@ def _slice_phase(torch, dev, report, out_dir):
                            prefill_ms=t_prefill * 1e3,
                            decode_ms_per_step=decode_ms, steps=steps,
                            tokens=n_tok, launches=counts)
-    ok = all(v > 0 for v in counts.values())
+    ok = all(counts[k] > 0 for k in GENERATE_KERNELS)
     if not ok:
         print("slice: FAIL: a kernel of the path never launched")
-
-    def last_logits(c, contexts):
-        """f32 head logits at the last position of each left-padded
-        context, through route config ``c``."""
-        width = max(len(t) for t in contexts)
-        toks = torch.zeros((len(contexts), width), dtype=torch.int32)
-        for i, t in enumerate(contexts):
-            toks[i, width - len(t):] = torch.tensor(t)
-        start = torch.tensor([width - len(t) for t in contexts],
-                             dtype=torch.int32, device=dev)
-        cache = registry.init_cache(c, len(contexts), width + 1, device=dev)
-        h, _ = registry.prefill(engine.params, c, toks.to(dev), cache,
-                                start=start)
-        return dispatch.matmul(h[:, -1].float().contiguous(), engine.head,
-                               cfg=c)
+    last_logits = _logits_fn(torch, dev, engine)
 
     # prefill last-position logits, kernel route vs plain route
     logits = {name: last_logits(c, prompts)
@@ -396,28 +578,8 @@ def _slice_phase(torch, dev, report, out_dir):
     # within that bound.
     xout = ServeEngine(xcfg, packed, max_batch=8,
                        device=dev).generate(prompts, max_new_tokens=new)
-    same, total, split = 0, 0, []
-    for i, (r, s) in enumerate(zip(out, xout)):
-        j = next((j for j, (a, b) in enumerate(zip(r, s)) if a != b), None)
-        if j is None:
-            same += min(len(r), len(s))
-            total += max(len(r), len(s))
-            if len(r) != len(s):
-                split.append((i, min(len(r), len(s))))
-        else:
-            same += j
-            total += len(r)
-            split.append((i, j))
-    gaps = []
-    if split:
-        ctx = [prompts[i] + out[i][:j] for i, j in split]
-        lg = last_logits(xcfg, ctx)
-        for row, (i, j) in enumerate(split):
-            if j >= min(len(out[i]), len(xout[i])):
-                gaps.append(float("inf"))      # one route stopped early
-                continue
-            gap = lg[row, xout[i][j]] - lg[row, out[i][j]]
-            gaps.append(abs(gap.item()))
+    same, total, split = _split_rows(out, xout)
+    gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout, split)
     tok_ok = all(g <= 2 * tol for g in gaps)
     print(f"slice: greedy tokens, kernel vs plain route: {same}/{total} "
           f"equal; rows that split (row, step, plain-route gap): "
@@ -429,19 +591,21 @@ def _slice_phase(torch, dev, report, out_dir):
                            token_splits=[[i, j, g] for (i, j), g
                                          in zip(split, gaps)])
     if out_dir:
-        _profile(torch, engine, prompts, new, out_dir, report)
-    return counts, ok and lok and tok_ok
+        _profile(torch, lambda: engine.generate(prompts, max_new_tokens=new),
+                 f"generate(8 prompts, max_new_tokens={new})",
+                 "profile_generate", out_dir, report)
+    return counts, packed, ok and lok and tok_ok
 
 
-def _profile(torch, engine, prompts, new, out_dir, report):
-    """torch.profiler over the slice's generate call: device time by
-    kernel name and the device's busy share of the (profiled) wall time."""
+def _profile(torch, run, label, key, out_dir, report):
+    """torch.profiler over one call of ``run``: device time by kernel name
+    and the device's busy share of the (profiled) wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.generate(prompts, max_new_tokens=new)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -454,21 +618,107 @@ def _profile(torch, engine, prompts, new, out_dir, report):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    lines = [f"generate(8 prompts, max_new_tokens={new}) under the profiler:"
-             f" wall {wall_ms:.2f} ms, device kernels {busy_ms:.2f} ms "
-             f"({100 * busy_ms / wall_ms:.1f}% busy)"]
+    lines = [f"{label} under the profiler: wall {wall_ms:.2f} ms, device "
+             f"kernels {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% busy)"]
     lines += [f"{ms:10.3f} ms {n:6d} x  {name[:90]}" for ms, n, name in rows]
-    with open(os.path.join(out_dir, "profile_generate.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{key}.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("profile: " + lines[0])
     for line in lines[1:9]:
         print("profile: " + line)
-    report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                             top=[list(r) for r in rows[:20]])
+    report[key] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                       top=[list(r) for r in rows[:20]])
 
 
 # ---------------------------------------------------------------------------
-# phase 5: smoke-width token equality
+# phase 5: continuous batching at full width
+# ---------------------------------------------------------------------------
+
+def _serve_phase(torch, dev, report, packed, out_dir):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas",
+                                        kv_page_size=64)
+    xcfg = cfg.replace(gemm_impl="xla")
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(16, 513, (24,), generator=rng).tolist()
+    lens[5] = max(lens[5], 300)            # at least one prompt over 256
+    budgets = torch.randint(8, 65, (24,), generator=rng).tolist()
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in lens]
+    print(f"serve: 24 requests through 8 slots; prompt lengths {lens}; "
+          f"budgets {budgets}")
+    runs = {"serve_packed": (cfg, dict(paged=False), SERVE_KERNELS),
+            "serve_paged": (cfg, dict(paged=True), SERVE_KERNELS),
+            "serve_chunked": (cfg, dict(paged=False, prefill_chunk=256),
+                              SERVE_KERNELS + ("flash_prefill",))}
+    # warm-up: one short request per engine layout
+    for _, (c, kw, _) in runs.items():
+        ServeEngine(c, packed, max_batch=8, device=dev, **kw).serve(
+            prompts[:2], max_new_tokens=4)
+    torch.cuda.synchronize()
+    outs, counts, ok = {}, {}, True
+    report["serve"] = {}
+    for name, (c, kw, need) in runs.items():
+        eng = ServeEngine(c, packed, max_batch=8, device=dev, **kw)
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = eng.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = dict(LAUNCHES)
+        n_tok = sum(len(o) for o in outs[name])
+        ttft = sorted(eng.serve_stats["ttft_s"])
+        med, p90 = ttft[len(ttft) // 2], ttft[int(0.9 * (len(ttft) - 1))]
+        stats = {k: v for k, v in eng.serve_stats.items() if k != "ttft_s"}
+        missing = [k for k in need if counts[name][k] == 0]
+        ok = ok and not missing
+        print(f"serve: {name} {kw}: {wall * 1e3:.1f} ms, {n_tok} tokens, "
+              f"{n_tok / wall:.1f} generated tokens/s; ttft median "
+              f"{med * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms (one run each, "
+              f"single-run figures); serve_stats {stats}; launches "
+              f"{counts[name]}"
+              + (f"; FAIL: never launched {missing}" if missing else ""))
+        report["serve"][name] = dict(wall_ms=wall * 1e3, tokens=n_tok,
+                                     ttft_median_ms=med * 1e3,
+                                     ttft_p90_ms=p90 * 1e3, stats=stats,
+                                     launches=counts[name])
+        if name == "serve_packed" and out_dir:
+            _profile(torch, lambda: eng.serve(prompts,
+                                              max_new_tokens=budgets),
+                     "serve(24 requests, packed, contiguous)",
+                     "profile_serve", out_dir, report)
+    paged_ok = outs["serve_packed"] == outs["serve_paged"]
+    print(f"serve: paged vs contiguous token streams "
+          f"{'equal' if paged_ok else 'DIFFERENT'}")
+
+    xeng = ServeEngine(xcfg, packed, max_batch=8, paged=False, device=dev)
+    t0 = time.perf_counter()
+    xout = xeng.serve(prompts, max_new_tokens=budgets)
+    torch.cuda.synchronize()
+    print(f"serve: plain route (gemm_impl='xla'), packed contiguous: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    out = outs["serve_packed"]
+    same, total, split = _split_rows(out, xout)
+    last_logits = _logits_fn(torch, dev, xeng)
+    gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout, split)
+    tol = LOGIT_TOL * report["slice"]["logit_scale"]
+    tok_ok = all(g <= 2 * tol for g in gaps)
+    print(f"serve: greedy tokens of (a), kernel vs plain route: {same}/"
+          f"{total} equal; rows that split (row, step, plain-route gap): "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]} (excused where "
+          f"gap <= 2 x logit tol = {2 * tol:.4e}) "
+          f"{'ok' if tok_ok else 'FAIL'}")
+    report["serve"].update(paged_equal=paged_ok, token_agreement=[same, total],
+                           token_splits=[[i, j, g] for (i, j), g
+                                         in zip(split, gaps)])
+    return counts, ok and paged_ok and tok_ok
+
+
+# ---------------------------------------------------------------------------
+# phase 6: smoke-width token equality
 # ---------------------------------------------------------------------------
 
 def _token_phase(torch, dev, report):
@@ -479,7 +729,7 @@ def _token_phase(torch, dev, report):
     from repro_torch.serve.engine import ServeEngine
 
     cfg = get_config("olmo-1b", smoke=True).replace(
-        remat="none", gemm_impl="pallas", kernel_routes=PIN)
+        remat="none", gemm_impl="pallas")
     params = registry.init_params(cfg, seed=0, device=dev)
     # a weaker embedding and stronger layers make the greedy tokens depend
     # on the layers (random tied weights otherwise echo the last token)

@@ -4,7 +4,8 @@ with a plain PyTorch version of each.
 dbb_gemm:  DBB structured-sparse GEMM, M-tiled (prefill projections).
 skinny:    M ≤ 32 weight-streaming GEMMs — DBB-compressed (decode
            projections) and dense (the head GEMV).
-attn:      one-token paged decode attention; a contiguous cache is the
+attn:      causal and packed (block-diagonal) flash prefill, and one-token
+           paged decode attention; a contiguous cache is the
            identity block table.
 epilogue:  the fused scale → bias → act → store order all of them share.
 dispatch:  route tables and the front doors the model layers call.

@@ -32,8 +32,10 @@ KERNEL_SOURCES = {
     "dbb_gemm_skinny": "dbb_gemm_skinny.cu",
     "sta_gemm_skinny": "sta_gemm_skinny.cu",
     "paged_decode": "paged_decode.cu",
+    "flash_prefill": "flash_prefill.cu",
+    "flash_prefill_packed": "flash_prefill_packed.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "flash_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

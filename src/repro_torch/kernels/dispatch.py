@@ -16,10 +16,12 @@ other. Guards are stated for the H100 kernels in ``csrc/`` — what each
 kernel takes — not carried over from TPU VMEM budgets.
 
 Ported routes: matmul ``xla`` (plain torch), ``skinny_sta``,
-``dbb_packed``, ``skinny_dbb``; attention ``attn_naive``; attn_decode
+``dbb_packed``, ``skinny_dbb``; attention ``attn_flash``,
+``attn_packed_flash``, ``attn_naive``, ``attn_packed_ref``; attn_decode
 ``attn_decode_flash``, ``attn_decode_xla``. The reference's other routes
-(``sta``, ``attn_flash``, ``attn_chunked``, the w4 and packed-prefill
-routes) have no kernel here yet.
+(``sta``, the w4 routes) have no kernel here yet; ``attn_chunked`` is an
+XLA route, not a kernel, and a pin to it takes ``attn_naive`` (its
+stand-in) with a warning.
 """
 from __future__ import annotations
 
@@ -31,11 +33,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.dbb import DbbWeight
-from repro_torch.kernels.attn.ops import PAGE_MIN, paged_decode_ok
-from repro_torch.kernels.common import SKINNY_M_MAX, skinny_ok
+from repro_torch.kernels.attn.ops import PAGE_MIN, flash_ok, paged_decode_ok
+from repro_torch.kernels.common import FLOAT_DTYPES, SKINNY_M_MAX, skinny_ok
 
-__all__ = ["OpSpec", "select", "matmul", "attention",
-           "decode_attention_route", "pallas_route_active",
+__all__ = ["OpSpec", "select", "matmul", "attention", "packed_attention",
+           "chunk_attention_route", "decode_attention_route", "pallas_route_active",
            "flash_backend_active", "forced_route", "routes_from_cfg",
            "FORCE_ROUTE_ENV", "ROUTES"]
 
@@ -45,8 +47,9 @@ FORCE_ROUTE_ENV = "REPRO_FORCE_ROUTE"
 @dataclasses.dataclass(frozen=True)
 class OpSpec:
     """Static description of one op. GEMMs use (m, k, n) literally; the
-    decode domain maps the GQA group to m, head_dim to k and the cache
-    length to n."""
+    attention domain maps T to m, head_dim to k and S to n (a packed batch
+    carries its total token count in both); the decode domain maps the
+    GQA group to m, head_dim to k and the cache length to n."""
     domain: str
     m: int
     k: int
@@ -60,6 +63,7 @@ class OpSpec:
     float_ok: bool = True         # operands are f32 / bf16
     page: int = 0
     flash_active: bool = False
+    packed_seq: bool = False      # packed (cu_seqlens) prefill batch
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +130,37 @@ def _guard_decode_flash(s: OpSpec) -> str:
     return ""
 
 
+def _guard_attn_flash(s: OpSpec) -> str:
+    if s.packed_seq:
+        return "packed cu_seqlens batch (block-diagonal masking required)"
+    return _guard_flash_common(s)
+
+
+def _guard_attn_packed_flash(s: OpSpec) -> str:
+    if not s.packed_seq:
+        return "not a packed cu_seqlens batch"
+    return _guard_flash_common(s)
+
+
+def _guard_flash_common(s: OpSpec) -> str:
+    if not s.flash_active:
+        return "flash backend not selected (attn_impl / gemm_impl)"
+    if not s.float_ok:
+        return "non-float operands"
+    if not flash_ok(s.k):
+        return f"head dim {s.k}: the flash block's tiles exceed 227 KB"
+    return ""
+
+
+def _guard_attn_naive(s: OpSpec) -> str:
+    return ("packed cu_seqlens batch (block-diagonal masking required)"
+            if s.packed_seq else "")
+
+
+def _guard_attn_packed_ref(s: OpSpec) -> str:
+    return "" if s.packed_seq else "not a packed cu_seqlens batch"
+
+
 def _always(_s: OpSpec) -> str:
     return ""
 
@@ -136,7 +171,10 @@ ROUTES: Dict[str, Tuple[Tuple[str, Callable[[OpSpec], str]], ...]] = {
                ("dbb_packed", _guard_dbb_packed),
                ("skinny_sta", _guard_skinny_sta),
                ("xla", _always)),
-    "attention": (("attn_naive", _always),),
+    "attention": (("attn_flash", _guard_attn_flash),
+                  ("attn_packed_flash", _guard_attn_packed_flash),
+                  ("attn_naive", _guard_attn_naive),
+                  ("attn_packed_ref", _guard_attn_packed_ref)),
     "attn_decode": (("attn_decode_flash", _guard_decode_flash),
                     ("attn_decode_xla", _always)),
 }
@@ -196,12 +234,21 @@ def forced_route(domain: str, cfg_routes: Optional[Dict[str, str]] = None
     return None
 
 
+# unported routes a pin may still name, and the route that stands in
+_STAND_INS = {("attention", "attn_chunked"): "attn_naive"}
+
+
 def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None
            ) -> Tuple[str, Dict[str, str]]:
     """(chosen route, {route: rejection reason or ""}) for ``spec``."""
     table = ROUTES[spec.domain]
     reasons = {name: guard(spec) for name, guard in table}
     forced = forced_route(spec.domain, cfg_routes)
+    stand_in = _STAND_INS.get((spec.domain, forced))
+    if stand_in is not None:
+        _warn_once((spec.domain, forced),
+                   f"route {forced!r} is not ported — taking {stand_in!r}")
+        forced = stand_in
     if forced is not None:
         if forced not in reasons:
             _warn_once((spec.domain, forced),
@@ -283,25 +330,91 @@ def _matmul_xla(x, w, bias, scale, *, act, out_dtype):
 
 _ATTN_IMPL_ROUTE = {"flash": "attn_flash", "chunked": "attn_chunked",
                     "naive": "attn_naive"}
+# packed calls have no chunked implementation: anything but flash drops to
+# the quadratic packed version
+_PACKED_IMPL_ROUTE = {"flash": "attn_packed_flash",
+                      "chunked": "attn_packed_ref",
+                      "naive": "attn_packed_ref"}
+# a kernel_routes pin on a padded route carries its intent (kernel or
+# plain) to the packed variant
+_ATTN_TO_PACKED = {"attn_flash": "attn_packed_flash",
+                   "attn_chunked": "attn_packed_ref",
+                   "attn_naive": "attn_packed_ref"}
+# a continuation chunk (T != S, offset ladder) has no chunked route either
+_CHUNK_IMPL_ROUTE = {"flash": "attn_flash", "chunked": "attn_naive",
+                     "naive": "attn_naive"}
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               positions: torch.Tensor, cfg, ragged: bool = False
               ) -> torch.Tensor:
     """Full-sequence (prefill) attention on projected q/k/v in model
-    layout. The naive route is the one ported: it takes ragged per-row
-    position ladders and shared ones alike."""
+    layout, through the flash kernel or the naive route. ``positions``:
+    ``arange(S) - start`` ladders, shared [1, S] or per row [B, S]
+    (``ragged``); the flash route reads ``start`` off their first entry."""
     from repro_torch.models import attention as A
     spec = OpSpec(domain="attention", m=q.shape[1], k=q.shape[-1],
-                  n=k.shape[1])
+                  n=k.shape[1], flash_active=flash_backend_active(cfg),
+                  float_ok=q.dtype in FLOAT_DTYPES)
     cfg_routes = dict(routes_from_cfg(cfg))
     if cfg.attn_impl in _ATTN_IMPL_ROUTE:
         cfg_routes.setdefault("attention", _ATTN_IMPL_ROUTE[cfg.attn_impl])
-    select(spec, cfg_routes)          # warns on an unported pin
+    name, _ = select(spec, cfg_routes)
+    if name == "attn_flash":
+        from repro_torch.kernels.attn.ops import flash_attention
+        start = (-positions[..., 0]).to(torch.int32).expand(q.shape[0])
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), start.contiguous(),
+                               window=cfg.sliding_window,
+                               softcap=cfg.attn_logit_softcap)
     if ragged:
         return A._naive_attention(q, k, v, positions, positions, cfg)
     pos1d = positions[0] if positions.ndim > 1 else positions
     return A._naive_attention(q, k, v, pos1d, pos1d, cfg)
+
+
+def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     seg_ids: torch.Tensor, cfg) -> torch.Tensor:
+    """Packed (cu_seqlens) prefill attention: ``q/k/v [1, T, H, D]`` with T
+    the ragged batch's total token count and ``seg_ids [T]`` the owning
+    request of each position. Returns ``[1, T, Hq, D]``."""
+    from repro_torch.kernels.attn.ops import packed_flash_attention
+    from repro_torch.kernels.attn.ref import packed_prefill_ref
+    t, d = q.shape[1], q.shape[-1]
+    spec = OpSpec(domain="attention", m=t, k=d, n=t, packed_seq=True,
+                  flash_active=flash_backend_active(cfg),
+                  float_ok=q.dtype in FLOAT_DTYPES)
+    cfg_routes = dict(routes_from_cfg(cfg))
+    if cfg_routes.get("attention") in _ATTN_TO_PACKED:
+        cfg_routes["attention"] = _ATTN_TO_PACKED[cfg_routes["attention"]]
+    if cfg.attn_impl in _PACKED_IMPL_ROUTE:
+        cfg_routes.setdefault("attention", _PACKED_IMPL_ROUTE[cfg.attn_impl])
+    name, _ = select(spec, cfg_routes)
+    seg = seg_ids.to(torch.int32).reshape(t).contiguous()
+    kw = dict(window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    if name == "attn_packed_flash":
+        return packed_flash_attention(q[0].contiguous(), k[0].contiguous(),
+                                      v[0].contiguous(), seg, **kw)[None]
+    o = packed_prefill_ref(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                           v[0].transpose(0, 1), seg,
+                           sm_scale=1.0 / d ** 0.5, **kw)
+    return o.transpose(0, 1)[None]
+
+
+def chunk_attention_route(cfg, *, t: int, s: int, d: int,
+                          floating: bool = True) -> str:
+    """Route of a chunked-prefill continuation: T chunk queries at an
+    absolute offset against one row's S cache slots. Flash takes it
+    through ``q_offset``; everything else takes the naive mask."""
+    spec = OpSpec(domain="attention", m=t, k=d, n=s,
+                  flash_active=flash_backend_active(cfg), float_ok=floating)
+    cfg_routes = dict(routes_from_cfg(cfg))
+    if cfg_routes.get("attention") == "attn_chunked":
+        cfg_routes["attention"] = "attn_naive"
+    if cfg.attn_impl in _CHUNK_IMPL_ROUTE:
+        cfg_routes.setdefault("attention", _CHUNK_IMPL_ROUTE[cfg.attn_impl])
+    name, _ = select(spec, cfg_routes)
+    return name
 
 
 def decode_attention_route(cfg, *, group: int, head_dim: int, page: int,

@@ -1,6 +1,8 @@
-"""GQA/MHA attention: projections, the naive prefill route and one-token
-decode against the contiguous KV cache (the paged decode kernel under an
-identity block table, or the plain softmax route)."""
+"""GQA/MHA attention: projections; prefill attention over a padded batch
+(flash kernel or naive route), a packed ragged batch (packed flash kernel
+or its plain version) and a chunked-prefill continuation; one-token decode
+against the contiguous KV cache (the paged decode kernel under an identity
+block table, or the plain softmax route) and against a paged pool."""
 from __future__ import annotations
 
 import math
@@ -11,11 +13,15 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.attn import (DEFAULT_PAGE, identity_block_table,
+from repro_torch.kernels.attn import (DEFAULT_PAGE, flash_attention,
+                                      identity_block_table,
                                       paged_decode_attention)
+from repro_torch.kernels.common import FLOAT_DTYPES
 from repro_torch.models.common import apply_rope, linear_init
 
-__all__ = ["attention_init", "attention_apply", "decode_attention_apply"]
+__all__ = ["attention_init", "attention_apply", "packed_attention_apply",
+           "chunk_attention_apply", "decode_attention_apply",
+           "paged_decode_attention_apply"]
 
 _NEG_INF = -1e30
 
@@ -114,6 +120,47 @@ def attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return _lin(p["o_proj"], o.reshape(b, s, -1), cfg)
 
 
+def packed_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                           seg_ids: torch.Tensor, positions: torch.Tensor,
+                           qkv: Optional[Tuple] = None) -> torch.Tensor:
+    """Packed (cu_seqlens) prefill attention + output projection: x [1, T,
+    d] is a ragged batch's tokens concatenated on one axis, ``seg_ids [T]``
+    the owning request of each position (non-decreasing), ``positions [1,
+    T]`` each token's position within its request (RoPE). No query attends
+    another request's key."""
+    q, k, v = qkv if qkv is not None else _project_qkv(p, cfg, x, positions)
+    o = dispatch.packed_attention(q, k, v, seg_ids, cfg)
+    b, t, hq, hd = o.shape
+    return _lin(p["o_proj"], o.reshape(b, t, hq * hd), cfg)
+
+
+def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          offset: torch.Tensor) -> torch.Tensor:
+    """Continuation attention of one chunk-prefilling row: q [1, C, Hq, D]
+    are the chunk's queries at absolute slots ``offset .. offset+C-1``
+    (``offset`` a [1] int tensor); cache_k/v [1, S, Hkv, D] the row's whole
+    cache with this chunk already written. The causal mask bounds reads to
+    slots <= the query's, all real (packed rows have no left padding).
+    Returns the o_proj output [1, C, d]."""
+    c, s = q.shape[1], cache_k.shape[1]
+    hq, hd = q.shape[2], q.shape[3]
+    route = dispatch.chunk_attention_route(
+        cfg, t=c, s=s, d=hd,
+        floating=q.dtype in FLOAT_DTYPES)
+    off = offset.reshape(1).to(torch.int32)
+    if route == "attn_flash":
+        o = flash_attention(q.contiguous(), cache_k, cache_v,
+                            q_offset=off.contiguous(),
+                            window=cfg.sliding_window,
+                            softcap=cfg.attn_logit_softcap)
+    else:
+        qpos = off + torch.arange(c, device=q.device)
+        kpos = torch.arange(s, device=q.device)
+        o = _naive_attention(q, cache_k, cache_v, qpos, kpos, cfg)
+    return _lin(p["o_proj"], o.reshape(1, c, hq * hd), cfg)
+
+
 def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
                            lengths: torch.Tensor,
@@ -166,3 +213,36 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                      cache_v.float())
     o = o.reshape(b, 1, hq * hd).to(x.dtype).contiguous()
     return _lin(p["o_proj"], o, cfg)
+
+
+def paged_decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                                 k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 start: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """One-token decode against a paged pool: x [B, 1, d]; k_pages/v_pages
+    [P, page, Hkv, D] (one layer); block_table [B, n_log] maps each row's
+    logical pages to pool pages.
+
+    The new K/V are written INTO the pool in place, at the physical page
+    the table names for slot ``lengths``; the logical page clamps to the
+    table's last, so an overshooting row never runs off it, and a retired
+    row (its table pointing at the dummy page 0) writes there. The
+    attention is the paged decode kernel, which runs on every route."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    page = k_pages.shape[1]
+    n_log = block_table.shape[1]
+    rope_pos = lengths if start is None else lengths - start
+    q, k, v = _project_qkv(p, cfg, x, rope_pos[:, None])
+    logp = (lengths // page).clamp(0, n_log - 1).long()
+    phys = block_table.gather(1, logp[:, None])[:, 0].long()
+    off = (lengths % page).long()
+    k_pages[phys, off] = k[:, 0].to(k_pages.dtype)
+    v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
+    o = paged_decode_attention(
+        q.reshape(b, hkv, g, hd), k_pages, v_pages, block_table, lengths,
+        start, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    return _lin(p["o_proj"], o.reshape(b, 1, hq * hd).to(x.dtype), cfg)

@@ -18,6 +18,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.core.dbb_linear import decompress
 from repro_torch.device import resolve_device
+from repro_torch.kernels.attn.ref import gather_pages
 from repro_torch.kernels.dispatch import pallas_route_active
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
@@ -26,7 +27,7 @@ from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 __all__ = ["init_params", "lm_head_weight", "init_cache", "prefill",
-           "decode_step"]
+           "prefill_packed", "prefill_continue", "decode_step"]
 
 _FAMILIES = ("dense_lm",)
 
@@ -144,21 +145,120 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x, new_cache
 
 
-def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One new token per row: ``tokens [B]`` → (hidden [B, 1, d], cache).
-    Each layer's new K/V go into ``cache`` in place; the returned dict
-    shares its tensors with ``length + 1``. A ragged cache (``start``)
-    masks the left-pad slots and shifts RoPE per row."""
+def _kv_keys(cache: Dict) -> Tuple[str, str]:
+    return ("k_pages", "v_pages") if "k_pages" in cache else ("k", "v")
+
+
+def _scatter_index(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
+                   device: torch.device):
+    """(kept positions, rows, cols) of a packed K/V scatter on ``device``:
+    positions whose row is out of range (the padding's sentinel) are
+    dropped, as the reference's ``mode="drop"`` scatter drops them. Passing
+    host tensors keeps this free of a device sync."""
+    keep = ((rows >= 0) & (rows < n_rows)).nonzero().squeeze(1)
+    return (keep.to(device), rows[keep].long().to(device),
+            cols[keep].long().to(device))
+
+
+def prefill_packed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   seg_ids: torch.Tensor, positions: torch.Tensor,
+                   rows: torch.Tensor, cols: torch.Tensor, cache: Dict
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """Padding-free packed prefill: a ragged batch's prompts concatenated
+    in ``tokens [1, Tp]``, with per-token metadata instead of a [B, T_max]
+    grid —
+
+      seg_ids   [Tp]    owning request (non-decreasing; padding carries a
+                        larger id)
+      positions [1, Tp] position within the owning request (RoPE)
+      rows/cols [Tp]    K/V scatter address: (batch row, slot) of a
+                        contiguous cache, (physical page, offset) of a
+                        paged pool; padding carries an out-of-range row and
+                        is dropped
+
+    Returns (hidden [1, Tp, d], cache) with every layer's K/V written into
+    ``cache`` IN PLACE. The bookkeeping leaves (length / start /
+    block_table) are untouched: the engine installs them when a request's
+    prefill completes, which keeps half-prefilled rows out of decode."""
     _check_family(cfg)
-    x = _embed(params, cfg, tokens[:, None])
-    start = cache.get("start")
+    x = _embed(params, cfg, tokens)
+    kk, vv = _kv_keys(cache)
+    keep, r, c = _scatter_index(rows, cols, cache[kk].shape[1], x.device)
     for l in range(cfg.num_layers):
         lp = _unpack_layer(_layer(params["layers"], l), cfg)
         h = norm_apply(cfg.norm, lp["ln_attn"], x)
-        x = x + attn.decode_attention_apply(
-            lp["attn"], cfg, h, cache["k"][l], cache["v"][l],
-            cache["length"], start=start)
+        q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
+        cache[kk][l][r, c] = k[0, keep].to(cache[kk].dtype)
+        cache[vv][l][r, c] = v[0, keep].to(cache[vv].dtype)
+        x = x + attn.packed_attention_apply(lp["attn"], cfg, h, seg_ids,
+                                            positions, qkv=(q, k, v))
+        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
+        x = x + mlp_apply(lp["mlp"], cfg, h)
+    return norm_apply(cfg.norm, params["final_norm"], x), cache
+
+
+def prefill_continue(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                     positions: torch.Tensor, rows: torch.Tensor,
+                     cols: torch.Tensor, kv_sel, cache: Dict
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """Chunked-prefill continuation of ONE request: ``tokens [1, C]`` is
+    the next chunk of a prompt whose earlier chunks already sit in the
+    cache, ``positions [1, C]`` its absolute slots (``offset ..
+    offset+C-1``; packed rows have no left padding). rows/cols address the
+    K/V scatter as in `prefill_packed`. ``kv_sel`` selects the row's cache
+    for attention: the slot index (contiguous) or the [n_log] block-table
+    row (paged; its pages are gathered into one contiguous row). The chunk
+    attends its own keys and every earlier slot of its row — never another
+    row's."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens)
+    offset = positions[0, :1]
+    kk, vv = _kv_keys(cache)
+    paged = kk == "k_pages"
+    keep, r, c = _scatter_index(rows, cols, cache[kk].shape[1], x.device)
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        h = norm_apply(cfg.norm, lp["ln_attn"], x)
+        q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
+        ck, cv = cache[kk][l], cache[vv][l]
+        ck[r, c] = k[0, keep].to(ck.dtype)
+        cv[r, c] = v[0, keep].to(cv.dtype)
+        if paged:
+            krow = gather_pages(ck, kv_sel[None])        # [1, S, Hkv, D]
+            vrow = gather_pages(cv, kv_sel[None])
+        else:
+            krow, vrow = ck[kv_sel:kv_sel + 1], cv[kv_sel:kv_sel + 1]
+        x = x + attn.chunk_attention_apply(lp["attn"], cfg, q, krow, vrow,
+                                           offset)
+        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
+        x = x + mlp_apply(lp["mlp"], cfg, h)
+    return norm_apply(cfg.norm, params["final_norm"], x), cache
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One new token per row: ``tokens [B]`` → (hidden [B, 1, d], cache).
+    Each layer's new K/V go into ``cache`` in place (the contiguous cache,
+    or the paged pool through the block table); the returned dict shares
+    its tensors with ``length + 1``. A ragged cache (``start``) masks the
+    left-pad slots and shifts RoPE per row."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens[:, None])
+    start = cache.get("start")
+    paged = "k_pages" in cache
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        h = norm_apply(cfg.norm, lp["ln_attn"], x)
+        if paged:
+            y = attn.paged_decode_attention_apply(
+                lp["attn"], cfg, h, cache["k_pages"][l],
+                cache["v_pages"][l], cache["block_table"], cache["length"],
+                start=start)
+        else:
+            y = attn.decode_attention_apply(
+                lp["attn"], cfg, h, cache["k"][l], cache["v"][l],
+                cache["length"], start=start)
+        x = x + y
         h = norm_apply(cfg.norm, lp["ln_mlp"], x)
         x = x + mlp_apply(lp["mlp"], cfg, h)
     x = norm_apply(cfg.norm, params["final_norm"], x)

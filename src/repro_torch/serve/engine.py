@@ -1,11 +1,22 @@
 """Serving engine: batched greedy generation from (DBB-packed) weights.
 
 `ServeEngine.generate` runs one static batch: a prefill, then decode
-steps. Generated tokens and the per-row done mask stay on the device; the
-host reads one all-done flag per ``fetch_chunk`` decode steps and pulls
-the token buffer once at the end. A chunk always runs all its steps: once
-every row is done, the rest of its tokens are trimmed on the host, as the
-reference's skipped steps are (neither feeds an output).
+steps. `ServeEngine.serve` is continuous batching over any number of
+requests: requests are admitted into free slots between decode chunks,
+finished rows retire at the chunk boundary, and every request decodes
+token-identically to running alone (per-row lengths, ``start`` offsets and
+RoPE positions isolate the rows). With ``cfg.kv_page_size > 0`` serve
+keeps K/V in a shared page pool instead of an ``smax`` stripe per slot and
+admits a request with the pages it uses (first fit over the queue); both
+layouts decode through the same paged kernel in the same page order, so
+their token streams are bit-identical.
+
+Generated tokens stay on the device; the host reads them once per
+``fetch_chunk`` decode steps (one sync per chunk) and once per packed
+prefill call. A chunk always runs all its steps: tokens past a row's EOS
+or budget are trimmed on the host, as the reference trims its skipped
+steps (neither feeds an output), and the rows' extra cache writes land
+where no live row reads (see `_serve_loop_packed`).
 
 With ``gemm_impl="pallas"`` the stacked layer weights stay packed on the
 device and stream through the DBB kernels; non-layer packed leaves are
@@ -15,7 +26,10 @@ expanded once at construction, and the tied head is made a contiguous f32
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import time
+import warnings
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,10 +40,15 @@ from repro_torch.core.dbb_linear import decompress
 from repro_torch.core.sparsity import map_with_path
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.attn.ops import PAGE_MIN, paged_decode_ok
+from repro_torch.kernels.common import SKINNY_M_MAX, skinny_ok
 from repro_torch.models import registry
 from repro_torch.models.common import dtype_of
+from repro_torch.serve.kv_cache import (DUMMY_PAGE, PageAllocator,
+                                        init_paged_cache, pages_needed)
 
 __all__ = ["greedy_from_hidden", "make_prefill_step", "make_decode_step",
+           "make_packed_prefill_step", "make_chunk_prefill_step",
            "ServeEngine"]
 
 
@@ -74,6 +93,71 @@ def make_decode_step(cfg: ModelConfig):
     return step
 
 
+def make_packed_prefill_step(cfg: ModelConfig):
+    """step(params, head, cache, tokens [1, Tp], seg_ids [Tp], positions
+    [1, Tp], rows [Tp], cols [Tp], gather_idx [Gp]) → (next tokens [Gp],
+    cache): one call prefills every request packed on the token axis;
+    ``gather_idx`` names each request's last packed position, whose hidden
+    state feeds the greedy head."""
+
+    def step(params, head, cache, tokens, seg_ids, positions, rows, cols,
+             gather_idx):
+        hidden, cache = registry.prefill_packed(
+            params, cfg, tokens, seg_ids, positions, rows, cols, cache)
+        last = hidden[0, gather_idx][:, None]                # [Gp, 1, d]
+        return greedy_from_hidden(last, head, impl=_gemm_impl(cfg),
+                                  cfg=cfg), cache
+
+    return step
+
+
+def make_chunk_prefill_step(cfg: ModelConfig):
+    """step(params, head, cache, tokens [1, Cp], positions [1, Cp], rows
+    [Cp], cols [Cp], kv_sel, last_idx) → (next token [1], cache): one
+    continuation chunk of one request's prompt; the token (from the
+    chunk's last real position) is consumed only when the chunk completes
+    the prompt."""
+
+    def step(params, head, cache, tokens, positions, rows, cols, kv_sel,
+             last_idx):
+        hidden, cache = registry.prefill_continue(
+            params, cfg, tokens, positions, rows, cols, kv_sel, cache)
+        last = hidden[:, last_idx:last_idx + 1]             # [1, 1, d]
+        return greedy_from_hidden(last, head, impl=_gemm_impl(cfg),
+                                  cfg=cfg), cache
+
+    return step
+
+
+def _consume_slot(host: np.ndarray, slot: int, row: List[int], left: int,
+                  eos_id: int) -> Tuple[int, bool]:
+    """Drain one slot's tokens from a fetched chunk ``host [steps, B]``
+    into ``row``, stopping at EOS or when the request's remaining budget
+    ``left`` runs out (later tokens of the chunk are discarded). Returns
+    (remaining budget, finished)."""
+    for t in host[:, slot]:
+        row.append(int(t))
+        left -= 1
+        if t == eos_id or left <= 0:
+            return left, True
+    return left, False
+
+
+def _bucket_len(n: int, minimum: int = 8) -> int:
+    """``n`` rounded up to a power-of-two bucket (≥ minimum): the padded
+    admission's prompt length, serve's cache length and the packed
+    prefill's token count, as in the reference (where it bounds the number
+    of compiled shapes; the counts in ``serve_stats`` follow it)."""
+    b = max(minimum, 1)
+    while b < n:
+        b *= 2
+    return b
+
+
+_SAMPLING_TODO = ("sampled and speculative serving (sampling=, draft_k=) "
+                  "is not ported yet: ROADMAP.md, Queue 1 item 6")
+
+
 @dataclasses.dataclass
 class ServeEngine:
     """Batched greedy-decoding engine over one device.
@@ -83,12 +167,24 @@ class ServeEngine:
     layer stack once and builds the contiguous f32 head. Ragged prompt
     batches are left-padded; the per-row pad counts travel as ``start``
     (only when some row is padded) so each row decodes as it would alone.
+
+    serve() options: ``kv_pool_pages`` sizes the paged pool (0: as many
+    pages as the contiguous cache holds, plus the dummy); ``paged`` None
+    pages iff ``cfg.kv_page_size > 0``, False pins the contiguous cache
+    (the kernel still decodes in ``kv_page_size`` pages); ``prefill_mode``
+    "packed" concatenates admitted prompts on one token axis, "padded"
+    prefills each left-padded to its bucket; ``prefill_chunk`` > 0 splits
+    packed prefills into chunks of that many tokens between decode chunks.
     """
     cfg: ModelConfig
     params: Any
     max_batch: int = 8
     eos_id: int = 1
     fetch_chunk: int = 8
+    kv_pool_pages: int = 0
+    paged: Optional[bool] = None
+    prefill_mode: str = "packed"
+    prefill_chunk: int = 0
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -112,7 +208,20 @@ class ServeEngine:
             self.params, self.cfg).to(torch.float32).contiguous()
         self._prefill = make_prefill_step(self.cfg)
         self._decode = make_decode_step(self.cfg)
+        self._packed_prefill = make_packed_prefill_step(self.cfg)
+        self._prefill_continue = make_chunk_prefill_step(self.cfg)
         self.last_decode_steps = 0
+        self.serve_stats: Dict[str, Any] = {}
+
+    def _decode_chunk(self, cache: Dict, cur: torch.Tensor, steps: int
+                      ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+        """``steps`` decode steps on the device: (last tokens, cache,
+        tokens [steps, B])."""
+        block = []
+        for _ in range(steps):
+            cur, cache = self._decode(self.params, self.head, cache, cur)
+            block.append(cur)
+        return cur, cache, torch.stack(block)
 
     def generate(self, prompts: List[List[int]],
                  max_new_tokens: int = 16) -> List[List[int]]:
@@ -141,22 +250,532 @@ class ServeEngine:
         remaining = max_new_tokens - 1
         steps = 0
         while remaining > 0 and not bool(done.all()):   # one sync per chunk
-            block = []
-            for _ in range(self.fetch_chunk):
-                cur, cache = self._decode(self.params, self.head, cache, cur)
-                done = done | (cur == self.eos_id)
-                block.append(cur)
-            chunks.append(torch.stack(block))
+            cur, cache, block = self._decode_chunk(cache, cur,
+                                                   self.fetch_chunk)
+            done = done | (block == self.eos_id).any(dim=0)
+            chunks.append(block)
             remaining -= self.fetch_chunk
             steps += self.fetch_chunk
         self.last_decode_steps = steps
         host = torch.cat(chunks).cpu().numpy()
-        outs: List[List[int]] = []
-        for i in range(b):
-            row: List[int] = []
-            for t in host[:max_new_tokens, i]:
-                row.append(int(t))
-                if t == self.eos_id:
-                    break
-            outs.append(row)
+        outs: List[List[int]] = [[] for _ in range(b)]
+        for i, row in enumerate(outs):
+            _consume_slot(host[:max_new_tokens], i, row, max_new_tokens,
+                          self.eos_id)
         return outs
+
+    # -- continuous batching ----------------------------------------------
+
+    def serve(self, prompts: List[List[int]],
+              max_new_tokens: Union[int, Sequence[int]] = 16,
+              fetch_chunk: Optional[int] = None,
+              prompt_bucket: int = 8,
+              prefill_mode: Optional[str] = None,
+              prefill_chunk: Optional[int] = None,
+              sampling: Optional[Sequence[Any]] = None,
+              draft_k: Optional[int] = None) -> List[List[int]]:
+        """Continuous-batching greedy decode over any number of requests.
+
+        ``max_new_tokens``: one budget for all requests or one per request.
+        Requests are admitted into free slots between decode chunks and
+        retire when they hit EOS or their budget, so the batch stays full
+        while work is queued. ``prefill_mode`` / ``prefill_chunk``
+        override the engine's defaults for this call. Counters of the run
+        land in ``self.serve_stats``."""
+        if sampling is not None or draft_k is not None:
+            raise NotImplementedError(_SAMPLING_TODO)
+        n_req = len(prompts)
+        if isinstance(max_new_tokens, int):
+            budgets = [max_new_tokens] * n_req
+        else:
+            budgets = list(max_new_tokens)
+            if len(budgets) != n_req:
+                raise ValueError(f"{len(budgets)} budgets for {n_req} "
+                                 "prompts")
+        if n_req == 0:
+            return []
+        chunk = fetch_chunk or self.fetch_chunk
+        blens = [_bucket_len(len(p), prompt_bucket) for p in prompts]
+        smax = _bucket_len(max(blens) + max(budgets), prompt_bucket)
+        if self.cfg.kv_page_size > 0:
+            # page-align smax for both layouts: the contiguous cache must
+            # decode through the same kernel and pages as the paged pool
+            page = self.cfg.kv_page_size
+            smax = -(-smax // page) * page
+        use_paged = (self.cfg.kv_page_size > 0 if self.paged is None
+                     else self.paged)
+        if use_paged:
+            reason = _paged_unsupported_reason(self.cfg)
+            if reason:
+                warnings.warn(f"paged KV serving unavailable ({reason}) — "
+                              "falling back to the contiguous scheduler",
+                              stacklevel=2)
+                use_paged = False
+        backend = (_PagedKvBackend(self, smax) if use_paged
+                   else _ContiguousKvBackend(self, smax))
+        mode = prefill_mode if prefill_mode is not None else self.prefill_mode
+        if mode == "packed":
+            pchunk = (prefill_chunk if prefill_chunk is not None
+                      else self.prefill_chunk)
+            return self._serve_loop_packed(prompts, budgets, blens, chunk,
+                                           backend, pchunk)
+        if mode == "padded":
+            return self._serve_loop(prompts, budgets, blens, smax, chunk,
+                                    backend)
+        raise ValueError(f"prefill_mode={mode!r}: 'packed' or 'padded'")
+
+    def _retire_finished(self, host: np.ndarray, active: Dict[int, int],
+                         left: Dict[int, int], outs: List[List[int]]
+                         ) -> List[int]:
+        """Drain a fetched chunk into the active requests' outputs; the
+        slots whose request finished leave ``active`` and are returned."""
+        retired = []
+        for slot, ridx in active.items():
+            left[ridx], fin = _consume_slot(host, slot, outs[ridx],
+                                            left[ridx], self.eos_id)
+            if fin:
+                retired.append(slot)
+        for slot in retired:
+            del active[slot]
+        return retired
+
+    def _serve_loop(self, prompts: List[List[int]], budgets: List[int],
+                    blens: List[int], smax: int, chunk: int, backend
+                    ) -> List[List[int]]:
+        """Padded admission: each request prefills alone, left-padded to
+        its bucket, into a one-row cache that the backend scatters into
+        the shared cache (its slot stripe, or its granted pages)."""
+        dev = self.device
+        cache = backend.init_cache()
+        cur = torch.zeros((self.max_batch,), dtype=torch.int32, device=dev)
+        outs: List[List[int]] = [[] for _ in prompts]
+        queue = deque(range(len(prompts)))
+        free = list(range(self.max_batch))
+        active: Dict[int, int] = {}                  # slot -> request idx
+        left: Dict[int, int] = {}                    # request idx -> budget
+        # one scratch cache for every admission: each prefill overwrites
+        # slots 0..bucket-1, and slots past a row's length are written by
+        # decode before it attends them
+        c1_template = registry.init_cache(self.cfg, 1, smax, device=dev)
+
+        def admit(slot: int, ridx: int):
+            grant = backend.reserve(ridx, blens[ridx], budgets[ridx])
+            if grant is None:
+                return "defer"                       # wait for retirements
+            p, bl = prompts[ridx], blens[ridx]
+            toks = np.zeros((1, bl), np.int32)
+            toks[0, bl - len(p):] = p                # left-pad to bucket
+            st = torch.tensor([bl - len(p)], dtype=torch.int32, device=dev)
+            nxt1, c1 = self._prefill(self.params, self.head, c1_template,
+                                     torch.as_tensor(toks, device=dev), st)
+            tok = int(nxt1[0])                       # first generated token
+            outs[ridx].append(tok)
+            if tok == self.eos_id or budgets[ridx] <= 1:
+                backend.release(grant)
+                return False                         # finished at prefill
+            backend.admit(cache, c1, slot, grant)
+            cur[slot] = tok
+            active[slot] = ridx
+            left[ridx] = budgets[ridx] - 1
+            return True
+
+        while queue or active:
+            # first-fit admission between decode chunks: a request whose
+            # reservation does not fit yet is skipped (kept in arrival
+            # order), so short requests fill slots behind a deferred long
+            # one. The contiguous backend always grants: plain FIFO.
+            skipped: List[int] = []
+            while queue and free:
+                ridx = queue.popleft()
+                if budgets[ridx] <= 0:
+                    continue
+                slot = free.pop()
+                r = admit(slot, ridx)
+                if r == "defer":
+                    free.append(slot)
+                    skipped.append(ridx)
+                    backend.stats["deferred_admissions"] += 1
+                    continue
+                if not r:
+                    free.append(slot)
+            queue.extendleft(reversed(skipped))
+            if not active:
+                if queue:        # deferred with nothing left to retire
+                    backend.starved(queue[0], blens, budgets)
+                continue
+            backend.stats["peak_active"] = max(
+                backend.stats["peak_active"], len(active))
+            cur, cache, block = self._decode_chunk(cache, cur, chunk)
+            host = block.cpu().numpy()               # one fetch per chunk
+            for slot in self._retire_finished(host, active, left, outs):
+                free.append(slot)
+                backend.retire(cache, slot)
+        self.serve_stats = backend.stats
+        return outs
+
+    def _serve_loop_packed(self, prompts: List[List[int]],
+                           budgets: List[int], blens: List[int], chunk: int,
+                           backend, prefill_chunk: int) -> List[List[int]]:
+        """Padding-free continuous batching. Differences from `_serve_loop`:
+
+        * Admission splits into slot assignment (reserve cache space, no
+          compute) and prefill. Assigned requests wait in ``pending``; the
+          decode batch never reads a half-prefilled row.
+        * All first chunks pack into ONE call per scheduler iteration (no
+          pad row inside a request; the bucket's tail is dropped by the
+          K/V scatter) and rows install with ``start = 0``.
+        * With ``prefill_chunk > 0`` at most that many prompt tokens
+          prefill between consecutive decode chunks (continuations first,
+          FIFO, one chunk per row per iteration).
+
+        Free and half-prefilled rows still decode-step (the chunk runs the
+        whole batch); their K/V writes land where no live row reads:
+        contiguous rows park their write cursor at ``smax`` (the clamped
+        write hits slot smax-1, which a live row overwrites before it
+        attends it), paged rows write through a table row that points at
+        the dummy page."""
+        t0 = time.perf_counter()
+        dev = self.device
+        cache = backend.init_cache()
+        paged = "k_pages" in cache
+        if not paged:
+            cache["length"].fill_(backend.smax)
+        cur = torch.zeros((self.max_batch,), dtype=torch.int32, device=dev)
+        outs: List[List[int]] = [[] for _ in prompts]
+        queue = deque(range(len(prompts)))
+        free = list(range(self.max_batch))
+        active: Dict[int, int] = {}                  # slot -> request idx
+        left: Dict[int, int] = {}                    # request idx -> budget
+        # slot -> [ridx, prefilled offset, grant] (insertion order = FIFO)
+        pending: Dict[int, list] = {}
+        stats = backend.stats
+        stats.update(prefill_calls=0, packed_prefill_tokens=0,
+                     prompt_tokens=0, max_prefill_call_tokens=0,
+                     prefill_iters=0)
+        ttft: Dict[int, float] = {}
+
+        def bump(tokens_padded: int, tokens_real: int):
+            stats["prefill_calls"] += 1
+            stats["packed_prefill_tokens"] += tokens_padded
+            stats["prompt_tokens"] += tokens_real
+            stats["max_prefill_call_tokens"] = max(
+                stats["max_prefill_call_tokens"], tokens_padded)
+
+        def complete(slot: int, st: list, tok: int):
+            ridx, grant = st[0], st[2]
+            outs[ridx].append(tok)
+            ttft[ridx] = time.perf_counter() - t0
+            del pending[slot]
+            if tok == self.eos_id or budgets[ridx] <= 1:
+                backend.release(grant)
+                free.append(slot)
+                return
+            backend.install(cache, slot, len(prompts[ridx]), grant)
+            cur[slot] = tok
+            active[slot] = ridx
+            left[ridx] = budgets[ridx] - 1
+
+        def to_dev(a: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(a, device=dev)
+
+        def run_continue(slot: int, st: list) -> int:
+            nonlocal cache
+            ridx, off = st[0], st[1]
+            p = prompts[ridx]
+            c = (min(len(p) - off, prefill_chunk) if prefill_chunk > 0
+                 else len(p) - off)
+            cp = _bucket_len(c, 8)
+            toks = np.zeros((1, cp), np.int32)
+            toks[0, :c] = p[off:off + c]
+            pos = off + np.arange(cp, dtype=np.int32)
+            rows = np.full((cp,), backend.pad_row(), np.int32)
+            cols = np.zeros((cp,), np.int32)
+            rows[:c], cols[:c] = backend.token_addr(
+                slot, st[2], np.arange(off, off + c, dtype=np.int64))
+            nxt, cache = self._prefill_continue(
+                self.params, self.head, cache, to_dev(toks),
+                to_dev(pos)[None], torch.from_numpy(rows),
+                torch.from_numpy(cols), backend.kv_sel(slot, st[2]), c - 1)
+            st[1] = off + c
+            bump(cp, c)
+            if st[1] == len(p):
+                complete(slot, st, int(nxt[0]))
+            return c
+
+        while queue or pending or active:
+            # 1) slot assignment: reservation only, arrival order; a
+            # deferred reservation (paged pool exhausted) is skipped, not
+            # head-of-line blocking
+            skipped: List[int] = []
+            while queue and free:
+                ridx = queue.popleft()
+                if budgets[ridx] <= 0:
+                    continue
+                grant = backend.reserve(ridx, len(prompts[ridx]),
+                                        budgets[ridx])
+                if grant is None:
+                    skipped.append(ridx)
+                    stats["deferred_admissions"] += 1
+                    continue
+                pending[free.pop()] = [ridx, 0, grant]
+            queue.extendleft(reversed(skipped))
+            if not pending and not active:
+                if queue:        # deferred with nothing left to retire
+                    backend.starved(queue[0], blens, budgets)
+                continue
+
+            # 2) prefill: ≤ prefill_chunk prompt tokens this iteration
+            # (always ≥ one chunk of progress when anything is pending) —
+            # continuations first, then the packed first-chunk call
+            budget = prefill_chunk if prefill_chunk > 0 else float("inf")
+            spent = 0
+            if pending:
+                stats["prefill_iters"] += 1
+            for slot, st in list(pending.items()):
+                if st[1] == 0:
+                    continue
+                if spent >= budget:
+                    break
+                spent += run_continue(slot, st)
+            items = []
+            for slot, st in list(pending.items()):
+                if st[1] != 0:
+                    continue
+                length = len(prompts[st[0]])
+                c = (min(length, prefill_chunk) if prefill_chunk > 0
+                     else length)
+                if (spent > 0 or items) and spent + c > budget:
+                    break
+                items.append((slot, st, c))
+                spent += c
+            if items:
+                total = sum(c for _, _, c in items)
+                tp = _bucket_len(total, 8)
+                toks = np.zeros((tp,), np.int32)
+                # pad positions carry segment id n_items: larger than every
+                # real id (ids stay non-decreasing), matched by no request
+                seg = np.full((tp,), len(items), np.int32)
+                pos = np.zeros((tp,), np.int32)
+                rows = np.full((tp,), backend.pad_row(), np.int32)
+                cols = np.zeros((tp,), np.int32)
+                gidx = np.zeros((_bucket_len(len(items), 1),), np.int64)
+                off = 0
+                for i, (slot, st, c) in enumerate(items):
+                    toks[off:off + c] = prompts[st[0]][:c]
+                    seg[off:off + c] = i
+                    pos[off:off + c] = np.arange(c)
+                    rows[off:off + c], cols[off:off + c] = \
+                        backend.token_addr(slot, st[2],
+                                           np.arange(c, dtype=np.int64))
+                    gidx[i] = off + c - 1
+                    off += c
+                nxt, cache = self._packed_prefill(
+                    self.params, self.head, cache, to_dev(toks)[None],
+                    to_dev(seg), to_dev(pos)[None], torch.from_numpy(rows),
+                    torch.from_numpy(cols), to_dev(gidx))
+                bump(tp, total)
+                host_tok = None
+                for i, (slot, st, c) in enumerate(items):
+                    st[1] = c
+                    if c == len(prompts[st[0]]):
+                        if host_tok is None:     # one sync per packed call
+                            host_tok = nxt.cpu().numpy()
+                        complete(slot, st, int(host_tok[i]))
+
+            # 3) decode chunk + retirement (as in _serve_loop)
+            if not active:
+                continue
+            stats["peak_active"] = max(stats["peak_active"], len(active))
+            cur, cache, block = self._decode_chunk(cache, cur, chunk)
+            host = block.cpu().numpy()               # one fetch per chunk
+            for slot in self._retire_finished(host, active, left, outs):
+                free.append(slot)
+                backend.retire(cache, slot)
+                if not paged:
+                    # park the freed stripe's write cursor back at smax
+                    cache["length"][slot] = backend.smax
+        stats["ttft_s"] = [ttft.get(i, float("nan"))
+                           for i in range(len(prompts))]
+        self.serve_stats = stats
+        return outs
+
+
+# ---------------------------------------------------------------------------
+# serve() KV backends: how cache space is reserved and admissions scatter
+# ---------------------------------------------------------------------------
+
+def _paged_unsupported_reason(cfg: ModelConfig) -> str:
+    """Why the paged scheduler cannot serve ``cfg`` (empty = it can). Its
+    decode always runs the paged kernel, so it is offered only where the
+    contiguous cache would decode through that kernel too — otherwise the
+    two layouts would not give the same tokens."""
+    if not dispatch.flash_backend_active(cfg):
+        return (f"flash attention backend inactive (attn_impl="
+                f"{cfg.attn_impl!r}, gemm_impl={cfg.gemm_impl!r}; needs "
+                "attn_impl='flash', or 'auto' with gemm_impl='pallas')")
+    g = cfg.num_heads // max(1, cfg.num_kv_heads)
+    if not skinny_ok(g):
+        return (f"GQA group size {g} exceeds the decode kernel's "
+                f"resident-query limit (SKINNY_M_MAX={SKINNY_M_MAX})")
+    return ""
+
+
+class _ContiguousKvBackend:
+    """Every slot owns an ``smax`` stripe of the shared cache; a
+    reservation always succeeds (a free slot is the only resource)."""
+
+    def __init__(self, eng: ServeEngine, smax: int):
+        self.eng = eng
+        self.smax = smax
+        self.stats: Dict[str, Any] = {"peak_active": 0,
+                                      "deferred_admissions": 0}
+
+    def init_cache(self) -> Dict:
+        eng = self.eng
+        cache = registry.init_cache(eng.cfg, eng.max_batch, self.smax,
+                                    device=eng.device)
+        cache["start"] = torch.zeros((eng.max_batch,), dtype=torch.int32,
+                                     device=eng.device)
+        return cache
+
+    def reserve(self, ridx: int, blen: int, budget: int):
+        return ()                                    # always grants
+
+    def release(self, grant) -> None:
+        pass
+
+    def admit(self, cache: Dict, c1: Dict, slot: int, grant) -> None:
+        """Copy a finished one-row prefill into ``slot``'s stripe."""
+        for key in ("k", "v"):
+            cache[key][:, slot] = c1[key][:, 0]
+        cache["length"][slot] = c1["length"][0]
+        cache["start"][slot] = c1["start"][0]
+
+    def retire(self, cache: Dict, slot: int) -> None:
+        pass                                         # the stripe just idles
+
+    def starved(self, ridx: int, blens, budgets) -> None:
+        raise AssertionError("contiguous reservations cannot defer")
+
+    # -- packed-prefill addressing ----------------------------------------
+
+    def pad_row(self) -> int:
+        """Out-of-range scatter row of packed padding tokens (dropped)."""
+        return self.eng.max_batch
+
+    def token_addr(self, slot: int, grant, pos: np.ndarray):
+        """(rows, cols) of the K/V scatter at absolute positions ``pos``:
+        the slot's stripe, slot index = position."""
+        return np.full(pos.shape, slot, np.int32), pos.astype(np.int32)
+
+    def kv_sel(self, slot: int, grant):
+        return slot
+
+    def install(self, cache: Dict, slot: int, length: int, grant) -> None:
+        """Activate a slot whose packed prefill finished: its K/V already
+        sit in the stripe; install length and a zero start."""
+        cache["length"][slot] = length
+        cache["start"][slot] = 0
+
+
+class _PagedKvBackend:
+    """Requests reserve ``ceil((prompt + budget) / page)`` pages of a
+    shared pool instead of an ``smax`` stripe. A reservation that does not
+    fit is deferred until retirements free pages; retirement points the
+    slot's table row at the dummy page, so the retired-but-still-stepping
+    row's overshoot writes never touch recycled pages."""
+
+    def __init__(self, eng: ServeEngine, smax: int):
+        cfg = eng.cfg
+        self.eng = eng
+        self.smax = smax
+        self.page = cfg.kv_page_size
+        if self.page < PAGE_MIN:
+            raise ValueError(f"kv_page_size={self.page} below the decode "
+                             f"kernel's minimum page of {PAGE_MIN} slots")
+        g = cfg.num_heads // max(1, cfg.num_kv_heads)
+        if not paged_decode_ok(g, self.page, cfg.resolved_head_dim):
+            raise ValueError(f"kv_page_size={self.page}: the decode block's "
+                             "shared memory exceeds 227 KB — lower it")
+        self.n_log = smax // self.page
+        self.pool_pages = (eng.kv_pool_pages
+                           or (eng.max_batch * self.n_log + 1))
+        self.alloc = PageAllocator(self.pool_pages)
+        self.slot_pages: Dict[int, List[int]] = {}   # slot -> phys pages
+        self.stats: Dict[str, Any] = {
+            "peak_active": 0, "deferred_admissions": 0,
+            "pool_pages": self.pool_pages, "page": self.page,
+            "n_log": self.n_log}
+
+    def init_cache(self) -> Dict:
+        eng = self.eng
+        return init_paged_cache(eng.cfg, eng.max_batch, self.pool_pages,
+                                self.page, self.n_log, device=eng.device)
+
+    def reserve(self, ridx: int, blen: int, budget: int):
+        need = pages_needed(blen, budget, self.page)
+        if need > self.pool_pages - 1:
+            raise RuntimeError(
+                f"request {ridx} needs {need} pages; the pool has "
+                f"{self.pool_pages - 1} usable — raise kv_pool_pages")
+        return self.alloc.alloc(need)                # None = defer
+
+    def release(self, grant: List[int]) -> None:
+        self.alloc.free(grant)
+
+    def _table_row(self, grant: List[int]) -> torch.Tensor:
+        row = np.full((self.n_log,), DUMMY_PAGE, np.int32)
+        row[:len(grant)] = grant                     # tail -> dummy page
+        return torch.as_tensor(row, device=self.eng.device)
+
+    def admit(self, cache: Dict, c1: Dict, slot: int,
+              grant: List[int]) -> None:
+        """Scatter a finished one-row prefill into the granted pages (the
+        row's tail pages land on the dummy) and install the table row."""
+        row = self._table_row(grant)
+        for key in ("k", "v"):
+            one = c1[key][:, 0]                      # [L, smax, H, D]
+            pool = cache[f"{key}_pages"]
+            pool[:, row.long()] = one.reshape(
+                one.shape[0], self.n_log, self.page, *one.shape[2:])
+        cache["block_table"][slot] = row
+        cache["length"][slot] = c1["length"][0]
+        cache["start"][slot] = c1["start"][0]
+        self.slot_pages[slot] = grant
+
+    def retire(self, cache: Dict, slot: int) -> None:
+        self.alloc.free(self.slot_pages.pop(slot))
+        cache["block_table"][slot] = DUMMY_PAGE
+
+    def starved(self, ridx: int, blens, budgets) -> None:
+        raise RuntimeError(
+            f"request {ridx} cannot be admitted: needs "
+            f"{pages_needed(blens[ridx], budgets[ridx], self.page)} "
+            f"pages, the pool has {self.alloc.free_pages} free")
+
+    # -- packed-prefill addressing ----------------------------------------
+
+    def pad_row(self) -> int:
+        """Out-of-range scatter row of packed padding tokens: one past the
+        pool (the dummy page 0 is a real page)."""
+        return self.pool_pages
+
+    def token_addr(self, slot: int, grant, pos: np.ndarray):
+        """Physical (page, offset) of each absolute position through the
+        granted pages: packed prefill writes the pool directly; the table
+        learns of these pages only at install."""
+        g = np.asarray(grant, np.int64)
+        return (g[pos // self.page].astype(np.int32),
+                (pos % self.page).astype(np.int32))
+
+    def kv_sel(self, slot: int, grant):
+        return self._table_row(grant)
+
+    def install(self, cache: Dict, slot: int, length: int,
+                grant: List[int]) -> None:
+        """Activate a slot: until now its table row pointed at the dummy
+        page, so decode never saw the half-prefilled pages."""
+        cache["block_table"][slot] = self._table_row(grant)
+        cache["length"][slot] = length
+        cache["start"][slot] = 0
+        self.slot_pages[slot] = grant

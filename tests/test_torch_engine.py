@@ -1,6 +1,7 @@
 """`ServeEngine.generate` of the port against the reference's on the same
-packed weights (smoke width, f32, attention pinned to the naive route):
-greedy token streams must be equal.
+packed weights (smoke width, f32; prefill attention unpinned — the flash
+kernels' plain versions against the Pallas kernels in interpret mode — and
+pinned to the naive route): greedy token streams must be equal.
 
 Cases: a uniform batch, a ragged (left-padded) batch, and a cache length
 (prompt + new tokens) that is not a multiple of 8, where decode attention
@@ -40,6 +41,17 @@ def test_generate_tokens_equal_reference(params, lengths, new):
         ps, max_new_tokens=new)
     assert got == want
     assert LAUNCHES == before             # plain versions on the CPU
+
+
+def test_generate_tokens_equal_reference_pinned_naive(params):
+    """Prefill attention pinned to the naive route in both packages."""
+    jcfg, tcfg = configs(pin=True)
+    jp, tp = params
+    ps = prompts([6, 3, 6, 2, 5, 1, 6, 4], seed=18)
+    want = JEngine(jcfg, jp, max_batch=8).generate(ps, max_new_tokens=10)
+    got = ServeEngine(tcfg, tp, max_batch=8, device="cpu").generate(
+        ps, max_new_tokens=10)
+    assert got == want
 
 
 def test_plain_route_tokens_equal_kernel_route(params):

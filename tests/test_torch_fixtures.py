@@ -20,9 +20,13 @@ from repro_torch.interop import params_from_numpy
 PIN = (("attention", "attn_naive"),)
 
 
-def configs(gemm_impl: str = "pallas"):
-    """(reference config, port config) of the slice at smoke width, f32."""
-    kw = dict(remat="none", gemm_impl=gemm_impl, kernel_routes=PIN)
+def configs(gemm_impl: str = "pallas", pin: bool = False, **kw):
+    """(reference config, port config) of the slice at smoke width, f32.
+    Unpinned, prefill attention takes the flash kernels under
+    ``gemm_impl="pallas"`` in both packages; ``pin`` keeps it on the naive
+    route."""
+    kw = dict(kw, remat="none", gemm_impl=gemm_impl)
+    kw.setdefault("kernel_routes", PIN if pin else ())
     return (get_config("olmo-1b", smoke=True).replace(**kw),
             tget("olmo-1b", smoke=True).replace(**kw))
 

@@ -10,19 +10,24 @@ Imports torch and the port only (the card's machine has no JAX):
 
 Tolerances: f32 outputs rtol 1e-5, atol 1e-5·max|want| (the kernel and the
 plain version sum in different orders); bf16 GEMM outputs rtol 2e-2, atol
-2e-3·max|want| (one bf16 rounding step apart). bf16 decode attention: atol
-1e-2·max|want|, because the kernel rounds each page's unnormalised
-probabilities to bf16 (as the Pallas kernel does) and the plain version
-the normalised ones: up to 2^-9 relative per term, summed over up to 512
-keys.
+2e-3·max|want| (one bf16 rounding step apart). bf16 attention (decode and
+both prefills): atol 1e-2·max|want|, because the kernel rounds each tile's
+unnormalised probabilities to bf16 (as the Pallas kernels do) and the
+plain version the normalised ones: up to 2^-9 relative per term, summed
+over up to 512 keys. Flash prefill compares the rows that see a key; a
+row below a left-padded row's ``start`` is garbage by contract.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.dbb import pack_dbb
-from repro_torch.kernels.attn import identity_block_table, paged_decode_attention
-from repro_torch.kernels.attn.ref import paged_decode_ref
+from repro_torch.kernels.attn import (flash_attention, identity_block_table,
+                                      packed_flash_attention,
+                                      paged_decode_attention)
+from repro_torch.kernels.attn.ref import (flash_prefill_ref,
+                                          packed_prefill_ref,
+                                          paged_decode_ref)
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.dbb_gemm import dbb_gemm
 from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
@@ -121,4 +126,60 @@ def test_gpu_paged_decode(cuda, dtype, g, page, window, softcap, shuffle):
     want = paged_decode_ref(q, kp, vp, table, lengths, start,
                             sm_scale=128 ** -0.5, window=window,
                             softcap=softcap)
+    _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,hq,hkv,d,start,q_offset,window,softcap", [
+    (2, 77, 77, 4, 4, 128, (0, 13), (0, 0), 0, 0.0),     # ragged T = S
+    (2, 50, 190, 4, 2, 128, (5, 0), (120, 64), 0, 0.0),  # continuation, g 2
+    (1, 130, 130, 2, 1, 64, (3,), (0,), 33, 20.0),       # window, softcap
+    (3, 64, 64, 2, 1, 128, (0, 1, 63), (0, 0, 0), 0, 0.0),
+])
+def test_gpu_flash_prefill(cuda, dtype, b, t, s, hq, hkv, d, start,
+                           q_offset, window, softcap):
+    g = torch.Generator(device=cuda).manual_seed(t + s)
+    q = torch.randn(b, t, hq, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
+    st = torch.tensor(start, dtype=torch.int32, device=cuda)
+    qo = torch.tensor(q_offset, dtype=torch.int32, device=cuda)
+    before = LAUNCHES["flash_prefill"]
+    got = flash_attention(q, k, v, st, q_offset=qo, window=window,
+                          softcap=softcap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_prefill"] == before + 1
+    want = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), st, qo, sm_scale=d ** -0.5,
+                             window=window, softcap=softcap).transpose(1, 2)
+    real = (torch.arange(t, device=cuda)[None, :] + qo[:, None]) >= st[:, None]
+    _gpu_close(got[real], want[real], dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens,pad,hq,hkv,window,softcap", [
+    ((70, 90, 7, 150), 45, 4, 2, 0, 0.0),   # tile [64,128) meets segment 1
+    ((100, 7, 150, 40), 36, 4, 4, 50, 30.0),
+    ((1, 1, 300), 0, 2, 1, 0, 0.0),
+])
+def test_gpu_flash_prefill_packed(cuda, dtype, lens, pad, hq, hkv, window,
+                                  softcap):
+    t, d = sum(lens) + pad, 128
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q = torch.randn(t, hq, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(t, hkv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(t, hkv, d, generator=g, device=cuda).to(dtype)
+    seg = torch.repeat_interleave(
+        torch.arange(len(lens) + 1, dtype=torch.int32),
+        torch.tensor(list(lens) + [pad])).to(cuda)
+    before = LAUNCHES["flash_prefill_packed"]
+    got = packed_flash_attention(q, k, v, seg, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_prefill_packed"] == before + 1
+    want = packed_prefill_ref(q.transpose(0, 1), k.transpose(0, 1),
+                              v.transpose(0, 1), seg, sm_scale=d ** -0.5,
+                              window=window, softcap=softcap).transpose(0, 1)
     _gpu_close(got, want, dtype, bf16_atol=1e-2)

@@ -19,7 +19,7 @@ def _modules():
 
 def test_every_module_is_listed():
     mods = _modules()
-    assert len(mods) >= 16
+    assert len(mods) >= 17
     for name in ("repro_torch.config", "repro_torch.configs.olmo_1b",
                  "repro_torch.core.dbb", "repro_torch.core.sparsity",
                  "repro_torch.core.dbb_linear", "repro_torch.kernels.epilogue",
@@ -30,6 +30,7 @@ def test_every_module_is_listed():
                  "repro_torch.models.common", "repro_torch.models.attention",
                  "repro_torch.models.mlp", "repro_torch.models.transformer",
                  "repro_torch.models.registry", "repro_torch.serve.engine",
+                 "repro_torch.serve.kv_cache", "repro_torch.kernels.attn.ref",
                  "repro_torch.interop"):
         assert name in mods
 
