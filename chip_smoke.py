@@ -27,8 +27,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             contiguous cache, (b) into the paged pool, (c) packed with
             256-token chunks — with the counts reset before and read after
             each; every kernel of each path must have launched, (a) and (b)
-            must give equal streams, and (a) must agree with the plain
-            route's ``serve`` under the same near-tie excuse.
+            must give equal streams, and (a) and (c) must each agree with
+            the plain route's ``serve`` in the same mode under the same
+            near-tie excuse.
 6. tokens   smoke-width f32 engine: kernel route and plain route must produce
             equal greedy tokens.
 
@@ -351,8 +352,7 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
     scale = d ** -0.5
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def measure(name, label, run_kernel, run_plain, run_lib, real, mask,
-                b, t, s):
+    def measure(name, label, run_kernel, run_plain, run_lib, real, mask):
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err, ok = _close(torch, got[real], want[real], ATTN_RTOL, ATTN_ATOL)
@@ -361,15 +361,21 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
         ms = _time_ms(torch, run_kernel, flush)
         pms = _time_ms(torch, run_plain, flush)
         lms = _time_ms(torch, run_lib, flush)
-        pairs = int(mask.sum().item())          # visible query-key pairs
-        nbytes = 2 * 2 * (b * t + b * s) * h * d    # q, o; k, v (bf16)
+        # the work this call's data needs: q and o rows that see a key,
+        # k and v slots that some row sees (left pad and the slots past
+        # the last query are skipped), and the visible query-key pairs
+        rows = int(mask.any(-1).sum().item())
+        slots = int(mask.any(-2).sum().item())
+        pairs = int(mask.sum().item())
+        nbytes = 2 * 2 * (rows + slots) * h * d       # q, o; k, v (bf16)
         ops = 4.0 * d * pairs * h
         bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
         print(f"kernel {name} {label}: max abs err {err:.3e} (tol "
               f"{ATTN_RTOL:g} rel + {ATTN_ATOL:g} of max, bf16) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} "
               f"ms, scaled_dot_product_attention {lms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}, {pairs} visible pairs)")
+              f"{bms:.4f} ms ({by}; {rows} query rows, {slots} key slots, "
+              f"{pairs} visible pairs)")
         return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
                     bound_ms=bms, nbytes=nbytes, ops=ops)
 
@@ -391,7 +397,7 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
                                       sm_scale=scale).transpose(1, 2),
             lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=am, is_causal=uniform),
-            qi >= st[:, None], mask, b, t, s)
+            qi >= st[:, None], mask)
 
     cases = [
         flash_case("generate prefill B8 T=S=64, start 0..49", 8, 64, 64,
@@ -420,7 +426,7 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
                                    sm_scale=scale).transpose(0, 1),
         lambda: F.scaled_dot_product_attention(
             qh[None], kh[None], vh[None], attn_mask=mask),
-        torch.ones(t, dtype=torch.bool, device=dev), mask, 1, t, t)
+        torch.ones(t, dtype=torch.bool, device=dev), mask)
     entries.append(_attention_entry(
         "flash_prefill_packed", "src/repro_torch/csrc/flash_prefill_packed.cu",
         "src/repro/kernels/attn/kernel.py:270", [packed],
@@ -694,26 +700,32 @@ def _serve_phase(torch, dev, report, packed, out_dir):
     print(f"serve: paged vs contiguous token streams "
           f"{'equal' if paged_ok else 'DIFFERENT'}")
 
-    xeng = ServeEngine(xcfg, packed, max_batch=8, paged=False, device=dev)
-    t0 = time.perf_counter()
-    xout = xeng.serve(prompts, max_new_tokens=budgets)
-    torch.cuda.synchronize()
-    print(f"serve: plain route (gemm_impl='xla'), packed contiguous: "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    out = outs["serve_packed"]
-    same, total, split = _split_rows(out, xout)
-    last_logits = _logits_fn(torch, dev, xeng)
-    gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout, split)
+    # (a) and (c) against the plain route's serve in the same mode
     tol = LOGIT_TOL * report["slice"]["logit_scale"]
-    tok_ok = all(g <= 2 * tol for g in gaps)
-    print(f"serve: greedy tokens of (a), kernel vs plain route: {same}/"
-          f"{total} equal; rows that split (row, step, plain-route gap): "
-          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]} (excused where "
-          f"gap <= 2 x logit tol = {2 * tol:.4e}) "
-          f"{'ok' if tok_ok else 'FAIL'}")
-    report["serve"].update(paged_equal=paged_ok, token_agreement=[same, total],
-                           token_splits=[[i, j, g] for (i, j), g
-                                         in zip(split, gaps)])
+    tok_ok = True
+    for name in ("serve_packed", "serve_chunked"):
+        kw = runs[name][1]
+        xeng = ServeEngine(xcfg, packed, max_batch=8, device=dev, **kw)
+        t0 = time.perf_counter()
+        xout = xeng.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        print(f"serve: plain route (gemm_impl='xla') {kw}: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        out = outs[name]
+        same, total, split = _split_rows(out, xout)
+        last_logits = _logits_fn(torch, dev, xeng)
+        gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout,
+                           split)
+        run_ok = all(g <= 2 * tol for g in gaps)
+        tok_ok = tok_ok and run_ok
+        splits = [[i, j, g] for (i, j), g in zip(split, gaps)]
+        print(f"serve: greedy tokens of {name}, kernel vs plain route: "
+              f"{same}/{total} equal; rows that split (row, step, "
+              f"plain-route gap): {splits} (excused where gap <= 2 x logit "
+              f"tol = {2 * tol:.4e}) {'ok' if run_ok else 'FAIL'}")
+        report["serve"][name].update(token_agreement=[same, total],
+                                     token_splits=splits)
+    report["serve"]["paged_equal"] = paged_ok
     return counts, ok and paged_ok and tok_ok
 
 

@@ -409,8 +409,6 @@ def chunk_attention_route(cfg, *, t: int, s: int, d: int,
     spec = OpSpec(domain="attention", m=t, k=d, n=s,
                   flash_active=flash_backend_active(cfg), float_ok=floating)
     cfg_routes = dict(routes_from_cfg(cfg))
-    if cfg_routes.get("attention") == "attn_chunked":
-        cfg_routes["attention"] = "attn_naive"
     if cfg.attn_impl in _CHUNK_IMPL_ROUTE:
         cfg_routes.setdefault("attention", _CHUNK_IMPL_ROUTE[cfg.attn_impl])
     name, _ = select(spec, cfg_routes)

@@ -175,12 +175,19 @@ def test_chunk_continuation_route_matches_reference(attn_impl, want):
                                                    itemsize=4)
 
 
-def test_chunked_pin_warns_and_takes_naive():
+@pytest.mark.parametrize("front_door", ["select", "chunk_continuation"])
+def test_chunked_pin_warns_and_takes_naive(front_door):
     """attn_chunked is an XLA route, not a kernel: a pin to it takes
-    attn_naive with a warning."""
-    _, tcfg = configs(kernel_routes=(("attention", "attn_chunked"),))
-    spec = td.OpSpec(domain="attention", m=6, k=32, n=6, flash_active=True)
+    attn_naive with a warning, as the reference's continuation does."""
+    jcfg, tcfg = configs(kernel_routes=(("attention", "attn_chunked"),))
     td._warned.discard(("attention", "attn_chunked"))
     with pytest.warns(UserWarning, match="not ported"):
-        name, _ = td.select(spec, td.routes_from_cfg(tcfg))
+        if front_door == "select":
+            spec = td.OpSpec(domain="attention", m=6, k=32, n=6,
+                             flash_active=True)
+            name, _ = td.select(spec, td.routes_from_cfg(tcfg))
+        else:
+            name = td.chunk_attention_route(tcfg, t=8, s=48, d=32)
+            assert name == jd.chunk_attention_route(jcfg, t=8, s=48, d=32,
+                                                    itemsize=4)
     assert name == "attn_naive"
