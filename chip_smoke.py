@@ -30,15 +30,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             must give equal streams, and (a) and (c) must each agree with
             the plain route's ``serve`` in the same mode under the same
             near-tie excuse.
-6. tokens   smoke-width f32 engine: kernel route and plain route must produce
+6. cnn      the paper's CNN at full published width from seeded random
+            weights and standard-normal NHWC images: convnet-dbb under
+            matmul="dbb" (packed) at batch 256 and at batch 1, under
+            matmul="sta" (dense) at batch 256, and lenet5-dbb under "dbb" at
+            batch 256. Each run's launch counts must equal what the route
+            table implies, and its logits must agree with the plain route
+            (explicit im2col, plain matmul) within 1e-4 of max |logit| with
+            equal classes (a row whose top-2 margin is under that tolerance
+            is excused).
+7. dense    full-width olmo-1b with unpacked weights under gemm_impl="pallas":
+            ``generate`` on the slice's 8 prompts must launch sta_gemm (the
+            prefill MLP), sta_gemm_skinny, flash_prefill and paged_decode and
+            no DBB kernel, and its greedy tokens must agree with the plain
+            route's under the slice's near-tie excuse.
+8. tokens   smoke-width f32 engine: kernel route and plain route must produce
             equal greedy tokens.
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4 and 5; ``launches_by_path`` per
-run); the last line is ``{"ok": true, "device": {...}}``. ``--out DIR``
-also writes the nvcc logs (``-Xptxas -v``), the full report and
-torch.profiler tables of the slice's generate and of serve (a) (device
-time by kernel, device busy share) there.
+sum over the main-path runs of phases 4-7; ``launches_by_path`` per run);
+the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
+writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
+tables of the slice's generate, of serve (a) and of the batch-256 convnet
+forward (device time by kernel, device busy share) there.
 """
 from __future__ import annotations
 
@@ -62,6 +76,9 @@ GENERATE_KERNELS = ("dbb_gemm", "dbb_gemm_skinny", "sta_gemm_skinny",
                     "paged_decode", "flash_prefill")
 SERVE_KERNELS = ("flash_prefill_packed", "dbb_gemm", "dbb_gemm_skinny",
                  "sta_gemm_skinny", "paged_decode")
+DENSE_KERNELS = ("sta_gemm", "sta_gemm_skinny", "flash_prefill",
+                 "paged_decode")
+CNN_LOGIT_TOL = 1e-4             # of max |logit|, f32 kernel vs plain route
 
 
 def _fail(msg: str) -> int:
@@ -132,6 +149,14 @@ def main() -> int:
         return _fail("the serve phase failed (see above)")
     by_path.update(serve_counts)
     del packed
+    cnn_counts, ok = timed("cnn", _cnn_phase, args.out)
+    if not ok:
+        return _fail("the cnn phase failed (see above)")
+    by_path.update(cnn_counts)
+    dense_counts, ok = timed("dense", _dense_phase)
+    if not ok:
+        return _fail("the dense-weights phase failed (see above)")
+    by_path["dense_generate"] = dense_counts
     if not timed("tokens", _token_phase):
         return _fail("smoke-width token equality failed")
     for entry in kernels:
@@ -324,6 +349,7 @@ def _kernel_phase(torch, dev, report):
         library_ms=lms, shapes="B8 Hkv16 G1 D128 S128 page64 bf16"))
     kernels += _prefill_attention_kernels(torch, dev, randn, flush,
                                           failures)
+    kernels += _gemm_conv_kernels(torch, dev, randn, flush, failures)
     report["kernel_failures"] = failures
     if failures:
         raise SystemExit(_fail("kernel disagrees with its plain version: "
@@ -444,6 +470,138 @@ def _attention_entry(name, src, replaces, cases, shapes):
                 bound_by=by, shapes=shapes, **tot)
 
 
+def _nchw_conv(torch, x, w, bias, k, stride, padding):
+    """F.conv2d (cuDNN, TF32 off) on the NHWC image and the [kh·kw·C, N]
+    weight, both viewed channels-last: the library yardstick."""
+    import torch.nn.functional as F
+    c, n = x.shape[-1], w.shape[1]
+    wt = w.reshape(k, k, c, n).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return F.conv2d(x.permute(0, 3, 1, 2), wt, bias, stride=stride,
+                    padding=padding)
+
+
+def _gemm_conv_kernels(torch, dev, randn, flush, failures):
+    """sta_gemm at the dense-weights prefill MLP's shapes (M512 bf16: 2x
+    K2048 N8192 with SiLU on one, 1x K8192 N2048 per layer) plus a ragged
+    f32 check; conv_gemm at convnet's conv0 (B256) plus a stride-2 check;
+    conv_gemm_dbb at convnet's conv1 and conv2 (B256, 25% live weights).
+    Each entry sums its path's shapes."""
+    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
+    from repro_torch.kernels.conv_gemm import (conv_gemm, conv_gemm_dbb,
+                                               conv_gemm_dbb_ref,
+                                               conv_gemm_ref)
+    from repro_torch.kernels.sta_gemm import sta_gemm, sta_gemm_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    entries = []
+
+    def measure(name, label, run_kernel, run_plain, run_lib, rtol, nbytes,
+                ops, rate):
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        err, ok = _close(torch, got, want, rtol)
+        if not ok:
+            failures.append(f"{name} {label}: max err {err}")
+        ms = _time_ms(torch, run_kernel, flush)
+        pms = _time_ms(torch, run_plain, flush)
+        lms = _time_ms(torch, run_lib, flush) if run_lib else None
+        bms, by = _bound_ms(nbytes, ops, rate)
+        print(f"kernel {name} {label}: max abs err {err:.3e} (tol {rtol:g} "
+              f"rel) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, library "
+              + (f"{lms:.4f} ms" if lms is not None else "not timed")
+              + f", bound {bms:.4f} ms ({by})")
+        return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                    bound_ms=bms, nbytes=nbytes, ops=ops, rate=rate)
+
+    def entry(name, replaces, cases, shapes):
+        tot = {key: sum(c["calls"] * c[key] for c in cases)
+               for key in ("ms", "plain_ms", "bound_ms")}
+        tot["library_ms"] = (None if any(c["library_ms"] is None
+                                         for c in cases)
+                             else sum(c["calls"] * c["library_ms"]
+                                      for c in cases))
+        t_bytes = sum(c["calls"] * c["nbytes"] for c in cases)
+        t_ops = sum(c["calls"] * c["ops"] / c["rate"] for c in cases)
+        by = "bytes" if t_bytes / HBM_BYTES_PER_S >= t_ops else "operations"
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{name}.cu",
+                    replaces=replaces, launches=0,
+                    max_abs_err=max(c["err"] for c in cases), bound_by=by,
+                    shapes=shapes, **tot)
+
+    # -- sta_gemm ---------------------------------------------------------
+    cases = []
+    m = 512
+    for k_dim, n, calls in ((2048, 8192, 2), (8192, 2048, 1)):
+        x, w = randn(m, k_dim, dtype=bf16), randn(k_dim, n, dtype=bf16)
+        act = "silu" if n == 8192 else "none"
+        c = measure("sta_gemm", f"M{m} K{k_dim} N{n} act={act} bf16",
+                    lambda: sta_gemm(x, w, act=act),
+                    lambda: sta_gemm_ref(x, w, act=act),
+                    lambda: torch.matmul(x, w), 2e-2,
+                    2 * (m * k_dim + k_dim * n + m * n),
+                    2.0 * m * k_dim * n, BF16_OPS_PER_S)
+        cases.append(dict(c, calls=calls))
+    x, w = randn(333, 1000), randn(1000, 777)
+    b = randn(777)
+    measure("sta_gemm", "ragged M333 K1000 N777 f32 (check)",
+            lambda: sta_gemm(x, w, b, act="gelu"),
+            lambda: sta_gemm_ref(x, w, b, act="gelu"), None, 1e-4,
+            4 * (333 * 1000 + 1000 * 777 + 333 * 777), 2.0 * 333 * 1000 * 777,
+            F32_OPS_PER_S)
+    entries.append(entry(
+        "sta_gemm", "src/repro/kernels/sta_gemm/kernel.py:64", cases,
+        "one layer's MLP: M512 bf16, 2x (K2048,N8192) + 1x (K8192,N2048)"))
+
+    # -- conv_gemm --------------------------------------------------------
+    def conv_case(name, label, bsz, hw, c_in, n, k, stride, packed, calls):
+        x = randn(bsz, hw, hw, c_in)
+        w = randn(k * k * c_in, n) / (k * k * c_in) ** 0.5
+        bias = randn(n)
+        kw = dict(kh=k, kw=k, stride=stride, act="relu")
+        m_rows = bsz * (-(-hw // stride)) ** 2
+        pad = (k - 1) // 2 if stride == 1 else None
+        lib = (None if pad is None else
+               lambda: _nchw_conv(torch, x, wd, bias, k, stride, pad))
+        if packed:
+            p = pack_dbb(w, 8, 2)
+            wd = decompress_bitmask(p.values, p.bitmask, block=8)
+            live = int((p.values != 0).sum().item())
+            nbytes = 4 * (x.numel() + p.values.numel() + p.bitmask.numel()
+                          + n + m_rows * n)
+            return dict(measure(
+                name, label,
+                lambda: conv_gemm_dbb(x, p.values, p.bitmask, bias, nnz=2,
+                                      **kw),
+                lambda: conv_gemm_dbb_ref(x, p.values, p.bitmask, bias, **kw),
+                lib, 1e-4, nbytes, 2.0 * m_rows * live, F32_OPS_PER_S),
+                calls=calls)
+        wd = w
+        nbytes = 4 * (x.numel() + w.numel() + n + m_rows * n)
+        return dict(measure(
+            name, label, lambda: conv_gemm(x, w, bias, **kw),
+            lambda: conv_gemm_ref(x, w, bias, **kw), lib, 1e-4, nbytes,
+            2.0 * m_rows * k * k * c_in * n, F32_OPS_PER_S), calls=calls)
+
+    cases = [conv_case("conv_gemm", "convnet conv0 B256 32x32x3 -> 64 3x3 "
+                       "SAME relu f32", 256, 32, 3, 64, 3, 1, False, 1)]
+    conv_case("conv_gemm", "stride 2 B4 32x32x32 -> 64 3x3 SAME relu f32 "
+              "(check)", 4, 32, 32, 64, 3, 2, False, 0)
+    entries.append(entry(
+        "conv_gemm", "src/repro/kernels/conv_gemm/kernel.py:160", cases,
+        "convnet conv0: B256 32x32x3 -> 64, 3x3 SAME, bias+relu, f32"))
+    cases = [conv_case("conv_gemm_dbb", f"convnet conv{i} B256 {hw}x{hw}x"
+                       f"{c_in} -> {n} 3x3 SAME relu f32, DBB k=2", 256, hw,
+                       c_in, n, 3, 1, True, 1)
+             for i, (hw, c_in, n) in ((1, (16, 64, 128)), (2, (8, 128, 256)))]
+    entries.append(entry(
+        "conv_gemm_dbb", "src/repro/kernels/conv_gemm/kernel.py:215", cases,
+        "convnet conv1 + conv2: B256 16x16x64 -> 128 and 8x8x128 -> 256, 3x3 "
+        "SAME, bias+relu, f32, DBB B8 k2"))
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-width slice
 # ---------------------------------------------------------------------------
@@ -502,7 +660,7 @@ def _logits_fn(torch, dev, engine):
         h, _ = registry.prefill(engine.params, c, toks.to(dev), cache,
                                 start=start)
         return dispatch.matmul(h[:, -1].float().contiguous(), engine.head,
-                               cfg=c)
+                               cfg=c, gemv=True)
     return last_logits
 
 def _slice_phase(torch, dev, report, out_dir):
@@ -730,7 +888,154 @@ def _serve_phase(torch, dev, report, packed, out_dir):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: smoke-width token equality
+# phase 6: the paper's CNN at full width
+# ---------------------------------------------------------------------------
+
+# (label, arch, matmul, batch, the launches the route table implies)
+CNN_RUNS = (
+    ("cnn_a_convnet_dbb_b256", "convnet-dbb", "dbb", 256,
+     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm": 1}),
+    ("cnn_b_convnet_sta_b256", "convnet-dbb", "sta", 256, {"conv_gemm": 3}),
+    ("cnn_c_convnet_dbb_b1", "convnet-dbb", "dbb", 1,
+     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm_skinny": 1}),
+    # lenet's conv0 (N = 6) and, at batch 256, its K = 784 classifier take
+    # the plain routes, as in the reference's cost model
+    ("cnn_d_lenet5_dbb_b256", "lenet5-dbb", "dbb", 256, {"conv_gemm": 1}),
+)
+
+
+def _cnn_phase(torch, dev, report, out_dir):
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import cnn, registry
+
+    counts, ok = {}, True
+    report["cnn"] = {}
+    for label, arch, mode, batch, expect in CNN_RUNS:
+        cfg = get_config(arch)
+        params = registry.init_params(cfg, seed=0, device=dev)
+        if mode == "dbb":
+            params = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        images = torch.randn(batch, cfg.cnn_img, cfg.cnn_img, cfg.cnn_in_ch,
+                             generator=gen, device=dev)
+
+        def run():
+            return cnn.cnn_apply(params, cfg, images, matmul=mode)
+        run()                                           # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts[label] = dict(LAUNCHES)
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        want = {k: expect.get(k, 0) for k in LAUNCHES}
+        launch_ok = counts[label] == want
+        # the plain route: explicit im2col convs, plain classifier matmul
+        plain_cfg = cfg.replace(kernel_routes=(("matmul", "xla"),))
+        plain = cnn.cnn_apply(params, plain_cfg, images, matmul=mode,
+                              use_kernel=False)
+        scale = plain.abs().max().item()
+        tol = CNN_LOGIT_TOL * scale
+        diff = (logits - plain).abs().max().item()
+        top2 = plain.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > tol
+        same = bool((logits.argmax(-1) == plain.argmax(-1))[decided].all())
+        finite = bool(torch.isfinite(logits).all())
+        run_ok = (launch_ok and diff <= tol and same and finite
+                  and tuple(logits.shape) == (batch, cfg.cnn_classes))
+        ok = ok and run_ok
+        print(f"cnn: {label} ({arch} full width, matmul={mode!r}, batch "
+              f"{batch}): logits vs plain route max abs diff {diff:.3e} of "
+              f"max |logit| {scale:.3e} (tol {CNN_LOGIT_TOL:g} of max), "
+              f"classes equal on {int(decided.sum())}/{batch} decided rows: "
+              f"{'ok' if run_ok else 'FAIL'}; launches "
+              f"{ {k: v for k, v in counts[label].items() if v} } (want "
+              f"{expect}{'' if launch_ok else ', FAIL'})")
+        print(f"cnn: {label} wall time of one forward after a warm-up "
+              f"{wall_ms:.3f} ms; median of 10 more "
+              f"{statistics.median(walls):.3f} ms")
+        report["cnn"][label] = dict(
+            wall_ms=wall_ms, median_wall_ms=statistics.median(walls),
+            logit_max_abs_diff=diff, logit_scale=scale,
+            launches=counts[label], ok=run_ok)
+        if out_dir and label.startswith("cnn_a"):
+            _profile(torch, lambda: [run() for _ in range(20)],
+                     f"{label}: 20 forwards", "profile_cnn", out_dir, report)
+    return counts, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 7: dense weights at full width
+# ---------------------------------------------------------------------------
+
+def _dense_phase(torch, dev, report):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas")
+    xcfg = cfg.replace(gemm_impl="xla")
+    params = registry.init_params(cfg, seed=0, device=dev)
+    engine = ServeEngine(cfg, params, max_batch=8, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    lens = [64, 57, 50, 43, 36, 29, 22, 15]
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    new = 64
+    engine.generate(prompts, max_new_tokens=8)          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    missing = [k for k in DENSE_KERNELS if counts[k] == 0]
+    dbb = {k: v for k, v in counts.items() if k.startswith("dbb") and v}
+    n_tok = sum(len(o) for o in out)
+    print(f"dense: olmo-1b full width, unpacked weights: generate 8 prompts "
+          f"(lengths {lens}), max_new_tokens {new}: {t_total * 1e3:.1f} ms, "
+          f"{n_tok / t_total:.1f} generated tokens/s; launches {counts}"
+          + (f"; FAIL: never launched {missing}" if missing else "")
+          + (f"; FAIL: DBB kernels launched {dbb}" if dbb else ""))
+    last_logits = _logits_fn(torch, dev, engine)
+    lk, lp = last_logits(cfg, prompts), last_logits(xcfg, prompts)
+    scale = lp.abs().max().item()
+    tol = LOGIT_TOL * scale
+    diff = (lk - lp).abs().max().item()
+    lok = diff <= tol
+    print(f"dense: prefill last-position logits, kernel vs plain route: max "
+          f"abs diff {diff:.4e} of max |logit| {scale:.4e} (tol "
+          f"{LOGIT_TOL:g} of max) {'ok' if lok else 'FAIL'}")
+    xout = ServeEngine(xcfg, params, max_batch=8,
+                       device=dev).generate(prompts, max_new_tokens=new)
+    same, total, split = _split_rows(out, xout)
+    gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout, split)
+    tok_ok = all(g <= 2 * tol for g in gaps)
+    print(f"dense: greedy tokens, kernel vs plain route: {same}/{total} "
+          f"equal; rows that split (row, step, plain-route gap): "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]} (excused where "
+          f"gap <= 2 x logit tol = {2 * tol:.4e}) "
+          f"{'ok' if tok_ok else 'FAIL'}")
+    report["dense"] = dict(total_ms=t_total * 1e3, tokens=n_tok,
+                           launches=counts, logit_max_abs_diff=diff,
+                           logit_scale=scale, token_agreement=[same, total])
+    return counts, not missing and not dbb and lok and tok_ok
+
+
+# ---------------------------------------------------------------------------
+# phase 8: smoke-width token equality
 # ---------------------------------------------------------------------------
 
 def _token_phase(torch, dev, report):

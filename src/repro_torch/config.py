@@ -31,7 +31,7 @@ class DbbConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The dense-LM fields the serving path reads.
+    """The fields the ported paths read (dense LM serving, the CNN).
 
     gemm_impl:     "pallas" selects the fused kernel route family (the
                    hand-written CUDA kernels on the card, their plain
@@ -45,6 +45,9 @@ class ModelConfig:
                    gcd(cache length, 64).
     norm:          only "nonparam_ln" (OLMo's LayerNorm without affine
                    parameters) is ported.
+    cnn_*:         the cnn family (the paper's own models): conv output
+                   channels per layer, square kernel size, classes,
+                   square input size and input channels.
     """
     name: str = "model"
     family: str = "dense_lm"
@@ -72,6 +75,11 @@ class ModelConfig:
     sliding_window: int = 0
     attn_logit_softcap: float = 0.0
     kv_page_size: int = 0
+    cnn_channels: Tuple[int, ...] = ()
+    cnn_kernel: int = 3
+    cnn_classes: int = 10
+    cnn_img: int = 32
+    cnn_in_ch: int = 3
 
     @property
     def resolved_head_dim(self) -> int:

@@ -1,0 +1,66 @@
+// Dense GEMM, M-tiled: out = act(scale * (x @ w) + bias) for x[M, K] and
+// w[K, N] in one dtype (f32 or bf16), f32 accumulation, output in f32 or
+// bf16.
+//
+// Replaces: src/repro/kernels/sta_gemm/kernel.py, sta_gemm_pallas — the
+// MLP GEMMs of dense-weight prefill (M = batch * prompt, K and N of
+// 2048-8192) and any dense M-tiled GEMM under gemm_impl="pallas".
+//
+// What bounds it on the H100: at the prefill shapes the work is 2·M·K·N
+// operations on (M·K + K·N + M·N) elements, hundreds of operations per
+// byte, far above the card's ~295 bf16 operations per byte: bound by
+// arithmetic. This first version multiplies with plain f32 FMAs
+// (gemm_tile.cuh), not with the tensor cores, so it sits well above that
+// bound; mma / wgmma with TMA-fed tiles is later work. Ragged M, N and K
+// edges are masked in the kernel, where the reference pads copies of the
+// operands to its block grid (sta_gemm/ops.py).
+//
+// Design: the output-stationary 128 x 128 register-tiled block body of
+// gemm_tile.cuh with a row loader for x and a dense loader for w.
+#include "gemm_tile.cuh"
+
+namespace {
+
+using namespace repro::gemm;
+
+template <typename T, typename TO>
+__global__ void __launch_bounds__(kThreads)
+sta_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                const float* __restrict__ scale,
+                const float* __restrict__ bias, TO* __restrict__ out, int M,
+                int K, int N, int act) {
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const RowLoader<T> a(x, m0 + act_row(), M, K);
+  const DenseWeights<T> wl{w, K, N};
+  gemm_tile<TO>(a, wl, M, N, K, m0, n0, scale, bias, act, out);
+}
+
+template <typename T, typename TO>
+void launch(const void* x, const void* w, const float* sc, const float* bi,
+            void* out, int M, int K, int N, int act, cudaStream_t s) {
+  sta_gemm_kernel<T, TO><<<grid_for(M, N), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), sc, bi,
+      static_cast<TO*>(out), M, K, N, act);
+}
+
+}  // namespace
+
+extern "C" int sta_gemm_launch(const void* x, const void* w,
+                               const void* scale, const void* bias, void* out,
+                               int M, int K, int N, int act, int dtype,
+                               int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  const bool bf = dtype == repro::DT_BF16, obf = out_dtype == repro::DT_BF16;
+  if (bf && obf) {
+    launch<__nv_bfloat16, __nv_bfloat16>(x, w, sc, bi, out, M, K, N, act, s);
+  } else if (bf) {
+    launch<__nv_bfloat16, float>(x, w, sc, bi, out, M, K, N, act, s);
+  } else if (obf) {
+    launch<float, __nv_bfloat16>(x, w, sc, bi, out, M, K, N, act, s);
+  } else {
+    launch<float, float>(x, w, sc, bi, out, M, K, N, act, s);
+  }
+  return (int)cudaGetLastError();
+}

@@ -2,12 +2,16 @@
 with a plain PyTorch version of each.
 
 dbb_gemm:  DBB structured-sparse GEMM, M-tiled (prefill projections).
+sta_gemm:  dense GEMM, M-tiled (dense-weight prefill MLP).
 skinny:    M ≤ 32 weight-streaming GEMMs — DBB-compressed (decode
-           projections) and dense (the head GEMV).
+           projections) and dense (dense-weight decode, the head GEMV).
+conv_gemm: implicit-GEMM NHWC convolution, dense or DBB-compressed
+           weight (the CNN's conv layers).
 attn:      causal and packed (block-diagonal) flash prefill, and one-token
            paged decode attention; a contiguous cache is the
            identity block table.
 epilogue:  the fused scale → bias → act → store order all of them share.
-dispatch:  route tables and the front doors the model layers call.
+dispatch:  route tables and the front doors the model layers call
+           (matmul, conv, attention, attn_decode).
 build:     nvcc + ctypes loader (builds at first use, never at import).
 """

@@ -34,8 +34,11 @@ KERNEL_SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_prefill": "flash_prefill.cu",
     "flash_prefill_packed": "flash_prefill_packed.cu",
+    "sta_gemm": "sta_gemm.cu",
+    "conv_gemm": "conv_gemm.cu",
+    "conv_gemm_dbb": "conv_gemm_dbb.cu",
 }
-_HEADERS = ("common.cuh", "flash_tile.cuh")
+_HEADERS = ("common.cuh", "flash_tile.cuh", "gemm_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

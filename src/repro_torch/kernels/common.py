@@ -26,7 +26,9 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 # the kernel, and nowhere else (the CPU's plain path does not count).
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "sta_gemm_skinny": 0, "paged_decode": 0,
-                            "flash_prefill": 0, "flash_prefill_packed": 0}
+                            "flash_prefill": 0, "flash_prefill_packed": 0,
+                            "sta_gemm": 0, "conv_gemm": 0,
+                            "conv_gemm_dbb": 0}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,143 @@
+"""Wrappers of the implicit-GEMM conv kernels: `conv_gemm`
+(csrc/conv_gemm.cu) takes a dense weight ``[kh·kw·C, N]``,
+`conv_gemm_dbb` (csrc/conv_gemm_dbb.cu) the DBB planes, and
+`conv_gemm_packed` a `DbbWeight` with its per-channel scale in the
+epilogue — one for one with the reference's wrappers.
+
+On a CUDA tensor each launches its kernel (or raises); on a CPU tensor it
+runs the plain version (explicit im2col + one product). The kernels read
+the unpadded NHWC image and treat positions outside it as zero (SAME
+padding, XLA's ``lo = total // 2``); output rows and channels past Ho, Wo
+and N are masked in the store. Nothing is padded or copied, and their
+shared memory is fixed, so no image size is refused for lack of it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.dbb import DbbWeight
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES,
+                                        check_operand, coerce_bias_scale)
+from repro_torch.kernels.conv_gemm.ref import (conv_gemm_dbb_ref,
+                                               conv_gemm_ref, out_spatial)
+from repro_torch.kernels.epilogue import ACT_CODES
+
+__all__ = ["conv_gemm", "conv_gemm_dbb", "conv_gemm_packed", "out_spatial"]
+
+_INT_MAX = 2 ** 31 - 1     # the kernels index pixels and channels in int
+
+
+def _geometry(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str,
+              out_dtype: Optional[torch.dtype]) -> Tuple[int, ...]:
+    """Validate x and return the launchers' geometry (B, H, W, C, Ho, Wo,
+    kh, kw, stride, pad_top, pad_left)."""
+    if x.ndim != 4:
+        raise ValueError(f"x {tuple(x.shape)}: expected NHWC [B, H, W, C]")
+    b, h, w, c = x.shape
+    ho, pt, _ = out_spatial(h, kh, stride, padding)
+    wo, pl, _ = out_spatial(w, kw, stride, padding)
+    if out_dtype not in (None, x.dtype):
+        raise TypeError(f"out_dtype {out_dtype}: the kernels store x's "
+                        f"dtype {x.dtype}")
+    check_operand("x", x, (b, h, w, c), FLOAT_DTYPES, x.device)
+    if b * ho * wo > _INT_MAX or x.numel() > _INT_MAX:
+        raise ValueError(f"x {tuple(x.shape)}: over 2^31 pixels or values")
+    return b, h, w, c, ho, wo, kh, kw, stride, pt, pl
+
+
+def _empty(geom, n: int) -> bool:
+    """An empty output (no grid to launch): B·Ho·Wo·N == 0."""
+    b, _, _, _, ho, wo = geom[:6]
+    return b * ho * wo * n == 0
+
+
+def _run(name: str, args, geom, n: int, tail, x: torch.Tensor
+         ) -> torch.Tensor:
+    """Launch conv kernel ``name`` on the current stream; count it."""
+    b, _, _, _, ho, wo = geom[:6]
+    out = torch.empty((b, ho, wo, n), dtype=x.dtype, device=x.device)
+    fn = getattr(build.load(name), f"{name}_launch")
+    fn.argtypes = ([ctypes.c_void_p] * (len(args) + 1)
+                   + [ctypes.c_int] * (len(geom) + 1 + len(tail) + 1)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(*args, out.data_ptr(), *geom, n, *tail,
+            build.dtype_code(x.dtype), build.stream_handle(x.device))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def conv_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None, *,
+              kh: int, kw: int, stride: int = 1, padding: str = "SAME",
+              act: str = "none", out_dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """``act(scale · conv2d(x, w) + bias)``: x ``[B, H, W, C]`` NHWC, w the
+    explicit lowering's ``[kh·kw·C, N]`` in x's dtype → ``[B, Ho, Wo, N]``
+    in x's dtype."""
+    geom = _geometry(x, kh, kw, stride, padding, out_dtype)
+    k_dim, n = kh * kw * x.shape[-1], w.shape[-1]
+    check_operand("w", w, (k_dim, n), (x.dtype,), x.device)
+    bias, scale = coerce_bias_scale(bias, scale, n, x.device)
+    if x.device.type == "cpu" or _empty(geom, n):
+        return conv_gemm_ref(x, w, bias, scale, kh=kh, kw=kw, stride=stride,
+                             padding=padding, act=act)
+    return _run("conv_gemm", (x.data_ptr(), w.data_ptr(), build.ptr(scale),
+                              build.ptr(bias)),
+                geom, n, (ACT_CODES[act],), x)
+
+
+def conv_gemm_dbb(x: torch.Tensor, values: torch.Tensor,
+                  bitmask: torch.Tensor, bias=None, scale=None, *, kh: int,
+                  kw: int, stride: int = 1, padding: str = "SAME",
+                  act: str = "none", block: int = 8, nnz: int = 4,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`conv_gemm` against the DBB planes ``values [K/8·nnz, N]`` (f32) and
+    ``bitmask [K/8, N]`` (int32), K = kh·kw·C. The kernel takes B = 8 and
+    kw·C % 8 == 0, so each kernel row covers whole DBB blocks."""
+    geom = _geometry(x, kh, kw, stride, padding, out_dtype)
+    c = x.shape[-1]
+    k_dim, n = kh * kw * c, values.shape[-1]
+    if block != 8:
+        raise ValueError(f"DBB block {block}: the kernel takes B = 8")
+    if not 1 <= nnz <= 8:
+        raise ValueError(f"nnz={nnz} outside [1, 8]")
+    if (kw * c) % block:
+        raise ValueError(f"kw·C = {kw * c} not a multiple of the DBB block "
+                         f"{block}")
+    check_operand("values", values, (k_dim // block * nnz, n),
+                  (torch.float32,), x.device)
+    check_operand("bitmask", bitmask, (k_dim // block, n), (torch.int32,),
+                  x.device)
+    bias, scale = coerce_bias_scale(bias, scale, n, x.device)
+    if x.device.type == "cpu" or _empty(geom, n):
+        return conv_gemm_dbb_ref(x, values, bitmask, bias, scale, kh=kh,
+                                 kw=kw, stride=stride, padding=padding,
+                                 act=act, block=block)
+    return _run("conv_gemm_dbb", (x.data_ptr(), values.data_ptr(),
+                                  bitmask.data_ptr(), build.ptr(scale),
+                                  build.ptr(bias)),
+                geom, n, (nnz, ACT_CODES[act]), x)
+
+
+def conv_gemm_packed(x: torch.Tensor, p: DbbWeight, bias=None, *, kh: int,
+                     kw: int, stride: int = 1, padding: str = "SAME",
+                     act: str = "none",
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`conv_gemm_dbb` on a 2-D `DbbWeight` (``k_dim = kh·kw·C``); its
+    per-channel scale, if any, runs in the epilogue."""
+    if p.bits != 8:
+        raise NotImplementedError(
+            f"bits={p.bits}: the conv kernels take the bits=8 plane only "
+            "(w4 is not ported)")
+    if p.k_dim != kh * kw * x.shape[-1]:
+        raise ValueError(f"packed K={p.k_dim} against kh·kw·C = "
+                         f"{kh * kw * x.shape[-1]}")
+    return conv_gemm_dbb(x, p.values, p.bitmask, bias, p.scale, kh=kh,
+                         kw=kw, stride=stride, padding=padding, act=act,
+                         block=p.block, nnz=p.nnz, out_dtype=out_dtype)

@@ -1,6 +1,6 @@
-"""Kernel dispatch: the route tables of the ``matmul``, ``attention`` and
-``attn_decode`` domains, their guards, and the front doors the model
-layers call.
+"""Kernel dispatch: the route tables of the ``matmul``, ``conv``,
+``attention`` and ``attn_decode`` domains, their guards, and the front
+doors the model layers call.
 
 Route names and the override order are the JAX package's, so overrides
 carry over: ``REPRO_FORCE_ROUTE`` (one bare route name, or
@@ -9,19 +9,32 @@ carry over: ``REPRO_FORCE_ROUTE`` (one bare route name, or
 not implement, warns once and falls back to auto.
 
 Auto is a rule table, not a cost model: the first applicable route in the
-domain's preference order. On the serving path's shapes it picks what the
-reference's roofline selection picks (the specialised kernel wins every
-comparison there); tests/test_torch_dispatch.py holds the two against each
-other. Guards are stated for the H100 kernels in ``csrc/`` — what each
-kernel takes — not carried over from TPU VMEM budgets.
+domain's preference order. On the serving path's and the CNN's shapes it
+picks what the reference's roofline selection picks;
+tests/test_torch_dispatch.py holds the two against each other. Guards are
+stated for the H100 kernels in ``csrc/`` — what each kernel takes — not
+carried over from TPU VMEM budgets. Two rules only keep the reference's
+choice where its cost model turns a kernel down:
 
-Ported routes: matmul ``xla`` (plain torch), ``skinny_sta``,
-``dbb_packed``, ``skinny_dbb``; attention ``attn_flash``,
+- narrow N (``N < NARROW_N``): every kernel computes 128-column output
+  tiles, so under 16 columns more than 7/8 of a tile's FMAs fall on
+  masked columns, while the plain route computes only the live ones.
+  Dense GEMMs and convs take the plain route there (the CNN's N = 10
+  classifier, lenet's N = 6 conv0); a packed GEMM keeps its kernel while
+  the plain route's dense round trip of the weight (2·K·N elements)
+  exceeds the kernel's masked output lanes (M·(128 − N)) — the
+  reference's roofline comparison at these shapes, kept until an H100
+  cost model measured on the card replaces it.
+- the head GEMV (``gemv=True``) stays off the M-tiled ``sta`` route: its
+  M-tiling buys nothing on ``[B, d]·[d, V]``, as in the reference.
+
+Ported routes: matmul ``xla`` (plain torch), ``sta``, ``skinny_sta``,
+``dbb_packed``, ``skinny_dbb``; conv ``conv_xla`` (explicit im2col),
+``conv_sta``, ``conv_dbb``; attention ``attn_flash``,
 ``attn_packed_flash``, ``attn_naive``, ``attn_packed_ref``; attn_decode
-``attn_decode_flash``, ``attn_decode_xla``. The reference's other routes
-(``sta``, the w4 routes) have no kernel here yet; ``attn_chunked`` is an
-XLA route, not a kernel, and a pin to it takes ``attn_naive`` (its
-stand-in) with a warning.
+``attn_decode_flash``, ``attn_decode_xla``. The reference's w4 routes have
+no kernel here yet; ``attn_chunked`` is an XLA route, not a kernel, and a
+pin to it takes ``attn_naive`` (its stand-in) with a warning.
 """
 from __future__ import annotations
 
@@ -36,12 +49,17 @@ from repro_torch.core.dbb import DbbWeight
 from repro_torch.kernels.attn.ops import PAGE_MIN, flash_ok, paged_decode_ok
 from repro_torch.kernels.common import FLOAT_DTYPES, SKINNY_M_MAX, skinny_ok
 
-__all__ = ["OpSpec", "select", "matmul", "attention", "packed_attention",
-           "chunk_attention_route", "decode_attention_route", "pallas_route_active",
+__all__ = ["OpSpec", "select", "matmul", "conv", "attention",
+           "packed_attention", "chunk_attention_route",
+           "decode_attention_route", "pallas_route_active",
            "flash_backend_active", "forced_route", "routes_from_cfg",
-           "FORCE_ROUTE_ENV", "ROUTES"]
+           "FORCE_ROUTE_ENV", "ROUTES", "NARROW_N"]
 
 FORCE_ROUTE_ENV = "REPRO_FORCE_ROUTE"
+# below this many output columns a kernel's 128-column tile is mostly
+# masked lanes (see the module doc)
+NARROW_N = 16
+_TILE_N = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +67,9 @@ class OpSpec:
     """Static description of one op. GEMMs use (m, k, n) literally; the
     attention domain maps T to m, head_dim to k and S to n (a packed batch
     carries its total token count in both); the decode domain maps the
-    GQA group to m, head_dim to k and the cache length to n."""
+    GQA group to m, head_dim to k and the cache length to n. Convs
+    describe the implied GEMM (M = B·Ho·Wo, K = kh·kw·C) and carry
+    ``conv_geom = (b, h, w, c, kh, kw, stride)``."""
     domain: str
     m: int
     k: int
@@ -60,7 +80,9 @@ class OpSpec:
     bits: int = 8
     pallas: bool = False          # fused kernel route family is active
     dense_fused: bool = True      # call site opts dense weights into kernels
+    gemv: bool = False            # the decode head GEMV: never M-tiled
     float_ok: bool = True         # operands are f32 / bf16
+    conv_geom: Tuple[int, ...] = ()
     page: int = 0
     flash_active: bool = False
     packed_seq: bool = False      # packed (cu_seqlens) prefill batch
@@ -73,19 +95,39 @@ class OpSpec:
 _NO_PALLAS = "fused route not selected (gemm_impl != 'pallas')"
 
 
-def _guard_skinny_sta(s: OpSpec) -> str:
+def _guard_dense(s: OpSpec) -> str:
+    """What both dense GEMM kernels need."""
     if s.packed:
-        return "weight is DBB-packed (the dense kernel takes dense [K,N])"
+        return "weight is DBB-packed (the dense kernels take dense [K,N])"
     if not s.pallas:
         return _NO_PALLAS
     if not s.dense_fused:
         return "call site keeps dense weights on the plain matmul"
     if not s.float_ok:
         return "operand dtype outside the kernel contract (f32/bf16)"
+    if s.n < NARROW_N:
+        return (f"N={s.n} under {NARROW_N}: the 128-column tile would be "
+                "mostly masked lanes")
+    return ""
+
+
+def _guard_skinny_sta(s: OpSpec) -> str:
+    r = _guard_dense(s)
+    if r:
+        return r
     if not skinny_ok(s.m):
         return f"outside the skinny regime (M ≤ {SKINNY_M_MAX})"
     if s.k % 8:
         return f"K={s.k} not a multiple of the kernel's 8-row groups"
+    return ""
+
+
+def _guard_sta(s: OpSpec) -> str:
+    r = _guard_dense(s)
+    if r:
+        return r
+    if s.gemv:
+        return "head GEMV: M-tiling gains nothing on [B,d]·[d,V]"
     return ""
 
 
@@ -102,6 +144,10 @@ def _guard_dbb_packed(s: OpSpec) -> str:
         return f"K={s.k} not divisible by the DBB block {s.block}"
     if not s.float_ok:
         return "operand dtype outside the kernel contract (f32/bf16)"
+    if s.n < NARROW_N and s.m * (_TILE_N - s.n) > 2 * s.k * s.n:
+        return (f"N={s.n} under {NARROW_N}: the masked output lanes "
+                f"M·(128−N) = {s.m * (_TILE_N - s.n)} exceed the plain "
+                f"route's dense weight round trip 2·K·N = {2 * s.k * s.n}")
     return ""
 
 
@@ -111,6 +157,48 @@ def _guard_skinny_dbb(s: OpSpec) -> str:
         return r
     if not skinny_ok(s.m):
         return f"outside the skinny regime (M ≤ {SKINNY_M_MAX})"
+    return ""
+
+
+def _guard_conv_kernel(s: OpSpec) -> str:
+    """What both implicit-GEMM conv kernels need. Their shared-memory
+    staging is a fixed 16.6 KB (one [128, 16] patch tile and one [16, 128]
+    weight tile), so no image size is refused for it."""
+    if not s.pallas:
+        return "implicit-GEMM kernels not selected (use_kernel=False)"
+    if not s.float_ok:
+        return "operand dtype outside the kernel contract (f32/bf16)"
+    if len(s.conv_geom) < 7:
+        return "conv_geom=(b, h, w, c, kh, kw, stride) required"
+    return ""
+
+
+def _guard_conv_sta(s: OpSpec) -> str:
+    if s.packed:
+        return "weight is DBB-packed"
+    r = _guard_conv_kernel(s)
+    if r:
+        return r
+    if s.n < NARROW_N:
+        return (f"N={s.n} under {NARROW_N}: the 128-channel tile would be "
+                "mostly masked lanes")
+    return ""
+
+
+def _guard_conv_dbb(s: OpSpec) -> str:
+    if not s.packed:
+        return "weight is dense"
+    if s.bits != 8:
+        return f"bits={s.bits}: the conv kernels take the bits=8 plane only"
+    r = _guard_conv_kernel(s)
+    if r:
+        return r
+    if s.block != 8 or not 1 <= s.nnz <= 8:
+        return f"DBB B={s.block}, k={s.nnz}: the kernel takes B=8, k≤8"
+    c, kw = s.conv_geom[3], s.conv_geom[5]
+    if (kw * c) % s.block:
+        return (f"kw·C = {kw * c} not divisible by the DBB block "
+                f"{s.block} (a kernel row must cover whole blocks)")
     return ""
 
 
@@ -170,7 +258,11 @@ ROUTES: Dict[str, Tuple[Tuple[str, Callable[[OpSpec], str]], ...]] = {
     "matmul": (("skinny_dbb", _guard_skinny_dbb),
                ("dbb_packed", _guard_dbb_packed),
                ("skinny_sta", _guard_skinny_sta),
+               ("sta", _guard_sta),
                ("xla", _always)),
+    "conv": (("conv_dbb", _guard_conv_dbb),
+             ("conv_sta", _guard_conv_sta),
+             ("conv_xla", _always)),
     "attention": (("attn_flash", _guard_attn_flash),
                   ("attn_packed_flash", _guard_attn_packed_flash),
                   ("attn_naive", _guard_attn_naive),
@@ -270,11 +362,12 @@ def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None
 
 def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
            out_dtype: Optional[torch.dtype] = None, cfg=None,
-           pallas: Optional[bool] = None, dense_fused: bool = True
-           ) -> torch.Tensor:
+           pallas: Optional[bool] = None, dense_fused: bool = True,
+           gemv: bool = False) -> torch.Tensor:
     """``act(scale * (x @ w) + bias)`` for a dense ``[K, N]`` tensor or a
     2-D `DbbWeight`, through the chosen route. ``pallas=None`` derives the
-    route family from ``cfg``."""
+    route family from ``cfg``; ``gemv`` marks the decode head GEMV, which
+    never takes the M-tiled ``sta`` route."""
     packed = isinstance(w, DbbWeight)
     if pallas is None:
         pallas = pallas_route_active(cfg)
@@ -287,10 +380,14 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
         domain="matmul", m=m, k=k_dim, n=n, packed=packed,
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
         bits=w.bits if packed else 8, pallas=bool(pallas),
-        dense_fused=dense_fused,
-        float_ok=x.dtype in (torch.float32, torch.bfloat16))
+        dense_fused=dense_fused, gemv=gemv,
+        float_ok=x.dtype in FLOAT_DTYPES)
     name, _ = select(spec, routes_from_cfg(cfg))
 
+    if name == "sta":
+        from repro_torch.kernels.sta_gemm.ops import sta_gemm
+        return sta_gemm(x.contiguous(), w.to(x.dtype).contiguous(), bias,
+                        scale, act=act, out_dtype=out_dtype)
     if name == "skinny_sta":
         from repro_torch.kernels.skinny.ops import sta_gemm_skinny
         return sta_gemm_skinny(x, w.to(x.dtype).contiguous(), bias, scale,
@@ -326,6 +423,44 @@ def _matmul_xla(x, w, bias, scale, *, act, out_dtype):
         y = y + bias.to(y.dtype)
     y = apply_act(y, act)
     return y.to(out_dtype) if out_dtype is not None else y
+
+
+def conv(x: torch.Tensor, w, bias=None, *, kh: int, kw: int,
+         stride: int = 1, padding: str = "SAME", act: str = "none",
+         out_dtype: Optional[torch.dtype] = None, cfg=None,
+         use_kernel: bool = True) -> torch.Tensor:
+    """Conv as GEMM: ``act(conv2d(x, w) + bias)`` for NHWC ``x`` and a
+    dense ``[kh·kw·C, N]`` weight or a packed `DbbWeight` →
+    ``[B, Ho, Wo, N]``. ``use_kernel=False`` pins the explicit im2col
+    route (``conv_xla``). A w4 leaf raises: the reference decompresses it
+    up front, and w4 is not ported."""
+    from repro_torch.kernels.conv_gemm import ops as C
+    from repro_torch.kernels.conv_gemm import ref as R
+    packed = isinstance(w, DbbWeight)
+    if packed and w.bits != 8:
+        raise NotImplementedError(
+            f"bits={w.bits}: w4 conv weights are not ported")
+    b, h, w_dim, c = x.shape
+    ho, _, _ = R.out_spatial(h, kh, stride, padding)
+    wo, _, _ = R.out_spatial(w_dim, kw, stride, padding)
+    spec = OpSpec(
+        domain="conv", m=b * ho * wo, k=kh * kw * c,
+        n=w.n_dim if packed else w.shape[1], packed=packed,
+        block=w.block if packed else 8, nnz=w.nnz if packed else 4,
+        pallas=use_kernel, float_ok=x.dtype in FLOAT_DTYPES,
+        conv_geom=(b, h, w_dim, c, kh, kw, stride))
+    name, _ = select(spec, routes_from_cfg(cfg))
+    geom = dict(kh=kh, kw=kw, stride=stride, padding=padding, act=act,
+                out_dtype=out_dtype)
+    if name == "conv_dbb":
+        return C.conv_gemm_packed(x.contiguous(), w, bias, **geom)
+    if name == "conv_sta":
+        return C.conv_gemm(x.contiguous(), w.to(x.dtype).contiguous(), bias,
+                           **geom)
+    if packed:
+        return R.conv_gemm_dbb_ref(x, w.values, w.bitmask, bias, w.scale,
+                                   block=w.block, **geom)
+    return R.conv_gemm_ref(x, w, bias, **geom)
 
 
 _ATTN_IMPL_ROUTE = {"flash": "attn_flash", "chunked": "attn_chunked",

@@ -1,7 +1,8 @@
 """The port's route choice against the reference's registry
 (`repro.kernels.dispatch.select`) on the serving path's shapes, at the
-smoke and the full olmo-1b widths, and the override order
-REPRO_FORCE_ROUTE > kernel_routes > auto."""
+smoke and the full olmo-1b widths, with packed and with dense weights; on
+every conv and classifier of the CNN configs at full width; and the
+override order REPRO_FORCE_ROUTE > kernel_routes > auto."""
 import math
 import warnings
 
@@ -119,9 +120,154 @@ def test_override_order_matches_reference(monkeypatch, env, cfg_route, want):
 
 
 def test_unported_forced_route_warns_and_falls_back(monkeypatch):
-    monkeypatch.setenv("REPRO_FORCE_ROUTE", "matmul=sta")
+    monkeypatch.setenv("REPRO_FORCE_ROUTE", "matmul=dbb_packed_w4")
     _, tcfg = _cfgs(True)
     _, tspec = _matmul_specs(tcfg, 48)[0]
     with pytest.warns(UserWarning, match="not ported"):
         name, reasons = td.select(tspec, {})
-    assert name == "dbb_packed" and "sta" not in reasons
+    assert name == "dbb_packed" and "dbb_packed_w4" not in reasons
+
+
+def _dense_specs(cfg, m: int):
+    """(jax OpSpec, port OpSpec) of the dense-weights path's GEMMs at
+    M = m: the attention projections (kept on the plain matmul by their
+    call site), the three MLP projections in bf16 (the SiLU gate fused),
+    and the f32 head GEMV."""
+    d, f = cfg.d_model, cfg.d_ff
+    hq = cfg.num_heads * cfg.resolved_head_dim
+    ops = [(d, hq, 0, False, False), (hq, d, 0, False, False),
+           (d, f, 0, True, False), (d, f, 1, True, False),
+           (f, d, 0, True, False), (d, cfg.vocab_size, 0, True, True)]
+    out = []
+    for k, n, epi, fused, gemv in ops:
+        item = 4 if gemv else 2
+        out.append((
+            jd.OpSpec(domain="matmul", m=m, k=k, n=n, itemsize=item,
+                      out_itemsize=item, epilogue_ops=epi, pallas=True,
+                      dense_fused=fused, gemv=gemv),
+            td.OpSpec(domain="matmul", m=m, k=k, n=n, pallas=True,
+                      dense_fused=fused, gemv=gemv)))
+    return out
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("m", [8, 48, 64, 96, 512])
+def test_dense_weight_routes_match_reference(smoke, m):
+    """Unpacked weights under gemm_impl="pallas": the MLP takes ``sta``
+    (M-tiled) above the skinny regime and ``skinny_sta`` in it; the
+    attention projections stay plain; the head GEMV takes ``skinny_sta``
+    at M ≤ 32 and the plain matmul above, never ``sta``."""
+    jcfg, tcfg = _cfgs(smoke)
+    got_all = []
+    for jspec, tspec in _dense_specs(tcfg, m):
+        want, _ = jd.select(jspec, jd.routes_from_cfg(jcfg))
+        got, _ = td.select(tspec, td.routes_from_cfg(tcfg))
+        assert got == want, (jspec, got, want)
+        got_all.append(got)
+    mlp = "skinny_sta" if m <= 32 else "sta"
+    head = "skinny_sta" if m <= 32 else "xla"
+    assert got_all == ["xla", "xla", mlp, mlp, mlp, head]
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_head_gemv_route_matches_reference(m):
+    """The head call as the engine makes it (f32, ``gemv=True``): skinny
+    kernel at M = 8, plain matmul at M = 64 — in both packages."""
+    jcfg, tcfg = _cfgs(False)
+    d, v = tcfg.d_model, tcfg.vocab_size
+    want, _ = jd.select(jd.OpSpec(domain="matmul", m=m, k=d, n=v,
+                                  itemsize=4, out_itemsize=4, pallas=True,
+                                  gemv=True))
+    got, reasons = td.select(td.OpSpec(domain="matmul", m=m, k=d, n=v,
+                                       pallas=True, gemv=True))
+    assert got == want == ("skinny_sta" if m == 8 else "xla")
+    assert reasons["sta"].startswith("head GEMV")
+
+
+def _cnn_layers(cfg):
+    """(name, h, w, c, N) of every conv, then ("fc", K, N) — full width."""
+    layers, size, c = [], cfg.cnn_img, cfg.cnn_in_ch
+    for i, n in enumerate(cfg.cnn_channels):
+        layers.append((f"conv{i}", size, size, c, n))
+        size, c = size // 2, n
+    return layers, size * size * c
+
+
+def _cnn_specs(arch: str, b: int, mode: str):
+    """(layer, jax OpSpec, port OpSpec) of every conv and the classifier
+    the CNN issues at batch b under ``matmul=mode`` ("sta": dense weights;
+    "dbb": packed where K % 8 == 0). Bias and ReLU ride each conv, bias
+    the classifier, as `cnn_apply` calls them."""
+    cfg = tget(arch)
+    k, nnz = cfg.cnn_kernel, cfg.dbb.nnz
+    layers, fdim = _cnn_layers(cfg)
+    out = []
+    for name, h, w, c, n in layers:
+        kd = k * k * c
+        packed = mode == "dbb" and kd % 8 == 0
+        geom = (b, h, w, c, k, k, 1)
+        out.append((name,
+                    jd.OpSpec(domain="conv", m=b * h * w, k=kd, n=n,
+                              packed=packed, nnz=nnz, vals_itemsize=4,
+                              epilogue_ops=2, pallas=True,
+                              conv_geom=geom + ("SAME",)),
+                    td.OpSpec(domain="conv", m=b * h * w, k=kd, n=n,
+                              packed=packed, nnz=nnz, pallas=True,
+                              conv_geom=geom)))
+    packed = mode == "dbb"
+    out.append(("fc",
+                jd.OpSpec(domain="matmul", m=b, k=fdim, n=cfg.cnn_classes,
+                          packed=packed, nnz=nnz, vals_itemsize=4,
+                          epilogue_ops=1, pallas=True),
+                td.OpSpec(domain="matmul", m=b, k=fdim, n=cfg.cnn_classes,
+                          packed=packed, nnz=nnz, pallas=True)))
+    return out
+
+
+# the reference's routes at full width (ISSUE table; lenet's fc at batch
+# 256 takes the plain route in the reference's cost model)
+CNN_ROUTES = {
+    ("convnet-dbb", "dbb", 1): ["conv_sta", "conv_dbb", "conv_dbb",
+                                "skinny_dbb"],
+    ("convnet-dbb", "dbb", 256): ["conv_sta", "conv_dbb", "conv_dbb",
+                                  "dbb_packed"],
+    ("convnet-dbb", "sta", 1): ["conv_sta"] * 3 + ["xla"],
+    ("convnet-dbb", "sta", 256): ["conv_sta"] * 3 + ["xla"],
+    ("lenet5-dbb", "dbb", 1): ["conv_xla", "conv_sta", "skinny_dbb"],
+    ("lenet5-dbb", "dbb", 256): ["conv_xla", "conv_sta", "xla"],
+    ("lenet5-dbb", "sta", 1): ["conv_xla", "conv_sta", "xla"],
+    ("lenet5-dbb", "sta", 256): ["conv_xla", "conv_sta", "xla"],
+}
+
+
+@pytest.mark.parametrize("arch,mode,b", sorted(CNN_ROUTES))
+def test_cnn_routes_match_reference(arch, mode, b):
+    got_all = []
+    for name, jspec, tspec in _cnn_specs(arch, b, mode):
+        want, _ = jd.select(jspec)
+        got, _ = td.select(tspec)
+        assert got == want, (arch, mode, b, name, got, want)
+        got_all.append(got)
+    assert got_all == CNN_ROUTES[(arch, mode, b)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 256])
+def test_cnn_fc_routes_match_reference_at_every_batch(b):
+    """The packed classifiers at the batches between: K = 4096 keeps its
+    kernel, K = 784 drops to the plain route at 256 only."""
+    for arch in ("convnet-dbb", "lenet5-dbb"):
+        _, jspec, tspec = _cnn_specs(arch, b, "dbb")[-1]
+        assert td.select(tspec)[0] == jd.select(jspec)[0]
+
+
+def test_conv_pins_and_use_kernel(monkeypatch):
+    """``use_kernel=False`` (pallas off) leaves only ``conv_xla``; a pin
+    carries over by name; a pin whose guard rejects falls back."""
+    _, _, spec = _cnn_specs("convnet-dbb", 8, "dbb")[1]
+    assert td.select(spec)[0] == "conv_dbb"
+    off = td.OpSpec(**{**spec.__dict__, "pallas": False})
+    assert td.select(off)[0] == "conv_xla"
+    assert td.select(spec, {"conv": "conv_xla"})[0] == "conv_xla"
+    monkeypatch.setenv("REPRO_FORCE_ROUTE", "conv=conv_sta")
+    with pytest.warns(UserWarning, match="not applicable"):
+        assert td.select(spec)[0] == "conv_dbb"

@@ -31,14 +31,22 @@ def configs(gemm_impl: str = "pallas", pin: bool = False, **kw):
             tget("olmo-1b", smoke=True).replace(**kw))
 
 
-def packed_params(seed: int = 0):
-    """(reference packed tree, the same tree in the port)."""
+def dense_params(seed: int = 0):
+    """(reference dense tree, the same tree in the port): the weights
+    `packed_params` packs, left unpacked."""
     cfg, _ = configs()
     p = jax.tree_util.tree_map(
         np.asarray, registry.init_params(jax.random.PRNGKey(seed), cfg))
     p["embed"]["table"] = p["embed"]["table"] * np.float32(0.1)
     p["layers"] = jax.tree_util.tree_map(lambda a: a * np.float32(3.0),
                                          p["layers"])
+    return p, params_from_numpy(p)
+
+
+def packed_params(seed: int = 0):
+    """(reference packed tree, the same tree in the port)."""
+    cfg, _ = configs()
+    p, _ = dense_params(seed)
     jpacked = pack_tree(apply_dbb_to_tree(p, cfg.dbb,
                                           straight_through=False), cfg.dbb)
     return jpacked, params_from_numpy(

@@ -1,8 +1,10 @@
 """Each CUDA kernel against its plain PyTorch version on the card, at edge
-shapes the serving path does not reach: ragged M and N, every skinny M
+shapes the serving path does not reach: ragged M, K and N, every skinny M
 bucket, both activation dtypes, GQA groups, a sliding window, a logit
-softcap, a shuffled page table and a page large enough to need dynamic
-shared memory. Marked ``gpu``; each test skips without a card.
+softcap, a shuffled page table, a page large enough to need dynamic
+shared memory, and convolutions with odd image sizes, 1-16 channels,
+stride 2 and VALID padding. Marked ``gpu``; each test skips without a
+card.
 
 Imports torch and the port only (the card's machine has no JAX):
 
@@ -29,10 +31,12 @@ from repro_torch.kernels.attn.ref import (flash_prefill_ref,
                                           packed_prefill_ref,
                                           paged_decode_ref)
 from repro_torch.kernels.common import LAUNCHES
+from repro_torch.kernels.conv_gemm import (conv_gemm, conv_gemm_dbb,
+                                           conv_gemm_dbb_ref, conv_gemm_ref)
 from repro_torch.kernels.dbb_gemm import dbb_gemm
 from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
 from repro_torch.kernels.skinny import dbb_gemm_skinny, sta_gemm_skinny
-from repro_torch.kernels.skinny.ref import sta_gemm_ref
+from repro_torch.kernels.sta_gemm import sta_gemm, sta_gemm_ref
 
 
 def _decode_operands(b, hkv, g, d, s, page, seed, shuffle=False):
@@ -183,3 +187,99 @@ def test_gpu_flash_prefill_packed(cuda, dtype, lens, pad, hq, hkv, window,
                               v.transpose(0, 1), seg, sm_scale=d ** -0.5,
                               window=window, softcap=softcap).transpose(0, 1)
     _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,act,out_f32", [
+    (1, 5, 3, "none", False),               # every edge ragged
+    (37, 72, 50, "silu", False),
+    (130, 200, 300, "gelu", True),          # f32 output of bf16 operands
+    (512, 256, 384, "relu", False)])
+def test_gpu_sta_gemm(cuda, dtype, m, k, n, act, out_f32):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    bias = torch.randn(n, generator=g, device=cuda)
+    scale = torch.rand(n, generator=g, device=cuda) + 0.5
+    od = torch.float32 if out_f32 else None
+    before = LAUNCHES["sta_gemm"]
+    got = sta_gemm(x, w, bias, scale, act=act, out_dtype=od)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sta_gemm"] == before + 1
+    assert got.dtype == (od or dtype)
+    _gpu_close(got, sta_gemm_ref(x, w, bias, scale, act=act, out_dtype=od),
+               dtype)
+
+
+def _conv_inputs(cuda, b, h, w, c, k, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(h * w + c + n)
+    x = torch.randn(b, h, w, c, generator=g, device=cuda).to(dtype)
+    wt = torch.randn(k * k * c, n, generator=g, device=cuda) / (k * k * c
+                                                                ) ** 0.5
+    bias = torch.randn(n, generator=g, device=cuda)
+    scale = torch.rand(n, generator=g, device=cuda) + 0.5
+    return x, wt, bias, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding", [
+    (2, 9, 7, 1, 5, 6, 1, "SAME"),          # lenet conv0's channels
+    (2, 8, 8, 3, 3, 64, 1, "SAME"),         # convnet conv0's
+    (2, 10, 10, 16, 3, 10, 2, "SAME"),      # stride 2, odd pad split
+    (3, 12, 11, 3, 5, 200, 2, "VALID"),
+    (1, 33, 33, 8, 3, 130, 1, "SAME")])     # 16-byte gathers, ragged N
+def test_gpu_conv_gemm(cuda, dtype, b, h, w, c, k, n, stride, padding):
+    x, wt, bias, scale = _conv_inputs(cuda, b, h, w, c, k, n, dtype)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act="relu")
+    before = LAUNCHES["conv_gemm"]
+    got = conv_gemm(x, wt.to(dtype), bias, scale, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm"] == before + 1
+    _gpu_close(got, conv_gemm_ref(x, wt.to(dtype), bias, scale, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding,nnz", [
+    (2, 8, 8, 16, 3, 32, 1, "SAME", 2),
+    (2, 9, 9, 8, 3, 10, 2, "SAME", 4),
+    (2, 16, 16, 64, 3, 128, 1, "SAME", 2),  # convnet conv1's geometry
+    (1, 10, 8, 16, 5, 6, 1, "VALID", 3)])
+def test_gpu_conv_gemm_dbb(cuda, dtype, b, h, w, c, k, n, stride, padding,
+                           nnz):
+    x, wt, bias, scale = _conv_inputs(cuda, b, h, w, c, k, n, dtype)
+    p = pack_dbb(wt, 8, nnz)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act="relu")
+    before = LAUNCHES["conv_gemm_dbb"]
+    got = conv_gemm_dbb(x, p.values, p.bitmask, bias, scale, nnz=nnz, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm_dbb"] == before + 1
+    _gpu_close(got, conv_gemm_dbb_ref(x, p.values, p.bitmask, bias, scale,
+                                      **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["convnet-dbb", "lenet5-dbb"])
+@pytest.mark.parametrize("mode", ["sta", "dbb"])
+def test_gpu_cnn_kernel_route_matches_plain_route(cuda, arch, mode):
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.models import cnn
+    cfg = get_config(arch, smoke=True)
+    params = cnn.cnn_init(cfg, seed=0, device=cuda)
+    if mode == "dbb":
+        params = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    img = torch.randn(8, cfg.cnn_img, cfg.cnn_img, cfg.cnn_in_ch,
+                      generator=g, device=cuda)
+    before = LAUNCHES["conv_gemm"] + LAUNCHES["conv_gemm_dbb"]
+    got = cnn.cnn_apply(params, cfg, img, matmul=mode)
+    torch.cuda.synchronize()
+    # lenet's smoke convs (N = 4 and 8) take the plain route by design
+    launched = LAUNCHES["conv_gemm"] + LAUNCHES["conv_gemm_dbb"] - before
+    assert launched == (2 if arch == "convnet-dbb" else 0)
+    want = cnn.cnn_apply(params, cfg, img, matmul=mode, use_kernel=False)
+    _gpu_close(got, want, torch.float32)

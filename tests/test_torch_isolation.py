@@ -19,7 +19,7 @@ def _modules():
 
 def test_every_module_is_listed():
     mods = _modules()
-    assert len(mods) >= 17
+    assert len(mods) >= 24
     for name in ("repro_torch.config", "repro_torch.configs.olmo_1b",
                  "repro_torch.core.dbb", "repro_torch.core.sparsity",
                  "repro_torch.core.dbb_linear", "repro_torch.kernels.epilogue",
@@ -31,7 +31,12 @@ def test_every_module_is_listed():
                  "repro_torch.models.mlp", "repro_torch.models.transformer",
                  "repro_torch.models.registry", "repro_torch.serve.engine",
                  "repro_torch.serve.kv_cache", "repro_torch.kernels.attn.ref",
-                 "repro_torch.interop"):
+                 "repro_torch.interop", "repro_torch.kernels.sta_gemm.ops",
+                 "repro_torch.kernels.sta_gemm.ref",
+                 "repro_torch.kernels.conv_gemm.ops",
+                 "repro_torch.kernels.conv_gemm.ref",
+                 "repro_torch.models.cnn", "repro_torch.configs.convnet_dbb",
+                 "repro_torch.configs.lenet5_dbb"):
         assert name in mods
 
 
