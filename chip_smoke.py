@@ -30,7 +30,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             must give equal streams, and (a) and (c) must each agree with
             the plain route's ``serve`` in the same mode under the same
             near-tie excuse.
-6. cnn      the paper's CNN at full published width from seeded random
+6. sample   the serve phase's 24 requests sampled (``sampling=``) on olmo-1b
+            weights whose embedding is scaled by SAMPLE_EMBED_SCALE and
+            layers by SAMPLE_LAYER_GAIN (at the init scales the logits reach
+            ~2000 and every depth ranks them alike, so a half-depth draft
+            would always agree), against a greedy serve on the same weights:
+            each request at a temperature set from the measured spread of
+            this model's logits (so the noise decides tokens; two stay at
+            temperature 0), penalties on some. The kernel route's prefill
+            logits and the speculative verify head's logits (against the
+            decode head's on the same context) must lie within
+            SAMPLE_LOGIT_TOL of max |logit|, printed beside bf16's own
+            effect. (a) packed, contiguous and (b) paged must give equal
+            streams, and (a) must agree with the plain route's sampled serve
+            (a split is excused only where the plain route's sampling scores
+            of the two tokens, recomputed on the shared context, lie within
+            twice that tolerance over the temperature); (c) ``draft_k=2`` on
+            both caches must give equal streams, with an acceptance rate
+            strictly between 0 and 1; (d) ``draft_k=2`` at temperature 0
+            must agree with the greedy stream under the same near-tie
+            excuse. ``head_sample_fused`` must launch exactly once per
+            sampled decode step and per prefill call ((c) and (d): per
+            prefill call only); the share of sampled tokens that differ from
+            the greedy stream must be above zero.
+7. cnn      the paper's CNN at full published width from seeded random
             weights and standard-normal NHWC images: convnet-dbb under
             matmul="dbb" (packed) at batch 256 and at batch 1, under
             matmul="sta" (dense) at batch 256, and lenet5-dbb under "dbb" at
@@ -39,20 +62,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             (explicit im2col, plain matmul) within 1e-4 of max |logit| with
             equal classes (a row whose top-2 margin is under that tolerance
             is excused).
-7. dense    full-width olmo-1b with unpacked weights under gemm_impl="pallas":
+8. dense    full-width olmo-1b with unpacked weights under gemm_impl="pallas":
             ``generate`` on the slice's 8 prompts must launch sta_gemm (the
             prefill MLP), sta_gemm_skinny, flash_prefill and paged_decode and
             no DBB kernel, and its greedy tokens must agree with the plain
             route's under the slice's near-tie excuse.
-8. tokens   smoke-width f32 engine: kernel route and plain route must produce
-            equal greedy tokens.
+9. tokens   smoke-width f32 engine: kernel route and plain route must produce
+            equal greedy tokens, and equal sampled tokens.
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-7; ``launches_by_path`` per run);
+sum over the main-path runs of phases 4-8; ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
-tables of the slice's generate, of serve (a) and of the batch-256 convnet
-forward (device time by kernel, device busy share) there.
+tables of the slice's generate, of serve (a), of the sampled serve (a) and
+of the batch-256 convnet forward (device time by kernel, device busy share)
+there.
 """
 from __future__ import annotations
 
@@ -76,9 +100,30 @@ GENERATE_KERNELS = ("dbb_gemm", "dbb_gemm_skinny", "sta_gemm_skinny",
                     "paged_decode", "flash_prefill")
 SERVE_KERNELS = ("flash_prefill_packed", "dbb_gemm", "dbb_gemm_skinny",
                  "sta_gemm_skinny", "paged_decode")
+# sampled serve: the fused head replaces sta_gemm_skinny's greedy head;
+# speculative serve: the fused head samples the prefills only, the draft and
+# verify heads take sta_gemm_skinny (M 8 and 24) and the plain sampler
+SAMPLE_KERNELS = ("flash_prefill_packed", "dbb_gemm", "dbb_gemm_skinny",
+                  "paged_decode", "head_sample_fused")
+SPEC_KERNELS = SERVE_KERNELS + ("head_sample_fused",)
 DENSE_KERNELS = ("sta_gemm", "sta_gemm_skinny", "flash_prefill",
                  "paged_decode")
 CNN_LOGIT_TOL = 1e-4             # of max |logit|, f32 kernel vs plain route
+# the sample phase's weights: olmo-1b's init with the embedding scaled by
+# SAMPLE_EMBED_SCALE and every layer weight by SAMPLE_LAYER_GAIN before
+# packing, so that the logits are O(100), not O(2000), and the layers move
+# them with depth (a half-depth draft then disagrees with the full model)
+SAMPLE_EMBED_SCALE, SAMPLE_LAYER_GAIN = 0.1, 2.0
+# per-request temperatures, in units of the spread (standard deviation over
+# the vocabulary) of this model's logits at the prompts' last positions:
+# the top token stands ~30 spreads above the rest on these weights, so
+# below ~3 spreads the noise never moves it
+SAMPLE_T_SPREAD = (3.0, 4.0, 6.0)
+# of max |logit| on the sample phase's weights: kernel route vs plain route
+# prefill logits, and the speculative verify head vs the decode head on the
+# same context; each reading is printed beside bf16's own effect (the plain
+# route at bf16 vs f32 activations)
+SAMPLE_LOGIT_TOL = 5e-3
 
 
 def _fail(msg: str) -> int:
@@ -149,6 +194,10 @@ def main() -> int:
         return _fail("the serve phase failed (see above)")
     by_path.update(serve_counts)
     del packed
+    sample_counts, ok = timed("sample", _sample_phase, args.out)
+    if not ok:
+        return _fail("the sample phase failed (see above)")
+    by_path.update(sample_counts)
     cnn_counts, ok = timed("cnn", _cnn_phase, args.out)
     if not ok:
         return _fail("the cnn phase failed (see above)")
@@ -229,75 +278,97 @@ def _kernel_phase(torch, dev, report):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # one layer of the main path: (K, N, calls per layer)
+    # one layer of the main path: (K, N, calls per layer); the skinny
+    # kernels also at M24, the speculative verify pass (8 slots x 3)
     layer_shapes = ((2048, 2048, 4), (2048, 8192, 2), (8192, 2048, 1))
-    for name, src, replaces, m, fn in (
+    for name, src, replaces, ms_, fn in (
             ("dbb_gemm", "src/repro_torch/csrc/dbb_gemm.cu",
-             "src/repro/kernels/dbb_gemm/kernel.py:114", 512, dbb_gemm),
+             "src/repro/kernels/dbb_gemm/kernel.py:114", (512,), dbb_gemm),
             ("dbb_gemm_skinny", "src/repro_torch/csrc/dbb_gemm_skinny.cu",
-             "src/repro/kernels/skinny/kernel.py:167", 8, dbb_gemm_skinny)):
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-        worst, t_bytes, t_ops = 0.0, 0.0, 0.0
-        for k_dim, n, calls in layer_shapes:
-            x = randn(m, k_dim, dtype=bf16)
-            p = pack_dbb(randn(k_dim, n), 8, 4)
-            vals, mask = p.values, p.bitmask
-            act = "silu" if n == 8192 else "none"
-            got = fn(x, vals, mask, act=act)
-            want = dbb_gemm_ref(x, vals, mask, act=act)
-            err, ok = _close(torch, got, want, 2e-2)
-            if not ok:
-                failures.append(f"{name} K{k_dim} N{n}: max err {err}")
-            w_dense = decompress_bitmask(vals, mask, block=8).to(bf16)
-            ms = _time_ms(torch, lambda: fn(x, vals, mask, act=act), flush)
-            pms = _time_ms(torch, lambda: dbb_gemm_ref(x, vals, mask,
-                                                       act=act), flush)
-            lms = _time_ms(torch, lambda: torch.matmul(x, w_dense), flush)
-            live = int((vals != 0).sum().item())   # kept weights
-            nbytes = (x.numel() * 2 + vals.numel() * 4 + mask.numel() * 4
-                      + m * n * 2)
-            ops = 2.0 * m * live
-            bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
-            print(f"kernel {name} M{m} K{k_dim} N{n} act={act}: max abs err "
-                  f"{err:.3e} (tol 2e-2 rel, bf16) {'ok' if ok else 'FAIL'}; "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.matmul on "
-                  f"the decompressed weight {lms:.4f} ms, bound {bms:.4f} ms "
-                  f"({by})")
-            worst = max(worst, err)
-            for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
-                           ("library_ms", lms)):
-                tot[key] += calls * v
-            t_bytes += calls * nbytes
-            t_ops += calls * ops
-        _, by = _bound_ms(t_bytes, t_ops, BF16_OPS_PER_S)
-        kernels.append(dict(
+             "src/repro/kernels/skinny/kernel.py:167", (8, 24),
+             dbb_gemm_skinny)):
+        per_m = {}
+        for m in ms_:
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+            worst, t_bytes, t_ops = 0.0, 0.0, 0.0
+            for k_dim, n, calls in layer_shapes:
+                x = randn(m, k_dim, dtype=bf16)
+                p = pack_dbb(randn(k_dim, n), 8, 4)
+                vals, mask = p.values, p.bitmask
+                act = "silu" if n == 8192 else "none"
+                got = fn(x, vals, mask, act=act)
+                want = dbb_gemm_ref(x, vals, mask, act=act)
+                err, ok = _close(torch, got, want, 2e-2)
+                if not ok:
+                    failures.append(f"{name} M{m} K{k_dim} N{n}: max err "
+                                    f"{err}")
+                w_dense = decompress_bitmask(vals, mask, block=8).to(bf16)
+                ms = _time_ms(torch, lambda: fn(x, vals, mask, act=act),
+                              flush)
+                pms = _time_ms(torch, lambda: dbb_gemm_ref(x, vals, mask,
+                                                           act=act), flush)
+                lms = _time_ms(torch, lambda: torch.matmul(x, w_dense),
+                               flush)
+                live = int((vals != 0).sum().item())   # kept weights
+                nbytes = (x.numel() * 2 + vals.numel() * 4
+                          + mask.numel() * 4 + m * n * 2)
+                ops = 2.0 * m * live
+                bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
+                print(f"kernel {name} M{m} K{k_dim} N{n} act={act}: max abs "
+                      f"err {err:.3e} (tol 2e-2 rel, bf16) "
+                      f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                      f"{pms:.4f} ms, torch.matmul on the decompressed "
+                      f"weight {lms:.4f} ms, bound {bms:.4f} ms ({by})")
+                worst = max(worst, err)
+                for key, v in (("ms", ms), ("plain_ms", pms),
+                               ("bound_ms", bms), ("library_ms", lms)):
+                    tot[key] += calls * v
+                t_bytes += calls * nbytes
+                t_ops += calls * ops
+            _, by = _bound_ms(t_bytes, t_ops, BF16_OPS_PER_S)
+            per_m[m] = dict(max_abs_err=worst, bound_by=by, **tot)
+        entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=0, max_abs_err=worst, bound_by=by,
-            shapes=f"one layer: M{m} x (K,N) 4x(2048,2048) 2x(2048,8192) "
-                   "1x(8192,2048)", **tot))
+            launches=0, shapes=f"one layer: M{ms_[0]} x (K,N) 4x(2048,2048) "
+                               "2x(2048,8192) 1x(8192,2048)",
+            **per_m[ms_[0]])
+        if 24 in per_m:
+            entry["m24"] = dict(per_m[24], shapes="the same layer at M24 "
+                                "(the speculative verify pass)")
+            entry["max_abs_err"] = max(v["max_abs_err"]
+                                       for v in per_m.values())
+        kernels.append(entry)
 
-    # head GEMV: x [8, 2048] f32 . w [2048, 50304] f32
-    x = randn(8, 2048)
+    # head GEMV: x [M, 2048] f32 . w [2048, 50304] f32 at M8 (decode, the
+    # entry) and M24 (the speculative verify head)
     w = randn(2048, 50304) * 0.02
-    got, want = sta_gemm_skinny(x, w), sta_gemm_ref(x, w)
-    err, ok = _close(torch, got, want, 1e-4)
-    if not ok:
-        failures.append(f"sta_gemm_skinny: max err {err}")
-    ms = _time_ms(torch, lambda: sta_gemm_skinny(x, w), flush)
-    pms = _time_ms(torch, lambda: sta_gemm_ref(x, w), flush)
-    lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
-    bms, by = _bound_ms(x.numel() * 4 + w.numel() * 4 + 8 * 50304 * 4,
-                        2.0 * 8 * 2048 * 50304, F32_OPS_PER_S)
-    print(f"kernel sta_gemm_skinny M8 K2048 N50304 f32: max abs err "
-          f"{err:.3e} (tol 1e-4 rel) {'ok' if ok else 'FAIL'}; kernel "
-          f"{ms:.4f} ms, plain {pms:.4f} ms, torch.matmul {lms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by})")
+    heads = {}
+    for m in (8, 24):
+        x = randn(m, 2048)
+        got, want = sta_gemm_skinny(x, w), sta_gemm_ref(x, w)
+        err, ok = _close(torch, got, want, 1e-4)
+        if not ok:
+            failures.append(f"sta_gemm_skinny M{m}: max err {err}")
+        ms = _time_ms(torch, lambda: sta_gemm_skinny(x, w), flush)
+        pms = _time_ms(torch, lambda: sta_gemm_ref(x, w), flush)
+        lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
+        bms, by = _bound_ms(x.numel() * 4 + w.numel() * 4 + m * 50304 * 4,
+                            2.0 * m * 2048 * 50304, F32_OPS_PER_S)
+        print(f"kernel sta_gemm_skinny M{m} K2048 N50304 f32: max abs err "
+              f"{err:.3e} (tol 1e-4 rel) {'ok' if ok else 'FAIL'}; kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, torch.matmul {lms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+        heads[m] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                        bound_by=by, library_ms=lms)
     kernels.append(dict(
         name="sta_gemm_skinny", route="cuda",
         source="src/repro_torch/csrc/sta_gemm_skinny.cu",
         replaces="src/repro/kernels/skinny/kernel.py:77", launches=0,
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        library_ms=lms, shapes="M8 K2048 N50304 f32 (the head)"))
+        shapes="M8 K2048 N50304 f32 (the head)", **dict(
+            heads[8], max_abs_err=max(h["max_abs_err"]
+                                      for h in heads.values())),
+        m24=dict(heads[24], shapes="M24 K2048 N50304 f32 (the speculative "
+                 "verify head)")))
 
     # paged decode: B 8, Hkv 16, G 1, D 128, S 128, page 64, ragged start
     b, hkv, g, d, s, page = 8, 16, 1, 128, 128, 64
@@ -350,6 +421,7 @@ def _kernel_phase(torch, dev, report):
     kernels += _prefill_attention_kernels(torch, dev, randn, flush,
                                           failures)
     kernels += _gemm_conv_kernels(torch, dev, randn, flush, failures)
+    kernels.append(_head_sample_kernel(torch, dev, flush, failures))
     report["kernel_failures"] = failures
     if failures:
         raise SystemExit(_fail("kernel disagrees with its plain version: "
@@ -602,6 +674,95 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
     return entries
 
 
+# epilogue operations per logit of the sampling head (penalty selects, three
+# murmur rounds of the hash, the uniform, two logs, scale and add)
+SAMPLE_EPI_OPS = 24
+
+
+def _head_sample_inputs(torch, dev, m, k, n, seed):
+    """Hidden rows scaled so the logits are O(1) (the Gumbel noise decides
+    tokens), a head of unit-variance weights, counts from a seeded generator
+    with two of every three rows above zero, temperature-0 rows among the
+    sampled ones, and non-default penalties."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(m, k, generator=g, device=dev) / k ** 0.5
+    w = torch.randn(k, n, generator=g, device=dev)
+    counts = torch.randint(0, 3, (m, n), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts[::3] = 0
+    r = torch.arange(m, device=dev)
+    temp = torch.where(r % 4 == 0, 0.0, 0.5 + 0.1 * (r % 7)).float()
+    rep = torch.where(r % 2 == 0, 1.0, 1.3).float()
+    pres = torch.where(r % 3 == 1, 0.4, 0.0).float()
+    freq = torch.where(r % 5 == 2, 0.2, 0.0).float()
+    rows = (temp, rep, pres, freq, (r * 7919 - 3).to(torch.int32),
+            (r * 3).to(torch.int32))
+    return h, w, counts, rows
+
+
+def _head_sample_kernel(torch, dev, flush, failures):
+    """head_sample_fused at the sampled decode head (M8 K2048 N50304 f32,
+    the entry) and at M1 (a single-row prefill) and M24 (checks), against
+    its plain version by the near-tie rule: scores within 1e-5 of the
+    largest (f32 sums in another order; logf may differ by an ulp),
+    indices equal on every row whose top-2 score margin exceeds twice
+    that. No single PyTorch call computes this function: the head's
+    torch.matmul alone is printed as a partial yardstick."""
+    from repro_torch.kernels.sample import (apply_penalties,
+                                            head_sample_fused,
+                                            head_sample_fused_ref,
+                                            sample_scores)
+    entry = None
+    for m in (8, 1, 24):
+        k, n = 2048, 50304
+        h, w, counts, rows = _head_sample_inputs(torch, dev, m, k, n, m)
+        got_s, got_i = head_sample_fused(h, w, counts, *rows)
+        want_s, want_i = head_sample_fused_ref(h, w, counts, *rows)
+        torch.cuda.synchronize()
+        tol = 1e-5 * max(want_s.abs().max().item(), 1.0)
+        err = (got_s - want_s).abs().max().item()
+        col = torch.arange(n, device=dev)[None, :]
+        scores = sample_scores(h @ w, counts, *(a[:, None] for a in rows),
+                               col)
+        top2 = scores.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        same = bool((got_i == want_i)[decided].all())
+        pen = apply_penalties(h @ w, counts, rows[1][:, None],
+                              rows[2][:, None], rows[3][:, None])
+        differs = int((got_i.long() != pen.argmax(-1)).sum())
+        ok = err <= tol and same
+        if not ok:
+            failures.append(f"head_sample_fused M{m}: max score err {err}, "
+                            f"indices equal on decided rows: {same}")
+        ms = _time_ms(torch, lambda: head_sample_fused(h, w, counts, *rows),
+                      flush)
+        pms = _time_ms(torch, lambda: head_sample_fused_ref(h, w, counts,
+                                                            *rows), flush)
+        mm_ms = _time_ms(torch, lambda: torch.matmul(h, w), flush)
+        nbytes = 4 * (k * n + m * n + m * k + 6 * m + 2 * m)
+        ops = 2.0 * m * k * n + SAMPLE_EPI_OPS * m * n
+        bms, by = _bound_ms(nbytes, ops, F32_OPS_PER_S)
+        print(f"kernel head_sample_fused M{m} K{k} N{n} f32: max score err "
+              f"{err:.3e} (tol {tol:.3e}); indices equal on "
+              f"{int(decided.sum())}/{m} decided rows "
+              f"{'ok' if ok else 'FAIL'} (Gumbel noise moved {differs} of "
+              f"{m} rows off the penalised argmax); kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, no library call computes it (the head's "
+              f"torch.matmul alone, a partial yardstick: {mm_ms:.4f} ms), "
+              f"bound {bms:.4f} ms ({by}: weight + counts + rows)")
+        if entry is None:
+            entry = dict(
+                name="head_sample_fused", route="cuda",
+                source="src/repro_torch/csrc/head_sample_fused.cu",
+                replaces="src/repro/kernels/sample/kernel.py:83",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, library_ms=None,
+                head_matmul_ms=mm_ms,
+                shapes="M8 K2048 N50304 f32 (the sampled decode head)")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-width slice
 # ---------------------------------------------------------------------------
@@ -806,14 +967,9 @@ def _serve_phase(torch, dev, report, packed, out_dir):
     cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas",
                                         kv_page_size=64)
     xcfg = cfg.replace(gemm_impl="xla")
-    rng = torch.Generator().manual_seed(3)
-    lens = torch.randint(16, 513, (24,), generator=rng).tolist()
-    lens[5] = max(lens[5], 300)            # at least one prompt over 256
-    budgets = torch.randint(8, 65, (24,), generator=rng).tolist()
-    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
-               for n in lens]
-    print(f"serve: 24 requests through 8 slots; prompt lengths {lens}; "
-          f"budgets {budgets}")
+    prompts, budgets = _serve_requests(torch, cfg)
+    print(f"serve: 24 requests through 8 slots; prompt lengths "
+          f"{[len(p) for p in prompts]}; budgets {budgets}")
     runs = {"serve_packed": (cfg, dict(paged=False), SERVE_KERNELS),
             "serve_paged": (cfg, dict(paged=True), SERVE_KERNELS),
             "serve_chunked": (cfg, dict(paged=False, prefill_chunk=256),
@@ -887,8 +1043,316 @@ def _serve_phase(torch, dev, report, packed, out_dir):
     return counts, ok and paged_ok and tok_ok
 
 
+def _serve_requests(torch, cfg):
+    """The serve and sample phases' 24 requests: prompts of 16-512 tokens
+    (one over 256) and budgets of 8-64 tokens, from seed 3."""
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(16, 513, (24,), generator=rng).tolist()
+    lens[5] = max(lens[5], 300)            # at least one prompt over 256
+    budgets = torch.randint(8, 65, (24,), generator=rng).tolist()
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in lens]
+    return prompts, budgets
+
+
 # ---------------------------------------------------------------------------
-# phase 6: the paper's CNN at full width
+# phase 6: sampled and speculative serving at full width
+# ---------------------------------------------------------------------------
+
+def _sampling_params(torch, report, lg):
+    """Per-request SamplingParams from the spread of this model's logits at
+    the prompts' last positions (``lg``, plain route; the median over the
+    prompts of the standard deviation over the vocabulary): temperatures
+    of SAMPLE_T_SPREAD times it, so the Gumbel noise decides tokens
+    (requests 0 and 12 stay at temperature 0); repetition, presence and
+    frequency penalties on some requests."""
+    from repro_torch.serve.sampling import SamplingParams
+    spread = statistics.median(lg.std(dim=-1).tolist())
+    top2 = lg.topk(2, dim=-1).values
+    gap = statistics.median((top2[:, 0] - top2[:, 1]).tolist())
+    n = len(SAMPLE_T_SPREAD)
+    sp = [SamplingParams(
+        temperature=0.0 if i % 12 == 0 else spread * SAMPLE_T_SPREAD[i % n],
+        seed=i * 7919 + 1,
+        repetition_penalty=1.1 if i % 3 == 1 else 1.0,
+        presence_penalty=0.5 * spread if i % 5 == 2 else 0.0,
+        frequency_penalty=0.25 * spread if i % 7 == 3 else 0.0)
+        for i in range(lg.shape[0])]
+    print(f"sample: logits at the prompts' last positions: spread (median "
+          f"std over the vocabulary) {spread:.4e}, median top-2 gap "
+          f"{gap:.4e}; temperatures "
+          f"{[round(p.temperature, 3) for p in sp]}")
+    report["sample"].update(logit_spread=spread, median_gap=gap,
+                            temperatures=[p.temperature for p in sp])
+    return sp
+
+
+def _verify_vs_decode(torch, dev, engine, cfg, contexts, k=2):
+    """Logits of the speculative verify head (``verify_step`` over k+1
+    candidates, the head at M 8(k+1)) at its first candidate against the
+    decode head's (``decode_step``, M 8) for the same token on the same
+    prefilled contiguous cache, kernel route: [B, V] each."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    b = len(contexts)
+    width = max(len(t) for t in contexts)
+    toks = torch.zeros((b, width), dtype=torch.int32)
+    for i, t in enumerate(contexts):
+        toks[i, width - len(t):] = torch.tensor(t)
+    start = torch.tensor([width - len(t) for t in contexts],
+                         dtype=torch.int32, device=dev)
+    page = max(cfg.kv_page_size, 1)
+    smax = -(-(width + k + 1) // page) * page
+
+    def head(h):
+        return dispatch.matmul(h.float().contiguous(), engine.head, cfg=cfg,
+                               gemv=True)
+    out = []
+    for verify in (False, True):
+        cache = registry.init_cache(cfg, b, smax, device=dev)
+        h, cache = registry.prefill(engine.params, cfg, toks.to(dev), cache,
+                                    start=start)
+        nxt = head(h[:, -1]).argmax(-1).to(torch.int32)
+        if verify:
+            vt = nxt[:, None].expand(b, k + 1).contiguous()
+            hv, _ = registry.verify_step(engine.params, cfg, vt, cache)
+            out.append(head(hv.reshape(b * (k + 1), -1)).reshape(
+                b, k + 1, -1)[:, 0])
+        else:
+            hd, _ = registry.decode_step(engine.params, cfg, nxt, cache)
+            out.append(head(hd[:, -1]))
+    return out
+
+
+def _sample_split_gaps(torch, dev, last_logits, xcfg, prompts, sp, out,
+                       xout, split, tol):
+    """For each split of a sampled stream: (the plain route's score gap
+    between the two routes' tokens, recomputed on the shared context with
+    the request's history, seed and ordinal; the excuse bound 2 x logit
+    tol x max(rep, 1) / T). inf where one route stopped early."""
+    from repro_torch.kernels.sample import sample_scores
+    from repro_torch.serve.sampling import pack_params
+    res = []
+    if not split:
+        return res
+    ctx = [prompts[i] + out[i][:j] for i, j in split]
+    lg = torch.cat([last_logits(xcfg, ctx[a:a + 8])
+                    for a in range(0, len(ctx), 8)])
+    v = lg.shape[-1]
+    for row, (i, j) in enumerate(split):
+        p = sp[i]
+        t = p.temperature if p.temperature > 0 else 1.0
+        bound = 2 * tol * max(p.repetition_penalty, 1.0) / t
+        if j >= min(len(out[i]), len(xout[i])):
+            res.append((float("inf"), bound))
+            continue
+        counts = torch.zeros((1, v), dtype=torch.int32, device=dev)
+        for tok in out[i][:j]:
+            counts[0, tok] += 1
+        knob = torch.tensor([[p.temperature, p.repetition_penalty,
+                              p.presence_penalty, p.frequency_penalty]],
+                            device=dev)
+        seed = pack_params(p, dev)[1][1].reshape(1, 1)
+        sc = sample_scores(lg[row:row + 1], counts, knob[:, :1],
+                           knob[:, 1:2], knob[:, 2:3], knob[:, 3:4], seed,
+                           torch.tensor([[j]], device=dev),
+                           torch.arange(v, device=dev)[None, :])
+        res.append((abs((sc[0, xout[i][j]] - sc[0, out[i][j]]).item()),
+                    bound))
+    return res
+
+
+def _sample_phase(torch, dev, report, out_dir):
+    """Sampled and speculative serve at full width. At olmo-1b's init
+    scales the tied head's logits reach ~2000 and every depth ranks them
+    alike, so a half-depth draft always agrees with the full model; this
+    phase's weights therefore scale the embedding by SAMPLE_EMBED_SCALE and
+    the layers by SAMPLE_LAYER_GAIN before packing (as the CPU tests'
+    fixture does, there x3), so that the layers move the logits with
+    depth. The greedy token may still echo the prompt's last token (the
+    phase prints on how many rows). The greedy baseline is served on the
+    same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import iter_leaves, pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas",
+                                        kv_page_size=64)
+    xcfg = cfg.replace(gemm_impl="xla")
+    prompts, budgets = _serve_requests(torch, cfg)
+    params = registry.init_params(cfg, seed=0, device=dev)
+    params["embed"]["table"] *= SAMPLE_EMBED_SCALE
+    for leaf in iter_leaves(params["layers"]):
+        leaf *= SAMPLE_LAYER_GAIN
+    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+    del params
+    report["sample"] = {}
+    engine = ServeEngine(cfg, packed, max_batch=8, paged=False, device=dev)
+    engine.serve(prompts[:2], max_new_tokens=4)          # warm-up
+    t0 = time.perf_counter()
+    greedy = engine.serve(prompts, max_new_tokens=budgets)
+    torch.cuda.synchronize()
+    print(f"sample: weights with the embedding x {SAMPLE_EMBED_SCALE:g} and "
+          f"the layers x {SAMPLE_LAYER_GAIN:g} (seed 0, packed); greedy "
+          f"serve (the baseline, packed, contiguous) "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    last_logits = _logits_fn(torch, dev, engine)
+    lg = {name: torch.cat([last_logits(c, prompts[a:a + 8])
+                           for a in range(0, len(prompts), 8)])
+          for name, c in (("kernel", cfg), ("plain", xcfg),
+                          ("plain_f32", xcfg.replace(dtype="float32")))}
+    vd = [torch.cat(x) for x in zip(*(
+        _verify_vs_decode(torch, dev, engine, cfg, prompts[a:a + 8])
+        for a in range(0, len(prompts), 8)))]
+    scale = lg["plain"].abs().max().item()
+    tol = SAMPLE_LOGIT_TOL * scale
+    readings = {
+        "kernel_vs_plain": (lg["kernel"] - lg["plain"]).abs().max().item(),
+        "verify_vs_decode": (vd[1] - vd[0]).abs().max().item(),
+        "bf16_vs_f32_control": (lg["plain"] - lg["plain_f32"]).abs().max()
+        .item()}
+    echo = sum(int(lg["plain"][i].argmax()) == p[-1]
+               for i, p in enumerate(prompts))
+    ok = max(readings["kernel_vs_plain"], readings["verify_vs_decode"]) <= tol
+    print(f"sample: max |logit| {scale:.4e} (plain route, prefill last "
+          f"positions of the 24 prompts); max abs diff of max, kernel vs "
+          f"plain route {readings['kernel_vs_plain'] / scale:.3e}, verify "
+          f"head (M24) vs decode head (M8) on the same context "
+          f"{readings['verify_vs_decode'] / scale:.3e} (tol "
+          f"{SAMPLE_LOGIT_TOL:g} of max) {'ok' if ok else 'FAIL'}; control: "
+          f"the plain route at bf16 vs f32 activations "
+          f"{readings['bf16_vs_f32_control'] / scale:.3e}; the greedy token "
+          f"echoes the prompt's last token on {echo}/24 rows")
+    report["sample"].update(logit_scale=scale, echo_rows=echo,
+                            **{k: v / scale for k, v in readings.items()})
+    sp = _sampling_params(torch, report, lg["plain"])
+    t0_sp = [SamplingParams() for _ in prompts]
+    runs = (("sample_packed", dict(paged=False), sp, 0),
+            ("sample_paged", dict(paged=True), sp, 0),
+            ("spec_packed", dict(paged=False), sp, 2),
+            ("spec_paged", dict(paged=True), sp, 2),
+            ("spec_t0", dict(paged=False), t0_sp, 2))
+    for dk in (0, 2):                      # warm-up: two short requests
+        ServeEngine(cfg, packed, max_batch=8, device=dev).serve(
+            prompts[:2], max_new_tokens=4, sampling=sp[:2], draft_k=dk)
+    torch.cuda.synchronize()
+    outs, counts = {}, {}
+    card = report["card"]
+    for name, kw, sparams, dk in runs:
+        eng = ServeEngine(cfg, packed, max_batch=8, device=dev, **kw)
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = eng.serve(prompts, max_new_tokens=budgets,
+                               sampling=sparams, draft_k=dk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = dict(LAUNCHES)
+        stats = {k: v for k, v in eng.serve_stats.items() if k != "ttft_s"}
+        # the route table: one fused head per prefill call and, without
+        # speculation, per decode step (the draft and verify heads take
+        # sta_gemm_skinny and the plain sampler)
+        want = stats["prefill_calls"] + (0 if dk else eng.last_decode_steps)
+        got = counts[name]["head_sample_fused"]
+        missing = [k for k in (SPEC_KERNELS if dk else SAMPLE_KERNELS)
+                   if counts[name][k] == 0]
+        # without speculation no greedy head runs: sta_gemm_skinny idles
+        stray = 0 if dk else counts[name]["sta_gemm_skinny"]
+        run_ok = got == want and not missing and not stray
+        n_tok = sum(len(o) for o in outs[name])
+        line = (f"sample: {name} {kw} draft_k={dk}: {wall * 1e3:.1f} ms, "
+                f"{n_tok} tokens, {n_tok / wall:.1f} generated tokens/s "
+                f"({card}); head_sample_fused launches {got} (route table: "
+                f"{stats['prefill_calls']} prefill calls + "
+                f"{0 if dk else eng.last_decode_steps} sampled decode steps "
+                f"= {want})")
+        rec = dict(wall_ms=wall * 1e3, tokens=n_tok, stats=stats,
+                   launches=counts[name], predicted_head_sample=want)
+        if dk:
+            rate = (stats["spec_emitted"] / stats["spec_steps"] - 1) / dk
+            rec["acceptance_rate"] = rate
+            line += (f"; {stats['spec_steps']} speculative row-steps emitted "
+                     f"{stats['spec_emitted']} tokens: acceptance rate "
+                     f"{rate:.4f}")
+            if name != "spec_t0" and not 0 < rate < 1:
+                run_ok = False
+                line += " FAIL (not strictly between 0 and 1)"
+        if missing:
+            line += f"; FAIL: never launched {missing}"
+        if stray:
+            line += f"; FAIL: sta_gemm_skinny launched {stray} times"
+        if got != want:
+            line += "; FAIL: head_sample_fused launches off the route table"
+        print(line + f"; launches {counts[name]}")
+        ok = ok and run_ok
+        report["sample"][name] = rec
+        if name == "sample_packed" and out_dir:
+            _profile(torch, lambda: eng.serve(prompts,
+                                              max_new_tokens=budgets,
+                                              sampling=sp),
+                     "sampled serve(24 requests, packed, contiguous)",
+                     "profile_sample", out_dir, report)
+    for a, b in (("sample_packed", "sample_paged"),
+                 ("spec_packed", "spec_paged")):
+        same = outs[a] == outs[b]
+        ok = ok and same
+        print(f"sample: {b} vs {a} token streams "
+              f"{'equal' if same else 'DIFFERENT'}")
+
+    # the noise decides tokens: sampled streams against the greedy one
+    hot = [i for i, p in enumerate(sp) if p.temperature > 0]
+    for name in ("sample_packed", "spec_packed"):
+        pairs = [(a, b) for i in hot
+                 for a, b in zip(outs[name][i], greedy[i])]
+        share = sum(a != b for a, b in pairs) / max(len(pairs), 1)
+        rows = sum(outs[name][i] != greedy[i] for i in hot)
+        print(f"sample: {name}: {100 * share:.2f}% of {len(pairs)} sampled "
+              f"tokens (T > 0 requests, position by position) differ from "
+              f"the greedy stream; {rows}/{len(hot)} streams differ"
+              + ("" if share > 0 else " FAIL"))
+        ok = ok and share > 0
+        report["sample"][name]["differs_from_greedy"] = share
+
+    # (a) against the plain route's sampled serve
+    xeng = ServeEngine(xcfg, packed, max_batch=8, paged=False, device=dev)
+    t0 = time.perf_counter()
+    xout = xeng.serve(prompts, max_new_tokens=budgets, sampling=sp)
+    torch.cuda.synchronize()
+    out = outs["sample_packed"]
+    same, total, split = _split_rows(out, xout)
+    gaps = _sample_split_gaps(torch, dev, last_logits, xcfg, prompts, sp,
+                              out, xout, split, tol)
+    run_ok = all(g <= bound for g, bound in gaps)
+    ok = ok and run_ok
+    print(f"sample: plain route (gemm_impl='xla') sampled serve "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; sample_packed vs the "
+          f"plain route: {same}/{total} tokens equal; rows that split (row, "
+          f"step, plain-route score gap, excuse bound): "
+          f"{[(i, j, g, bd) for (i, j), (g, bd) in zip(split, gaps)]} "
+          f"{'ok' if run_ok else 'FAIL'}")
+    report["sample"]["plain_route_agreement"] = [same, total]
+
+    # (d) speculative at temperature 0 against the greedy serve stream: the
+    # verify head's drift from the decode head was held to tol above
+    out = outs["spec_t0"]
+    same, total, split = _split_rows(out, greedy)
+    gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, greedy, split)
+    run_ok = all(g <= 2 * tol for g in gaps)
+    ok = ok and run_ok
+    print(f"sample: spec_t0 (draft_k=2, temperature 0) vs greedy serve: "
+          f"{same}/{total} tokens equal; rows that split (row, step, "
+          f"plain-route gap): {[(i, j, g) for (i, j), g in zip(split, gaps)]}"
+          f" (excused where gap <= 2 x logit tol = {2 * tol:.4e}) "
+          f"{'ok' if run_ok else 'FAIL'}")
+    report["sample"]["spec_t0_vs_greedy"] = [same, total]
+    return counts, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's CNN at full width
 # ---------------------------------------------------------------------------
 
 # (label, arch, matmul, batch, the launches the route table implies)
@@ -975,7 +1439,7 @@ def _cnn_phase(torch, dev, report, out_dir):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: dense weights at full width
+# phase 8: dense weights at full width
 # ---------------------------------------------------------------------------
 
 def _dense_phase(torch, dev, report):
@@ -1035,7 +1499,7 @@ def _dense_phase(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: smoke-width token equality
+# phase 9: smoke-width token equality
 # ---------------------------------------------------------------------------
 
 def _token_phase(torch, dev, report):
@@ -1044,6 +1508,7 @@ def _token_phase(torch, dev, report):
     from repro_torch.core.sparsity import apply_dbb_to_tree
     from repro_torch.models import registry
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
 
     cfg = get_config("olmo-1b", smoke=True).replace(
         remat="none", gemm_impl="pallas")
@@ -1057,17 +1522,26 @@ def _token_phase(torch, dev, report):
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in (12, 7, 12, 3, 9, 12, 5, 1)]
+    sp = [SamplingParams(temperature=1.0, seed=i,
+                         repetition_penalty=1.2 if i % 2 else 1.0)
+          for i in range(len(prompts))]
     outs = {}
     for name, c in (("kernel", cfg), ("plain", cfg.replace(gemm_impl="xla"))):
-        outs[name] = ServeEngine(c, packed, max_batch=8,
-                                 device=dev).generate(prompts,
-                                                      max_new_tokens=20)
+        eng = ServeEngine(c, packed, max_batch=8, device=dev)
+        outs[name] = eng.generate(prompts, max_new_tokens=20)
+        outs[name + "_sampled"] = eng.generate(prompts, max_new_tokens=20,
+                                               sampling=sp)
     ok = outs["kernel"] == outs["plain"]
+    sok = outs["kernel_sampled"] == outs["plain_sampled"]
+    moved = sum(a != b for a, b in zip(outs["kernel"],
+                                       outs["kernel_sampled"]))
     distinct = len({t for row in outs["plain"] for t in row})
-    print(f"tokens: smoke width f32, kernel route vs plain route: "
-          f"{'equal' if ok else 'DIFFERENT'} ({distinct} distinct tokens)")
-    report["tokens_equal"] = ok
-    return ok
+    print(f"tokens: smoke width f32, kernel route vs plain route: greedy "
+          f"{'equal' if ok else 'DIFFERENT'} ({distinct} distinct tokens); "
+          f"sampled (T = 1) {'equal' if sok else 'DIFFERENT'} "
+          f"({moved}/8 rows differ from greedy)")
+    report["tokens_equal"] = ok and sok
+    return ok and sok
 
 
 if __name__ == "__main__":

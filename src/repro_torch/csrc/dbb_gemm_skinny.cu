@@ -10,15 +10,18 @@
 // bitmask) over the 3.35 TB/s memory rate; the activations are a few KB
 // and stay in L1/L2.
 //
-// Design: the weight stream is read exactly once and never expanded in
-// device memory. A block owns 16 output columns, so even N = 2048 gives
-// 128 blocks; each half-warp covers the 16 columns (a 64-byte coalesced
-// read of a values or bitmask row) and the block's half-warps split the
-// K/8 DBB blocks between them, interleaved. Per DBB block a thread loads
-// its column's mask and nnz values, decompresses the 8 dense weights in
+// Design: the weight stream is never expanded in device memory. A block
+// owns 16 output columns, so even N = 2048 gives 128 column ranges, and
+// one chunk of up to 8 rows (M > 8 runs ceil(M / 8) chunks, which vary
+// fastest in the launch order, so the chunks after the first find the
+// range's weights in L2 and the stream is read from memory about once);
+// each half-warp covers the 16 columns (a 64-byte coalesced read of a
+// values or bitmask row) and the block's half-warps split the K/8 DBB
+// blocks between them, interleaved. Per DBB block a thread loads its
+// column's mask and nnz values, decompresses the 8 dense weights in
 // registers from the bitmask rank (rounded through the activation dtype,
 // as the reference casts the tile), loads each row's 8 activations with
-// one vector load (broadcast across the half-warp) and accumulates MT f32
+// one vector load (broadcast across the half-warp) and accumulates 8 f32
 // sums. The partial sums meet in shared memory, the epilogue runs on the
 // total and the block stores its columns once.
 #include "common.cuh"
@@ -27,25 +30,31 @@ namespace {
 
 constexpr int kCols = 16;                  // output columns per block
 constexpr int kSplit = 32 / kCols;         // K slices per warp
+constexpr int kRows = 8;                   // rows per block (one chunk)
+constexpr int kWarps = 16;
 
-template <typename T, int MT, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
 dbb_gemm_skinny_kernel(const T* __restrict__ x,
                        const float* __restrict__ values,
                        const int32_t* __restrict__ bitmask,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias, T* __restrict__ out,
                        int M, int K, int N, int nnz, int act) {
-  constexpr int kSlices = WARPS * kSplit;
-  __shared__ float part[kSlices][MT][kCols];
+  constexpr int kSlices = kWarps * kSplit;
+  __shared__ float part[kSlices][kRows][kCols];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int col = lane % kCols, slice = warp * kSplit + lane / kCols;
-  const int n = blockIdx.x * kCols + col;
+  const int n = blockIdx.y * kCols + col;
   const int kb_total = K / repro::kDbbBlock;
+  const int r0 = blockIdx.x * kRows;       // this block's row chunk
+  const int m = min(kRows, M - r0);
+  x += (size_t)r0 * K;
+  out += (size_t)r0 * N;
 
-  float acc[MT];
+  float acc[kRows];
 #pragma unroll
-  for (int r = 0; r < MT; ++r) acc[r] = 0.f;
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
 
   if (n < N) {
     for (int kb = slice; kb < kb_total; kb += kSlices) {
@@ -57,8 +66,8 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x,
       float w[repro::kDbbBlock];
       repro::decompress_block<T>(mask, slot, nnz, w);
 #pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        if (r >= M) break;
+      for (int r = 0; r < kRows; ++r) {
+        if (r >= m) break;
         float xv[8];
         repro::load8(x + (size_t)r * K + (size_t)kb * repro::kDbbBlock, xv);
 #pragma unroll
@@ -68,11 +77,11 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x,
     }
   }
 #pragma unroll
-  for (int r = 0; r < MT; ++r) part[slice][r][col] = acc[r];
+  for (int r = 0; r < kRows; ++r) part[slice][r][col] = acc[r];
   __syncthreads();
-  for (int i = threadIdx.x; i < MT * kCols; i += WARPS * 32) {
-    const int r = i / kCols, c = i % kCols, cn = blockIdx.x * kCols + c;
-    if (r >= M || cn >= N) continue;
+  for (int i = threadIdx.x; i < kRows * kCols; i += kWarps * 32) {
+    const int r = i / kCols, c = i % kCols, cn = blockIdx.y * kCols + c;
+    if (r >= m || cn >= N) continue;
     float sum = 0.f;
 #pragma unroll
     for (int v = 0; v < kSlices; ++v) sum += part[v][r][c];
@@ -81,31 +90,16 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T, int MT>
+template <typename T>
 void launch(const void* x, const void* values, const void* bitmask,
             const void* scale, const void* bias, void* out, int M, int K,
             int N, int nnz, int act, cudaStream_t s) {
-  // 16 warps while the partial sums fit the 48 KB of static shared
-  // memory, 8 at MT = 32
-  constexpr int WARPS = MT <= 16 ? 16 : 8;
-  const dim3 grid((N + kCols - 1) / kCols);
-  dbb_gemm_skinny_kernel<T, MT, WARPS><<<grid, WARPS * 32, 0, s>>>(
+  const dim3 grid((M + kRows - 1) / kRows, (N + kCols - 1) / kCols);
+  dbb_gemm_skinny_kernel<T><<<grid, kWarps * 32, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(values),
       static_cast<const int32_t*>(bitmask), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<T*>(out), M, K, N, nnz,
       act);
-}
-
-template <typename T>
-void dispatch_m(const void* x, const void* values, const void* bitmask,
-                const void* scale, const void* bias, void* out, int M, int K,
-                int N, int nnz, int act, cudaStream_t s) {
-  if (M <= 8)
-    launch<T, 8>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
-  else if (M <= 16)
-    launch<T, 16>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
-  else
-    launch<T, 32>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
 }
 
 }  // namespace
@@ -118,10 +112,9 @@ extern "C" int dbb_gemm_skinny_launch(const void* x, const void* values,
   if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DT_BF16)
-    dispatch_m<__nv_bfloat16>(x, values, bitmask, scale, bias, out, M, K, N,
-                              nnz, act, s);
+    launch<__nv_bfloat16>(x, values, bitmask, scale, bias, out, M, K, N, nnz,
+                          act, s);
   else
-    dispatch_m<float>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act,
-                      s);
+    launch<float>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
   return (int)cudaGetLastError();
 }

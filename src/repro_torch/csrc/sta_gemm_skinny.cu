@@ -11,82 +11,47 @@
 // over the 3.35 TB/s memory rate. The arithmetic is full f32 FMA — no
 // TF32, as the reference computes the head in f32.
 //
-// Design: the weight is streamed once, coalesced: a block owns 32 output
-// columns (one per lane) and its warps split K in interleaved groups of 8
-// rows. Per group a thread reads its column's 8 weights, loads each row's
-// 8 activations with one vector load (a warp-wide broadcast) and keeps MT
-// f32 sums; the warps' partial sums meet in shared memory, where the
-// epilogue runs before the one store.
-#include "common.cuh"
+// Design (skinny_tile.cuh, the body head_sample_fused.cu shares): a block
+// owns 32 output columns (one per lane) and one chunk of up to 8 rows; its
+// 16 warps split K in interleaved groups of 8 rows. The row chunks of a
+// column range run back to back, so the weight streams from memory about
+// once at any M <= 32. The warps' partial sums meet in shared memory, where
+// the epilogue runs before the one store.
+#include "skinny_tile.cuh"
 
 namespace {
 
-template <typename T, int MT, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
+using repro::kSkinnyRows;
+using repro::kSkinnyWarps;
+
+template <typename T>
+__global__ void __launch_bounds__(kSkinnyWarps * 32)
 sta_gemm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias, T* __restrict__ out,
                        int M, int K, int N, int act) {
-  __shared__ float part[WARPS][MT][32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n = blockIdx.x * 32 + lane;
-  const int groups = K / 8;
-
-  float acc[MT];
-#pragma unroll
-  for (int r = 0; r < MT; ++r) acc[r] = 0.f;
-
-  if (n < N) {
-    for (int g = warp; g < groups; g += WARPS) {
-      const size_t k = (size_t)g * 8;
-      float wv[8];
-#pragma unroll
-      for (int p = 0; p < 8; ++p) wv[p] = repro::to_f32(w[(k + p) * N + n]);
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        if (r >= M) break;
-        float xv[8];
-        repro::load8(x + (size_t)r * K + k, xv);
-#pragma unroll
-        for (int p = 0; p < 8; ++p) acc[r] = fmaf(xv[p], wv[p], acc[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < MT; ++r) part[warp][r][lane] = acc[r];
+  __shared__ float part[kSkinnyWarps][kSkinnyRows][32];
+  const int r0 = blockIdx.x * kSkinnyRows;
+  const int m = min(kSkinnyRows, M - r0);
+  repro::skinny_pass<T>(x + (size_t)r0 * K, w,
+                        blockIdx.y * 32 + threadIdx.x % 32, m, K, N, part);
   __syncthreads();
-  for (int i = threadIdx.x; i < MT * 32; i += WARPS * 32) {
-    const int r = i / 32, c = i % 32, col = blockIdx.x * 32 + c;
-    if (r >= M || col >= N) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int v = 0; v < WARPS; ++v) sum += part[v][r][c];
-    out[(size_t)r * N + col] =
-        repro::from_f32<T>(repro::epilogue(sum, col, scale, bias, act));
+  for (int i = threadIdx.x; i < kSkinnyRows * 32; i += kSkinnyWarps * 32) {
+    const int r = i / 32, c = i % 32, col = blockIdx.y * 32 + c;
+    if (r >= m || col >= N) continue;
+    out[(size_t)(r0 + r) * N + col] = repro::from_f32<T>(repro::epilogue(
+        repro::skinny_sum(part, r, c), col, scale, bias, act));
   }
-}
-
-template <typename T, int MT>
-void launch(const void* x, const void* w, const void* scale, const void* bias,
-            void* out, int M, int K, int N, int act, cudaStream_t s) {
-  constexpr int WARPS = MT <= 16 ? 16 : 8;
-  const dim3 grid((N + 31) / 32);
-  sta_gemm_skinny_kernel<T, MT, WARPS><<<grid, WARPS * 32, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), M, K, N, act);
 }
 
 template <typename T>
-void dispatch_m(const void* x, const void* w, const void* scale,
-                const void* bias, void* out, int M, int K, int N, int act,
-                cudaStream_t s) {
-  if (M <= 8)
-    launch<T, 8>(x, w, scale, bias, out, M, K, N, act, s);
-  else if (M <= 16)
-    launch<T, 16>(x, w, scale, bias, out, M, K, N, act, s);
-  else
-    launch<T, 32>(x, w, scale, bias, out, M, K, N, act, s);
+void launch(const void* x, const void* w, const void* scale, const void* bias,
+            void* out, int M, int K, int N, int act, cudaStream_t s) {
+  const dim3 grid((M + kSkinnyRows - 1) / kSkinnyRows, (N + 31) / 32);
+  sta_gemm_skinny_kernel<T><<<grid, kSkinnyWarps * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<T*>(out), M, K, N, act);
 }
 
 }  // namespace
@@ -98,8 +63,8 @@ extern "C" int sta_gemm_skinny_launch(const void* x, const void* w,
   if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DT_BF16)
-    dispatch_m<__nv_bfloat16>(x, w, scale, bias, out, M, K, N, act, s);
+    launch<__nv_bfloat16>(x, w, scale, bias, out, M, K, N, act, s);
   else
-    dispatch_m<float>(x, w, scale, bias, out, M, K, N, act, s);
+    launch<float>(x, w, scale, bias, out, M, K, N, act, s);
   return (int)cudaGetLastError();
 }

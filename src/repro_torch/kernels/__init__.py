@@ -10,8 +10,10 @@ conv_gemm: implicit-GEMM NHWC convolution, dense or DBB-compressed
 attn:      causal and packed (block-diagonal) flash prefill, and one-token
            paged decode attention; a contiguous cache is the
            identity block table.
+sample:    the fused sampling head (head GEMV → penalties → 1/T → Gumbel
+           → argmax, no logits in device memory) and the sampling math.
 epilogue:  the fused scale → bias → act → store order all of them share.
 dispatch:  route tables and the front doors the model layers call
-           (matmul, conv, attention, attn_decode).
+           (matmul, conv, attention, attn_decode, head_sample).
 build:     nvcc + ctypes loader (builds at first use, never at import).
 """

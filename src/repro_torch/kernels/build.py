@@ -37,8 +37,10 @@ KERNEL_SOURCES = {
     "sta_gemm": "sta_gemm.cu",
     "conv_gemm": "conv_gemm.cu",
     "conv_gemm_dbb": "conv_gemm_dbb.cu",
+    "head_sample_fused": "head_sample_fused.cu",
 }
-_HEADERS = ("common.cuh", "flash_tile.cuh", "gemm_tile.cuh")
+_HEADERS = ("common.cuh", "flash_tile.cuh", "gemm_tile.cuh",
+            "skinny_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

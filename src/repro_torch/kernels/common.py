@@ -2,10 +2,9 @@
 operand coercion, launch counters and argument checks.
 
 Guards are stated for the H100, not carried over from the TPU's VMEM
-budgets: the skinny kernels stream the activation rows through registers
-and shared memory in K slices, so nothing of size M·K has to stay resident
-and the only bound is the per-thread accumulator count (one f32 per row,
-at most SKINNY_M_MAX rows).
+budgets: the skinny kernels run a batch as chunks of 8 rows and stream
+each chunk's activations through registers in K slices, so nothing of
+size M·K has to stay resident.
 """
 from __future__ import annotations
 
@@ -16,8 +15,9 @@ import torch
 __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
            "reset_launches", "check_operand", "FLOAT_DTYPES"]
 
-# Dispatch cap: decode / serving batches. Each skinny-kernel thread keeps
-# one f32 accumulator per activation row (csrc/dbb_gemm_skinny.cu).
+# Dispatch cap: decode / serving batches, as the reference's skinny rule.
+# The kernels run M > 8 as ceil(M / 8) row chunks that share each weight
+# slab in L2 (csrc/skinny_tile.cuh, csrc/dbb_gemm_skinny.cu).
 SKINNY_M_MAX = 32
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
@@ -28,7 +28,7 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "sta_gemm_skinny": 0, "paged_decode": 0,
                             "flash_prefill": 0, "flash_prefill_packed": 0,
                             "sta_gemm": 0, "conv_gemm": 0,
-                            "conv_gemm_dbb": 0}
+                            "conv_gemm_dbb": 0, "head_sample_fused": 0}
 
 
 def reset_launches() -> None:

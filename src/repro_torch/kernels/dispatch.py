@@ -1,6 +1,6 @@
 """Kernel dispatch: the route tables of the ``matmul``, ``conv``,
-``attention`` and ``attn_decode`` domains, their guards, and the front
-doors the model layers call.
+``attention``, ``attn_decode`` and ``head_sample`` domains, their guards,
+and the front doors the model layers call.
 
 Route names and the override order are the JAX package's, so overrides
 carry over: ``REPRO_FORCE_ROUTE`` (one bare route name, or
@@ -32,7 +32,8 @@ Ported routes: matmul ``xla`` (plain torch), ``sta``, ``skinny_sta``,
 ``dbb_packed``, ``skinny_dbb``; conv ``conv_xla`` (explicit im2col),
 ``conv_sta``, ``conv_dbb``; attention ``attn_flash``,
 ``attn_packed_flash``, ``attn_naive``, ``attn_packed_ref``; attn_decode
-``attn_decode_flash``, ``attn_decode_xla``. The reference's w4 routes have
+``attn_decode_flash``, ``attn_decode_xla``; head_sample
+``head_sample_fused``, ``head_sample_xla``. The reference's w4 routes have
 no kernel here yet; ``attn_chunked`` is an XLA route, not a kernel, and a
 pin to it takes ``attn_naive`` (its stand-in) with a warning.
 """
@@ -48,9 +49,10 @@ import torch
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.kernels.attn.ops import PAGE_MIN, flash_ok, paged_decode_ok
 from repro_torch.kernels.common import FLOAT_DTYPES, SKINNY_M_MAX, skinny_ok
+from repro_torch.kernels.sample.ops import TILE_N as _HS_TILE
 
 __all__ = ["OpSpec", "select", "matmul", "conv", "attention",
-           "packed_attention", "chunk_attention_route",
+           "packed_attention", "chunk_attention_route", "head_sample",
            "decode_attention_route", "pallas_route_active",
            "flash_backend_active", "forced_route", "routes_from_cfg",
            "FORCE_ROUTE_ENV", "ROUTES", "NARROW_N"]
@@ -86,6 +88,7 @@ class OpSpec:
     page: int = 0
     flash_active: bool = False
     packed_seq: bool = False      # packed (cu_seqlens) prefill batch
+    sample_tt: bool = False       # some sampled row uses top-k / top-p
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +252,22 @@ def _guard_attn_packed_ref(s: OpSpec) -> str:
     return "" if s.packed_seq else "not a packed cu_seqlens batch"
 
 
+def _guard_head_sample_fused(s: OpSpec) -> str:
+    if not s.pallas:
+        return _NO_PALLAS
+    if not s.float_ok:
+        return "non-float hidden rows (the sampling epilogue is f32)"
+    if s.sample_tt:
+        return ("top-k/top-p are global order statistics — the streaming "
+                "epilogue cannot sort the row (the plain sampler takes it)")
+    if not skinny_ok(s.m):
+        return f"outside the skinny regime (M ≤ {SKINNY_M_MAX})"
+    if s.k % _HS_TILE or s.n % _HS_TILE:
+        return (f"K={s.k} / N={s.n} not divisible by the {_HS_TILE}-column "
+                "tile (vocab padding could win the argmax)")
+    return ""
+
+
 def _always(_s: OpSpec) -> str:
     return ""
 
@@ -269,6 +288,8 @@ ROUTES: Dict[str, Tuple[Tuple[str, Callable[[OpSpec], str]], ...]] = {
                   ("attn_packed_ref", _guard_attn_packed_ref)),
     "attn_decode": (("attn_decode_flash", _guard_decode_flash),
                     ("attn_decode_xla", _always)),
+    "head_sample": (("head_sample_fused", _guard_head_sample_fused),
+                    ("head_sample_xla", _always)),
 }
 
 
@@ -559,3 +580,51 @@ def decode_attention_route(cfg, *, group: int, head_dim: int, page: int,
                   float_ok=floating)
     name, _ = select(spec, routes_from_cfg(cfg))
     return name
+
+
+def head_sample(h: torch.Tensor, w_head: torch.Tensor, counts: torch.Tensor,
+                temp, rep, pres, freq, seed, step, *, top_k=None,
+                top_p=None, use_tt: bool = False, base: int = 0, cfg=None,
+                pallas: Optional[bool] = None, route: Optional[str] = None,
+                return_score: bool = False):
+    """The sampling head: one token per hidden row ``h [B, K]`` against the
+    head ``w_head [K, N]``, with the penalties read from ``counts [B, N]``
+    and counter-hash Gumbel noise keyed by per-row ``(seed, step)``.
+
+    ``use_tt`` (some row uses top-k / top-p) sends the head to the plain
+    sampler over materialised logits (the masks are order statistics of
+    the whole row). ``base`` offsets the noise to global vocab ids.
+    ``route`` names a route outright (ValueError if its guard refuses);
+    ``return_score=True`` also returns the winning score."""
+    b, k_dim = h.shape
+    k_w, n = w_head.shape
+    if k_dim != k_w:
+        raise ValueError(f"h {tuple(h.shape)} against head "
+                         f"{tuple(w_head.shape)}")
+    if pallas is None:
+        pallas = pallas_route_active(cfg)
+    spec = OpSpec(domain="head_sample", m=b, k=k_dim, n=n,
+                  pallas=bool(pallas), gemv=True, sample_tt=bool(use_tt),
+                  float_ok=h.dtype in FLOAT_DTYPES)
+    if route is not None:
+        guard = dict(ROUTES["head_sample"]).get(route)
+        reason = "not a head_sample route" if guard is None else guard(spec)
+        if reason:
+            raise ValueError(f"route {route!r} rejected this op: {reason}")
+        name = route
+    else:
+        name, _ = select(spec, routes_from_cfg(cfg))
+    rows = dict(temp=temp, rep=rep, pres=pres, freq=freq, seed=seed,
+                step=step)
+    if name == "head_sample_fused":
+        from repro_torch.kernels.sample.ops import head_sample_fused
+        score, tok = head_sample_fused(
+            h.float().contiguous(), w_head.float().contiguous(), counts,
+            base=base, **rows)
+    else:
+        from repro_torch.kernels.sample.ref import sample_argmax
+        logits = matmul(h.float(), w_head.float(), cfg=cfg,
+                        pallas=bool(pallas), gemv=True)
+        score, tok = sample_argmax(logits, counts, base=base, top_k=top_k,
+                                   top_p=top_p, use_tt=use_tt, **rows)
+    return (score, tok) if return_score else tok

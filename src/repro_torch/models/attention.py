@@ -2,7 +2,9 @@
 (flash kernel or naive route), a packed ragged batch (packed flash kernel
 or its plain version) and a chunked-prefill continuation; one-token decode
 against the contiguous KV cache (the paged decode kernel under an identity
-block table, or the plain softmax route) and against a paged pool."""
+block table, or the plain softmax route) and against a paged pool; and the
+speculative verify pass (T candidate tokens per row, naive attention) on
+both caches."""
 from __future__ import annotations
 
 import math
@@ -14,14 +16,15 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.attn import (DEFAULT_PAGE, flash_attention,
-                                      identity_block_table,
+                                      gather_pages, identity_block_table,
                                       paged_decode_attention)
 from repro_torch.kernels.common import FLOAT_DTYPES
 from repro_torch.models.common import apply_rope, linear_init
 
 __all__ = ["attention_init", "attention_apply", "packed_attention_apply",
            "chunk_attention_apply", "decode_attention_apply",
-           "paged_decode_attention_apply"]
+           "paged_decode_attention_apply", "verify_attention_apply",
+           "paged_verify_attention_apply"]
 
 _NEG_INF = -1e30
 
@@ -246,3 +249,76 @@ def paged_decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         q.reshape(b, hkv, g, hd), k_pages, v_pages, block_table, lengths,
         start, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
     return _lin(p["o_proj"], o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
+
+
+def _verify_positions(lengths: torch.Tensor, start: Optional[torch.Tensor],
+                      t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row starts [B] — zeros for an unpadded cache, logical query
+    positions [B, T] = ``lengths - start + t``)."""
+    st = torch.zeros_like(lengths) if start is None else start
+    qpos = (lengths - st)[:, None] + torch.arange(
+        t, device=lengths.device)[None, :]
+    return st, qpos
+
+
+def verify_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           lengths: torch.Tensor,
+                           start: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Speculative verify attention on one layer of the contiguous cache:
+    x [B, T, d] holds the current token and the T-1 draft tokens of each
+    row. Their K/V are written INTO cache_k / cache_v in place at slots
+    ``lengths .. lengths+T-1`` (the slab's first slot clamps to Smax - T,
+    as the reference's dynamic_update_slice clamps it), then every
+    position attends the row's cache causally through the naive route.
+    ``lengths`` is not advanced here: the engine advances it by the
+    accepted count, and stale slots past it are masked and rewritten by
+    the next step. RoPE runs at logical positions ``lengths - start + t``;
+    slots below ``start`` are never attended. Returns the o_proj output."""
+    b, t, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    smax = cache_k.shape[1]
+    st, qpos = _verify_positions(lengths, start, t)
+    q, k, v = _project_qkv(p, cfg, x, qpos)
+    first = lengths.clamp(0, smax - t).long()
+    slots = first[:, None] + torch.arange(t, device=x.device)[None, :]
+    rows = torch.arange(b, device=x.device)[:, None]
+    cache_k[rows, slots] = k.to(cache_k.dtype)
+    cache_v[rows, slots] = v.to(cache_v.dtype)
+    # slot s holds logical position s - start: pad slots fall below zero
+    kpos = torch.arange(smax, device=x.device)[None, :] - st[:, None]
+    o = _naive_attention(q, cache_k, cache_v, qpos, kpos, cfg)
+    return _lin(p["o_proj"], o.reshape(b, t, hq * hd), cfg)
+
+
+def paged_verify_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                                 k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 start: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """`verify_attention_apply` against a paged pool: the T candidates' K/V
+    are written into the pool in place through the block table (logical
+    pages clamp to the table's last; a retired row's table points at the
+    dummy page), then the row's pages are gathered back into one
+    contiguous row for the same naive attention — the same keys in the
+    same order as the contiguous cache, so both caches give bit-identical
+    results."""
+    b, t, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    page = k_pages.shape[1]
+    n_log = block_table.shape[1]
+    st, qpos = _verify_positions(lengths, start, t)
+    q, k, v = _project_qkv(p, cfg, x, qpos)
+    slots = lengths[:, None] + torch.arange(t, device=x.device)[None, :]
+    logp = (slots // page).clamp(0, n_log - 1).long()
+    phys = block_table.gather(1, logp).long()                 # [B, T]
+    off = (slots % page).long()
+    k_pages[phys, off] = k.to(k_pages.dtype)
+    v_pages[phys, off] = v.to(v_pages.dtype)
+    krow = gather_pages(k_pages, block_table)                 # [B, S, Hkv, D]
+    vrow = gather_pages(v_pages, block_table)
+    kpos = torch.arange(n_log * page, device=x.device)[None, :] - st[:, None]
+    o = _naive_attention(q, krow, vrow, qpos, kpos, cfg)
+    return _lin(p["o_proj"], o.reshape(b, t, hq * hd), cfg)

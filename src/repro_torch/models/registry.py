@@ -11,7 +11,8 @@ from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import transformer as tf
 
 __all__ = ["init_params", "forward", "prefill", "prefill_packed",
-           "prefill_continue", "decode_step", "init_cache", "lm_head_weight"]
+           "prefill_continue", "decode_step", "verify_step", "init_cache",
+           "lm_head_weight"]
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
@@ -37,5 +38,6 @@ prefill = tf.prefill
 prefill_packed = tf.prefill_packed
 prefill_continue = tf.prefill_continue
 decode_step = tf.decode_step
+verify_step = tf.verify_step
 init_cache = tf.init_cache
 lm_head_weight = tf.lm_head_weight

@@ -27,7 +27,8 @@ from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 __all__ = ["init_params", "lm_head_weight", "init_cache", "prefill",
-           "prefill_packed", "prefill_continue", "decode_step"]
+           "prefill_packed", "prefill_continue", "decode_step",
+           "verify_step"]
 
 _FAMILIES = ("dense_lm",)
 
@@ -263,3 +264,35 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + mlp_apply(lp["mlp"], cfg, h)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return x, dict(cache, length=cache["length"] + 1)
+
+
+def verify_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Speculative verify: score T candidate tokens per row in one batched
+    pass. ``tokens [B, T]`` holds the current token and the T-1 draft
+    tokens; every layer's K/V are written into ``cache`` in place at slots
+    ``length .. length+T-1`` (contiguous cache, or the paged pool through
+    the block table), and the hidden states ``[B, T, d]`` give the full
+    model's distribution at each candidate. ``cache["length"]`` is left
+    as it was: the caller advances it by the accepted count."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens)
+    start = cache.get("start")
+    lengths = cache["length"]
+    paged = "k_pages" in cache
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        h = norm_apply(cfg.norm, lp["ln_attn"], x)
+        if paged:
+            y = attn.paged_verify_attention_apply(
+                lp["attn"], cfg, h, cache["k_pages"][l],
+                cache["v_pages"][l], cache["block_table"], lengths,
+                start=start)
+        else:
+            y = attn.verify_attention_apply(
+                lp["attn"], cfg, h, cache["k"][l], cache["v"][l], lengths,
+                start=start)
+        x = x + y
+        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
+        x = x + mlp_apply(lp["mlp"], cfg, h)
+    return norm_apply(cfg.norm, params["final_norm"], x), cache

@@ -1,4 +1,5 @@
-"""Serving engine: batched greedy generation from (DBB-packed) weights.
+"""Serving engine: batched greedy, sampled and self-speculative generation
+from (DBB-packed) weights.
 
 `ServeEngine.generate` runs one static batch: a prefill, then decode
 steps. `ServeEngine.serve` is continuous batching over any number of
@@ -22,6 +23,14 @@ With ``gemm_impl="pallas"`` the stacked layer weights stay packed on the
 device and stream through the DBB kernels; non-layer packed leaves are
 expanded once at construction, and the tied head is made a contiguous f32
 ``[d, V]`` once there too, so no step copies it.
+
+``sampling=`` (one `SamplingParams` per request) samples every token on the
+device — penalties, temperature and counter-hash Gumbel noise in the fused
+head — with the per-row history and RNG ordinal in a sampling state that
+rides beside the cache. ``draft_k > 0`` adds self-speculative decode: the
+first ``draft_layers`` layers draft ``draft_k`` tokens, the full model
+verifies them in one pass, and the rejection-sampling rule keeps a prefix
+(1 to draft_k + 1 tokens per step).
 """
 from __future__ import annotations
 
@@ -42,14 +51,17 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.attn.ops import PAGE_MIN, paged_decode_ok
 from repro_torch.kernels.common import SKINNY_M_MAX, skinny_ok
+from repro_torch.kernels.sample import ref as smp_ref
 from repro_torch.models import registry
 from repro_torch.models.common import dtype_of
+from repro_torch.serve import sampling as smp
 from repro_torch.serve.kv_cache import (DUMMY_PAGE, PageAllocator,
                                         init_paged_cache, pages_needed)
 
-__all__ = ["greedy_from_hidden", "make_prefill_step", "make_decode_step",
+__all__ = ["greedy_from_hidden", "greedy_head", "sample_head",
+           "first_sample_head", "make_prefill_step", "make_decode_step",
            "make_packed_prefill_step", "make_chunk_prefill_step",
-           "ServeEngine"]
+           "make_spec_decode_step", "ServeEngine"]
 
 
 def greedy_from_hidden(hidden: torch.Tensor, w_head: torch.Tensor,
@@ -70,78 +82,206 @@ def _gemm_impl(cfg: ModelConfig) -> str:
     return "pallas" if dispatch.pallas_route_active(cfg) else "xla"
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """step(params, head, cache, tokens [B, S], start [B] | None) →
-    (first generated token [B], cache)."""
+# A step's head turns the hidden rows it is given ([G, 1, d]: each row's
+# last position) into its output; the step makers below take one, so the
+# greedy and sampled steps share one body per step kind.
 
-    def step(params, head, cache, tokens, start=None):
+def greedy_head(cfg: ModelConfig):
+    """head(last, w) → greedy tokens [G]."""
+
+    def head(last, w):
+        return greedy_from_hidden(last, w, impl=_gemm_impl(cfg), cfg=cfg)
+
+    return head
+
+
+def sample_head(cfg: ModelConfig, use_tt: bool = False):
+    """head(last, w, sstate) → (tokens [G], sstate with them recorded):
+    penalties → temperature → Gumbel noise through the dispatch (the fused
+    kernel unless ``use_tt``: some row uses top-k / top-p)."""
+
+    def head(last, w, sstate):
+        nxt = smp.sample_from_hidden(last, w, sstate, impl=_gemm_impl(cfg),
+                                     cfg=cfg, use_tt=use_tt)
+        return nxt, smp.record_tokens(sstate, nxt)
+
+    return head
+
+
+def first_sample_head(cfg: ModelConfig, use_tt: bool = False):
+    """head(last, w, fvals [G, 5], ivals [G, 2]) → the first tokens [G] of
+    fresh requests (`pack_params` rows; zero history, RNG ordinal 0). The
+    caller installs their state (`ServeEngine._sstate_admit`)."""
+    sample = sample_head(cfg, use_tt)
+
+    def head(last, w, fvals, ivals):
+        return sample(last, w, smp.fresh_state(fvals, ivals, w.shape[-1]))[0]
+
+    return head
+
+
+def make_prefill_step(cfg: ModelConfig, head_fn=None):
+    """step(params, head, cache, tokens [B, S], start [B] | None,
+    *head_args) → (head_fn's output — by default the greedy first token
+    [B] — , cache)."""
+    head_fn = head_fn or greedy_head(cfg)
+
+    def step(params, head, cache, tokens, start=None, *head_args):
         hidden, cache = registry.prefill(params, cfg, tokens, cache,
                                          start=start)
-        return greedy_from_hidden(hidden[:, -1:], head,
-                                  impl=_gemm_impl(cfg), cfg=cfg), cache
+        return head_fn(hidden[:, -1:], head, *head_args), cache
 
     return step
 
 
-def make_decode_step(cfg: ModelConfig):
-    """step(params, head, cache, tokens [B]) → (next tokens [B], cache)."""
+def make_decode_step(cfg: ModelConfig, head_fn=None):
+    """step(params, head, cache, tokens [B], *head_args) → (head_fn's
+    output — by default the greedy next tokens [B]; with `sample_head`
+    (tokens, sstate) — , cache)."""
+    head_fn = head_fn or greedy_head(cfg)
 
-    def step(params, head, cache, tokens):
+    def step(params, head, cache, tokens, *head_args):
         hidden, cache = registry.decode_step(params, cfg, tokens, cache)
-        return greedy_from_hidden(hidden, head, impl=_gemm_impl(cfg),
-                                  cfg=cfg), cache
+        return head_fn(hidden, head, *head_args), cache
 
     return step
 
 
-def make_packed_prefill_step(cfg: ModelConfig):
+def make_packed_prefill_step(cfg: ModelConfig, head_fn=None):
     """step(params, head, cache, tokens [1, Tp], seg_ids [Tp], positions
-    [1, Tp], rows [Tp], cols [Tp], gather_idx [Gp]) → (next tokens [Gp],
-    cache): one call prefills every request packed on the token axis;
-    ``gather_idx`` names each request's last packed position, whose hidden
-    state feeds the greedy head."""
+    [1, Tp], rows [Tp], cols [Tp], gather_idx [Gp], *head_args) →
+    (next tokens [Gp], cache): one call prefills every request packed on
+    the token axis; ``gather_idx`` names each request's last packed
+    position, whose hidden state feeds the head (spare rows' tokens are
+    never consumed)."""
+    head_fn = head_fn or greedy_head(cfg)
 
     def step(params, head, cache, tokens, seg_ids, positions, rows, cols,
-             gather_idx):
+             gather_idx, *head_args):
         hidden, cache = registry.prefill_packed(
             params, cfg, tokens, seg_ids, positions, rows, cols, cache)
         last = hidden[0, gather_idx][:, None]                # [Gp, 1, d]
-        return greedy_from_hidden(last, head, impl=_gemm_impl(cfg),
-                                  cfg=cfg), cache
+        return head_fn(last, head, *head_args), cache
 
     return step
 
 
-def make_chunk_prefill_step(cfg: ModelConfig):
+def make_chunk_prefill_step(cfg: ModelConfig, head_fn=None):
     """step(params, head, cache, tokens [1, Cp], positions [1, Cp], rows
-    [Cp], cols [Cp], kv_sel, last_idx) → (next token [1], cache): one
-    continuation chunk of one request's prompt; the token (from the
-    chunk's last real position) is consumed only when the chunk completes
-    the prompt."""
+    [Cp], cols [Cp], kv_sel, last_idx, *head_args) → (next token [1],
+    cache): one continuation chunk of one request's prompt; the token
+    (from the chunk's last real position) is consumed only when the chunk
+    completes the prompt."""
+    head_fn = head_fn or greedy_head(cfg)
 
     def step(params, head, cache, tokens, positions, rows, cols, kv_sel,
-             last_idx):
+             last_idx, *head_args):
         hidden, cache = registry.prefill_continue(
             params, cfg, tokens, positions, rows, cols, kv_sel, cache)
         last = hidden[:, last_idx:last_idx + 1]             # [1, 1, d]
-        return greedy_from_hidden(last, head, impl=_gemm_impl(cfg),
-                                  cfg=cfg), cache
+        return head_fn(last, head, *head_args), cache
 
     return step
 
 
-def _consume_slot(host: np.ndarray, slot: int, row: List[int], left: int,
-                  eos_id: int) -> Tuple[int, bool]:
-    """Drain one slot's tokens from a fetched chunk ``host [steps, B]``
-    into ``row``, stopping at EOS or when the request's remaining budget
-    ``left`` runs out (later tokens of the chunk are discarded). Returns
+def make_spec_decode_step(cfg: ModelConfig, draft_k: int, draft_layers: int):
+    """Self-speculative decode: step(params, head, cache, tokens [B],
+    sstate) → ((emit [B, k+1], n_emit [B], sstate), cache).
+
+    The truncated model (the first ``draft_layers`` layers, same embedding
+    and head) drafts ``draft_k`` tokens one at a time; the full model
+    verifies all k+1 positions in one pass (`registry.verify_step`); the
+    rejection-sampling rule keeps a prefix and resamples the first rejected
+    position. ``length`` advances by exactly ``n_emit``, so the K/V of
+    rejected tokens sit above it, masked, and are rewritten by the next
+    step.
+
+    The draft writes the REAL cache in place (the reference drafts on a
+    functional copy): its decode steps write slots ``length ..
+    length+k-1`` of the first ``draft_layers`` layers (clamped as decode
+    clamps), while ``cache["length"]`` and the block table stay as they
+    are (decode returns a new dict). Verify then rewrites slots ``length ..
+    length+k`` in every layer — a superset of the draft's slots under the
+    same clamping and page mapping — before anything reads them, so the
+    final cache and every read equal the reference's, without a copy of
+    the first layers' K/V per step.
+
+    Top-k / top-p batches never get here (the engine turns speculation off
+    for them): the acceptance rule needs untruncated p and q."""
+    nd, k = draft_layers, draft_k
+    if not 0 < nd < cfg.num_layers:
+        raise ValueError(f"draft_layers={nd} outside [1, "
+                         f"{cfg.num_layers - 1}]")
+    dcfg = cfg.replace(num_layers=nd)
+    pallas = _gemm_impl(cfg) == "pallas"
+
+    def head_logits(h2d, head):
+        """[M, d] → [M, V] f32 logits (the accept rule needs whole
+        distributions): the skinny dense kernel at M ≤ 32, the plain
+        matmul above, as the reference's head GEMV."""
+        return dispatch.matmul(h2d.float().contiguous(), head, cfg=cfg,
+                               pallas=pallas, gemv=True)
+
+    def step(params, head, cache, tokens, sstate):
+        s = sstate
+        b = tokens.shape[0]
+        # draft: decode_step over the first nd layers of the stacked
+        # weights and cache (layer-indexed, so nothing is sliced or copied)
+        dcache, cur = cache, tokens
+        d_toks, d_lgs = [], []
+        for i in range(k):
+            hidden, dcache = registry.decode_step(params, dcfg, cur, dcache)
+            lg = head_logits(hidden[:, -1], head)
+            # counts snapshotted for the step; ordinal step+i is the draw
+            # counter a token-at-a-time loop would use
+            cur = smp_ref.sample_logits(
+                lg, s["counts"], s["temp"], s["top_k"], s["top_p"],
+                s["rep"], s["pres"], s["freq"], s["seed"], s["step"] + i)
+            d_toks.append(cur)
+            d_lgs.append(lg)
+        draft_tok = torch.stack(d_toks, dim=1)               # [B, k]
+        draft_lg = torch.stack(d_lgs, dim=1)                 # [B, k, V]
+        # verify: the full model over [tokens, d_0..d_{k-1}]
+        vt = torch.cat([tokens[:, None], draft_tok], dim=1)
+        hidden, cache = registry.verify_step(params, cfg, vt, cache)
+        vlg = head_logits(hidden.reshape(b * (k + 1), -1), head)
+        emit, n_emit = smp.speculative_accept_state(
+            draft_tok, draft_lg, vlg.reshape(b, k + 1, -1), s)
+        new_cache = dict(cache, length=cache["length"] + n_emit)
+        return (emit, n_emit, smp.record_emitted(s, emit, n_emit)), new_cache
+
+    return step
+
+
+def _consume_slot(host_emit: np.ndarray, host_nem: np.ndarray, slot: int,
+                  row: List[int], left: int, eos_id: int
+                  ) -> Tuple[int, bool]:
+    """Drain one slot's tokens from a fetched chunk into ``row``:
+    ``host_emit [steps, B, ke]`` / ``host_nem [steps, B]`` — per step the
+    first ``host_nem[s, slot]`` entries are real (speculative steps emit 1
+    to k+1, the others 1). Stops at EOS or when the request's remaining
+    budget ``left`` runs out (later tokens are discarded). Returns
     (remaining budget, finished)."""
-    for t in host[:, slot]:
-        row.append(int(t))
-        left -= 1
-        if t == eos_id or left <= 0:
-            return left, True
+    for s in range(host_emit.shape[0]):
+        for j in range(int(host_nem[s, slot])):
+            t = int(host_emit[s, slot, j])
+            row.append(t)
+            left -= 1
+            if t == eos_id or left <= 0:
+                return left, True
     return left, False
+
+
+def _bump_spec_stats(stats: Dict[str, Any], host_n: np.ndarray,
+                     active: Dict[int, int]) -> None:
+    """Speculative accounting over a chunk's live slots: steps run and
+    tokens emitted (acceptance rate = ``(spec_emitted / spec_steps - 1) /
+    draft_k``; steps past a row's budget count too, as in the
+    reference)."""
+    stats["spec_steps"] = (stats.get("spec_steps", 0)
+                           + host_n.shape[0] * len(active))
+    stats["spec_emitted"] = (stats.get("spec_emitted", 0)
+                             + sum(int(host_n[:, s].sum()) for s in active))
 
 
 def _bucket_len(n: int, minimum: int = 8) -> int:
@@ -155,13 +295,10 @@ def _bucket_len(n: int, minimum: int = 8) -> int:
     return b
 
 
-_SAMPLING_TODO = ("sampled and speculative serving (sampling=, draft_k=) "
-                  "is not ported yet: ROADMAP.md, Queue 1 item 6")
-
-
 @dataclasses.dataclass
 class ServeEngine:
-    """Batched greedy-decoding engine over one device.
+    """Batched decoding engine over one device: greedy, or sampled per
+    request (``sampling=``), optionally self-speculative (``draft_k``).
 
     Construction strips the diagnostic ``indices`` plane of every packed
     leaf, moves the tree to ``device``, expands packed leaves outside the
@@ -176,6 +313,9 @@ class ServeEngine:
     "packed" concatenates admitted prompts on one token axis, "padded"
     prefills each left-padded to its bucket; ``prefill_chunk`` > 0 splits
     packed prefills into chunks of that many tokens between decode chunks.
+    ``draft_k`` > 0 drafts that many tokens per step on sampled calls
+    (a call's ``draft_k=`` overrides it) with the first ``draft_layers``
+    layers (0: half of them).
     """
     cfg: ModelConfig
     params: Any
@@ -186,6 +326,8 @@ class ServeEngine:
     paged: Optional[bool] = None
     prefill_mode: str = "packed"
     prefill_chunk: int = 0
+    draft_k: int = 0
+    draft_layers: int = 0
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -211,59 +353,168 @@ class ServeEngine:
         self._decode = make_decode_step(self.cfg)
         self._packed_prefill = make_packed_prefill_step(self.cfg)
         self._prefill_continue = make_chunk_prefill_step(self.cfg)
+        self._sample_steps: Dict[Tuple[bool, int], Any] = {}
         self.last_decode_steps = 0
         self.serve_stats: Dict[str, Any] = {}
 
-    def _decode_chunk(self, cache: Dict, cur: torch.Tensor, steps: int
-                      ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-        """``steps`` decode steps on the device: (last tokens, cache,
-        tokens [steps, B])."""
-        block = []
-        for _ in range(steps):
-            cur, cache = self._decode(self.params, self.head, cache, cur)
-            block.append(cur)
-        return cur, cache, torch.stack(block)
+    # -- decode chunks: one host fetch per chunk ----------------------------
 
-    def generate(self, prompts: List[List[int]],
-                 max_new_tokens: int = 16) -> List[List[int]]:
-        """Greedy continuation of each prompt (at most ``max_new_tokens``
-        tokens, cut after ``eos_id``)."""
-        if not 1 <= len(prompts) <= self.max_batch:
-            raise ValueError(f"{len(prompts)} prompts for max_batch="
-                             f"{self.max_batch}")
-        b = len(prompts)
+    def _resolved_draft_layers(self) -> int:
+        return self.draft_layers or max(1, self.cfg.num_layers // 2)
+
+    def _sample_step(self, use_tt: bool, dk: int):
+        """The sampled (``dk`` = 0) or speculative decode step."""
+        key = (use_tt, dk)
+        if key not in self._sample_steps:
+            self._sample_steps[key] = (
+                make_spec_decode_step(self.cfg, dk,
+                                      self._resolved_draft_layers())
+                if dk else make_decode_step(self.cfg,
+                                            sample_head(self.cfg, use_tt)))
+        return self._sample_steps[key]
+
+    def _fetch_chunk(self, cache: Dict, cur: torch.Tensor, sstate,
+                     steps: int, mode: Optional[Tuple[bool, int]]):
+        """``steps`` decode steps, then ONE fetch of their tokens: (last
+        tokens, cache, sstate, host emit [steps, B, ke], host n_emit
+        [steps, B]). ``mode`` None decodes greedily, else ``(use_tt,
+        draft_k)`` samples (``ke = draft_k + 1``)."""
+        self.last_decode_steps += steps
+        dk = mode[1] if mode else 0
+        step = self._decode if mode is None else self._sample_step(*mode)
+        emits, nems = [], []
+        for _ in range(steps):
+            if mode is None:
+                cur, cache = step(self.params, self.head, cache, cur)
+                emit = cur[:, None]
+            elif dk:
+                (emit, nem, sstate), cache = step(self.params, self.head,
+                                                  cache, cur, sstate)
+                cur = emit.gather(1, (nem - 1).long()[:, None])[:, 0]
+                nems.append(nem)
+            else:
+                (cur, sstate), cache = step(self.params, self.head, cache,
+                                            cur, sstate)
+                emit = cur[:, None]
+            emits.append(emit)
+        host_e = torch.stack(emits).cpu().numpy()
+        host_n = (torch.stack(nems).cpu().numpy() if dk
+                  else np.ones(host_e.shape[:2], np.int64))
+        return cur, cache, sstate, host_e, host_n
+
+    @staticmethod
+    def _sstate_admit(sstate, slot: int, fvals, ivals, tok: int) -> None:
+        """Install an admitted request's sampling lanes at ``slot`` with its
+        prefill-sampled first token already in the history (count 1, RNG
+        ordinal 1), as the prefill's own state recorded it."""
+        smp.state_install(sstate, slot, fvals, ivals)
+        sstate["counts"][slot, tok] += 1
+        sstate["step"][slot] = 1
+
+    # -- static batch -------------------------------------------------------
+
+    def _left_pad(self, prompts: List[List[int]]):
+        """(tokens [max_batch, max_len] left-padded on the device, start
+        [max_batch] or None when no row is padded, max_len)."""
         max_len = max(len(p) for p in prompts)
-        total = max_len + max_new_tokens
         toks = np.zeros((self.max_batch, max_len), np.int32)
         start = np.zeros((self.max_batch,), np.int32)
         for i, p in enumerate(prompts):
             toks[i, max_len - len(p):] = p          # left-pad
             start[i] = max_len - len(p)
-        dev = self.device
+        st = torch.as_tensor(start, device=self.device) if start.any() \
+            else None
+        return torch.as_tensor(toks, device=self.device), st, max_len
+
+    def generate(self, prompts: List[List[int]], max_new_tokens: int = 16,
+                 sampling: Optional[Sequence[smp.SamplingParams]] = None,
+                 draft_k: Optional[int] = None) -> List[List[int]]:
+        """Continuation of each prompt (at most ``max_new_tokens`` tokens,
+        cut after ``eos_id``): greedy, or sampled with one `SamplingParams`
+        per prompt (``draft_k`` > 0: self-speculative). One host fetch per
+        decode chunk."""
+        b = len(prompts)
+        if not 1 <= b <= self.max_batch:
+            raise ValueError(f"{b} prompts for max_batch={self.max_batch}")
+        if sampling is not None and len(sampling) != b:
+            raise ValueError(f"{len(sampling)} SamplingParams for {b} "
+                             "prompts")
+        mode = None if sampling is None else self._spec_mode(sampling,
+                                                             draft_k)
+        dk = mode[1] if mode else 0
+        ke = dk + 1
+        toks, st, max_len = self._left_pad(prompts)
+        # speculative verify writes a (k+1)-slot slab at the write cursor:
+        # the cache gets that margin past the budget
+        total = max_len + max_new_tokens + (ke if dk else 0)
         cache = registry.init_cache(self.cfg, self.max_batch, total,
-                                    device=dev)
-        st = torch.as_tensor(start, device=dev) if start.any() else None
-        cur, cache = self._prefill(self.params, self.head, cache,
-                                   torch.as_tensor(toks, device=dev), st)
-        done = (torch.arange(self.max_batch, device=dev) >= b) | (
-            cur == self.eos_id)
-        chunks = [cur[None]]
-        remaining = max_new_tokens - 1
-        steps = 0
-        while remaining > 0 and not bool(done.all()):   # one sync per chunk
-            cur, cache, block = self._decode_chunk(cache, cur,
-                                                   self.fetch_chunk)
-            done = done | (block == self.eos_id).any(dim=0)
-            chunks.append(block)
-            remaining -= self.fetch_chunk
-            steps += self.fetch_chunk
-        self.last_decode_steps = steps
-        host = torch.cat(chunks).cpu().numpy()
+                                    device=self.device)
+        if mode is None:
+            cur, cache = self._prefill(self.params, self.head, cache, toks,
+                                       st)
+            sstate = None
+        else:
+            knobs = self._knob_rows(sampling, self.max_batch)
+            cur, cache = make_prefill_step(
+                self.cfg, first_sample_head(self.cfg, mode[0]))(
+                    self.params, self.head, cache, toks, st, *knobs)
+            sstate = smp.record_tokens(
+                smp.fresh_state(*knobs, self.head.shape[-1]), cur)
+        first = np.zeros((1, self.max_batch, ke), np.int64)
+        first[0, :, 0] = cur.cpu().numpy()
+        he, hn = [first], [np.ones((1, self.max_batch), np.int64)]
+        done = (np.arange(self.max_batch) >= b) | (first[0, :, 0]
+                                                   == self.eos_id)
+        got = np.ones((self.max_batch,), np.int64)
+        self.last_decode_steps = 0
+        while not np.all(done | (got >= max_new_tokens)):
+            cur, cache, sstate, host_e, host_n = self._fetch_chunk(
+                cache, cur, sstate, self.fetch_chunk, mode)
+            real = np.arange(ke)[None, None, :] < host_n[:, :, None]
+            done |= ((host_e == self.eos_id) & real).any(axis=(0, 2))
+            got += host_n.sum(axis=0)
+            he.append(host_e)
+            hn.append(host_n)
+        host_e, host_n = np.concatenate(he), np.concatenate(hn)
         outs: List[List[int]] = [[] for _ in range(b)]
         for i, row in enumerate(outs):
-            _consume_slot(host[:max_new_tokens], i, row, max_new_tokens,
+            _consume_slot(host_e, host_n, i, row, max_new_tokens,
                           self.eos_id)
         return outs
+
+    def _spec_mode(self, sampling: Sequence[smp.SamplingParams],
+                   draft_k: Optional[int]) -> Tuple[bool, int]:
+        """A sampled call's (use_tt, draft_k), with speculation turned off
+        (a warning, not an error) where the batch or model cannot take
+        it."""
+        use_tt = smp.any_uses_tt(sampling)
+        dk = self.draft_k if draft_k is None else draft_k
+        if dk > 0:
+            reason = ""
+            if use_tt:
+                reason = ("top-k/top-p requests in the batch — the "
+                          "acceptance rule needs untruncated p/q")
+            elif self.cfg.num_layers < 2:
+                reason = "needs num_layers >= 2 to truncate a draft"
+            if reason:
+                warnings.warn(f"speculative decode disabled ({reason}) — "
+                              "serving with plain sampling", stacklevel=3)
+                dk = 0
+        return use_tt, dk
+
+    def _knob_rows(self, sampling: Sequence[smp.SamplingParams], rows: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(fvals [rows, 5], ivals [rows, 2]) on the device: row i packs
+        ``sampling[i]``; spare rows carry identity knobs (temperature 0,
+        top_p 1, repetition 1), whose tokens are never consumed."""
+        fv = np.zeros((rows, 5), np.float32)
+        fv[:, 1] = fv[:, 2] = 1.0
+        iv = np.zeros((rows, 2), np.int32)
+        for i, sp in enumerate(sampling):
+            f, ivv = smp.pack_params(sp)
+            fv[i], iv[i] = f.numpy(), ivv.numpy()
+        return (torch.as_tensor(fv, device=self.device),
+                torch.as_tensor(iv, device=self.device))
 
     # -- continuous batching ----------------------------------------------
 
@@ -273,9 +524,11 @@ class ServeEngine:
               prompt_bucket: int = 8,
               prefill_mode: Optional[str] = None,
               prefill_chunk: Optional[int] = None,
-              sampling: Optional[Sequence[Any]] = None,
+              sampling: Optional[Sequence[smp.SamplingParams]] = None,
               draft_k: Optional[int] = None) -> List[List[int]]:
-        """Continuous-batching greedy decode over any number of requests.
+        """Continuous-batching decode over any number of requests: greedy,
+        or sampled with one `SamplingParams` per request (``draft_k`` > 0:
+        self-speculative; it applies to sampled calls only).
 
         ``max_new_tokens``: one budget for all requests or one per request.
         Requests are admitted into free slots between decode chunks and
@@ -283,8 +536,6 @@ class ServeEngine:
         while work is queued. ``prefill_mode`` / ``prefill_chunk``
         override the engine's defaults for this call. Counters of the run
         land in ``self.serve_stats``."""
-        if sampling is not None or draft_k is not None:
-            raise NotImplementedError(_SAMPLING_TODO)
         n_req = len(prompts)
         if isinstance(max_new_tokens, int):
             budgets = [max_new_tokens] * n_req
@@ -293,11 +544,20 @@ class ServeEngine:
             if len(budgets) != n_req:
                 raise ValueError(f"{len(budgets)} budgets for {n_req} "
                                  "prompts")
+        if sampling is not None and len(sampling) != n_req:
+            raise ValueError(f"{len(sampling)} SamplingParams for {n_req} "
+                             "prompts")
         if n_req == 0:
             return []
+        mode = None if sampling is None else self._spec_mode(sampling,
+                                                             draft_k)
+        # speculative margin: verify writes a (k+1)-slot slab at the write
+        # cursor, so every reservation (and smax) carries that headroom
+        dmargin = mode[1] + 1 if mode and mode[1] else 0
         chunk = fetch_chunk or self.fetch_chunk
         blens = [_bucket_len(len(p), prompt_bucket) for p in prompts]
-        smax = _bucket_len(max(blens) + max(budgets), prompt_bucket)
+        smax = _bucket_len(max(blens) + max(budgets) + dmargin,
+                           prompt_bucket)
         if self.cfg.kv_page_size > 0:
             # page-align smax for both layouts: the contiguous cache must
             # decode through the same kernel and pages as the paged pool
@@ -314,73 +574,83 @@ class ServeEngine:
                 use_paged = False
         backend = (_PagedKvBackend(self, smax) if use_paged
                    else _ContiguousKvBackend(self, smax))
-        mode = prefill_mode if prefill_mode is not None else self.prefill_mode
-        if mode == "packed":
+        run = _ServeRun(self, prompts, budgets, blens, chunk, backend,
+                        sampling, mode, dmargin)
+        self.last_decode_steps = 0
+        pmode = prefill_mode if prefill_mode is not None \
+            else self.prefill_mode
+        if pmode == "packed":
             pchunk = (prefill_chunk if prefill_chunk is not None
                       else self.prefill_chunk)
-            return self._serve_loop_packed(prompts, budgets, blens, chunk,
-                                           backend, pchunk)
-        if mode == "padded":
-            return self._serve_loop(prompts, budgets, blens, smax, chunk,
-                                    backend)
-        raise ValueError(f"prefill_mode={mode!r}: 'packed' or 'padded'")
+            return self._serve_loop_packed(run, pchunk)
+        if pmode == "padded":
+            return self._serve_loop(run, smax)
+        raise ValueError(f"prefill_mode={pmode!r}: 'packed' or 'padded'")
 
-    def _retire_finished(self, host: np.ndarray, active: Dict[int, int],
-                         left: Dict[int, int], outs: List[List[int]]
-                         ) -> List[int]:
-        """Drain a fetched chunk into the active requests' outputs; the
-        slots whose request finished leave ``active`` and are returned."""
+    def _decode_and_retire(self, run: "_ServeRun", cache: Dict,
+                           cur: torch.Tensor) -> Tuple[Dict, torch.Tensor,
+                                                       List[int]]:
+        """One decode chunk over the batch, drained into the active
+        requests' outputs; returns (cache, cur, the slots whose request
+        finished — already out of ``run.active``)."""
+        cur, cache, run.sstate, host_e, host_n = self._fetch_chunk(
+            cache, cur, run.sstate, run.chunk, run.mode)
+        if run.mode and run.mode[1]:
+            _bump_spec_stats(run.backend.stats, host_n, run.active)
         retired = []
-        for slot, ridx in active.items():
-            left[ridx], fin = _consume_slot(host, slot, outs[ridx],
-                                            left[ridx], self.eos_id)
+        for slot, ridx in run.active.items():
+            run.left[ridx], fin = _consume_slot(host_e, host_n, slot,
+                                                run.outs[ridx],
+                                                run.left[ridx], self.eos_id)
             if fin:
                 retired.append(slot)
         for slot in retired:
-            del active[slot]
-        return retired
+            del run.active[slot]
+        return cache, cur, retired
 
-    def _serve_loop(self, prompts: List[List[int]], budgets: List[int],
-                    blens: List[int], smax: int, chunk: int, backend
-                    ) -> List[List[int]]:
+    def _serve_loop(self, run: "_ServeRun", smax: int) -> List[List[int]]:
         """Padded admission: each request prefills alone, left-padded to
         its bucket, into a one-row cache that the backend scatters into
         the shared cache (its slot stripe, or its granted pages)."""
         dev = self.device
+        backend, prompts, budgets, blens = (run.backend, run.prompts,
+                                            run.budgets, run.blens)
         cache = backend.init_cache()
         cur = torch.zeros((self.max_batch,), dtype=torch.int32, device=dev)
-        outs: List[List[int]] = [[] for _ in prompts]
         queue = deque(range(len(prompts)))
         free = list(range(self.max_batch))
-        active: Dict[int, int] = {}                  # slot -> request idx
-        left: Dict[int, int] = {}                    # request idx -> budget
         # one scratch cache for every admission: each prefill overwrites
         # slots 0..bucket-1, and slots past a row's length are written by
         # decode before it attends them
         c1_template = registry.init_cache(self.cfg, 1, smax, device=dev)
 
         def admit(slot: int, ridx: int):
-            grant = backend.reserve(ridx, blens[ridx], budgets[ridx])
+            grant = backend.reserve(ridx, blens[ridx],
+                                    budgets[ridx] + run.dmargin)
             if grant is None:
                 return "defer"                       # wait for retirements
             p, bl = prompts[ridx], blens[ridx]
             toks = np.zeros((1, bl), np.int32)
             toks[0, bl - len(p):] = p                # left-pad to bucket
+            toks = torch.as_tensor(toks, device=dev)
             st = torch.tensor([bl - len(p)], dtype=torch.int32, device=dev)
-            nxt1, c1 = self._prefill(self.params, self.head, c1_template,
-                                     torch.as_tensor(toks, device=dev), st)
+            nxt1, c1 = run.prefill("padded")(
+                self.params, self.head, c1_template, toks, st,
+                *run.knob_rows([ridx]))
             tok = int(nxt1[0])                       # first generated token
-            outs[ridx].append(tok)
+            run.outs[ridx].append(tok)
             if tok == self.eos_id or budgets[ridx] <= 1:
                 backend.release(grant)
                 return False                         # finished at prefill
             backend.admit(cache, c1, slot, grant)
             cur[slot] = tok
-            active[slot] = ridx
-            left[ridx] = budgets[ridx] - 1
+            if run.sampled:
+                self._sstate_admit(run.sstate, slot, *run.knobs(ridx), tok)
+            run.active[slot] = ridx
+            run.left[ridx] = budgets[ridx] - 1
             return True
 
-        while queue or active:
+        while queue or run.active:
             # first-fit admission between decode chunks: a request whose
             # reservation does not fit yet is skipped (kept in arrival
             # order), so short requests fill slots behind a deferred long
@@ -400,23 +670,21 @@ class ServeEngine:
                 if not r:
                     free.append(slot)
             queue.extendleft(reversed(skipped))
-            if not active:
+            if not run.active:
                 if queue:        # deferred with nothing left to retire
                     backend.starved(queue[0], blens, budgets)
                 continue
             backend.stats["peak_active"] = max(
-                backend.stats["peak_active"], len(active))
-            cur, cache, block = self._decode_chunk(cache, cur, chunk)
-            host = block.cpu().numpy()               # one fetch per chunk
-            for slot in self._retire_finished(host, active, left, outs):
+                backend.stats["peak_active"], len(run.active))
+            cache, cur, retired = self._decode_and_retire(run, cache, cur)
+            for slot in retired:
                 free.append(slot)
                 backend.retire(cache, slot)
         self.serve_stats = backend.stats
-        return outs
+        return run.outs
 
-    def _serve_loop_packed(self, prompts: List[List[int]],
-                           budgets: List[int], blens: List[int], chunk: int,
-                           backend, prefill_chunk: int) -> List[List[int]]:
+    def _serve_loop_packed(self, run: "_ServeRun", prefill_chunk: int
+                           ) -> List[List[int]]:
         """Padding-free continuous batching. Differences from `_serve_loop`:
 
         * Admission splits into slot assignment (reserve cache space, no
@@ -432,21 +700,21 @@ class ServeEngine:
         Free and half-prefilled rows still decode-step (the chunk runs the
         whole batch); their K/V writes land where no live row reads:
         contiguous rows park their write cursor at ``smax`` (the clamped
-        write hits slot smax-1, which a live row overwrites before it
-        attends it), paged rows write through a table row that points at
-        the dummy page."""
+        write hits slot smax-1 — a speculative verify's slab smax-k-1 ..
+        smax-1 — which a live row overwrites before it attends it, and
+        which lies past every prompt thanks to the budget and speculative
+        margin), paged rows write through a table row that points at the
+        dummy page."""
         t0 = time.perf_counter()
         dev = self.device
+        backend, prompts, budgets = run.backend, run.prompts, run.budgets
         cache = backend.init_cache()
         paged = "k_pages" in cache
         if not paged:
             cache["length"].fill_(backend.smax)
         cur = torch.zeros((self.max_batch,), dtype=torch.int32, device=dev)
-        outs: List[List[int]] = [[] for _ in prompts]
         queue = deque(range(len(prompts)))
         free = list(range(self.max_batch))
-        active: Dict[int, int] = {}                  # slot -> request idx
-        left: Dict[int, int] = {}                    # request idx -> budget
         # slot -> [ridx, prefilled offset, grant] (insertion order = FIFO)
         pending: Dict[int, list] = {}
         stats = backend.stats
@@ -464,7 +732,7 @@ class ServeEngine:
 
         def complete(slot: int, st: list, tok: int):
             ridx, grant = st[0], st[2]
-            outs[ridx].append(tok)
+            run.outs[ridx].append(tok)
             ttft[ridx] = time.perf_counter() - t0
             del pending[slot]
             if tok == self.eos_id or budgets[ridx] <= 1:
@@ -473,8 +741,10 @@ class ServeEngine:
                 return
             backend.install(cache, slot, len(prompts[ridx]), grant)
             cur[slot] = tok
-            active[slot] = ridx
-            left[ridx] = budgets[ridx] - 1
+            if run.sampled:
+                self._sstate_admit(run.sstate, slot, *run.knobs(ridx), tok)
+            run.active[slot] = ridx
+            run.left[ridx] = budgets[ridx] - 1
 
         def to_dev(a: np.ndarray) -> torch.Tensor:
             return torch.as_tensor(a, device=dev)
@@ -493,17 +763,18 @@ class ServeEngine:
             cols = np.zeros((cp,), np.int32)
             rows[:c], cols[:c] = backend.token_addr(
                 slot, st[2], np.arange(off, off + c, dtype=np.int64))
-            nxt, cache = self._prefill_continue(
-                self.params, self.head, cache, to_dev(toks),
-                to_dev(pos)[None], torch.from_numpy(rows),
-                torch.from_numpy(cols), backend.kv_sel(slot, st[2]), c - 1)
+            args = (self.params, self.head, cache, to_dev(toks),
+                    to_dev(pos)[None], torch.from_numpy(rows),
+                    torch.from_numpy(cols), backend.kv_sel(slot, st[2]),
+                    c - 1, *run.knob_rows([ridx]))
+            nxt, cache = run.prefill("chunk")(*args)
             st[1] = off + c
             bump(cp, c)
             if st[1] == len(p):
                 complete(slot, st, int(nxt[0]))
             return c
 
-        while queue or pending or active:
+        while queue or pending or run.active:
             # 1) slot assignment: reservation only, arrival order; a
             # deferred reservation (paged pool exhausted) is skipped, not
             # head-of-line blocking
@@ -513,16 +784,16 @@ class ServeEngine:
                 if budgets[ridx] <= 0:
                     continue
                 grant = backend.reserve(ridx, len(prompts[ridx]),
-                                        budgets[ridx])
+                                        budgets[ridx] + run.dmargin)
                 if grant is None:
                     skipped.append(ridx)
                     stats["deferred_admissions"] += 1
                     continue
                 pending[free.pop()] = [ridx, 0, grant]
             queue.extendleft(reversed(skipped))
-            if not pending and not active:
+            if not pending and not run.active:
                 if queue:        # deferred with nothing left to retire
-                    backend.starved(queue[0], blens, budgets)
+                    backend.starved(queue[0], run.blens, budgets)
                 continue
 
             # 2) prefill: ≤ prefill_chunk prompt tokens this iteration
@@ -570,10 +841,12 @@ class ServeEngine:
                                            np.arange(c, dtype=np.int64))
                     gidx[i] = off + c - 1
                     off += c
-                nxt, cache = self._packed_prefill(
-                    self.params, self.head, cache, to_dev(toks)[None],
-                    to_dev(seg), to_dev(pos)[None], torch.from_numpy(rows),
-                    torch.from_numpy(cols), to_dev(gidx))
+                args = (self.params, self.head, cache, to_dev(toks)[None],
+                        to_dev(seg), to_dev(pos)[None],
+                        torch.from_numpy(rows), torch.from_numpy(cols),
+                        to_dev(gidx), *run.knob_rows(
+                            [st[0] for _, st, _ in items], gidx.shape[0]))
+                nxt, cache = run.prefill("packed")(*args)
                 bump(tp, total)
                 host_tok = None
                 for i, (slot, st, c) in enumerate(items):
@@ -584,12 +857,12 @@ class ServeEngine:
                         complete(slot, st, int(host_tok[i]))
 
             # 3) decode chunk + retirement (as in _serve_loop)
-            if not active:
+            if not run.active:
                 continue
-            stats["peak_active"] = max(stats["peak_active"], len(active))
-            cur, cache, block = self._decode_chunk(cache, cur, chunk)
-            host = block.cpu().numpy()               # one fetch per chunk
-            for slot in self._retire_finished(host, active, left, outs):
+            stats["peak_active"] = max(stats["peak_active"],
+                                       len(run.active))
+            cache, cur, retired = self._decode_and_retire(run, cache, cur)
+            for slot in retired:
                 free.append(slot)
                 backend.retire(cache, slot)
                 if not paged:
@@ -598,7 +871,55 @@ class ServeEngine:
         stats["ttft_s"] = [ttft.get(i, float("nan"))
                            for i in range(len(prompts))]
         self.serve_stats = stats
-        return outs
+        return run.outs
+
+
+class _ServeRun:
+    """What one serve() call carries through its scheduler loop: requests,
+    budgets, outputs, the live slots and, on sampled calls, the sampling
+    state and prefill steps."""
+
+    def __init__(self, eng: ServeEngine, prompts, budgets, blens, chunk,
+                 backend, sampling, mode, dmargin):
+        self.prompts, self.budgets, self.blens = prompts, budgets, blens
+        self.chunk, self.backend = chunk, backend
+        self.sampling, self.mode, self.dmargin = sampling, mode, dmargin
+        self.sampled = sampling is not None
+        self.outs: List[List[int]] = [[] for _ in prompts]
+        self.active: Dict[int, int] = {}             # slot -> request idx
+        self.left: Dict[int, int] = {}               # request idx -> budget
+        self.sstate = (smp.sampling_state(eng.max_batch, eng.head.shape[-1],
+                                          eng.device)
+                       if self.sampled else None)
+        self._eng = eng
+        self._prefills: Dict[str, Any] = {}
+
+    def knobs(self, ridx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`pack_params` of request ``ridx`` on the device."""
+        return smp.pack_params(self.sampling[ridx], self._eng.device)
+
+    def knob_rows(self, ridxs: Sequence[int], rows: int = 1) -> tuple:
+        """The prefill head's extra arguments for requests ``ridxs`` in
+        ``rows`` rows: none when greedy, else (fvals, ivals)."""
+        if not self.sampled:
+            return ()
+        return self._eng._knob_rows([self.sampling[i] for i in ridxs], rows)
+
+    def prefill(self, kind: str):
+        """The prefill step of ``kind`` (padded / packed / chunk): the
+        engine's greedy steps, or the same steps with the first-token
+        sampling head."""
+        eng = self._eng
+        if not self.sampled:
+            return {"padded": eng._prefill, "packed": eng._packed_prefill,
+                    "chunk": eng._prefill_continue}[kind]
+        if kind not in self._prefills:
+            maker = {"padded": make_prefill_step,
+                     "packed": make_packed_prefill_step,
+                     "chunk": make_chunk_prefill_step}[kind]
+            self._prefills[kind] = maker(
+                eng.cfg, first_sample_head(eng.cfg, self.mode[0]))
+        return self._prefills[kind]
 
 
 # ---------------------------------------------------------------------------

@@ -184,6 +184,69 @@ def test_head_gemv_route_matches_reference(m):
     assert reasons["sta"].startswith("head GEMV")
 
 
+@pytest.mark.parametrize("k", [2, 4])
+def test_spec_head_logits_routes_match_reference(k):
+    """The speculative draft/verify head logits at max_batch 8: M = 8·(k+1)
+    rows through ``matmul(gemv=True)`` — the skinny kernel at k = 2 (M 24),
+    the plain matmul at k = 4 (M 40), in both packages."""
+    _, tcfg = _cfgs(False)
+    m, d, v = 8 * (k + 1), tcfg.d_model, tcfg.vocab_size
+    want, _ = jd.select(jd.OpSpec(domain="matmul", m=m, k=d, n=v,
+                                  itemsize=4, out_itemsize=4, pallas=True,
+                                  gemv=True))
+    got, _ = td.select(td.OpSpec(domain="matmul", m=m, k=d, n=v,
+                                 pallas=True, gemv=True))
+    assert got == want == ("skinny_sta" if k == 2 else "xla")
+
+
+@pytest.mark.parametrize("m,k,n,pallas,tt,want", [
+    (8, 2048, 50304, True, False, "head_sample_fused"),   # decode
+    (1, 2048, 50304, True, False, "head_sample_fused"),   # prefill row
+    (24, 2048, 50304, True, False, "head_sample_fused"),  # draft_k rows
+    (8, 2048, 50304, True, True, "head_sample_xla"),      # top-k / top-p
+    (4, 128, 512, True, False, "head_sample_fused"),      # smoke width
+    (8, 128, 512, False, False, "head_sample_xla"),       # plain route
+    (40, 2048, 50304, True, False, "head_sample_xla"),    # M > 32
+    (8, 2048, 50000, True, False, "head_sample_xla"),     # N % 128
+])
+def test_head_sample_routes_match_reference(m, k, n, pallas, tt, want):
+    """The sampling head's route (``head_sample`` domain) in both
+    packages: the fused kernel for float rows at M ≤ 32 with K and N
+    multiples of 128 and no top-k / top-p row."""
+    jspec = jd.OpSpec(domain="head_sample", m=m, k=k, n=n, itemsize=4,
+                      out_itemsize=4, gemv=True, pallas=pallas, sample_tt=tt)
+    tspec = td.OpSpec(domain="head_sample", m=m, k=k, n=n, gemv=True,
+                      pallas=pallas, sample_tt=tt)
+    jname, _ = jd.select(jspec, {})
+    tname, reasons = td.select(tspec, {})
+    assert tname == jname == want, reasons
+
+
+def test_head_sample_route_pins():
+    """A pin to either route (``kernel_routes``) is honoured where its
+    guard admits; ``route=`` names one outright and raises where the
+    guard refuses."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.standard_normal((4, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((128, 256)).astype(np.float32))
+    rows = (torch.full((4,), 0.7), torch.ones(4), torch.zeros(4),
+            torch.zeros(4), torch.arange(4, dtype=torch.int32),
+            torch.zeros(4, dtype=torch.int32))
+    args = (h, w, torch.zeros((4, 256), dtype=torch.int32)) + rows
+    a = td.head_sample(*args, route="head_sample_xla", pallas=True)
+    b = td.head_sample(*args, route="head_sample_fused", pallas=True)
+    assert torch.equal(a, b)
+    _, tcfg = _cfgs(True)
+    pinned = tcfg.replace(kernel_routes=(("head_sample", "head_sample_xla"),))
+    spec = td.OpSpec(domain="head_sample", m=4, k=128, n=256, pallas=True)
+    assert td.select(spec, td.routes_from_cfg(pinned))[0] == \
+        "head_sample_xla"
+    with pytest.raises(ValueError, match="rejected"):
+        td.head_sample(*args, route="head_sample_fused", pallas=False)
+
+
 def _cnn_layers(cfg):
     """(name, h, w, c, N) of every conv, then ("fc", K, N) — full width."""
     layers, size, c = [], cfg.cnn_img, cfg.cnn_in_ch

@@ -17,7 +17,11 @@ both prefills): atol 1e-2·max|want|, because the kernel rounds each tile's
 unnormalised probabilities to bf16 (as the Pallas kernels do) and the
 plain version the normalised ones: up to 2^-9 relative per term, summed
 over up to 512 keys. Flash prefill compares the rows that see a key; a
-row below a left-padded row's ``start`` is garbage by contract.
+row below a left-padded row's ``start`` is garbage by contract. The fused
+sampling head: scores within 1e-5 of the largest (the GEMV sums in
+another order, logf may differ by an ulp), indices equal on every row
+whose top-2 score margin exceeds twice that; at temperature 0 with
+default penalties it is the skinny head's argmax bit for bit.
 """
 import numpy as np
 import pytest
@@ -113,6 +117,30 @@ def test_gpu_sta_gemm_skinny(cuda, dtype, m):
     x = torch.randn(m, 256, generator=g, device=cuda).to(dtype)
     w = torch.randn(256, 1000, generator=g, device=cuda).to(dtype)
     _gpu_close(sta_gemm_skinny(x, w), sta_gemm_ref(x, w), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm_skinny", "dbb_gemm_skinny"])
+def test_gpu_skinny_row_is_the_same_bits_in_any_batch(cuda, kernel):
+    """The skinny kernels run M > 8 as chunks of 8 rows with one K order:
+    rows 0..7 of an M24 call (the speculative verify) equal an M8 call
+    (decode) on those rows bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn(24, 512, generator=g, device=cuda)
+    if kernel == "sta_gemm_skinny":
+        w = torch.randn(512, 640, generator=g, device=cuda)
+
+        def run(a):
+            return sta_gemm_skinny(a, w)
+    else:
+        p = pack_dbb(torch.randn(512, 640, generator=g, device=cuda), 8, 4)
+
+        def run(a):
+            return dbb_gemm_skinny(a.bfloat16(), p.values, p.bitmask,
+                                   act="silu")
+    full = run(x)
+    for r0 in (0, 8, 16):
+        assert torch.equal(full[r0:r0 + 8], run(x[r0:r0 + 8].contiguous()))
 
 
 @pytest.mark.gpu
@@ -283,3 +311,160 @@ def test_gpu_cnn_kernel_route_matches_plain_route(cuda, arch, mode):
     assert launched == (2 if arch == "convnet-dbb" else 0)
     want = cnn.cnn_apply(params, cfg, img, matmul=mode, use_kernel=False)
     _gpu_close(got, want, torch.float32)
+
+
+def _head_sample_case(cuda, m, k, n, seed):
+    """Hidden rows scaled so the logits are O(1) (the noise decides
+    tokens), counts with some rows above zero, ragged penalties, and
+    temperature-0 rows among the sampled ones."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn(m, k, generator=g, device=cuda) / k ** 0.5
+    w = torch.randn(k, n, generator=g, device=cuda)
+    counts = torch.randint(0, 3, (m, n), generator=g, device=cuda,
+                           dtype=torch.int32)
+    counts[::3] = 0
+    r = torch.arange(m, device=cuda)
+    f32 = dict(dtype=torch.float32)
+    temp = torch.where(r % 4 == 0, 0.0, 0.5 + 0.1 * (r % 7)).to(**f32)
+    rep = torch.where(r % 2 == 0, 1.0, 1.3).to(**f32)
+    pres = torch.where(r % 3 == 1, 0.4, 0.0).to(**f32)
+    freq = torch.where(r % 5 == 2, 0.2, 0.0).to(**f32)
+    seed_ = (r * 7919 - 3).to(torch.int32)
+    step = (r * 3).to(torch.int32)
+    return h, w, counts, (temp, rep, pres, freq, seed_, step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,base", [(1, 2048, 50304, 0),
+                                        (8, 2048, 50304, 0),
+                                        (24, 256, 1024, 0),
+                                        (32, 128, 384, 1000)])
+def test_gpu_head_sample_fused(cuda, m, k, n, base):
+    """Against the plain version: scores within f32 tolerance (the GEMV
+    sums in another order; logf may differ by an ulp), indices equal on
+    every row whose top-2 score margin exceeds twice that tolerance."""
+    from repro_torch.kernels.sample import (head_sample_fused,
+                                            head_sample_fused_ref,
+                                            sample_scores)
+    h, w, counts, rows = _head_sample_case(cuda, m, k, n, m + k)
+    before = LAUNCHES["head_sample_fused"]
+    got_s, got_i = head_sample_fused(h, w, counts, *rows, base=base)
+    torch.cuda.synchronize()
+    assert LAUNCHES["head_sample_fused"] == before + 1
+    want_s, want_i = head_sample_fused_ref(h, w, counts, *rows, base=base)
+    scale = max(want_s.abs().max().item(), 1.0)
+    tol = 1e-5 * scale
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=tol)
+    col = base + torch.arange(n, device=cuda)[None, :]
+    temp, rep, pres, freq, seed_, step = (a[:, None] for a in rows)
+    scores = sample_scores(h @ w, counts, temp, rep, pres, freq, seed_,
+                           step, col)
+    top2 = scores.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    assert bool((got_i == want_i)[decided].all())
+    assert int(decided.sum()) >= m - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+def test_gpu_head_sample_temperature_zero_is_greedy_bit_for_bit(cuda, m):
+    """Temperature 0, default penalties: the fused kernel's score is the
+    skinny head kernel's logit bit for bit (same per-column K order) and
+    its index that logit row's first maximum."""
+    from repro_torch.kernels.sample import head_sample_fused
+    g = torch.Generator(device=cuda).manual_seed(m)
+    h = torch.randn(m, 2048, generator=g, device=cuda)
+    w = torch.randn(2048, 4096, generator=g, device=cuda)
+    z = torch.zeros(m, device=cuda)
+    zi = torch.zeros(m, dtype=torch.int32, device=cuda)
+    s, i = head_sample_fused(h, w, torch.zeros((m, 4096), dtype=torch.int32,
+                                               device=cuda),
+                             z, z + 1, z, z, zi, zi)
+    logits = sta_gemm_skinny(h, w)
+    assert torch.equal(s, logits.max(dim=-1).values)
+    assert torch.equal(i.long(), torch.argmax(logits, dim=-1))
+
+
+@pytest.mark.gpu
+def test_gpu_head_sample_tie_across_tiles_takes_the_lowest_index(cuda):
+    """Columns 5, 130 and 300 (three different 128-column tiles) and 7
+    (the same warp as 5) hold the same weights, so their logits are equal
+    bit for bit and beat every other column: the lowest index wins on
+    every row, at temperature 0 and with penalties that leave them tied."""
+    from repro_torch.kernels.sample import head_sample_fused
+    m, k, n = 8, 256, 512
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.rand(m, k, generator=g, device=cuda) + 0.5
+    w = -torch.rand(k, n, generator=g, device=cuda)
+    top = torch.rand(k, generator=g, device=cuda)
+    for c in (300, 130, 7, 5):
+        w[:, c] = top
+    z = torch.zeros(m, device=cuda)
+    zi = torch.zeros(m, dtype=torch.int32, device=cuda)
+    counts = torch.zeros((m, n), dtype=torch.int32, device=cuda)
+    counts[:, [5, 7, 130, 300]] = 2               # seen: penalised alike
+    rep = torch.full((m,), 1.5, device=cuda)
+    pres = torch.full((m,), 0.25, device=cuda)
+    _, i = head_sample_fused(h, w, counts, z, rep, pres, z, zi, zi)
+    assert i.tolist() == [5] * m
+    fresh = torch.zeros_like(counts)
+    for drop, want in ((None, 5), (5, 7), (7, 130)):
+        if drop is not None:
+            w[:, drop] = -1.0          # 7 ties 130 and 300; then 130 does
+        _, i = head_sample_fused(h, w, fresh, z, z + 1, z, z, zi, zi)
+        assert i.tolist() == [want] * m
+
+
+@pytest.mark.gpu
+def test_gpu_head_sample_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.sample import head_sample_fused
+    h, w, counts, rows = _head_sample_case(cuda, 33, 128, 256, 0)
+    with pytest.raises(ValueError, match="M in"):
+        head_sample_fused(h, w, counts, *rows)
+    h, w, counts, rows = _head_sample_case(cuda, 8, 128, 200, 0)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        head_sample_fused(h, w, counts, *rows)
+    h, w, counts, rows = _head_sample_case(cuda, 8, 128, 256, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        head_sample_fused(h, w.t().contiguous().t(), counts, *rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draft_k", [0, 2])
+def test_gpu_sampled_serve_kernel_route_matches_plain_route(cuda, draft_k):
+    """Smoke-width f32 olmo-1b, packed: sampled (and speculative) serve on
+    the kernel route gives the plain route's streams; paged equals
+    contiguous; the fused head launches once per sampled decode step and
+    per prefill call (and never on the speculative path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import iter_leaves, pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = get_config("olmo-1b", smoke=True).replace(
+        remat="none", gemm_impl="pallas", kv_page_size=8)
+    params = registry.init_params(cfg, seed=0, device=cuda)
+    params["embed"]["table"] *= 0.1
+    for leaf in iter_leaves(params["layers"]):
+        leaf *= 3.0
+    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+    r = np.random.default_rng(3)
+    ps = [list(map(int, r.integers(2, 512, n))) for n in (12, 7, 3, 9, 5)]
+    sp = [SamplingParams(temperature=0.6 + 0.2 * i, seed=i,
+                         repetition_penalty=1.2 if i % 2 else 1.0)
+          for i in range(5)]
+    outs = {}
+    for name, c, paged in (("kernel", cfg, False), ("paged", cfg, True),
+                           ("plain", cfg.replace(gemm_impl="xla"), False)):
+        eng = ServeEngine(c, packed, max_batch=4, paged=paged, device=cuda)
+        before = LAUNCHES["head_sample_fused"]
+        outs[name] = eng.serve(ps, max_new_tokens=10, sampling=sp,
+                               draft_k=draft_k)
+        launched = LAUNCHES["head_sample_fused"] - before
+        if name != "plain":
+            decode = 0 if draft_k else eng.last_decode_steps
+            assert launched == eng.serve_stats["prefill_calls"] + decode
+        else:
+            assert launched == 0
+    assert outs["kernel"] == outs["paged"] == outs["plain"]

@@ -19,7 +19,7 @@ def _modules():
 
 def test_every_module_is_listed():
     mods = _modules()
-    assert len(mods) >= 24
+    assert len(mods) >= 31
     for name in ("repro_torch.config", "repro_torch.configs.olmo_1b",
                  "repro_torch.core.dbb", "repro_torch.core.sparsity",
                  "repro_torch.core.dbb_linear", "repro_torch.kernels.epilogue",
@@ -36,7 +36,12 @@ def test_every_module_is_listed():
                  "repro_torch.kernels.conv_gemm.ops",
                  "repro_torch.kernels.conv_gemm.ref",
                  "repro_torch.models.cnn", "repro_torch.configs.convnet_dbb",
-                 "repro_torch.configs.lenet5_dbb"):
+                 "repro_torch.configs.lenet5_dbb",
+                 "repro_torch.kernels.sample.ops",
+                 "repro_torch.kernels.sample.ref",
+                 "repro_torch.serve.sampling",
+                 "repro_torch.serve.sampling.params",
+                 "repro_torch.serve.sampling.ops"):
         assert name in mods
 
 

@@ -102,13 +102,22 @@ def test_serve_stats_carry_ttft_per_request(params):
 
 
 def test_serve_refuses_what_is_not_ported(params):
+    """Sampling and speculation are ported (tests/test_torch_sample.py,
+    tests/test_torch_spec.py); what serve still refuses: a sampling list
+    of the wrong length, a draft as deep as the model, an unknown prefill
+    mode. ``draft_k`` on a greedy call is ignored, as in the reference."""
+    from repro_torch.serve.sampling import SamplingParams
     _, tcfg = configs()
     _, tp = params
     eng = ServeEngine(tcfg, tp, max_batch=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        eng.serve(README_PROMPTS, sampling=[None] * 6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        eng.serve(README_PROMPTS, draft_k=2)
+    with pytest.raises(ValueError, match="SamplingParams"):
+        eng.serve(README_PROMPTS, sampling=[SamplingParams()] * 5)
+    deep = ServeEngine(tcfg, tp, max_batch=4, device="cpu",
+                       draft_layers=tcfg.num_layers)
+    with pytest.raises(ValueError, match="draft_layers"):
+        deep.serve(README_PROMPTS, sampling=[SamplingParams()] * 6,
+                   draft_k=2)
+    assert eng.serve(README_PROMPTS, draft_k=2) == eng.serve(README_PROMPTS)
     with pytest.raises(ValueError, match="prefill_mode"):
         eng.serve(README_PROMPTS, prefill_mode="ragged")
     assert eng.serve([]) == []
