@@ -9,7 +9,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. build    compile every kernel of the serving path from ``src/repro_torch/csrc``
             (one nvcc per source, in parallel) and print the build seconds.
 3. kernels  each kernel against its plain PyTorch version on the card at the
-            serving path's shapes, with the tolerance stated; kernel, plain and
+            serving path's shapes (the DBB kernels on each values plane: f32,
+            INT8, w4), with the tolerance stated; kernel, plain and
             library times (medians of CUDA-event timings of single calls, L2
             flushed and the host's enqueue hidden before each) beside the least
             time the card could take (``bound_ms``).
@@ -67,16 +68,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             prefill MLP), sta_gemm_skinny, flash_prefill and paged_decode and
             no DBB kernel, and its greedy tokens must agree with the plain
             route's under the slice's near-tie excuse.
-9. tokens   smoke-width f32 engine: kernel route and plain route must produce
+9. quant    the slice's olmo-1b weights (seed 0, DBB-projected) packed as w4
+            (``weight_bits=4``, G 128) and with INT8 values
+            (``pack_tree(quantize=True)``): pack time and footprint beside
+            ``weight_footprint_ratio``; w4 ``generate`` (the slice's 8
+            prompts) and serve (a) (the serve phase's 24 requests), INT8
+            ``generate``. Each run's layer GEMMs must all take the format's
+            kernels (``dbb_gemm_w4`` / ``dbb_gemm_skinny_w4``, or the ``_i8``
+            pair: 7 per layer per forward) and no other DBB kernel; prefill
+            logits within the slice's tolerance of the plain route (the
+            INT8 run also prints the plain route at f32 activations as a
+            control) and greedy tokens under the same near-tie excuse.
+10. tokens  smoke-width f32 engine: kernel route and plain route must produce
             equal greedy tokens, and equal sampled tokens.
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-8; ``launches_by_path`` per run);
+sum over the main-path runs of phases 4-9; ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
-tables of the slice's generate, of serve (a), of the sampled serve (a) and
-of the batch-256 convnet forward (device time by kernel, device busy share)
-there.
+tables of the slice's generate, of serve (a), of the sampled serve (a), of
+the w4 serve (a) and of the batch-256 convnet forward (device time by
+kernel, device busy share) there.
 """
 from __future__ import annotations
 
@@ -206,6 +218,10 @@ def main() -> int:
     if not ok:
         return _fail("the dense-weights phase failed (see above)")
     by_path["dense_generate"] = dense_counts
+    quant_counts, ok = timed("quant", _quant_phase, args.out)
+    if not ok:
+        return _fail("the w4 / INT8 weights phase failed (see above)")
+    by_path.update(quant_counts)
     if not timed("tokens", _token_phase):
         return _fail("smoke-width token equality failed")
     for entry in kernels:
@@ -261,11 +277,9 @@ def _close(torch, got, want, rtol: float, atol: float = 0.0):
 def _kernel_phase(torch, dev, report):
     import torch.nn.functional as F
 
-    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
     from repro_torch.kernels.attn.ops import paged_decode_attention
     from repro_torch.kernels.attn.ref import gather_pages, paged_decode_ref
     from repro_torch.kernels.dbb_gemm.ops import dbb_gemm
-    from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
     from repro_torch.kernels.skinny.ops import dbb_gemm_skinny, sta_gemm_skinny
     from repro_torch.kernels.skinny.ref import sta_gemm_ref
 
@@ -279,65 +293,19 @@ def _kernel_phase(torch, dev, report):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # one layer of the main path: (K, N, calls per layer); the skinny
-    # kernels also at M24, the speculative verify pass (8 slots x 3)
-    layer_shapes = ((2048, 2048, 4), (2048, 8192, 2), (8192, 2048, 1))
+    # kernels also at M24, the speculative verify pass (8 slots x 3). Each
+    # values plane of the two DBB kernels is its own entry: f32 (the
+    # bits=8 float format), int8 (pack_tree(quantize=True)) and w4 (G 128)
     for name, src, replaces, ms_, fn in (
             ("dbb_gemm", "src/repro_torch/csrc/dbb_gemm.cu",
              "src/repro/kernels/dbb_gemm/kernel.py:114", (512,), dbb_gemm),
             ("dbb_gemm_skinny", "src/repro_torch/csrc/dbb_gemm_skinny.cu",
              "src/repro/kernels/skinny/kernel.py:167", (8, 24),
              dbb_gemm_skinny)):
-        per_m = {}
-        for m in ms_:
-            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-            worst, t_bytes, t_ops = 0.0, 0.0, 0.0
-            for k_dim, n, calls in layer_shapes:
-                x = randn(m, k_dim, dtype=bf16)
-                p = pack_dbb(randn(k_dim, n), 8, 4)
-                vals, mask = p.values, p.bitmask
-                act = "silu" if n == 8192 else "none"
-                got = fn(x, vals, mask, act=act)
-                want = dbb_gemm_ref(x, vals, mask, act=act)
-                err, ok = _close(torch, got, want, 2e-2)
-                if not ok:
-                    failures.append(f"{name} M{m} K{k_dim} N{n}: max err "
-                                    f"{err}")
-                w_dense = decompress_bitmask(vals, mask, block=8).to(bf16)
-                ms = _time_ms(torch, lambda: fn(x, vals, mask, act=act),
-                              flush)
-                pms = _time_ms(torch, lambda: dbb_gemm_ref(x, vals, mask,
-                                                           act=act), flush)
-                lms = _time_ms(torch, lambda: torch.matmul(x, w_dense),
-                               flush)
-                live = int((vals != 0).sum().item())   # kept weights
-                nbytes = (x.numel() * 2 + vals.numel() * 4
-                          + mask.numel() * 4 + m * n * 2)
-                ops = 2.0 * m * live
-                bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
-                print(f"kernel {name} M{m} K{k_dim} N{n} act={act}: max abs "
-                      f"err {err:.3e} (tol 2e-2 rel, bf16) "
-                      f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-                      f"{pms:.4f} ms, torch.matmul on the decompressed "
-                      f"weight {lms:.4f} ms, bound {bms:.4f} ms ({by})")
-                worst = max(worst, err)
-                for key, v in (("ms", ms), ("plain_ms", pms),
-                               ("bound_ms", bms), ("library_ms", lms)):
-                    tot[key] += calls * v
-                t_bytes += calls * nbytes
-                t_ops += calls * ops
-            _, by = _bound_ms(t_bytes, t_ops, BF16_OPS_PER_S)
-            per_m[m] = dict(max_abs_err=worst, bound_by=by, **tot)
-        entry = dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=0, shapes=f"one layer: M{ms_[0]} x (K,N) 4x(2048,2048) "
-                               "2x(2048,8192) 1x(8192,2048)",
-            **per_m[ms_[0]])
-        if 24 in per_m:
-            entry["m24"] = dict(per_m[24], shapes="the same layer at M24 "
-                                "(the speculative verify pass)")
-            entry["max_abs_err"] = max(v["max_abs_err"]
-                                       for v in per_m.values())
-        kernels.append(entry)
+        for plane in ("", "_i8", "_w4"):
+            kernels.append(_dbb_entry(torch, randn, flush, failures,
+                                      name + plane, src, replaces, ms_, fn,
+                                      plane))
 
     # head GEMV: x [M, 2048] f32 . w [2048, 50304] f32 at M8 (decode, the
     # entry) and M24 (the speculative verify head)
@@ -427,6 +395,100 @@ def _kernel_phase(torch, dev, report):
         raise SystemExit(_fail("kernel disagrees with its plain version: "
                                + "; ".join(failures)))
     return kernels
+
+
+# one layer of the serving path's packed GEMMs: (K, N, calls per layer)
+LAYER_SHAPES = ((2048, 2048, 4), (2048, 8192, 2), (8192, 2048, 1))
+W4_GROUP = 128
+
+
+def _dbb_planes(torch, w, plane):
+    """The DBB planes of ``w [K, N]`` in one values format, as the serving
+    path stores them: (positional operands after x, keyword operands, the
+    dequantized bf16 weight for the library yardstick, stored bytes)."""
+    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels.dbb_gemm.ref import decompress_w4_ref
+    bf16 = torch.bfloat16
+    if plane == "_w4":
+        p = pack_dbb(w, 8, 4, bits=4, group=W4_GROUP)
+        kw = dict(bits=4, group=W4_GROUP, gscale=p.scale)
+        dense = decompress_w4_ref(p.values, p.bitmask, p.scale,
+                                  group=W4_GROUP)
+        return ((p.values, p.bitmask), kw, dense.to(bf16),
+                p.values.numel() + p.bitmask.numel() * 4
+                + p.scale.numel() * 4)
+    if plane == "_i8":
+        qw = quantize_weight(w)
+        p = pack_dbb(qw.q, 8, 4)
+        dense = decompress_bitmask(p.values, p.bitmask, block=8) * qw.scale
+        return ((p.values, p.bitmask, None, qw.scale), {}, dense.to(bf16),
+                p.values.numel() + p.bitmask.numel() * 4
+                + qw.scale.numel() * 4)
+    p = pack_dbb(w, 8, 4)
+    dense = decompress_bitmask(p.values, p.bitmask, block=8)
+    return ((p.values, p.bitmask), {}, dense.to(bf16),
+            p.values.numel() * 4 + p.bitmask.numel() * 4)
+
+
+def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
+               plane):
+    """One DBB kernel branch over one layer's GEMMs (LAYER_SHAPES) at each
+    M of ``ms_``, bf16 activations: checked against its plain version
+    (rtol 2e-2, one bf16 rounding step: the weights are the same bits on
+    both), timed beside the plain version and ``torch.matmul`` on the
+    dequantized weight; the bound counts the stored planes and the live
+    weights' operations."""
+    from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
+    bf16 = torch.bfloat16
+    per_m = {}
+    for m in ms_:
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        worst, t_bytes, t_ops = 0.0, 0.0, 0.0
+        for k_dim, n, calls in LAYER_SHAPES:
+            x = randn(m, k_dim, dtype=bf16)
+            args, kw, w_dense, stored = _dbb_planes(torch, randn(k_dim, n),
+                                                    plane)
+            act = "silu" if n == 8192 else "none"
+            got = fn(x, *args, act=act, **kw)
+            want = dbb_gemm_ref(x, *args, act=act, **kw)
+            err, ok = _close(torch, got, want, 2e-2)
+            if not ok:
+                failures.append(f"{name} M{m} K{k_dim} N{n}: max err {err}")
+            ms = _time_ms(torch, lambda: fn(x, *args, act=act, **kw), flush)
+            pms = _time_ms(torch, lambda: dbb_gemm_ref(x, *args, act=act,
+                                                       **kw), flush)
+            lms = _time_ms(torch, lambda: torch.matmul(x, w_dense), flush)
+            live = int((w_dense != 0).sum().item())    # kept weights
+            nbytes = x.numel() * 2 + stored + m * n * 2
+            ops = 2.0 * m * live
+            bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            print(f"kernel {name} M{m} K{k_dim} N{n} act={act}: max abs "
+                  f"err {err:.3e} (tol 2e-2 rel, bf16) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, torch.matmul on the dequantized weight "
+                  f"{lms:.4f} ms, bound {bms:.4f} ms ({by}; {stored} stored "
+                  f"plane bytes)")
+            worst = max(worst, err)
+            for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
+                           ("library_ms", lms)):
+                tot[key] += calls * v
+            t_bytes += calls * nbytes
+            t_ops += calls * ops
+        _, by = _bound_ms(t_bytes, t_ops, BF16_OPS_PER_S)
+        per_m[m] = dict(max_abs_err=worst, bound_by=by, **tot)
+    entry = dict(
+        name=name, route="cuda", source=src, replaces=replaces, launches=0,
+        shapes=f"one layer: M{ms_[0]} x (K,N) 4x(2048,2048) 2x(2048,8192) "
+               "1x(8192,2048)" + (f", w4 G{W4_GROUP}" if plane == "_w4"
+                                  else ", int8 values" if plane == "_i8"
+                                  else ", f32 values"),
+        **per_m[ms_[0]])
+    if 24 in per_m:
+        entry["m24"] = dict(per_m[24], shapes="the same layer at M24 (the "
+                            "speculative verify pass)")
+        entry["max_abs_err"] = max(v["max_abs_err"] for v in per_m.values())
+    return entry
 
 
 # bf16 attention tolerance: the kernels round each tile's unnormalised
@@ -838,11 +900,12 @@ def _slice_phase(torch, dev, report, out_dir):
     packed = pack_tree(apply_dbb_to_tree(
         registry.init_params(cfg, seed=0, device=dev), cfg.dbb), cfg.dbb)
     torch.cuda.synchronize()
+    footprint = tree_footprint_bytes(packed)
     print(f"slice: olmo-1b full width ({cfg.num_layers} layers, d "
           f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}); init + project + pack "
           f"{time.perf_counter() - t0:.1f} s; packed tree "
-          f"{tree_footprint_bytes(packed) / 1e9:.3f} GB")
+          f"{footprint / 1e9:.3f} GB")
     engine = ServeEngine(cfg, packed, max_batch=8, device=dev)
     gen = torch.Generator().manual_seed(1)
     lens = [64, 57, 50, 43, 36, 29, 22, 15]
@@ -874,7 +937,7 @@ def _slice_phase(torch, dev, report, out_dir):
           f"({8 * steps / max(t_total - t_prefill, 1e-9):.1f} decode "
           f"row-steps/s)")
     print(f"slice: launches in the generate run: {counts}")
-    report["slice"] = dict(total_ms=t_total * 1e3,
+    report["slice"] = dict(total_ms=t_total * 1e3, footprint_bytes=footprint,
                            prefill_ms=t_prefill * 1e3,
                            decode_ms_per_step=decode_ms, steps=steps,
                            tokens=n_tok, launches=counts)
@@ -1499,7 +1562,198 @@ def _dense_phase(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: smoke-width token equality
+# phase 9: w4 and INT8-valued weights at full width
+# ---------------------------------------------------------------------------
+
+def _quant_run(torch, cfg, label, run, plane):
+    """One main-path run on a quantized tree: launch counts reset before
+    and read after; every layer GEMM must take the format's kernels (7 per
+    layer per forward: the M-tiled kernel in prefill, the skinny one in
+    decode; a packed prefill of at most 32 tokens takes the skinny one
+    too) and no other DBB kernel may launch."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    reset_launches()
+    t0 = time.perf_counter()
+    out, eng = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    steps = eng.last_decode_steps
+    prefills = eng.serve_stats.get("prefill_calls", 1)
+    per_pass = 7 * cfg.num_layers
+    big, skinny = counts["dbb_gemm" + plane], counts["dbb_gemm_skinny" + plane]
+    other = {k: v for k, v in counts.items()
+             if k.startswith("dbb") and not k.endswith(plane) and v}
+    need = ("sta_gemm_skinny", "paged_decode")
+    missing = [k for k in need if counts[k] == 0]
+    exact = (big + skinny == per_pass * (prefills + steps)
+             and skinny >= per_pass * steps and big > 0)
+    ok = exact and not other and not missing
+    n_tok = sum(len(o) for o in out)
+    print(f"{label}: {wall * 1e3:.1f} ms, {n_tok} tokens, "
+          f"{n_tok / wall:.1f} generated tokens/s, {steps} decode steps, "
+          f"{prefills} prefill calls; launches {counts}; dbb_gemm{plane} "
+          f"{big} + dbb_gemm_skinny{plane} {skinny} == {per_pass} x "
+          f"({prefills} + {steps}) {'ok' if exact else 'FAIL'}"
+          + (f"; FAIL: other DBB kernels launched {other}" if other else "")
+          + (f"; FAIL: never launched {missing}" if missing else ""))
+    return out, counts, wall, steps, ok
+
+
+def _quant_phase(torch, dev, report, out_dir):
+    """olmo-1b at full width, DBB-projected from seed 0, packed as w4
+    (G 128) — generate and serve (a) — and with INT8 values
+    (``pack_tree(quantize=True)``) — generate — each held against the plain
+    route: prefill logits within LOGIT_TOL of max |logit|, greedy tokens
+    under the near-tie excuse. The w4 weights are the same bits on both
+    routes; the INT8 plane's kernel takes q exactly and applies the
+    per-channel scale in its epilogue while the plain route rounds q·s to
+    bf16, one bf16 rounding of each weight, of the order of the bf16
+    rounding of activations the tolerance covers — the plain route at f32
+    activations (q·s unrounded) is printed as the control."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb import DbbWeight
+    from repro_torch.core.dbb_linear import (iter_leaves, pack_tree,
+                                             tree_footprint_bytes)
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+
+    base = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas")
+    w4cfg = base.replace(dbb=dataclasses.replace(
+        base.dbb, weight_bits=4, quant_group=W4_GROUP))
+    t0 = time.perf_counter()
+    proj = apply_dbb_to_tree(registry.init_params(base, seed=0, device=dev),
+                             base.dbb)
+    torch.cuda.synchronize()
+    t_proj = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(1)
+    lens = [64, 57, 50, 43, 36, 29, 22, 15]
+    prompts = [torch.randint(2, base.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    new = 64
+    counts, ok = {}, True
+    report["quant"] = {}
+    for fmt, cfg, quantize, plane in (("w4", w4cfg, False, "_w4"),
+                                      ("int8", base, True, "_i8")):
+        xcfg = cfg.replace(gemm_impl="xla")
+        t0 = time.perf_counter()
+        packed = pack_tree(proj, cfg.dbb, quantize=quantize)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        leaves = [x for x in iter_leaves(packed) if isinstance(x, DbbWeight)]
+        packed_bytes = tree_footprint_bytes(dict(enumerate(leaves)))
+        dense_elems = sum(x.bitmask.numel() * x.block for x in leaves)
+        ratio = packed_bytes / dense_elems
+        total = tree_footprint_bytes(packed)
+        f32_plane = report["slice"]["footprint_bytes"]
+        bits = {(x.bits, str(x.values.dtype)) for x in leaves}
+        print(f"quant {fmt}: init + project {t_proj:.1f} s (shared), pack "
+              f"{t_pack:.1f} s; {len(leaves)} packed leaves {sorted(bits)}; "
+              f"tree {total / 1e9:.3f} GB (f32-plane tree "
+              f"{f32_plane / 1e9:.3f} GB); packed layer weights "
+              f"{packed_bytes / 1e9:.4f} GB = {ratio:.5f} of their dense "
+              f"INT8 bytes, weight_footprint_ratio "
+              f"{cfg.dbb.weight_footprint_ratio:.5f}")
+        rep = report["quant"][fmt] = dict(
+            pack_s=t_pack, tree_bytes=total, layer_bytes=packed_bytes,
+            ratio=ratio, weight_footprint_ratio=cfg.dbb.weight_footprint_ratio)
+        engine = ServeEngine(cfg, packed, max_batch=8, device=dev)
+        engine.generate(prompts, max_new_tokens=8)           # warm-up
+        torch.cuda.synchronize()
+        out, c, wall, steps, run_ok = _quant_run(
+            torch, cfg, f"quant {fmt}: generate 8 prompts, "
+            f"max_new_tokens {new}",
+            lambda: (engine.generate(prompts, max_new_tokens=new), engine),
+            plane)
+        counts[f"{fmt}_generate"] = c
+        t0 = time.perf_counter()
+        engine.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        decode_ms = (wall - (time.perf_counter() - t0)) / max(steps, 1) * 1e3
+        print(f"quant {fmt}: decode estimate {decode_ms:.3f} ms/step (the "
+              f"generate wall minus a max_new_tokens=1 call, over {steps} "
+              f"steps)")
+        last_logits = _logits_fn(torch, dev, engine)
+        lk, lp = last_logits(cfg, prompts), last_logits(xcfg, prompts)
+        lf = last_logits(xcfg.replace(dtype="float32"), prompts)
+        scale = lp.abs().max().item()
+        tol = LOGIT_TOL * scale
+        diff = (lk - lp).abs().max().item()
+        lok = diff <= tol
+        print(f"quant {fmt}: prefill last-position logits, kernel vs plain "
+              f"route: max abs diff {diff:.4e} of max |logit| {scale:.4e} "
+              f"(tol {LOGIT_TOL:g} of max) {'ok' if lok else 'FAIL'}; "
+              f"control, against the plain route at f32 activations: kernel "
+              f"{(lk - lf).abs().max().item():.4e}, plain "
+              f"{(lp - lf).abs().max().item():.4e}")
+        xout = ServeEngine(xcfg, packed, max_batch=8,
+                           device=dev).generate(prompts, max_new_tokens=new)
+        same, tot, split = _split_rows(out, xout)
+        gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout,
+                           split)
+        tok_ok = all(g <= 2 * tol for g in gaps)
+        print(f"quant {fmt}: greedy tokens, kernel vs plain route: "
+              f"{same}/{tot} equal; rows that split (row, step, plain-route "
+              f"gap): {[(i, j, g) for (i, j), g in zip(split, gaps)]} "
+              f"(excused where gap <= 2 x logit tol = {2 * tol:.4e}) "
+              f"{'ok' if tok_ok else 'FAIL'}")
+        rep.update(generate_ms=wall * 1e3, decode_ms_per_step=decode_ms,
+                   tokens=sum(map(len, out)), launches=c,
+                   logit_max_abs_diff=diff, logit_scale=scale,
+                   token_agreement=[same, tot])
+        ok = ok and run_ok and lok and tok_ok
+        if fmt == "w4":
+            ok = _quant_serve(torch, dev, report, cfg, packed, counts,
+                              out_dir) and ok
+        del engine, packed
+    return counts, ok
+
+
+def _quant_serve(torch, dev, report, cfg, packed, counts, out_dir):
+    """serve (a) on the w4 tree: the serve phase's 24 requests, packed
+    prefill into the contiguous cache, against the plain route's serve."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg.replace(kv_page_size=64)
+    xcfg = cfg.replace(gemm_impl="xla")
+    prompts, budgets = _serve_requests(torch, cfg)
+    eng = ServeEngine(cfg, packed, max_batch=8, device=dev, paged=False)
+    eng.serve(prompts[:2], max_new_tokens=4)                 # warm-up
+    torch.cuda.synchronize()
+    out, c, wall, _, ok = _quant_run(
+        torch, cfg, "quant w4: serve (a) 24 requests, packed, "
+        "contiguous", lambda: (eng.serve(prompts, max_new_tokens=budgets),
+                               eng), "_w4")
+    counts["w4_serve_packed"] = c
+    ttft = sorted(eng.serve_stats["ttft_s"])
+    print(f"quant w4: serve (a) ttft median {ttft[len(ttft) // 2] * 1e3:.1f}"
+          f" ms, p90 {ttft[int(0.9 * (len(ttft) - 1))] * 1e3:.1f} ms")
+    if out_dir:
+        _profile(torch, lambda: eng.serve(prompts, max_new_tokens=budgets),
+                 "w4 serve(24 requests, packed, contiguous)",
+                 "profile_serve_w4", out_dir, report)
+    xeng = ServeEngine(xcfg, packed, max_batch=8, device=dev, paged=False)
+    xout = xeng.serve(prompts, max_new_tokens=budgets)
+    same, tot, split = _split_rows(out, xout)
+    tol = LOGIT_TOL * report["quant"]["w4"]["logit_scale"]
+    gaps = _split_gaps(torch, _logits_fn(torch, dev, xeng), xcfg, prompts,
+                       out, xout, split)
+    tok_ok = all(g <= 2 * tol for g in gaps)
+    print(f"quant w4: serve (a) greedy tokens, kernel vs plain route: "
+          f"{same}/{tot} equal; rows that split (row, step, plain-route "
+          f"gap): {[(i, j, g) for (i, j), g in zip(split, gaps)]} (excused "
+          f"where gap <= 2 x logit tol = {2 * tol:.4e}) "
+          f"{'ok' if tok_ok else 'FAIL'}")
+    report["quant"]["w4_serve_packed"] = dict(
+        wall_ms=wall * 1e3, tokens=sum(map(len, out)), launches=c,
+        token_agreement=[same, tot])
+    return ok and tok_ok
+
+
+# ---------------------------------------------------------------------------
+# phase 10: smoke-width token equality
 # ---------------------------------------------------------------------------
 
 def _token_phase(torch, dev, report):

@@ -21,12 +21,30 @@ class DbbConfig:
 
     apply_to names the weight families that get packed; attention
     score/value products are activation × activation and never are.
+    weight_bits: value-plane width of `pack_tree`: 8 keeps one value per
+    element; 4 nibble-packs the surviving values with groupwise scales on
+    every leaf whose K divides ``quant_group`` (others stay 8-bit packed).
+    quant_group: scale-group length G along dense K for weight_bits=4 (a
+    multiple of ``block``).
     """
     block: int = 8
     nnz: int = 4
     enabled: bool = False
     apply_to: Tuple[str, ...] = ("mlp", "attn_proj", "expert")
     weight_bits: int = 8
+    quant_group: int = 128
+
+    @property
+    def weight_footprint_ratio(self) -> float:
+        """Compressed bytes / dense INT8 bytes: per block of B values, k
+        value bytes + ceil(B/8) mask bytes (62.5% at B=8, k=4);
+        weight_bits=4 halves the value term and adds 4 scale bytes per
+        G-group."""
+        mask_bytes = (self.block + 7) // 8
+        if self.weight_bits == 4 and self.quant_group > 0:
+            return ((self.nnz * 0.5 + mask_bytes) / self.block
+                    + 4.0 / self.quant_group)
+        return (self.nnz + mask_bytes) / self.block
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Packed parameter trees: `pack_tree` turns dense (projected) weights into
-serving `DbbWeight` leaves, `decompress` expands one back to dense (the
-plain path's transient per-layer weight), `tree_footprint_bytes` counts
-device residency."""
+serving `DbbWeight` leaves (bits=8 float or int8 values, or the w4 nibble
+plane), `decompress` expands one back to dense (the plain path's transient
+per-layer weight), `tree_footprint_bytes` counts device residency."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -9,7 +9,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config import DbbConfig
-from repro_torch.core.dbb import DbbWeight, decompress_bitmask, pack_dbb
+from repro_torch.core.dbb import DbbWeight, pack_dbb, unpack_dbb
+from repro_torch.core.quant import quantize_weight
 from repro_torch.core.sparsity import map_with_path, packable
 
 __all__ = ["decompress", "pack_tree", "tree_footprint_bytes",
@@ -18,47 +19,67 @@ __all__ = ["decompress", "pack_tree", "tree_footprint_bytes",
 
 def decompress(p: DbbWeight, dtype: Optional[torch.dtype] = None
                ) -> torch.Tensor:
-    """Dense ``[..., K, N]`` from the values/bitmask planes by bitmask
-    rank (leading stack dims are looped), scale applied, cast to
-    ``dtype`` — the plain counterpart of the reference's `decompress_xla`."""
-    if p.bits != 8:
-        raise NotImplementedError(
-            f"bits={p.bits}: only the bits=8 format is ported")
+    """Dense ``[..., K, N]``: `unpack_dbb` of each matrix of the stack —
+    scale applied in f32 (a w4 leaf dequantized groupwise, an int8-valued
+    leaf times its per-channel scale) — then cast to ``dtype``; the plain
+    counterpart of the reference's `decompress_xla`."""
     lead = p.values.shape[:-2]
-    vals = p.values.reshape(-1, *p.values.shape[-2:])
-    mask = p.bitmask.reshape(-1, *p.bitmask.shape[-2:])
-    w = torch.stack([decompress_bitmask(v, m, block=p.block)
-                     for v, m in zip(vals, mask)])
+    flat = p.map(lambda a: a.reshape(-1, *a.shape[len(lead):]))
+    w = torch.stack([unpack_dbb(flat.map(lambda a: a[i]))
+                     for i in range(flat.values.shape[0])])
     w = w.reshape(*lead, p.k_dim, p.n_dim)
-    if p.scale is not None:
-        w = w * p.scale[..., None, :]
     return w.to(dtype) if dtype is not None else w
 
 
-def pack_tree(params: Any, cfg: DbbConfig) -> Any:
-    """Pack every DBB-eligible dense leaf (bits=8, values in the leaf's own
-    dtype) into a serving `DbbWeight` without the diagnostic indices.
-    Stacked ``[L, K, N]`` leaves pack one matrix at a time."""
+def _w4_eligible(k_dim: int, cfg: DbbConfig) -> bool:
+    """Whether a leaf of contraction dim ``k_dim`` takes the w4 plane under
+    ``cfg`` (the group divides K into whole blocks and the compressed row
+    count is even); other leaves stay bits=8 packed."""
+    g = cfg.quant_group
+    return (cfg.weight_bits == 4 and g > 0 and g % cfg.block == 0
+            and k_dim % g == 0 and (k_dim // cfg.block * cfg.nnz) % 2 == 0)
+
+
+def pack_tree(params: Any, cfg: DbbConfig, quantize: bool = False) -> Any:
+    """Pack every DBB-eligible dense leaf into a serving `DbbWeight`
+    without the diagnostic indices. Stacked ``[L, K, N]`` leaves pack one
+    matrix at a time.
+
+    ``cfg.weight_bits == 4``: every leaf `_w4_eligible` allows is quantized
+    groupwise from f32 and nibble-packed (``bits=4``, ``group`` G), the
+    rest stay bits=8. ``quantize=True`` stores the bits=8 leaves' values as
+    int8 with per-channel ``scale [..., N]`` (the paper's deployment
+    format); otherwise values keep the leaf's own dtype."""
     if not cfg.enabled:
         return params
-    if cfg.weight_bits != 8:
-        raise NotImplementedError(
-            f"weight_bits={cfg.weight_bits}: only bits=8 is ported")
 
     def visit(path, leaf):
         if not packable(path, leaf, cfg):
             return leaf
         kd, n = leaf.shape[-2:]
-        flat = leaf.reshape(-1, kd, n)
-        packed = [pack_dbb(w, cfg.block, cfg.nnz) for w in flat]
+        w4 = _w4_eligible(kd, cfg)
+
+        def pack_one(w):
+            if w4:
+                return pack_dbb(w.to(torch.float32), cfg.block, cfg.nnz,
+                                bits=4, group=cfg.quant_group)
+            if quantize:
+                qw = quantize_weight(w.to(torch.float32))
+                return pack_dbb(qw.q, cfg.block, cfg.nnz, scale=qw.scale)
+            return pack_dbb(w, cfg.block, cfg.nnz)
+
+        packed = [pack_one(w) for w in leaf.reshape(-1, kd, n)]
         lead = leaf.shape[:-2]
-        values = torch.stack([p.values for p in packed]).reshape(
-            *lead, *packed[0].values.shape)
-        bitmask = torch.stack([p.bitmask for p in packed]).reshape(
-            *lead, *packed[0].bitmask.shape)
-        return DbbWeight(values=values, indices=None, bitmask=bitmask,
-                         scale=None, block=cfg.block, nnz=cfg.nnz,
-                         k_dim=kd)
+
+        def stack(planes):
+            return torch.stack(planes).reshape(*lead, *planes[0].shape)
+        scale = packed[0].scale
+        return DbbWeight(
+            values=stack([p.values for p in packed]), indices=None,
+            bitmask=stack([p.bitmask for p in packed]),
+            scale=None if scale is None else stack([p.scale for p in packed]),
+            block=cfg.block, nnz=cfg.nnz, k_dim=kd, bits=4 if w4 else 8,
+            group=cfg.quant_group if w4 else 0)
 
     return map_with_path(visit, params)
 
@@ -74,8 +95,10 @@ def iter_leaves(tree: Any):
 
 def tree_footprint_bytes(params: Any) -> int:
     """Device residency of a (possibly packed) tree: a `DbbWeight` counts
-    its values plus one mask byte per block — the paper's storage format —
-    not the int32 bitmask the kernels read."""
+    its values, its scale plane and one mask byte per block — the paper's
+    storage format — not the int32 bitmask the kernels read. The block
+    count is ``bitmask.numel()``, which holds for nibble-packed values
+    too."""
     total = 0
     for leaf in iter_leaves(params):
         if isinstance(leaf, DbbWeight):

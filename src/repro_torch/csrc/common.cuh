@@ -86,6 +86,76 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
   }
 }
 
+// Value planes of the DBB kernels. Each loads the nnz stored values of one
+// (DBB block kb, output column n) pair as f32 into slot[0 .. nnz-1] and
+// zeroes the rest; compressed row r = kb * nnz + s holds slot s. The
+// kernels' bodies are templated on the plane, so the three formats share
+// one K order and one accumulation.
+//
+// F32Plane: values[K/8 * nnz, N] f32 (the bits=8 float format).
+struct F32Plane {
+  const float* v;
+  __device__ __forceinline__ void load(int kb, int n, int N, int nnz,
+                                       float slot[kNnzMax]) const {
+#pragma unroll
+    for (int s = 0; s < kNnzMax; ++s)
+      slot[s] = s < nnz ? v[((size_t)kb * nnz + s) * N + n] : 0.f;
+  }
+};
+
+// I8Plane: values[K/8 * nnz, N] int8 (pack_tree(quantize=True)); the
+// per-channel scale rides the epilogue. (float)q rounds through T exactly
+// for |q| <= 127.
+struct I8Plane {
+  const int8_t* v;
+  __device__ __forceinline__ void load(int kb, int n, int N, int nnz,
+                                       float slot[kNnzMax]) const {
+#pragma unroll
+    for (int s = 0; s < kNnzMax; ++s)
+      slot[s] = s < nnz ? (float)v[((size_t)kb * nnz + s) * N + n] : 0.f;
+  }
+};
+
+// W4Plane: values[K/8 * nnz / 2, N] nibble-packed int8 with the groupwise
+// scale gscale[K/G, N] f32. Compressed row r lives in byte row r >> 1, in
+// the low nibble when r is even, the high one when odd (an odd nnz starts
+// a block mid-byte, so rows are addressed by r, never by kb * nnz / 2).
+// G is a multiple of 8, so the block has one scale, row kb * 8 / G. Each
+// slot is dequantized with one f32 product (__fmul_rn: no contraction into
+// the accumulating FMA), as the reference multiplies the tile in f32
+// before casting it; decompress_block then rounds it through T.
+struct W4Plane {
+  const int8_t* v;
+  const float* gscale;
+  int group;
+  __device__ __forceinline__ void load(int kb, int n, int N, int nnz,
+                                       float slot[kNnzMax]) const {
+    const float g = gscale[(size_t)(kb * kDbbBlock / group) * N + n];
+    int row = -1, byte = 0;
+#pragma unroll
+    for (int s = 0; s < kNnzMax; ++s) {
+      float q = 0.f;
+      if (s < nnz) {
+        const int r = kb * nnz + s;
+        if ((r >> 1) != row) {
+          row = r >> 1;
+          byte = (int)v[(size_t)row * N + n];  // sign-extended
+        }
+        q = (float)((r & 1) ? (byte >> 4)
+                            : ((int)((unsigned)byte << 28) >> 28));
+      }
+      slot[s] = s < nnz ? __fmul_rn(q, g) : 0.f;
+    }
+  }
+};
+
+// What the w4 plane needs: G a positive multiple of the block dividing K,
+// and an even compressed row count (whole bytes).
+__host__ __device__ inline bool w4_dims_ok(int K, int nnz, int group) {
+  return group > 0 && group % kDbbBlock == 0 && K % group == 0 &&
+         (K / kDbbBlock * nnz) % 2 == 0;
+}
+
 // Decompress one DBB block of one output column: dense position `pos` is
 // kept iff bit `pos` of the mask is set, and its value sits in slot
 // rank(pos) = popcount(mask & ((1 << pos) - 1)), clamped to nnz - 1. The

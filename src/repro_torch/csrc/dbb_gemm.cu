@@ -1,26 +1,35 @@
 // DBB structured-sparse GEMM, M-tiled: out = act(scale * (x @ W) + bias)
-// with W[K, N] given as the DBB planes values[K/8 * nnz, N] (f32) and
-// bitmask[K/8, N] (int32).
+// with W[K, N] given as the DBB planes values and bitmask[K/8, N] (int32).
+// Three value planes, one body (common.cuh): f32 values[K/8 * nnz, N]
+// (dbb_gemm_launch), int8 values[K/8 * nnz, N] whose per-channel scale
+// rides the epilogue (dbb_gemm_i8_launch), and the w4 nibble plane
+// values[K/8 * nnz / 2, N] int8 with groupwise scales gscale[K/G, N]
+// (dbb_gemm_w4_launch).
 //
-// Replaces: src/repro/kernels/dbb_gemm/kernel.py, dbb_gemm_pallas (bits=8)
-// — the prefill projections of the serving path (M = batch * prompt).
+// Replaces: src/repro/kernels/dbb_gemm/kernel.py, dbb_gemm_pallas (float
+// activations: the f32 / int8 values plane and the bits=4 branch with
+// _expand_nibbles / _dequant_tile) — the prefill projections of the
+// serving path (M = batch * prompt).
 //
 // What bounds it on the H100: at the prefill shapes (M = 512, K and N of
-// 2048-8192) the work is 2·M·K·N operations on ~62.5% of the dense weight
-// bytes, far above the card's ~295 operations per byte, so it is bound by
-// arithmetic. This first version multiplies with plain f32 FMAs (each
-// bf16 product is exact in f32, so it computes what a bf16 tensor-core
-// product with f32 accumulation computes), not with the tensor cores:
-// it is correct and simple; mma / wgmma with TMA-fed tiles is later work.
+// 2048-8192) the work is 2·M·K·N operations on 0.8-2.5 bytes of stored
+// planes per dense weight, far above the card's ~295 operations per byte,
+// so it is bound by arithmetic. This first version multiplies with plain
+// f32 FMAs (each bf16 product is exact in f32, so it computes what a bf16
+// tensor-core product with f32 accumulation computes), not with the
+// tensor cores: it is correct and simple; mma / wgmma with TMA-fed tiles
+// is later work.
 //
 // Design: one 256-thread block owns a 128 x 128 output tile and loops
-// over K in steps of 16 (two DBB blocks). Each step every thread
-// decompresses one (DBB block, column) pair from its bitmask rank straight
-// into the shared-memory weight tile — the dense weight never exists in
-// device memory — and loads eight activations into the transposed
-// shared-memory activation tile. Each thread then accumulates an 8 x 8
-// register tile in f32; the epilogue runs on those registers before the
-// one store of the output. No state crosses blocks.
+// over K in steps of 16 (two DBB blocks). Each step every thread loads
+// one (DBB block, column) pair's slots through the plane's loader (the w4
+// loader sign-extends nibbles and multiplies by the block's group scale)
+// and decompresses them from the bitmask rank straight into the
+// shared-memory weight tile — the dense weight never exists in device
+// memory — and loads eight activations into the transposed shared-memory
+// activation tile. Each thread then accumulates an 8 x 8 register tile in
+// f32; the epilogue runs on those registers before the one store of the
+// output. No state crosses blocks.
 #include "common.cuh"
 
 namespace {
@@ -29,9 +38,9 @@ constexpr int BM = 128, BN = 128, BK = 16, TM = 8, TN = 8;
 constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 constexpr int kBlocksPerStep = BK / repro::kDbbBlock;
 
-template <typename T>
+template <typename T, typename Plane>
 __global__ void __launch_bounds__(kThreads)
-dbb_gemm_kernel(const T* __restrict__ x, const float* __restrict__ values,
+dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
                 const int32_t* __restrict__ bitmask,
                 const float* __restrict__ scale,
                 const float* __restrict__ bias, T* __restrict__ out, int M,
@@ -75,9 +84,7 @@ dbb_gemm_kernel(const T* __restrict__ x, const float* __restrict__ values,
       for (int s = 0; s < repro::kNnzMax; ++s) slot[s] = 0.f;
       if (kb < kb_total && n < N) {
         mask = (uint32_t)bitmask[(size_t)kb * N + n];
-#pragma unroll
-        for (int s = 0; s < repro::kNnzMax; ++s)
-          if (s < nnz) slot[s] = values[((size_t)kb * nnz + s) * N + n];
+        plane.load(kb, n, N, nnz, slot);
       }
       float w[repro::kDbbBlock];
       repro::decompress_block<T>(mask, slot, nnz, w);
@@ -118,6 +125,29 @@ dbb_gemm_kernel(const T* __restrict__ x, const float* __restrict__ values,
 static_assert(kBlocksPerStep * BN == kThreads, "one (block, col) per thread");
 static_assert(BM * (BK / 8) == kThreads, "one 8-wide load per thread");
 
+template <typename Plane>
+int launch(const void* x, const Plane plane, const void* bitmask,
+           const void* scale, const void* bias, void* out, int M, int K,
+           int N, int nnz, int act, int dtype, void* stream) {
+  if (nnz < 1 || nnz > repro::kNnzMax || K % repro::kDbbBlock)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* mk = static_cast<const int32_t*>(bitmask);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  if (dtype == repro::DT_BF16) {
+    dbb_gemm_kernel<__nv_bfloat16, Plane><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), plane, mk, sc, bi,
+        static_cast<__nv_bfloat16*>(out), M, K, N, nnz, act);
+  } else {
+    dbb_gemm_kernel<float, Plane><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), plane, mk, sc, bi,
+        static_cast<float*>(out), M, K, N, nnz, act);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dbb_gemm_launch(const void* x, const void* values,
@@ -125,20 +155,28 @@ extern "C" int dbb_gemm_launch(const void* x, const void* values,
                                const void* bias, void* out, int M, int K,
                                int N, int nnz, int act, int dtype,
                                void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(values);
-  const int32_t* mk = static_cast<const int32_t*>(bitmask);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  if (dtype == repro::DT_BF16) {
-    dbb_gemm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), v, mk, sc, bi,
-        static_cast<__nv_bfloat16*>(out), M, K, N, nnz, act);
-  } else {
-    dbb_gemm_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), v, mk, sc, bi, static_cast<float*>(out),
-        M, K, N, nnz, act);
-  }
-  return (int)cudaGetLastError();
+  return launch(x, repro::F32Plane{static_cast<const float*>(values)},
+                bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
+}
+
+extern "C" int dbb_gemm_i8_launch(const void* x, const void* values,
+                                  const void* bitmask, const void* scale,
+                                  const void* bias, void* out, int M, int K,
+                                  int N, int nnz, int act, int dtype,
+                                  void* stream) {
+  return launch(x, repro::I8Plane{static_cast<const int8_t*>(values)},
+                bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
+}
+
+extern "C" int dbb_gemm_w4_launch(const void* x, const void* values,
+                                  const void* bitmask, const void* gscale,
+                                  int group, const void* scale,
+                                  const void* bias, void* out, int M, int K,
+                                  int N, int nnz, int act, int dtype,
+                                  void* stream) {
+  if (!repro::w4_dims_ok(K, nnz, group)) return (int)cudaErrorInvalidValue;
+  return launch(x,
+                repro::W4Plane{static_cast<const int8_t*>(values),
+                               static_cast<const float*>(gscale), group},
+                bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
 }

@@ -1,14 +1,22 @@
 // DBB structured-sparse GEMM for skinny M (decode, M <= 32):
-// out = act(scale * (x @ W) + bias), W given as the DBB planes
-// values[K/8 * nnz, N] (f32) and bitmask[K/8, N] (int32).
+// out = act(scale * (x @ W) + bias), W given as the DBB planes values and
+// bitmask[K/8, N] (int32). Three value planes, one body (common.cuh): f32
+// values[K/8 * nnz, N] (dbb_gemm_skinny_launch), int8 values whose
+// per-channel scale rides the epilogue (dbb_gemm_skinny_i8_launch), and
+// the w4 nibble plane values[K/8 * nnz / 2, N] with groupwise scales
+// gscale[K/G, N] (dbb_gemm_skinny_w4_launch).
 //
 // Replaces: src/repro/kernels/skinny/kernel.py, dbb_gemm_skinny_pallas
-// (bits=8) — every decode projection of the serving path (M = batch).
+// (float activations, its bits=8 and bits=4 branches) — every decode and
+// speculative-verify projection of the serving path (M = batch, 3·batch).
 //
 // What bounds it on the H100: bytes. At M = 8 each weight byte feeds a
-// few operations, so the time is the compressed weight stream (values +
-// bitmask) over the 3.35 TB/s memory rate; the activations are a few KB
-// and stay in L1/L2.
+// few operations, so the time is the stored weight stream (values +
+// bitmask, + the group scales at w4: 2.5 / 1.0 / 0.78 bytes per dense
+// weight for the f32 / int8 / w4 planes at k = 4) over the 3.35 TB/s
+// memory rate; the activations are a few KB and stay in L1/L2. The w4
+// plane's nibble loads are 1-2 bytes a thread (16 bytes of a values row
+// per half-warp): poorly coalesced, left for a later PR.
 //
 // Design: the weight stream is never expanded in device memory. A block
 // owns 16 output columns, so even N = 2048 gives 128 column ranges, and
@@ -18,12 +26,13 @@
 // each half-warp covers the 16 columns (a 64-byte coalesced read of a
 // values or bitmask row) and the block's half-warps split the K/8 DBB
 // blocks between them, interleaved. Per DBB block a thread loads its
-// column's mask and nnz values, decompresses the 8 dense weights in
-// registers from the bitmask rank (rounded through the activation dtype,
-// as the reference casts the tile), loads each row's 8 activations with
-// one vector load (broadcast across the half-warp) and accumulates 8 f32
-// sums. The partial sums meet in shared memory, the epilogue runs on the
-// total and the block stores its columns once.
+// column's mask and nnz slots through the plane's loader, decompresses
+// the 8 dense weights in registers from the bitmask rank (rounded
+// through the activation dtype, as the reference casts the tile), loads
+// each row's 8 activations with one vector load (broadcast across the
+// half-warp) and accumulates 8 f32 sums. The partial sums meet in shared
+// memory, the epilogue runs on the total and the block stores its columns
+// once.
 #include "common.cuh"
 
 namespace {
@@ -33,10 +42,9 @@ constexpr int kSplit = 32 / kCols;         // K slices per warp
 constexpr int kRows = 8;                   // rows per block (one chunk)
 constexpr int kWarps = 16;
 
-template <typename T>
+template <typename T, typename Plane>
 __global__ void __launch_bounds__(kWarps * 32)
-dbb_gemm_skinny_kernel(const T* __restrict__ x,
-                       const float* __restrict__ values,
+dbb_gemm_skinny_kernel(const T* __restrict__ x, const Plane plane,
                        const int32_t* __restrict__ bitmask,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias, T* __restrict__ out,
@@ -60,9 +68,7 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x,
     for (int kb = slice; kb < kb_total; kb += kSlices) {
       const uint32_t mask = (uint32_t)bitmask[(size_t)kb * N + n];
       float slot[repro::kNnzMax];
-#pragma unroll
-      for (int s = 0; s < repro::kNnzMax; ++s)
-        slot[s] = s < nnz ? values[((size_t)kb * nnz + s) * N + n] : 0.f;
+      plane.load(kb, n, N, nnz, slot);
       float w[repro::kDbbBlock];
       repro::decompress_block<T>(mask, slot, nnz, w);
 #pragma unroll
@@ -90,16 +96,32 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* values, const void* bitmask,
-            const void* scale, const void* bias, void* out, int M, int K,
-            int N, int nnz, int act, cudaStream_t s) {
+template <typename T, typename Plane>
+void launch_t(const void* x, const Plane plane, const void* bitmask,
+              const void* scale, const void* bias, void* out, int M, int K,
+              int N, int nnz, int act, cudaStream_t s) {
   const dim3 grid((M + kRows - 1) / kRows, (N + kCols - 1) / kCols);
-  dbb_gemm_skinny_kernel<T><<<grid, kWarps * 32, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(values),
-      static_cast<const int32_t*>(bitmask), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<T*>(out), M, K, N, nnz,
-      act);
+  dbb_gemm_skinny_kernel<T, Plane><<<grid, kWarps * 32, 0, s>>>(
+      static_cast<const T*>(x), plane, static_cast<const int32_t*>(bitmask),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<T*>(out), M, K, N, nnz, act);
+}
+
+template <typename Plane>
+int launch(const void* x, const Plane plane, const void* bitmask,
+           const void* scale, const void* bias, void* out, int M, int K,
+           int N, int nnz, int act, int dtype, void* stream) {
+  if (M < 1 || M > 32 || nnz < 1 || nnz > repro::kNnzMax ||
+      K % repro::kDbbBlock)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::DT_BF16)
+    launch_t<__nv_bfloat16>(x, plane, bitmask, scale, bias, out, M, K, N,
+                            nnz, act, s);
+  else
+    launch_t<float>(x, plane, bitmask, scale, bias, out, M, K, N, nnz, act,
+                    s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -109,12 +131,30 @@ extern "C" int dbb_gemm_skinny_launch(const void* x, const void* values,
                                       const void* bias, void* out, int M,
                                       int K, int N, int nnz, int act,
                                       int dtype, void* stream) {
-  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::DT_BF16)
-    launch<__nv_bfloat16>(x, values, bitmask, scale, bias, out, M, K, N, nnz,
-                          act, s);
-  else
-    launch<float>(x, values, bitmask, scale, bias, out, M, K, N, nnz, act, s);
-  return (int)cudaGetLastError();
+  return launch(x, repro::F32Plane{static_cast<const float*>(values)},
+                bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
+}
+
+extern "C" int dbb_gemm_skinny_i8_launch(const void* x, const void* values,
+                                         const void* bitmask,
+                                         const void* scale, const void* bias,
+                                         void* out, int M, int K, int N,
+                                         int nnz, int act, int dtype,
+                                         void* stream) {
+  return launch(x, repro::I8Plane{static_cast<const int8_t*>(values)},
+                bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
+}
+
+extern "C" int dbb_gemm_skinny_w4_launch(const void* x, const void* values,
+                                         const void* bitmask,
+                                         const void* gscale, int group,
+                                         const void* scale, const void* bias,
+                                         void* out, int M, int K, int N,
+                                         int nnz, int act, int dtype,
+                                         void* stream) {
+  if (!repro::w4_dims_ok(K, nnz, group)) return (int)cudaErrorInvalidValue;
+  return launch(x,
+                repro::W4Plane{static_cast<const int8_t*>(values),
+                               static_cast<const float*>(gscale), group},
+                bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
 }

@@ -24,7 +24,10 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 # One plain integer per CUDA kernel: its wrapper adds one where it launches
 # the kernel, and nowhere else (the CPU's plain path does not count).
+# The DBB kernels count each values format apart (f32, ``_i8``, ``_w4``).
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
+                            "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
+                            "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
                             "sta_gemm_skinny": 0, "paged_decode": 0,
                             "flash_prefill": 0, "flash_prefill_packed": 0,
                             "sta_gemm": 0, "conv_gemm": 0,

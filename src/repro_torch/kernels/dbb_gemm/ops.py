@@ -2,8 +2,11 @@
 
 ``dbb_gemm(x, values, bitmask, ...)`` computes
 ``act(scale * (x @ unpack(values, bitmask)) + bias)`` for ``x [..., K]``.
-On a CUDA tensor it launches the kernel (or raises); on a CPU tensor it
-runs the plain version, `dbb_gemm_ref`.
+The values plane is f32 or int8 ``[K/8·k, N]``, or at ``bits=4`` the
+nibble plane ``[K/8·k/2, N]`` int8 with groupwise scales ``gscale [K/G,
+N]``; each format has its own launcher and launch counter (``dbb_gemm``,
+``dbb_gemm_i8``, ``dbb_gemm_w4``). On a CUDA tensor it launches the kernel
+(or raises); on a CPU tensor it runs the plain version, `dbb_gemm_ref`.
 """
 from __future__ import annotations
 
@@ -18,15 +21,19 @@ from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES,
 from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
 from repro_torch.kernels.epilogue import ACT_CODES
 
-__all__ = ["dbb_gemm", "check_dbb_operands", "dbb_launcher"]
+__all__ = ["dbb_gemm", "check_dbb_operands", "dbb_launcher",
+           "run_dbb_kernel"]
 
 
 def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
                        bitmask: torch.Tensor, *, block: int, nnz: int,
-                       out_dtype: Optional[torch.dtype]
-                       ) -> Tuple[torch.Tensor, int, int, int]:
+                       out_dtype: Optional[torch.dtype], bits: int = 8,
+                       group: int = 0, gscale: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, int, int, int, str]:
     """Validate the operands both DBB kernels take; returns
-    ``(x [M, K], M, K, N)``. Raises on anything the kernels do not take."""
+    ``(x [M, K], M, K, N, plane)`` with ``plane`` the launcher suffix of
+    the values format ("" f32, "_i8" int8, "_w4" the nibble plane). Raises
+    on anything the kernels do not take."""
     if block != 8:
         raise ValueError(f"DBB block {block}: the kernels take B = 8")
     if not 1 <= nnz <= 8:
@@ -41,49 +48,83 @@ def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
                         f"dtype {x.dtype}")
     dev = x.device
     check_operand("x", x2, (m, k_dim), FLOAT_DTYPES, dev)
-    check_operand("values", values, (k_dim // block * nnz, n),
-                  (torch.float32,), dev)
+    rows = k_dim // block * nnz
+    if bits == 4:
+        if group <= 0 or group % block or k_dim % group:
+            raise ValueError(f"group={group} must be a positive multiple "
+                             f"of the block {block} dividing K={k_dim}")
+        if rows % 2:
+            raise ValueError(f"K/8·k = {rows} compressed rows: the nibble "
+                             "plane needs an even count")
+        check_operand("values", values, (rows // 2, n), (torch.int8,), dev)
+        if gscale is None:
+            raise ValueError("bits=4 needs the groupwise gscale plane")
+        check_operand("gscale", gscale, (k_dim // group, n),
+                      (torch.float32,), dev)
+        plane = "_w4"
+    elif bits == 8:
+        if gscale is not None:
+            raise ValueError("gscale is the bits=4 plane's; bits=8 scales "
+                             "ride the epilogue")
+        check_operand("values", values, (rows, n),
+                      (torch.float32, torch.int8), dev)
+        plane = "_i8" if values.dtype == torch.int8 else ""
+    else:
+        raise ValueError(f"bits={bits} not supported (4 or 8)")
     check_operand("bitmask", bitmask, (k_dim // block, n), (torch.int32,),
                   dev)
-    return x2, m, k_dim, n
+    return x2, m, k_dim, n, plane
 
 
-def dbb_launcher(name: str) -> ctypes._CFuncPtr:
-    """The C launcher ``<name>_launch`` of a DBB kernel, typed."""
-    fn = getattr(build.load(name), f"{name}_launch")
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+def dbb_launcher(name: str, plane: str = "") -> ctypes._CFuncPtr:
+    """The C launcher ``<name><plane>_launch`` of a DBB kernel, typed (the
+    w4 launcher also takes the gscale pointer and the group)."""
+    fn = getattr(build.load(name), f"{name}{plane}_launch")
+    if plane == "_w4":
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def run_dbb_kernel(name: str, x2, values, bitmask, bias, scale, *, m, k_dim,
-                   n, nnz, act) -> torch.Tensor:
-    """Launch DBB kernel ``name`` on the current stream; count the launch."""
+def run_dbb_kernel(name: str, plane: str, x2, values, bitmask, bias, scale,
+                   *, m, k_dim, n, nnz, act, group=0, gscale=None
+                   ) -> torch.Tensor:
+    """Launch DBB kernel ``name`` on its ``plane`` branch on the current
+    stream; count the launch under ``name + plane``."""
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    rc = dbb_launcher(name)(
-        x2.data_ptr(), values.data_ptr(), bitmask.data_ptr(),
-        build.ptr(scale), build.ptr(bias), out.data_ptr(), m, k_dim, n, nnz,
-        ACT_CODES[act], build.dtype_code(x2.dtype),
+    head = [x2.data_ptr(), values.data_ptr(), bitmask.data_ptr()]
+    if plane == "_w4":
+        head += [gscale.data_ptr(), group]
+    rc = dbb_launcher(name, plane)(
+        *head, build.ptr(scale), build.ptr(bias), out.data_ptr(), m, k_dim,
+        n, nnz, ACT_CODES[act], build.dtype_code(x2.dtype),
         build.stream_handle(x2.device))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name}{plane} launch failed: cudaError {rc}")
+    LAUNCHES[name + plane] += 1
     return out
 
 
 def dbb_gemm(x: torch.Tensor, values: torch.Tensor, bitmask: torch.Tensor,
              bias=None, scale=None, *, act: str = "none", block: int = 8,
-             nnz: int = 4, out_dtype: Optional[torch.dtype] = None
-             ) -> torch.Tensor:
+             nnz: int = 4, out_dtype: Optional[torch.dtype] = None,
+             bits: int = 8, group: int = 0,
+             gscale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """M-tiled DBB GEMM (any M); output ``[..., N]`` in x's dtype."""
-    x2, m, k_dim, n = check_dbb_operands(x, values, bitmask, block=block,
-                                         nnz=nnz, out_dtype=out_dtype)
+    x2, m, k_dim, n, plane = check_dbb_operands(
+        x, values, bitmask, block=block, nnz=nnz, out_dtype=out_dtype,
+        bits=bits, group=group, gscale=gscale)
     bias, scale = coerce_bias_scale(bias, scale, n, x.device)
     if x.device.type == "cpu":
         y = dbb_gemm_ref(x2, values, bitmask, bias, scale, act=act,
-                         block=block)
+                         block=block, bits=bits, group=group, gscale=gscale)
     else:
-        y = run_dbb_kernel("dbb_gemm", x2, values, bitmask, bias, scale,
-                           m=m, k_dim=k_dim, n=n, nnz=nnz, act=act)
+        y = run_dbb_kernel("dbb_gemm", plane, x2, values, bitmask, bias,
+                           scale, m=m, k_dim=k_dim, n=n, nnz=nnz, act=act,
+                           group=group, gscale=gscale)
     return y.reshape(*x.shape[:-1], n)

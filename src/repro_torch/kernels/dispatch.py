@@ -29,13 +29,15 @@ choice where its cost model turns a kernel down:
   M-tiling buys nothing on ``[B, d]·[d, V]``, as in the reference.
 
 Ported routes: matmul ``xla`` (plain torch), ``sta``, ``skinny_sta``,
-``dbb_packed``, ``skinny_dbb``; conv ``conv_xla`` (explicit im2col),
-``conv_sta``, ``conv_dbb``; attention ``attn_flash``,
-``attn_packed_flash``, ``attn_naive``, ``attn_packed_ref``; attn_decode
+``dbb_packed``, ``skinny_dbb`` (f32 or int8 values planes),
+``dbb_packed_w4``, ``skinny_dbb_w4`` (the nibble plane); conv
+``conv_xla`` (explicit im2col), ``conv_sta``, ``conv_dbb``; attention
+``attn_flash``, ``attn_packed_flash``, ``attn_naive``,
+``attn_packed_ref``; attn_decode
 ``attn_decode_flash``, ``attn_decode_xla``; head_sample
-``head_sample_fused``, ``head_sample_xla``. The reference's w4 routes have
-no kernel here yet; ``attn_chunked`` is an XLA route, not a kernel, and a
-pin to it takes ``attn_naive`` (its stand-in) with a warning.
+``head_sample_fused``, ``head_sample_xla``. ``attn_chunked`` is an XLA
+route, not a kernel, and a pin to it takes ``attn_naive`` (its stand-in)
+with a warning.
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ class OpSpec:
     block: int = 8
     nnz: int = 4
     bits: int = 8
+    group: int = 0                # w4 scale group along dense K (bits=4)
     pallas: bool = False          # fused kernel route family is active
     dense_fused: bool = True      # call site opts dense weights into kernels
     gemv: bool = False            # the decode head GEMV: never M-tiled
@@ -134,19 +137,21 @@ def _guard_sta(s: OpSpec) -> str:
     return ""
 
 
-def _guard_dbb_packed(s: OpSpec) -> str:
+def _guard_packed_base(s: OpSpec) -> str:
+    """What every packed-weight kernel route needs, whatever its values
+    plane."""
     if not s.packed:
         return "weight is dense (the DBB kernels take values+bitmask)"
     if not s.pallas:
         return _NO_PALLAS
-    if s.bits != 8:
-        return f"bits={s.bits}: the w4 kernels are not ported"
     if s.block != 8 or not 1 <= s.nnz <= 8:
         return f"DBB B={s.block}, k={s.nnz}: the kernels take B=8, k≤8"
     if s.k % s.block:
         return f"K={s.k} not divisible by the DBB block {s.block}"
-    if not s.float_ok:
-        return "operand dtype outside the kernel contract (f32/bf16)"
+    return ""
+
+
+def _narrow_packed_reason(s: OpSpec) -> str:
     if s.n < NARROW_N and s.m * (_TILE_N - s.n) > 2 * s.k * s.n:
         return (f"N={s.n} under {NARROW_N}: the masked output lanes "
                 f"M·(128−N) = {s.m * (_TILE_N - s.n)} exceed the plain "
@@ -154,13 +159,47 @@ def _guard_dbb_packed(s: OpSpec) -> str:
     return ""
 
 
-def _guard_skinny_dbb(s: OpSpec) -> str:
-    r = _guard_dbb_packed(s)
+def _guard_dbb_packed(s: OpSpec) -> str:
+    r = _guard_packed_base(s)
     if r:
         return r
+    if s.bits == 4:
+        return ("values plane is nibble-packed INT4 (the w4 routes "
+                "stream it)")
+    if not s.float_ok:
+        return "operand dtype outside the kernel contract (f32/bf16)"
+    return _narrow_packed_reason(s)
+
+
+def _guard_dbb_packed_w4(s: OpSpec) -> str:
+    r = _guard_packed_base(s)
+    if r:
+        return r
+    if s.bits != 4:
+        return "values plane is INT8 (w4 routes take the nibble plane)"
+    if not s.float_ok:
+        return ("int8 activations: the w4 dequantized tile is float "
+                "(float x only)")
+    if s.group <= 0 or s.group % s.block:
+        return (f"scale group {s.group} must be a positive multiple of "
+                f"the DBB block {s.block}")
+    if s.k % s.group:
+        return f"K={s.k} not divisible by the scale group {s.group}"
+    return _narrow_packed_reason(s)
+
+
+def _skinny_reason(s: OpSpec) -> str:
     if not skinny_ok(s.m):
         return f"outside the skinny regime (M ≤ {SKINNY_M_MAX})"
     return ""
+
+
+def _guard_skinny_dbb(s: OpSpec) -> str:
+    return _guard_dbb_packed(s) or _skinny_reason(s)
+
+
+def _guard_skinny_dbb_w4(s: OpSpec) -> str:
+    return _guard_dbb_packed_w4(s) or _skinny_reason(s)
 
 
 def _guard_conv_kernel(s: OpSpec) -> str:
@@ -275,7 +314,9 @@ def _always(_s: OpSpec) -> str:
 # each domain's routes in auto's preference order (first applicable wins)
 ROUTES: Dict[str, Tuple[Tuple[str, Callable[[OpSpec], str]], ...]] = {
     "matmul": (("skinny_dbb", _guard_skinny_dbb),
+               ("skinny_dbb_w4", _guard_skinny_dbb_w4),
                ("dbb_packed", _guard_dbb_packed),
+               ("dbb_packed_w4", _guard_dbb_packed_w4),
                ("skinny_sta", _guard_skinny_sta),
                ("sta", _guard_sta),
                ("xla", _always)),
@@ -400,8 +441,8 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
     spec = OpSpec(
         domain="matmul", m=m, k=k_dim, n=n, packed=packed,
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
-        bits=w.bits if packed else 8, pallas=bool(pallas),
-        dense_fused=dense_fused, gemv=gemv,
+        bits=w.bits if packed else 8, group=w.group if packed else 0,
+        pallas=bool(pallas), dense_fused=dense_fused, gemv=gemv,
         float_ok=x.dtype in FLOAT_DTYPES)
     name, _ = select(spec, routes_from_cfg(cfg))
 
@@ -413,29 +454,44 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
         from repro_torch.kernels.skinny.ops import sta_gemm_skinny
         return sta_gemm_skinny(x, w.to(x.dtype).contiguous(), bias, scale,
                                act=act, out_dtype=out_dtype)
-    if name in ("dbb_packed", "skinny_dbb"):
+    if name in ("dbb_packed", "skinny_dbb", "dbb_packed_w4",
+                "skinny_dbb_w4"):
         if scale is not None:
-            # fold a caller scale into the packed weight's epilogue scale
+            # fold a caller scale into the packed weight's scale plane: the
+            # epilogue's [N] scale at bits=8, the [K/G, N] group scales at
+            # w4 (they broadcast against [N]; products, so folding is exact
+            # up to one f32 rounding)
             s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
             w = dataclasses.replace(
                 w, scale=s if w.scale is None else w.scale * s)
-        if name == "skinny_dbb":
+        if name.startswith("skinny_dbb"):
             from repro_torch.kernels.skinny.ops import dbb_gemm_skinny as fn
         else:
             from repro_torch.kernels.dbb_gemm.ops import dbb_gemm as fn
-        return fn(x, w.values, w.bitmask, bias, w.scale, act=act,
-                  block=w.block, nnz=w.nnz, out_dtype=out_dtype)
+        w4 = w.bits == 4
+        plane = dict(bits=4, group=w.group, gscale=w.scale.contiguous()) \
+            if w4 else {}
+        return fn(x, w.values, w.bitmask, bias, None if w4 else w.scale,
+                  act=act, block=w.block, nnz=w.nnz, out_dtype=out_dtype,
+                  **plane)
     return _matmul_xla(x, w, bias, scale, act=act, out_dtype=out_dtype)
 
 
 def _matmul_xla(x, w, bias, scale, *, act, out_dtype):
     """The plain route: a packed weight is decompressed transiently, then
     one torch matmul in x's dtype with the epilogue as separate ops (the
-    storage-dtype bias add of the reference's XLA route)."""
+    storage-dtype bias add of the reference's XLA route). A w4 leaf
+    dequantizes to f32 first (its scales vary along K); int8 activations
+    then upcast, as in the reference."""
     from repro_torch.kernels.epilogue import apply_act
     if isinstance(w, DbbWeight):
         from repro_torch.core.dbb_linear import decompress
-        w = decompress(w, dtype=x.dtype)          # scale already applied
+        if w.bits == 4:
+            w = decompress(w)                     # f32, dequantized
+            if not x.is_floating_point():
+                x = x.to(w.dtype)
+        else:
+            w = decompress(w, dtype=x.dtype)      # scale already applied
     y = x @ w.to(x.dtype)
     if scale is not None:
         y = (y.float() * torch.as_tensor(scale, dtype=torch.float32,
@@ -453,14 +509,16 @@ def conv(x: torch.Tensor, w, bias=None, *, kh: int, kw: int,
     """Conv as GEMM: ``act(conv2d(x, w) + bias)`` for NHWC ``x`` and a
     dense ``[kh·kw·C, N]`` weight or a packed `DbbWeight` →
     ``[B, Ho, Wo, N]``. ``use_kernel=False`` pins the explicit im2col
-    route (``conv_xla``). A w4 leaf raises: the reference decompresses it
-    up front, and w4 is not ported."""
+    route (``conv_xla``). The conv kernels stream the bits=8 plane only, so
+    a w4 leaf is decompressed once to x's dtype and takes the dense
+    routes, as in the reference."""
+    from repro_torch.core.dbb import unpack_dbb
     from repro_torch.kernels.conv_gemm import ops as C
     from repro_torch.kernels.conv_gemm import ref as R
     packed = isinstance(w, DbbWeight)
-    if packed and w.bits != 8:
-        raise NotImplementedError(
-            f"bits={w.bits}: w4 conv weights are not ported")
+    if packed and w.bits == 4:
+        w = unpack_dbb(w).to(x.dtype)
+        packed = False
     b, h, w_dim, c = x.shape
     ho, _, _ = R.out_spatial(h, kh, stride, padding)
     wo, _, _ = R.out_spatial(w_dim, kw, stride, padding)

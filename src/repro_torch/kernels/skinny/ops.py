@@ -1,8 +1,8 @@
 """Wrappers of the skinny (decode-shaped, M ≤ 32) kernels:
 `dbb_gemm_skinny` (csrc/dbb_gemm_skinny.cu) streams the compressed DBB
-planes, `sta_gemm_skinny` (csrc/sta_gemm_skinny.cu) a dense weight. On a
-CUDA tensor each launches its kernel (or raises); on a CPU tensor it runs
-the plain version."""
+planes (f32, int8 or w4 values), `sta_gemm_skinny`
+(csrc/sta_gemm_skinny.cu) a dense weight. On a CUDA tensor each launches
+its kernel (or raises); on a CPU tensor it runs the plain version."""
 from __future__ import annotations
 
 import ctypes
@@ -29,18 +29,25 @@ def _check_m(m: int) -> None:
 def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
                     bitmask: torch.Tensor, bias=None, scale=None, *,
                     act: str = "none", block: int = 8, nnz: int = 4,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Skinny DBB GEMM; output ``[..., N]`` in x's dtype."""
-    x2, m, k_dim, n = check_dbb_operands(x, values, bitmask, block=block,
-                                         nnz=nnz, out_dtype=out_dtype)
+                    out_dtype: Optional[torch.dtype] = None, bits: int = 8,
+                    group: int = 0, gscale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Skinny DBB GEMM; output ``[..., N]`` in x's dtype. The values
+    planes are those of `dbb_gemm` (f32, int8, or the w4 nibble plane with
+    ``gscale``), counted as ``dbb_gemm_skinny``, ``dbb_gemm_skinny_i8``,
+    ``dbb_gemm_skinny_w4``."""
+    x2, m, k_dim, n, plane = check_dbb_operands(
+        x, values, bitmask, block=block, nnz=nnz, out_dtype=out_dtype,
+        bits=bits, group=group, gscale=gscale)
     _check_m(m)
     bias, scale = coerce_bias_scale(bias, scale, n, x.device)
     if x.device.type == "cpu":
         y = dbb_gemm_ref(x2, values, bitmask, bias, scale, act=act,
-                         block=block)
+                         block=block, bits=bits, group=group, gscale=gscale)
     else:
-        y = run_dbb_kernel("dbb_gemm_skinny", x2, values, bitmask, bias,
-                           scale, m=m, k_dim=k_dim, n=n, nnz=nnz, act=act)
+        y = run_dbb_kernel("dbb_gemm_skinny", plane, x2, values, bitmask,
+                           bias, scale, m=m, k_dim=k_dim, n=n, nnz=nnz,
+                           act=act, group=group, gscale=gscale)
     return y.reshape(*x.shape[:-1], n)
 
 

@@ -168,11 +168,23 @@ def test_cnn_routes_per_layer(trees, monkeypatch):
 
 
 def test_conv_front_door_refuses_w4():
-    p = DbbWeight(values=torch.zeros((4, 8)), indices=None,
-                  bitmask=torch.zeros((2, 8), dtype=torch.int32), scale=None,
-                  block=8, nnz=4, k_dim=16, bits=4, group=16)
-    with pytest.raises(NotImplementedError, match="w4"):
-        dispatch.conv(torch.zeros((1, 4, 4, 16)), p, kh=1, kw=1)
+    """The DBB conv kernel refuses a w4 leaf (it streams the bits=8 plane
+    only); the front door decompresses the leaf to x's dtype and takes
+    the dense routes instead, as the reference does
+    (tests/test_torch_w4.py holds it against the reference's conv)."""
+    from repro_torch.core.dbb import pack_dbb, unpack_dbb
+    g = torch.Generator().manual_seed(0)
+    p = pack_dbb(torch.randn((16, 24), generator=g), 8, 4, bits=4, group=16)
+    x = torch.randn((1, 4, 4, 16), generator=g)
+    spec = dispatch.OpSpec(domain="conv", m=16, k=16, n=24, packed=True,
+                           bits=4, group=16, pallas=True,
+                           conv_geom=(1, 4, 4, 16, 1, 1, 1))
+    assert "bits=4" in dispatch.ROUTES["conv"][0][1](spec)
+    for use_kernel in (True, False):
+        got = dispatch.conv(x, p, kh=1, kw=1, use_kernel=use_kernel)
+        want = dispatch.conv(x, unpack_dbb(p), kh=1, kw=1,
+                             use_kernel=use_kernel)
+        assert torch.equal(got, want)
 
 
 def test_cnn_init_needs_a_card_unless_cpu_is_asked(monkeypatch):

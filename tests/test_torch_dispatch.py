@@ -120,12 +120,19 @@ def test_override_order_matches_reference(monkeypatch, env, cfg_route, want):
 
 
 def test_unported_forced_route_warns_and_falls_back(monkeypatch):
-    monkeypatch.setenv("REPRO_FORCE_ROUTE", "matmul=dbb_packed_w4")
+    """A pin naming a route the port does not have warns "not ported";
+    a pin to the (ported) w4 route on a bits=8 leaf warns that it is not
+    applicable, as in the reference; both fall back to auto."""
     _, tcfg = _cfgs(True)
     _, tspec = _matmul_specs(tcfg, 48)[0]
+    monkeypatch.setenv("REPRO_FORCE_ROUTE", "matmul=dbb_packed_w2")
     with pytest.warns(UserWarning, match="not ported"):
         name, reasons = td.select(tspec, {})
-    assert name == "dbb_packed" and "dbb_packed_w4" not in reasons
+    assert name == "dbb_packed" and "dbb_packed_w2" not in reasons
+    monkeypatch.setenv("REPRO_FORCE_ROUTE", "matmul=dbb_packed_w4")
+    with pytest.warns(UserWarning, match="not applicable"):
+        name, reasons = td.select(tspec, {})
+    assert name == "dbb_packed" and "nibble plane" in reasons["dbb_packed_w4"]
 
 
 def _dense_specs(cfg, m: int):

@@ -18,6 +18,9 @@ unnormalised probabilities to bf16 (as the Pallas kernels do) and the
 plain version the normalised ones: up to 2^-9 relative per term, summed
 over up to 512 keys. Flash prefill compares the rows that see a key; a
 row below a left-padded row's ``start`` is garbage by contract. The fused
+w4 and INT8-valued DBB planes: the same GEMM tolerances (the kernel and
+the plain version dequantize to the same bits; the INT8 plane's scale
+rides the epilogue in both). The fused
 sampling head: scores within 1e-5 of the largest (the GEMV sums in
 another order, logf may differ by an ulp), indices equal on every row
 whose top-2 score margin exceeds twice that; at temperature 0 with
@@ -468,3 +471,149 @@ def test_gpu_sampled_serve_kernel_route_matches_plain_route(cuda, draft_k):
         else:
             assert launched == 0
     assert outs["kernel"] == outs["paged"] == outs["plain"]
+
+
+def _w4_case(cuda, dtype, m, k, n, nnz, group, seed):
+    """x, the w4 leaf of a random [k, n] weight, a bias, and the leaf's
+    group scales with a caller's per-channel scale folded in (what
+    dispatch.matmul hands the kernels)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    p = pack_dbb(torch.randn(k, n, generator=g, device=cuda), 8, nnz,
+                 bits=4, group=group)
+    bias = torch.randn(n, generator=g, device=cuda)
+    scale = torch.rand(n, generator=g, device=cuda) + 0.5
+    return x, p, bias, (p.scale * scale).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,nnz,group,act", [
+    (1, 256, 96, 1, 256, "none"), (130, 272, 200, 3, 8, "silu"),
+    (77, 384, 136, 3, 64, "relu"), (512, 512, 384, 8, 128, "gelu")])
+def test_gpu_dbb_gemm_w4(cuda, dtype, m, k, n, nnz, group, act):
+    x, p, bias, gs = _w4_case(cuda, dtype, m, k, n, nnz, group, m + k)
+    before = LAUNCHES["dbb_gemm_w4"]
+    got = dbb_gemm(x, p.values, p.bitmask, bias, act=act, nnz=nnz, bits=4,
+                   group=group, gscale=gs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm_w4"] == before + 1
+    _gpu_close(got, dbb_gemm_ref(x, p.values, p.bitmask, bias, act=act,
+                                 bits=4, group=group, gscale=gs), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 24, 32])
+@pytest.mark.parametrize("k,n,nnz,group", [(272, 100, 3, 8),
+                                           (512, 136, 8, 256)])
+def test_gpu_dbb_gemm_skinny_w4(cuda, dtype, m, k, n, nnz, group):
+    x, p, bias, gs = _w4_case(cuda, dtype, m, k, n, nnz, group, 7 * m + k)
+    before = LAUNCHES["dbb_gemm_skinny_w4"]
+    got = dbb_gemm_skinny(x, p.values, p.bitmask, bias, act="silu",
+                          nnz=nnz, bits=4, group=group, gscale=gs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm_skinny_w4"] == before + 1
+    _gpu_close(got, dbb_gemm_ref(x, p.values, p.bitmask, bias, act="silu",
+                                 bits=4, group=group, gscale=gs), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,m", [("dbb_gemm", 130), ("dbb_gemm", 3),
+                                    ("dbb_gemm_skinny", 8),
+                                    ("dbb_gemm_skinny", 29)])
+def test_gpu_dbb_gemm_int8_plane(cuda, dtype, name, m):
+    """INT8-valued planes (pack_tree(quantize=True)): the per-channel scale
+    rides the epilogue, with bias and act."""
+    from repro_torch.core.quant import quantize_weight
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, 264, generator=g, device=cuda).to(dtype)
+    qw = quantize_weight(torch.randn(264, 200, generator=g, device=cuda))
+    p = pack_dbb(qw.q, 8, 3)
+    assert p.values.dtype == torch.int8
+    bias = torch.randn(200, generator=g, device=cuda)
+    fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+    before = LAUNCHES[name + "_i8"]
+    got = fn(x, p.values, p.bitmask, bias, qw.scale, act="gelu", nnz=3)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name + "_i8"] == before + 1
+    _gpu_close(got, dbb_gemm_ref(x, p.values, p.bitmask, bias, qw.scale,
+                                 act="gelu"), dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_skinny_w4_row_is_the_same_bits_in_any_batch(cuda):
+    """As for the bits=8 planes: rows 0..7 of an M24 w4 call equal an M8
+    call on those rows bit for bit."""
+    x, p, bias, gs = _w4_case(cuda, torch.bfloat16, 24, 512, 640, 4, 128, 24)
+
+    def run(a):
+        return dbb_gemm_skinny(a, p.values, p.bitmask, bias, act="silu",
+                               bits=4, group=128, gscale=gs)
+    full = run(x)
+    for r0 in (0, 8, 16):
+        assert torch.equal(full[r0:r0 + 8], run(x[r0:r0 + 8].contiguous()))
+
+
+@pytest.mark.gpu
+def test_gpu_dbb_refuses_what_the_w4_and_int8_branches_do_not_take(cuda):
+    x, p, _, gs = _w4_case(cuda, torch.bfloat16, 8, 256, 128, 4, 64, 0)
+    kw = dict(bits=4, group=64, gscale=gs)
+    for fn in (dbb_gemm, dbb_gemm_skinny):
+        with pytest.raises(TypeError):                     # int8 x
+            fn(x.to(torch.int8), p.values, p.bitmask, **kw)
+        with pytest.raises(ValueError):                    # plane shape
+            fn(x, p.values[:-1].contiguous(), p.bitmask, **kw)
+        with pytest.raises(TypeError):                     # plane dtype
+            fn(x, p.values.float(), p.bitmask, **kw)
+        with pytest.raises(TypeError):                     # gscale dtype
+            fn(x, p.values, p.bitmask, bits=4, group=64,
+               gscale=gs.bfloat16())
+        with pytest.raises(ValueError):                    # gscale shape
+            fn(x, p.values, p.bitmask, bits=4, group=128, gscale=gs)
+        with pytest.raises(TypeError):                     # int16 plane
+            fn(x, torch.zeros((128, 128), dtype=torch.int16, device=cuda),
+               p.bitmask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["w4", "int8"])
+def test_gpu_quantized_generate_kernel_route_matches_plain_route(cuda, fmt):
+    """Smoke-width f32 olmo-1b packed as w4 (G 64) or with INT8 values:
+    greedy generate on the kernel route gives the plain route's tokens,
+    every layer GEMM launches the format's kernels and no f32-plane DBB
+    kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import iter_leaves, pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("olmo-1b", smoke=True).replace(remat="none",
+                                                    gemm_impl="pallas")
+    if fmt == "w4":
+        cfg = cfg.replace(dbb=dataclasses.replace(
+            cfg.dbb, weight_bits=4, quant_group=64))
+    params = registry.init_params(cfg, seed=0, device=cuda)
+    params["embed"]["table"] *= 0.1
+    for leaf in iter_leaves(params["layers"]):
+        leaf *= 3.0
+    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb,
+                       quantize=fmt == "int8")
+    r = np.random.default_rng(5)
+    ps = [list(map(int, r.integers(2, 512, n))) for n in (12, 7, 40, 9)]
+    eng = ServeEngine(cfg, packed, max_batch=4, device=cuda)
+    reset_launches()
+    out = eng.generate(ps, max_new_tokens=8)
+    counts = dict(LAUNCHES)
+    sfx = "_w4" if fmt == "w4" else "_i8"
+    per_pass = 7 * cfg.num_layers
+    assert counts["dbb_gemm" + sfx] == per_pass            # one prefill
+    assert counts["dbb_gemm_skinny" + sfx] == per_pass * eng.last_decode_steps
+    assert counts["dbb_gemm"] == counts["dbb_gemm_skinny"] == 0
+    plain = ServeEngine(cfg.replace(gemm_impl="xla"), packed, max_batch=4,
+                        device=cuda).generate(ps, max_new_tokens=8)
+    assert out == plain
