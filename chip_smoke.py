@@ -13,7 +13,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             INT8, w4), with the tolerance stated; kernel, plain and
             library times (medians of CUDA-event timings of single calls, L2
             flushed and the host's enqueue hidden before each) beside the least
-            time the card could take (``bound_ms``).
+            time the card could take (``bound_ms``). The six int8 branches
+            (``*_s8``: INT8 x INT8 -> INT32) at olmo-1b's layer GEMMs (M8,
+            M24, M512) and convnet's convs (B256), each with three epilogues
+            (int32; f32 x_s·w_s + bias + act; int8 requantized): bit-equal
+            after act none / relu, f32 within rtol 1e-6 and int8 off by at
+            most 1 on at most 0.1% after silu (the count printed); the
+            library time is torch._int_mm where its shape rules admit the
+            operands, else "—" with the reason.
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -81,9 +88,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             control) and greedy tokens under the same near-tie excuse.
 10. tokens  smoke-width f32 engine: kernel route and plain route must produce
             equal greedy tokens, and equal sampled tokens.
+11. int8    the paper's INT8 x INT8 -> INT32 datapath at full width: (a)
+            int8 activations (per-tensor act_scale) through
+            ``dispatch.matmul`` on all 112 layer GEMMs of olmo-1b (seed-0
+            projected weights) at M8 and M512, on the dense INT8 weights
+            (quantize_weight) and the INT8-valued packed tree
+            (pack_tree(quantize=True)), three epilogues each (raw int32;
+            f32 with x_s·w_s and a bias, silu on N 8192; int8 requantized
+            with relu), each held against the plain route as in phase 3;
+            (b) convnet-dbb's INT8 chain (quantize, conv with x_s·w_s fused,
+            bias and relu to f32, max-pool, requantize, ..., classifier) at
+            batch 256 and 1: logits and classes bit-equal to the plain
+            route's; (c) all-127 operands through every int8 branch at K
+            1179-1224 equal the exact integer; (d) every run's launch counts
+            exactly those the route table implies (one ``_s8`` counter per
+            run, no float branch moving).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9; ``launches_by_path`` per run);
+sum over the main-path runs of phases 4-9 and 11 (a)-(b);
+``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
 tables of the slice's generate, of serve (a), of the sampled serve (a), of
@@ -104,6 +127,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12         # H100 SXM dense INT8 tensor-core rate
 REPS = 20
 SPIN_CYCLES = 10_000_000         # ~5 ms at the H100's clock: covers the host
 LOGIT_TOL = 1e-3                 # of max |logit|, kernel vs plain full width
@@ -136,6 +160,34 @@ SAMPLE_T_SPREAD = (3.0, 4.0, 6.0)
 # same context; each reading is printed beside bf16's own effect (the plain
 # route at bf16 vs f32 activations)
 SAMPLE_LOGIT_TOL = 5e-3
+
+
+def _ptxas_report(build) -> None:
+    """Registers, shared memory and spills of every kernel entry, from
+    the ``-Xptxas -v`` logs the build leaves beside each library."""
+    import re
+    demangle = shutil.which("c++filt")
+    for log in sorted(build.BUILD_DIR.glob("*.log")):
+        entry, spill = None, ""
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+                if demangle:
+                    entry = subprocess.run(
+                        [demangle, entry], capture_output=True,
+                        text=True).stdout.strip()
+                    entry = entry.replace("(anonymous namespace)::", "")
+                    entry = entry.removeprefix("void ").split("(")[0]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = f"spill {m.group(1)}/{m.group(2)} B"
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m and entry:
+                print(f"ptxas {log.name.split('-')[0][3:]}: {entry}: "
+                      f"{m.group(1)} registers, {m.group(2)} B smem, {spill}")
+                entry = None
 
 
 def _fail(msg: str) -> int:
@@ -182,6 +234,7 @@ def main() -> int:
     secs = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
+    _ptxas_report(build)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         for f in build.BUILD_DIR.glob("*.log"):
@@ -224,6 +277,10 @@ def main() -> int:
     by_path.update(quant_counts)
     if not timed("tokens", _token_phase):
         return _fail("smoke-width token equality failed")
+    int8_counts, ok = timed("int8", _int8_phase)
+    if not ok:
+        return _fail("the INT8 datapath phase failed (see above)")
+    by_path.update(int8_counts)
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = sum(c[name] for c in by_path.values())
@@ -390,6 +447,7 @@ def _kernel_phase(torch, dev, report):
                                           failures)
     kernels += _gemm_conv_kernels(torch, dev, randn, flush, failures)
     kernels.append(_head_sample_kernel(torch, dev, flush, failures))
+    kernels += _s8_kernels(torch, dev, flush, failures)
     report["kernel_failures"] = failures
     if failures:
         raise SystemExit(_fail("kernel disagrees with its plain version: "
@@ -733,6 +791,246 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
         "conv_gemm_dbb", "src/repro/kernels/conv_gemm/kernel.py:215", cases,
         "convnet conv1 + conv2: B256 16x16x64 -> 128 and 8x8x128 -> 256, 3x3 "
         "SAME, bias+relu, f32, DBB B8 k2"))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the int8 branches (INT8 x INT8 -> INT32)
+# ---------------------------------------------------------------------------
+
+def _s8_check(torch, got, want, act):
+    """(max abs error, elements off by one, passes) of an int8 branch
+    against its plain version: bit-equal after act none or relu (int32,
+    int8 and f32 outputs alike); after gelu or silu an f32 output within
+    rtol 1e-6 (atol 1e-7·max|want|: libm tanh / exp may differ by an ulp),
+    an int8 or int32 one off by at most 1 on at most 0.1% of the elements
+    (at least one)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return float("inf"), 0, False
+    diff = (got.double() - want.double()).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    if act in ("none", "relu"):
+        return err, 0, bool(torch.equal(got, want))
+    if got.dtype == torch.float32:
+        tol = 1e-6 * want.double().abs() + 1e-7 * want.abs().max().item()
+        return err, 0, bool((diff <= tol).all())
+    off = int((diff > 0).sum())
+    return err, off, err <= 1 and off <= max(1, want.numel() // 1000)
+
+
+def _quantized(torch, gen, shape, dev):
+    """int8 activations as the INT8 chain makes them: a standard-normal
+    tensor quantized by its per-tensor ``act_scale``; returns (q, x_s)."""
+    from repro_torch.core.quant import act_scale
+    x = torch.randn(shape, generator=gen, device=dev)
+    xs = act_scale(x)
+    return torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8), xs
+
+
+def _s8_epilogues(torch, xs, wscale, bias, act, ys):
+    """The three epilogues of an int8 GEMM or conv: (label, keyword
+    operands, act): the raw int32 sum; f32 dequantized by x_s·w_s with a
+    bias and ``act``; int8 requantized by 1/y_s with ``act`` (y_s the f32
+    output's act_scale, so the int8 range is used)."""
+    s = xs * wscale
+    return (("int32", {}, "none"),
+            ("f32", dict(bias=bias, scale=s), act),
+            ("int8", dict(bias=bias / ys, scale=s / ys,
+                          out_dtype=torch.int8), act))
+
+
+def _int_mm_ms(torch, x, w, flush):
+    """torch._int_mm on the same int8 operands (int32 out), or None and the
+    reason where its shape rules refuse the call."""
+    try:
+        torch._int_mm(x, w)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, "torch._int_mm refuses: " + str(e).splitlines()[0][:80]
+    return _time_ms(torch, lambda: torch._int_mm(x, w), flush), ""
+
+
+def _s8_kernels(torch, dev, flush, failures):
+    """The int8 branch of each of the six kernels at the paths' shapes:
+    olmo-1b's layer GEMMs (LAYER_SHAPES: dense INT8 weights from
+    quantize_weight; the DBB kernels on the INT8 values plane, k = 4) at
+    M8 and M24 (skinny) and M512 (M-tiled); convnet's conv0 (dense) and
+    conv1, conv2 (DBB k = 2) at batch 256. Each shape runs three
+    epilogues (_s8_epilogues: silu on N 8192 and relu on the convs, else
+    none) against the plain version (_s8_check); the f32 one is timed
+    beside the plain version, torch._int_mm where it takes the operands,
+    and the bound: max(bytes ÷ 3.35 TB/s, operations ÷ 1979 TOP/s)."""
+    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
+    from repro_torch.core.quant import act_scale, quantize_weight
+    from repro_torch.kernels.conv_gemm import (conv_gemm, conv_gemm_dbb,
+                                               conv_gemm_dbb_ref,
+                                               conv_gemm_ref)
+    from repro_torch.kernels.dbb_gemm import dbb_gemm
+    from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
+    from repro_torch.kernels.skinny import dbb_gemm_skinny, sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm import sta_gemm, sta_gemm_ref
+    gen = torch.Generator(device=dev).manual_seed(16)
+    entries = []
+
+    def case(name, label, run, plain, epis, lib, nbytes, ops):
+        """Check every epilogue, time the f32 one; returns the timings."""
+        worst, offs, good = 0.0, [], True
+        for tag, kw, act in epis:
+            got, want = run(act, **kw), plain(act, **kw)
+            err, off, ok = _s8_check(torch, got, want, act)
+            worst, good = max(worst, err), good and ok
+            offs.append(f"{tag} {act}: err {err:.3e}"
+                        + (f", {off} off by one" if act not in
+                           ("none", "relu") and tag != "f32" else ""))
+            if not ok:
+                failures.append(f"{name} {label} {tag} {act}: max err {err}")
+        _, kw, act = epis[1]
+        ms = _time_ms(torch, lambda: run(act, **kw), flush)
+        pms = _time_ms(torch, lambda: plain(act, **kw), flush)
+        lms, why = lib() if lib else (None, "F.conv2d has no int8 path on "
+                                      "CUDA")
+        bms, by = _bound_ms(nbytes, ops, INT8_OPS_PER_S)
+        print(f"kernel {name} {label}: {'; '.join(offs)} "
+              f"{'ok' if good else 'FAIL'}"
+              f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+              + (f"(torch._int_mm) {lms:.4f} ms" if lms is not None
+                 else f"— ({why})")
+              + f", bound {bms:.4f} ms ({by})")
+        return dict(err=worst, ms=ms, plain_ms=pms, library_ms=lms,
+                    bound_ms=bms, nbytes=nbytes, ops=ops)
+
+    def entry(name, src, replaces, per_m, shapes):
+        out = {}
+        for m, cases in per_m.items():
+            tot = {k: sum(c["calls"] * c[k] for c in cases)
+                   for k in ("ms", "plain_ms", "bound_ms")}
+            tot["library_ms"] = (None if any(c["library_ms"] is None
+                                             for c in cases) else
+                                 sum(c["calls"] * c["library_ms"]
+                                     for c in cases))
+            _, by = _bound_ms(sum(c["calls"] * c["nbytes"] for c in cases),
+                              sum(c["calls"] * c["ops"] for c in cases),
+                              INT8_OPS_PER_S)
+            out[m] = dict(max_abs_err=max(c["err"] for c in cases),
+                          bound_by=by, **tot)
+        first, *rest = per_m
+        e = dict(name=name, route="cuda", source=src, replaces=replaces,
+                 launches=0, shapes=shapes, **out[first])
+        for m in rest:
+            e[f"m{m}"] = dict(out[m], shapes=f"the same at M{m}")
+        e["max_abs_err"] = max(v["max_abs_err"] for v in out.values())
+        return e
+
+    # -- the GEMMs: one olmo-1b layer ----------------------------------------
+    for name, src, replaces, ms_, fn, dbb in (
+            ("sta_gemm_s8", "src/repro_torch/csrc/sta_gemm.cu",
+             "src/repro/kernels/sta_gemm/kernel.py:64", (512,), sta_gemm,
+             False),
+            ("sta_gemm_skinny_s8", "src/repro_torch/csrc/sta_gemm_skinny.cu",
+             "src/repro/kernels/skinny/kernel.py:77", (8, 24),
+             sta_gemm_skinny, False),
+            ("dbb_gemm_s8", "src/repro_torch/csrc/dbb_gemm.cu",
+             "src/repro/kernels/dbb_gemm/kernel.py:114", (512,), dbb_gemm,
+             True),
+            ("dbb_gemm_skinny_s8", "src/repro_torch/csrc/dbb_gemm_skinny.cu",
+             "src/repro/kernels/skinny/kernel.py:167", (8, 24),
+             dbb_gemm_skinny, True)):
+        per_m = {}
+        for m in ms_:
+            cases = []
+            for k_dim, n, calls in LAYER_SHAPES:
+                x, xs = _quantized(torch, gen, (m, k_dim), dev)
+                qw = quantize_weight(torch.randn(k_dim, n, generator=gen,
+                                                 device=dev))
+                bias = torch.randn(n, generator=gen, device=dev)
+                if dbb:
+                    p = pack_dbb(qw.q, 8, 4)
+                    wd = decompress_bitmask(p.values, p.bitmask, block=8)
+                    stored = p.values.numel() + p.bitmask.numel() * 4
+
+                    def run(act, _p=p, _x=x, **kw):
+                        return fn(_x, _p.values, _p.bitmask, act=act, **kw)
+
+                    def plain(act, _p=p, _x=x, **kw):
+                        return dbb_gemm_ref(_x, _p.values, _p.bitmask,
+                                            act=act, **kw)
+                    ops = 2.0 * m * int((wd != 0).sum().item())
+                else:
+                    wd = qw.q
+                    stored = wd.numel()
+
+                    def run(act, _w=wd, _x=x, **kw):
+                        return fn(_x, _w, act=act, **kw)
+
+                    def plain(act, _w=wd, _x=x, **kw):
+                        return sta_gemm_ref(_x, _w, act=act, **kw)
+                    ops = 2.0 * m * k_dim * n
+                act = "silu" if n == 8192 else "none"
+                ys = act_scale(plain(act, bias=bias, scale=xs * qw.scale))
+                epis = _s8_epilogues(torch, xs, qw.scale, bias, act, ys)
+                nbytes = x.numel() + stored + 8 * n + 4 * m * n
+                c = case(name, f"M{m} K{k_dim} N{n}", run, plain, epis,
+                         lambda _x=x, _w=wd: _int_mm_ms(torch, _x, _w, flush),
+                         nbytes, ops)
+                cases.append(dict(c, calls=calls))
+            per_m[m] = cases
+        entries.append(entry(
+            name, src, replaces, per_m,
+            f"one olmo-1b layer: M{ms_[0]} x (K,N) 4x(2048,2048) "
+            "2x(2048,8192) 1x(8192,2048), int8 x"
+            + (", INT8 DBB values k4" if dbb else ", int8 w")
+            + "; the f32 epilogue (x_s·w_s, bias, silu on N8192) timed"))
+
+    # -- the convs: convnet at batch 256 ------------------------------------
+    for name, src, replaces, layers in (
+            ("conv_gemm_s8", "src/repro_torch/csrc/conv_gemm.cu",
+             "src/repro/kernels/conv_gemm/kernel.py:160",
+             ((0, 32, 3, 64),)),
+            ("conv_gemm_dbb_s8", "src/repro_torch/csrc/conv_gemm_dbb.cu",
+             "src/repro/kernels/conv_gemm/kernel.py:215",
+             ((1, 16, 64, 128), (2, 8, 128, 256)))):
+        cases = []
+        for i, hw, c_in, n in layers:
+            x, xs = _quantized(torch, gen, (256, hw, hw, c_in), dev)
+            qw = quantize_weight(torch.randn(9 * c_in, n, generator=gen,
+                                             device=dev))
+            bias = torch.randn(n, generator=gen, device=dev)
+            geo = dict(kh=3, kw=3)
+            m_rows = 256 * hw * hw
+            if name == "conv_gemm_dbb_s8":
+                p = pack_dbb(qw.q, 8, 2)
+                live = int((p.values != 0).sum().item())
+                stored = p.values.numel() + p.bitmask.numel() * 4
+
+                def run(act, _p=p, _x=x, **kw):
+                    return conv_gemm_dbb(_x, _p.values, _p.bitmask, act=act,
+                                         nnz=2, **geo, **kw)
+
+                def plain(act, _p=p, _x=x, **kw):
+                    return conv_gemm_dbb_ref(_x, _p.values, _p.bitmask,
+                                             act=act, **geo, **kw)
+            else:
+                live, stored = qw.q.numel(), qw.q.numel()
+
+                def run(act, _w=qw.q, _x=x, **kw):
+                    return conv_gemm(_x, _w, act=act, **geo, **kw)
+
+                def plain(act, _w=qw.q, _x=x, **kw):
+                    return conv_gemm_ref(_x, _w, act=act, **geo, **kw)
+            ys = act_scale(plain("relu", bias=bias, scale=xs * qw.scale))
+            epis = _s8_epilogues(torch, xs, qw.scale, bias, "relu", ys)
+            c = case(name, f"convnet conv{i} B256 {hw}x{hw}x{c_in} -> {n} "
+                     "3x3 SAME", run, plain, epis, None,
+                     x.numel() + stored + 8 * n + 4 * m_rows * n,
+                     2.0 * m_rows * live)
+            cases.append(dict(c, calls=1))
+        entries.append(entry(
+            name, src, replaces, {256: cases},
+            ("convnet conv0: B256 32x32x3 -> 64" if name == "conv_gemm_s8"
+             else "convnet conv1 + conv2: B256 16x16x64 -> 128 and 8x8x128 "
+             "-> 256, INT8 DBB values k2")
+            + ", 3x3 SAME, int8 image; the f32 epilogue (x_s·w_s, bias, "
+            "relu) timed"))
     return entries
 
 
@@ -1796,6 +2094,249 @@ def _token_phase(torch, dev, report):
           f"({moved}/8 rows differ from greedy)")
     report["tokens_equal"] = ok and sok
     return ok and sok
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the INT8 datapath (INT8 x INT8 -> INT32) at full width
+# ---------------------------------------------------------------------------
+
+def _expect(launches, want):
+    """Launch counts equal ``want`` exactly (every other counter, float
+    branches included, at 0)."""
+    return {k: v for k, v in launches.items() if v} == want
+
+
+def _int8_olmo(torch, dev, report, counts):
+    """(a) olmo-1b's layer GEMMs (16 layers x 7) on the seed-0 projected
+    weights through ``dispatch.matmul`` with int8 activations, at M8 and
+    M512, on the dense INT8 weights (quantize_weight) and on the
+    INT8-valued packed tree (pack_tree(quantize=True)); three epilogues
+    each (_s8_epilogues with silu on N 8192, the requant with relu),
+    every output against the plain route's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.quant import act_scale, quantize_weight
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import registry
+
+    cfg = get_config("olmo-1b")
+    proj = apply_dbb_to_tree(registry.init_params(cfg, seed=0, device=dev),
+                             cfg.dbb)
+    packed = pack_tree(proj, cfg.dbb, quantize=True)
+    leaves = [(f"{g}.{n}", sub["w"], packed["layers"][g][n]["w"])
+              for g in ("attn", "mlp")
+              for n, sub in proj["layers"][g].items()
+              if isinstance(sub, dict) and "w" in sub]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ok = True
+    for kind in ("dense", "dbb"):
+        # (label, weight, the caller's share of x_s·w_s, K, N): a dense
+        # weight's w_s rides the caller's scale, a packed leaf carries its
+        # own and dispatch folds the caller's x_s into it
+        weights = []
+        for label, dense, leaf in leaves:
+            for layer in range(cfg.num_layers):
+                if kind == "dense":
+                    qw = quantize_weight(dense[layer])
+                    weights.append((label, qw.q, qw.scale, *qw.q.shape))
+                else:
+                    lw = leaf.map(lambda a, i=layer: a[i])
+                    weights.append((label, lw, 1.0, lw.k_dim, lw.n_dim))
+        for m in (8, 512):
+            xq = {k: _quantized(torch, gen, (m, k), dev)
+                  for k in {w[3] for w in weights}}
+            bias = {n: torch.randn(n, generator=gen, device=dev)
+                    for n in {w[4] for w in weights}}
+            worst, offs, bad = 0.0, 0, []
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            for label, w, wscale, k_dim, n in weights:
+                x, xs = xq[k_dim]
+                act = "silu" if n == cfg.d_ff else "none"
+
+                def run(pallas, act, bias=None, scale=None, out_dtype=None):
+                    ww = w       # the raw sum takes a packed leaf unscaled
+                    if kind == "dbb" and scale is None:
+                        ww = dataclasses.replace(w, scale=None)
+                    return dispatch.matmul(x, ww, bias, scale, act=act,
+                                           out_dtype=out_dtype,
+                                           pallas=pallas)
+                ys = act_scale(run(False, act, bias[n], xs * wscale))
+                for tag, kw, a in _s8_epilogues(torch, xs, wscale, bias[n],
+                                                act, ys):
+                    a = "relu" if tag == "int8" else a
+                    got, want = run(True, a, **kw), run(False, a, **kw)
+                    err, off, good = _s8_check(torch, got, want, a)
+                    worst, offs = max(worst, err), offs + off
+                    if not good:
+                        bad.append(f"{label} {tag} {a}: err {err}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            path = f"int8_olmo_{kind}_m{m}"
+            counts[path] = dict(LAUNCHES)
+            branch = {("dense", 8): "sta_gemm_skinny_s8",
+                      ("dense", 512): "sta_gemm_s8",
+                      ("dbb", 8): "dbb_gemm_skinny_s8",
+                      ("dbb", 512): "dbb_gemm_s8"}[kind, m]
+            want = {branch: 3 * len(weights)}
+            launch_ok = _expect(counts[path], want)
+            ok = ok and launch_ok and not bad
+            print(f"int8: (a) olmo-1b full width, {kind} INT8 weights, "
+                  f"M{m}: {len(weights)} layer GEMMs x 3 epilogues (int32; "
+                  f"f32 x_s·w_s + bias, silu on N{cfg.d_ff}; int8 requant "
+                  f"relu) through dispatch.matmul, kernel vs plain route: "
+                  f"max abs err {worst:.3e}, {offs} elements off by one "
+                  f"{'ok' if not bad else 'FAIL ' + '; '.join(bad[:5])}; "
+                  f"{wall:.2f} s with the plain route; launches "
+                  f"{ {k: v for k, v in counts[path].items() if v} } (want "
+                  f"{want}{'' if launch_ok else ', FAIL'})")
+            report["int8"][path] = dict(max_abs_err=worst, off_by_one=offs,
+                                        wall_s=wall, ok=not bad and launch_ok)
+    return ok
+
+
+def _int8_cnn_forward(torch, params, cfg, images, use_kernel):
+    """convnet's INT8 chain through the front doors: each layer's input
+    quantized per tensor (act_scale), the conv with x_s·w_s fused, bias
+    and relu to f32, the 2x2 max-pool, requantized, ..., the classifier
+    (f32 logits)."""
+    from repro_torch.core.quant import QuantizedWeight, act_scale
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.cnn import max_pool_2x2
+    x, k = images, cfg.cnn_kernel
+
+    def quantize(a):
+        s = act_scale(a)
+        return torch.clamp(torch.round(a / s), -127, 127).to(torch.int8), s
+    for i in range(len(cfg.cnn_channels)):
+        p = params[f"conv{i}"]
+        xq, xs = quantize(x)
+        w, scale = p["w"], xs
+        if isinstance(w, QuantizedWeight):
+            w, scale = w.q, xs * w.scale
+        y = dispatch.conv(xq, w, p["b"], scale, kh=k, kw=k, act="relu",
+                          out_dtype=torch.float32, use_kernel=use_kernel)
+        x = max_pool_2x2(y)
+    xq, xs = quantize(x.reshape(x.shape[0], -1))
+    return dispatch.matmul(xq, params["fc"]["w"], params["fc"]["b"], xs,
+                           pallas=use_kernel, out_dtype=torch.float32)
+
+
+def _int8_cnn(torch, dev, report, counts):
+    """(b) convnet-dbb at full width, INT8 weights (conv0 dense from
+    quantize_weight, conv1-2 and the classifier pack_tree(quantize=True)),
+    the INT8 chain at batch 256 and 1 on the kernel and the plain routes:
+    logits and classes bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import registry
+
+    cfg = get_config("convnet-dbb")
+    params = pack_tree(apply_dbb_to_tree(
+        registry.init_params(cfg, seed=0, device=dev), cfg.dbb), cfg.dbb,
+        quantize=True)
+    params["conv0"] = dict(params["conv0"],
+                           w=quantize_weight(params["conv0"]["w"]))
+    ok = True
+    for batch, fc in ((256, "dbb_gemm_s8"), (1, "dbb_gemm_skinny_s8")):
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        images = torch.randn(batch, cfg.cnn_img, cfg.cnn_img, cfg.cnn_in_ch,
+                             generator=gen, device=dev)
+        _int8_cnn_forward(torch, params, cfg, images, True)      # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = _int8_cnn_forward(torch, params, cfg, images, True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        path = f"int8_cnn_b{batch}"
+        counts[path] = dict(LAUNCHES)
+        want = {"conv_gemm_s8": 1, "conv_gemm_dbb_s8": 2, fc: 1}
+        launch_ok = _expect(counts[path], want)
+        plain = _int8_cnn_forward(torch, params, cfg, images, False)
+        same = bool(torch.equal(logits, plain))
+        classes = bool(torch.equal(logits.argmax(-1), plain.argmax(-1)))
+        finite = bool(torch.isfinite(logits).all())
+        run_ok = (same and classes and finite and launch_ok
+                  and tuple(logits.shape) == (batch, cfg.cnn_classes))
+        ok = ok and run_ok
+        print(f"int8: (b) convnet-dbb full width, INT8 chain, batch {batch}:"
+              f" logits vs plain route {'bit-equal' if same else 'DIFFER'} "
+              f"(max abs diff {(logits - plain).abs().max().item():.3e} of "
+              f"max |logit| {plain.abs().max().item():.4e}), classes "
+              f"{'equal' if classes else 'DIFFER'} "
+              f"{'ok' if run_ok else 'FAIL'}; one forward {wall:.3f} ms "
+              f"after a warm-up; launches "
+              f"{ {k: v for k, v in counts[path].items() if v} } (want "
+              f"{want}{'' if launch_ok else ', FAIL'})")
+        report["int8"][path] = dict(wall_ms=wall, bit_equal=same, ok=run_ok)
+    return ok
+
+
+def _int8_exact(torch, dev, report):
+    """(c) all-127 operands through every int8 branch at K >= 1179: the
+    int32 sum is K·127² (past 2^24) exactly, and each branch launches
+    once."""
+    from repro_torch.core.dbb import pack_dbb
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv_gemm import conv_gemm, conv_gemm_dbb
+    from repro_torch.kernels.dbb_gemm import dbb_gemm
+    from repro_torch.kernels.skinny import dbb_gemm_skinny, sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm import sta_gemm
+
+    def full(*shape):
+        return torch.full(shape, 127, dtype=torch.int8, device=dev)
+    p1184 = pack_dbb(full(1184, 256), 8, 8)
+    p1224 = pack_dbb(full(1224, 64), 8, 8)
+    runs = {"sta_gemm_s8": (1179, lambda: sta_gemm(full(512, 1179),
+                                                   full(1179, 256))),
+            "sta_gemm_skinny_s8": (1184, lambda: sta_gemm_skinny(
+                full(8, 1184), full(1184, 256))),
+            "dbb_gemm_s8": (1184, lambda: dbb_gemm(
+                full(512, 1184), p1184.values, p1184.bitmask, nnz=8)),
+            "dbb_gemm_skinny_s8": (1184, lambda: dbb_gemm_skinny(
+                full(8, 1184), p1184.values, p1184.bitmask, nnz=8)),
+            "conv_gemm_s8": (1179, lambda: conv_gemm(
+                full(2, 5, 5, 131), full(1179, 64), kh=3, kw=3,
+                padding="VALID")),
+            "conv_gemm_dbb_s8": (1224, lambda: conv_gemm_dbb(
+                full(2, 5, 5, 136), p1224.values, p1224.bitmask, kh=3, kw=3,
+                padding="VALID", nnz=8))}
+    ok, res = True, {}
+    for name, (k, run) in runs.items():
+        reset_launches()
+        y = run()
+        torch.cuda.synchronize()
+        exact = (y.dtype == torch.int32
+                 and bool((y == k * 127 * 127).all()))
+        launched = _expect(dict(LAUNCHES), {name: 1})
+        res[name] = exact and launched
+        ok = ok and res[name]
+    print(f"int8: (c) all-127 operands, the int32 sum K·127² exactly (K "
+          f"1179-1224, past 2^24) and one launch each: "
+          + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in res.items()))
+    report["int8"]["exact"] = res
+    return ok
+
+
+def _int8_phase(torch, dev, report):
+    """Phase 11: (a) olmo-1b's layer GEMMs, (b) convnet's INT8 chain, (c)
+    the exactness case; (d) every run's launch counts exactly what the
+    route table implies, no float branch moving."""
+    report["int8"] = {}
+    counts = {}
+    ok = _int8_olmo(torch, dev, report, counts)
+    ok = _int8_cnn(torch, dev, report, counts) and ok
+    ok = _int8_exact(torch, dev, report) and ok
+    return counts, ok
 
 
 if __name__ == "__main__":

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""The float branches of the port's GEMM-family kernels and of
+head_sample_fused on seeded inputs, for a bit-for-bit comparison of two
+source trees (a commit and its parent) on one CUDA card:
+
+    python scripts/torch_float_bits.py TREE OUT.pt     # TREE's kernels
+    python scripts/torch_float_bits.py --compare A.pt B.pt
+
+TREE is a checkout of this repository; its kernels build into
+TREE/build/kernels. The calls: sta_gemm (M8 f32, M24 and M300 bf16),
+sta_gemm_skinny (M8, M24), dbb_gemm and dbb_gemm_skinny on the f32,
+int8 and w4 values planes, conv_gemm, conv_gemm_dbb and a sampled
+head_sample_fused (M8 K2048 N8192, penalties, temperature-0 rows).
+"""
+import sys
+
+
+def run(tree: str, out_path: str) -> None:
+    sys.path.insert(0, tree + "/src")
+    import torch
+    from repro_torch.core.dbb import pack_dbb
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels.conv_gemm import conv_gemm, conv_gemm_dbb
+    from repro_torch.kernels.dbb_gemm import dbb_gemm
+    from repro_torch.kernels.sample.ops import head_sample_fused
+    from repro_torch.kernels.skinny import dbb_gemm_skinny, sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm import sta_gemm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    out = {}
+    bias = rn(1000)
+    for m, dt in ((8, torch.float32), (24, torch.bfloat16),
+                  (300, torch.bfloat16)):
+        x, w = rn(m, 1024).to(dt), rn(1024, 1000)
+        if m <= 32:
+            out[f"sta_gemm_skinny M{m}"] = sta_gemm_skinny(
+                x, w.to(dt), bias, act="silu")
+        out[f"sta_gemm M{m}"] = sta_gemm(x, w.to(dt), bias, act="gelu")
+        qw = quantize_weight(w)
+        planes = (("f32", pack_dbb(w, 8, 3), {}, None),
+                  ("i8", pack_dbb(qw.q, 8, 3), {}, qw.scale),
+                  ("w4", pack_dbb(w, 8, 4, bits=4, group=128), None, None))
+        for plane, p, extra, sc in planes:
+            nnz = 4 if plane == "w4" else 3
+            if extra is None:
+                extra = dict(bits=4, group=128, gscale=p.scale)
+            out[f"dbb_gemm {plane} M{m}"] = dbb_gemm(
+                x, p.values, p.bitmask, bias, sc, act="silu", nnz=nnz,
+                **extra)
+            if m <= 32:
+                out[f"dbb_gemm_skinny {plane} M{m}"] = dbb_gemm_skinny(
+                    x, p.values, p.bitmask, bias, sc, act="silu", nnz=nnz,
+                    **extra)
+    img, wc = rn(4, 16, 16, 24), rn(9 * 24, 64)
+    out["conv_gemm"] = conv_gemm(img, wc, bias[:64], act="relu", kh=3, kw=3)
+    p = pack_dbb(wc, 8, 2)
+    out["conv_gemm_dbb"] = conv_gemm_dbb(img, p.values, p.bitmask,
+                                         bias[:64], act="relu", kh=3, kw=3,
+                                         nnz=2)
+    m, k, n = 8, 2048, 8192
+    h, w = rn(m, k) / k ** 0.5, rn(k, n)
+    counts = torch.randint(0, 3, (m, n), generator=g, device=dev,
+                           dtype=torch.int32)
+    r = torch.arange(m, device=dev)
+    ones = torch.ones(m, device=dev)
+    score, tok = head_sample_fused(
+        h, w, counts, temp=torch.where(r % 4 == 0, 0.0, 0.7).float(),
+        rep=ones * 1.2, pres=ones * 0.1, freq=ones * 0.1,
+        seed=(r * 7919).to(torch.int32), step=(r * 3).to(torch.int32))
+    out["head_sample_fused score"], out["head_sample_fused token"] = (score,
+                                                                     tok)
+    torch.cuda.synchronize()
+    torch.save({k: v.cpu() for k, v in out.items()}, out_path)
+    print(f"{tree}: {len(out)} outputs saved to {out_path}")
+
+
+def compare(a_path: str, b_path: str) -> int:
+    import torch
+    a, b = torch.load(a_path), torch.load(b_path)
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    print(f"float branches: {len(a)} outputs, "
+          + ("all bit-equal" if not differ else f"DIFFER: {differ}"))
+    return 1 if differ or set(a) != set(b) else 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--compare":
+        sys.exit(compare(sys.argv[2], sys.argv[3]))
+    run(sys.argv[1], sys.argv[2])

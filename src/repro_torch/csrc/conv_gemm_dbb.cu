@@ -1,6 +1,9 @@
 // Implicit-GEMM NHWC convolution against a DBB-compressed weight: the
 // function of conv_gemm.cu with w[kh*kw*C, N] given as the DBB planes
-// values[K/8 * nnz, N] (f32) and bitmask[K/8, N] (int32).
+// values[K/8 * nnz, N] and bitmask[K/8, N] (int32): f32 values for a float
+// image (conv_gemm_dbb_launch); int8 values (pack_tree(quantize=True),
+// the per-channel scale in the epilogue) for an int8 image
+// (conv_gemm_dbb_s8_launch: exact int32 sums, output int32, f32 or int8).
 //
 // Replaces: src/repro/kernels/conv_gemm/kernel.py, conv_gemm_dbb_pallas —
 // the CNN's packed conv layers under matmul="dbb" (convnet's conv1 and
@@ -12,6 +15,9 @@
 // operand either way. This first version runs the dense FMAs of every
 // decompressed tile, zeros included, so it does the dense work, not the
 // live work; skipping the zeros is later work.
+//
+// The int8 branch does the same dense work in int32 multiply-adds, bound
+// by operations against the 1979 TOP/s INT8 tensor rate.
 //
 // Design: conv_gemm.cu's block body (gemm_tile.cuh) with the DBB loader
 // of dbb_gemm.cu: each K step of 16 covers two DBB blocks, and each
@@ -27,19 +33,18 @@ namespace {
 
 using namespace repro::gemm;
 
-template <typename T>
+template <typename T, typename V = float, typename TO = T>
 __global__ void __launch_bounds__(kThreads)
-conv_gemm_dbb_kernel(const T* __restrict__ x,
-                     const float* __restrict__ values,
+conv_gemm_dbb_kernel(const T* __restrict__ x, const V* __restrict__ values,
                      const int32_t* __restrict__ bitmask,
                      const float* __restrict__ scale,
-                     const float* __restrict__ bias, T* __restrict__ out,
+                     const float* __restrict__ bias, TO* __restrict__ out,
                      ConvGeom g, int N, int nnz, int act) {
   const int M = g.B * g.Ho * g.Wo, K = g.kh * g.kw * g.C;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const ConvGather<T> a(x, m0 + act_row(), g);
-  const DbbWeights<T> wl{values, bitmask, K, N, nnz};
-  gemm_tile<T>(a, wl, M, N, K, m0, n0, scale, bias, act, out);
+  const DbbWeights<T, V> wl{values, bitmask, K, N, nnz};
+  gemm_tile<TO>(a, wl, M, N, K, m0, n0, scale, bias, act, out);
 }
 
 }  // namespace
@@ -68,4 +73,26 @@ extern "C" int conv_gemm_dbb_launch(const void* x, const void* values,
         g, N, nnz, act);
   }
   return (int)cudaGetLastError();
+}
+
+// int8 image, int8 values: out_dtype DT_I32, DT_F32 or DT_I8
+extern "C" int conv_gemm_dbb_s8_launch(const void* x, const void* values,
+                                       const void* bitmask, const void* scale,
+                                       const void* bias, void* out, int B,
+                                       int H, int W, int C, int Ho, int Wo,
+                                       int kh, int kw, int stride,
+                                       int pad_top, int pad_left, int N,
+                                       int nnz, int act, int out_dtype,
+                                       void* stream) {
+  const ConvGeom g{B, H, W, C, Ho, Wo, kh, kw, stride, pad_top, pad_left};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return repro::with_s8_out(out_dtype, [&](auto o) {
+    using TO = decltype(o);
+    conv_gemm_dbb_kernel<int8_t, int8_t, TO>
+        <<<grid_for(B * Ho * Wo, N), kThreads, 0, s>>>(
+            static_cast<const int8_t*>(x), static_cast<const int8_t*>(values),
+            static_cast<const int32_t*>(bitmask),
+            static_cast<const float*>(scale), static_cast<const float*>(bias),
+            static_cast<TO*>(out), g, N, nnz, act);
+  });
 }

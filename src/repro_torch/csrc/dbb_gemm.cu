@@ -4,12 +4,15 @@
 // (dbb_gemm_launch), int8 values[K/8 * nnz, N] whose per-channel scale
 // rides the epilogue (dbb_gemm_i8_launch), and the w4 nibble plane
 // values[K/8 * nnz / 2, N] int8 with groupwise scales gscale[K/G, N]
-// (dbb_gemm_w4_launch).
+// (dbb_gemm_w4_launch), all for float x; and int8 x on the int8 plane
+// (dbb_gemm_s8_launch), the paper's INT8 x INT8 -> INT32 operator: exact
+// int32 sums, output int32, f32 or int8 requantized.
 //
 // Replaces: src/repro/kernels/dbb_gemm/kernel.py, dbb_gemm_pallas (float
 // activations: the f32 / int8 values plane and the bits=4 branch with
-// _expand_nibbles / _dequant_tile) — the prefill projections of the
-// serving path (M = batch * prompt).
+// _expand_nibbles / _dequant_tile; and its int8-activation branch with
+// the int32 accumulator) — the prefill projections of the serving path
+// (M = batch * prompt).
 //
 // What bounds it on the H100: at the prefill shapes (M = 512, K and N of
 // 2048-8192) the work is 2·M·K·N operations on 0.8-2.5 bytes of stored
@@ -18,7 +21,8 @@
 // f32 FMAs (each bf16 product is exact in f32, so it computes what a bf16
 // tensor-core product with f32 accumulation computes), not with the
 // tensor cores: it is correct and simple; mma / wgmma with TMA-fed tiles
-// is later work.
+// is later work. The int8 branch: the same work in int32 multiply-adds
+// (IMAD), bound by operations against the 1979 TOP/s INT8 tensor rate.
 //
 // Design: one 256-thread block owns a 128 x 128 output tile and loops
 // over K in steps of 16 (two DBB blocks). Each step every thread loads
@@ -28,8 +32,10 @@
 // shared-memory weight tile — the dense weight never exists in device
 // memory — and loads eight activations into the transposed shared-memory
 // activation tile. Each thread then accumulates an 8 x 8 register tile in
-// f32; the epilogue runs on those registers before the one store of the
-// output. No state crosses blocks.
+// f32 (int32 on the int8 branch: the tiles hold sign-extended int8 and
+// the slots come from I8Plane's integer loader, so the same body and K
+// order serve it); the epilogue runs on those registers before the one
+// store of the output. No state crosses blocks.
 #include "common.cuh"
 
 namespace {
@@ -38,15 +44,16 @@ constexpr int BM = 128, BN = 128, BK = 16, TM = 8, TN = 8;
 constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 constexpr int kBlocksPerStep = BK / repro::kDbbBlock;
 
-template <typename T, typename Plane>
+template <typename T, typename TO, typename Plane>
 __global__ void __launch_bounds__(kThreads)
 dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
                 const int32_t* __restrict__ bitmask,
                 const float* __restrict__ scale,
-                const float* __restrict__ bias, T* __restrict__ out, int M,
+                const float* __restrict__ bias, TO* __restrict__ out, int M,
                 int K, int N, int nnz, int act) {
-  __shared__ float xs[BK][BM + 4];  // activations, transposed
-  __shared__ float ws[BK][BN];      // decompressed weight tile
+  using Acc = repro::acc_t<T>;
+  __shared__ Acc xs[BK][BM + 4];  // activations, transposed
+  __shared__ Acc ws[BK][BN];      // decompressed weight tile
 
   const int t = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -57,21 +64,21 @@ dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
   const int xr = t / (BK / 8), xk = (t % (BK / 8)) * 8;
   const int wkb = t / BN, wn = t % BN;
 
-  float acc[TM][TN];
+  Acc acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     {  // activation tile: 128 rows x 16 K, eight per thread
-      float v[8];
+      Acc v[8];
       const int m = m0 + xr, k = k0 + xk;
       if (m < M && k < K) {
         repro::load8(x + (size_t)m * K + k, v);
       } else {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = 0.f;
+        for (int i = 0; i < 8; ++i) v[i] = Acc(0);
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) xs[xk + i][xr] = v[i];
@@ -79,14 +86,14 @@ dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
     {  // weight tile: decompress one (DBB block, column) pair per thread
       const int kb = k0 / repro::kDbbBlock + wkb, n = n0 + wn;
       uint32_t mask = 0;
-      float slot[repro::kNnzMax];
+      Acc slot[repro::kNnzMax];
 #pragma unroll
-      for (int s = 0; s < repro::kNnzMax; ++s) slot[s] = 0.f;
+      for (int s = 0; s < repro::kNnzMax; ++s) slot[s] = Acc(0);
       if (kb < kb_total && n < N) {
         mask = (uint32_t)bitmask[(size_t)kb * N + n];
         plane.load(kb, n, N, nnz, slot);
       }
-      float w[repro::kDbbBlock];
+      Acc w[repro::kDbbBlock];
       repro::decompress_block<T>(mask, slot, nnz, w);
 #pragma unroll
       for (int p = 0; p < repro::kDbbBlock; ++p)
@@ -95,7 +102,7 @@ dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+      Acc a[TM], b[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * (BM / TM)];
 #pragma unroll
@@ -103,7 +110,8 @@ dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = repro::mac(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -117,7 +125,7 @@ dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
       const int n = n0 + tx + j * (BN / TN);
       if (n < N)
         out[(size_t)m * N + n] =
-            repro::from_f32<T>(repro::epilogue(acc[i][j], n, scale, bias, act));
+            repro::finish<TO>(acc[i][j], n, scale, bias, act);
     }
   }
 }
@@ -125,26 +133,34 @@ dbb_gemm_kernel(const T* __restrict__ x, const Plane plane,
 static_assert(kBlocksPerStep * BN == kThreads, "one (block, col) per thread");
 static_assert(BM * (BK / 8) == kThreads, "one 8-wide load per thread");
 
+template <typename T, typename TO, typename Plane>
+void launch_t(const void* x, const Plane plane, const void* bitmask,
+              const void* scale, const void* bias, void* out, int M, int K,
+              int N, int nnz, int act, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dbb_gemm_kernel<T, TO, Plane><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), plane, static_cast<const int32_t*>(bitmask),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<TO*>(out), M, K, N, nnz, act);
+}
+
+bool dims_ok(int K, int nnz) {
+  return nnz >= 1 && nnz <= repro::kNnzMax && K % repro::kDbbBlock == 0;
+}
+
+// float x: out in x's dtype (dtype)
 template <typename Plane>
 int launch(const void* x, const Plane plane, const void* bitmask,
            const void* scale, const void* bias, void* out, int M, int K,
            int N, int nnz, int act, int dtype, void* stream) {
-  if (nnz < 1 || nnz > repro::kNnzMax || K % repro::kDbbBlock)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (!dims_ok(K, nnz)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* mk = static_cast<const int32_t*>(bitmask);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  if (dtype == repro::DT_BF16) {
-    dbb_gemm_kernel<__nv_bfloat16, Plane><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), plane, mk, sc, bi,
-        static_cast<__nv_bfloat16*>(out), M, K, N, nnz, act);
-  } else {
-    dbb_gemm_kernel<float, Plane><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), plane, mk, sc, bi,
-        static_cast<float*>(out), M, K, N, nnz, act);
-  }
+  if (dtype == repro::DT_BF16)
+    launch_t<__nv_bfloat16, __nv_bfloat16>(x, plane, bitmask, scale, bias,
+                                           out, M, K, N, nnz, act, s);
+  else
+    launch_t<float, float>(x, plane, bitmask, scale, bias, out, M, K, N, nnz,
+                           act, s);
   return (int)cudaGetLastError();
 }
 
@@ -179,4 +195,19 @@ extern "C" int dbb_gemm_w4_launch(const void* x, const void* values,
                 repro::W4Plane{static_cast<const int8_t*>(values),
                                static_cast<const float*>(gscale), group},
                 bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
+}
+
+// int8 x on the int8 values plane: out_dtype DT_I32, DT_F32 or DT_I8
+extern "C" int dbb_gemm_s8_launch(const void* x, const void* values,
+                                  const void* bitmask, const void* scale,
+                                  const void* bias, void* out, int M, int K,
+                                  int N, int nnz, int act, int out_dtype,
+                                  void* stream) {
+  if (!dims_ok(K, nnz)) return (int)cudaErrorInvalidValue;
+  const repro::I8Plane plane{static_cast<const int8_t*>(values)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return repro::with_s8_out(out_dtype, [&](auto o) {
+    launch_t<int8_t, decltype(o)>(x, plane, bitmask, scale, bias, out, M, K,
+                                  N, nnz, act, s);
+  });
 }

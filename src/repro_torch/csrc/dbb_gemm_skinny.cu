@@ -4,10 +4,13 @@
 // values[K/8 * nnz, N] (dbb_gemm_skinny_launch), int8 values whose
 // per-channel scale rides the epilogue (dbb_gemm_skinny_i8_launch), and
 // the w4 nibble plane values[K/8 * nnz / 2, N] with groupwise scales
-// gscale[K/G, N] (dbb_gemm_skinny_w4_launch).
+// gscale[K/G, N] (dbb_gemm_skinny_w4_launch), all for float x; and int8 x
+// on the int8 plane (dbb_gemm_skinny_s8_launch: INT8 x INT8 -> INT32,
+// output int32, f32 or int8 requantized).
 //
 // Replaces: src/repro/kernels/skinny/kernel.py, dbb_gemm_skinny_pallas
-// (float activations, its bits=8 and bits=4 branches) — every decode and
+// (float activations, its bits=8 and bits=4 branches, and its int8
+// activations with the int32 accumulator) — every decode and
 // speculative-verify projection of the serving path (M = batch, 3·batch).
 //
 // What bounds it on the H100: bytes. At M = 8 each weight byte feeds a
@@ -30,9 +33,11 @@
 // the 8 dense weights in registers from the bitmask rank (rounded
 // through the activation dtype, as the reference casts the tile), loads
 // each row's 8 activations with one vector load (broadcast across the
-// half-warp) and accumulates 8 f32 sums. The partial sums meet in shared
-// memory, the epilogue runs on the total and the block stores its columns
-// once.
+// half-warp) and accumulates 8 f32 sums (int32 on the int8 branch, from
+// I8Plane's integer slots and sign-extended 8-byte activation loads). The
+// partial sums meet in shared memory (int32 on the int8 branch, so the
+// cross-slice reduction stays exact), the epilogue runs on the total and
+// the block stores its columns once.
 #include "common.cuh"
 
 namespace {
@@ -42,15 +47,16 @@ constexpr int kSplit = 32 / kCols;         // K slices per warp
 constexpr int kRows = 8;                   // rows per block (one chunk)
 constexpr int kWarps = 16;
 
-template <typename T, typename Plane>
+template <typename T, typename TO, typename Plane>
 __global__ void __launch_bounds__(kWarps * 32)
 dbb_gemm_skinny_kernel(const T* __restrict__ x, const Plane plane,
                        const int32_t* __restrict__ bitmask,
                        const float* __restrict__ scale,
-                       const float* __restrict__ bias, T* __restrict__ out,
+                       const float* __restrict__ bias, TO* __restrict__ out,
                        int M, int K, int N, int nnz, int act) {
+  using Acc = repro::acc_t<T>;
   constexpr int kSlices = kWarps * kSplit;
-  __shared__ float part[kSlices][kRows][kCols];
+  __shared__ Acc part[kSlices][kRows][kCols];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int col = lane % kCols, slice = warp * kSplit + lane / kCols;
   const int n = blockIdx.y * kCols + col;
@@ -60,25 +66,25 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x, const Plane plane,
   x += (size_t)r0 * K;
   out += (size_t)r0 * N;
 
-  float acc[kRows];
+  Acc acc[kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int r = 0; r < kRows; ++r) acc[r] = Acc(0);
 
   if (n < N) {
     for (int kb = slice; kb < kb_total; kb += kSlices) {
       const uint32_t mask = (uint32_t)bitmask[(size_t)kb * N + n];
-      float slot[repro::kNnzMax];
+      Acc slot[repro::kNnzMax];
       plane.load(kb, n, N, nnz, slot);
-      float w[repro::kDbbBlock];
+      Acc w[repro::kDbbBlock];
       repro::decompress_block<T>(mask, slot, nnz, w);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r >= m) break;
-        float xv[8];
+        Acc xv[8];
         repro::load8(x + (size_t)r * K + (size_t)kb * repro::kDbbBlock, xv);
 #pragma unroll
         for (int p = 0; p < repro::kDbbBlock; ++p)
-          acc[r] = fmaf(xv[p], w[p], acc[r]);
+          acc[r] = repro::mac(xv[p], w[p], acc[r]);
       }
     }
   }
@@ -88,39 +94,42 @@ dbb_gemm_skinny_kernel(const T* __restrict__ x, const Plane plane,
   for (int i = threadIdx.x; i < kRows * kCols; i += kWarps * 32) {
     const int r = i / kCols, c = i % kCols, cn = blockIdx.y * kCols + c;
     if (r >= m || cn >= N) continue;
-    float sum = 0.f;
+    Acc sum = 0;
 #pragma unroll
     for (int v = 0; v < kSlices; ++v) sum += part[v][r][c];
-    out[(size_t)r * N + cn] =
-        repro::from_f32<T>(repro::epilogue(sum, cn, scale, bias, act));
+    out[(size_t)r * N + cn] = repro::finish<TO>(sum, cn, scale, bias, act);
   }
 }
 
-template <typename T, typename Plane>
+template <typename T, typename TO, typename Plane>
 void launch_t(const void* x, const Plane plane, const void* bitmask,
               const void* scale, const void* bias, void* out, int M, int K,
               int N, int nnz, int act, cudaStream_t s) {
   const dim3 grid((M + kRows - 1) / kRows, (N + kCols - 1) / kCols);
-  dbb_gemm_skinny_kernel<T, Plane><<<grid, kWarps * 32, 0, s>>>(
+  dbb_gemm_skinny_kernel<T, TO, Plane><<<grid, kWarps * 32, 0, s>>>(
       static_cast<const T*>(x), plane, static_cast<const int32_t*>(bitmask),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), M, K, N, nnz, act);
+      static_cast<TO*>(out), M, K, N, nnz, act);
 }
 
+bool dims_ok(int M, int K, int nnz) {
+  return M >= 1 && M <= 32 && nnz >= 1 && nnz <= repro::kNnzMax &&
+         K % repro::kDbbBlock == 0;
+}
+
+// float x: out in x's dtype (dtype)
 template <typename Plane>
 int launch(const void* x, const Plane plane, const void* bitmask,
            const void* scale, const void* bias, void* out, int M, int K,
            int N, int nnz, int act, int dtype, void* stream) {
-  if (M < 1 || M > 32 || nnz < 1 || nnz > repro::kNnzMax ||
-      K % repro::kDbbBlock)
-    return (int)cudaErrorInvalidValue;
+  if (!dims_ok(M, K, nnz)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DT_BF16)
-    launch_t<__nv_bfloat16>(x, plane, bitmask, scale, bias, out, M, K, N,
-                            nnz, act, s);
+    launch_t<__nv_bfloat16, __nv_bfloat16>(x, plane, bitmask, scale, bias,
+                                           out, M, K, N, nnz, act, s);
   else
-    launch_t<float>(x, plane, bitmask, scale, bias, out, M, K, N, nnz, act,
-                    s);
+    launch_t<float, float>(x, plane, bitmask, scale, bias, out, M, K, N, nnz,
+                           act, s);
   return (int)cudaGetLastError();
 }
 
@@ -157,4 +166,19 @@ extern "C" int dbb_gemm_skinny_w4_launch(const void* x, const void* values,
                 repro::W4Plane{static_cast<const int8_t*>(values),
                                static_cast<const float*>(gscale), group},
                 bitmask, scale, bias, out, M, K, N, nnz, act, dtype, stream);
+}
+
+// int8 x on the int8 values plane: out_dtype DT_I32, DT_F32 or DT_I8
+extern "C" int dbb_gemm_skinny_s8_launch(const void* x, const void* values,
+                                         const void* bitmask, const void* scale,
+                                         const void* bias, void* out, int M, int K,
+                                         int N, int nnz, int act, int out_dtype,
+                                         void* stream) {
+  if (!dims_ok(M, K, nnz)) return (int)cudaErrorInvalidValue;
+  const repro::I8Plane plane{static_cast<const int8_t*>(values)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return repro::with_s8_out(out_dtype, [&](auto o) {
+    launch_t<int8_t, decltype(o)>(x, plane, bitmask, scale, bias, out, M, K,
+                                  N, nnz, act, s);
+  });
 }

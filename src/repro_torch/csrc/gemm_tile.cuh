@@ -14,6 +14,14 @@
 // before the one store of the output. Ragged M, N and K edges are masked
 // in the loaders and the store: nothing is padded or copied. Shared
 // memory is a fixed 16.6 KB whatever the shapes; no state crosses blocks.
+//
+// int8 operands (the paper's datapath) run the same body on their
+// accumulator type acc_t<int8_t> = int: the loaders sign-extend int8 into
+// int32 tiles of the same 16.6 KB, each thread keeps an 8 x 8 int32
+// register tile summed with exact integer multiply-adds (IMAD), and the
+// store runs the int32 epilogue (common.cuh, int_epilogue). Integer sums
+// are exact in any order, so the int32 result is the reference's bit for
+// bit at any K.
 #pragma once
 
 #include "common.cuh"
@@ -31,14 +39,28 @@ static_assert((BK / kDbbBlock) * BN == kThreads, "one DBB pair per thread");
 __device__ __forceinline__ int act_row() { return threadIdx.x / (BK / 8); }
 __device__ __forceinline__ int act_k() { return (threadIdx.x % (BK / 8)) * 8; }
 
-__device__ __forceinline__ void zero8(float v[8]) {
+template <typename A>
+__device__ __forceinline__ void zero8(A v[8]) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  for (int e = 0; e < 8; ++e) v[e] = A(0);
+}
+
+// eight accumulator-type values into a 16-byte aligned shared-memory row
+__device__ __forceinline__ void store8(float* dst, const float v[8]) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(int* dst, const int v[8]) {
+  int4* d = reinterpret_cast<int4*>(dst);
+  d[0] = make_int4(v[0], v[1], v[2], v[3]);
+  d[1] = make_int4(v[4], v[5], v[6], v[7]);
 }
 
 // Activations: the rows of a row-major x[M, K].
 template <typename T>
 struct RowLoader {
+  using Acc = acc_t<T>;
   const T* row;  // this thread's row, or nullptr past M
   int K;
 
@@ -46,14 +68,15 @@ struct RowLoader {
       : row(m < M ? x + (size_t)m * K_ : nullptr), K(K_) {}
 
   // v[e] = x[m, k + e]; zero past K and past M
-  __device__ __forceinline__ void load(int k, float v[8]) const {
+  __device__ __forceinline__ void load(int k, Acc v[8]) const {
     if (row == nullptr || k >= K) {
       zero8(v);
-    } else if (K % 8 == 0) {  // k is a multiple of 8: 16-byte aligned
+    } else if (K % 8 == 0) {  // k is a multiple of 8: 8 elements aligned
       load8(row + k, v);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = k + e < K ? to_f32(row[k + e]) : 0.f;
+      for (int e = 0; e < 8; ++e)
+        v[e] = k + e < K ? to_acc(row[k + e]) : Acc(0);
     }
   }
 };
@@ -70,6 +93,7 @@ struct ConvGeom {
 // copy.
 template <typename T>
 struct ConvGather {
+  using Acc = acc_t<T>;
   const T* x;
   ConvGeom g;
   int K;
@@ -97,7 +121,7 @@ struct ConvGather {
   }
 
   // v[e] = patch[m, k + e]
-  __device__ __forceinline__ void load(int k, float v[8]) const {
+  __device__ __forceinline__ void load(int k, Acc v[8]) const {
     if (!live || k >= K) {
       zero8(v);
       return;
@@ -117,7 +141,7 @@ struct ConvGather {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int ih = ih0 + i, iw = iw0 + j;
-      v[e] = (k + e < K && inside(ih, iw)) ? to_f32(pixel(ih, iw)[c]) : 0.f;
+      v[e] = (k + e < K && inside(ih, iw)) ? to_acc(pixel(ih, iw)[c]) : Acc(0);
       if (++c == g.C) {
         c = 0;
         if (++j == g.kw) {
@@ -133,55 +157,54 @@ struct ConvGather {
 // brings 8 consecutive columns of one K row.
 template <typename T>
 struct DenseWeights {
+  using Acc = acc_t<T>;
   const T* w;
   int K, N;
 
-  __device__ __forceinline__ void load(int k0, int n0,
-                                       float (*ws)[BN]) const {
+  __device__ __forceinline__ void load(int k0, int n0, Acc (*ws)[BN]) const {
     const int r = threadIdx.x / (BN / 8), c = (threadIdx.x % (BN / 8)) * 8;
     const int k = k0 + r, n = n0 + c;
-    float v[8];
+    Acc v[8];
     if (k >= K || n >= N) {
       zero8(v);
-    } else if (N % 8 == 0) {  // n is a multiple of 8: 16-byte aligned
+    } else if (N % 8 == 0) {  // n is a multiple of 8: 8 elements aligned
       load8(w + (size_t)k * N + n, v);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        v[e] = n + e < N ? to_f32(w[(size_t)k * N + n + e]) : 0.f;
+        v[e] = n + e < N ? to_acc(w[(size_t)k * N + n + e]) : Acc(0);
     }
-    float4* dst = reinterpret_cast<float4*>(&ws[r][c]);
-    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    store8(&ws[r][c], v);
   }
 };
 
-// Weights: the DBB planes values[K/8 * nnz, N] (f32) and bitmask[K/8, N]
-// (int32). Each thread decompresses one (DBB block, column) pair by
-// bitmask rank straight into the tile: the dense weight never exists in
-// device memory. Values are rounded through the activation dtype T, as
-// the reference casts the decompressed tile. Needs K % 8 == 0.
-template <typename T>
+// Weights: the DBB planes values[K/8 * nnz, N] (f32 for float operands,
+// int8 for int8 ones) and bitmask[K/8, N] (int32). Each thread
+// decompresses one (DBB block, column) pair by bitmask rank straight into
+// the tile: the dense weight never exists in device memory. Float values
+// are rounded through the activation dtype T, as the reference casts the
+// decompressed tile; int8 values are exact. Needs K % 8 == 0.
+template <typename T, typename V = float>
 struct DbbWeights {
-  const float* values;
+  using Acc = acc_t<T>;
+  const V* values;
   const int32_t* bitmask;
   int K, N, nnz;
 
-  __device__ __forceinline__ void load(int k0, int n0,
-                                       float (*ws)[BN]) const {
+  __device__ __forceinline__ void load(int k0, int n0, Acc (*ws)[BN]) const {
     const int kbl = threadIdx.x / BN, col = threadIdx.x % BN;
     const int kb = k0 / kDbbBlock + kbl, n = n0 + col;
     uint32_t mask = 0;
-    float slot[kNnzMax];
+    Acc slot[kNnzMax];
 #pragma unroll
-    for (int s = 0; s < kNnzMax; ++s) slot[s] = 0.f;
+    for (int s = 0; s < kNnzMax; ++s) slot[s] = Acc(0);
     if (kb < K / kDbbBlock && n < N) {
       mask = (uint32_t)bitmask[(size_t)kb * N + n];
 #pragma unroll
       for (int s = 0; s < kNnzMax; ++s)
-        if (s < nnz) slot[s] = values[((size_t)kb * nnz + s) * N + n];
+        if (s < nnz) slot[s] = to_acc(values[((size_t)kb * nnz + s) * N + n]);
     }
-    float w[kDbbBlock];
+    Acc w[kDbbBlock];
     decompress_block<T>(mask, slot, nnz, w);
 #pragma unroll
     for (int p = 0; p < kDbbBlock; ++p) ws[kbl * kDbbBlock + p][col] = w[p];
@@ -190,28 +213,30 @@ struct DbbWeights {
 
 // The block body: out[m0:m0+BM, n0:n0+BN] of act(scale * (A @ W) + bias)
 // for out[M, N] row-major. `a` was built for this thread's row
-// m0 + act_row().
+// m0 + act_row(); both loaders yield the accumulator type Acc (f32, or
+// int32 for int8 operands).
 template <typename TO, typename ALoad, typename WLoad>
 __device__ __forceinline__ void gemm_tile(const ALoad& a, const WLoad& w,
                                           int M, int N, int K, int m0, int n0,
                                           const float* __restrict__ scale,
                                           const float* __restrict__ bias,
                                           int act, TO* __restrict__ out) {
-  __shared__ float xs[BK][BM + 4];            // activations, transposed
-  __shared__ __align__(16) float ws[BK][BN];  // weight tile
+  using Acc = typename ALoad::Acc;
+  __shared__ Acc xs[BK][BM + 4];            // activations, transposed
+  __shared__ __align__(16) Acc ws[BK][BN];  // weight tile
 
   const int t = threadIdx.x;
   const int tx = t % (BN / TN), ty = t / (BN / TN);
   const int xr = act_row(), xk = act_k();
 
-  float acc[TM][TN];
+  Acc acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    float v[8];
+    Acc v[8];
     a.load(k0 + xk, v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) xs[xk + i][xr] = v[i];
@@ -219,7 +244,7 @@ __device__ __forceinline__ void gemm_tile(const ALoad& a, const WLoad& w,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
+      Acc av[TM], bv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) av[i] = xs[kk][ty + i * (BM / TM)];
 #pragma unroll
@@ -227,7 +252,7 @@ __device__ __forceinline__ void gemm_tile(const ALoad& a, const WLoad& w,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -240,8 +265,7 @@ __device__ __forceinline__ void gemm_tile(const ALoad& a, const WLoad& w,
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * (BN / TN);
       if (n < N)
-        out[(size_t)m * N + n] =
-            from_f32<TO>(epilogue(acc[i][j], n, scale, bias, act));
+        out[(size_t)m * N + n] = finish<TO>(acc[i][j], n, scale, bias, act);
     }
   }
 }

@@ -1,10 +1,12 @@
 // Dense GEMM, M-tiled: out = act(scale * (x @ w) + bias) for x[M, K] and
-// w[K, N] in one dtype (f32 or bf16), f32 accumulation, output in f32 or
-// bf16.
+// w[K, N] in one dtype: f32 or bf16 with f32 accumulation, output in f32
+// or bf16 (sta_gemm_launch); or int8, the paper's INT8 x INT8 -> INT32
+// datapath, output int32, f32 or int8 requantized (sta_gemm_s8_launch).
 //
 // Replaces: src/repro/kernels/sta_gemm/kernel.py, sta_gemm_pallas — the
 // MLP GEMMs of dense-weight prefill (M = batch * prompt, K and N of
-// 2048-8192) and any dense M-tiled GEMM under gemm_impl="pallas".
+// 2048-8192), any dense M-tiled GEMM under gemm_impl="pallas", and the
+// int8 operator at those shapes (its int32 accumulator branch).
 //
 // What bounds it on the H100: at the prefill shapes the work is 2·M·K·N
 // operations on (M·K + K·N + M·N) elements, hundreds of operations per
@@ -15,8 +17,15 @@
 // edges are masked in the kernel, where the reference pads copies of the
 // operands to its block grid (sta_gemm/ops.py).
 //
+// The int8 branch: 2·M·K·N integer operations on one byte per operand,
+// bound by operations against the card's 1979 TOP/s dense INT8 tensor
+// rate; this first version sums with exact int32 multiply-adds on the
+// CUDA cores, far above that bound (mma / wgmma with s8 operands is later
+// work).
+//
 // Design: the output-stationary 128 x 128 register-tiled block body of
-// gemm_tile.cuh with a row loader for x and a dense loader for w.
+// gemm_tile.cuh with a row loader for x and a dense loader for w, on the
+// f32 or the int32 accumulator.
 #include "gemm_tile.cuh"
 
 namespace {
@@ -63,4 +72,18 @@ extern "C" int sta_gemm_launch(const void* x, const void* w,
     launch<float, float>(x, w, sc, bi, out, M, K, N, act, s);
   }
   return (int)cudaGetLastError();
+}
+
+// int8 operands: out_dtype DT_I32 (the raw sum, or the epilogue truncated),
+// DT_F32 (dequantized by the scale) or DT_I8 (requantized)
+extern "C" int sta_gemm_s8_launch(const void* x, const void* w,
+                                  const void* scale, const void* bias,
+                                  void* out, int M, int K, int N, int act,
+                                  int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  return repro::with_s8_out(out_dtype, [&](auto o) {
+    launch<int8_t, decltype(o)>(x, w, sc, bi, out, M, K, N, act, s);
+  });
 }

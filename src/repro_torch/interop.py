@@ -4,7 +4,9 @@
 leaves are arrays (numpy, or anything ``np.asarray`` reads) and packed
 leaves read by attribute — ``values``, ``bitmask``, ``scale``, ``block``,
 ``nnz``, ``k_dim``, ``bits``, ``group`` (and ``indices`` when present) —
-and returns the same tree of torch tensors and port `DbbWeight`s.
+and INT8 weights read by attribute — ``q``, ``scale`` (the reference's
+``QuantizedWeight``) — and returns the same tree of torch tensors, port
+`DbbWeight`s and port `QuantizedWeight`s.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dbb import DbbWeight
+from repro_torch.core.quant import QuantizedWeight
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
@@ -36,6 +39,9 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     """The port's tree for a reference parameter tree (see module doc)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QuantizedWeight(q=tensor_from_numpy(tree.q, device),
+                               scale=tensor_from_numpy(tree.scale, device))
     if _is_packed(tree):
         def opt(a):
             return None if a is None else tensor_from_numpy(a, device)

@@ -45,7 +45,8 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C launchers (csrc/common.cuh, enum DType)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.int32: 3}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,6 @@
 """Shared kernel-wrapper utilities: the skinny-regime guard, epilogue
-operand coercion, launch counters and argument checks.
+operand coercion, launch counters, argument and output-dtype checks, and
+the plain versions' accumulator (f32, or exact int32 for int8 operands).
 
 Guards are stated for the H100, not carried over from the TPU's VMEM
 budgets: the skinny kernels run a batch as chunks of 8 rows and stream
@@ -13,7 +14,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
-           "reset_launches", "check_operand", "FLOAT_DTYPES"]
+           "reset_launches", "check_operand", "FLOAT_DTYPES",
+           "OPERAND_DTYPES", "INT8_OUT_DTYPES", "resolve_out_dtype",
+           "gemm_acc"]
 
 # Dispatch cap: decode / serving batches, as the reference's skinny rule.
 # The kernels run M > 8 as ceil(M / 8) row chunks that share each weight
@@ -21,17 +24,28 @@ __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
 SKINNY_M_MAX = 32
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+# operand dtypes of the GEMM and conv kernels: float, or the paper's INT8
+# operands (int32 accumulator) on their int8 branches
+OPERAND_DTYPES = FLOAT_DTYPES + (torch.int8,)
+# outputs of an int8 branch: the raw int32 accumulator, f32 (dequantized
+# by the scale), or int8 (requantized: round half to even, clip to ±127)
+INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 
 # One plain integer per CUDA kernel: its wrapper adds one where it launches
 # the kernel, and nowhere else (the CPU's plain path does not count).
-# The DBB kernels count each values format apart (f32, ``_i8``, ``_w4``).
+# The DBB kernels count each values format apart (f32, ``_i8``, ``_w4``);
+# each int8-activation branch (``_s8``: INT8 x INT8 -> INT32) counts apart
+# from its kernel's float branches.
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
                             "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
                             "sta_gemm_skinny": 0, "paged_decode": 0,
                             "flash_prefill": 0, "flash_prefill_packed": 0,
                             "sta_gemm": 0, "conv_gemm": 0,
-                            "conv_gemm_dbb": 0, "head_sample_fused": 0}
+                            "conv_gemm_dbb": 0, "head_sample_fused": 0,
+                            "sta_gemm_s8": 0, "sta_gemm_skinny_s8": 0,
+                            "dbb_gemm_s8": 0, "dbb_gemm_skinny_s8": 0,
+                            "conv_gemm_s8": 0, "conv_gemm_dbb_s8": 0}
 
 
 def reset_launches() -> None:
@@ -42,6 +56,38 @@ def reset_launches() -> None:
 def skinny_ok(m: int) -> bool:
     """Whether the skinny (weight-streaming, M ≤ 32) regime applies."""
     return 1 <= m <= SKINNY_M_MAX
+
+
+def resolve_out_dtype(x_dtype: torch.dtype, out_dtype: Optional[torch.dtype],
+                      has_scale: bool,
+                      float_outs: Optional[Tuple[torch.dtype, ...]] = None
+                      ) -> torch.dtype:
+    """The output dtype a kernel stores, or TypeError. int8 operands: int32
+    by default, f32 when a scale is fused (the reference's
+    ``default_out_dtype``), or any of INT8_OUT_DTYPES asked for; float
+    operands: x's dtype, or one of ``float_outs`` (default: x's only)."""
+    if x_dtype == torch.int8:
+        od = out_dtype or (torch.float32 if has_scale else torch.int32)
+        allowed = INT8_OUT_DTYPES
+    else:
+        od = out_dtype or x_dtype
+        allowed = float_outs or (x_dtype,)
+    if od not in allowed:
+        raise TypeError(f"out_dtype {od} for {x_dtype} operands: the kernel "
+                        f"stores one of {allowed}")
+    return od
+
+
+def gemm_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain versions' accumulator of ``x @ w``: f32 for float
+    operands; for int8 operands the exact int32 sum, taken in f64 (every
+    sum of int8 products below 2^53 is exact there, far past olmo's
+    K·127² ≈ 1.3e8) and cast. Not int8 ``torch.matmul``: on the CPU it
+    returns int8 and wraps, and CUDA has none."""
+    if x.dtype == torch.int8:
+        return torch.matmul(x.to(torch.float64),
+                            w.to(torch.float64)).to(torch.int32)
+    return torch.matmul(x.float(), w.float())
 
 
 def coerce_bias_scale(bias, scale, n: int, device

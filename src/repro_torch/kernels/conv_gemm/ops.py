@@ -4,7 +4,10 @@
 `conv_gemm_packed` a `DbbWeight` with its per-channel scale in the
 epilogue — one for one with the reference's wrappers.
 
-On a CUDA tensor each launches its kernel (or raises); on a CPU tensor it
+An int8 image takes each kernel's int8 branch (``conv_gemm_s8``,
+``conv_gemm_dbb_s8`` on the INT8 values plane: INT8 × INT8 → INT32,
+stored as int32 by default, f32 with a scale, or int8 requantized). On a
+CUDA tensor each launches its kernel (or raises); on a CPU tensor it
 runs the plain version (explicit im2col + one product). The kernels read
 the unpadded NHWC image and treat positions outside it as zero (SAME
 padding, XLA's ``lo = total // 2``); output rows and channels past Ho, Wo
@@ -20,8 +23,9 @@ import torch
 
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES,
-                                        check_operand, coerce_bias_scale)
+from repro_torch.kernels.common import (LAUNCHES, OPERAND_DTYPES,
+                                        check_operand, coerce_bias_scale,
+                                        resolve_out_dtype)
 from repro_torch.kernels.conv_gemm.ref import (conv_gemm_dbb_ref,
                                                conv_gemm_ref, out_spatial)
 from repro_torch.kernels.epilogue import ACT_CODES
@@ -31,8 +35,8 @@ __all__ = ["conv_gemm", "conv_gemm_dbb", "conv_gemm_packed", "out_spatial"]
 _INT_MAX = 2 ** 31 - 1     # the kernels index pixels and channels in int
 
 
-def _geometry(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str,
-              out_dtype: Optional[torch.dtype]) -> Tuple[int, ...]:
+def _geometry(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str
+              ) -> Tuple[int, ...]:
     """Validate x and return the launchers' geometry (B, H, W, C, Ho, Wo,
     kh, kw, stride, pad_top, pad_left)."""
     if x.ndim != 4:
@@ -40,10 +44,7 @@ def _geometry(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str,
     b, h, w, c = x.shape
     ho, pt, _ = out_spatial(h, kh, stride, padding)
     wo, pl, _ = out_spatial(w, kw, stride, padding)
-    if out_dtype not in (None, x.dtype):
-        raise TypeError(f"out_dtype {out_dtype}: the kernels store x's "
-                        f"dtype {x.dtype}")
-    check_operand("x", x, (b, h, w, c), FLOAT_DTYPES, x.device)
+    check_operand("x", x, (b, h, w, c), OPERAND_DTYPES, x.device)
     if b * ho * wo > _INT_MAX or x.numel() > _INT_MAX:
         raise ValueError(f"x {tuple(x.shape)}: over 2^31 pixels or values")
     return b, h, w, c, ho, wo, kh, kw, stride, pt, pl
@@ -55,21 +56,25 @@ def _empty(geom, n: int) -> bool:
     return b * ho * wo * n == 0
 
 
-def _run(name: str, args, geom, n: int, tail, x: torch.Tensor
-         ) -> torch.Tensor:
-    """Launch conv kernel ``name`` on the current stream; count it."""
+def _run(name: str, args, geom, n: int, tail, x: torch.Tensor,
+         out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch conv kernel ``name`` on the current stream, on its float
+    branch (x's dtype code) or, for an int8 image, its ``_s8`` branch (the
+    out dtype code); count it under the branch's name."""
     b, _, _, _, ho, wo = geom[:6]
-    out = torch.empty((b, ho, wo, n), dtype=x.dtype, device=x.device)
-    fn = getattr(build.load(name), f"{name}_launch")
+    branch = name + ("_s8" if x.dtype == torch.int8 else "")
+    out = torch.empty((b, ho, wo, n), dtype=out_dtype, device=x.device)
+    fn = getattr(build.load(name), f"{branch}_launch")
     fn.argtypes = ([ctypes.c_void_p] * (len(args) + 1)
                    + [ctypes.c_int] * (len(geom) + 1 + len(tail) + 1)
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(*args, out.data_ptr(), *geom, n, *tail,
-            build.dtype_code(x.dtype), build.stream_handle(x.device))
+    code = out_dtype if branch != name else x.dtype
+    rc = fn(*args, out.data_ptr(), *geom, n, *tail, build.dtype_code(code),
+            build.stream_handle(x.device))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{branch} launch failed: cudaError {rc}")
+    LAUNCHES[branch] += 1
     return out
 
 
@@ -79,17 +84,18 @@ def conv_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None, *,
               ) -> torch.Tensor:
     """``act(scale · conv2d(x, w) + bias)``: x ``[B, H, W, C]`` NHWC, w the
     explicit lowering's ``[kh·kw·C, N]`` in x's dtype → ``[B, Ho, Wo, N]``
-    in x's dtype."""
-    geom = _geometry(x, kh, kw, stride, padding, out_dtype)
+    in x's dtype (float x) or ``out_dtype`` (int8 x)."""
+    geom = _geometry(x, kh, kw, stride, padding)
+    out_dtype = resolve_out_dtype(x.dtype, out_dtype, scale is not None)
     k_dim, n = kh * kw * x.shape[-1], w.shape[-1]
     check_operand("w", w, (k_dim, n), (x.dtype,), x.device)
     bias, scale = coerce_bias_scale(bias, scale, n, x.device)
     if x.device.type == "cpu" or _empty(geom, n):
         return conv_gemm_ref(x, w, bias, scale, kh=kh, kw=kw, stride=stride,
-                             padding=padding, act=act)
+                             padding=padding, act=act, out_dtype=out_dtype)
     return _run("conv_gemm", (x.data_ptr(), w.data_ptr(), build.ptr(scale),
                               build.ptr(bias)),
-                geom, n, (ACT_CODES[act],), x)
+                geom, n, (ACT_CODES[act],), x, out_dtype)
 
 
 def conv_gemm_dbb(x: torch.Tensor, values: torch.Tensor,
@@ -97,10 +103,12 @@ def conv_gemm_dbb(x: torch.Tensor, values: torch.Tensor,
                   kw: int, stride: int = 1, padding: str = "SAME",
                   act: str = "none", block: int = 8, nnz: int = 4,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """`conv_gemm` against the DBB planes ``values [K/8·nnz, N]`` (f32) and
-    ``bitmask [K/8, N]`` (int32), K = kh·kw·C. The kernel takes B = 8 and
-    kw·C % 8 == 0, so each kernel row covers whole DBB blocks."""
-    geom = _geometry(x, kh, kw, stride, padding, out_dtype)
+    """`conv_gemm` against the DBB planes ``values [K/8·nnz, N]`` (f32 for
+    a float image, int8 for an int8 one) and ``bitmask [K/8, N]`` (int32),
+    K = kh·kw·C. The kernel takes B = 8 and kw·C % 8 == 0, so each kernel
+    row covers whole DBB blocks."""
+    geom = _geometry(x, kh, kw, stride, padding)
+    out_dtype = resolve_out_dtype(x.dtype, out_dtype, scale is not None)
     c = x.shape[-1]
     k_dim, n = kh * kw * c, values.shape[-1]
     if block != 8:
@@ -111,18 +119,19 @@ def conv_gemm_dbb(x: torch.Tensor, values: torch.Tensor,
         raise ValueError(f"kw·C = {kw * c} not a multiple of the DBB block "
                          f"{block}")
     check_operand("values", values, (k_dim // block * nnz, n),
-                  (torch.float32,), x.device)
+                  (torch.int8 if x.dtype == torch.int8 else torch.float32,),
+                  x.device)
     check_operand("bitmask", bitmask, (k_dim // block, n), (torch.int32,),
                   x.device)
     bias, scale = coerce_bias_scale(bias, scale, n, x.device)
     if x.device.type == "cpu" or _empty(geom, n):
         return conv_gemm_dbb_ref(x, values, bitmask, bias, scale, kh=kh,
                                  kw=kw, stride=stride, padding=padding,
-                                 act=act, block=block)
+                                 act=act, block=block, out_dtype=out_dtype)
     return _run("conv_gemm_dbb", (x.data_ptr(), values.data_ptr(),
                                   bitmask.data_ptr(), build.ptr(scale),
                                   build.ptr(bias)),
-                geom, n, (nnz, ACT_CODES[act]), x)
+                geom, n, (nnz, ACT_CODES[act]), x, out_dtype)
 
 
 def conv_gemm_packed(x: torch.Tensor, p: DbbWeight, bias=None, *, kh: int,

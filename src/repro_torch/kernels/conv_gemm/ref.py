@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the implicit-GEMM conv kernels: the explicit
 lowering the kernels replace — build the im2col patch matrix, multiply it
-with the (decompressed) weight in f32, apply the same epilogue. The CPU
+with the (decompressed) weight in f32 (exactly in int32 for an int8
+image), apply the same epilogue. The CPU
 tests run them; the plain conv route (``conv_xla``) is them; on the card
 they are the yardstick the CUDA kernels are held against.
 
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dbb import decompress_bitmask
+from repro_torch.kernels.common import gemm_acc
 from repro_torch.kernels.epilogue import (Epilogue, apply_epilogue,
                                           default_out_dtype)
 
@@ -57,11 +59,11 @@ def conv_gemm_ref(x: torch.Tensor, w: torch.Tensor,
                   stride: int = 1, padding: str = "SAME", act: str = "none",
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Explicit im2col + GEMM: ``[B, H, W, C] × [kh·kw·C, N] →
-    [B, Ho, Wo, N]``, the weight cast to x's dtype, accumulated in f32."""
+    [B, Ho, Wo, N]``, the weight cast to x's dtype, accumulated in f32,
+    or exactly in int32 for int8 operands."""
     cols = im2col(x, kh, kw, stride, padding)
     b, ho, wo, kdim = cols.shape
-    acc = torch.matmul(cols.reshape(-1, kdim).float(),
-                       w.to(x.dtype).float())
+    acc = gemm_acc(cols.reshape(-1, kdim), w.to(x.dtype))
     spec = Epilogue(act=act, has_bias=bias is not None,
                     has_scale=scale is not None)
     y = apply_epilogue(acc, spec, out_dtype or default_out_dtype(

@@ -5,8 +5,12 @@
 The values plane is f32 or int8 ``[K/8·k, N]``, or at ``bits=4`` the
 nibble plane ``[K/8·k/2, N]`` int8 with groupwise scales ``gscale [K/G,
 N]``; each format has its own launcher and launch counter (``dbb_gemm``,
-``dbb_gemm_i8``, ``dbb_gemm_w4``). On a CUDA tensor it launches the kernel
-(or raises); on a CPU tensor it runs the plain version, `dbb_gemm_ref`.
+``dbb_gemm_i8``, ``dbb_gemm_w4``). int8 activations take the int8 branch
+on the INT8 values plane (``dbb_gemm_s8``: INT8 × INT8 → INT32, stored
+as int32 by default, f32 with a scale, or int8 requantized); the w4 plane
+takes float x only, as in the reference. On a CUDA tensor it launches the
+kernel (or raises); on a CPU tensor it runs the plain version,
+`dbb_gemm_ref`.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES,
-                                        check_operand, coerce_bias_scale)
+                                        OPERAND_DTYPES, check_operand,
+                                        coerce_bias_scale, resolve_out_dtype)
 from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
 from repro_torch.kernels.epilogue import ACT_CODES
 
@@ -28,11 +33,14 @@ __all__ = ["dbb_gemm", "check_dbb_operands", "dbb_launcher",
 def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
                        bitmask: torch.Tensor, *, block: int, nnz: int,
                        out_dtype: Optional[torch.dtype], bits: int = 8,
-                       group: int = 0, gscale: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, int, int, int, str]:
+                       group: int = 0, gscale: Optional[torch.Tensor] = None,
+                       has_scale: bool = False
+                       ) -> Tuple[torch.Tensor, int, int, int, str,
+                                  torch.dtype]:
     """Validate the operands both DBB kernels take; returns
-    ``(x [M, K], M, K, N, plane)`` with ``plane`` the launcher suffix of
-    the values format ("" f32, "_i8" int8, "_w4" the nibble plane). Raises
+    ``(x [M, K], M, K, N, plane, out dtype)`` with ``plane`` the launcher
+    suffix of the branch ("" f32 values, "_i8" int8 values, "_w4" the
+    nibble plane, all for float x; "_s8" int8 x on int8 values). Raises
     on anything the kernels do not take."""
     if block != 8:
         raise ValueError(f"DBB block {block}: the kernels take B = 8")
@@ -43,11 +51,11 @@ def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
     m, n = x2.shape[0], values.shape[-1]
     if k_dim % block:
         raise ValueError(f"K={k_dim} not a multiple of the block {block}")
-    if out_dtype not in (None, x.dtype):
-        raise TypeError(f"out_dtype {out_dtype}: the kernels store x's "
-                        f"dtype {x.dtype}")
     dev = x.device
-    check_operand("x", x2, (m, k_dim), FLOAT_DTYPES, dev)
+    int8_x = x.dtype == torch.int8
+    check_operand("x", x2, (m, k_dim),
+                  FLOAT_DTYPES if bits == 4 else OPERAND_DTYPES, dev)
+    out_dtype = resolve_out_dtype(x.dtype, out_dtype, has_scale)
     rows = k_dim // block * nnz
     if bits == 4:
         if group <= 0 or group % block or k_dim % group:
@@ -67,13 +75,15 @@ def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
             raise ValueError("gscale is the bits=4 plane's; bits=8 scales "
                              "ride the epilogue")
         check_operand("values", values, (rows, n),
-                      (torch.float32, torch.int8), dev)
-        plane = "_i8" if values.dtype == torch.int8 else ""
+                      (torch.int8,) if int8_x else (torch.float32,
+                                                    torch.int8), dev)
+        plane = ("_s8" if int8_x else
+                 "_i8" if values.dtype == torch.int8 else "")
     else:
         raise ValueError(f"bits={bits} not supported (4 or 8)")
     check_operand("bitmask", bitmask, (k_dim // block, n), (torch.int32,),
                   dev)
-    return x2, m, k_dim, n, plane
+    return x2, m, k_dim, n, plane, out_dtype
 
 
 def dbb_launcher(name: str, plane: str = "") -> ctypes._CFuncPtr:
@@ -92,17 +102,19 @@ def dbb_launcher(name: str, plane: str = "") -> ctypes._CFuncPtr:
 
 
 def run_dbb_kernel(name: str, plane: str, x2, values, bitmask, bias, scale,
-                   *, m, k_dim, n, nnz, act, group=0, gscale=None
-                   ) -> torch.Tensor:
+                   *, m, k_dim, n, nnz, act, out_dtype, group=0,
+                   gscale=None) -> torch.Tensor:
     """Launch DBB kernel ``name`` on its ``plane`` branch on the current
-    stream; count the launch under ``name + plane``."""
-    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    stream; count the launch under ``name + plane``. The float branches
+    take x's dtype code (they store it), the ``_s8`` branch the output's."""
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     head = [x2.data_ptr(), values.data_ptr(), bitmask.data_ptr()]
     if plane == "_w4":
         head += [gscale.data_ptr(), group]
     rc = dbb_launcher(name, plane)(
         *head, build.ptr(scale), build.ptr(bias), out.data_ptr(), m, k_dim,
-        n, nnz, ACT_CODES[act], build.dtype_code(x2.dtype),
+        n, nnz, ACT_CODES[act],
+        build.dtype_code(out_dtype if plane == "_s8" else x2.dtype),
         build.stream_handle(x2.device))
     if rc != 0:
         raise RuntimeError(f"{name}{plane} launch failed: cudaError {rc}")
@@ -115,16 +127,18 @@ def dbb_gemm(x: torch.Tensor, values: torch.Tensor, bitmask: torch.Tensor,
              nnz: int = 4, out_dtype: Optional[torch.dtype] = None,
              bits: int = 8, group: int = 0,
              gscale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """M-tiled DBB GEMM (any M); output ``[..., N]`` in x's dtype."""
-    x2, m, k_dim, n, plane = check_dbb_operands(
+    """M-tiled DBB GEMM (any M); output ``[..., N]`` in x's dtype (float
+    x) or ``out_dtype`` (int8 x: int32, f32 or int8)."""
+    x2, m, k_dim, n, plane, out_dtype = check_dbb_operands(
         x, values, bitmask, block=block, nnz=nnz, out_dtype=out_dtype,
-        bits=bits, group=group, gscale=gscale)
+        bits=bits, group=group, gscale=gscale, has_scale=scale is not None)
     bias, scale = coerce_bias_scale(bias, scale, n, x.device)
     if x.device.type == "cpu":
         y = dbb_gemm_ref(x2, values, bitmask, bias, scale, act=act,
-                         block=block, bits=bits, group=group, gscale=gscale)
+                         block=block, bits=bits, group=group, gscale=gscale,
+                         out_dtype=out_dtype)
     else:
         y = run_dbb_kernel("dbb_gemm", plane, x2, values, bitmask, bias,
                            scale, m=m, k_dim=k_dim, n=n, nnz=nnz, act=act,
-                           group=group, gscale=gscale)
+                           out_dtype=out_dtype, group=group, gscale=gscale)
     return y.reshape(*x.shape[:-1], n)

@@ -1,6 +1,6 @@
 """Plain PyTorch version of the DBB GEMM kernels (M-tiled and skinny):
-decompress densely, multiply with an f32 accumulator, apply the same
-epilogue. The CPU tests run it; on the card it is the yardstick the CUDA
+decompress densely, multiply with an f32 accumulator (int32 for int8
+activations on the INT8 values plane), apply the same epilogue. The CPU tests run it; on the card it is the yardstick the CUDA
 kernels are held against."""
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core.dbb import (decompress_bitmask, dequantize_groups,
                                   unpack_nibbles)
+from repro_torch.kernels.common import gemm_acc
 from repro_torch.kernels.epilogue import (Epilogue, apply_epilogue,
                                           default_out_dtype)
 
@@ -34,16 +35,16 @@ def dbb_gemm_ref(x: torch.Tensor, values: torch.Tensor,
                  gscale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``act(scale * (x @ unpack(values, bitmask)) + bias)`` for ``x [M, K]``:
     the decompressed weight is cast to x's dtype before the product (as
-    the kernels round it), the product accumulates in f32. ``values`` is
-    f32, int8 (exact in x's dtype; its scale is the epilogue's), or at
-    ``bits=4`` the nibble plane, dequantized with ``gscale`` in f32 (one
-    rounding) before the cast."""
+    the kernels round it), the product accumulates in f32, or exactly in
+    int32 for int8 x. ``values`` is f32, int8 (exact in x's dtype; its
+    scale is the epilogue's), or at ``bits=4`` the nibble plane,
+    dequantized with ``gscale`` in f32 (one rounding) before the cast."""
     if bits == 4:
         w = decompress_w4_ref(values, bitmask, gscale, block=block,
                               group=group)
     else:
         w = decompress_bitmask(values, bitmask, block=block)
-    acc = torch.matmul(x.float(), w.to(x.dtype).float())
+    acc = gemm_acc(x, w.to(x.dtype))
     spec = Epilogue(act=act, has_bias=bias is not None,
                     has_scale=scale is not None)
     return apply_epilogue(acc, spec, out_dtype or default_out_dtype(

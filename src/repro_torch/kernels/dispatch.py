@@ -31,7 +31,10 @@ choice where its cost model turns a kernel down:
 Ported routes: matmul ``xla`` (plain torch), ``sta``, ``skinny_sta``,
 ``dbb_packed``, ``skinny_dbb`` (f32 or int8 values planes),
 ``dbb_packed_w4``, ``skinny_dbb_w4`` (the nibble plane); conv
-``conv_xla`` (explicit im2col), ``conv_sta``, ``conv_dbb``; attention
+``conv_xla`` (explicit im2col), ``conv_sta``, ``conv_dbb``. As in the
+reference, int8 activations take the GEMM and conv kernels (their int8
+branches: INT8 × INT8 → INT32), the DBB ones on the INT8 values plane;
+the w4 routes take float activations only. Attention
 ``attn_flash``, ``attn_packed_flash``, ``attn_naive``,
 ``attn_packed_ref``; attn_decode
 ``attn_decode_flash``, ``attn_decode_xla``; head_sample
@@ -50,7 +53,8 @@ import torch
 
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.kernels.attn.ops import PAGE_MIN, flash_ok, paged_decode_ok
-from repro_torch.kernels.common import FLOAT_DTYPES, SKINNY_M_MAX, skinny_ok
+from repro_torch.kernels.common import (FLOAT_DTYPES, OPERAND_DTYPES,
+                                        SKINNY_M_MAX, skinny_ok)
 from repro_torch.kernels.sample.ops import TILE_N as _HS_TILE
 
 __all__ = ["OpSpec", "select", "matmul", "conv", "attention",
@@ -86,7 +90,10 @@ class OpSpec:
     pallas: bool = False          # fused kernel route family is active
     dense_fused: bool = True      # call site opts dense weights into kernels
     gemv: bool = False            # the decode head GEMV: never M-tiled
-    float_ok: bool = True         # operands are f32 / bf16
+    float_ok: bool = True         # operand dtype the kernels accept
+    x_int8: bool = False          # int8 activations (the kernels' int8
+                                  # branches: INT8 x INT8 -> INT32)
+    int8_values: bool = False     # a packed weight's values plane is int8
     conv_geom: Tuple[int, ...] = ()
     page: int = 0
     flash_active: bool = False
@@ -110,7 +117,7 @@ def _guard_dense(s: OpSpec) -> str:
     if not s.dense_fused:
         return "call site keeps dense weights on the plain matmul"
     if not s.float_ok:
-        return "operand dtype outside the kernel contract (f32/bf16)"
+        return "operand dtype outside the kernel contract (f32/bf16/int8)"
     if s.n < NARROW_N:
         return (f"N={s.n} under {NARROW_N}: the 128-column tile would be "
                 "mostly masked lanes")
@@ -151,6 +158,13 @@ def _guard_packed_base(s: OpSpec) -> str:
     return ""
 
 
+def _int8_plane_reason(s: OpSpec) -> str:
+    if s.x_int8 and not s.int8_values:
+        return ("int8 activations: the int8 branch streams the INT8 values "
+                "plane (pack_tree(quantize=True))")
+    return ""
+
+
 def _narrow_packed_reason(s: OpSpec) -> str:
     if s.n < NARROW_N and s.m * (_TILE_N - s.n) > 2 * s.k * s.n:
         return (f"N={s.n} under {NARROW_N}: the masked output lanes "
@@ -167,8 +181,8 @@ def _guard_dbb_packed(s: OpSpec) -> str:
         return ("values plane is nibble-packed INT4 (the w4 routes "
                 "stream it)")
     if not s.float_ok:
-        return "operand dtype outside the kernel contract (f32/bf16)"
-    return _narrow_packed_reason(s)
+        return "operand dtype outside the kernel contract (f32/bf16/int8)"
+    return _int8_plane_reason(s) or _narrow_packed_reason(s)
 
 
 def _guard_dbb_packed_w4(s: OpSpec) -> str:
@@ -177,7 +191,7 @@ def _guard_dbb_packed_w4(s: OpSpec) -> str:
         return r
     if s.bits != 4:
         return "values plane is INT8 (w4 routes take the nibble plane)"
-    if not s.float_ok:
+    if s.x_int8 or not s.float_ok:
         return ("int8 activations: the w4 dequantized tile is float "
                 "(float x only)")
     if s.group <= 0 or s.group % s.block:
@@ -209,7 +223,7 @@ def _guard_conv_kernel(s: OpSpec) -> str:
     if not s.pallas:
         return "implicit-GEMM kernels not selected (use_kernel=False)"
     if not s.float_ok:
-        return "operand dtype outside the kernel contract (f32/bf16)"
+        return "operand dtype outside the kernel contract (f32/bf16/int8)"
     if len(s.conv_geom) < 7:
         return "conv_geom=(b, h, w, c, kh, kw, stride) required"
     return ""
@@ -241,7 +255,10 @@ def _guard_conv_dbb(s: OpSpec) -> str:
     if (kw * c) % s.block:
         return (f"kw·C = {kw * c} not divisible by the DBB block "
                 f"{s.block} (a kernel row must cover whole blocks)")
-    return ""
+    if s.int8_values and not s.x_int8:
+        return ("float activations on INT8 values: the conv kernel's float "
+                "branch streams the f32 values plane")
+    return _int8_plane_reason(s)
 
 
 def _guard_decode_flash(s: OpSpec) -> str:
@@ -443,7 +460,8 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
         bits=w.bits if packed else 8, group=w.group if packed else 0,
         pallas=bool(pallas), dense_fused=dense_fused, gemv=gemv,
-        float_ok=x.dtype in FLOAT_DTYPES)
+        float_ok=x.dtype in OPERAND_DTYPES, x_int8=x.dtype == torch.int8,
+        int8_values=packed and w.values.dtype == torch.int8)
     name, _ = select(spec, routes_from_cfg(cfg))
 
     if name == "sta":
@@ -480,18 +498,39 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
 def _matmul_xla(x, w, bias, scale, *, act, out_dtype):
     """The plain route: a packed weight is decompressed transiently, then
     one torch matmul in x's dtype with the epilogue as separate ops (the
-    storage-dtype bias add of the reference's XLA route). A w4 leaf
-    dequantizes to f32 first (its scales vary along K); int8 activations
-    then upcast, as in the reference."""
-    from repro_torch.kernels.epilogue import apply_act
+    storage-dtype bias add of the reference's XLA route). int8 activations
+    run the kernels' exact datapath instead: an int32 sum, then the fused
+    epilogue's arithmetic (an INT8-valued leaf's scale folds into the
+    epilogue's, its raw int8 values are the operand). A w4 leaf dequantizes
+    to f32 first (its scales vary along K); int8 activations then upcast,
+    as in the reference."""
+    from repro_torch.kernels.common import gemm_acc
+    from repro_torch.kernels.epilogue import (Epilogue, apply_act,
+                                              apply_epilogue,
+                                              default_out_dtype)
     if isinstance(w, DbbWeight):
         from repro_torch.core.dbb_linear import decompress
         if w.bits == 4:
             w = decompress(w)                     # f32, dequantized
             if not x.is_floating_point():
                 x = x.to(w.dtype)
+        elif x.dtype == torch.int8 and w.scale is not None:
+            # dequantizing to f32 and casting back to int8 would destroy
+            # the weights: keep the int8 values, scale in the epilogue
+            scale = (w.scale if scale is None else torch.as_tensor(
+                scale, dtype=torch.float32, device=x.device) * w.scale)
+            w = decompress(dataclasses.replace(w, scale=None))
         else:
             w = decompress(w, dtype=x.dtype)      # scale already applied
+    if x.dtype == torch.int8:
+        if scale is not None:
+            scale = torch.as_tensor(scale, dtype=torch.float32,
+                                    device=x.device)
+        spec = Epilogue(act=act, has_bias=bias is not None,
+                        has_scale=scale is not None)
+        return apply_epilogue(gemm_acc(x, w.to(torch.int8)), spec,
+                              out_dtype or default_out_dtype(x.dtype, spec),
+                              bias=bias, scale=scale)
     y = x @ w.to(x.dtype)
     if scale is not None:
         y = (y.float() * torch.as_tensor(scale, dtype=torch.float32,
@@ -502,16 +541,18 @@ def _matmul_xla(x, w, bias, scale, *, act, out_dtype):
     return y.to(out_dtype) if out_dtype is not None else y
 
 
-def conv(x: torch.Tensor, w, bias=None, *, kh: int, kw: int,
+def conv(x: torch.Tensor, w, bias=None, scale=None, *, kh: int, kw: int,
          stride: int = 1, padding: str = "SAME", act: str = "none",
          out_dtype: Optional[torch.dtype] = None, cfg=None,
          use_kernel: bool = True) -> torch.Tensor:
-    """Conv as GEMM: ``act(conv2d(x, w) + bias)`` for NHWC ``x`` and a
-    dense ``[kh·kw·C, N]`` weight or a packed `DbbWeight` →
+    """Conv as GEMM: ``act(scale · conv2d(x, w) + bias)`` for NHWC ``x``
+    and a dense ``[kh·kw·C, N]`` weight or a packed `DbbWeight` →
     ``[B, Ho, Wo, N]``. ``use_kernel=False`` pins the explicit im2col
     route (``conv_xla``). The conv kernels stream the bits=8 plane only, so
     a w4 leaf is decompressed once to x's dtype and takes the dense
-    routes, as in the reference."""
+    routes, as in the reference. ``scale`` (the conv wrappers' epilogue
+    scale, e.g. an int8 image's dequant x_s·w_s) folds into a packed
+    weight's scale plane, as in `matmul`."""
     from repro_torch.core.dbb import unpack_dbb
     from repro_torch.kernels.conv_gemm import ops as C
     from repro_torch.kernels.conv_gemm import ref as R
@@ -519,6 +560,11 @@ def conv(x: torch.Tensor, w, bias=None, *, kh: int, kw: int,
     if packed and w.bits == 4:
         w = unpack_dbb(w).to(x.dtype)
         packed = False
+    if packed and scale is not None:
+        s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+        w = dataclasses.replace(w, scale=s if w.scale is None
+                                else w.scale * s)
+        scale = None
     b, h, w_dim, c = x.shape
     ho, _, _ = R.out_spatial(h, kh, stride, padding)
     wo, _, _ = R.out_spatial(w_dim, kw, stride, padding)
@@ -526,7 +572,9 @@ def conv(x: torch.Tensor, w, bias=None, *, kh: int, kw: int,
         domain="conv", m=b * ho * wo, k=kh * kw * c,
         n=w.n_dim if packed else w.shape[1], packed=packed,
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
-        pallas=use_kernel, float_ok=x.dtype in FLOAT_DTYPES,
+        pallas=use_kernel, float_ok=x.dtype in OPERAND_DTYPES,
+        x_int8=x.dtype == torch.int8,
+        int8_values=packed and w.values.dtype == torch.int8,
         conv_geom=(b, h, w_dim, c, kh, kw, stride))
     name, _ = select(spec, routes_from_cfg(cfg))
     geom = dict(kh=kh, kw=kw, stride=stride, padding=padding, act=act,
@@ -535,11 +583,11 @@ def conv(x: torch.Tensor, w, bias=None, *, kh: int, kw: int,
         return C.conv_gemm_packed(x.contiguous(), w, bias, **geom)
     if name == "conv_sta":
         return C.conv_gemm(x.contiguous(), w.to(x.dtype).contiguous(), bias,
-                           **geom)
+                           scale, **geom)
     if packed:
         return R.conv_gemm_dbb_ref(x, w.values, w.bitmask, bias, w.scale,
                                    block=w.block, **geom)
-    return R.conv_gemm_ref(x, w, bias, **geom)
+    return R.conv_gemm_ref(x, w, bias, scale, **geom)
 
 
 _ATTN_IMPL_ROUTE = {"flash": "attn_flash", "chunked": "attn_chunked",

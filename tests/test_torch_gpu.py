@@ -24,7 +24,13 @@ rides the epilogue in both). The fused
 sampling head: scores within 1e-5 of the largest (the GEMV sums in
 another order, logf may differ by an ulp), indices equal on every row
 whose top-2 score margin exceeds twice that; at temperature 0 with
-default penalties it is the skinny head's argmax bit for bit.
+default penalties it is the skinny head's argmax bit for bit. The int8
+branches (INT8 x INT8 -> INT32): bit-equal for int32 outputs and for
+int8 and f32 outputs after none or relu (integer sums are exact in any
+order, and the f32 epilogue takes torch's separate multiply and add);
+after gelu or silu f32 within rtol 1e-6 (atol 1e-7·max|want|: libm
+tanh / exp may differ by an ulp) and int8 / int32 off by at most 1 on at
+most 0.1% of the elements (at least one).
 """
 import numpy as np
 import pytest
@@ -617,3 +623,301 @@ def test_gpu_quantized_generate_kernel_route_matches_plain_route(cuda, fmt):
     plain = ServeEngine(cfg.replace(gemm_impl="xla"), packed, max_batch=4,
                         device=cuda).generate(ps, max_new_tokens=8)
     assert out == plain
+
+
+# ---------------------------------------------------------------------------
+# the int8 branches: INT8 x INT8 -> INT32
+# ---------------------------------------------------------------------------
+
+I8, I32, F32 = torch.int8, torch.int32, torch.float32
+
+
+def _s8_close(got, want, act):
+    """The int8 branches' tolerance (module doc)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if act in ("none", "relu"):
+        assert torch.equal(got, want)
+    elif got.dtype == F32:
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7 * scale)
+    else:
+        diff = (got.long() - want.long()).abs()
+        assert diff.max().item() <= 1
+        assert int((diff > 0).sum()) <= max(1, want.numel() // 1000)
+
+
+def _s8_operands(cuda, m, k, n, seed, lo=-127, hi=128):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(lo, hi, (m, k), generator=g, device=cuda, dtype=I8)
+    w = torch.randint(lo, hi, (k, n), generator=g, device=cuda, dtype=I8)
+    bias = torch.randn(n, generator=g, device=cuda) * 100
+    scale = (torch.rand(n, generator=g, device=cuda) + 0.5) * 1e-3
+    return x, w, bias, scale
+
+
+# (act, out dtype, with scale, with bias): the raw sum; relu'd requant;
+# dequant + bias + silu / gelu; requant after gelu; int32 after gelu
+S8_EPILOGUES = [("none", None, False, False), ("relu", I8, True, False),
+                ("silu", None, True, True), ("gelu", F32, True, True),
+                ("gelu", I8, True, True), ("relu", F32, False, True),
+                ("gelu", I32, False, True)]
+
+
+def _epi(bias, scale, has_scale, has_bias):
+    return (bias if has_bias else None), (scale if has_scale else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("name,m,k,n", [
+    ("sta_gemm", 130, 200, 300),            # ragged M, N, K (K % 8 != 0)
+    ("sta_gemm", 1, 5, 3),
+    ("sta_gemm_skinny", 13, 264, 100),      # ragged N
+    ("sta_gemm_skinny", 32, 512, 640)])
+def test_gpu_s8_dense_branches(cuda, name, m, k, n, act, od, has_scale,
+                               has_bias):
+    x, w, bias, scale = _s8_operands(cuda, m, k, n, m + k)
+    b, s = _epi(bias, scale, has_scale, has_bias)
+    fn = sta_gemm if name == "sta_gemm" else sta_gemm_skinny
+    before = LAUNCHES[name + "_s8"]
+    got = fn(x, w, b, s, act=act, out_dtype=od)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name + "_s8"] == before + 1
+    want = sta_gemm_ref(x, w, b, s, act=act, out_dtype=od)
+    assert got.dtype == (od or (F32 if has_scale else I32))
+    _s8_close(got, want, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("name,m", [("dbb_gemm", 130), ("dbb_gemm", 3),
+                                    ("dbb_gemm_skinny", 8),
+                                    ("dbb_gemm_skinny", 29)])
+@pytest.mark.parametrize("nnz", [1, 3, 8])
+def test_gpu_s8_dbb_branches(cuda, name, m, nnz, act, od, has_scale,
+                             has_bias):
+    from repro_torch.core.quant import quantize_weight
+    x, _, bias, scale = _s8_operands(cuda, m, 264, 200, m + nnz)
+    g = torch.Generator(device=cuda).manual_seed(nnz)
+    qw = quantize_weight(torch.randn(264, 200, generator=g, device=cuda))
+    p = pack_dbb(qw.q, 8, nnz)
+    b, s = _epi(bias, qw.scale * scale, has_scale, has_bias)
+    fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+    before = LAUNCHES[name + "_s8"]
+    got = fn(x, p.values, p.bitmask, b, s, act=act, nnz=nnz, out_dtype=od)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name + "_s8"] == before + 1
+    _s8_close(got, dbb_gemm_ref(x, p.values, p.bitmask, b, s, act=act,
+                                out_dtype=od), act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sta_gemm", "sta_gemm_skinny", "dbb_gemm",
+                                  "dbb_gemm_skinny", "conv_gemm",
+                                  "conv_gemm_dbb"])
+def test_gpu_s8_requant_rounds_half_to_even(cuda, name):
+    """scale 0.5 on odd sums puts every output on a .5: the int8 store
+    rounds half to even (rintf), as torch.round and jnp.round do."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    half = torch.full((64,), 0.5, device=cuda)
+    if name.startswith("conv"):
+        x = torch.randint(-3, 4, (2, 6, 6, 8), generator=g, device=cuda,
+                          dtype=I8)
+        w = torch.randint(-3, 4, (72, 64), generator=g, device=cuda,
+                          dtype=I8)
+        kw = dict(kh=3, kw=3, act="none", out_dtype=I8)
+        if name == "conv_gemm":
+            got = conv_gemm(x, w, None, half, **kw)
+            acc = conv_gemm_ref(x, w, **dict(kw, out_dtype=I32))
+        else:
+            p = pack_dbb(w, 8, 8)
+            got = conv_gemm_dbb(x, p.values, p.bitmask, None, half, nnz=8,
+                                **kw)
+            acc = conv_gemm_dbb_ref(x, p.values, p.bitmask,
+                                    **dict(kw, out_dtype=I32))
+    else:
+        x = torch.randint(-3, 4, (8, 64), generator=g, device=cuda, dtype=I8)
+        w = torch.randint(-3, 4, (64, 64), generator=g, device=cuda,
+                          dtype=I8)
+        if name.startswith("dbb"):
+            p = pack_dbb(w, 8, 8)
+            fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+            got = fn(x, p.values, p.bitmask, None, half, nnz=8, act="none",
+                     out_dtype=I8)
+        else:
+            fn = sta_gemm if name == "sta_gemm" else sta_gemm_skinny
+            got = fn(x, w, None, half, act="none", out_dtype=I8)
+        acc = sta_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    a = acc.cpu().numpy().astype(np.float64)
+    want = np.clip(np.round(a * 0.5), -127, 127)   # numpy: half to even
+    assert (np.abs(a) % 2 == 1).sum() > 50          # many .5 cases
+    np.testing.assert_array_equal(got.cpu().numpy(), want.astype(np.int8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sta_gemm", "sta_gemm_skinny", "dbb_gemm",
+                                  "dbb_gemm_skinny", "conv_gemm",
+                                  "conv_gemm_dbb"])
+def test_gpu_s8_all_127_is_the_exact_integer(cuda, name):
+    """All-127 operands: every sum K·127² is past 2^24 (f32's exact
+    range), and the int32 output is that integer."""
+    if name.startswith("conv"):
+        c = 131 if name == "conv_gemm" else 136    # K = 1179 / 1224
+        x = torch.full((1, 5, 5, c), 127, dtype=I8, device=cuda)
+        w = torch.full((9 * c, 24), 127, dtype=I8, device=cuda)
+        kw = dict(kh=3, kw=3, padding="VALID")
+        if name == "conv_gemm":
+            got = conv_gemm(x, w, **kw)
+        else:
+            p = pack_dbb(w, 8, 8)
+            got = conv_gemm_dbb(x, p.values, p.bitmask, nnz=8, **kw)
+        k = 9 * c
+    else:
+        k = 1179 if name == "sta_gemm" else 1184
+        x = torch.full((8, k), 127, dtype=I8, device=cuda)
+        w = torch.full((k, 40), 127, dtype=I8, device=cuda)
+        if name.startswith("dbb"):
+            p = pack_dbb(w, 8, 8)
+            fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+            got = fn(x, p.values, p.bitmask, nnz=8)
+        else:
+            fn = sta_gemm if name == "sta_gemm" else sta_gemm_skinny
+            got = fn(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == I32 and k * 127 * 127 > 2 ** 24
+    assert bool((got == k * 127 * 127).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm_skinny", "dbb_gemm_skinny"])
+def test_gpu_s8_skinny_row_is_the_same_bits_in_any_batch(cuda, kernel):
+    """rows 0..7 of an M24 int8 call equal an M8 call on those rows, on the
+    f32 output of a fused dequant + bias + gelu."""
+    x, w, bias, scale = _s8_operands(cuda, 24, 512, 640, 24)
+    if kernel == "sta_gemm_skinny":
+        def run(a):
+            return sta_gemm_skinny(a, w, bias, scale, act="gelu")
+    else:
+        p = pack_dbb(w, 8, 4)
+
+        def run(a):
+            return dbb_gemm_skinny(a, p.values, p.bitmask, bias, scale,
+                                   act="gelu")
+    full = run(x)
+    for r0 in (0, 8, 16):
+        assert torch.equal(full[r0:r0 + 8], run(x[r0:r0 + 8].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding", [
+    (2, 9, 7, 1, 5, 6, 1, "SAME"),          # K = 25: ragged gather
+    (2, 8, 8, 3, 3, 64, 1, "SAME"),         # convnet conv0's channels
+    (2, 10, 10, 16, 3, 10, 2, "SAME"),      # stride 2, odd pad split
+    (3, 12, 11, 3, 5, 200, 2, "VALID"),
+    (1, 33, 33, 8, 3, 130, 1, "SAME")])     # 8-byte gathers, ragged N
+def test_gpu_s8_conv_gemm(cuda, b, h, w, c, k, n, stride, padding, act, od,
+                          has_scale, has_bias):
+    x, _, bias, scale = _s8_operands(cuda, 1, 1, n, h * w + c)
+    g = torch.Generator(device=cuda).manual_seed(c + n)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda,
+                      dtype=I8)
+    wt = torch.randint(-127, 128, (k * k * c, n), generator=g, device=cuda,
+                       dtype=I8)
+    bi, sc = _epi(bias, scale, has_scale, has_bias)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act=act,
+              out_dtype=od)
+    before = LAUNCHES["conv_gemm_s8"]
+    got = conv_gemm(x, wt, bi, sc, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm_s8"] == before + 1
+    _s8_close(got, conv_gemm_ref(x, wt, bi, sc, **kw), act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding,nnz", [
+    (2, 8, 8, 16, 3, 32, 1, "SAME", 2),
+    (2, 9, 9, 8, 3, 10, 2, "SAME", 4),
+    (2, 16, 16, 64, 3, 128, 1, "SAME", 2),  # convnet conv1's geometry
+    (1, 10, 8, 16, 5, 6, 1, "VALID", 3),
+    (1, 7, 7, 8, 3, 20, 1, "SAME", 1),
+    (1, 7, 7, 8, 3, 20, 1, "SAME", 8)])
+def test_gpu_s8_conv_gemm_dbb(cuda, b, h, w, c, k, n, stride, padding, nnz,
+                              act, od, has_scale, has_bias):
+    from repro_torch.core.quant import quantize_weight
+    _, _, bias, scale = _s8_operands(cuda, 1, 1, n, h * w + c + nnz)
+    g = torch.Generator(device=cuda).manual_seed(c + n + nnz)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda,
+                      dtype=I8)
+    qw = quantize_weight(torch.randn(k * k * c, n, generator=g, device=cuda))
+    p = pack_dbb(qw.q, 8, nnz)
+    bi, sc = _epi(bias, qw.scale * scale, has_scale, has_bias)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act=act,
+              out_dtype=od)
+    before = LAUNCHES["conv_gemm_dbb_s8"]
+    got = conv_gemm_dbb(x, p.values, p.bitmask, bi, sc, nnz=nnz, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm_dbb_s8"] == before + 1
+    _s8_close(got, conv_gemm_dbb_ref(x, p.values, p.bitmask, bi, sc, **kw),
+              act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m", [("dbb_gemm", 130),
+                                    ("dbb_gemm_skinny", 24)])
+def test_gpu_float_i8_branch_equals_the_f32_plane_bit_for_bit(cuda, name, m):
+    """The float ``_i8`` branch shares its body with the f32 plane: int8
+    values and the same values stored as f32 give the same bits (the int8
+    branches' template parameters leave the float instantiations as they
+    were)."""
+    from repro_torch.core.quant import quantize_weight
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, 264, generator=g, device=cuda).bfloat16()
+    qw = quantize_weight(torch.randn(264, 200, generator=g, device=cuda))
+    p = pack_dbb(qw.q, 8, 3)
+    bias = torch.randn(200, generator=g, device=cuda)
+    fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+    got = fn(x, p.values, p.bitmask, bias, qw.scale, act="gelu", nnz=3)
+    f32 = fn(x, p.values.float(), p.bitmask, bias, qw.scale, act="gelu",
+             nnz=3)
+    assert torch.equal(got, f32)
+
+
+@pytest.mark.gpu
+def test_gpu_int8_dispatch_takes_the_s8_branches(cuda):
+    """int8 x through the front doors launches each int8 branch once and
+    equals the plain route bit for bit (int32 outputs)."""
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.common import reset_launches
+    x, w, _, _ = _s8_operands(cuda, 40, 256, 512, 3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qw = quantize_weight(torch.randn(256, 512, generator=g, device=cuda))
+    p = pack_dbb(qw.q, 8, 4, scale=qw.scale)
+    img = torch.randint(-127, 128, (2, 8, 8, 72), generator=g, device=cuda,
+                        dtype=I8)
+    qc = quantize_weight(torch.randn(648, 64, generator=g, device=cuda))
+    wc, pc = qc.q, pack_dbb(qc.q, 8, 2, scale=qc.scale)
+    reset_launches()
+    runs = {
+        "sta_gemm_s8": lambda k: dispatch.matmul(x, w, pallas=k),
+        "sta_gemm_skinny_s8": lambda k: dispatch.matmul(x[:8], w, pallas=k),
+        "dbb_gemm_s8": lambda k: dispatch.matmul(x, p, pallas=k),
+        "dbb_gemm_skinny_s8": lambda k: dispatch.matmul(x[:8], p, pallas=k),
+        "conv_gemm_s8": lambda k: dispatch.conv(img, wc, kh=3, kw=3,
+                                                use_kernel=k),
+        "conv_gemm_dbb_s8": lambda k: dispatch.conv(img, pc, kh=3, kw=3,
+                                                    use_kernel=k)}
+    for name, run in runs.items():
+        before = dict(LAUNCHES)
+        got = run(True)
+        torch.cuda.synchronize()
+        moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k]}
+        assert moved == {name: 1}, (name, moved)
+        want = run(False)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want), name
+
