@@ -20,7 +20,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             after act none / relu, f32 within rtol 1e-6 and int8 off by at
             most 1 on at most 0.1% after silu (the count printed); the
             library time is torch._int_mm where its shape rules admit the
-            operands, else "—" with the reason.
+            operands, else "—" with the reason. The bf16 branches of
+            sta_gemm and dbb_gemm (all three planes) run on the tensor-core
+            body: each of their M512 lines also prints the time of the
+            plain-FMA body it replaced (PERF.md's kernel table before the
+            redesign) and must count a ``_tc`` launch.
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -104,6 +108,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             exactly those the route table implies (one ``_s8`` counter per
             run, no float branch moving).
 
+Every bf16 launch of sta_gemm and dbb_gemm on the main paths of phases
+4-6, 8 and 9 must have run the tensor-core body: ``sta_gemm_tc`` equals
+``sta_gemm`` and ``dbb_gemm_tc`` equals the f32, ``_i8`` and ``_w4``
+branches' sum on each of those runs (their activations are bf16), or
+the run fails.
+
 The line before the last is the per-kernel JSON record (``launches``: the
 sum over the main-path runs of phases 4-9 and 11 (a)-(b);
 ``launches_by_path`` per run);
@@ -145,6 +155,21 @@ SPEC_KERNELS = SERVE_KERNELS + ("head_sample_fused",)
 DENSE_KERNELS = ("sta_gemm", "sta_gemm_skinny", "flash_prefill",
                  "paged_decode")
 CNN_LOGIT_TOL = 1e-4             # of max |logit|, f32 kernel vs plain route
+# per-call ms of the plain-FMA bodies that the tensor-core body replaced in
+# the bf16 branches, M512, from PERF.md's kernel table before the redesign
+# (H100 80GB HBM3, 700 W: the dbb_gemm planes from PR 15 run 2, sta_gemm
+# from PR 14 run 9); printed beside this run's times, never in the record
+PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
+                ("dbb_gemm", 2048, 8192): 0.5752,
+                ("dbb_gemm", 8192, 2048): 1.5526,
+                ("dbb_gemm_i8", 2048, 2048): 0.4328,
+                ("dbb_gemm_i8", 2048, 8192): 0.5769,
+                ("dbb_gemm_i8", 8192, 2048): 1.6998,
+                ("dbb_gemm_w4", 2048, 2048): 0.4604,
+                ("dbb_gemm_w4", 2048, 8192): 0.6168,
+                ("dbb_gemm_w4", 8192, 2048): 1.8168,
+                ("sta_gemm", 2048, 8192): 0.5487,
+                ("sta_gemm", 8192, 2048): 1.7507}
 # the sample phase's weights: olmo-1b's init with the embedding scaled by
 # SAMPLE_EMBED_SCALE and every layer weight by SAMPLE_LAYER_GAIN before
 # packing, so that the logits are O(100), not O(2000), and the layers move
@@ -183,10 +208,14 @@ def _ptxas_report(build) -> None:
                           r"loads", line)
             if m:
                 spill = f"spill {m.group(1)}/{m.group(2)} B"
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            # static shared memory only: a body on dynamic shared memory
+            # (tc_gemm.cuh) reports none
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                          line)
             if m and entry:
                 print(f"ptxas {log.name.split('-')[0][3:]}: {entry}: "
-                      f"{m.group(1)} registers, {m.group(2)} B smem, {spill}")
+                      f"{m.group(1)} registers, {m.group(2) or 0} B static "
+                      f"smem, {spill}")
                 entry = None
 
 
@@ -277,6 +306,10 @@ def main() -> int:
     by_path.update(quant_counts)
     if not timed("tokens", _token_phase):
         return _fail("smoke-width token equality failed")
+    lm = [p for p in by_path if p not in cnn_counts]
+    if not _tc_check(by_path, lm):
+        return _fail("a bf16 sta_gemm / dbb_gemm launch on a main path "
+                     "missed the tensor-core body (see above)")
     int8_counts, ok = timed("int8", _int8_phase)
     if not ok:
         return _fail("the INT8 datapath phase failed (see above)")
@@ -293,6 +326,21 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _tc_check(by_path, paths) -> bool:
+    """Every bf16 launch of sta_gemm and dbb_gemm on these runs went through
+    the tensor-core body: the ``_tc`` counts equal the branches' counts."""
+    ok = True
+    for path in paths:
+        c = by_path[path]
+        dbb = c["dbb_gemm"] + c["dbb_gemm_i8"] + c["dbb_gemm_w4"]
+        good = c["sta_gemm_tc"] == c["sta_gemm"] and c["dbb_gemm_tc"] == dbb
+        ok = ok and good
+        print(f"tc: {path}: sta_gemm_tc {c['sta_gemm_tc']} of sta_gemm "
+              f"{c['sta_gemm']}, dbb_gemm_tc {c['dbb_gemm_tc']} of dbb_gemm "
+              f"(f32 + _i8 + _w4) {dbb} {'ok' if good else 'FAIL'}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +545,7 @@ def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
     both), timed beside the plain version and ``torch.matmul`` on the
     dequantized weight; the bound counts the stored planes and the live
     weights' operations."""
+    from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
     bf16 = torch.bfloat16
     per_m = {}
@@ -508,11 +557,16 @@ def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
             args, kw, w_dense, stored = _dbb_planes(torch, randn(k_dim, n),
                                                     plane)
             act = "silu" if n == 8192 else "none"
+            tc_before = LAUNCHES["dbb_gemm_tc"]
             got = fn(x, *args, act=act, **kw)
             want = dbb_gemm_ref(x, *args, act=act, **kw)
             err, ok = _close(torch, got, want, 2e-2)
             if not ok:
                 failures.append(f"{name} M{m} K{k_dim} N{n}: max err {err}")
+            earlier = PLAIN_FMA_MS.get((name, k_dim, n))
+            if earlier and LAUNCHES["dbb_gemm_tc"] != tc_before + 1:
+                failures.append(f"{name} M{m} K{k_dim} N{n}: no tensor-core "
+                                "launch")
             ms = _time_ms(torch, lambda: fn(x, *args, act=act, **kw), flush)
             pms = _time_ms(torch, lambda: dbb_gemm_ref(x, *args, act=act,
                                                        **kw), flush)
@@ -526,7 +580,10 @@ def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
                   f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
                   f"{pms:.4f} ms, torch.matmul on the dequantized weight "
                   f"{lms:.4f} ms, bound {bms:.4f} ms ({by}; {stored} stored "
-                  f"plane bytes)")
+                  f"plane bytes)"
+                  + (f"; tensor-core body, plain-FMA body before it "
+                     f"{earlier:.4f} ms ({earlier / ms:.1f}x)" if earlier
+                     else ""))
             worst = max(worst, err)
             for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
                            ("library_ms", lms)):
@@ -683,17 +740,21 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
     from repro_torch.kernels.conv_gemm import (conv_gemm, conv_gemm_dbb,
                                                conv_gemm_dbb_ref,
                                                conv_gemm_ref)
+    from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.sta_gemm import sta_gemm, sta_gemm_ref
     bf16, f32 = torch.bfloat16, torch.float32
     entries = []
 
     def measure(name, label, run_kernel, run_plain, run_lib, rtol, nbytes,
-                ops, rate):
+                ops, rate, earlier=None):
+        tc_before = LAUNCHES[name + "_tc"] if earlier else 0
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err, ok = _close(torch, got, want, rtol)
         if not ok:
             failures.append(f"{name} {label}: max err {err}")
+        if earlier and LAUNCHES[name + "_tc"] != tc_before + 1:
+            failures.append(f"{name} {label}: no tensor-core launch")
         ms = _time_ms(torch, run_kernel, flush)
         pms = _time_ms(torch, run_plain, flush)
         lms = _time_ms(torch, run_lib, flush) if run_lib else None
@@ -702,7 +763,10 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
               f"rel) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, library "
               + (f"{lms:.4f} ms" if lms is not None else "not timed")
-              + f", bound {bms:.4f} ms ({by})")
+              + f", bound {bms:.4f} ms ({by})"
+              + (f"; tensor-core body, plain-FMA body before it "
+                 f"{earlier:.4f} ms ({earlier / ms:.1f}x)" if earlier
+                 else ""))
         return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
                     bound_ms=bms, nbytes=nbytes, ops=ops, rate=rate)
 
@@ -733,7 +797,8 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
                     lambda: sta_gemm_ref(x, w, act=act),
                     lambda: torch.matmul(x, w), 2e-2,
                     2 * (m * k_dim + k_dim * n + m * n),
-                    2.0 * m * k_dim * n, BF16_OPS_PER_S)
+                    2.0 * m * k_dim * n, BF16_OPS_PER_S,
+                    earlier=PLAIN_FMA_MS[("sta_gemm", k_dim, n)])
         cases.append(dict(c, calls=calls))
     x, w = randn(333, 1000), randn(1000, 777)
     b = randn(777)
@@ -1880,8 +1945,9 @@ def _quant_run(torch, cfg, label, run, plane):
     prefills = eng.serve_stats.get("prefill_calls", 1)
     per_pass = 7 * cfg.num_layers
     big, skinny = counts["dbb_gemm" + plane], counts["dbb_gemm_skinny" + plane]
-    other = {k: v for k, v in counts.items()
-             if k.startswith("dbb") and not k.endswith(plane) and v}
+    other = {k: v for k, v in counts.items()    # _tc: main()'s _tc_check
+             if k.startswith("dbb") and not k.endswith((plane, "_tc"))
+             and v}
     need = ("sta_gemm_skinny", "paged_decode")
     missing = [k for k in need if counts[k] == 0]
     exact = (big + skinny == per_pass * (prefills + steps)

@@ -271,23 +271,27 @@ struct W4Plane {
   const int8_t* v;
   const float* gscale;
   int group;
+  // compressed row r's value from its (sign-extended) byte and the group
+  // scale: the nibble, sign-extended, times g in one rounded f32 product
+  __device__ __forceinline__ static float dequant(int byte, int r, float g) {
+    const int q = (r & 1) ? (byte >> 4) : ((int)((unsigned)byte << 28) >> 28);
+    return __fmul_rn((float)q, g);
+  }
   __device__ __forceinline__ void load(int kb, int n, int N, int nnz,
                                        float slot[kNnzMax]) const {
     const float g = gscale[(size_t)(kb * kDbbBlock / group) * N + n];
     int row = -1, byte = 0;
 #pragma unroll
     for (int s = 0; s < kNnzMax; ++s) {
-      float q = 0.f;
+      slot[s] = 0.f;
       if (s < nnz) {
         const int r = kb * nnz + s;
         if ((r >> 1) != row) {
           row = r >> 1;
           byte = (int)v[(size_t)row * N + n];  // sign-extended
         }
-        q = (float)((r & 1) ? (byte >> 4)
-                            : ((int)((unsigned)byte << 28) >> 28));
+        slot[s] = dequant(byte, r, g);
       }
-      slot[s] = s < nnz ? __fmul_rn(q, g) : 0.f;
     }
   }
 };

@@ -17,26 +17,34 @@
 // What bounds it on the H100: at the prefill shapes (M = 512, K and N of
 // 2048-8192) the work is 2·M·K·N operations on 0.8-2.5 bytes of stored
 // planes per dense weight, far above the card's ~295 operations per byte,
-// so it is bound by arithmetic. This first version multiplies with plain
-// f32 FMAs (each bf16 product is exact in f32, so it computes what a bf16
-// tensor-core product with f32 accumulation computes), not with the
-// tensor cores: it is correct and simple; mma / wgmma with TMA-fed tiles
-// is later work. The int8 branch: the same work in int32 multiply-adds
-// (IMAD), bound by operations against the 1979 TOP/s INT8 tensor rate.
+// so it is bound by arithmetic, which only the tensor cores reach.
 //
-// Design: one 256-thread block owns a 128 x 128 output tile and loops
-// over K in steps of 16 (two DBB blocks). Each step every thread loads
-// one (DBB block, column) pair's slots through the plane's loader (the w4
-// loader sign-extends nibbles and multiplies by the block's group scale)
-// and decompresses them from the bitmask rank straight into the
-// shared-memory weight tile — the dense weight never exists in device
-// memory — and loads eight activations into the transposed shared-memory
-// activation tile. Each thread then accumulates an 8 x 8 register tile in
-// f32 (int32 on the int8 branch: the tiles hold sign-extended int8 and
-// the slots come from I8Plane's integer loader, so the same body and K
-// order serve it); the epilogue runs on those registers before the one
-// store of the output. No state crosses blocks.
+// Two bodies, chosen by the activation dtype alone, never by M or the
+// shapes (dbb_gemm_tc_body exports the rule; the wrapper's tc_body
+// mirrors it):
+//   - bf16 x (K % 8 == 0, which every DBB operand has, is all TMA needs of
+//     x's rows) runs on the tensor-core body (tc_gemm.cuh) on all three
+//     value planes: x's tiles come by TMA, producer warps decompress the
+//     planes by bitmask rank straight into the shared-memory B tiles in
+//     bf16 (each plane's value rounded through bf16 first, as the
+//     reference casts its tile), and wgmma multiplies with f32
+//     accumulators. The dense weight never exists in device memory;
+//   - f32 x (the CNN: tensor cores have no f32-exact path) and the int8
+//     branch run the plain body below: one 256-thread block owns a 128 x
+//     128 output tile and loops over K in steps of 16 (two DBB blocks).
+//     Each step every thread loads one (DBB block, column) pair's slots
+//     through the plane's loader (the w4 loader sign-extends nibbles and
+//     multiplies by the block's group scale) and decompresses them from
+//     the bitmask rank straight into the shared-memory weight tile, and
+//     loads eight activations into the transposed shared-memory activation
+//     tile. Each thread then accumulates an 8 x 8 register tile in f32
+//     (int32 on the int8 branch: the tiles hold sign-extended int8 and the
+//     slots come from I8Plane's integer loader, so the same body and K
+//     order serve it; bound by operations against the 1979 TOP/s INT8
+//     rate, far above it); the epilogue runs on those registers before the
+//     one store of the output. No state crosses blocks.
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -148,6 +156,8 @@ bool dims_ok(int K, int nnz) {
   return nnz >= 1 && nnz <= repro::kNnzMax && K % repro::kDbbBlock == 0;
 }
 
+bool tc_body(int dtype) { return dtype == repro::DT_BF16; }
+
 // float x: out in x's dtype (dtype)
 template <typename Plane>
 int launch(const void* x, const Plane plane, const void* bitmask,
@@ -155,16 +165,20 @@ int launch(const void* x, const Plane plane, const void* bitmask,
            int N, int nnz, int act, int dtype, void* stream) {
   if (!dims_ok(K, nnz)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::DT_BF16)
-    launch_t<__nv_bfloat16, __nv_bfloat16>(x, plane, bitmask, scale, bias,
-                                           out, M, K, N, nnz, act, s);
-  else
-    launch_t<float, float>(x, plane, bitmask, scale, bias, out, M, K, N, nnz,
-                           act, s);
+  if (tc_body(dtype))
+    return repro::tc::launch_dbb<__nv_bfloat16>(x, plane, bitmask, nnz, scale,
+                                                bias, out, M, K, N, act, s);
+  launch_t<float, float>(x, plane, bitmask, scale, bias, out, M, K, N, nnz,
+                         act, s);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// 1 where the float launchers run the tensor-core body for x of this dtype
+extern "C" int dbb_gemm_tc_body(int dtype) {
+  return tc_body(dtype) ? 1 : 0;
+}
 
 extern "C" int dbb_gemm_launch(const void* x, const void* values,
                                const void* bitmask, const void* scale,

@@ -11,22 +11,23 @@
 // What bounds it on the H100: at the prefill shapes the work is 2·M·K·N
 // operations on (M·K + K·N + M·N) elements, hundreds of operations per
 // byte, far above the card's ~295 bf16 operations per byte: bound by
-// arithmetic. This first version multiplies with plain f32 FMAs
-// (gemm_tile.cuh), not with the tensor cores, so it sits well above that
-// bound; mma / wgmma with TMA-fed tiles is later work. Ragged M, N and K
-// edges are masked in the kernel, where the reference pads copies of the
-// operands to its block grid (sta_gemm/ops.py).
+// arithmetic, which only the tensor cores reach.
+//
+// Two bodies, chosen by a rule on (dtype, K, N) alone, never on M:
+//   - bf16 operands with K and N multiples of 8 (the 16-byte row strides
+//     TMA needs for x and w) run on the tensor-core body
+//     (tc_gemm.cuh: TMA-fed stages, wgmma with f32 accumulators);
+//   - everything else — f32 operands (the tensor cores have no f32-exact
+//     path), bf16 with a ragged K or N, and the int8 branch — runs the
+//     output-stationary 128 x 128 plain-FMA body of gemm_tile.cuh (int32
+//     multiply-adds for int8), ragged M, N and K masked in its loaders.
+// sta_gemm_tc_body exports the rule; the wrapper's tc_body mirrors it.
 //
 // The int8 branch: 2·M·K·N integer operations on one byte per operand,
 // bound by operations against the card's 1979 TOP/s dense INT8 tensor
-// rate; this first version sums with exact int32 multiply-adds on the
-// CUDA cores, far above that bound (mma / wgmma with s8 operands is later
-// work).
-//
-// Design: the output-stationary 128 x 128 register-tiled block body of
-// gemm_tile.cuh with a row loader for x and a dense loader for w, on the
-// f32 or the int32 accumulator.
+// rate; its IMAD body sits far above that bound (s8 wgmma is later work).
 #include "gemm_tile.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -52,7 +53,16 @@ void launch(const void* x, const void* w, const float* sc, const float* bi,
       static_cast<TO*>(out), M, K, N, act);
 }
 
+bool tc_body(int dtype, int K, int N) {
+  return dtype == repro::DT_BF16 && K % 8 == 0 && N % 8 == 0;
+}
+
 }  // namespace
+
+// 1 where sta_gemm_launch runs the tensor-core body for these operands
+extern "C" int sta_gemm_tc_body(int dtype, int K, int N) {
+  return tc_body(dtype, K, N) ? 1 : 0;
+}
 
 extern "C" int sta_gemm_launch(const void* x, const void* w,
                                const void* scale, const void* bias, void* out,
@@ -62,6 +72,11 @@ extern "C" int sta_gemm_launch(const void* x, const void* w,
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   const bool bf = dtype == repro::DT_BF16, obf = out_dtype == repro::DT_BF16;
+  if (tc_body(dtype, K, N))
+    return obf ? repro::tc::launch_dense<__nv_bfloat16>(x, w, scale, bias,
+                                                        out, M, K, N, act, s)
+               : repro::tc::launch_dense<float>(x, w, scale, bias, out, M,
+                                                K, N, act, s);
   if (bf && obf) {
     launch<__nv_bfloat16, __nv_bfloat16>(x, w, sc, bi, out, M, K, N, act, s);
   } else if (bf) {

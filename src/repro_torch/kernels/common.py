@@ -35,7 +35,9 @@ INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 # the kernel, and nowhere else (the CPU's plain path does not count).
 # The DBB kernels count each values format apart (f32, ``_i8``, ``_w4``);
 # each int8-activation branch (``_s8``: INT8 x INT8 -> INT32) counts apart
-# from its kernel's float branches.
+# from its kernel's float branches. ``sta_gemm_tc`` and ``dbb_gemm_tc``
+# count, beside those, the launches that ran the tensor-core body
+# (csrc/tc_gemm.cuh): bf16 operands, by each wrapper's ``tc_body`` rule.
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
                             "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
@@ -45,7 +47,8 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "conv_gemm_dbb": 0, "head_sample_fused": 0,
                             "sta_gemm_s8": 0, "sta_gemm_skinny_s8": 0,
                             "dbb_gemm_s8": 0, "dbb_gemm_skinny_s8": 0,
-                            "conv_gemm_s8": 0, "conv_gemm_dbb_s8": 0}
+                            "conv_gemm_s8": 0, "conv_gemm_dbb_s8": 0,
+                            "sta_gemm_tc": 0, "dbb_gemm_tc": 0}
 
 
 def reset_launches() -> None:

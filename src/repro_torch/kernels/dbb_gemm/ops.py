@@ -11,6 +11,11 @@ as int32 by default, f32 with a scale, or int8 requantized); the w4 plane
 takes float x only, as in the reference. On a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs the plain version,
 `dbb_gemm_ref`.
+
+Two bodies (csrc/dbb_gemm.cu), by `tc_body`'s rule on x's dtype alone:
+bf16 x runs on the tensor-core body on every values plane (the planes
+decompressed into shared memory, wgmma on them) and counts as
+``dbb_gemm_tc`` too; f32 x and int8 x run the plain-FMA (IMAD) body.
 """
 from __future__ import annotations
 
@@ -27,7 +32,14 @@ from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
 from repro_torch.kernels.epilogue import ACT_CODES
 
 __all__ = ["dbb_gemm", "check_dbb_operands", "dbb_launcher",
-           "run_dbb_kernel"]
+           "run_dbb_kernel", "tc_body"]
+
+
+def tc_body(dtype: torch.dtype) -> bool:
+    """Whether the kernel runs x of this dtype on its tensor-core body:
+    bf16 (x's rows are copied by TMA, which the DBB operands' K % 8 == 0
+    allows). The rule of csrc/dbb_gemm.cu's tc_body; it reads no shape."""
+    return dtype == torch.bfloat16
 
 
 def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
@@ -141,4 +153,6 @@ def dbb_gemm(x: torch.Tensor, values: torch.Tensor, bitmask: torch.Tensor,
         y = run_dbb_kernel("dbb_gemm", plane, x2, values, bitmask, bias,
                            scale, m=m, k_dim=k_dim, n=n, nnz=nnz, act=act,
                            out_dtype=out_dtype, group=group, gscale=gscale)
+        if tc_body(x.dtype):
+            LAUNCHES["dbb_gemm_tc"] += 1
     return y.reshape(*x.shape[:-1], n)

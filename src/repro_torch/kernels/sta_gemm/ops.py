@@ -8,6 +8,12 @@ int32 accumulator) and store int32 by default, f32 with a scale, or int8
 requantized. On a CUDA tensor it launches the kernel (or raises); on a
 CPU tensor it runs the plain version, `sta_gemm_ref`. Any M, K and N: the
 kernel masks the ragged edges, so nothing is padded.
+
+Two bodies (csrc/sta_gemm.cu), by `tc_body`'s rule on (dtype, K, N) and
+never on M: bf16 operands with K and N multiples of 8 run on the
+tensor-core body (wgmma on TMA-fed tiles) and count as ``sta_gemm_tc``
+too; f32 operands, bf16 with a ragged K or N, and int8 run the plain-FMA
+(IMAD) body.
 """
 from __future__ import annotations
 
@@ -23,7 +29,15 @@ from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES,
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.sta_gemm.ref import sta_gemm_ref
 
-__all__ = ["sta_gemm"]
+__all__ = ["sta_gemm", "tc_body"]
+
+
+def tc_body(dtype: torch.dtype, k: int, n: int) -> bool:
+    """Whether the kernel runs these operands on its tensor-core body: bf16
+    with K and N multiples of 8 (the 16-byte row strides TMA copies x
+    [M, K] and w [K, N] by). The rule of csrc/sta_gemm.cu's tc_body; it
+    reads no M."""
+    return dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
 
 
 def _launcher(branch: str = ""):
@@ -65,4 +79,6 @@ def sta_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None, *,
             raise RuntimeError(f"sta_gemm{branch} launch failed: "
                                f"cudaError {rc}")
         LAUNCHES["sta_gemm" + branch] += 1
+        if tc_body(x.dtype, k_dim, n):
+            LAUNCHES["sta_gemm_tc"] += 1
     return y.reshape(*x.shape[:-1], n)

@@ -30,7 +30,10 @@ int8 and f32 outputs after none or relu (integer sums are exact in any
 order, and the f32 epilogue takes torch's separate multiply and add);
 after gelu or silu f32 within rtol 1e-6 (atol 1e-7·max|want|: libm
 tanh / exp may differ by an ulp) and int8 / int32 off by at most 1 on at
-most 0.1% of the elements (at least one).
+most 0.1% of the elements (at least one). The tensor-core body of the
+bf16 sta_gemm and dbb_gemm branches: the bf16 GEMM tolerance against the
+plain versions; exact where the math is exact (one-hot probes, a row at
+any M, dbb_gemm against sta_gemm on the decompressed weight).
 """
 import numpy as np
 import pytest
@@ -921,3 +924,241 @@ def test_gpu_int8_dispatch_takes_the_s8_branches(cuda):
         assert got.dtype == want.dtype
         assert torch.equal(got, want), name
 
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body (csrc/tc_gemm.cuh) of sta_gemm and dbb_gemm: bf16
+# operands, 128 x 64 tiles, K in stages of 64
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _dbb_plane(cuda, w, plane, nnz=4):
+    """(positional DBB operands after x, keyword operands) of ``w [K, N]``
+    in one values format: f32, INT8 values (scale in the epilogue) or w4
+    (G 64)."""
+    from repro_torch.core.quant import quantize_weight
+    if plane == "_w4":
+        p = pack_dbb(w, 8, nnz, bits=4, group=64)
+        return (p.values, p.bitmask), dict(nnz=nnz, bits=4, group=64,
+                                           gscale=p.scale)
+    if plane == "_i8":
+        qw = quantize_weight(w)
+        p = pack_dbb(qw.q, 8, nnz)
+        return (p.values, p.bitmask, None, qw.scale), dict(nnz=nnz)
+    p = pack_dbb(w, 8, nnz)
+    return (p.values, p.bitmask), dict(nnz=nnz)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 63, 65, 130, 600])
+@pytest.mark.parametrize("k,n,act,out_f32", [
+    (200, 200, "silu", False),      # K % 64 != 0, N % 64 != 0
+    (72, 136, "gelu", True),        # f32 output of bf16 operands
+    (2048, 8, "none", False)])      # one 8-wide column strip
+def test_gpu_sta_gemm_tensor_core_body(cuda, m, k, n, act, out_f32):
+    from repro_torch.kernels.sta_gemm.ops import tc_body
+    assert tc_body(BF, k, n)
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(BF)
+    w = torch.randn(k, n, generator=g, device=cuda).to(BF)
+    bias = torch.randn(n, generator=g, device=cuda)
+    scale = torch.rand(n, generator=g, device=cuda) + 0.5
+    od = torch.float32 if out_f32 else None
+    before = dict(LAUNCHES)
+    got = sta_gemm(x, w, bias, scale, act=act, out_dtype=od)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sta_gemm"] == before["sta_gemm"] + 1
+    assert LAUNCHES["sta_gemm_tc"] == before["sta_gemm_tc"] + 1
+    assert got.dtype == (od or BF)
+    _gpu_close(got, sta_gemm_ref(x, w, bias, scale, act=act, out_dtype=od),
+               BF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("m", [1, 63, 65, 130, 600])
+@pytest.mark.parametrize("n", [200, 4104])
+def test_gpu_dbb_gemm_tensor_core_body(cuda, plane, m, n):
+    """All three values planes at K 320 (five stages, the last one half
+    past K), N 200 (128-row tiles) and N 4104 (256-row tiles, N >= 4096),
+    both with a ragged last column tile."""
+    k = 320
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, k, generator=g, device=cuda).to(BF)
+    args, kw = _dbb_plane(cuda, torch.randn(k, n, generator=g, device=cuda),
+                          plane)
+    bias = torch.randn(n, generator=g, device=cuda)
+    before = dict(LAUNCHES)
+    got = dbb_gemm(x, *args[:2], bias, *args[3:], act="silu", **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm" + plane] == before["dbb_gemm" + plane] + 1
+    assert LAUNCHES["dbb_gemm_tc"] == before["dbb_gemm_tc"] + 1
+    want = dbb_gemm_ref(x, *args[:2], bias, *args[3:], act="silu",
+                        **{k_: v for k_, v in kw.items() if k_ != "nnz"})
+    _gpu_close(got, want, BF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("nnz", [5, 8])
+def test_gpu_dbb_gemm_tensor_core_body_dense_blocks(cuda, plane, nnz):
+    """nnz > 4 expands each block by a running rank instead of the
+    byte-permute table the serving path's k = 4 takes."""
+    m, k, n = 130, 320, 200
+    g = torch.Generator(device=cuda).manual_seed(nnz)
+    x = torch.randn(m, k, generator=g, device=cuda).to(BF)
+    args, kw = _dbb_plane(cuda, torch.randn(k, n, generator=g, device=cuda),
+                          plane, nnz=nnz)
+    before = LAUNCHES["dbb_gemm_tc"]
+    got = dbb_gemm(x, *args, act="gelu", **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm_tc"] == before + 1
+    want = dbb_gemm_ref(x, *args, act="gelu",
+                        **{k_: v for k_, v in kw.items() if k_ != "nnz"})
+    _gpu_close(got, want, BF)
+
+
+def _one_hot_probe(cuda, m, k, n):
+    """x with distinct small integers (exact in bf16) and a one-hot weight
+    that sends row sigma(c) of K to column c: the product is x[:, sigma]
+    exactly, so a swizzle, descriptor or fragment mistake shows as a wrong
+    column or row, not as noise."""
+    mm = torch.arange(m, device=cuda)[:, None]
+    kk = torch.arange(k, device=cuda)[None, :]
+    x = ((mm * 7 + kk * 3) % 61 - 30).to(BF)
+    sigma = (torch.arange(n, device=cuda) * 37 + 11) % k
+    w = torch.zeros(k, n, device=cuda)
+    w[sigma, torch.arange(n, device=cuda)] = 1.0
+    return x, w, x[:, sigma]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm", "dbb_gemm"])
+@pytest.mark.parametrize("m,k,n", [(130, 256, 192), (600, 320, 72),
+                                   (300, 128, 4160)])
+def test_gpu_tensor_core_body_one_hot_probe(cuda, kernel, m, k, n):
+    x, w, want = _one_hot_probe(cuda, m, k, n)
+    before = LAUNCHES[kernel + "_tc"]
+    if kernel == "sta_gemm":
+        got = sta_gemm(x, w.to(BF))
+    else:
+        p = pack_dbb(w, 8, 1)
+        got = dbb_gemm(x, p.values, p.bitmask, nnz=1)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel + "_tc"] == before + 1
+    bad = (got != want).nonzero()
+    assert bad.numel() == 0, f"{len(bad)} wrong outputs, first {bad[:8]}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm", "dbb_gemm", "dbb_gemm_w4"])
+@pytest.mark.parametrize("n", [320, 4160])
+def test_gpu_tensor_core_row_is_the_same_bits_at_any_m(cuda, kernel, n):
+    """Serve's packed, chunked and padded prefills run one row at different
+    M and in different places of a tile: row 77 of an M512 call equals the
+    same row alone (M1) and as the last row of an M130 call (the ragged
+    second tile of 128-row tiles), bit for bit; N 4160 puts DBB on its
+    256-row tiles."""
+    k = 512
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(512, k, generator=g, device=cuda).to(BF)
+    w = torch.randn(k, n, generator=g, device=cuda)
+    bias = torch.randn(n, generator=g, device=cuda)
+    if kernel == "sta_gemm":
+        wb = w.to(BF)
+
+        def run(a):
+            return sta_gemm(a, wb, bias, act="gelu")
+    else:
+        args, kw = _dbb_plane(cuda, w, "_w4" if kernel == "dbb_gemm_w4"
+                              else "")
+
+        def run(a):
+            return dbb_gemm(a, *args, bias, act="gelu", **kw)
+    row = x[77:78]
+    full = run(x)[77]
+    alone = run(row.contiguous())[0]
+    x130 = torch.cat([x[200:329], row]).contiguous()
+    last = run(x130)[129]
+    assert torch.equal(full, alone)
+    assert torch.equal(full, last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(130, 100, 200),    # K % 8 != 0
+                                   (65, 5, 64),         # K % 8 != 0
+                                   (70, 256, 300)])     # N % 8 != 0
+def test_gpu_sta_gemm_ragged_rows_take_the_fma_body(cuda, m, k, n):
+    """Where TMA's 16-byte row stride fails, bf16 runs the plain-FMA body
+    (no ``_tc`` launch) and stays right."""
+    from repro_torch.kernels.sta_gemm.ops import tc_body
+    assert not tc_body(BF, k, n)
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(BF)
+    w = torch.randn(k, n, generator=g, device=cuda).to(BF)
+    before = dict(LAUNCHES)
+    got = sta_gemm(x, w, act="silu")
+    torch.cuda.synchronize()
+    assert LAUNCHES["sta_gemm"] == before["sta_gemm"] + 1
+    assert LAUNCHES["sta_gemm_tc"] == before["sta_gemm_tc"]
+    _gpu_close(got, sta_gemm_ref(x, w, act="silu"), BF)
+
+
+@pytest.mark.gpu
+def test_gpu_tc_counts_follow_the_kernels_own_rule(cuda):
+    """The wrappers' tc_body mirrors the launchers' rule: the libraries'
+    exported sta_gemm_tc_body / dbb_gemm_tc_body agree on every dtype and
+    a grid of K and N; f32 and int8 never take the tensor-core body, and
+    f32 launches leave the ``_tc`` counts alone."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dbb_gemm.ops import tc_body as dbb_tc
+    from repro_torch.kernels.sta_gemm.ops import tc_body as sta_tc
+    sta_q = build.load("sta_gemm").sta_gemm_tc_body
+    sta_q.argtypes = [ctypes.c_int] * 3
+    dbb_q = build.load("dbb_gemm").dbb_gemm_tc_body
+    dbb_q.argtypes = [ctypes.c_int]
+    for dt in (torch.float32, BF, torch.int8):
+        code = build.dtype_code(dt)
+        assert bool(dbb_q(code)) == dbb_tc(dt) == (dt == BF)
+        for k in (0, 5, 8, 100, 200, 2048, 8192):
+            for n in (1, 3, 8, 64, 200, 300, 8192, 50304):
+                assert bool(sta_q(code, k, n)) == sta_tc(dt, k, n), (dt, k, n)
+    x = torch.randn(130, 256, device=cuda)
+    p = pack_dbb(torch.randn(256, 192, device=cuda), 8, 4)
+    before = dict(LAUNCHES)
+    sta_gemm(x, torch.randn(256, 192, device=cuda))
+    dbb_gemm(x, p.values, p.bitmask)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+             if LAUNCHES[k] != before[k]}
+    assert moved == {"sta_gemm": 1, "dbb_gemm": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("n", [136, 4104])
+def test_gpu_dbb_tensor_core_body_equals_sta_gemm_on_the_dense_weight(
+        cuda, plane, n):
+    """The DBB producers' bf16 tiles are the dense weight the reference
+    multiplies: dbb_gemm's tensor-core body equals sta_gemm's on that
+    weight (rounded to bf16, the INT8 plane's scale in the epilogue) bit
+    for bit, as both sum K in one order (at N 4104 on 256-row tiles)."""
+    from repro_torch.core.dbb import decompress_bitmask
+    from repro_torch.kernels.dbb_gemm.ref import decompress_w4_ref
+    k, m = 384, 200
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(m, k, generator=g, device=cuda).to(BF)
+    args, kw = _dbb_plane(cuda, torch.randn(k, n, generator=g, device=cuda),
+                          plane, nnz=3 if plane != "_w4" else 4)
+    if plane == "_w4":
+        dense = decompress_w4_ref(args[0], args[1], kw["gscale"], group=64)
+    else:
+        dense = decompress_bitmask(args[0].float(), args[1], block=8)
+    got = dbb_gemm(x, *args, **kw)
+    want = sta_gemm(x, dense.to(BF), scale=args[3] if plane == "_i8"
+                    else None)
+    assert torch.equal(got, want)
