@@ -24,7 +24,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             sta_gemm and dbb_gemm (all three planes) run on the tensor-core
             body: each of their M512 lines also prints the time of the
             plain-FMA body it replaced (PERF.md's kernel table before the
-            redesign) and must count a ``_tc`` launch.
+            redesign) and must count a ``_tc`` launch. So do the bf16 D 128
+            calls of flash_prefill (generate's B8 T=S=64, a B1 T=S=512
+            admission, a B1 T256 S1024 chunk) and flash_prefill_packed (T
+            2048 over 8 segments) on their tensor-core body
+            (csrc/flash_tc.cuh): each line prints the FMA body's earlier
+            time in brackets and must count a ``flash_prefill_tc`` /
+            ``flash_prefill_packed_tc`` launch. The f32-x branches of
+            dbb_gemm and dbb_gemm_skinny are also timed at convnet's
+            classifier (fc 4096 -> 10, DBB k2, bias: B256 and B1) beside
+            their bound and ``torch.matmul`` on the decompressed weight
+            (TF32 off), and checked (rtol 1e-4).
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -108,11 +118,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             exactly those the route table implies (one ``_s8`` counter per
             run, no float branch moving).
 
-Every bf16 launch of sta_gemm and dbb_gemm on the main paths of phases
-4-6, 8 and 9 must have run the tensor-core body: ``sta_gemm_tc`` equals
-``sta_gemm`` and ``dbb_gemm_tc`` equals the f32, ``_i8`` and ``_w4``
-branches' sum on each of those runs (their activations are bf16), or
-the run fails.
+Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
+main paths of phases 4-6, 8 and 9 must have run the tensor-core body:
+``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
+``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
+``flash_prefill`` and ``flash_prefill_packed_tc`` equals
+``flash_prefill_packed`` on each of those runs (their activations are bf16,
+D 128), or the run fails.
 
 The line before the last is the per-kernel JSON record (``launches``: the
 sum over the main-path runs of phases 4-9 and 11 (a)-(b);
@@ -155,10 +167,11 @@ SPEC_KERNELS = SERVE_KERNELS + ("head_sample_fused",)
 DENSE_KERNELS = ("sta_gemm", "sta_gemm_skinny", "flash_prefill",
                  "paged_decode")
 CNN_LOGIT_TOL = 1e-4             # of max |logit|, f32 kernel vs plain route
-# per-call ms of the plain-FMA bodies that the tensor-core body replaced in
-# the bf16 branches, M512, from PERF.md's kernel table before the redesign
-# (H100 80GB HBM3, 700 W: the dbb_gemm planes from PR 15 run 2, sta_gemm
-# from PR 14 run 9); printed beside this run's times, never in the record
+# per-call ms of the plain-FMA bodies that the tensor-core bodies replaced
+# in the bf16 branches (the GEMMs at M512; the flash prefills' D 128 calls,
+# keyed by the kernel phase's case), from PERF.md's kernel table before
+# each redesign (H100 80GB HBM3, 700 W); printed beside this run's times,
+# never in the record
 PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
                 ("dbb_gemm", 2048, 8192): 0.5752,
                 ("dbb_gemm", 8192, 2048): 1.5526,
@@ -169,7 +182,11 @@ PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
                 ("dbb_gemm_w4", 2048, 8192): 0.6168,
                 ("dbb_gemm_w4", 8192, 2048): 1.8168,
                 ("sta_gemm", 2048, 8192): 0.5487,
-                ("sta_gemm", 8192, 2048): 1.7507}
+                ("sta_gemm", 8192, 2048): 1.7507,
+                ("flash_prefill", "generate"): 0.0662,
+                ("flash_prefill", "admission"): 0.2374,
+                ("flash_prefill", "chunk"): 0.3374,
+                ("flash_prefill_packed", "packed"): 0.4483}
 # the sample phase's weights: olmo-1b's init with the embedding scaled by
 # SAMPLE_EMBED_SCALE and every layer weight by SAMPLE_LAYER_GAIN before
 # packing, so that the logits are O(100), not O(2000), and the layers move
@@ -308,8 +325,8 @@ def main() -> int:
         return _fail("smoke-width token equality failed")
     lm = [p for p in by_path if p not in cnn_counts]
     if not _tc_check(by_path, lm):
-        return _fail("a bf16 sta_gemm / dbb_gemm launch on a main path "
-                     "missed the tensor-core body (see above)")
+        return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
+                     "a main path missed the tensor-core body (see above)")
     int8_counts, ok = timed("int8", _int8_phase)
     if not ok:
         return _fail("the INT8 datapath phase failed (see above)")
@@ -329,17 +346,24 @@ def main() -> int:
 
 
 def _tc_check(by_path, paths) -> bool:
-    """Every bf16 launch of sta_gemm and dbb_gemm on these runs went through
-    the tensor-core body: the ``_tc`` counts equal the branches' counts."""
+    """Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on
+    these runs went through the tensor-core bodies: the ``_tc`` counts
+    equal the branches' counts."""
     ok = True
     for path in paths:
         c = by_path[path]
         dbb = c["dbb_gemm"] + c["dbb_gemm_i8"] + c["dbb_gemm_w4"]
-        good = c["sta_gemm_tc"] == c["sta_gemm"] and c["dbb_gemm_tc"] == dbb
+        good = (c["sta_gemm_tc"] == c["sta_gemm"]
+                and c["dbb_gemm_tc"] == dbb
+                and c["flash_prefill_tc"] == c["flash_prefill"]
+                and c["flash_prefill_packed_tc"] == c["flash_prefill_packed"])
         ok = ok and good
         print(f"tc: {path}: sta_gemm_tc {c['sta_gemm_tc']} of sta_gemm "
               f"{c['sta_gemm']}, dbb_gemm_tc {c['dbb_gemm_tc']} of dbb_gemm "
-              f"(f32 + _i8 + _w4) {dbb} {'ok' if good else 'FAIL'}")
+              f"(f32 + _i8 + _w4) {dbb}, flash_prefill_tc "
+              f"{c['flash_prefill_tc']} of {c['flash_prefill']}, "
+              f"flash_prefill_packed_tc {c['flash_prefill_packed_tc']} of "
+              f"{c['flash_prefill_packed']} {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -411,6 +435,13 @@ def _kernel_phase(torch, dev, report):
             kernels.append(_dbb_entry(torch, randn, flush, failures,
                                       name + plane, src, replaces, ms_, fn,
                                       plane))
+    for entry in kernels:
+        if entry["name"] in CLASSIFIER_M:
+            row = _classifier_row(torch, randn, flush, failures,
+                                  entry["name"])
+            entry["classifier"] = row
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       row["max_abs_err"])
 
     # head GEMV: x [M, 2048] f32 . w [2048, 50304] f32 at M8 (decode, the
     # entry) and M24 (the speculative verify head)
@@ -606,6 +637,51 @@ def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
     return entry
 
 
+# convnet-dbb's classifier (fc 4096 -> 10, f32, DBB B=8 k=2, bias): the
+# f32-x branch of each DBB kernel at the batch that takes it
+CLASSIFIER_M = {"dbb_gemm": 256, "dbb_gemm_skinny": 1}
+
+
+def _classifier_row(torch, randn, flush, failures, name):
+    """The f32-x branch of ``name`` at convnet's classifier: checked against
+    its plain version (rtol 1e-4: f32 sums over K 4096 in another order),
+    timed beside it and ``torch.matmul`` on the decompressed weight (TF32
+    off); the bound counts x, the stored planes, bias and the output once
+    and the live weights' operations at the f32 rate."""
+    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
+    from repro_torch.kernels.dbb_gemm.ops import dbb_gemm
+    from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
+    from repro_torch.kernels.skinny.ops import dbb_gemm_skinny
+    fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+    m, k_dim, n, nnz = CLASSIFIER_M[name], 4096, 10, 2
+    p = pack_dbb(randn(k_dim, n) * 0.02, 8, nnz)
+    dense = decompress_bitmask(p.values, p.bitmask, block=8)
+    x, bias = randn(m, k_dim), randn(n)
+    got = fn(x, p.values, p.bitmask, bias, nnz=nnz)
+    want = dbb_gemm_ref(x, p.values, p.bitmask, bias)
+    err, ok = _close(torch, got, want, 1e-4)
+    if not ok:
+        failures.append(f"{name} classifier M{m}: max err {err}")
+    ms = _time_ms(torch, lambda: fn(x, p.values, p.bitmask, bias, nnz=nnz),
+                  flush)
+    pms = _time_ms(torch, lambda: dbb_gemm_ref(x, p.values, p.bitmask, bias),
+                   flush)
+    lms = _time_ms(torch, lambda: torch.matmul(x, dense), flush)
+    stored = p.values.numel() * 4 + p.bitmask.numel() * 4
+    live = int((dense != 0).sum().item())
+    bms, by = _bound_ms(x.numel() * 4 + stored + n * 4 + m * n * 4,
+                        2.0 * m * live, F32_OPS_PER_S)
+    print(f"kernel {name} M{m} K{k_dim} N{n} f32 x, DBB k{nnz} + bias "
+          f"(convnet's classifier): max abs err {err:.3e} (tol 1e-4 rel) "
+          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} "
+          f"ms, torch.matmul on the decompressed weight {lms:.4f} ms "
+          f"({ms / lms:.1f}x), bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms,
+                shapes=f"M{m} K{k_dim} N{n} f32 x, DBB k{nnz}, bias "
+                       "(convnet's classifier)")
+
+
 # bf16 attention tolerance: the kernels round each tile's unnormalised
 # probabilities to bf16 (as the Pallas kernels do), the plain versions the
 # normalised ones — up to 2^-9 relative per term over up to 2048 keys
@@ -615,24 +691,31 @@ ATTN_RTOL, ATTN_ATOL = 2e-2, 1e-2
 def _prefill_attention_kernels(torch, dev, randn, flush, failures):
     """flash_prefill at the three shapes the path gives it (generate's
     prefill, a padded admission, a chunk continuation) and
-    flash_prefill_packed at one packed call; bf16, D 128, Hq = Hkv = 16.
-    Each entry sums one call of each of its shapes."""
+    flash_prefill_packed at one packed call; bf16, D 128, Hq = Hkv = 16:
+    the tensor-core body, each call counting one ``_tc`` launch, printed
+    beside the FMA body's earlier time. Each entry sums one call of each of
+    its shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attn.ops import (flash_attention,
                                               packed_flash_attention)
+    from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.attn.ref import (flash_prefill_ref,
                                               packed_prefill_ref)
     bf16, h, d = torch.bfloat16, 16, 128
     scale = d ** -0.5
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def measure(name, label, run_kernel, run_plain, run_lib, real, mask):
+    def measure(name, label, case, run_kernel, run_plain, run_lib, real,
+                mask):
+        tc_before = LAUNCHES[name + "_tc"]
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err, ok = _close(torch, got[real], want[real], ATTN_RTOL, ATTN_ATOL)
         if not ok:
             failures.append(f"{name} {label}: max err {err}")
+        if LAUNCHES[name + "_tc"] != tc_before + 1:
+            failures.append(f"{name} {label}: no tensor-core launch")
         ms = _time_ms(torch, run_kernel, flush)
         pms = _time_ms(torch, run_plain, flush)
         lms = _time_ms(torch, run_lib, flush)
@@ -645,16 +728,18 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
         nbytes = 2 * 2 * (rows + slots) * h * d       # q, o; k, v (bf16)
         ops = 4.0 * d * pairs * h
         bms, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        earlier = PLAIN_FMA_MS[(name, case)]
         print(f"kernel {name} {label}: max abs err {err:.3e} (tol "
               f"{ATTN_RTOL:g} rel + {ATTN_ATOL:g} of max, bf16) "
-              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} "
-              f"ms, scaled_dot_product_attention {lms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}; {rows} query rows, {slots} key slots, "
-              f"{pairs} visible pairs)")
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms [FMA body before "
+              f"it {earlier:.4f} ms, {earlier / ms:.1f}x], plain {pms:.4f} "
+              f"ms, scaled_dot_product_attention {lms:.4f} ms ({ms / lms:.2f}"
+              f"x), bound {bms:.4f} ms ({by}; {rows} query rows, {slots} key "
+              f"slots, {pairs} visible pairs)")
         return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
                     bound_ms=bms, nbytes=nbytes, ops=ops)
 
-    def flash_case(label, b, t, s, start, q_offset):
+    def flash_case(label, case, b, t, s, start, q_offset):
         q = randn(b, t, h, d, dtype=bf16)
         k, v = randn(b, s, h, d, dtype=bf16), randn(b, s, h, d, dtype=bf16)
         st = torch.tensor(start, **i32)
@@ -666,7 +751,7 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
         uniform = not any(start) and not any(q_offset) and t == s
         am = None if uniform else mask[:, None]
         return measure(
-            "flash_prefill", label,
+            "flash_prefill", label, case,
             lambda: flash_attention(q, k, v, st, q_offset=qo),
             lambda: flash_prefill_ref(qh, kh, vh, st, qo,
                                       sm_scale=scale).transpose(1, 2),
@@ -675,11 +760,12 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
             qi >= st[:, None], mask)
 
     cases = [
-        flash_case("generate prefill B8 T=S=64, start 0..49", 8, 64, 64,
-                   [0, 7, 14, 21, 28, 35, 42, 49], [0] * 8),
-        flash_case("padded admission B1 T=S=512", 1, 512, 512, [0], [0]),
-        flash_case("chunk continuation B1 T256 S1024 q_offset 512", 1, 256,
-                   1024, [0], [512])]
+        flash_case("generate prefill B8 T=S=64, start 0..49", "generate", 8,
+                   64, 64, [0, 7, 14, 21, 28, 35, 42, 49], [0] * 8),
+        flash_case("padded admission B1 T=S=512", "admission", 1, 512, 512,
+                   [0], [0]),
+        flash_case("chunk continuation B1 T256 S1024 q_offset 512", "chunk",
+                   1, 256, 1024, [0], [512])]
     entries = [_attention_entry(
         "flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
         "src/repro/kernels/attn/kernel.py:128", cases,
@@ -696,7 +782,7 @@ def _prefill_attention_kernels(torch, dev, randn, flush, failures):
     qh, kh, vh = (a.transpose(0, 1).contiguous() for a in (q, k, v))
     packed = measure(
         "flash_prefill_packed", f"T{t} over {len(lens)} segments {lens}",
-        lambda: packed_flash_attention(q, k, v, seg),
+        "packed", lambda: packed_flash_attention(q, k, v, seg),
         lambda: packed_prefill_ref(qh, kh, vh, seg,
                                    sm_scale=scale).transpose(0, 1),
         lambda: F.scaled_dot_product_attention(

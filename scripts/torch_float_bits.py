@@ -9,8 +9,10 @@ source trees (a commit and its parent) on one CUDA card:
 TREE is a checkout of this repository; its kernels build into
 TREE/build/kernels. The calls: sta_gemm (M8 f32, M24 and M300 bf16),
 sta_gemm_skinny (M8, M24), dbb_gemm and dbb_gemm_skinny on the f32,
-int8 and w4 values planes, conv_gemm, conv_gemm_dbb and a sampled
-head_sample_fused (M8 K2048 N8192, penalties, temperature-0 rows).
+int8 and w4 values planes, conv_gemm, conv_gemm_dbb, a sampled
+head_sample_fused (M8 K2048 N8192, penalties, temperature-0 rows), and
+flash_prefill and flash_prefill_packed in f32 at D 128 and in bf16 at D
+72 (the plain-FMA body's calls), two shapes each.
 """
 import sys
 
@@ -73,6 +75,26 @@ def run(tree: str, out_path: str) -> None:
         seed=(r * 7919).to(torch.int32), step=(r * 3).to(torch.int32))
     out["head_sample_fused score"], out["head_sample_fused token"] = (score,
                                                                      tok)
+    from repro_torch.kernels.attn import (flash_attention,
+                                          packed_flash_attention)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for dt, d in ((torch.float32, 128), (torch.bfloat16, 72)):
+        tag = f"{str(dt)[6:]} D{d}"
+        for b, t, s, hq, hkv, st, qo, win in (
+                (2, 77, 77, 4, 2, (0, 13), (0, 0), 0),
+                (1, 130, 300, 2, 2, (5,), (170,), 50)):
+            q = rn(b, t, hq, d).to(dt)
+            k, v = rn(b, s, hkv, d).to(dt), rn(b, s, hkv, d).to(dt)
+            out[f"flash_prefill {tag} T{t} S{s}"] = flash_attention(
+                q, k, v, torch.tensor(st, **i32),
+                q_offset=torch.tensor(qo, **i32), window=win)
+        for lens, win in (((70, 90, 7, 150), 0), ((100, 7, 150, 40), 50)):
+            t = sum(lens)
+            q, k, v = (rn(t, 4, d).to(dt) for _ in range(3))
+            seg = torch.repeat_interleave(torch.arange(len(lens), **i32),
+                                          torch.tensor(lens, device=dev))
+            out[f"flash_prefill_packed {tag} T{t}"] = packed_flash_attention(
+                q, k, v, seg, window=win, softcap=30.0 if win else 0.0)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, out_path)
     print(f"{tree}: {len(out)} outputs saved to {out_path}")

@@ -10,11 +10,18 @@
 //
 // What bounds it on the H100: bytes at the path's lengths (q, k, v and o
 // read or written once outweigh 4 D flops per visible query-key pair at the
-// bf16 tensor-core rate up to T = S of about 1200); this FMA kernel runs
-// far above either bound.
+// bf16 tensor-core rate up to T = S of about 1200).
+//
+// Two bodies, chosen by a rule on (dtype, D) alone, never on B, T, S:
+//   - bf16 with D a multiple of 64 and at most 128 (olmo-1b's D 128) runs
+//     on the tensor-core body (flash_tc.cuh: TMA-fed K/V stages, wgmma for
+//     both products, the softmax on the accumulator fragment);
+//   - everything else (f32, bf16 at other D) runs the plain-FMA body
+//     (flash_tile.cuh).
+// flash_prefill_tc_body exports the rule; the wrapper's tc_body mirrors it.
 //
 // Design: one block per (tile of 64 query rows, query head, row) walks the
-// KV tiles in ascending order (flash_tile.cuh) — the loop replaces the
+// KV tiles in ascending order (either body) — the loop replaces the
 // Pallas grid's sequential KV axis, so the first tile computed always holds
 // key `start`, valid for every real row. Tiles above the diagonal, wholly
 // left of `start` or wholly outside the window are skipped, as the Pallas
@@ -22,6 +29,7 @@
 // instead of padded. q/k/v/o are read in the model layout [B, T, H, D]
 // through strides: no transposed copy. GQA maps query head h to KV head
 // h / g.
+#include "flash_tc.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -87,7 +95,63 @@ int launch(const void* q, const void* k, const void* v, const void* start,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core body: one block per (query head, tile of 64 rows, row),
+// the tiles of the diagonal's end first (they walk the most keys).
+template <int D>
+__global__ void __launch_bounds__(repro::flash_tc::kThreads)
+flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const int32_t* __restrict__ start,
+                        const int32_t* __restrict__ q_offset,
+                        __nv_bfloat16* __restrict__ out, int T_len, int S,
+                        int Hq, int Hkv, float sm_scale, int window,
+                        float softcap) {
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int hk = h / (Hq / Hkv);
+  const long q_stride = (long)Hq * D;
+  const int n_q = min(kBQ, T_len - i0);
+  const int qi0 = q_offset[b] + i0;
+  const CausalPolicy pol{qi0, qi0 + n_q - 1, start[b], window, S};
+  repro::flash_tc::flash_block<D>(
+      &qmap, &kmap, &vmap, h * D, hk * D, i0, b,
+      out + ((long)b * T_len + i0) * q_stride + (long)h * D, q_stride, n_q, S,
+      sm_scale, softcap, pol);
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* start,
+              const void* q_offset, void* out, int B, int T_len, int S,
+              int Hq, int Hkv, float sm_scale, int window, float softcap,
+              cudaStream_t s) {
+  namespace ft = repro::flash_tc;
+  if (Hkv < 1 || Hq % Hkv) return cudaErrorInvalidValue;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!ft::make_maps<D>(&qm, &km, &vm, q, k, v, B, T_len, S, Hq, Hkv))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_prefill_tc_kernel<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ft::smem_bytes<D>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(Hq, (T_len + kBQ - 1) / kBQ, B);
+  kernel<<<grid, ft::kThreads, ft::smem_bytes<D>(), s>>>(
+      qm, km, vm, static_cast<const int32_t*>(start),
+      static_cast<const int32_t*>(q_offset), static_cast<__nv_bfloat16*>(out),
+      T_len, S, Hq, Hkv, sm_scale, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+bool tc_body(int dtype, int D) {
+  return dtype == repro::DT_BF16 && D > 0 && D % 64 == 0 && D <= 128;
+}
+
 }  // namespace
+
+// 1 where flash_prefill_launch runs the tensor-core body for these operands
+extern "C" int flash_prefill_tc_body(int dtype, int D) {
+  return tc_body(dtype, D) ? 1 : 0;
+}
 
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, const void* start,
@@ -96,6 +160,11 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     float sm_scale, int window, float softcap,
                                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc_body(dtype, D))
+    return D == 64 ? launch_tc<64>(q, k, v, start, q_offset, out, B, T_len, S,
+                                   Hq, Hkv, sm_scale, window, softcap, s)
+                   : launch_tc<128>(q, k, v, start, q_offset, out, B, T_len,
+                                    S, Hq, Hkv, sm_scale, window, softcap, s);
   if (dtype == repro::DT_BF16)
     return launch<__nv_bfloat16>(q, k, v, start, q_offset, out, B, T_len, S,
                                  Hq, Hkv, D, sm_scale, window, softcap, s);

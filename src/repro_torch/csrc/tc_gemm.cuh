@@ -51,146 +51,25 @@
 // What the caller guarantees (the launchers' rule on dtype, K and N): x and
 // a TMA'd w have 16-byte row strides (K % 8 == 0, and N % 8 == 0 for w), and
 // 16-byte aligned data (the wrappers check). The TMA descriptors are made on
-// the host with cuTensorMapEncodeTiled, fetched through
-// cudaGetDriverEntryPoint: the libraries need no -lcuda.
+// the host (make_map), and the PTX wrappers come from hopper.cuh.
 #pragma once
-
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace tc {
 
+using namespace sm90;
+
 constexpr int BN = 64, BK = 64, kStages = 4;
 constexpr int kBTileBytes = BK * BN * 2;           // 8 KB
-constexpr int kSwizzleRow = 128;                   // bytes
 constexpr int kBarrierBytes = 2 * kStages * 8;
 static_assert(BK * 2 == kSwizzleRow, "an A row of a stage is one swizzle row");
 static_assert(BN * 2 == kSwizzleRow && BK * 2 == kSwizzleRow,
               "a B row of a stage, K-major or MN-major, is one swizzle row");
 static_assert(BK % kDbbBlock == 0, "a stage holds whole DBB blocks");
-
-// A barrier wait that has not completed after this many cycles (~10 s)
-// traps instead of hanging the card.
-constexpr long long kWatchdogCycles = 1ll << 34;
-
-// ---------------------------------------------------------------------------
-// PTX wrappers: mbarrier, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// one arrival for the calling warp, after all its lanes got here (each
-// arrival is an atomic on one shared word: 32 a warp would queue)
-__device__ __forceinline__ void mbar_arrive_warp(uint32_t bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-}
-
-// generic-proxy stores to shared memory, visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// 2-D TMA copy of the box at (c0 inner, c1 outer) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving the accumulators across a wgmma boundary
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 64] += A[64 x 16] (K-major) . B[16 x 64], B K-major (kTransB 0)
-// or MN-major (kTransB 1: the descriptor's transpose bit)
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
-}
 
 // ---------------------------------------------------------------------------
 // The B operand's sources
@@ -376,11 +255,6 @@ __device__ __forceinline__ void build_expand_entry(ExpandTable& tb, int e,
   for (int w = 0; w < 4; ++w) tb.keep[e][w] = keep[w];
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // One DBB block of one column as eight bf16 values packed in a uint4 (its
 // K order: position p in half p % 2 of word p / 2). The values are those
 // of decompress_block<__nv_bfloat16>: position p is kept iff bit p of the
@@ -511,7 +385,7 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                 kDbb ? 1 + producer_threads<BSrc>() / 32 : 1);
       mbar_init(empty + 8 * s, kConsumerThreads / 32);  // one per warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 
@@ -614,49 +488,8 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap amap,
 }
 
 // ---------------------------------------------------------------------------
-// Host side: TMA descriptors and the launch
+// Host side: the launch (tensor maps: hopper.cuh)
 // ---------------------------------------------------------------------------
-
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major bf16 matrix [rows, cols] cut into 128-byte-swizzled boxes of
-// box_rows x 64 columns; out-of-bounds elements read as zero.
-inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                     int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr || rows <= 0 || cols <= 0) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {kSwizzleRow / 2, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <typename TO, typename BSrc>
 int launch(const void* x, const CUtensorMap& bmap, const BSrc& bsrc,

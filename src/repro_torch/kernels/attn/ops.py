@@ -7,6 +7,13 @@ runs the plain version (`ref`); a CUDA tensor launches the kernel or
 raises. The prefill kernels read q/k/v through strides in the model layout
 and mask their ragged edges, so neither wrapper transposes or pads.
 
+The two prefill kernels have two bodies each, by `tc_body`'s rule on
+(dtype, D) and never on B, T, S or the segments: bf16 with D a multiple of
+64 and at most 128 runs on the tensor-core body (csrc/flash_tc.cuh: TMA,
+wgmma) and counts as ``flash_prefill_tc`` / ``flash_prefill_packed_tc``
+too; f32, and bf16 at any other D, run the plain-FMA body
+(csrc/flash_tile.cuh).
+
 A contiguous ``[B, S, Hkv, D]`` decode cache is served by the same decode
 wrapper as the pool ``[B · S/page, page, Hkv, D]`` (a view, no copy) under
 an identity block table — one kernel, one page-visit order for both
@@ -29,7 +36,7 @@ from repro_torch.kernels.common import FLOAT_DTYPES, LAUNCHES, check_operand
 __all__ = ["flash_attention", "packed_flash_attention",
            "paged_decode_attention", "identity_block_table", "DEFAULT_PAGE",
            "flash_ok", "paged_decode_ok", "PAGE_MIN", "SMEM_LIMIT",
-           "FLASH_D_MAX"]
+           "FLASH_D_MAX", "tc_body"]
 
 # default KV page (slots) when the config leaves kv_page_size unset
 DEFAULT_PAGE = 64
@@ -38,24 +45,44 @@ DEFAULT_PAGE = 64
 PAGE_MIN = 8
 # a block's shared memory on the H100 (227 KB usable)
 SMEM_LIMIT = 232448
-# flash prefill tiles (csrc/flash_tile.cuh): 64 query rows x 64 keys, and
-# 16 output columns a thread
+# flash prefill tiles (csrc/flash_tile.cuh, csrc/flash_tc.cuh): 64 query
+# rows x 64 keys; the FMA body has 16 output columns a thread
 _FLASH_BQ = _FLASH_BKV = 64
 FLASH_D_MAX = 128
+# the tensor-core body's K/V ring and barriers (q_full; k_full, v_full and
+# empty per stage)
+_FLASH_TC_STAGES = 2
+_FLASH_TC_BARRIERS = 1 + 3 * _FLASH_TC_STAGES
 
 
-def _flash_smem_bytes(d: int) -> int:
-    """Shared memory of one flash prefill block (flash_tile.cuh,
-    smem_bytes): Qᵀ [D, 65], Kᵀ [D, 65] (later P [64, 65]) and V [64, D],
-    all f32."""
+def tc_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether the flash prefill kernels run these operands on their
+    tensor-core body: bf16 with D a multiple of 64 and at most 128. The
+    rule of csrc/flash_prefill.cu's and flash_prefill_packed.cu's tc_body;
+    it reads no B, T, S or segment."""
+    return dtype == torch.bfloat16 and d > 0 and d % 64 == 0 and d <= 128
+
+
+def _flash_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Shared memory of one flash prefill block of the body ``dtype`` and
+    ``d`` take. Tensor cores (flash_tc.cuh, smem_bytes): bf16 Q [64, D],
+    two stages of K and V [64, D], the barriers and 1024 bytes of
+    alignment slack. FMA (flash_tile.cuh, smem_bytes): Qᵀ [D, 65], Kᵀ [D,
+    65] (later P [64, 65]) and V [64, D], all f32."""
+    if tc_body(dtype, d):
+        return (2 * d * (_FLASH_BQ + 2 * _FLASH_TC_STAGES * _FLASH_BKV)
+                + 8 * _FLASH_TC_BARRIERS + 1024)
     return 4 * (d * (_FLASH_BQ + 1) + max(d, _FLASH_BQ) * (_FLASH_BKV + 1)
                 + _FLASH_BKV * d)
 
 
-def flash_ok(d: int) -> bool:
-    """Whether the flash prefill kernels take head dim ``d``: at most 128
-    output columns (16 a thread) and the block's tiles within 227 KB."""
-    return 1 <= d <= FLASH_D_MAX and _flash_smem_bytes(d) <= SMEM_LIMIT
+def flash_ok(d: int, dtype: Optional[torch.dtype] = None) -> bool:
+    """Whether the flash prefill kernels take head dim ``d`` in ``dtype``
+    (every float dtype when None): at most 128 output columns and the
+    block's tiles, in the body the call takes, within 227 KB."""
+    dtypes = FLOAT_DTYPES if dtype is None else (dtype,)
+    return 1 <= d <= FLASH_D_MAX and all(
+        _flash_smem_bytes(d, dt) <= SMEM_LIMIT for dt in dtypes)
 
 
 def _decode_smem_bytes(g: int, d: int, page: int) -> int:
@@ -96,10 +123,11 @@ def _check_flash(q: torch.Tensor, hkv: int) -> None:
     d, hq = q.shape[-1], q.shape[-2]
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
-    if q.device.type != "cpu" and not flash_ok(d):
+    if q.device.type != "cpu" and not flash_ok(d, q.dtype):
         raise ValueError(f"D={d}: the flash kernels take 1 ≤ D ≤ "
                          f"{FLASH_D_MAX} (shared memory "
-                         f"{_flash_smem_bytes(d)} B of {SMEM_LIMIT})")
+                         f"{_flash_smem_bytes(d, q.dtype)} B of "
+                         f"{SMEM_LIMIT})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,6 +172,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.dtype_code(q.dtype), build.stream_handle(dev))
     _check_rc("flash_prefill", rc)
     LAUNCHES["flash_prefill"] += 1
+    if tc_body(q.dtype, d):
+        LAUNCHES["flash_prefill_tc"] += 1
     return out
 
 
@@ -183,6 +213,8 @@ def packed_flash_attention(q: torch.Tensor, k: torch.Tensor,
         float(softcap), build.dtype_code(q.dtype), build.stream_handle(dev))
     _check_rc("flash_prefill_packed", rc)
     LAUNCHES["flash_prefill_packed"] += 1
+    if tc_body(q.dtype, d):
+        LAUNCHES["flash_prefill_packed_tc"] += 1
     return out
 
 

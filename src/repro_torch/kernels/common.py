@@ -37,7 +37,9 @@ INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 # each int8-activation branch (``_s8``: INT8 x INT8 -> INT32) counts apart
 # from its kernel's float branches. ``sta_gemm_tc`` and ``dbb_gemm_tc``
 # count, beside those, the launches that ran the tensor-core body
-# (csrc/tc_gemm.cuh): bf16 operands, by each wrapper's ``tc_body`` rule.
+# (csrc/tc_gemm.cuh): bf16 operands, by each wrapper's ``tc_body`` rule;
+# ``flash_prefill_tc`` and ``flash_prefill_packed_tc`` those of the flash
+# kernels' tensor-core body (csrc/flash_tc.cuh), by attn.ops.tc_body.
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
                             "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
@@ -48,7 +50,9 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "sta_gemm_s8": 0, "sta_gemm_skinny_s8": 0,
                             "dbb_gemm_s8": 0, "dbb_gemm_skinny_s8": 0,
                             "conv_gemm_s8": 0, "conv_gemm_dbb_s8": 0,
-                            "sta_gemm_tc": 0, "dbb_gemm_tc": 0}
+                            "sta_gemm_tc": 0, "dbb_gemm_tc": 0,
+                            "flash_prefill_tc": 0,
+                            "flash_prefill_packed_tc": 0}
 
 
 def reset_launches() -> None:

@@ -33,7 +33,13 @@ tanh / exp may differ by an ulp) and int8 / int32 off by at most 1 on at
 most 0.1% of the elements (at least one). The tensor-core body of the
 bf16 sta_gemm and dbb_gemm branches: the bf16 GEMM tolerance against the
 plain versions; exact where the math is exact (one-hot probes, a row at
-any M, dbb_gemm against sta_gemm on the decompressed weight).
+any M, dbb_gemm against sta_gemm on the decompressed weight). The
+tensor-core body of the bf16 flash prefills (D 64, 128): the bf16
+attention tolerance against the plain versions at T and S of 1 to 1000,
+ragged starts, offsets, whole tiles masked, views at 16-byte offsets;
+every output finite; a row's output bit for bit the same at any T or
+place in its tile; a ``_tc`` launch counted for each bf16 D 64 / 128
+call and for no other.
 """
 import numpy as np
 import pytest
@@ -173,27 +179,30 @@ def test_gpu_paged_decode(cuda, dtype, g, page, window, softcap, shuffle):
     _gpu_close(got, want, dtype, bf16_atol=1e-2)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,s,hq,hkv,d,start,q_offset,window,softcap", [
-    (2, 77, 77, 4, 4, 128, (0, 13), (0, 0), 0, 0.0),     # ragged T = S
-    (2, 50, 190, 4, 2, 128, (5, 0), (120, 64), 0, 0.0),  # continuation, g 2
-    (1, 130, 130, 2, 1, 64, (3,), (0,), 33, 20.0),       # window, softcap
-    (3, 64, 64, 2, 1, 128, (0, 1, 63), (0, 0, 0), 0, 0.0),
-])
-def test_gpu_flash_prefill(cuda, dtype, b, t, s, hq, hkv, d, start,
-                           q_offset, window, softcap):
+def _flash_tc_counted(before, name, dtype, d):
+    """A bf16 launch at D 64 / 128 counts one ``_tc`` launch beside the
+    kernel's; any other launch leaves the ``_tc`` count alone."""
+    from repro_torch.kernels.attn.ops import tc_body
+    assert LAUNCHES[name] == before[name] + 1
+    assert tc_body(dtype, d) == (dtype == torch.bfloat16 and d in (64, 128))
+    assert LAUNCHES[name + "_tc"] == before[name + "_tc"] + tc_body(dtype, d)
+
+
+def _flash_case(cuda, dtype, b, t, s, hq, hkv, d, start, q_offset, window,
+                softcap, q=None, k=None, v=None):
     g = torch.Generator(device=cuda).manual_seed(t + s)
-    q = torch.randn(b, t, hq, d, generator=g, device=cuda).to(dtype)
-    k = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
-    v = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
+    if q is None:
+        q = torch.randn(b, t, hq, d, generator=g, device=cuda).to(dtype)
+        k = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
+        v = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
     st = torch.tensor(start, dtype=torch.int32, device=cuda)
     qo = torch.tensor(q_offset, dtype=torch.int32, device=cuda)
-    before = LAUNCHES["flash_prefill"]
+    before = dict(LAUNCHES)
     got = flash_attention(q, k, v, st, q_offset=qo, window=window,
                           softcap=softcap)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_prefill"] == before + 1
+    _flash_tc_counted(before, "flash_prefill", dtype, d)
+    assert torch.isfinite(got.float()).all()     # rows seeing no key too
     want = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), st, qo, sm_scale=d ** -0.5,
                              window=window, softcap=softcap).transpose(1, 2)
@@ -203,14 +212,61 @@ def test_gpu_flash_prefill(cuda, dtype, b, t, s, hq, hkv, d, start,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lens,pad,hq,hkv,window,softcap", [
-    ((70, 90, 7, 150), 45, 4, 2, 0, 0.0),   # tile [64,128) meets segment 1
-    ((100, 7, 150, 40), 36, 4, 4, 50, 30.0),
-    ((1, 1, 300), 0, 2, 1, 0, 0.0),
+@pytest.mark.parametrize("b,t,s,hq,hkv,d,start,q_offset,window,softcap", [
+    (2, 77, 77, 4, 4, 128, (0, 13), (0, 0), 0, 0.0),     # ragged T = S
+    (2, 50, 190, 4, 2, 128, (5, 0), (120, 64), 0, 0.0),  # continuation, g 2
+    (1, 130, 130, 2, 1, 64, (3,), (0,), 33, 20.0),       # window, softcap
+    (3, 64, 64, 2, 1, 128, (0, 1, 63), (0, 0, 0), 0, 0.0),
+    (1, 1, 1, 2, 2, 128, (0,), (0,), 0, 0.0),            # T = S = 1
+    (2, 63, 63, 2, 1, 128, (0, 17), (0, 0), 0, 0.0),
+    (2, 65, 65, 2, 2, 64, (0, 64), (0, 0), 0, 0.0),      # start on a tile
+    (1, 127, 127, 4, 2, 128, (30,), (0,), 0, 0.0),
+    (2, 129, 257, 2, 2, 128, (0, 100), (128, 7), 0, 0.0),
+    (1, 1000, 1000, 2, 1, 128, (333,), (0,), 0, 0.0),
+    (2, 1, 1000, 2, 2, 128, (0, 500), (999, 640), 0, 0.0),  # one-row chunk
+    (2, 63, 1000, 2, 2, 64, (65, 0), (937, 65), 0, 0.0),
+    (1, 100, 100, 2, 2, 72, (7,), (0,), 0, 0.0),         # D 72: FMA body
 ])
-def test_gpu_flash_prefill_packed(cuda, dtype, lens, pad, hq, hkv, window,
-                                  softcap):
-    t, d = sum(lens) + pad, 128
+def test_gpu_flash_prefill(cuda, dtype, b, t, s, hq, hkv, d, start,
+                           q_offset, window, softcap):
+    _flash_case(cuda, dtype, b, t, s, hq, hkv, d, start, q_offset, window,
+                softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_gpu_flash_prefill_whole_tiles_masked(cuda, dtype, d):
+    """Batch row 0's keys start at 200, so its first three query tiles
+    (rows 0-191) see no key at all and run no tile; a 16-key window leaves
+    most rows of each block with a whole running tile masked (a row past
+    key kj0 + 79 sees none of tile kj0's keys). Every output stays finite;
+    the real rows match."""
+    _flash_case(cuda, dtype, 2, 256, 256, 2, 2, d, (200, 0), (0, 0), 16,
+                0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens,pad,hq,hkv,d,window,softcap", [
+    ((70, 90, 7, 150), 45, 4, 2, 128, 0, 0.0),   # tile [64,128) meets seg 1
+    ((100, 7, 150, 40), 36, 4, 4, 128, 50, 30.0),
+    ((1, 1, 300), 0, 2, 1, 128, 0, 0.0),
+    ((1,), 0, 2, 2, 128, 0, 0.0),                # T = 1
+    ((63,), 0, 2, 2, 64, 0, 0.0),
+    ((64, 1, 62), 2, 2, 2, 128, 0, 0.0),         # boundaries on the tiles
+    ((65, 62), 2, 2, 1, 64, 0, 0.0),
+    ((127, 2), 0, 2, 2, 128, 0, 0.0),
+    ((129, 500, 371), 0, 2, 2, 128, 0, 0.0),     # T 1000
+    ((5, 3, 7, 64, 1, 1, 2, 90), 27, 2, 2, 128, 8, 0.0),
+    ((100, 100), 0, 2, 2, 72, 0, 0.0),           # D 72: FMA body
+])
+def test_gpu_flash_prefill_packed(cuda, dtype, lens, pad, hq, hkv, d,
+                                  window, softcap):
+    """The short segments under an 8-key window (the case before last)
+    put rows whose whole first running tile holds no key of theirs beside
+    rows that see it: the probability mask's case."""
+    t = sum(lens) + pad
     g = torch.Generator(device=cuda).manual_seed(t)
     q = torch.randn(t, hq, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(t, hkv, d, generator=g, device=cuda).to(dtype)
@@ -218,15 +274,83 @@ def test_gpu_flash_prefill_packed(cuda, dtype, lens, pad, hq, hkv, window,
     seg = torch.repeat_interleave(
         torch.arange(len(lens) + 1, dtype=torch.int32),
         torch.tensor(list(lens) + [pad])).to(cuda)
-    before = LAUNCHES["flash_prefill_packed"]
+    before = dict(LAUNCHES)
     got = packed_flash_attention(q, k, v, seg, window=window,
                                  softcap=softcap)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_prefill_packed"] == before + 1
+    _flash_tc_counted(before, "flash_prefill_packed", dtype, d)
+    assert torch.isfinite(got.float()).all()
     want = packed_prefill_ref(q.transpose(0, 1), k.transpose(0, 1),
                               v.transpose(0, 1), seg, sm_scale=d ** -0.5,
                               window=window, softcap=softcap).transpose(0, 1)
     _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True])
+def test_gpu_flash_prefill_views_at_16_byte_offsets(cuda, dtype, packed):
+    """q, k and v as contiguous views 16 bytes (and 32, 48) into larger
+    buffers: the kernels take any 16-byte-aligned base, not only an
+    allocation's."""
+    b, t, h, d = (1, 200, 2, 128) if packed else (2, 100, 2, 128)
+    off = 16 // torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = b * t * h * d
+    shape = (t, h, d) if packed else (b, t, h, d)
+    q, k, v = (torch.randn(n + 3 * off, generator=g, device=cuda).to(dtype)
+               [off * i:off * i + n].view(shape) for i in (1, 2, 3))
+    assert all(a.data_ptr() % 128 for a in (q, k, v))
+    if not packed:
+        _flash_case(cuda, dtype, b, t, t, h, h, d, (0, 9), (0, 0), 0, 0.0,
+                    q=q, k=k, v=v)
+        return
+    seg = torch.repeat_interleave(torch.arange(3, dtype=torch.int32),
+                                  torch.tensor([90, 70, 40])).to(cuda)
+    before = dict(LAUNCHES)
+    got = packed_flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    _flash_tc_counted(before, "flash_prefill_packed", dtype, d)
+    want = packed_prefill_ref(q.transpose(0, 1), k.transpose(0, 1),
+                              v.transpose(0, 1), seg, sm_scale=d ** -0.5
+                              ).transpose(0, 1)
+    _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_gpu_flash_tc_row_is_the_same_bits_at_any_t(cuda, d):
+    """The tensor-core body sums a row's keys tile by tile in one order
+    whatever T, S or its place in the block: row 150 of a T = S = 200
+    prefill equals the same query as a one-row chunk at q_offset 150 and
+    as row 22 of a 64-row chunk at q_offset 128 (S 200), bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(1, 200, 2, d, generator=g, device=cuda).to(BF)
+               for _ in range(3))
+
+    def run(lo, hi):
+        qo = torch.tensor([lo], dtype=torch.int32, device=cuda)
+        return flash_attention(q[:, lo:hi].contiguous(), k, v, q_offset=qo)
+    full = run(0, 200)[0, 150]
+    assert torch.equal(full, run(150, 151)[0, 0])
+    assert torch.equal(full, run(128, 192)[0, 22])
+
+
+@pytest.mark.gpu
+def test_gpu_flash_tc_counts_follow_the_kernels_own_rule(cuda):
+    """attn.ops.tc_body mirrors the launchers' rule: the libraries'
+    exported flash_prefill_tc_body / flash_prefill_packed_tc_body agree on
+    every dtype and a grid of D."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attn.ops import tc_body
+    for name in ("flash_prefill", "flash_prefill_packed"):
+        rule = getattr(build.load(name), f"{name}_tc_body")
+        rule.argtypes = [ctypes.c_int] * 2
+        for dt in (torch.float32, BF):
+            for d in (1, 32, 63, 64, 65, 72, 96, 128, 129, 256):
+                assert bool(rule(build.dtype_code(dt), d)) == tc_body(dt, d)
 
 
 @pytest.mark.gpu
