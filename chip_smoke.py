@@ -30,11 +30,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             2048 over 8 segments) on their tensor-core body
             (csrc/flash_tc.cuh): each line prints the FMA body's earlier
             time in brackets and must count a ``flash_prefill_tc`` /
-            ``flash_prefill_packed_tc`` launch. The f32-x branches of
-            dbb_gemm and dbb_gemm_skinny are also timed at convnet's
-            classifier (fc 4096 -> 10, DBB k2, bias: B256 and B1) beside
-            their bound and ``torch.matmul`` on the decompressed weight
-            (TF32 off), and checked (rtol 1e-4).
+            ``flash_prefill_packed_tc`` launch. The float branches of
+            dbb_gemm_skinny (M8 and M24, all three planes) run on the
+            split-K body (csrc/split_k.cuh): each line prints the
+            row-chunk body's earlier time in brackets and must count a
+            ``dbb_gemm_skinny_split`` launch (the s8 branch keeps the
+            row-chunk body). The f32-x branches of dbb_gemm and
+            dbb_gemm_skinny are also timed at convnet's classifier (fc
+            4096 -> 10, DBB k2, bias: B256 on dbb_gemm's narrow split-K
+            body, counting a ``dbb_gemm_narrow`` launch, and B1) beside
+            their bound, ``torch.matmul`` on the decompressed weight (TF32
+            off) and the earlier body's time, and checked (rtol 1e-4).
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -124,7 +130,12 @@ main paths of phases 4-6, 8 and 9 must have run the tensor-core body:
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
-D 128), or the run fails.
+D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
+phases 4-9 must have run the split-K body (``dbb_gemm_skinny_split``
+equals the f32, ``_i8`` and ``_w4`` branches' sum) and every f32-x
+dbb_gemm launch (the CNN classifier, N 10) the narrow body
+(``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the LM
+runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
 sum over the main-path runs of phases 4-9 and 11 (a)-(b);
@@ -167,11 +178,13 @@ SPEC_KERNELS = SERVE_KERNELS + ("head_sample_fused",)
 DENSE_KERNELS = ("sta_gemm", "sta_gemm_skinny", "flash_prefill",
                  "paged_decode")
 CNN_LOGIT_TOL = 1e-4             # of max |logit|, f32 kernel vs plain route
-# per-call ms of the plain-FMA bodies that the tensor-core bodies replaced
-# in the bf16 branches (the GEMMs at M512; the flash prefills' D 128 calls,
-# keyed by the kernel phase's case), from PERF.md's kernel table before
-# each redesign (H100 80GB HBM3, 700 W); printed beside this run's times,
-# never in the record
+# per-call ms of the bodies that the redesigns replaced: the plain-FMA
+# bodies of the bf16 branches (the GEMMs at M512; the flash prefills' D 128
+# calls, keyed by the kernel phase's case), dbb_gemm_skinny's row-chunk
+# body (keyed by M, K, N) and both DBB kernels' earlier f32-x bodies at
+# convnet's classifier, from PERF.md's kernel table before each redesign
+# (H100 80GB HBM3, 700 W); printed beside this run's times, never in the
+# record
 PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
                 ("dbb_gemm", 2048, 8192): 0.5752,
                 ("dbb_gemm", 8192, 2048): 1.5526,
@@ -186,7 +199,32 @@ PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
                 ("flash_prefill", "generate"): 0.0662,
                 ("flash_prefill", "admission"): 0.2374,
                 ("flash_prefill", "chunk"): 0.3374,
-                ("flash_prefill_packed", "packed"): 0.4483}
+                ("flash_prefill_packed", "packed"): 0.4483,
+                ("dbb_gemm_skinny", 8, 2048, 2048): 0.0366,
+                ("dbb_gemm_skinny", 8, 2048, 8192): 0.0710,
+                ("dbb_gemm_skinny", 8, 8192, 2048): 0.1276,
+                ("dbb_gemm_skinny", 24, 2048, 2048): 0.0429,
+                ("dbb_gemm_skinny", 24, 2048, 8192): 0.1421,
+                ("dbb_gemm_skinny", 24, 8192, 2048): 0.1459,
+                ("dbb_gemm_skinny_i8", 8, 2048, 2048): 0.0386,
+                ("dbb_gemm_skinny_i8", 8, 2048, 8192): 0.0663,
+                ("dbb_gemm_skinny_i8", 8, 8192, 2048): 0.1317,
+                ("dbb_gemm_skinny_i8", 24, 2048, 2048): 0.0427,
+                ("dbb_gemm_skinny_i8", 24, 2048, 8192): 0.1434,
+                ("dbb_gemm_skinny_i8", 24, 8192, 2048): 0.1470,
+                ("dbb_gemm_skinny_w4", 8, 2048, 2048): 0.0405,
+                ("dbb_gemm_skinny_w4", 8, 2048, 8192): 0.0704,
+                ("dbb_gemm_skinny_w4", 8, 8192, 2048): 0.1379,
+                ("dbb_gemm_skinny_w4", 24, 2048, 2048): 0.0449,
+                ("dbb_gemm_skinny_w4", 24, 2048, 8192): 0.1531,
+                ("dbb_gemm_skinny_w4", 24, 8192, 2048): 0.1556,
+                ("dbb_gemm", "classifier"): 0.6516,
+                ("dbb_gemm_skinny", "classifier"): 0.0239}
+# the launch counter of the redesigned body each DBB kernel's float calls
+# in the kernel phase must take, and its name beside the earlier body's
+REDESIGN = {"dbb_gemm": ("dbb_gemm_tc", "tensor-core body, plain-FMA body"),
+            "dbb_gemm_skinny": ("dbb_gemm_skinny_split",
+                                "split-K body, row-chunk body")}
 # the sample phase's weights: olmo-1b's init with the embedding scaled by
 # SAMPLE_EMBED_SCALE and every layer weight by SAMPLE_LAYER_GAIN before
 # packing, so that the logits are O(100), not O(2000), and the layers move
@@ -327,6 +365,9 @@ def main() -> int:
     if not _tc_check(by_path, lm):
         return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
                      "a main path missed the tensor-core body (see above)")
+    if not _split_check(by_path, list(cnn_counts)):
+        return _fail("a float dbb_gemm_skinny or f32-x dbb_gemm launch on a "
+                     "main path missed its split-K body (see above)")
     int8_counts, ok = timed("int8", _int8_phase)
     if not ok:
         return _fail("the INT8 datapath phase failed (see above)")
@@ -364,6 +405,26 @@ def _tc_check(by_path, paths) -> bool:
               f"{c['flash_prefill_tc']} of {c['flash_prefill']}, "
               f"flash_prefill_packed_tc {c['flash_prefill_packed_tc']} of "
               f"{c['flash_prefill_packed']} {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def _split_check(by_path, cnn_paths) -> bool:
+    """Every float dbb_gemm_skinny launch on these runs went through the
+    split-K body, and every f32-x dbb_gemm launch (the CNN runs' N 10
+    classifier; the LM runs' dbb_gemm launches are bf16) through the
+    narrow body: the new counts equal the branches' counts."""
+    ok = True
+    for path, c in by_path.items():
+        skinny = (c["dbb_gemm_skinny"] + c["dbb_gemm_skinny_i8"]
+                  + c["dbb_gemm_skinny_w4"])
+        narrow = c["dbb_gemm"] if path in cnn_paths else 0
+        good = (c["dbb_gemm_skinny_split"] == skinny
+                and c["dbb_gemm_narrow"] == narrow)
+        ok = ok and good
+        print(f"split: {path}: dbb_gemm_skinny_split "
+              f"{c['dbb_gemm_skinny_split']} of dbb_gemm_skinny (f32 + _i8 "
+              f"+ _w4) {skinny}, dbb_gemm_narrow {c['dbb_gemm_narrow']} of "
+              f"f32-x dbb_gemm {narrow} {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -588,15 +649,17 @@ def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
             args, kw, w_dense, stored = _dbb_planes(torch, randn(k_dim, n),
                                                     plane)
             act = "silu" if n == 8192 else "none"
-            tc_before = LAUNCHES["dbb_gemm_tc"]
+            counter, body = REDESIGN[name.removesuffix(plane)]
+            body_before = LAUNCHES[counter]
             got = fn(x, *args, act=act, **kw)
             want = dbb_gemm_ref(x, *args, act=act, **kw)
             err, ok = _close(torch, got, want, 2e-2)
             if not ok:
                 failures.append(f"{name} M{m} K{k_dim} N{n}: max err {err}")
-            earlier = PLAIN_FMA_MS.get((name, k_dim, n))
-            if earlier and LAUNCHES["dbb_gemm_tc"] != tc_before + 1:
-                failures.append(f"{name} M{m} K{k_dim} N{n}: no tensor-core "
+            earlier = (PLAIN_FMA_MS.get((name, k_dim, n))
+                       or PLAIN_FMA_MS.get((name, m, k_dim, n)))
+            if LAUNCHES[counter] != body_before + 1:
+                failures.append(f"{name} M{m} K{k_dim} N{n}: no {counter} "
                                 "launch")
             ms = _time_ms(torch, lambda: fn(x, *args, act=act, **kw), flush)
             pms = _time_ms(torch, lambda: dbb_gemm_ref(x, *args, act=act,
@@ -612,9 +675,8 @@ def _dbb_entry(torch, randn, flush, failures, name, src, replaces, ms_, fn,
                   f"{pms:.4f} ms, torch.matmul on the dequantized weight "
                   f"{lms:.4f} ms, bound {bms:.4f} ms ({by}; {stored} stored "
                   f"plane bytes)"
-                  + (f"; tensor-core body, plain-FMA body before it "
-                     f"{earlier:.4f} ms ({earlier / ms:.1f}x)" if earlier
-                     else ""))
+                  + (f"; {body} before it [{earlier:.4f} ms] "
+                     f"({earlier / ms:.1f}x)" if earlier else ""))
             worst = max(worst, err)
             for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
                            ("library_ms", lms)):
@@ -652,16 +714,22 @@ def _classifier_row(torch, randn, flush, failures, name):
     from repro_torch.kernels.dbb_gemm.ops import dbb_gemm
     from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
     from repro_torch.kernels.skinny.ops import dbb_gemm_skinny
+    from repro_torch.kernels.common import LAUNCHES
     fn = dbb_gemm if name == "dbb_gemm" else dbb_gemm_skinny
+    counter = ("dbb_gemm_narrow" if name == "dbb_gemm"
+               else "dbb_gemm_skinny_split")
     m, k_dim, n, nnz = CLASSIFIER_M[name], 4096, 10, 2
     p = pack_dbb(randn(k_dim, n) * 0.02, 8, nnz)
     dense = decompress_bitmask(p.values, p.bitmask, block=8)
     x, bias = randn(m, k_dim), randn(n)
+    body_before = LAUNCHES[counter]
     got = fn(x, p.values, p.bitmask, bias, nnz=nnz)
     want = dbb_gemm_ref(x, p.values, p.bitmask, bias)
     err, ok = _close(torch, got, want, 1e-4)
     if not ok:
         failures.append(f"{name} classifier M{m}: max err {err}")
+    if LAUNCHES[counter] != body_before + 1:
+        failures.append(f"{name} classifier M{m}: no {counter} launch")
     ms = _time_ms(torch, lambda: fn(x, p.values, p.bitmask, bias, nnz=nnz),
                   flush)
     pms = _time_ms(torch, lambda: dbb_gemm_ref(x, p.values, p.bitmask, bias),
@@ -671,15 +739,18 @@ def _classifier_row(torch, randn, flush, failures, name):
     live = int((dense != 0).sum().item())
     bms, by = _bound_ms(x.numel() * 4 + stored + n * 4 + m * n * 4,
                         2.0 * m * live, F32_OPS_PER_S)
+    earlier = PLAIN_FMA_MS[(name, "classifier")]
     print(f"kernel {name} M{m} K{k_dim} N{n} f32 x, DBB k{nnz} + bias "
           f"(convnet's classifier): max abs err {err:.3e} (tol 1e-4 rel) "
           f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} "
           f"ms, torch.matmul on the decompressed weight {lms:.4f} ms "
-          f"({ms / lms:.1f}x), bound {bms:.4f} ms ({by})")
+          f"({ms / lms:.1f}x), bound {bms:.4f} ms ({by}); split-K body "
+          f"({counter}), earlier body [{earlier:.4f} ms] "
+          f"({earlier / ms:.1f}x)")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lms,
                 shapes=f"M{m} K{k_dim} N{n} f32 x, DBB k{nnz}, bias "
-                       "(convnet's classifier)")
+                       "(convnet's classifier)", body=counter)
 
 
 # bf16 attention tolerance: the kernels round each tile's unnormalised
@@ -1870,10 +1941,12 @@ def _sample_phase(torch, dev, report, out_dir):
 # (label, arch, matmul, batch, the launches the route table implies)
 CNN_RUNS = (
     ("cnn_a_convnet_dbb_b256", "convnet-dbb", "dbb", 256,
-     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm": 1}),
+     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm": 1,
+      "dbb_gemm_narrow": 1}),
     ("cnn_b_convnet_sta_b256", "convnet-dbb", "sta", 256, {"conv_gemm": 3}),
     ("cnn_c_convnet_dbb_b1", "convnet-dbb", "dbb", 1,
-     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm_skinny": 1}),
+     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm_skinny": 1,
+      "dbb_gemm_skinny_split": 1}),
     # lenet's conv0 (N = 6) and, at batch 256, its K = 784 classifier take
     # the plain routes, as in the reference's cost model
     ("cnn_d_lenet5_dbb_b256", "lenet5-dbb", "dbb", 256, {"conv_gemm": 1}),
@@ -2031,9 +2104,9 @@ def _quant_run(torch, cfg, label, run, plane):
     prefills = eng.serve_stats.get("prefill_calls", 1)
     per_pass = 7 * cfg.num_layers
     big, skinny = counts["dbb_gemm" + plane], counts["dbb_gemm_skinny" + plane]
-    other = {k: v for k, v in counts.items()    # _tc: main()'s _tc_check
-             if k.startswith("dbb") and not k.endswith((plane, "_tc"))
-             and v}
+    other = {k: v for k, v in counts.items()    # the bodies' counts: main()
+             if k.startswith("dbb")
+             and not k.endswith((plane, "_tc", "_split", "_narrow")) and v}
     need = ("sta_gemm_skinny", "paged_decode")
     missing = [k for k in need if counts[k] == 0]
     exact = (big + skinny == per_pass * (prefills + steps)

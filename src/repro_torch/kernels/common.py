@@ -19,8 +19,10 @@ __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
            "gemm_acc"]
 
 # Dispatch cap: decode / serving batches, as the reference's skinny rule.
-# The kernels run M > 8 as ceil(M / 8) row chunks that share each weight
-# slab in L2 (csrc/skinny_tile.cuh, csrc/dbb_gemm_skinny.cu).
+# sta_gemm_skinny (and dbb_gemm_skinny's int8 branch) run M > 8 as
+# ceil(M / 8) row chunks that share each weight slab in L2
+# (csrc/skinny_tile.cuh); dbb_gemm_skinny's float body keeps all M <= 32
+# rows in one block (csrc/dbb_gemm_skinny.cu).
 SKINNY_M_MAX = 32
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
@@ -40,6 +42,10 @@ INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 # (csrc/tc_gemm.cuh): bf16 operands, by each wrapper's ``tc_body`` rule;
 # ``flash_prefill_tc`` and ``flash_prefill_packed_tc`` those of the flash
 # kernels' tensor-core body (csrc/flash_tc.cuh), by attn.ops.tc_body.
+# ``dbb_gemm_narrow`` counts the dbb_gemm launches that ran the narrow
+# split-K body (f32 x, N <= 16, by dbb_gemm.ops.narrow_body) and
+# ``dbb_gemm_skinny_split`` the dbb_gemm_skinny launches that ran the
+# split-K body (float x, by skinny.ops.split_body; csrc/split_k.cuh).
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
                             "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
@@ -52,7 +58,9 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "conv_gemm_s8": 0, "conv_gemm_dbb_s8": 0,
                             "sta_gemm_tc": 0, "dbb_gemm_tc": 0,
                             "flash_prefill_tc": 0,
-                            "flash_prefill_packed_tc": 0}
+                            "flash_prefill_packed_tc": 0,
+                            "dbb_gemm_narrow": 0,
+                            "dbb_gemm_skinny_split": 0}
 
 
 def reset_launches() -> None:

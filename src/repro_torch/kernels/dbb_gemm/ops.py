@@ -12,10 +12,12 @@ takes float x only, as in the reference. On a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs the plain version,
 `dbb_gemm_ref`.
 
-Two bodies (csrc/dbb_gemm.cu), by `tc_body`'s rule on x's dtype alone:
-bf16 x runs on the tensor-core body on every values plane (the planes
-decompressed into shared memory, wgmma on them) and counts as
-``dbb_gemm_tc`` too; f32 x and int8 x run the plain-FMA (IMAD) body.
+Three bodies (csrc/dbb_gemm.cu), by rules that never read M: bf16 x runs
+on the tensor-core body on every values plane (the planes decompressed
+into shared memory, wgmma on them) and counts as ``dbb_gemm_tc`` too
+(`tc_body`); f32 x at N <= 16 (the CNN classifier) runs the narrow
+split-K body and counts as ``dbb_gemm_narrow`` too (`narrow_body`); other
+f32 x and int8 x run the plain-FMA (IMAD) body.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
 from repro_torch.kernels.epilogue import ACT_CODES
 
 __all__ = ["dbb_gemm", "check_dbb_operands", "dbb_launcher",
-           "run_dbb_kernel", "tc_body"]
+           "run_dbb_kernel", "tc_body", "narrow_body"]
 
 
 def tc_body(dtype: torch.dtype) -> bool:
@@ -40,6 +42,14 @@ def tc_body(dtype: torch.dtype) -> bool:
     bf16 (x's rows are copied by TMA, which the DBB operands' K % 8 == 0
     allows). The rule of csrc/dbb_gemm.cu's tc_body; it reads no shape."""
     return dtype == torch.bfloat16
+
+
+def narrow_body(dtype: torch.dtype, n: int) -> bool:
+    """Whether the kernel runs x of this dtype at N output columns on its
+    narrow split-K body: f32 x at N <= 16 (one 16-column tile; K split
+    across a thread-block cluster). The rule of csrc/dbb_gemm.cu's
+    narrow_body; it reads no M."""
+    return dtype == torch.float32 and n <= 16
 
 
 def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
@@ -98,16 +108,19 @@ def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
     return x2, m, k_dim, n, plane, out_dtype
 
 
-def dbb_launcher(name: str, plane: str = "") -> ctypes._CFuncPtr:
+def dbb_launcher(name: str, plane: str = "",
+                 work: bool = False) -> ctypes._CFuncPtr:
     """The C launcher ``<name><plane>_launch`` of a DBB kernel, typed (the
-    w4 launcher also takes the gscale pointer and the group)."""
+    w4 launcher also takes the gscale pointer and the group; ``work``: a
+    workspace pointer follows the output's)."""
     fn = getattr(build.load(name), f"{name}{plane}_launch")
+    ptrs = 7 if work else 6
     if plane == "_w4":
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * (ptrs - 3) + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
     else:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -115,16 +128,19 @@ def dbb_launcher(name: str, plane: str = "") -> ctypes._CFuncPtr:
 
 def run_dbb_kernel(name: str, plane: str, x2, values, bitmask, bias, scale,
                    *, m, k_dim, n, nnz, act, out_dtype, group=0,
-                   gscale=None) -> torch.Tensor:
+                   gscale=None, work: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Launch DBB kernel ``name`` on its ``plane`` branch on the current
     stream; count the launch under ``name + plane``. The float branches
-    take x's dtype code (they store it), the ``_s8`` branch the output's."""
+    take x's dtype code (they store it), the ``_s8`` branch the output's;
+    ``work``, where given, is the launcher's f32 workspace."""
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     head = [x2.data_ptr(), values.data_ptr(), bitmask.data_ptr()]
     if plane == "_w4":
         head += [gscale.data_ptr(), group]
-    rc = dbb_launcher(name, plane)(
-        *head, build.ptr(scale), build.ptr(bias), out.data_ptr(), m, k_dim,
+    tail = [out.data_ptr()] + ([] if work is None else [work.data_ptr()])
+    rc = dbb_launcher(name, plane, work is not None)(
+        *head, build.ptr(scale), build.ptr(bias), *tail, m, k_dim,
         n, nnz, ACT_CODES[act],
         build.dtype_code(out_dtype if plane == "_s8" else x2.dtype),
         build.stream_handle(x2.device))
@@ -155,4 +171,6 @@ def dbb_gemm(x: torch.Tensor, values: torch.Tensor, bitmask: torch.Tensor,
                            out_dtype=out_dtype, group=group, gscale=gscale)
         if tc_body(x.dtype):
             LAUNCHES["dbb_gemm_tc"] += 1
+        elif narrow_body(x.dtype, n):
+            LAUNCHES["dbb_gemm_narrow"] += 1
     return y.reshape(*x.shape[:-1], n)

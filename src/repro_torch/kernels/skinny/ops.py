@@ -5,10 +5,18 @@ planes (f32, int8 or w4 values), `sta_gemm_skinny`
 kernel's int8 branch (``_s8``: INT8 × INT8 → INT32; int32 output by
 default, f32 with a scale, or int8 requantized), the DBB one on the INT8
 values plane. On a CUDA tensor each launches its kernel (or raises); on a
-CPU tensor it runs the plain version."""
+CPU tensor it runs the plain version.
+
+`dbb_gemm_skinny` has two bodies (csrc/dbb_gemm_skinny.cu), by
+`split_body`'s rule on x's dtype alone: float x runs the split-K body (all
+M <= 32 rows in one block, K split across blocks whose partial sums a
+second pass adds in a fixed order from a workspace this wrapper allocates,
+the planes streamed through a cp.async ring; bf16 x on mma.sync) and
+counts as ``dbb_gemm_skinny_split`` too; int8 x runs the row-chunk body."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -21,13 +29,31 @@ from repro_torch.kernels.dbb_gemm.ops import check_dbb_operands, run_dbb_kernel
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.skinny.ref import dbb_gemm_ref, sta_gemm_ref
 
-__all__ = ["dbb_gemm_skinny", "sta_gemm_skinny"]
+__all__ = ["dbb_gemm_skinny", "sta_gemm_skinny", "split_body"]
 
 
 def _check_m(m: int) -> None:
     if not 1 <= m <= SKINNY_M_MAX:
         raise ValueError(f"M={m} outside the skinny regime [1, "
                          f"{SKINNY_M_MAX}]")
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(k_dim: int, n: int) -> int:
+    """The split-K body's K slices at (K, N) (csrc/dbb_gemm_skinny.cu's
+    splits, a pure function of K and N, asked once per shape): its
+    workspace holds that many [M, N] f32 partial sums."""
+    fn = build.load("dbb_gemm_skinny").dbb_gemm_skinny_splits
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(k_dim, n)
+
+
+def split_body(dtype: torch.dtype) -> bool:
+    """Whether dbb_gemm_skinny runs x of this dtype on its split-K body:
+    f32 and bf16. The rule of csrc/dbb_gemm_skinny.cu's split_body; it
+    reads no shape."""
+    return dtype in (torch.float32, torch.bfloat16)
 
 
 def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
@@ -51,10 +77,15 @@ def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
                          block=block, bits=bits, group=group, gscale=gscale,
                          out_dtype=out_dtype)
     else:
+        split = split_body(x.dtype)
+        work = (torch.empty((_splits(k_dim, n), m, n), dtype=torch.float32,
+                            device=x.device) if split else None)
         y = run_dbb_kernel("dbb_gemm_skinny", plane, x2, values, bitmask,
                            bias, scale, m=m, k_dim=k_dim, n=n, nnz=nnz,
                            act=act, out_dtype=out_dtype, group=group,
-                           gscale=gscale)
+                           gscale=gscale, work=work)
+        if split:
+            LAUNCHES["dbb_gemm_skinny_split"] += 1
     return y.reshape(*x.shape[:-1], n)
 
 

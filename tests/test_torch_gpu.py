@@ -39,7 +39,12 @@ attention tolerance against the plain versions at T and S of 1 to 1000,
 ragged starts, offsets, whole tiles masked, views at 16-byte offsets;
 every output finite; a row's output bit for bit the same at any T or
 place in its tile; a ``_tc`` launch counted for each bf16 D 64 / 128
-call and for no other.
+call and for no other. The split-K bodies (dbb_gemm_skinny's float
+branches, dbb_gemm's f32 x at N <= 16): the GEMM tolerances above against
+the plain versions on every plane and M bucket, ragged K slices and both
+copy paths (TMA boxes, cp.async); every output finite; a row bit for bit
+the same at any M <= 32 or place in the batch; two calls bit-equal; a
+``_split`` / ``_narrow`` launch counted by the launchers' own rules.
 """
 import numpy as np
 import pytest
@@ -1286,3 +1291,197 @@ def test_gpu_dbb_tensor_core_body_equals_sta_gemm_on_the_dense_weight(
     want = sta_gemm(x, dense.to(BF), scale=args[3] if plane == "_i8"
                     else None)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The split-K bodies (csrc/split_k.cuh): dbb_gemm's narrow body (f32 x, N <=
+# 16) and dbb_gemm_skinny's float body (all M <= 32 rows in one block, K
+# split across a thread-block cluster, the planes through a cp.async ring)
+# ---------------------------------------------------------------------------
+
+def _split_plane(cuda, w, plane, nnz, group):
+    """(positional DBB operands after x, keyword operands) of ``w [K, N]``
+    in one values format: f32, INT8 values (scale in the epilogue) or w4
+    (groups of ``group``)."""
+    from repro_torch.core.quant import quantize_weight
+    if plane == "_w4":
+        p = pack_dbb(w, 8, nnz, bits=4, group=group)
+        return (p.values, p.bitmask, None, None), dict(
+            nnz=nnz, bits=4, group=group, gscale=p.scale)
+    if plane == "_i8":
+        qw = quantize_weight(w)
+        p = pack_dbb(qw.q, 8, nnz)
+        return (p.values, p.bitmask, None, qw.scale), dict(nnz=nnz)
+    p = pack_dbb(w, 8, nnz)
+    return (p.values, p.bitmask, None, None), dict(nnz=nnz)
+
+
+def _split_case(cuda, dtype, plane, m, k, n, nnz, group, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    args, kw = _split_plane(cuda, torch.randn(k, n, generator=g,
+                                              device=cuda), plane, nnz, group)
+    args = (args[0], args[1], torch.randn(n, generator=g, device=cuda),
+            args[3])
+    return x, args, kw
+
+
+def _ref(x, args, kw, act):
+    return dbb_gemm_ref(x, *args, act=act,
+                        **{k_: v for k_, v in kw.items() if k_ != "nnz"})
+
+
+# (K, N, nnz, w4 group): K 784 / 1048 / 264 split raggedly (a short last
+# slice; at 1048 slices past K are empty), N 10 and 3 leave most of the
+# 16- or 64-column tile masked; in the skinny body N 10 takes the 4-byte
+# and byte cp.async copies of the planes, N 136 TMA boxes for the f32
+# plane and 4-byte copies for the int8 and w4 ones, N 192 TMA boxes for
+# all; K 4096 N 10 k 2 is convnet's classifier
+NARROW_SHAPES = [(4096, 10, 2, 128), (784, 16, 3, 8), (1048, 3, 4, 8),
+                 (64, 10, 1, 8), (4608, 7, 4, 128)]
+SPLIT_SHAPES = [(264, 10, 3, 8), (1048, 136, 3, 8), (4096, 10, 2, 128),
+                (2048, 192, 4, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("m", [1, 5, 256, 300])
+@pytest.mark.parametrize("k,n,nnz,group", NARROW_SHAPES)
+def test_gpu_dbb_gemm_narrow_body(cuda, plane, m, k, n, nnz, group):
+    """f32 x at N <= 16 on the narrow split-K body, every values plane,
+    ragged row tiles and K slices: the plain version's f32 tolerance, one
+    ``dbb_gemm_narrow`` launch."""
+    from repro_torch.kernels.dbb_gemm.ops import narrow_body
+    assert narrow_body(torch.float32, n)
+    if plane == "_w4" and (k // 8 * nnz) % 2:
+        nnz += 1
+    x, args, kw = _split_case(cuda, torch.float32, plane, m, k, n, nnz,
+                              group, m + k + n)
+    before = dict(LAUNCHES)
+    got = dbb_gemm(x, *args, act="relu", **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm" + plane] == before["dbb_gemm" + plane] + 1
+    assert LAUNCHES["dbb_gemm_narrow"] == before["dbb_gemm_narrow"] + 1
+    assert LAUNCHES["dbb_gemm_tc"] == before["dbb_gemm_tc"]
+    _gpu_close(got, _ref(x, args, kw, "relu"), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+def test_gpu_dbb_gemm_narrow_bits(cuda, plane):
+    """Two calls give equal bits (no atomics), and a row's bits do not
+    depend on M or its place in the 4-row tile (convnet's classifier
+    shape, K in 8 slices)."""
+    x, args, kw = _split_case(cuda, torch.float32, plane, 256, 4096, 10, 2,
+                              128, 7)
+    full = dbb_gemm(x, *args, **kw)
+    assert torch.equal(full, dbb_gemm(x, *args, **kw))
+    for r0, m in ((0, 1), (3, 2), (5, 7), (100, 33), (255, 1)):
+        sub = dbb_gemm(x[r0:r0 + m].contiguous(), *args, **kw)
+        assert torch.equal(full[r0:r0 + m], sub), (r0, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 24, 32])
+@pytest.mark.parametrize("k,n,nnz,group", SPLIT_SHAPES)
+def test_gpu_dbb_gemm_skinny_split_body(cuda, dtype, plane, m, k, n, nnz,
+                                        group):
+    """Float x on the split-K body, every values plane, every skinny M
+    bucket, ragged K slices and column tiles: the GEMM tolerances, one
+    ``dbb_gemm_skinny_split`` launch."""
+    if plane == "_w4" and (k // 8 * nnz) % 2:
+        nnz += 1
+    x, args, kw = _split_case(cuda, dtype, plane, m, k, n, nnz, group,
+                              m * 7 + k + n)
+    before = dict(LAUNCHES)
+    got = dbb_gemm_skinny(x, *args, act="silu", **kw)
+    torch.cuda.synchronize()
+    name = "dbb_gemm_skinny" + plane
+    assert LAUNCHES[name] == before[name] + 1
+    assert (LAUNCHES["dbb_gemm_skinny_split"]
+            == before["dbb_gemm_skinny_split"] + 1)
+    assert torch.isfinite(got).all()
+    _gpu_close(got, _ref(x, args, kw, "silu"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("k,n,nnz,group", [(1048, 136, 3, 8),
+                                           (2048, 192, 4, 128)])
+def test_gpu_skinny_split_row_is_the_same_bits_in_any_batch(
+        cuda, dtype, plane, k, n, nnz, group):
+    """A row's bits do not depend on M <= 32 or its place in the batch
+    (the K order is (K, N, nnz)'s alone), and two calls give equal
+    bits."""
+    if plane == "_w4" and (k // 8 * nnz) % 2:
+        nnz += 1
+    x, args, kw = _split_case(cuda, dtype, plane, 32, k, n, nnz, group, 3)
+    full = dbb_gemm_skinny(x, *args, act="gelu", **kw)
+    assert torch.equal(full, dbb_gemm_skinny(x, *args, act="gelu", **kw))
+    for r0, m in ((0, 1), (0, 8), (5, 2), (9, 15), (31, 1), (8, 24)):
+        sub = dbb_gemm_skinny(x[r0:r0 + m].contiguous(), *args, act="gelu",
+                              **kw)
+        assert torch.equal(full[r0:r0 + m], sub), (r0, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["", "_i8", "_w4"])
+@pytest.mark.parametrize("nnz", [5, 8])
+def test_gpu_skinny_split_body_dense_blocks(cuda, plane, nnz):
+    """nnz 5 and 8 (the values ring's largest stages; at 5 the w4 slots of
+    a block straddle bytes) at M 32, f32 and bf16 x."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, args, kw = _split_case(cuda, dtype, plane, 32, 1024, 200, nnz,
+                                  64, nnz)
+        got = dbb_gemm_skinny(x, *args, **kw)
+        _gpu_close(got, _ref(x, args, kw, "none"), dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_split_counts_follow_the_kernels_own_rules(cuda):
+    """The wrappers' narrow_body and split_body mirror the launchers'
+    rules (the libraries' exported dbb_gemm_narrow_body /
+    dbb_gemm_skinny_split_body) on every dtype and a grid of N; an f32
+    dbb_gemm at N 17 and a bf16 one at N 10 leave the narrow count alone,
+    an int8 dbb_gemm_skinny the split count."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dbb_gemm.ops import narrow_body
+    from repro_torch.kernels.skinny.ops import split_body
+    nq = build.load("dbb_gemm").dbb_gemm_narrow_body
+    nq.argtypes = [ctypes.c_int] * 2
+    sq = build.load("dbb_gemm_skinny").dbb_gemm_skinny_split_body
+    sq.argtypes = [ctypes.c_int]
+    for dt in (torch.float32, BF, torch.int8):
+        code = build.dtype_code(dt)
+        assert bool(sq(code)) == split_body(dt) == (dt != torch.int8)
+        for n in (1, 3, 10, 15, 16, 17, 64, 2048):
+            assert bool(nq(code, n)) == narrow_body(dt, n), (dt, n)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for dt, n, want in ((torch.float32, 10, {"dbb_gemm": 1,
+                                             "dbb_gemm_narrow": 1}),
+                        (torch.float32, 17, {"dbb_gemm": 1}),
+                        (BF, 10, {"dbb_gemm": 1, "dbb_gemm_tc": 1})):
+        x = torch.randn(40, 256, generator=g, device=cuda).to(dt)
+        p = pack_dbb(torch.randn(256, n, generator=g, device=cuda), 8, 4)
+        before = dict(LAUNCHES)
+        dbb_gemm(x, p.values, p.bitmask)
+        torch.cuda.synchronize()
+        moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k]}
+        assert moved == want, (dt, n, moved)
+    x = torch.randint(-127, 128, (8, 256), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (256, 64), generator=g, device=cuda,
+                      dtype=torch.int8)
+    p = pack_dbb(w, 8, 4)
+    before = dict(LAUNCHES)
+    dbb_gemm_skinny(x, p.values, p.bitmask)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+             if LAUNCHES[k] != before[k]}
+    assert moved == {"dbb_gemm_skinny_s8": 1}
