@@ -20,7 +20,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             after act none / relu, f32 within rtol 1e-6 and int8 off by at
             most 1 on at most 0.1% after silu (the count printed); the
             library time is torch._int_mm where its shape rules admit the
-            operands, else "—" with the reason. The bf16 branches of
+            operands, else "—" with the reason. The M512 calls of
+            sta_gemm_s8 and dbb_gemm_s8 run on the int8 tensor-core body
+            (csrc/tc_gemm_s8.cuh): each line also prints bf16
+            torch.matmul at the same shape, the int32 output's time and
+            the IMAD body's earlier time in brackets, and must count a
+            ``_s8_tc`` launch per call. The bf16 branches of
             sta_gemm and dbb_gemm (all three planes) run on the tensor-core
             body: each of their M512 lines also prints the time of the
             plain-FMA body it replaced (PERF.md's kernel table before the
@@ -122,7 +127,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             route's; (c) all-127 operands through every int8 branch at K
             1179-1224 equal the exact integer; (d) every run's launch counts
             exactly those the route table implies (one ``_s8`` counter per
-            run, no float branch moving).
+            run, no float branch moving); every M512 sta_gemm_s8 /
+            dbb_gemm_s8 launch ran the int8 tensor-core body:
+            ``sta_gemm_s8_tc`` / ``dbb_gemm_s8_tc`` equal the branch's
+            count (``s8 tc:`` lines; convnet's N 10 classifier stays on
+            the IMAD body).
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
 main paths of phases 4-6, 8 and 9 must have run the tensor-core body:
@@ -220,6 +229,16 @@ PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
                 ("dbb_gemm_skinny_w4", 24, 8192, 2048): 0.1556,
                 ("dbb_gemm", "classifier"): 0.6516,
                 ("dbb_gemm_skinny", "classifier"): 0.0239}
+# per-call ms of the IMAD body that the int8 tensor-core body replaced at
+# the M512 layer GEMMs (f32 epilogue; PERF.md's kernel table before the
+# redesign, H100 80GB HBM3, 700 W), keyed by (branch, K, N); printed beside
+# this run's times, never in the record
+IMAD_S8_MS = {("sta_gemm_s8", 2048, 2048): 0.4690,
+              ("sta_gemm_s8", 2048, 8192): 0.7267,
+              ("sta_gemm_s8", 8192, 2048): 1.8409,
+              ("dbb_gemm_s8", 2048, 2048): 0.4439,
+              ("dbb_gemm_s8", 2048, 8192): 0.7209,
+              ("dbb_gemm_s8", 8192, 2048): 1.7399}
 # the launch counter of the redesigned body each DBB kernel's float calls
 # in the kernel phase must take, and its name beside the earlier body's
 REDESIGN = {"dbb_gemm": ("dbb_gemm_tc", "tensor-core body, plain-FMA body"),
@@ -1084,6 +1103,7 @@ def _s8_kernels(torch, dev, flush, failures):
     and the bound: max(bytes ÷ 3.35 TB/s, operations ÷ 1979 TOP/s)."""
     from repro_torch.core.dbb import decompress_bitmask, pack_dbb
     from repro_torch.core.quant import act_scale, quantize_weight
+    from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.conv_gemm import (conv_gemm, conv_gemm_dbb,
                                                conv_gemm_dbb_ref,
                                                conv_gemm_ref)
@@ -1094,9 +1114,12 @@ def _s8_kernels(torch, dev, flush, failures):
     gen = torch.Generator(device=dev).manual_seed(16)
     entries = []
 
-    def case(name, label, run, plain, epis, lib, nbytes, ops):
-        """Check every epilogue, time the f32 one; returns the timings."""
+    def case(name, label, run, plain, epis, lib, nbytes, ops, tc=None):
+        """Check every epilogue, time the f32 one; returns the timings.
+        ``tc``: (the body's launch counter, the IMAD body's earlier ms,
+        bf16 torch.matmul at the shape) for the int8 tensor-core body."""
         worst, offs, good = 0.0, [], True
+        before = LAUNCHES[tc[0]] if tc else 0
         for tag, kw, act in epis:
             got, want = run(act, **kw), plain(act, **kw)
             err, off, ok = _s8_check(torch, got, want, act)
@@ -1106,18 +1129,29 @@ def _s8_kernels(torch, dev, flush, failures):
                            ("none", "relu") and tag != "f32" else ""))
             if not ok:
                 failures.append(f"{name} {label} {tag} {act}: max err {err}")
+        if tc and LAUNCHES[tc[0]] != before + len(epis):
+            failures.append(f"{name} {label}: {LAUNCHES[tc[0]] - before} "
+                            f"{tc[0]} launches of {len(epis)}")
         _, kw, act = epis[1]
         ms = _time_ms(torch, lambda: run(act, **kw), flush)
         pms = _time_ms(torch, lambda: plain(act, **kw), flush)
         lms, why = lib() if lib else (None, "F.conv2d has no int8 path on "
                                       "CUDA")
         bms, by = _bound_ms(nbytes, ops, INT8_OPS_PER_S)
+        extra = ""
+        if tc:
+            tag, kw0, act0 = epis[0]
+            raw = _time_ms(torch, lambda: run(act0, **kw0), flush)
+            mm = _time_ms(torch, tc[2], flush)
+            extra = (f", bf16 torch.matmul {mm:.4f} ms; {tag} output "
+                     f"{raw:.4f} ms; int8 tensor-core body, IMAD body "
+                     f"before it [{tc[1]:.4f} ms] ({tc[1] / ms:.1f}x)")
         print(f"kernel {name} {label}: {'; '.join(offs)} "
               f"{'ok' if good else 'FAIL'}"
               f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
               + (f"(torch._int_mm) {lms:.4f} ms" if lms is not None
                  else f"— ({why})")
-              + f", bound {bms:.4f} ms ({by})")
+              + f", bound {bms:.4f} ms ({by})" + extra)
         return dict(err=worst, ms=ms, plain_ms=pms, library_ms=lms,
                     bound_ms=bms, nbytes=nbytes, ops=ops)
 
@@ -1191,9 +1225,14 @@ def _s8_kernels(torch, dev, flush, failures):
                 ys = act_scale(plain(act, bias=bias, scale=xs * qw.scale))
                 epis = _s8_epilogues(torch, xs, qw.scale, bias, act, ys)
                 nbytes = x.numel() + stored + 8 * n + 4 * m * n
+                tc = None
+                if (name, k_dim, n) in IMAD_S8_MS:
+                    xb, wb = x.bfloat16(), wd.bfloat16()
+                    tc = (name + "_tc", IMAD_S8_MS[name, k_dim, n],
+                          lambda _x=xb, _w=wb: torch.matmul(_x, _w))
                 c = case(name, f"M{m} K{k_dim} N{n}", run, plain, epis,
                          lambda _x=x, _w=wd: _int_mm_ms(torch, _x, _w, flush),
-                         nbytes, ops)
+                         nbytes, ops, tc)
                 cases.append(dict(c, calls=calls))
             per_m[m] = cases
         entries.append(entry(
@@ -2331,6 +2370,43 @@ def _expect(launches, want):
     return {k: v for k, v in launches.items() if v} == want
 
 
+def _s8_tc_taken(branch, k_dim, n) -> bool:
+    """Whether an int8 branch runs (K, N) on the int8 tensor-core body: the
+    M-tiled two, by their wrappers' rules."""
+    from repro_torch.kernels.dbb_gemm.ops import s8_tc_body as dbb_rule
+    from repro_torch.kernels.sta_gemm.ops import s8_tc_body as sta_rule
+    return ((branch == "sta_gemm_s8" and sta_rule(k_dim, n))
+            or (branch == "dbb_gemm_s8" and dbb_rule(k_dim, n)))
+
+
+def _with_s8_tc(want, k_dim, n):
+    """``want`` plus the ``_s8_tc`` count of each branch in it that runs
+    (K, N) on the int8 tensor-core body."""
+    out = dict(want)
+    for name in want:
+        if _s8_tc_taken(name, k_dim, n):
+            out[name + "_tc"] = want[name]
+    return out
+
+
+def _s8_tc_check(counts) -> bool:
+    """Every M512 sta_gemm_s8 / dbb_gemm_s8 launch of the olmo-1b int8 runs
+    ran the int8 tensor-core body: the ``_s8_tc`` counts equal the
+    branches' counts."""
+    ok = True
+    for path, c in counts.items():
+        if not path.endswith("_m512"):
+            continue
+        good = all(c[f"{b}_tc"] == c[b] for b in ("sta_gemm_s8",
+                                                  "dbb_gemm_s8"))
+        ok = ok and good
+        print(f"s8 tc: {path}: sta_gemm_s8_tc {c['sta_gemm_s8_tc']} of "
+              f"sta_gemm_s8 {c['sta_gemm_s8']}, dbb_gemm_s8_tc "
+              f"{c['dbb_gemm_s8_tc']} of dbb_gemm_s8 {c['dbb_gemm_s8']} "
+              f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
 def _int8_olmo(torch, dev, report, counts):
     """(a) olmo-1b's layer GEMMs (16 layers x 7) on the seed-0 projected
     weights through ``dispatch.matmul`` with int8 activations, at M8 and
@@ -2409,6 +2485,9 @@ def _int8_olmo(torch, dev, report, counts):
                       ("dbb", 8): "dbb_gemm_skinny_s8",
                       ("dbb", 512): "dbb_gemm_s8"}[kind, m]
             want = {branch: 3 * len(weights)}
+            tc = 3 * sum(_s8_tc_taken(branch, w[3], w[4]) for w in weights)
+            if tc:
+                want[branch + "_tc"] = tc
             launch_ok = _expect(counts[path], want)
             ok = ok and launch_ok and not bad
             print(f"int8: (a) olmo-1b full width, {kind} INT8 weights, "
@@ -2484,7 +2563,9 @@ def _int8_cnn(torch, dev, report, counts):
         wall = (time.perf_counter() - t0) * 1e3
         path = f"int8_cnn_b{batch}"
         counts[path] = dict(LAUNCHES)
-        want = {"conv_gemm_s8": 1, "conv_gemm_dbb_s8": 2, fc: 1}
+        want = _with_s8_tc({"conv_gemm_s8": 1, "conv_gemm_dbb_s8": 2,
+                            fc: 1}, params["fc"]["w"].k_dim,
+                           cfg.cnn_classes)
         launch_ok = _expect(counts[path], want)
         plain = _int8_cnn_forward(torch, params, cfg, images, False)
         same = bool(torch.equal(logits, plain))
@@ -2523,6 +2604,8 @@ def _int8_exact(torch, dev, report):
     p1224 = pack_dbb(full(1224, 64), 8, 8)
     runs = {"sta_gemm_s8": (1179, lambda: sta_gemm(full(512, 1179),
                                                    full(1179, 256))),
+            "sta_gemm_s8_tc": (1184, lambda: sta_gemm(full(512, 1184),
+                                                      full(1184, 256))),
             "sta_gemm_skinny_s8": (1184, lambda: sta_gemm_skinny(
                 full(8, 1184), full(1184, 256))),
             "dbb_gemm_s8": (1184, lambda: dbb_gemm(
@@ -2542,11 +2625,14 @@ def _int8_exact(torch, dev, report):
         torch.cuda.synchronize()
         exact = (y.dtype == torch.int32
                  and bool((y == k * 127 * 127).all()))
-        launched = _expect(dict(LAUNCHES), {name: 1})
+        branch = name.removesuffix("_tc")
+        launched = _expect(dict(LAUNCHES),
+                           _with_s8_tc({branch: 1}, k, y.shape[-1]))
         res[name] = exact and launched
         ok = ok and res[name]
     print(f"int8: (c) all-127 operands, the int32 sum K·127² exactly (K "
-          f"1179-1224, past 2^24) and one launch each: "
+          f"1179-1224, past 2^24; sta_gemm_s8 at K 1179 on the IMAD body "
+          f"and 1184 on the tensor-core one) and one launch each: "
           + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in res.items()))
     report["int8"]["exact"] = res
     return ok
@@ -2555,12 +2641,14 @@ def _int8_exact(torch, dev, report):
 def _int8_phase(torch, dev, report):
     """Phase 11: (a) olmo-1b's layer GEMMs, (b) convnet's INT8 chain, (c)
     the exactness case; (d) every run's launch counts exactly what the
-    route table implies, no float branch moving."""
+    route table implies, no float branch moving, and every M512 M-tiled
+    int8 launch on the int8 tensor-core body."""
     report["int8"] = {}
     counts = {}
     ok = _int8_olmo(torch, dev, report, counts)
     ok = _int8_cnn(torch, dev, report, counts) and ok
     ok = _int8_exact(torch, dev, report) and ok
+    ok = _s8_tc_check(counts) and ok
     return counts, ok
 
 

@@ -16,8 +16,9 @@ flash_prefill and flash_prefill_packed in f32 at D 128 and in bf16 at D
 72 (the plain-FMA body's calls), two shapes each, and convnet's classifier
 (f32 x, K4096 N10, DBB k2, bias) on each values plane through dbb_gemm at
 B256 (the narrow split-K body) and dbb_gemm_skinny at B1 and B7; and the
-int8-activation branches of dbb_gemm and dbb_gemm_skinny (M8, M24, M300;
-int32, f32 after scale + bias + gelu, int8 requantized after relu).
+int8-activation branches of dbb_gemm and dbb_gemm_skinny (M8, M24, M300)
+and of sta_gemm (M300, M512; K1024 N1008), each with int32, f32 after
+scale + bias + gelu and int8 requantized after relu.
 
 ``--compare`` holds every output of A bit-equal to B's, except those whose
 key starts with one of the PREFIXes: a redesign names the outputs it may
@@ -30,6 +31,13 @@ compared with
 
 (the M8 f32 dbb_gemm calls have N 1000, off the narrow body); every other
 output, the int8-activation branches' included, stays bit-equal.
+
+The int8 tensor-core body of sta_gemm's and dbb_gemm's int8 branches
+(s8 wgmma: dbb_gemm_s8 at M300 and sta_gemm_s8 at M300 / M512 run on it)
+may change no output: integer sums are exact in any order and the
+epilogue is the IMAD body's, so it is compared with an empty list,
+
+    --compare A.pt B.pt
 """
 import sys
 
@@ -140,6 +148,17 @@ def run(tree: str, out_path: str) -> None:
                                      act="gelu", nnz=3)
         out[f"{name} M{m} i8"] = fn(xm, pi.values, pi.bitmask, None, ws,
                                     act="relu", nnz=3, out_dtype=torch.int8)
+    xd = torch.randint(-127, 128, (512, 1024), generator=g, device=dev,
+                       dtype=torch.int8)
+    wd = torch.randint(-127, 128, (1024, 1008), generator=g, device=dev,
+                       dtype=torch.int8)
+    bd, sd = rn(1008), torch.rand(1008, generator=g, device=dev) * 1e-3
+    for m in (300, 512):
+        xm = xd[:m].contiguous()
+        out[f"sta_gemm_s8 M{m} i32"] = sta_gemm(xm, wd)
+        out[f"sta_gemm_s8 M{m} f32"] = sta_gemm(xm, wd, bd, sd, act="gelu")
+        out[f"sta_gemm_s8 M{m} i8"] = sta_gemm(xm, wd, None, sd, act="relu",
+                                              out_dtype=torch.int8)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, out_path)
     print(f"{tree}: {len(out)} outputs saved to {out_path}")

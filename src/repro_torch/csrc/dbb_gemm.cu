@@ -19,9 +19,10 @@
 // planes per dense weight, far above the card's ~295 operations per byte,
 // so it is bound by arithmetic, which only the tensor cores reach.
 //
-// Three bodies, chosen by the activation dtype and N, never by M or K
-// (dbb_gemm_tc_body and dbb_gemm_narrow_body export the rules; the
-// wrapper's tc_body and narrow_body mirror them):
+// Four bodies, chosen by the activation dtype, K and N, never by M
+// (dbb_gemm_tc_body, dbb_gemm_narrow_body and dbb_gemm_s8_tc_body export
+// the rules; the wrapper's tc_body, narrow_body and s8_tc_body mirror
+// them):
 //   - bf16 x (K % 8 == 0, which every DBB operand has, is all TMA needs of
 //     x's rows) runs on the tensor-core body (tc_gemm.cuh) on all three
 //     value planes: x's tiles come by TMA, producer warps decompress the
@@ -48,7 +49,17 @@
 //     ~17x its byte bound: a block's latency chain (plane loads,
 //     decompression, the reductions, two cluster barriers) sets the time,
 //     one block an SM at its 120-148 registers;
-//   - other f32 x and the int8 branch run the plain body below: one
+//   - int8 x with K and N multiples of 16 (x's rows and the planes' rows
+//     16-byte multiples, which TMA copies) runs on the int8 tensor-core
+//     body (tc_gemm_s8.cuh): the paper's INT8 x INT8 -> INT32 operator,
+//     which the IMAD body below left 5-6x behind torch._int_mm at M512
+//     (bound by operations against the 1979 TOP/s INT8 rate, which only
+//     the tensor cores reach). A worker warpgroup decompresses each
+//     stage's TMA'd plane boxes by bitmask rank into a K-major int8 B tile
+//     (s8 wgmma takes no other layout) by byte permutes, exact, and wgmma
+//     sums in int32: every output equals the IMAD body's. convnet's INT8
+//     classifier (N 10: 10-byte plane rows) stays on the IMAD body;
+//   - other f32 x and the other int8 x run the plain body below: one
 //     256-thread block owns a 128 x 128 output tile and loops over K in
 //     steps of 16 (two DBB blocks). Each step every thread loads one (DBB
 //     block, column) pair's slots through the plane's loader (the w4
@@ -65,6 +76,7 @@
 #include "common.cuh"
 #include "split_k.cuh"
 #include "tc_gemm.cuh"
+#include "tc_gemm_s8.cuh"
 
 namespace {
 
@@ -338,6 +350,9 @@ bool narrow_body(int dtype, int N) {
   return dtype == repro::DT_F32 && N <= 16;
 }
 
+// the int8-activation launcher's rule (int8 x only reaches it)
+bool s8_tc_body(int K, int N) { return K % 16 == 0 && N % 16 == 0; }
+
 // float x: out in x's dtype (dtype)
 template <typename Plane>
 int launch(const void* x, const Plane plane, const void* bitmask,
@@ -369,6 +384,11 @@ extern "C" int dbb_gemm_tc_body(int dtype) {
 // 1 where the float launchers run the narrow split-K body (x dtype, N)
 extern "C" int dbb_gemm_narrow_body(int dtype, int N) {
   return narrow_body(dtype, N) ? 1 : 0;
+}
+
+// 1 where dbb_gemm_s8_launch runs the int8 tensor-core body for this K, N
+extern "C" int dbb_gemm_s8_tc_body(int K, int N) {
+  return s8_tc_body(K, N) ? 1 : 0;
 }
 
 extern "C" int dbb_gemm_launch(const void* x, const void* values,
@@ -411,8 +431,15 @@ extern "C" int dbb_gemm_s8_launch(const void* x, const void* values,
   if (!dims_ok(K, nnz)) return (int)cudaErrorInvalidValue;
   const repro::I8Plane plane{static_cast<const int8_t*>(values)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return repro::with_s8_out(out_dtype, [&](auto o) {
-    launch_t<int8_t, decltype(o)>(x, plane, bitmask, scale, bias, out, M, K,
-                                  N, nnz, act, s);
+  int rc = 0;
+  const int last = repro::with_s8_out(out_dtype, [&](auto o) {
+    using TO = decltype(o);
+    if (s8_tc_body(K, N))
+      rc = repro::tc8::launch_dbb<TO>(x, values, bitmask, nnz, scale, bias,
+                                      out, M, K, N, act, s);
+    else
+      launch_t<int8_t, TO>(x, plane, bitmask, scale, bias, out, M, K, N, nnz,
+                           act, s);
   });
+  return rc != 0 ? rc : last;
 }

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core bodies
-// (tc_gemm.cuh: the bf16 M-tiled GEMMs; flash_tc.cuh: the bf16 flash
-// prefills): PTX wrappers for mbarriers, TMA tensor copies and wgmma, and
-// the host-side encoder of the TMA tensor maps.
+// (tc_gemm.cuh: the bf16 M-tiled GEMMs; tc_gemm_s8.cuh: their int8
+// branches; flash_tc.cuh: the bf16 flash prefills; split_k.cuh): PTX
+// wrappers for mbarriers, TMA tensor copies and wgmma (bf16 and s8), and
+// the host-side encoders of the TMA tensor maps.
 //
-// Shared-memory tiles are 128-byte swizzled: a box row of 64 bf16 values
-// is one 128-byte swizzle row, and 8-row groups sit 1024 bytes apart, so
-// every tile starts on a 1024-byte boundary. The descriptors below name
-// that layout (layout type 1, B128).
+// Shared-memory tiles are 128-byte swizzled: a box row of 64 bf16 (or 128
+// int8) values is one 128-byte swizzle row, and 8-row groups sit 1024
+// bytes apart, so every tile starts on a 1024-byte boundary. The
+// descriptors below name that layout (layout type 1, B128).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -142,6 +143,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // keep a register A fragment alive (its registers unreused) until the
 // wgmma that reads it has been waited for
 __device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
@@ -229,6 +236,31 @@ __device__ __forceinline__ void wgmma_rs_m64k16_tb<128>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 64] += A[64 x 32] . B[32 x 64] on int8 operands with int32
+// accumulators, both from shared memory and both K-major (an 8-bit wgmma
+// has no transpose: the descriptor's transpose bit exists for 16-bit types
+// only). No .satfinite: the sum wraps as an int32 multiply-add does. The
+// accumulator fragment is the f32 one's (d[4 j .. 4 j + 3]: rows lane / 4
+// (+ 8) of the warp's 16, columns 8 j + 2 (lane % 4) (+ 1)).
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // two f32 values rounded to bf16 (nearest even), a in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -295,6 +327,27 @@ inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols};
   return make_map(map, base, 2, dims, strides, box_rows);
+}
+
+// A row-major 2-D tensor [rows, cols] of esz-byte elements (`type`) cut
+// into TMA boxes of box_rows x box_cols, unswizzled or 128-byte swizzled;
+// elements out of bounds read as zero. The row stride (cols * esz) and the
+// base must be 16-byte multiples.
+inline bool make_map_2d(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType type, int esz, int rows, int cols,
+                        int box_rows, int box_cols, bool swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || rows <= 0 || cols <= 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, stride, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -175,26 +175,7 @@ cudaError_t launch(void (*kernel)(Exp...), int gx, int S, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
 }
 
-// A row-major 2-D tensor [rows, cols] of esz-byte elements (`type`) cut
-// into TMA boxes of box_rows x box_cols, unswizzled or 128-byte swizzled;
-// elements out of bounds read as zero. The row stride (cols * esz) and the
-// base must be 16-byte multiples.
-inline bool make_map_2d(CUtensorMap* map, const void* base,
-                        CUtensorMapDataType type, int esz, int rows, int cols,
-                        int box_rows, int box_cols, bool swizzle) {
-  const sm90::EncodeTiledFn encode = sm90::encode_tiled();
-  if (encode == nullptr || rows <= 0 || cols <= 0) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)cols * esz};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, stride, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using sm90::make_map_2d;  // the TMA boxes of the planes and x
 
 }  // namespace splitk
 }  // namespace repro

@@ -13,21 +13,32 @@
 // byte, far above the card's ~295 bf16 operations per byte: bound by
 // arithmetic, which only the tensor cores reach.
 //
-// Two bodies, chosen by a rule on (dtype, K, N) alone, never on M:
+// Three bodies, chosen by rules on (dtype, K, N) alone, never on M:
 //   - bf16 operands with K and N multiples of 8 (the 16-byte row strides
 //     TMA needs for x and w) run on the tensor-core body
 //     (tc_gemm.cuh: TMA-fed stages, wgmma with f32 accumulators);
+//   - int8 operands with K and N multiples of 16 (the same 16-byte row
+//     strides in int8) run on the int8 tensor-core body (tc_gemm_s8.cuh);
 //   - everything else — f32 operands (the tensor cores have no f32-exact
-//     path), bf16 with a ragged K or N, and the int8 branch — runs the
+//     path), bf16 with a ragged K or N, int8 with K or N off 16 — runs the
 //     output-stationary 128 x 128 plain-FMA body of gemm_tile.cuh (int32
 //     multiply-adds for int8), ragged M, N and K masked in its loaders.
-// sta_gemm_tc_body exports the rule; the wrapper's tc_body mirrors it.
+// sta_gemm_tc_body and sta_gemm_s8_tc_body export the rules; the wrapper's
+// tc_body and s8_tc_body mirror them.
 //
-// The int8 branch: 2·M·K·N integer operations on one byte per operand,
-// bound by operations against the card's 1979 TOP/s dense INT8 tensor
-// rate; its IMAD body sits far above that bound (s8 wgmma is later work).
+// The int8 branch (sta_gemm_s8_launch) replaces sta_gemm_pallas's int8
+// branch (its int32 accumulator, _sta_gemm_kernel). It is 2·M·K·N integer
+// operations on one byte per operand, bound by operations against the
+// card's 1979 TOP/s dense INT8 tensor rate, which the IMAD body it ran on
+// before missed by far (5-6x behind torch._int_mm at M512). Its
+// tensor-core body runs s8 wgmma with int32 accumulators; wgmma takes int8
+// B only K-major, so w's tiles are TMA'd as stored and made K-major in
+// shared memory by a transposer warpgroup, and w keeps its row-major
+// layout. Integer sums are exact in any order: both bodies give the same
+// bits.
 #include "gemm_tile.cuh"
 #include "tc_gemm.cuh"
+#include "tc_gemm_s8.cuh"
 
 namespace {
 
@@ -57,11 +68,19 @@ bool tc_body(int dtype, int K, int N) {
   return dtype == repro::DT_BF16 && K % 8 == 0 && N % 8 == 0;
 }
 
+// the int8 launcher's rule (int8 operands only reach it)
+bool s8_tc_body(int K, int N) { return K % 16 == 0 && N % 16 == 0; }
+
 }  // namespace
 
 // 1 where sta_gemm_launch runs the tensor-core body for these operands
 extern "C" int sta_gemm_tc_body(int dtype, int K, int N) {
   return tc_body(dtype, K, N) ? 1 : 0;
+}
+
+// 1 where sta_gemm_s8_launch runs the int8 tensor-core body for this K, N
+extern "C" int sta_gemm_s8_tc_body(int K, int N) {
+  return s8_tc_body(K, N) ? 1 : 0;
 }
 
 extern "C" int sta_gemm_launch(const void* x, const void* w,
@@ -98,7 +117,14 @@ extern "C" int sta_gemm_s8_launch(const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
-  return repro::with_s8_out(out_dtype, [&](auto o) {
-    launch<int8_t, decltype(o)>(x, w, sc, bi, out, M, K, N, act, s);
+  int rc = 0;
+  const int last = repro::with_s8_out(out_dtype, [&](auto o) {
+    using TO = decltype(o);
+    if (s8_tc_body(K, N))
+      rc = repro::tc8::launch_dense<TO>(x, w, scale, bias, out, M, K, N, act,
+                                        s);
+    else
+      launch<int8_t, TO>(x, w, sc, bi, out, M, K, N, act, s);
   });
+  return rc != 0 ? rc : last;
 }

@@ -48,6 +48,9 @@
 // Every row sums its K in one order (stage by stage, k16 by k16) whatever
 // M or its place in the tile, so a row's bits do not depend on M.
 //
+// The int8 branches' body (s8 wgmma, int32 accumulators) is the sibling
+// header tc_gemm_s8.cuh, on this one's epilogue mapping and store.
+//
 // What the caller guarantees (the launchers' rule on dtype, K and N): x and
 // a TMA'd w have 16-byte row strides (K % 8 == 0, and N % 8 == 0 for w), and
 // 16-byte aligned data (the wrappers check). The TMA descriptors are made on
@@ -314,25 +317,28 @@ __device__ __forceinline__ void write_stage(const DbbB<Plane, kRows>& b,
 }
 
 // two adjacent outputs (n, n + 1) of row m, masked; one paired store when
-// the row stride keeps it aligned
+// the row stride keeps it aligned. Acc: the f32 accumulator, or the int32
+// one of the int8 body (tc_gemm_s8.cuh); finish<TO> takes either. scale and
+// bias are read at n - c0 (c0 > 0: a copy that starts at column c0).
 template <typename TO>
 struct alignas(2 * sizeof(TO)) Two {
   TO v[2];
 };
 
-template <typename TO>
+template <typename TO, typename Acc>
 __device__ __forceinline__ void store_pair(TO* __restrict__ out, int m,
-                                           int n, int M, int N, float a,
-                                           float b, const float* scale,
-                                           const float* bias, int act) {
+                                           int n, int M, int N, Acc a,
+                                           Acc b, const float* scale,
+                                           const float* bias, int act,
+                                           int c0 = 0) {
   if (m >= M || n >= N) return;
   TO* p = out + (size_t)m * N + n;
-  const TO ya = finish<TO>(a, n, scale, bias, act);
+  const TO ya = finish<TO>(a, n - c0, scale, bias, act);
   if (n + 1 >= N) {
     p[0] = ya;
     return;
   }
-  const TO yb = finish<TO>(b, n + 1, scale, bias, act);
+  const TO yb = finish<TO>(b, n + 1 - c0, scale, bias, act);
   if (N % 2 == 0) {
     Two<TO> two;
     two.v[0] = ya;

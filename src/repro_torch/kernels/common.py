@@ -42,6 +42,9 @@ INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 # (csrc/tc_gemm.cuh): bf16 operands, by each wrapper's ``tc_body`` rule;
 # ``flash_prefill_tc`` and ``flash_prefill_packed_tc`` those of the flash
 # kernels' tensor-core body (csrc/flash_tc.cuh), by attn.ops.tc_body.
+# ``sta_gemm_s8_tc`` and ``dbb_gemm_s8_tc`` count, beside ``sta_gemm_s8``
+# and ``dbb_gemm_s8``, the int8 launches that ran the int8 tensor-core
+# body (csrc/tc_gemm_s8.cuh), by each wrapper's ``s8_tc_body`` rule.
 # ``dbb_gemm_narrow`` counts the dbb_gemm launches that ran the narrow
 # split-K body (f32 x, N <= 16, by dbb_gemm.ops.narrow_body) and
 # ``dbb_gemm_skinny_split`` the dbb_gemm_skinny launches that ran the
@@ -60,7 +63,8 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "flash_prefill_tc": 0,
                             "flash_prefill_packed_tc": 0,
                             "dbb_gemm_narrow": 0,
-                            "dbb_gemm_skinny_split": 0}
+                            "dbb_gemm_skinny_split": 0,
+                            "sta_gemm_s8_tc": 0, "dbb_gemm_s8_tc": 0}
 
 
 def reset_launches() -> None:

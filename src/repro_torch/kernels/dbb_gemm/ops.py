@@ -12,12 +12,15 @@ takes float x only, as in the reference. On a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs the plain version,
 `dbb_gemm_ref`.
 
-Three bodies (csrc/dbb_gemm.cu), by rules that never read M: bf16 x runs
+Four bodies (csrc/dbb_gemm.cu), by rules that never read M: bf16 x runs
 on the tensor-core body on every values plane (the planes decompressed
 into shared memory, wgmma on them) and counts as ``dbb_gemm_tc`` too
 (`tc_body`); f32 x at N <= 16 (the CNN classifier) runs the narrow
-split-K body and counts as ``dbb_gemm_narrow`` too (`narrow_body`); other
-f32 x and int8 x run the plain-FMA (IMAD) body.
+split-K body and counts as ``dbb_gemm_narrow`` too (`narrow_body`); int8
+x with K and N multiples of 16 runs on the int8 tensor-core body (the
+INT8 plane decompressed into K-major int8 tiles, s8 wgmma) and counts as
+``dbb_gemm_s8_tc`` too (`s8_tc_body`); other f32 x and int8 x run the
+plain-FMA (IMAD) body.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
 from repro_torch.kernels.epilogue import ACT_CODES
 
 __all__ = ["dbb_gemm", "check_dbb_operands", "dbb_launcher",
-           "run_dbb_kernel", "tc_body", "narrow_body"]
+           "run_dbb_kernel", "tc_body", "narrow_body", "s8_tc_body"]
 
 
 def tc_body(dtype: torch.dtype) -> bool:
@@ -50,6 +53,14 @@ def narrow_body(dtype: torch.dtype, n: int) -> bool:
     across a thread-block cluster). The rule of csrc/dbb_gemm.cu's
     narrow_body; it reads no M."""
     return dtype == torch.float32 and n <= 16
+
+
+def s8_tc_body(k: int, n: int) -> bool:
+    """Whether the kernel's int8-activation branch runs on its int8
+    tensor-core body: K and N multiples of 16 (TMA copies x's int8 rows and
+    the planes' rows, 16-byte strides). The rule of csrc/dbb_gemm.cu's
+    s8_tc_body, which only the int8 launcher reads; it reads no M."""
+    return k % 16 == 0 and n % 16 == 0
 
 
 def check_dbb_operands(x: torch.Tensor, values: torch.Tensor,
@@ -173,4 +184,6 @@ def dbb_gemm(x: torch.Tensor, values: torch.Tensor, bitmask: torch.Tensor,
             LAUNCHES["dbb_gemm_tc"] += 1
         elif narrow_body(x.dtype, n):
             LAUNCHES["dbb_gemm_narrow"] += 1
+        elif plane == "_s8" and s8_tc_body(k_dim, n):
+            LAUNCHES["dbb_gemm_s8_tc"] += 1
     return y.reshape(*x.shape[:-1], n)

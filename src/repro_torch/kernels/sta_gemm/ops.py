@@ -9,11 +9,13 @@ requantized. On a CUDA tensor it launches the kernel (or raises); on a
 CPU tensor it runs the plain version, `sta_gemm_ref`. Any M, K and N: the
 kernel masks the ragged edges, so nothing is padded.
 
-Two bodies (csrc/sta_gemm.cu), by `tc_body`'s rule on (dtype, K, N) and
-never on M: bf16 operands with K and N multiples of 8 run on the
-tensor-core body (wgmma on TMA-fed tiles) and count as ``sta_gemm_tc``
-too; f32 operands, bf16 with a ragged K or N, and int8 run the plain-FMA
-(IMAD) body.
+Three bodies (csrc/sta_gemm.cu), by rules on (dtype, K, N) that never
+read M: bf16 operands with K and N multiples of 8 run on the tensor-core
+body (wgmma on TMA-fed tiles) and count as ``sta_gemm_tc`` too
+(`tc_body`); int8 operands with K and N multiples of 16 run on the int8
+tensor-core body (s8 wgmma, w's tiles made K-major in shared memory) and
+count as ``sta_gemm_s8_tc`` too (`s8_tc_body`); f32 operands and the
+ragged rest run the plain-FMA (IMAD) body.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES,
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.sta_gemm.ref import sta_gemm_ref
 
-__all__ = ["sta_gemm", "tc_body"]
+__all__ = ["sta_gemm", "tc_body", "s8_tc_body"]
 
 
 def tc_body(dtype: torch.dtype, k: int, n: int) -> bool:
@@ -38,6 +40,14 @@ def tc_body(dtype: torch.dtype, k: int, n: int) -> bool:
     [M, K] and w [K, N] by). The rule of csrc/sta_gemm.cu's tc_body; it
     reads no M."""
     return dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+
+
+def s8_tc_body(k: int, n: int) -> bool:
+    """Whether the kernel's int8 branch runs these operands on its int8
+    tensor-core body: K and N multiples of 16 (the 16-byte row strides TMA
+    copies int8 x [M, K] and w [K, N] by). The rule of csrc/sta_gemm.cu's
+    s8_tc_body, which only the int8 launcher reads; it reads no M."""
+    return k % 16 == 0 and n % 16 == 0
 
 
 def _launcher(branch: str = ""):
@@ -79,6 +89,8 @@ def sta_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None, *,
             raise RuntimeError(f"sta_gemm{branch} launch failed: "
                                f"cudaError {rc}")
         LAUNCHES["sta_gemm" + branch] += 1
-        if tc_body(x.dtype, k_dim, n):
+        if branch and s8_tc_body(k_dim, n):
+            LAUNCHES["sta_gemm_s8_tc"] += 1
+        elif tc_body(x.dtype, k_dim, n):
             LAUNCHES["sta_gemm_tc"] += 1
     return y.reshape(*x.shape[:-1], n)

@@ -44,7 +44,14 @@ branches, dbb_gemm's f32 x at N <= 16): the GEMM tolerances above against
 the plain versions on every plane and M bucket, ragged K slices and both
 copy paths (TMA boxes, cp.async); every output finite; a row bit for bit
 the same at any M <= 32 or place in the batch; two calls bit-equal; a
-``_split`` / ``_narrow`` launch counted by the launchers' own rules.
+``_split`` / ``_narrow`` launch counted by the launchers' own rules. The
+int8 tensor-core body (the int8 branches of sta_gemm and dbb_gemm, K
+and N multiples of 16): the int8 branches' tolerance
+against the plain versions at ragged M, K off the 128-deep stage, N off
+the tile, both tile heights and every nnz; bit-equal to the IMAD body on
+zero-padded neighbours of its rule (the same sums); the all-127 sums
+exactly; two calls and a row at any M bit-equal; a ``_s8_tc`` launch
+counted by the launchers' own rules.
 """
 import numpy as np
 import pytest
@@ -1048,7 +1055,11 @@ def test_gpu_int8_dispatch_takes_the_s8_branches(cuda):
         torch.cuda.synchronize()
         moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                  if LAUNCHES[k] != before[k]}
-        assert moved == {name: 1}, (name, moved)
+        # K 256 and N 512 take the int8 tensor-core body of the M-tiled two
+        want = {name: 1}
+        if name in ("sta_gemm_s8", "dbb_gemm_s8"):
+            want[name + "_tc"] = 1
+        assert moved == want, (name, moved)
         want = run(False)
         assert got.dtype == want.dtype
         assert torch.equal(got, want), name
@@ -1485,3 +1496,189 @@ def test_gpu_split_counts_follow_the_kernels_own_rules(cuda):
     moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
              if LAUNCHES[k] != before[k]}
     assert moved == {"dbb_gemm_skinny_s8": 1}
+
+
+# ---------------------------------------------------------------------------
+# The int8 tensor-core body (csrc/tc_gemm_s8.cuh) of sta_gemm's and
+# dbb_gemm's int8 branches: s8 wgmma, K in stages of 128, 64-wide column
+# tiles of 128 rows (256 where N >= 4096)
+# ---------------------------------------------------------------------------
+
+def _s8_tc_run(cuda, kernel, x, w, nnz, *args, **kw):
+    """One int8 call on the s8 body (dense w, or w packed at ``nnz``):
+    (output, plain version's output); checks one ``_s8`` and one
+    ``_s8_tc`` launch."""
+    before = dict(LAUNCHES)
+    if kernel == "sta_gemm":
+        got = sta_gemm(x, w, *args, **kw)
+        want = sta_gemm_ref(x, w, *args, **kw)
+    else:
+        p = pack_dbb(w, 8, nnz)
+        got = dbb_gemm(x, p.values, p.bitmask, *args, nnz=nnz, **kw)
+        want = dbb_gemm_ref(x, p.values, p.bitmask, *args, **kw)
+    torch.cuda.synchronize()
+    for name in (kernel + "_s8", kernel + "_s8_tc"):
+        assert LAUNCHES[name] == before[name] + 1, name
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("k,n", [(16, 16), (144, 80), (272, 208),
+                                 (1184, 4112)])
+def test_gpu_s8_tensor_core_body_dense(cuda, m, k, n, act, od, has_scale,
+                                       has_bias):
+    """K 144 / 272 / 1184 leave the last 128-deep stage short, N 80 / 208
+    / 4112 the last column tile; N 4112 takes the 256-row tiles."""
+    from repro_torch.kernels.sta_gemm.ops import s8_tc_body
+    assert s8_tc_body(k, n)
+    x, w, bias, scale = _s8_operands(cuda, m, k, n, m + k + n)
+    b, s = _epi(bias, scale, has_scale, has_bias)
+    got, want = _s8_tc_run(cuda, "sta_gemm", x, w, 0, b, s, act=act,
+                           out_dtype=od)
+    assert got.dtype == (od or (F32 if has_scale else I32))
+    _s8_close(got, want, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("k,n,nnz", [(16, 16, 1), (144, 80, 3), (272, 208, 4),
+                                     (272, 208, 8), (320, 4112, 5),
+                                     (1184, 48, 2)])
+def test_gpu_s8_tensor_core_body_dbb(cuda, m, k, n, nnz, act, od, has_scale,
+                                     has_bias):
+    """Every slot layout (nnz 1-4 in one word, 5 and 8 in two; at 8 no
+    zero slot), K off the stage, N off the tile, N 4112 on 256-row tiles,
+    N 48 in one masked tile."""
+    from repro_torch.kernels.dbb_gemm.ops import s8_tc_body
+    assert s8_tc_body(k, n)
+    x, w, bias, scale = _s8_operands(cuda, m, k, n, m + k + n + nnz)
+    b, s = _epi(bias, scale, has_scale, has_bias)
+    got, want = _s8_tc_run(cuda, "dbb_gemm", x, w, nnz, b, s, act=act,
+                           out_dtype=od)
+    _s8_close(got, want, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm", "dbb_gemm"])
+@pytest.mark.parametrize("m,k,n", [(130, 264, 200), (300, 1176, 4100),
+                                   (65, 8, 24)])
+def test_gpu_s8_tensor_core_body_equals_the_imad_body(cuda, kernel, m, k, n):
+    """Shapes just off the s8 rule (K or N not a multiple of 16) run the
+    IMAD body; their operands padded with zero K columns / rows and zero N
+    columns to the next multiple of 16 run the s8 body on the same sums:
+    the outputs agree bit for bit, on the f32 epilogue (scale, bias,
+    gelu) too."""
+    from repro_torch.kernels.dbb_gemm.ops import s8_tc_body as dbb_rule
+    from repro_torch.kernels.sta_gemm.ops import s8_tc_body as sta_rule
+    x, w, bias, scale = _s8_operands(cuda, m, k, n, m + k)
+    kp, np_ = -(-k // 16) * 16, -(-n // 16) * 16
+    xp = torch.zeros(m, kp, dtype=I8, device=cuda)
+    xp[:, :k] = x
+    wp = torch.zeros(kp, np_, dtype=I8, device=cuda)
+    wp[:k, :n] = w
+    pad = torch.zeros(np_ - n, device=cuda)
+    bp, sp = torch.cat([bias, pad]), torch.cat([scale, pad])
+    if kernel == "sta_gemm":
+        assert not sta_rule(k, n) and sta_rule(kp, np_)
+
+        def run(a, b, bi, sc, **kw):
+            return sta_gemm(a, b, bi, sc, **kw)
+    else:
+        assert not dbb_rule(k, n) and dbb_rule(kp, np_)
+
+        def run(a, b, bi, sc, **kw):
+            p = pack_dbb(b, 8, 4)
+            return dbb_gemm(a, p.values, p.bitmask, bi, sc, nnz=4, **kw)
+    for kw in (dict(), dict(act="gelu"), dict(act="relu",
+                                              out_dtype=I8)):
+        bi = bias if kw else None
+        before = LAUNCHES[kernel + "_s8_tc"]
+        imad = run(x, w, bi, scale if kw else None, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES[kernel + "_s8_tc"] == before
+        tc = run(xp, wp, bp if kw else None, sp if kw else None, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES[kernel + "_s8_tc"] == before + 1
+        assert torch.equal(tc[:, :n], imad), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm", "dbb_gemm"])
+@pytest.mark.parametrize("m,k,n", [(512, 1184, 256), (300, 1184, 4112),
+                                   (8, 8192, 48)])
+def test_gpu_s8_tc_all_127_is_the_exact_integer(cuda, kernel, m, k, n):
+    """All-127 operands at K the s8 body takes (1184 beside the IMAD
+    body's 1179 probe, and olmo's 8192): every int32 sum K·127² exactly,
+    past 2^24, on both tile heights."""
+    x = torch.full((m, k), 127, dtype=I8, device=cuda)
+    w = torch.full((k, n), 127, dtype=I8, device=cuda)
+    got, want = _s8_tc_run(cuda, kernel, x, w, 8)
+    assert got.dtype == I32 and k * 127 * 127 > 2 ** 24
+    assert bool((got == k * 127 * 127).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm", "dbb_gemm"])
+@pytest.mark.parametrize("n", [208, 4112])
+def test_gpu_s8_tc_bits_at_any_m_and_across_calls(cuda, kernel, n):
+    """Two calls give equal bits, and rows of an M512 call equal the same
+    rows alone (M1) and in a ragged M130 call, on the f32 epilogue."""
+    x, w, bias, scale = _s8_operands(cuda, 512, 512, n, 9)
+    if kernel == "sta_gemm":
+        def run(a):
+            return sta_gemm(a, w, bias, scale, act="gelu")
+    else:
+        p = pack_dbb(w, 8, 4)
+
+        def run(a):
+            return dbb_gemm(a, p.values, p.bitmask, bias, scale, act="gelu",
+                            nnz=4)
+    full = run(x)
+    assert torch.equal(full, run(x))
+    assert torch.equal(full[77], run(x[77:78].contiguous())[0])
+    assert torch.equal(full[200:330], run(x[200:330].contiguous()))
+
+
+@pytest.mark.gpu
+def test_gpu_s8_tc_counts_follow_the_kernels_own_rules(cuda):
+    """The wrappers' s8_tc_body mirrors the launchers' rules (the
+    libraries' exported sta_gemm_s8_tc_body / dbb_gemm_s8_tc_body) on a
+    grid of K and N; float launches and int8 launches off the rule leave
+    the ``_s8_tc`` counts alone."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dbb_gemm.ops import s8_tc_body as dbb_rule
+    from repro_torch.kernels.sta_gemm.ops import s8_tc_body as sta_rule
+    sq = build.load("sta_gemm").sta_gemm_s8_tc_body
+    sq.argtypes = [ctypes.c_int] * 2
+    dq = build.load("dbb_gemm").dbb_gemm_s8_tc_body
+    dq.argtypes = [ctypes.c_int] * 2
+    for k in (0, 8, 16, 24, 136, 1179, 1184, 2048, 8192):
+        for n in (1, 10, 16, 24, 200, 208, 4104, 8192):
+            assert bool(sq(k, n)) == sta_rule(k, n), (k, n)
+            assert bool(dq(k, n)) == dbb_rule(k, n), (k, n)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    before = dict(LAUNCHES)
+    for dt in (torch.float32, BF):
+        x = torch.randn(130, 256, generator=g, device=cuda).to(dt)
+        w = torch.randn(256, 192, generator=g, device=cuda)
+        p = pack_dbb(w, 8, 4)
+        sta_gemm(x, w.to(dt))
+        dbb_gemm(x, p.values, p.bitmask)
+    xi, wi, _, _ = _s8_operands(cuda, 130, 264, 200, 3)
+    sta_gemm(xi, wi)
+    pi = pack_dbb(wi, 8, 4)
+    dbb_gemm(xi, pi.values, pi.bitmask)
+    xc, wc, _, _ = _s8_operands(cuda, 256, 4096, 10, 4)    # the classifier
+    pc = pack_dbb(wc, 8, 2)
+    dbb_gemm(xc, pc.values, pc.bitmask, nnz=2)
+    torch.cuda.synchronize()
+    for name in ("sta_gemm_s8_tc", "dbb_gemm_s8_tc"):
+        assert LAUNCHES[name] == before[name], name
+    assert LAUNCHES["sta_gemm_s8"] == before["sta_gemm_s8"] + 1
+    assert LAUNCHES["dbb_gemm_s8"] == before["dbb_gemm_s8"] + 2
