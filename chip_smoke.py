@@ -46,6 +46,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             body, counting a ``dbb_gemm_narrow`` launch, and B1) beside
             their bound, ``torch.matmul`` on the decompressed weight (TF32
             off) and the earlier body's time, and checked (rtol 1e-4).
+            sta_gemm_skinny's float body (all M <= 32 rows in one block)
+            is timed at the f32 head (M8, M24; the row-chunk body's earlier
+            time in brackets) and at a dense decode layer (M8 K8192 N2048
+            bf16), beside ``torch.matmul``; paged_decode (a row's pages
+            split across blocks) at S128 through the contiguous cache's
+            identity table (the earlier body's time in brackets) and at
+            serve's contexts (S640, lengths 256-639) through a shuffled
+            pool, beside ``scaled_dot_product_attention``.
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -229,6 +237,12 @@ PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
                 ("dbb_gemm_skinny_w4", 24, 8192, 2048): 0.1556,
                 ("dbb_gemm", "classifier"): 0.6516,
                 ("dbb_gemm_skinny", "classifier"): 0.0239}
+# per-call ms of the bodies that this redesign of sta_gemm_skinny's float
+# branch (the row-chunk body, keyed by M of the f32 head) and of
+# paged_decode (one block a row, keyed by the kernel phase's case) replaced
+# (PERF.md's kernel table before the redesign, H100 80GB HBM3, 700 W);
+# printed beside this run's times, never in the record
+ROW_CHUNK_MS = {8: 0.2245, 24: 0.5092, ("paged_decode", "S128"): 0.0420}
 # per-call ms of the IMAD body that the int8 tensor-core body replaced at
 # the M512 layer GEMMs (f32 epilogue; PERF.md's kernel table before the
 # redesign, H100 80GB HBM3, 700 W), keyed by (branch, K, N); printed beside
@@ -524,26 +538,39 @@ def _kernel_phase(torch, dev, report):
                                        row["max_abs_err"])
 
     # head GEMV: x [M, 2048] f32 . w [2048, 50304] f32 at M8 (decode, the
-    # entry) and M24 (the speculative verify head)
+    # entry) and M24 (the speculative verify head); and one dense decode
+    # layer GEMM (the down projection, K8192 N2048) at M8 in bf16, the
+    # dense phase's activations
     w = randn(2048, 50304) * 0.02
     heads = {}
-    for m in (8, 24):
-        x = randn(m, 2048)
-        got, want = sta_gemm_skinny(x, w), sta_gemm_ref(x, w)
-        err, ok = _close(torch, got, want, 1e-4)
+    for m, k, n, dt in ((8, 2048, 50304, torch.float32),
+                        (24, 2048, 50304, torch.float32),
+                        ("dense", 8192, 2048, bf16)):
+        rows = 8 if m == "dense" else m
+        wk = w if n == 50304 else randn(k, n, dtype=dt) * 0.02
+        x = randn(rows, k, dtype=dt)
+        got, want = sta_gemm_skinny(x, wk), sta_gemm_ref(x, wk)
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        err, ok = _close(torch, got, want, tol)
+        label = f"M{rows} K{k} N{n} {str(dt)[6:]}"
         if not ok:
-            failures.append(f"sta_gemm_skinny M{m}: max err {err}")
-        ms = _time_ms(torch, lambda: sta_gemm_skinny(x, w), flush)
-        pms = _time_ms(torch, lambda: sta_gemm_ref(x, w), flush)
-        lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
-        bms, by = _bound_ms(x.numel() * 4 + w.numel() * 4 + m * 50304 * 4,
-                            2.0 * m * 2048 * 50304, F32_OPS_PER_S)
-        print(f"kernel sta_gemm_skinny M{m} K2048 N50304 f32: max abs err "
-              f"{err:.3e} (tol 1e-4 rel) {'ok' if ok else 'FAIL'}; kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, torch.matmul {lms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+            failures.append(f"sta_gemm_skinny {label}: max err {err}")
+        ms = _time_ms(torch, lambda: sta_gemm_skinny(x, wk), flush)
+        pms = _time_ms(torch, lambda: sta_gemm_ref(x, wk), flush)
+        lms = _time_ms(torch, lambda: torch.matmul(x, wk), flush)
+        esz = x.element_size()
+        bms, by = _bound_ms((x.numel() + wk.numel() + rows * n) * esz,
+                            2.0 * rows * k * n,
+                            F32_OPS_PER_S if esz == 4 else BF16_OPS_PER_S)
+        before = ROW_CHUNK_MS.get(m)
+        print(f"kernel sta_gemm_skinny {label}: max abs err {err:.3e} (tol "
+              f"{tol:g} rel) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms"
+              + (f" [row-chunk body {before:.4f}]" if before else "")
+              + f", plain {pms:.4f} ms, torch.matmul {lms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
         heads[m] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                         bound_by=by, library_ms=lms)
+    del w
     kernels.append(dict(
         name="sta_gemm_skinny", route="cuda",
         source="src/repro_torch/csrc/sta_gemm_skinny.cu",
@@ -552,56 +579,86 @@ def _kernel_phase(torch, dev, report):
             heads[8], max_abs_err=max(h["max_abs_err"]
                                       for h in heads.values())),
         m24=dict(heads[24], shapes="M24 K2048 N50304 f32 (the speculative "
-                 "verify head)")))
+                 "verify head)"),
+        dense=dict(heads["dense"], shapes="M8 K8192 N2048 bf16 (a dense "
+                   "decode layer's down projection)")))
 
-    # paged decode: B 8, Hkv 16, G 1, D 128, S 128, page 64, ragged start
-    b, hkv, g, d, s, page = 8, 16, 1, 128, 128, 64
-    n_log = s // page
-    q = randn(b, hkv, g, d, dtype=bf16)
-    kc = randn(b, s, hkv, d, dtype=bf16)
-    vc = randn(b, s, hkv, d, dtype=bf16)
-    kp, vp = kc.view(b * n_log, page, hkv, d), vc.view(b * n_log, page, hkv, d)
-    table = (torch.arange(b, dtype=torch.int32, device=dev)[:, None] * n_log
-             + torch.arange(n_log, dtype=torch.int32, device=dev)[None, :])
-    start = torch.tensor([0, 7, 14, 21, 28, 35, 42, 49], dtype=torch.int32,
-                         device=dev)
-    lengths = torch.full((b,), 100, dtype=torch.int32, device=dev)
+    # paged decode: B 8, Hkv 16, G 1, D 128, page 64, bf16; S128 through the
+    # contiguous cache's identity table (generate's shape), and serve's
+    # contexts (lengths 256-639, S 640) through a shuffled pool
+    b, hkv, g, d, page = 8, 16, 1, 128, 64
     scale = 1.0 / d ** 0.5
+    cases = {}
+    for case, s in (("S128", 128), ("S640", 640)):
+        n_log = s // page
+        q = randn(b, hkv, g, d, dtype=bf16)
+        kc = randn(b, s, hkv, d, dtype=bf16)
+        vc = randn(b, s, hkv, d, dtype=bf16)
+        if case == "S128":
+            kp = kc.view(b * n_log, page, hkv, d)
+            vp = vc.view(b * n_log, page, hkv, d)
+            table = (torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+                     * n_log + torch.arange(n_log, dtype=torch.int32,
+                                            device=dev)[None, :])
+            start = torch.tensor([0, 7, 14, 21, 28, 35, 42, 49],
+                                 dtype=torch.int32, device=dev)
+            lengths = torch.full((b,), 100, dtype=torch.int32, device=dev)
+            label = "S128 identity table, ragged start"
+        else:
+            perm = torch.randperm(b * n_log, generator=gen, device=dev)
+            kp = torch.empty_like(kc).view(b * n_log, page, hkv, d)
+            vp = torch.empty_like(kp)
+            kp[perm] = kc.view(b * n_log, page, hkv, d)
+            vp[perm] = vc.view(b * n_log, page, hkv, d)
+            table = perm.view(b, n_log).int().contiguous()
+            lengths = torch.randint(256, s, (b,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+            start = torch.randint(0, 64, (b,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            label = "S640 shuffled pool, lengths 256-639, ragged start"
 
-    def run_kernel():
-        return paged_decode_attention(q, kp, vp, table, lengths, start)
+        def run_kernel():
+            return paged_decode_attention(q, kp, vp, table, lengths, start)
 
-    def run_plain():
-        return paged_decode_ref(q, kp, vp, table, lengths, start,
-                                sm_scale=scale)
-    got, want = run_kernel(), run_plain()
-    err, ok = _close(torch, got, want, 2e-2)
-    if not ok:
-        failures.append(f"paged_decode: max err {err}")
-    kk = torch.arange(s, device=dev)
-    mask = ((kk[None, :] <= lengths[:, None]) & (kk[None, :] >= start[:, None]))
-    kg = gather_pages(kp, table).transpose(1, 2)
-    vg = gather_pages(vp, table).transpose(1, 2)
-    qs = q.reshape(b, hkv * g, 1, d)
-    am = mask[:, None, None, :]
-    ms = _time_ms(torch, run_kernel, flush)
-    pms = _time_ms(torch, run_plain, flush)
-    lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=am), flush)
-    valid = int(mask.sum().item())
-    bms, by = _bound_ms(q.numel() * 2 * 2 + valid * hkv * d * 2 * 2,
-                        4.0 * valid * hkv * g * d, BF16_OPS_PER_S)
-    print(f"kernel paged_decode B{b} Hkv{hkv} G{g} D{d} S{s} page{page} "
-          f"ragged start: max abs err {err:.3e} (tol 2e-2 rel, bf16) "
-          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} "
-          f"ms, scaled_dot_product_attention {lms:.4f} ms, bound {bms:.4f} ms "
-          f"({by})")
+        def run_plain():
+            return paged_decode_ref(q, kp, vp, table, lengths, start,
+                                    sm_scale=scale)
+        got, want = run_kernel(), run_plain()
+        err, ok = _close(torch, got, want, 2e-2)
+        if not ok:
+            failures.append(f"paged_decode {case}: max err {err}")
+        kk = torch.arange(s, device=dev)
+        mask = ((kk[None, :] <= lengths[:, None])
+                & (kk[None, :] >= start[:, None]))
+        kg = gather_pages(kp, table).transpose(1, 2)
+        vg = gather_pages(vp, table).transpose(1, 2)
+        qs = q.reshape(b, hkv * g, 1, d)
+        am = mask[:, None, None, :]
+        ms = _time_ms(torch, run_kernel, flush)
+        pms = _time_ms(torch, run_plain, flush)
+        lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=am), flush)
+        valid = int(mask.sum().item())
+        bms, by = _bound_ms(q.numel() * 2 * 2 + valid * hkv * d * 2 * 2,
+                            4.0 * valid * hkv * g * d, BF16_OPS_PER_S)
+        before = ROW_CHUNK_MS.get(("paged_decode", case))
+        print(f"kernel paged_decode B{b} Hkv{hkv} G{g} D{d} page{page} "
+              f"{label}: max abs err {err:.3e} (tol 2e-2 rel, bf16) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms"
+              + (f" [one block a row {before:.4f}]" if before else "")
+              + f", plain {pms:.4f} ms, scaled_dot_product_attention "
+              f"{lms:.4f} ms, bound {bms:.4f} ms ({by})")
+        cases[case] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                           bound_ms=bms, bound_by=by, library_ms=lms)
     kernels.append(dict(
         name="paged_decode", route="cuda",
         source="src/repro_torch/csrc/paged_decode.cu",
         replaces="src/repro/kernels/attn/kernel.py:372", launches=0,
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        library_ms=lms, shapes="B8 Hkv16 G1 D128 S128 page64 bf16"))
+        shapes="B8 Hkv16 G1 D128 S128 page64 bf16", **dict(
+            cases["S128"], max_abs_err=max(c["max_abs_err"]
+                                           for c in cases.values())),
+        long=dict(cases["S640"], shapes="B8 Hkv16 G1 D128 page64 bf16, "
+                  "lengths 256-639 through a shuffled pool")))
     kernels += _prefill_attention_kernels(torch, dev, randn, flush,
                                           failures)
     kernels += _gemm_conv_kernels(torch, dev, randn, flush, failures)

@@ -9,7 +9,9 @@ parent) on one CUDA card:
 
 TREE is a checkout of this repository; its kernels build into
 TREE/build/kernels. The calls: sta_gemm (M8 f32, M24 and M300 bf16),
-sta_gemm_skinny (M8, M24), dbb_gemm and dbb_gemm_skinny on the f32,
+sta_gemm_skinny (M8, M24; f32 M24 N4099, bf16 M32 K8192 N2048 and M5
+N999), paged_decode (f32 and bf16, B4 Hkv4 G2 D128, page 64, 10 pages),
+dbb_gemm and dbb_gemm_skinny on the f32,
 int8 and w4 values planes, conv_gemm, conv_gemm_dbb, a sampled
 head_sample_fused (M8 K2048 N8192, penalties, temperature-0 rows),
 flash_prefill and flash_prefill_packed in f32 at D 128 and in bf16 at D
@@ -38,6 +40,15 @@ may change no output: integer sums are exact in any order and the
 epilogue is the IMAD body's, so it is compared with an empty list,
 
     --compare A.pt B.pt
+
+The redesign of sta_gemm_skinny's float body (all M <= 32 rows in one
+block, the same K order) and of paged_decode (a row's pages split across
+blocks, merged in a second launch) keeps every sta_gemm_skinny and
+head_sample_fused output bit for bit; only the decode outputs (f32 and
+bf16, identity table and shuffled pool, with and without a window and a
+softcap) may change:
+
+    --compare A.pt B.pt "paged_decode"
 """
 import sys
 
@@ -134,6 +145,37 @@ def run(tree: str, out_path: str) -> None:
                                           torch.tensor(lens, device=dev))
             out[f"flash_prefill_packed {tag} T{t}"] = packed_flash_attention(
                 q, k, v, seg, window=win, softcap=30.0 if win else 0.0)
+    # sta_gemm_skinny's float body on its other paths: the 4-byte copies
+    # (f32, N 4099), the cluster split (bf16 K8192 N2048), the 2-byte
+    # copies (bf16, N 999)
+    for m, k, n, dt in ((24, 2048, 4099, torch.float32),
+                        (32, 8192, 2048, torch.bfloat16),
+                        (5, 136, 999, torch.bfloat16)):
+        out[f"sta_gemm_skinny {str(dt)[6:]} M{m} K{k} N{n}"] = (
+            sta_gemm_skinny(rn(m, k).to(dt), (rn(k, n) * 0.05).to(dt),
+                            rn(n), act="gelu"))
+    from repro_torch.kernels.attn import (identity_block_table,
+                                          paged_decode_attention)
+    for dt in (torch.float32, torch.bfloat16):
+        b, hkv, gq, d, page, n_log = 4, 4, 2, 128, 64, 10
+        q = rn(b, hkv, gq, d).to(dt)
+        kc, vc = (rn(b, n_log * page, hkv, d).to(dt) for _ in range(2))
+        lengths = torch.tensor([639, 300, 64, 450], **i32)
+        start = torch.tensor([0, 17, 64, 200], **i32)
+        kp = kc.view(b * n_log, page, hkv, d)
+        vp = vc.view(b * n_log, page, hkv, d)
+        perm = torch.randperm(b * n_log, generator=g, device=dev)
+        pool_k, pool_v = torch.empty_like(kp), torch.empty_like(vp)
+        pool_k[perm], pool_v[perm] = kp, vp
+        tables = (("identity", kp, vp, identity_block_table(b, n_log, dev)),
+                  ("shuffled", pool_k, pool_v,
+                   perm.view(b, n_log).int().contiguous()))
+        for layout, kk, vv, tab in tables:
+            for win, cap in ((0, 0.0), (200, 30.0)):
+                out[f"paged_decode {str(dt)[6:]} {layout} window {win} "
+                    f"softcap {cap:g}"] = paged_decode_attention(
+                        q, kk, vv, tab, lengths, start, window=win,
+                        softcap=cap)
     xi = torch.randint(-127, 128, (300, 1024), generator=g, device=dev,
                        dtype=torch.int8)
     pi = pack_dbb(torch.randint(-127, 128, (1024, 1000), generator=g,

@@ -1,6 +1,8 @@
-// The skinny dense GEMV body shared by sta_gemm_skinny.cu (the greedy
-// head) and head_sample_fused.cu (the sampling head): defining the K order
-// once is what makes temperature-0 sampling pick greedy's token bit for bit.
+// The skinny dense GEMV body of head_sample_fused.cu (the sampling head)
+// and of sta_gemm_skinny.cu's int8 branch. Its K order is the one that
+// sta_gemm_skinny.cu's float body (the greedy head) keeps with another
+// tiling: sharing it is what makes temperature-0 sampling pick greedy's
+// token bit for bit.
 //
 // A block takes one chunk of up to kSkinnyRows = 8 rows (blockIdx.x: M > 8
 // runs ceil(M / 8) chunks) and 32 columns per pass. Its kSkinnyWarps warps

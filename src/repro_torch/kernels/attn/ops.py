@@ -16,8 +16,10 @@ too; f32, and bf16 at any other D, run the plain-FMA body
 
 A contiguous ``[B, S, Hkv, D]`` decode cache is served by the same decode
 wrapper as the pool ``[B · S/page, page, Hkv, D]`` (a view, no copy) under
-an identity block table — one kernel, one page-visit order for both
-layouts.
+an identity block table — one kernel, one split of each row's pages for
+both layouts. The decode kernel splits a row's live pages across blocks
+(`decode_splits`) and merges the splits in a second launch from a
+workspace the wrapper allocates per call.
 """
 from __future__ import annotations
 
@@ -36,13 +38,20 @@ from repro_torch.kernels.common import FLOAT_DTYPES, LAUNCHES, check_operand
 __all__ = ["flash_attention", "packed_flash_attention",
            "paged_decode_attention", "identity_block_table", "DEFAULT_PAGE",
            "flash_ok", "paged_decode_ok", "PAGE_MIN", "SMEM_LIMIT",
-           "FLASH_D_MAX", "tc_body"]
+           "FLASH_D_MAX", "tc_body", "split_pages", "decode_splits"]
 
 # default KV page (slots) when the config leaves kv_page_size unset
 DEFAULT_PAGE = 64
-# smallest page the decode route takes: one warp scores a key at a time,
-# so pages under 8 slots leave the block's warps mostly idle per page
+# smallest page the decode kernel takes (csrc/paged_decode.cu, kPageMin): a
+# split's 64 keys then span at most 8 pages, 8 table lookups
 PAGE_MIN = 8
+# the decode kernel (csrc/paged_decode.cu): a split holds
+# max(1, _DECODE_SPLIT_KEYS // page) pages, a block stages up to
+# _DECODE_CHUNK keys with its 4 warps, D is a multiple of 8 and at most 256
+_DECODE_SPLIT_KEYS = _DECODE_CHUNK = 64
+_DECODE_WARPS = 4
+_DECODE_D_ALIGN, _DECODE_D_MAX = 8, 256
+_DECODE_K_PAD = 32
 # a block's shared memory on the H100 (227 KB usable)
 SMEM_LIMIT = 232448
 # flash prefill tiles (csrc/flash_tile.cuh, csrc/flash_tc.cuh): 64 query
@@ -85,15 +94,39 @@ def flash_ok(d: int, dtype: Optional[torch.dtype] = None) -> bool:
         _flash_smem_bytes(d, dt) <= SMEM_LIMIT for dt in dtypes)
 
 
-def _decode_smem_bytes(g: int, d: int, page: int) -> int:
-    """Shared memory of one decode block: q and acc [G, D], the page's
-    scores [G, page] and three [G] running statistics, all f32."""
-    return 4 * (2 * g * d + g * page + 3 * g)
+def _decode_smem_bytes(g: int, d: int, itemsize: int) -> int:
+    """Shared memory of one decode split block (csrc/paged_decode.cu,
+    smem_bytes): q, acc [G, D], the four warps' P·V partials [4, G, D],
+    the chunk's scores [G, 64] and four [G] statistics, all f32; the
+    chunk's 64 K rows (D · itemsize + 32 bytes each) and V rows."""
+    return (4 * ((2 + _DECODE_WARPS) * g * d + _DECODE_CHUNK * g + 4 * g)
+            + _DECODE_CHUNK * (2 * d * itemsize + _DECODE_K_PAD))
 
 
-def paged_decode_ok(group: int, page: int, d: int) -> bool:
-    """Whether the decode kernel's shared memory fits one block."""
-    return _decode_smem_bytes(group, d, page) <= SMEM_LIMIT
+def paged_decode_ok(group: int, page: int, d: int,
+                    dtype: Optional[torch.dtype] = None) -> bool:
+    """Whether the decode kernel takes these operands (every float dtype
+    when ``dtype`` is None): a page of at least PAGE_MIN slots, D a
+    multiple of 8 and at most 256, and a split block's shared memory
+    within 227 KB."""
+    dtypes = FLOAT_DTYPES if dtype is None else (dtype,)
+    return (page >= PAGE_MIN and d % _DECODE_D_ALIGN == 0
+            and 0 < d <= _DECODE_D_MAX
+            and all(_decode_smem_bytes(group, d, dt.itemsize) <= SMEM_LIMIT
+                    for dt in dtypes))
+
+
+def split_pages(page: int) -> int:
+    """Logical pages a decode split owns: a rule on the page size alone
+    (csrc/paged_decode.cu, split_pages)."""
+    return 1 if page >= _DECODE_SPLIT_KEYS else _DECODE_SPLIT_KEYS // page
+
+
+def decode_splits(n_log: int, page: int) -> int:
+    """The decode workspace's splits per (row, KV head) for a table n_log
+    pages wide: every split any row of it can have (csrc/paged_decode.cu,
+    max_splits)."""
+    return -(-n_log // split_pages(page))
 
 
 def identity_block_table(b: int, n_log: int,
@@ -227,7 +260,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """One-token decode: ``q [B, Hkv, G, D]`` against the pool
     ``[P, page, Hkv, D]`` through ``block_table [B, n_log]``; ``lengths``
     [B] is the new token's slot (already written), ``start`` [B] the first
-    real slot. Returns ``o [B, Hkv, G, D]`` in q's dtype."""
+    real slot. Returns ``o [B, Hkv, G, D]`` in q's dtype.
+
+    On the card each call allocates an f32 workspace of
+    ``B · Hkv · decode_splits(n_log, page) · G · (D + 2)`` elements, a pure
+    function of the shapes, which the split launch fills and the combine
+    launch reads: a CUDA graph that captures this call captures that
+    allocation too."""
     b, hkv, g, d = q.shape
     p_total, page = k_pages.shape[:2]
     n_log = block_table.shape[1]
@@ -246,17 +285,21 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_decode_ref(q, k_pages, v_pages, block_table, lengths,
                                 start, sm_scale=sm_scale, window=window,
                                 softcap=softcap)
-    if not paged_decode_ok(g, page, d):
-        raise ValueError(f"G={g}, page={page}, D={d}: shared memory "
-                         f"{_decode_smem_bytes(g, d, page)} B over "
-                         f"{SMEM_LIMIT}")
+    if not paged_decode_ok(g, page, d, q.dtype):
+        smem = _decode_smem_bytes(g, d, q.element_size())
+        raise ValueError(f"G={g}, page={page}, D={d}: the decode kernel "
+                         f"takes page >= {PAGE_MIN}, D a multiple of "
+                         f"{_DECODE_D_ALIGN} up to {_DECODE_D_MAX} and "
+                         f"shared memory within {SMEM_LIMIT} B ({smem})")
     out = torch.empty_like(q)
-    rc = _bind("paged_decode", 7, 6)(
+    work = torch.empty(b * hkv * decode_splits(n_log, page) * g * (d + 2),
+                       dtype=torch.float32, device=dev)
+    rc = _bind("paged_decode", 8, 6)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), start.data_ptr(),
-        out.data_ptr(), b, hkv, g, d, page, n_log, float(sm_scale),
-        int(window), float(softcap), build.dtype_code(q.dtype),
-        build.stream_handle(dev))
+        out.data_ptr(), work.data_ptr(), b, hkv, g, d, page, n_log,
+        float(sm_scale), int(window), float(softcap),
+        build.dtype_code(q.dtype), build.stream_handle(dev))
     _check_rc("paged_decode", rc)
     LAUNCHES["paged_decode"] += 1
     return out

@@ -19,10 +19,10 @@ __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
            "gemm_acc"]
 
 # Dispatch cap: decode / serving batches, as the reference's skinny rule.
-# sta_gemm_skinny (and dbb_gemm_skinny's int8 branch) run M > 8 as
+# The int8 branches of sta_gemm_skinny and dbb_gemm_skinny run M > 8 as
 # ceil(M / 8) row chunks that share each weight slab in L2
-# (csrc/skinny_tile.cuh); dbb_gemm_skinny's float body keeps all M <= 32
-# rows in one block (csrc/dbb_gemm_skinny.cu).
+# (csrc/skinny_tile.cuh); their float bodies keep all M <= 32 rows in one
+# block (csrc/sta_gemm_skinny.cu, csrc/dbb_gemm_skinny.cu).
 SKINNY_M_MAX = 32
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)

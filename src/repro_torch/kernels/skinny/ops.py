@@ -7,6 +7,11 @@ default, f32 with a scale, or int8 requantized), the DBB one on the INT8
 values plane. On a CUDA tensor each launches its kernel (or raises); on a
 CPU tensor it runs the plain version.
 
+`sta_gemm_skinny`'s float branch keeps all M <= 32 rows in one block
+(persistent blocks over 64-column tiles; a TMA-fed weight ring), in the K
+order that head_sample_fused shares, so its bits do not depend on M; its
+int8 branch runs the row-chunk body (csrc/skinny_tile.cuh).
+
 `dbb_gemm_skinny` has two bodies (csrc/dbb_gemm_skinny.cu), by
 `split_body`'s rule on x's dtype alone: float x runs the split-K body (all
 M <= 32 rows in one block, K split across blocks whose partial sums a

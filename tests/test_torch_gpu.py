@@ -152,9 +152,10 @@ def test_gpu_sta_gemm_skinny(cuda, dtype, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["sta_gemm_skinny", "dbb_gemm_skinny"])
 def test_gpu_skinny_row_is_the_same_bits_in_any_batch(cuda, kernel):
-    """The skinny kernels run M > 8 as chunks of 8 rows with one K order:
-    rows 0..7 of an M24 call (the speculative verify) equal an M8 call
-    (decode) on those rows bit for bit."""
+    """The skinny kernels keep every M <= 32 row in one block with a K
+    order that reads no M: rows 0..7, 8..15 and 16..23 of an M24 call (the
+    speculative verify) equal M8 calls (decode) on those rows bit for
+    bit."""
     g = torch.Generator(device=cuda).manual_seed(24)
     x = torch.randn(24, 512, generator=g, device=cuda)
     if kernel == "sta_gemm_skinny":
@@ -189,6 +190,147 @@ def test_gpu_paged_decode(cuda, dtype, g, page, window, softcap, shuffle):
                             sm_scale=128 ** -0.5, window=window,
                             softcap=softcap)
     _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+def _long_decode(cuda, dtype, b=8, hkv=4, g=1, d=128, page=64, n_log=10,
+                 seed=0):
+    """serve's decode shape at long contexts: a contiguous cache [B, S,
+    Hkv, D] (S = n_log pages), lengths 256 to S - 1 and ragged starts,
+    as (q, k cache, v cache, lengths, start)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = n_log * page
+    q = torch.randn(b, hkv, g, d, generator=gen, device=cuda).to(dtype)
+    kc = torch.randn(b, s, hkv, d, generator=gen, device=cuda).to(dtype)
+    vc = torch.randn(b, s, hkv, d, generator=gen, device=cuda).to(dtype)
+    lengths = torch.randint(256, s, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    start = torch.randint(0, 200, (b,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    return q, kc, vc, lengths, start
+
+
+def _pool(kc, vc, page, extra, seed):
+    """The contiguous cache's pages scattered over a pool with ``extra``
+    more logical pages a row (never live) and as many spare physical
+    pages, in random order: (k pool, v pool, table)."""
+    b, s, hkv, d = kc.shape
+    n_log = s // page
+    gen = torch.Generator().manual_seed(seed)
+    total = b * (n_log + extra) + 5
+    perm = torch.randperm(total, generator=gen).to(kc.device)
+    kp = torch.zeros(total, page, hkv, d, dtype=kc.dtype, device=kc.device)
+    vp = torch.zeros_like(kp)
+    table = perm[:b * (n_log + extra)].view(b, n_log + extra).int()
+    kp[table[:, :n_log].reshape(-1).long()] = kc.reshape(-1, page, hkv, d)
+    vp[table[:, :n_log].reshape(-1).long()] = vc.reshape(-1, page, hkv, d)
+    return kp, vp, table.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (300, 30.0)])
+def test_gpu_paged_decode_long_contexts(cuda, dtype, window, softcap):
+    """Contexts of 256-639 keys (serve's), 10 one-page splits a row at
+    page 64, through a shuffled pool: the plain version's tolerance."""
+    q, kc, vc, lengths, start = _long_decode(cuda, dtype)
+    kp, vp, table = _pool(kc, vc, 64, 0, seed=1)
+    got = paged_decode_attention(q, kp, vp, table, lengths, start,
+                                 window=window, softcap=softcap)
+    want = paged_decode_ref(q, kp, vp, table, lengths, start,
+                            sm_scale=128 ** -0.5, window=window,
+                            softcap=softcap)
+    assert torch.isfinite(got).all()
+    _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64, 128])
+def test_gpu_paged_decode_layouts_give_equal_bits(cuda, dtype, page):
+    """The same rows through the contiguous cache (identity table) and
+    through a shuffled pool whose table is wider (another n_log): equal
+    bits, since a row's splits read neither the layout nor n_log; two
+    calls give equal bits too."""
+    q, kc, vc, lengths, start = _long_decode(cuda, dtype, page=page,
+                                             n_log=640 // page, seed=page)
+    b, s, hkv, d = kc.shape
+    n_log = s // page
+    ident = paged_decode_attention(
+        q, kc.view(b * n_log, page, hkv, d), vc.view(b * n_log, page, hkv, d),
+        identity_block_table(b, n_log, cuda), lengths, start, window=200)
+    kp, vp, table = _pool(kc, vc, page, 3, seed=page + 1)
+    pooled = paged_decode_attention(q, kp, vp, table, lengths, start,
+                                    window=200)
+    assert torch.equal(ident, pooled)
+    assert torch.equal(pooled, paged_decode_attention(
+        q, kp, vp, table, lengths, start, window=200))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_paged_decode_row_alone_equals_row_in_batch(cuda, dtype):
+    """A row decoded alone (its own table row, B 1) gives the bits it gets
+    inside the batch of 8."""
+    q, kc, vc, lengths, start = _long_decode(cuda, dtype, hkv=2, g=4,
+                                             seed=3)
+    kp, vp, table = _pool(kc, vc, 64, 2, seed=4)
+    full = paged_decode_attention(q, kp, vp, table, lengths, start,
+                                  softcap=20.0)
+    for r in (0, 3, 7):
+        one = paged_decode_attention(
+            q[r:r + 1].clone(), kp, vp, table[r:r + 1].clone(),
+            lengths[r:r + 1].clone(), start[r:r + 1].clone(), softcap=20.0)
+        assert torch.equal(full[r:r + 1], one), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_paged_decode_masked_chunks_and_pages(cuda, dtype):
+    """Keys masked in whole chunks and pages: left padding past the first
+    pages, a window that ends inside a page, a 128-slot page whose first or
+    last 64 keys are all masked, a row of one valid key. Each masked chunk
+    contributes nothing: the plain version's tolerance, every value
+    finite."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, hkv, g, d, page, n_log = 6, 2, 2, 64, 128, 5
+    s = page * n_log
+    q = torch.randn(b, hkv, g, d, generator=gen, device=cuda).to(dtype)
+    kc = torch.randn(b, s, hkv, d, generator=gen, device=cuda).to(dtype)
+    vc = torch.randn(b, s, hkv, d, generator=gen, device=cuda).to(dtype)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([600, 600, 200, 63, 300, 500], **i32)
+    start = torch.tensor([0, 390, 140, 63, 257, 10], **i32)
+    kp, vp, table = _pool(kc, vc, page, 1, seed=10)
+    for window in (0, 100):
+        got = paged_decode_attention(q, kp, vp, table, lengths, start,
+                                     window=window)
+        want = paged_decode_ref(q, kp, vp, table, lengths, start,
+                                sm_scale=d ** -0.5, window=window)
+        assert torch.isfinite(got).all()
+        _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,k,n", [(torch.float32, 2048, 4099),
+                                       (torch.bfloat16, 8192, 2048),
+                                       (torch.bfloat16, 136, 999)])
+def test_gpu_sta_gemm_skinny_rows_equal_at_any_m(cuda, dtype, k, n):
+    """All M <= 32 rows share one weight pass in a K order that reads no M,
+    no tiling and no cluster split: every row of an M 1, 8, 24 or 32 call
+    is the same row at M 1 bit for bit, on the 16-byte, 4-byte and 2-byte
+    copy paths (N 4099 f32, N 999 bf16) and the cluster split (K8192
+    N2048); the plain version's tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn(32, k, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=cuda) * 0.05).to(dtype)
+    bias = torch.randn(n, generator=gen, device=cuda)
+    ones = [sta_gemm_skinny(x[r:r + 1].contiguous(), w, bias, act="silu")
+            for r in range(32)]
+    for m in (1, 8, 24, 32):
+        got = sta_gemm_skinny(x[:m].contiguous(), w, bias, act="silu")
+        for r in range(m):
+            assert torch.equal(got[r:r + 1], ones[r]), (m, r)
+    _gpu_close(got, sta_gemm_ref(x, w, bias, act="silu"), dtype)
 
 
 def _flash_tc_counted(before, name, dtype, d):
