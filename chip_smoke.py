@@ -25,7 +25,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             (csrc/tc_gemm_s8.cuh): each line also prints bf16
             torch.matmul at the same shape, the int32 output's time and
             the IMAD body's earlier time in brackets, and must count a
-            ``_s8_tc`` launch per call. The bf16 branches of
+            ``_s8_tc`` launch per call. The M8 and M24 calls of
+            sta_gemm_skinny_s8 and dbb_gemm_skinny_s8 run on the int8
+            split-K body (csrc/split_k_s8.cuh): each line also prints
+            bf16 torch.matmul at the shape, the int32 output's time and
+            the row-chunk body's earlier time in brackets. The bf16
+            branches of
             sta_gemm and dbb_gemm (all three planes) run on the tensor-core
             body: each of their M512 lines also prints the time of the
             plain-FMA body it replaced (PERF.md's kernel table before the
@@ -39,8 +44,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             dbb_gemm_skinny (M8 and M24, all three planes) run on the
             split-K body (csrc/split_k.cuh): each line prints the
             row-chunk body's earlier time in brackets and must count a
-            ``dbb_gemm_skinny_split`` launch (the s8 branch keeps the
-            row-chunk body). The f32-x branches of dbb_gemm and
+            ``dbb_gemm_skinny_split`` launch. The f32-x branches of
+            dbb_gemm and
             dbb_gemm_skinny are also timed at convnet's classifier (fc
             4096 -> 10, DBB k2, bias: B256 on dbb_gemm's narrow split-K
             body, counting a ``dbb_gemm_narrow`` launch, and B1) beside
@@ -253,6 +258,23 @@ IMAD_S8_MS = {("sta_gemm_s8", 2048, 2048): 0.4690,
               ("dbb_gemm_s8", 2048, 2048): 0.4439,
               ("dbb_gemm_s8", 2048, 8192): 0.7209,
               ("dbb_gemm_s8", 8192, 2048): 1.7399}
+# per-call ms of the row-chunk bodies that the int8 split-K body
+# (csrc/split_k_s8.cuh) replaced in the skinny kernels' int8 branches (f32
+# epilogue; PERF.md's kernel table before the redesign, H100 80GB HBM3,
+# 700 W), keyed by (branch, M, K, N); printed beside this run's times,
+# never in the record
+ROW_CHUNK_S8_MS = {("sta_gemm_skinny_s8", 8, 2048, 2048): 0.0697,
+                   ("sta_gemm_skinny_s8", 8, 2048, 8192): 0.0739,
+                   ("sta_gemm_skinny_s8", 8, 8192, 2048): 0.2734,
+                   ("sta_gemm_skinny_s8", 24, 2048, 2048): 0.0681,
+                   ("sta_gemm_skinny_s8", 24, 2048, 8192): 0.1166,
+                   ("sta_gemm_skinny_s8", 24, 8192, 2048): 0.2660,
+                   ("dbb_gemm_skinny_s8", 8, 2048, 2048): 0.0387,
+                   ("dbb_gemm_skinny_s8", 8, 2048, 8192): 0.0672,
+                   ("dbb_gemm_skinny_s8", 8, 8192, 2048): 0.1359,
+                   ("dbb_gemm_skinny_s8", 24, 2048, 2048): 0.0447,
+                   ("dbb_gemm_skinny_s8", 24, 2048, 8192): 0.1439,
+                   ("dbb_gemm_skinny_s8", 24, 8192, 2048): 0.1518}
 # the launch counter of the redesigned body each DBB kernel's float calls
 # in the kernel phase must take, and its name beside the earlier body's
 REDESIGN = {"dbb_gemm": ("dbb_gemm_tc", "tensor-core body, plain-FMA body"),
@@ -1173,10 +1195,12 @@ def _s8_kernels(torch, dev, flush, failures):
 
     def case(name, label, run, plain, epis, lib, nbytes, ops, tc=None):
         """Check every epilogue, time the f32 one; returns the timings.
-        ``tc``: (the body's launch counter, the IMAD body's earlier ms,
-        bf16 torch.matmul at the shape) for the int8 tensor-core body."""
+        ``tc``: (the body's own launch counter or None, the replaced body's
+        earlier ms, bf16 torch.matmul at the shape, "new body, old body")
+        for the redesigned bodies: the int8 tensor-core body at M512, the
+        int8 split-K body of the skinny kernels."""
         worst, offs, good = 0.0, [], True
-        before = LAUNCHES[tc[0]] if tc else 0
+        before = LAUNCHES[tc[0]] if tc and tc[0] else 0
         for tag, kw, act in epis:
             got, want = run(act, **kw), plain(act, **kw)
             err, off, ok = _s8_check(torch, got, want, act)
@@ -1186,7 +1210,7 @@ def _s8_kernels(torch, dev, flush, failures):
                            ("none", "relu") and tag != "f32" else ""))
             if not ok:
                 failures.append(f"{name} {label} {tag} {act}: max err {err}")
-        if tc and LAUNCHES[tc[0]] != before + len(epis):
+        if tc and tc[0] and LAUNCHES[tc[0]] != before + len(epis):
             failures.append(f"{name} {label}: {LAUNCHES[tc[0]] - before} "
                             f"{tc[0]} launches of {len(epis)}")
         _, kw, act = epis[1]
@@ -1200,9 +1224,10 @@ def _s8_kernels(torch, dev, flush, failures):
             tag, kw0, act0 = epis[0]
             raw = _time_ms(torch, lambda: run(act0, **kw0), flush)
             mm = _time_ms(torch, tc[2], flush)
+            body, old = tc[3].split(", ")
             extra = (f", bf16 torch.matmul {mm:.4f} ms; {tag} output "
-                     f"{raw:.4f} ms; int8 tensor-core body, IMAD body "
-                     f"before it [{tc[1]:.4f} ms] ({tc[1] / ms:.1f}x)")
+                     f"{raw:.4f} ms; {body}, {old} before it "
+                     f"[{tc[1]:.4f} ms] ({tc[1] / ms:.1f}x)")
         print(f"kernel {name} {label}: {'; '.join(offs)} "
               f"{'ok' if good else 'FAIL'}"
               f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
@@ -1283,10 +1308,15 @@ def _s8_kernels(torch, dev, flush, failures):
                 epis = _s8_epilogues(torch, xs, qw.scale, bias, act, ys)
                 nbytes = x.numel() + stored + 8 * n + 4 * m * n
                 tc = None
+                xb, wb = x.bfloat16(), wd.bfloat16()
                 if (name, k_dim, n) in IMAD_S8_MS:
-                    xb, wb = x.bfloat16(), wd.bfloat16()
                     tc = (name + "_tc", IMAD_S8_MS[name, k_dim, n],
-                          lambda _x=xb, _w=wb: torch.matmul(_x, _w))
+                          lambda _x=xb, _w=wb: torch.matmul(_x, _w),
+                          "int8 tensor-core body, IMAD body")
+                elif (name, m, k_dim, n) in ROW_CHUNK_S8_MS:
+                    tc = (None, ROW_CHUNK_S8_MS[name, m, k_dim, n],
+                          lambda _x=xb, _w=wb: torch.matmul(_x, _w),
+                          "int8 split-K body, row-chunk body")
                 c = case(name, f"M{m} K{k_dim} N{n}", run, plain, epis,
                          lambda _x=x, _w=wd: _int_mm_ms(torch, _x, _w, flush),
                          nbytes, ops, tc)

@@ -18,9 +18,10 @@ flash_prefill and flash_prefill_packed in f32 at D 128 and in bf16 at D
 72 (the plain-FMA body's calls), two shapes each, and convnet's classifier
 (f32 x, K4096 N10, DBB k2, bias) on each values plane through dbb_gemm at
 B256 (the narrow split-K body) and dbb_gemm_skinny at B1 and B7; and the
-int8-activation branches of dbb_gemm and dbb_gemm_skinny (M8, M24, M300)
-and of sta_gemm (M300, M512; K1024 N1008), each with int32, f32 after
-scale + bias + gelu and int8 requantized after relu.
+int8-activation branches of dbb_gemm and dbb_gemm_skinny (M8, M24, M300),
+of sta_gemm (M300, M512; K1024 N1008) and of sta_gemm_skinny (M8, M24,
+M32; the same K and N), each with int32, f32 after scale + bias + gelu
+and int8 requantized after relu.
 
 ``--compare`` holds every output of A bit-equal to B's, except those whose
 key starts with one of the PREFIXes: a redesign names the outputs it may
@@ -49,6 +50,13 @@ bf16, identity table and shuffled pool, with and without a window and a
 softcap) may change:
 
     --compare A.pt B.pt "paged_decode"
+
+The int8 split-K body of the skinny kernels' int8 branches
+(csrc/split_k_s8.cuh, replacing their row-chunk bodies) may change no
+output either: its sums are integers and its epilogue the same, so every
+``dbb_gemm_skinny_s8`` and ``sta_gemm_skinny_s8`` key is held bit-equal,
+
+    --compare A.pt B.pt
 """
 import sys
 
@@ -201,6 +209,13 @@ def run(tree: str, out_path: str) -> None:
         out[f"sta_gemm_s8 M{m} f32"] = sta_gemm(xm, wd, bd, sd, act="gelu")
         out[f"sta_gemm_s8 M{m} i8"] = sta_gemm(xm, wd, None, sd, act="relu",
                                               out_dtype=torch.int8)
+    for m in (8, 24, 32):
+        xm = xd[:m].contiguous()
+        out[f"sta_gemm_skinny_s8 M{m} i32"] = sta_gemm_skinny(xm, wd)
+        out[f"sta_gemm_skinny_s8 M{m} f32"] = sta_gemm_skinny(
+            xm, wd, bd, sd, act="gelu")
+        out[f"sta_gemm_skinny_s8 M{m} i8"] = sta_gemm_skinny(
+            xm, wd, None, sd, act="relu", out_dtype=torch.int8)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, out_path)
     print(f"{tree}: {len(out)} outputs saved to {out_path}")

@@ -23,8 +23,9 @@
 // plane, so its fixed work (the decompression of its pairs, the product,
 // the issue and the wait), not the plane's bytes, sets its pace.
 //
-// Two bodies, by split_body's rule on x's dtype alone (never M; the
-// wrapper's split_body mirrors it):
+// Two bodies, by x's dtype: float x on the split-K body below (split_body's
+// rule, which never reads M; the wrapper's split_body mirrors it), int8 x
+// on the int8 split-K body of split_k_s8.cuh.
 //
 // Float x: the split-K body (kSplit* below; helpers in split_k.cuh). A
 // block owns 64 output columns, every row of the batch (so each weight
@@ -59,13 +60,15 @@
 // the same at any M <= 32 and any place in the batch, and two calls give
 // equal bits.
 //
-// int8 x (the _s8 branch): the row-chunk body (below the split body): a
-// block owns 16 columns and one chunk of up to 8 rows; its half-warps
-// split the K/8 DBB blocks, each thread loads its column's mask and slots,
-// decompresses in registers and accumulates exact int32 sums, which meet
-// in shared memory before the epilogue.
+// int8 x (the _s8 branch, split_k_s8.cuh, shared with sta_gemm_skinny.cu):
+// the same grid, slices and workspace in 128-deep stages of int8 (16 DBB
+// blocks); each stage's planes are expanded by byte permutes into a K-major
+// int8 W^T tile for s8 mma.sync (int32 sums, exact in any order, so every
+// output equals the plain version's). Bound by the plane's stream too
+// (1.0 byte a weight at k = 4).
 #include "common.cuh"
 #include "split_k.cuh"
+#include "split_k_s8.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -579,80 +582,6 @@ int launch_split(const void* x, const Plane plane, const void* bitmask,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The row-chunk body (int8 x)
-// ---------------------------------------------------------------------------
-
-constexpr int kCols = 16;                  // output columns per block
-constexpr int kSplit = 32 / kCols;         // K slices per warp
-constexpr int kRows = 8;                   // rows per block (one chunk)
-constexpr int kWarps = 16;
-
-template <typename T, typename TO, typename Plane>
-__global__ void __launch_bounds__(kWarps * 32)
-dbb_gemm_skinny_kernel(const T* __restrict__ x, const Plane plane,
-                       const int32_t* __restrict__ bitmask,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ bias, TO* __restrict__ out,
-                       int M, int K, int N, int nnz, int act) {
-  using Acc = repro::acc_t<T>;
-  constexpr int kSlices = kWarps * kSplit;
-  __shared__ Acc part[kSlices][kRows][kCols];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int col = lane % kCols, slice = warp * kSplit + lane / kCols;
-  const int n = blockIdx.y * kCols + col;
-  const int kb_total = K / repro::kDbbBlock;
-  const int r0 = blockIdx.x * kRows;       // this block's row chunk
-  const int m = min(kRows, M - r0);
-  x += (size_t)r0 * K;
-  out += (size_t)r0 * N;
-
-  Acc acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = Acc(0);
-
-  if (n < N) {
-    for (int kb = slice; kb < kb_total; kb += kSlices) {
-      const uint32_t mask = (uint32_t)bitmask[(size_t)kb * N + n];
-      Acc slot[repro::kNnzMax];
-      plane.load(kb, n, N, nnz, slot);
-      Acc w[repro::kDbbBlock];
-      repro::decompress_block<T>(mask, slot, nnz, w);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= m) break;
-        Acc xv[8];
-        repro::load8(x + (size_t)r * K + (size_t)kb * repro::kDbbBlock, xv);
-#pragma unroll
-        for (int p = 0; p < repro::kDbbBlock; ++p)
-          acc[r] = repro::mac(xv[p], w[p], acc[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) part[slice][r][col] = acc[r];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * kCols; i += kWarps * 32) {
-    const int r = i / kCols, c = i % kCols, cn = blockIdx.y * kCols + c;
-    if (r >= m || cn >= N) continue;
-    Acc sum = 0;
-#pragma unroll
-    for (int v = 0; v < kSlices; ++v) sum += part[v][r][c];
-    out[(size_t)r * N + cn] = repro::finish<TO>(sum, cn, scale, bias, act);
-  }
-}
-
-template <typename T, typename TO, typename Plane>
-void launch_t(const void* x, const Plane plane, const void* bitmask,
-              const void* scale, const void* bias, void* out, int M, int K,
-              int N, int nnz, int act, cudaStream_t s) {
-  const dim3 grid((M + kRows - 1) / kRows, (N + kCols - 1) / kCols);
-  dbb_gemm_skinny_kernel<T, TO, Plane><<<grid, kWarps * 32, 0, s>>>(
-      static_cast<const T*>(x), plane, static_cast<const int32_t*>(bitmask),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<TO*>(out), M, K, N, nnz, act);
-}
-
 bool dims_ok(int M, int K, int nnz) {
   return M >= 1 && M <= 32 && nnz >= 1 && nnz <= repro::kNnzMax &&
          K % repro::kDbbBlock == 0;
@@ -724,17 +653,32 @@ extern "C" int dbb_gemm_skinny_w4_launch(const void* x, const void* values,
                 stream);
 }
 
-// int8 x on the int8 values plane: out_dtype DT_I32, DT_F32 or DT_I8
+// int8 x on the int8 values plane (split_k_s8.cuh): out_dtype DT_I32,
+// DT_F32 or DT_I8; work: dbb_gemm_skinny_s8_splits(K, N) * M * N int32
 extern "C" int dbb_gemm_skinny_s8_launch(const void* x, const void* values,
                                          const void* bitmask, const void* scale,
-                                         const void* bias, void* out, int M, int K,
-                                         int N, int nnz, int act, int out_dtype,
+                                         const void* bias, void* out,
+                                         void* work, int M, int K, int N,
+                                         int nnz, int act, int out_dtype,
                                          void* stream) {
-  if (!dims_ok(M, K, nnz)) return (int)cudaErrorInvalidValue;
-  const repro::I8Plane plane{static_cast<const int8_t*>(values)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return repro::with_s8_out(out_dtype, [&](auto o) {
-    launch_t<int8_t, decltype(o)>(x, plane, bitmask, scale, bias, out, M, K,
-                                  N, nnz, act, s);
+  if (!dims_ok(M, K, nnz) || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  namespace s8 = repro::splitk8;
+  const s8::Args a{static_cast<const int8_t*>(x),
+                   static_cast<const int8_t*>(values),
+                   static_cast<const int32_t*>(bitmask),
+                   static_cast<const float*>(scale),
+                   static_cast<const float*>(bias),
+                   out, static_cast<int*>(work), M, K, N, nnz, act};
+  int rc = 0;
+  const int e = repro::with_s8_out(out_dtype, [&](auto o) {
+    rc = s8::launch<decltype(o), true>(a, static_cast<cudaStream_t>(stream));
   });
+  return rc != 0 ? rc : e;
+}
+
+// the int8 body's K slices at (K, N): its workspace holds
+// dbb_gemm_skinny_s8_splits(K, N) * M * N int32
+extern "C" int dbb_gemm_skinny_s8_splits(int K, int N) {
+  return repro::splitk8::splits(K, N);
 }

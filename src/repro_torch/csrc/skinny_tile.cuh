@@ -1,8 +1,7 @@
-// The skinny dense GEMV body of head_sample_fused.cu (the sampling head)
-// and of sta_gemm_skinny.cu's int8 branch. Its K order is the one that
-// sta_gemm_skinny.cu's float body (the greedy head) keeps with another
-// tiling: sharing it is what makes temperature-0 sampling pick greedy's
-// token bit for bit.
+// The skinny dense GEMV body of head_sample_fused.cu (the sampling head).
+// Its K order is the one that sta_gemm_skinny.cu's float body (the greedy
+// head) keeps with another tiling: sharing it is what makes
+// temperature-0 sampling pick greedy's token bit for bit.
 //
 // A block takes one chunk of up to kSkinnyRows = 8 rows (blockIdx.x: M > 8
 // runs ceil(M / 8) chunks) and 32 columns per pass. Its kSkinnyWarps warps
@@ -17,11 +16,6 @@
 // (blockIdx.x varies fastest), so the chunks after the first find that
 // weight slab in L2: the weight streams from memory about once, and a
 // block reads only its own 8 activation rows.
-//
-// The body is generic in the accumulator: float operands keep the f32
-// FMA sums above (head_sample_fused's K order is this one), int8 operands
-// (sta_gemm_skinny's int8 branch) keep int32 sums and int32 partials, so
-// the cross-warp reduction is exact and order-free.
 #pragma once
 
 #include "common.cuh"
@@ -31,24 +25,24 @@ namespace repro {
 constexpr int kSkinnyRows = 8;    // rows per block (one row chunk)
 constexpr int kSkinnyWarps = 16;  // warps per block, splitting K
 
-template <typename T, typename A>
+template <typename T>
 __device__ __forceinline__ void skinny_pass(
     const T* __restrict__ x, const T* __restrict__ w, int n, int m, int K,
-    int N, A (&part)[kSkinnyWarps][kSkinnyRows][32]) {
+    int N, float (&part)[kSkinnyWarps][kSkinnyRows][32]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  A acc[kSkinnyRows];
+  float acc[kSkinnyRows];
 #pragma unroll
-  for (int r = 0; r < kSkinnyRows; ++r) acc[r] = A(0);
+  for (int r = 0; r < kSkinnyRows; ++r) acc[r] = 0.f;
   if (n < N) {
     for (int g = warp; g < K / 8; g += kSkinnyWarps) {
       const size_t k = (size_t)g * 8;
-      A wv[8];
+      float wv[8];
 #pragma unroll
       for (int p = 0; p < 8; ++p) wv[p] = to_acc(w[(k + p) * N + n]);
 #pragma unroll
       for (int r = 0; r < kSkinnyRows; ++r) {
         if (r >= m) break;
-        A xv[8];
+        float xv[8];
         load8(x + (size_t)r * K + k, xv);
 #pragma unroll
         for (int p = 0; p < 8; ++p) acc[r] = mac(xv[p], wv[p], acc[r]);
@@ -60,10 +54,9 @@ __device__ __forceinline__ void skinny_pass(
 }
 
 // row r of the chunk, pass column c: the warps' partials in warp order
-template <typename A>
-__device__ __forceinline__ A skinny_sum(
-    const A (&part)[kSkinnyWarps][kSkinnyRows][32], int r, int c) {
-  A sum = 0;
+__device__ __forceinline__ float skinny_sum(
+    const float (&part)[kSkinnyWarps][kSkinnyRows][32], int r, int c) {
+  float sum = 0.f;
 #pragma unroll
   for (int v = 0; v < kSkinnyWarps; ++v) sum += part[v][r][c];
   return sum;

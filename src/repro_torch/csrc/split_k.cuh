@@ -1,16 +1,18 @@
 // Building blocks of the port's split-K bodies (dbb_gemm_skinny.cu's
-// float body, dbb_gemm.cu's narrow-N f32 body): 16-byte and 4-byte
-// cp.async copies into shared memory, ldmatrix and the bf16
-// mma.sync.m16n8k16 product, a 2-D tensor-map encoder for TMA boxes, and
-// a thread-block cluster whose blocks each own one slice of K and sum
-// their partial tiles through distributed shared memory in a fixed order.
+// float body, dbb_gemm.cu's narrow-N f32 body, split_k_s8.cuh's int8
+// body): 16-byte and 4-byte cp.async copies into shared memory, ldmatrix,
+// the bf16 mma.sync.m16n8k16 and s8 m16n8k32 products, a 2-D tensor-map
+// encoder for TMA boxes, and a thread-block cluster whose blocks each own
+// one slice of K and sum their partial tiles through distributed shared
+// memory in a fixed order.
 //
-// Both bodies keep a split-K result deterministic without atomics: the
-// narrow body's cluster sums element e over its ranks in order 0, 1, ...,
-// S - 1 in one block after a cluster barrier; the skinny body writes its
-// slices to a workspace that a second launch adds in the same order. Two
-// calls give the same bits, and a row's bits depend on its own operands
-// and on S alone.
+// The float bodies keep a split-K result deterministic without atomics:
+// the narrow body's cluster sums element e over its ranks in order 0, 1,
+// ..., S - 1 in one block after a cluster barrier; the skinny body writes
+// its slices to a workspace that a second launch adds in the same order.
+// Two calls give the same bits, and a row's bits depend on its own
+// operands and on S alone. (The int8 body's int32 sums are exact in any
+// order.)
 #pragma once
 
 #include <cooperative_groups.h>
@@ -125,6 +127,22 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.sync.m16n8k32, s8 operands, int32 accumulators (no .satfinite: the
+// sum wraps mod 2^32). The fragments are m16n8k16's with each b16 element
+// read as two int8: a: rows lane / 4 and + 8, K 4 (lane % 4) .. + 3 and
+// + 16; b: K 4 (lane % 4) .. + 3 and + 16 of column lane / 4; d as
+// mma_bf16_16816's.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

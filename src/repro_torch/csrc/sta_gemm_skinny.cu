@@ -2,17 +2,21 @@
 // out = act(scale * (x @ w) + bias), x[M, K], w[K, N] of one dtype: f32 or
 // bf16, output in that dtype (sta_gemm_skinny_launch); or int8, the
 // INT8 x INT8 -> INT32 datapath, output int32, f32 or int8 requantized
-// (sta_gemm_skinny_s8_launch).
+// (sta_gemm_skinny_s8_launch, on the int8 split-K body of split_k_s8.cuh,
+// shared with dbb_gemm_skinny.cu: 64 columns and all M <= 32 rows a
+// block, K split over <= 8 blocks in 128-deep stages, s8 mma.sync, the
+// slices added by a second launch from a workspace the wrapper allocates;
+// bound by the weight stream, see that header).
 //
 // Replaces: src/repro/kernels/skinny/kernel.py, sta_gemm_skinny_pallas —
 // on the serving path the tied-embedding head, x[8, 2048] f32 times
 // w[2048, 50304] f32, whose argmax is the greedy token (x[24, 2048] in the
 // speculative verify), and the dense decode layers at bf16.
 //
-// What bounds it on the H100: bytes. The head's 412 MB f32 weight is read
-// once per step for 2 * M operations per 4-byte weight, below the card's
-// operations-per-byte balance, so the least time is the weight stream over
-// the 3.35 TB/s memory rate. At M 24-32 the f32 FMAs (no TF32, as the
+// What bounds the float body on the H100: bytes. The head's 412 MB f32
+// weight is read once per step for 2 * M operations per 4-byte weight,
+// below the card's operations-per-byte balance, so the least time is the
+// weight stream over the 3.35 TB/s memory rate. At M 24-32 the f32 FMAs (no TF32, as the
 // reference computes the head in f32) need 60-80% of that time on the
 // 67 TFLOP/s f32 pipes, so the body spends its issue slots on FMAs and
 // keeps the weight stream going while they run.
@@ -24,40 +28,38 @@
 // v + 32, ... in ascending g, rows p = 0..7 inside a group. Any tiling that
 // keeps these chains and this sum gives the same bits; this one does.
 //
-// Float design (the row-chunk body below is the int8 branch's). A column
-// tile is 64 output columns and every row of the batch, so the weight is
-// read from memory once at any M <= 32. A block's 16 warps hold the 16
-// strands. The blocks are persistent (one a SM, at most as many as tiles),
-// each walking tiles blockIdx.x, + gridDim.x, and the weight and x stream
-// through one ring of shared-memory stages (4 for f32, 6 for bf16) that
-// runs on across a block's tiles, so a tile's epilogue overlaps the next
-// tile's loads. A stage is one 8-row group of every strand: K rows
+// Float design. A column tile is 64 output columns and every row of the
+// batch, so the weight is read from memory once at any M <= 32. A block's 16
+// warps hold the 16 strands. The blocks are persistent (one a SM, at most as
+// many as tiles), each walking tiles blockIdx.x, + gridDim.x, and the weight
+// and x stream through one ring of shared-memory stages (4 for f32, 6 for
+// bf16) that runs on across a block's tiles, so a tile's epilogue overlaps
+// the next tile's loads. A stage is one 8-row group of every strand: K rows
 // [128 j, 128 j + 128) x 64 columns of w (TMA boxes that thread 0 issues
 // against the slot's mbarrier where w's rows are 16-byte multiples, else
 // every thread's cp.async copies, 4- or 2-byte where a row needs them) and
-// the same K of the batch's x rows (16-byte cp.async copies; rows padded
-// by 16 bytes so that the row lanes' loads fall on different banks).
-// A lane owns C adjacent columns (f32 4, bf16 8: one 16-byte vector of a
-// weight row) and a block of MT rows, one every RL (f32 2, bf16 4 row
-// lanes), so each weight value read from shared memory feeds MT FMAs and
-// each x value C; the rows sit at a fixed stride, so their loads take
-// immediate offsets and the accumulators keep the registers (at MT >= 12
-// the lane holds 2 of a group's 8 weight rows at a time, not 4). Where the
-// tiles would fill at most half the SMs (N <= 4224), Q blocks of a
-// thread-block cluster (Q = 2, 4 or 8: a rule on K and N) split the
-// strands: block q holds strands [q S, q S + S), S = 16 / Q, its warps
-// (strand, row part) walk Q groups of their strand a stage, so a stage is
-// still 128 K rows. After a tile's last stage, 8 rows at a time, each
-// block leaves its strands' partial sums [S][8][64] in shared memory and
-// the cluster's blocks add them in strand order (over distributed shared
-// memory) before the epilogue and the one store. No atomics, and nothing
-// of the order depends on M, Q or the tiling.
+// the same K of the batch's x rows (16-byte cp.async copies; rows padded by
+// 16 bytes so that the row lanes' loads fall on different banks). A lane
+// owns C adjacent columns (f32 4, bf16 8: one 16-byte vector of a weight
+// row) and a block of MT rows, one every RL (f32 2, bf16 4 row lanes), so
+// each weight value read from shared memory feeds MT FMAs and each x value
+// C; the rows sit at a fixed stride, so their loads take immediate offsets
+// and the accumulators keep the registers (at MT >= 12 the lane holds 2 of a
+// group's 8 weight rows at a time, not 4). Where the tiles would fill at
+// most half the SMs (N <= 4224), Q blocks of a thread-block cluster (Q = 2,
+// 4 or 8: a rule on K and N) split the strands: block q holds strands [q S,
+// q S + S), S = 16 / Q, its warps (strand, row part) walk Q groups of their
+// strand a stage, so a stage is still 128 K rows. After a tile's last stage,
+// 8 rows at a time, each block leaves its strands' partial sums [S][8][64]
+// in shared memory and the cluster's blocks add them in strand order (over
+// distributed shared memory) before the epilogue and the one store. No
+// atomics, and nothing of the order depends on M, Q or the tiling.
 #include "skinny_tile.cuh"
 #include "split_k.cuh"
+#include "split_k_s8.cuh"
 
 namespace {
 
-using repro::kSkinnyRows;
 using repro::kSkinnyWarps;
 namespace sk = repro::splitk;
 
@@ -414,42 +416,6 @@ cudaError_t launch_float(const FloatArgs& a, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// The row-chunk body (int8 operands; skinny_tile.cuh): a block takes one
-// chunk of up to 8 rows and 32 columns, its 16 warps split K in the
-// strands above and keep exact int32 sums, which meet in shared memory.
-// ---------------------------------------------------------------------------
-
-template <typename T, typename TO>
-__global__ void __launch_bounds__(kSkinnyWarps * 32)
-sta_gemm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ bias, TO* __restrict__ out,
-                       int M, int K, int N, int act) {
-  __shared__ repro::acc_t<T> part[kSkinnyWarps][kSkinnyRows][32];
-  const int r0 = blockIdx.x * kSkinnyRows;
-  const int m = min(kSkinnyRows, M - r0);
-  repro::skinny_pass<T>(x + (size_t)r0 * K, w,
-                        blockIdx.y * 32 + threadIdx.x % 32, m, K, N, part);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kSkinnyRows * 32; i += kSkinnyWarps * 32) {
-    const int r = i / 32, c = i % 32, col = blockIdx.y * 32 + c;
-    if (r >= m || col >= N) continue;
-    out[(size_t)(r0 + r) * N + col] = repro::finish<TO>(
-        repro::skinny_sum(part, r, c), col, scale, bias, act);
-  }
-}
-
-template <typename T, typename TO = T>
-void launch(const void* x, const void* w, const void* scale, const void* bias,
-            void* out, int M, int K, int N, int act, cudaStream_t s) {
-  const dim3 grid((M + kSkinnyRows - 1) / kSkinnyRows, (N + 31) / 32);
-  sta_gemm_skinny_kernel<T, TO><<<grid, kSkinnyWarps * 32, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<TO*>(out), M, K, N, act);
-}
-
 }  // namespace
 
 extern "C" int sta_gemm_skinny_launch(const void* x, const void* w,
@@ -472,15 +438,31 @@ extern "C" int sta_gemm_skinny_launch(const void* x, const void* w,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// int8 operands: out_dtype DT_I32, DT_F32 or DT_I8
+// int8 operands (split_k_s8.cuh): out_dtype DT_I32, DT_F32 or DT_I8;
+// work: sta_gemm_skinny_s8_splits(K, N) * M * N int32
 extern "C" int sta_gemm_skinny_s8_launch(const void* x, const void* w,
                                          const void* scale, const void* bias,
-                                         void* out, int M, int K, int N,
-                                         int act, int out_dtype,
+                                         void* out, void* work, int M, int K,
+                                         int N, int act, int out_dtype,
                                          void* stream) {
-  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return repro::with_s8_out(out_dtype, [&](auto o) {
-    launch<int8_t, decltype(o)>(x, w, scale, bias, out, M, K, N, act, s);
+  if (M < 1 || M > 32 || K % kGroupK || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  namespace s8 = repro::splitk8;
+  const s8::Args a{static_cast<const int8_t*>(x),
+                   static_cast<const int8_t*>(w),
+                   nullptr,
+                   static_cast<const float*>(scale),
+                   static_cast<const float*>(bias),
+                   out, static_cast<int*>(work), M, K, N, 1, act};
+  int rc = 0;
+  const int e = repro::with_s8_out(out_dtype, [&](auto o) {
+    rc = s8::launch<decltype(o), false>(a, static_cast<cudaStream_t>(stream));
   });
+  return rc != 0 ? rc : e;
+}
+
+// the int8 body's K slices at (K, N): its workspace holds
+// sta_gemm_skinny_s8_splits(K, N) * M * N int32
+extern "C" int sta_gemm_skinny_s8_splits(int K, int N) {
+  return repro::splitk8::splits(K, N);
 }

@@ -215,12 +215,10 @@ __device__ __forceinline__ uint2 expand_words(uint32_t e, uint32_t lo,
 // r ^ 1 so that the two lie in opposite bank halves; a lane stores its
 // columns rotated by rot = (g / 2) % 4, so the 8 lanes of a store phase
 // hit 8 distinct chunks. Both permutations live in the transpose's
-// selectors: no extra instruction.
-template <int BM, int ST>
-__device__ __forceinline__ void convert_stage(const DenseS8<BM, ST>&,
-                                              const uint8_t* raw,
-                                              uint8_t* tile, const uint32_t*,
-                                              int u) {
+// selectors: no extra instruction. (Shared with the skinny int8 body,
+// split_k_s8.cuh.)
+__device__ __forceinline__ void transpose_stage(const uint8_t* raw,
+                                                uint8_t* tile, int u) {
   const int g = u % (BN / 4), c = u / (BN / 4);
   const int h = c & 1, rot = (g >> 1) & 3;
   uint32_t sa, sb;
@@ -239,6 +237,14 @@ __device__ __forceinline__ void convert_stage(const DenseS8<BM, ST>&,
   for (int i = 0; i < 4; ++i)
     *tile_chunk(tile, 4 * g + ((rot + i) & 3), c) =
         make_uint4(o[0][i], o[1][i], o[2][i], o[3][i]);
+}
+
+template <int BM, int ST>
+__device__ __forceinline__ void convert_stage(const DenseS8<BM, ST>&,
+                                              const uint8_t* raw,
+                                              uint8_t* tile, const uint32_t*,
+                                              int u) {
+  transpose_stage(raw, tile, u);
 }
 
 // DBB: the staged bitmask [16][64] int32 and values [16 nnz][64] int8.

@@ -19,10 +19,9 @@ __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
            "gemm_acc"]
 
 # Dispatch cap: decode / serving batches, as the reference's skinny rule.
-# The int8 branches of sta_gemm_skinny and dbb_gemm_skinny run M > 8 as
-# ceil(M / 8) row chunks that share each weight slab in L2
-# (csrc/skinny_tile.cuh); their float bodies keep all M <= 32 rows in one
-# block (csrc/sta_gemm_skinny.cu, csrc/dbb_gemm_skinny.cu).
+# sta_gemm_skinny and dbb_gemm_skinny keep all M <= 32 rows in one block on
+# every branch (csrc/sta_gemm_skinny.cu, csrc/dbb_gemm_skinny.cu, the int8
+# branches' csrc/split_k_s8.cuh).
 SKINNY_M_MAX = 32
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)

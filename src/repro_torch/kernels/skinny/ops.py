@@ -9,15 +9,20 @@ CPU tensor it runs the plain version.
 
 `sta_gemm_skinny`'s float branch keeps all M <= 32 rows in one block
 (persistent blocks over 64-column tiles; a TMA-fed weight ring), in the K
-order that head_sample_fused shares, so its bits do not depend on M; its
-int8 branch runs the row-chunk body (csrc/skinny_tile.cuh).
+order that head_sample_fused shares, so its bits do not depend on M.
 
-`dbb_gemm_skinny` has two bodies (csrc/dbb_gemm_skinny.cu), by
-`split_body`'s rule on x's dtype alone: float x runs the split-K body (all
-M <= 32 rows in one block, K split across blocks whose partial sums a
-second pass adds in a fixed order from a workspace this wrapper allocates,
-the planes streamed through a cp.async ring; bf16 x on mma.sync) and
-counts as ``dbb_gemm_skinny_split`` too; int8 x runs the row-chunk body."""
+`dbb_gemm_skinny` runs float x on its split-K body (all M <= 32 rows in
+one block, K split across blocks whose partial sums a second pass adds in
+a fixed order from a workspace this wrapper allocates, the planes streamed
+through a TMA or cp.async ring; bf16 x on mma.sync), counted as
+``dbb_gemm_skinny_split`` too (`split_body`: the rule on x's dtype).
+
+The int8 branches of both kernels run one int8 split-K body
+(csrc/split_k_s8.cuh): all M <= 32 rows and 64 columns a block, K in
+128-deep stages split over ``_s8_splits(K, N)`` blocks, s8 mma.sync on
+int32 accumulators; the slices' sums meet in a workspace this wrapper
+allocates, added by a second launch. Integer sums are exact, so the
+outputs equal the plain version's bit for bit."""
 from __future__ import annotations
 
 import ctypes
@@ -54,6 +59,23 @@ def _splits(k_dim: int, n: int) -> int:
     return fn(k_dim, n)
 
 
+@functools.lru_cache(maxsize=None)
+def _s8_splits(kernel: str, k_dim: int, n: int) -> int:
+    """The int8 body's K slices at (K, N) (csrc/split_k_s8.cuh's splits,
+    exported by each skinny kernel's library, asked once per shape): its
+    workspace holds that many [M, N] int32 partial sums."""
+    fn = getattr(build.load(kernel), f"{kernel}_s8_splits")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(k_dim, n)
+
+
+def _s8_work(kernel: str, m: int, k_dim: int, n: int,
+             device: torch.device) -> torch.Tensor:
+    return torch.empty((_s8_splits(kernel, k_dim, n), m, n),
+                       dtype=torch.int32, device=device)
+
+
 def split_body(dtype: torch.dtype) -> bool:
     """Whether dbb_gemm_skinny runs x of this dtype on its split-K body:
     f32 and bf16. The rule of csrc/dbb_gemm_skinny.cu's split_body; it
@@ -84,7 +106,8 @@ def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
     else:
         split = split_body(x.dtype)
         work = (torch.empty((_splits(k_dim, n), m, n), dtype=torch.float32,
-                            device=x.device) if split else None)
+                            device=x.device) if split else
+                _s8_work("dbb_gemm_skinny", m, k_dim, n, x.device))
         y = run_dbb_kernel("dbb_gemm_skinny", plane, x2, values, bitmask,
                            bias, scale, m=m, k_dim=k_dim, n=n, nnz=nnz,
                            act=act, out_dtype=out_dtype, group=group,
@@ -96,11 +119,12 @@ def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
 
 def _sta_launcher(branch: str = ""):
     """``sta_gemm_skinny_launch`` (x's dtype code) or
-    ``sta_gemm_skinny_s8_launch`` (the out dtype code)."""
+    ``sta_gemm_skinny_s8_launch`` (the out dtype code; a workspace pointer
+    follows the output's)."""
     fn = getattr(build.load("sta_gemm_skinny"),
                  f"sta_gemm_skinny{branch}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (6 if branch else 5) + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,9 +151,12 @@ def sta_gemm_skinny(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None,
     else:
         branch = "_s8" if x.dtype == torch.int8 else ""
         y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+        work = (_s8_work("sta_gemm_skinny", m, k_dim, n, x.device)
+                if branch else None)
         rc = _sta_launcher(branch)(
             x2.data_ptr(), w.data_ptr(), build.ptr(scale), build.ptr(bias),
-            y.data_ptr(), m, k_dim, n, ACT_CODES[act],
+            y.data_ptr(), *([work.data_ptr()] if branch else []), m, k_dim,
+            n, ACT_CODES[act],
             build.dtype_code(out_dtype if branch else x.dtype),
             build.stream_handle(x.device))
         if rc != 0:

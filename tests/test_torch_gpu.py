@@ -1824,3 +1824,110 @@ def test_gpu_s8_tc_counts_follow_the_kernels_own_rules(cuda):
         assert LAUNCHES[name] == before[name], name
     assert LAUNCHES["sta_gemm_s8"] == before["sta_gemm_s8"] + 1
     assert LAUNCHES["dbb_gemm_s8"] == before["dbb_gemm_s8"] + 2
+
+
+# ---------------------------------------------------------------------------
+# The skinny int8 body (csrc/split_k_s8.cuh) of dbb_gemm_skinny's and
+# sta_gemm_skinny's int8 branches: all M <= 32 rows and 64 columns a block,
+# K in 128-deep stages split over <= 8 blocks, s8 mma.sync, the slices
+# added by a second launch from a workspace
+# ---------------------------------------------------------------------------
+
+# (act, out dtype, with scale, with bias) whose outputs are exact: the raw
+# int32 sum, int8 requantized after relu, f32 with a bias after relu
+S8_EXACT = [("none", None, False, False), ("relu", I8, True, False),
+            ("relu", F32, False, True)]
+
+
+def _s8_skinny(cuda, kernel, x, w, nnz, bias=None, scale=None, **kw):
+    """One int8 skinny call on the body (dense w, or w packed at ``nnz``)
+    and its plain version's output; checks one ``_s8`` launch."""
+    before = LAUNCHES[kernel + "_s8"]
+    if kernel == "sta_gemm_skinny":
+        got = sta_gemm_skinny(x, w, bias, scale, **kw)
+        want = sta_gemm_ref(x, w, bias, scale, **kw)
+    else:
+        p = pack_dbb(w, 8, nnz)
+        got = dbb_gemm_skinny(x, p.values, p.bitmask, bias, scale, nnz=nnz,
+                              **kw)
+        want = dbb_gemm_ref(x, p.values, p.bitmask, bias, scale, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel + "_s8"] == before + 1
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm_skinny", "dbb_gemm_skinny"])
+@pytest.mark.parametrize("m", [1, 8, 13, 24, 32])
+@pytest.mark.parametrize("k,n", [(264, 10), (264, 200), (264, 640),
+                                 (2048, 10), (2048, 200), (2048, 640)])
+def test_gpu_s8_skinny_body_is_the_plain_version_bit_for_bit(cuda, kernel,
+                                                             m, k, n):
+    """Every skinny M bucket; K 264 (three 128-deep stages, the last one
+    8 deep; x rows of 8-byte multiples: cp.async) and K 2048 (8 slices of
+    two stages at N 10 and 200); N 640 with K 2048 takes the TMA boxes,
+    N 10 the byte copies and N 200 the 4-byte ones. The exact epilogues
+    bit for bit, each call counted once, two calls equal."""
+    x, w, bias, scale = _s8_operands(cuda, m, k, n, m * 31 + k + n)
+    nnz = 2 if m % 2 else 4
+    for act, od, has_scale, has_bias in S8_EXACT:
+        b, s = _epi(bias, scale, has_scale, has_bias)
+        got, want = _s8_skinny(cuda, kernel, x, w, nnz, b, s, act=act,
+                               out_dtype=od)
+        assert torch.equal(got, want), (act, od)
+        again, _ = _s8_skinny(cuda, kernel, x, w, nnz, b, s, act=act,
+                              out_dtype=od)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm_skinny", "dbb_gemm_skinny"])
+@pytest.mark.parametrize("nnz", [1, 3, 5, 8])
+def test_gpu_s8_skinny_body_every_nnz_and_the_fused_epilogues(cuda, kernel,
+                                                              nnz):
+    """M 29 at K 1184 N 136 (TMA boxes, 10 stages over 8 slices): every
+    nnz's stage layout (the DBB branch; the dense one runs once a case)
+    and every epilogue of S8_EPILOGUES within the int8 tolerance."""
+    x, w, bias, scale = _s8_operands(cuda, 29, 1184, 136, nnz)
+    for act, od, has_scale, has_bias in S8_EPILOGUES:
+        b, s = _epi(bias, scale, has_scale, has_bias)
+        got, want = _s8_skinny(cuda, kernel, x, w, nnz, b, s, act=act,
+                               out_dtype=od)
+        _s8_close(got, want, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sta_gemm_skinny", "dbb_gemm_skinny"])
+def test_gpu_s8_skinny_all_127_at_k8192(cuda, kernel):
+    """All-127 operands at M 32 K 8192 (every int32 sum 8192·127², past
+    f32's exact 2^24): each output is that integer."""
+    x = torch.full((32, 8192), 127, dtype=I8, device=cuda)
+    w = torch.full((8192, 136), 127, dtype=I8, device=cuda)
+    got, want = _s8_skinny(cuda, kernel, x, w, 8)
+    assert got.dtype == I32 and torch.equal(got, want)
+    assert bool((got == 8192 * 127 * 127).all())
+
+
+@pytest.mark.gpu
+def test_gpu_s8_skinny_workspace_follows_the_rule(cuda):
+    """The workspace the wrappers allocate holds ``_s8_splits(K, N)``
+    slices, which both libraries' exported rule gives on a grid of K and
+    N: 1, 2, 4 or 8, within 2 blocks an SM and two 128-deep stages a slice
+    where it splits."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.skinny.ops import _s8_splits
+    rules = []
+    for kernel in ("sta_gemm_skinny", "dbb_gemm_skinny"):
+        fn = getattr(build.load(kernel), kernel + "_s8_splits")
+        fn.argtypes = [ctypes.c_int] * 2
+        rules.append((kernel, fn))
+    for k in (0, 8, 264, 512, 1184, 2048, 4096, 8192, 16384):
+        for n in (1, 10, 136, 200, 640, 2048, 8192, 50304):
+            s = rules[0][1](k, n)
+            for kernel, fn in rules:
+                assert fn(k, n) == s == _s8_splits(kernel, k, n), (k, n)
+            assert s in (1, 2, 4, 8), (k, n, s)
+            if s > 1:
+                assert -(-n // 64) * s <= 2 * 132 and -(-k // 128) >= 2 * s

@@ -3,12 +3,13 @@ CPU.
 
 The CUDA launchers pick a body by a rule on the operands:
 csrc/dbb_gemm_skinny.cu's ``split_body`` (float x runs the split-K body,
-int8 x the row-chunk body) and csrc/dbb_gemm.cu's ``narrow_body`` (f32 x at
-N <= 16 runs the narrow split-K body). The wrappers mirror the rules to
-count ``dbb_gemm_skinny_split`` / ``dbb_gemm_narrow`` launches. Here each
-mirror is held against its launcher's own source, and the rules and the
-K-slice counts are shown never to read M (a row's bits must not depend on
-how many rows share the call). Then the CPU route of the shapes the new
+int8 x the int8 body of split_k_s8.cuh) and csrc/dbb_gemm.cu's
+``narrow_body`` (f32 x at N <= 16 runs the narrow split-K body). The
+wrappers mirror the rules to count ``dbb_gemm_skinny_split`` /
+``dbb_gemm_narrow`` launches. Here each mirror is held against its
+launcher's own source, and the rules and the K-slice counts are shown
+never to read M (a row's bits must not depend on how many rows share the
+call). Then the CPU route of the shapes the new
 bodies take on the card is held against the Pallas kernels in interpret
 mode: dbb_gemm with f32 x at N 10 and 16 with K that splits raggedly, and
 dbb_gemm_skinny at M 1, 7, 8, 9, 24 and 32 on the f32, INT8 and w4 planes
