@@ -59,6 +59,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             identity table (the earlier body's time in brackets) and at
             serve's contexts (S640, lengths 256-639) through a shuffled
             pool, beside ``scaled_dot_product_attention``.
+            conv_gemm_dbb's f32 and int8 calls at convnet's conv1 and conv2
+            run its tensor-core body (csrc/conv_tc.cuh: TMA im2col boxes,
+            the DBB planes decompressed in shared memory, 3xTF32 / s8
+            wgmma): each line prints cuDNN's F.conv2d on the decompressed
+            weight (f32, TF32 off; for the int8 lines bf16) and the FMA /
+            IMAD body's earlier time in brackets, and must count a
+            ``conv_gemm_dbb_tc`` / ``conv_gemm_dbb_s8_tc`` launch per call.
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -104,7 +111,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             matmul="dbb" (packed) at batch 256 and at batch 1, under
             matmul="sta" (dense) at batch 256, and lenet5-dbb under "dbb" at
             batch 256. Each run's launch counts must equal what the route
-            table implies, and its logits must agree with the plain route
+            table implies (convnet's conv1 and conv2 on conv_gemm_dbb's
+            tensor-core body: ``conv_gemm_dbb_tc`` 2), and its logits must
+            agree with the plain route
             (explicit im2col, plain matmul) within 1e-4 of max |logit| with
             equal classes (a row whose top-2 margin is under that tolerance
             is excused).
@@ -137,10 +146,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             (b) convnet-dbb's INT8 chain (quantize, conv with x_s·w_s fused,
             bias and relu to f32, max-pool, requantize, ..., classifier) at
             batch 256 and 1: logits and classes bit-equal to the plain
-            route's; (c) all-127 operands through every int8 branch at K
-            1179-1224 equal the exact integer; (d) every run's launch counts
-            exactly those the route table implies (one ``_s8`` counter per
-            run, no float branch moving); every M512 sta_gemm_s8 /
+            route's (conv1 and conv2 on the conv's int8 tensor-core body,
+            ``conv_gemm_dbb_s8_tc`` 2); (c) all-127 operands through every
+            int8 branch at K 1152-1224 equal the exact integer; (d) every
+            run's launch counts exactly those the route table implies (one
+            ``_s8`` counter per run, no float branch moving; the conv's
+            ``_s8_tc`` beside it); every M512 sta_gemm_s8 /
             dbb_gemm_s8 launch ran the int8 tensor-core body:
             ``sta_gemm_s8_tc`` / ``dbb_gemm_s8_tc`` equal the branch's
             count (``s8 tc:`` lines; convnet's N 10 classifier stays on
@@ -275,6 +286,14 @@ ROW_CHUNK_S8_MS = {("sta_gemm_skinny_s8", 8, 2048, 2048): 0.0697,
                    ("dbb_gemm_skinny_s8", 24, 2048, 2048): 0.0447,
                    ("dbb_gemm_skinny_s8", 24, 2048, 8192): 0.1439,
                    ("dbb_gemm_skinny_s8", 24, 8192, 2048): 0.1518}
+# per-call ms of the FMA (f32) and IMAD (int8) bodies that conv_gemm_dbb's
+# tensor-core body (csrc/conv_tc.cuh) replaced at convnet's conv1 and conv2
+# (B256; the int8 lines with the f32 epilogue; PERF.md's kernel table
+# before the redesign, H100 80GB HBM3, 700 W), keyed by (branch, layer);
+# printed beside this run's times, never in the record
+FMA_CONV_MS = {("conv_gemm_dbb", 1): 0.3475, ("conv_gemm_dbb", 2): 0.3460,
+               ("conv_gemm_dbb_s8", 1): 0.4146,
+               ("conv_gemm_dbb_s8", 2): 0.4328}
 # the launch counter of the redesigned body each DBB kernel's float calls
 # in the kernel phase must take, and its name beside the earlier body's
 REDESIGN = {"dbb_gemm": ("dbb_gemm_tc", "tensor-core body, plain-FMA body"),
@@ -1014,12 +1033,13 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
         pms = _time_ms(torch, run_plain, flush)
         lms = _time_ms(torch, run_lib, flush) if run_lib else None
         bms, by = _bound_ms(nbytes, ops, rate)
+        old_body = "FMA" if name.startswith("conv") else "plain-FMA"
         print(f"kernel {name} {label}: max abs err {err:.3e} (tol {rtol:g} "
               f"rel) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, library "
               + (f"{lms:.4f} ms" if lms is not None else "not timed")
               + f", bound {bms:.4f} ms ({by})"
-              + (f"; tensor-core body, plain-FMA body before it "
+              + (f"; tensor-core body, {old_body} body before it "
                  f"{earlier:.4f} ms ({earlier / ms:.1f}x)" if earlier
                  else ""))
         return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
@@ -1067,7 +1087,8 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
         "one layer's MLP: M512 bf16, 2x (K2048,N8192) + 1x (K8192,N2048)"))
 
     # -- conv_gemm --------------------------------------------------------
-    def conv_case(name, label, bsz, hw, c_in, n, k, stride, packed, calls):
+    def conv_case(name, label, bsz, hw, c_in, n, k, stride, packed, calls,
+                  earlier=None):
         x = randn(bsz, hw, hw, c_in)
         w = randn(k * k * c_in, n) / (k * k * c_in) ** 0.5
         bias = randn(n)
@@ -1087,8 +1108,8 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
                 lambda: conv_gemm_dbb(x, p.values, p.bitmask, bias, nnz=2,
                                       **kw),
                 lambda: conv_gemm_dbb_ref(x, p.values, p.bitmask, bias, **kw),
-                lib, 1e-4, nbytes, 2.0 * m_rows * live, F32_OPS_PER_S),
-                calls=calls)
+                lib, 1e-4, nbytes, 2.0 * m_rows * live, F32_OPS_PER_S,
+                earlier=earlier), calls=calls)
         wd = w
         nbytes = 4 * (x.numel() + w.numel() + n + m_rows * n)
         return dict(measure(
@@ -1105,7 +1126,8 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
         "convnet conv0: B256 32x32x3 -> 64, 3x3 SAME, bias+relu, f32"))
     cases = [conv_case("conv_gemm_dbb", f"convnet conv{i} B256 {hw}x{hw}x"
                        f"{c_in} -> {n} 3x3 SAME relu f32, DBB k=2", 256, hw,
-                       c_in, n, 3, 1, True, 1)
+                       c_in, n, 3, 1, True, 1,
+                       earlier=FMA_CONV_MS[("conv_gemm_dbb", i)])
              for i, (hw, c_in, n) in ((1, (16, 64, 128)), (2, (8, 128, 256)))]
     entries.append(entry(
         "conv_gemm_dbb", "src/repro/kernels/conv_gemm/kernel.py:215", cases,
@@ -1196,9 +1218,11 @@ def _s8_kernels(torch, dev, flush, failures):
     def case(name, label, run, plain, epis, lib, nbytes, ops, tc=None):
         """Check every epilogue, time the f32 one; returns the timings.
         ``tc``: (the body's own launch counter or None, the replaced body's
-        earlier ms, bf16 torch.matmul at the shape, "new body, old body")
-        for the redesigned bodies: the int8 tensor-core body at M512, the
-        int8 split-K body of the skinny kernels."""
+        earlier ms, a bf16 yardstick at the shape, "new body, old body" and
+        optionally the yardstick's name, bf16 torch.matmul by default) for
+        the redesigned bodies: the int8 tensor-core body at M512, the int8
+        split-K body of the skinny kernels, the conv's tensor-core body
+        (beside cuDNN's bf16 F.conv2d)."""
         worst, offs, good = 0.0, [], True
         before = LAUNCHES[tc[0]] if tc and tc[0] else 0
         for tag, kw, act in epis:
@@ -1225,7 +1249,8 @@ def _s8_kernels(torch, dev, flush, failures):
             raw = _time_ms(torch, lambda: run(act0, **kw0), flush)
             mm = _time_ms(torch, tc[2], flush)
             body, old = tc[3].split(", ")
-            extra = (f", bf16 torch.matmul {mm:.4f} ms; {tag} output "
+            yard = tc[4] if len(tc) > 4 else "bf16 torch.matmul"
+            extra = (f", {yard} {mm:.4f} ms; {tag} output "
                      f"{raw:.4f} ms; {body}, {old} before it "
                      f"[{tc[1]:.4f} ms] ({tc[1] / ms:.1f}x)")
         print(f"kernel {name} {label}: {'; '.join(offs)} "
@@ -1367,10 +1392,19 @@ def _s8_kernels(torch, dev, flush, failures):
                     return conv_gemm_ref(_x, _w, act=act, **geo, **kw)
             ys = act_scale(plain("relu", bias=bias, scale=xs * qw.scale))
             epis = _s8_epilogues(torch, xs, qw.scale, bias, "relu", ys)
+            tc = None
+            if name == "conv_gemm_dbb_s8":
+                wd = decompress_bitmask(p.values, p.bitmask, block=8).float()
+                tc = ("conv_gemm_dbb_s8_tc", FMA_CONV_MS[name, i],
+                      lambda _x=x.float(), _w=wd, _b=bias: _nchw_conv(
+                          torch, _x.bfloat16(), _w.bfloat16(), _b.bfloat16(),
+                          3, 1, 1),
+                      "int8 tensor-core body, IMAD body",
+                      "bf16 F.conv2d (cuDNN)")
             c = case(name, f"convnet conv{i} B256 {hw}x{hw}x{c_in} -> {n} "
                      "3x3 SAME", run, plain, epis, None,
                      x.numel() + stored + 8 * n + 4 * m_rows * n,
-                     2.0 * m_rows * live)
+                     2.0 * m_rows * live, tc)
             cases.append(dict(c, calls=1))
         entries.append(entry(
             name, src, replaces, {256: cases},
@@ -2064,15 +2098,17 @@ def _sample_phase(torch, dev, report, out_dir):
 # phase 7: the paper's CNN at full width
 # ---------------------------------------------------------------------------
 
-# (label, arch, matmul, batch, the launches the route table implies)
+# (label, arch, matmul, batch, the launches the route table implies; convnet's
+# conv1 and conv2 (f32, C 64 / 128, N 128 / 256) on conv_gemm_dbb's
+# tensor-core body, by conv_gemm.ops.tc_body)
 CNN_RUNS = (
     ("cnn_a_convnet_dbb_b256", "convnet-dbb", "dbb", 256,
-     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm": 1,
-      "dbb_gemm_narrow": 1}),
+     {"conv_gemm": 1, "conv_gemm_dbb": 2, "conv_gemm_dbb_tc": 2,
+      "dbb_gemm": 1, "dbb_gemm_narrow": 1}),
     ("cnn_b_convnet_sta_b256", "convnet-dbb", "sta", 256, {"conv_gemm": 3}),
     ("cnn_c_convnet_dbb_b1", "convnet-dbb", "dbb", 1,
-     {"conv_gemm": 1, "conv_gemm_dbb": 2, "dbb_gemm_skinny": 1,
-      "dbb_gemm_skinny_split": 1}),
+     {"conv_gemm": 1, "conv_gemm_dbb": 2, "conv_gemm_dbb_tc": 2,
+      "dbb_gemm_skinny": 1, "dbb_gemm_skinny_split": 1}),
     # lenet's conv0 (N = 6) and, at batch 256, its K = 784 classifier take
     # the plain routes, as in the reference's cost model
     ("cnn_d_lenet5_dbb_b256", "lenet5-dbb", "dbb", 256, {"conv_gemm": 1}),
@@ -2628,6 +2664,7 @@ def _int8_cnn(torch, dev, report, counts):
     from repro_torch.core.quant import quantize_weight
     from repro_torch.core.sparsity import apply_dbb_to_tree
     from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv_gemm.ops import tc_body as conv_tc_body
     from repro_torch.models import registry
 
     cfg = get_config("convnet-dbb")
@@ -2653,6 +2690,13 @@ def _int8_cnn(torch, dev, report, counts):
         want = _with_s8_tc({"conv_gemm_s8": 1, "conv_gemm_dbb_s8": 2,
                             fc: 1}, params["fc"]["w"].k_dim,
                            cfg.cnn_classes)
+        # conv1 and conv2 (C 64 / 128) on the conv's int8 tensor-core body
+        conv_tc = sum(conv_tc_body(torch.int8, c, cfg.cnn_kernel,
+                                   cfg.cnn_kernel, 1, n)
+                      for c, n in zip(cfg.cnn_channels[:-1],
+                                      cfg.cnn_channels[1:]))
+        if conv_tc:
+            want["conv_gemm_dbb_s8_tc"] = conv_tc
         launch_ok = _expect(counts[path], want)
         plain = _int8_cnn_forward(torch, params, cfg, images, False)
         same = bool(torch.equal(logits, plain))
@@ -2675,9 +2719,9 @@ def _int8_cnn(torch, dev, report, counts):
 
 
 def _int8_exact(torch, dev, report):
-    """(c) all-127 operands through every int8 branch at K >= 1179: the
-    int32 sum is K·127² (past 2^24) exactly, and each branch launches
-    once."""
+    """(c) all-127 operands through every int8 branch at K >= 1152 (the
+    conv's tensor-core body at C 128, its IMAD body at C 136): the int32
+    sum is K·127² (past 2^24) exactly, and each branch launches once."""
     from repro_torch.core.dbb import pack_dbb
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.kernels.conv_gemm import conv_gemm, conv_gemm_dbb
@@ -2689,6 +2733,7 @@ def _int8_exact(torch, dev, report):
         return torch.full(shape, 127, dtype=torch.int8, device=dev)
     p1184 = pack_dbb(full(1184, 256), 8, 8)
     p1224 = pack_dbb(full(1224, 64), 8, 8)
+    p1152 = pack_dbb(full(1152, 64), 8, 8)
     runs = {"sta_gemm_s8": (1179, lambda: sta_gemm(full(512, 1179),
                                                    full(1179, 256))),
             "sta_gemm_s8_tc": (1184, lambda: sta_gemm(full(512, 1184),
@@ -2704,6 +2749,9 @@ def _int8_exact(torch, dev, report):
                 padding="VALID")),
             "conv_gemm_dbb_s8": (1224, lambda: conv_gemm_dbb(
                 full(2, 5, 5, 136), p1224.values, p1224.bitmask, kh=3, kw=3,
+                padding="VALID", nnz=8)),
+            "conv_gemm_dbb_s8_tc": (1152, lambda: conv_gemm_dbb(
+                full(2, 5, 5, 128), p1152.values, p1152.bitmask, kh=3, kw=3,
                 padding="VALID", nnz=8))}
     ok, res = True, {}
     for name, (k, run) in runs.items():
@@ -2713,13 +2761,17 @@ def _int8_exact(torch, dev, report):
         exact = (y.dtype == torch.int32
                  and bool((y == k * 127 * 127).all()))
         branch = name.removesuffix("_tc")
-        launched = _expect(dict(LAUNCHES),
-                           _with_s8_tc({branch: 1}, k, y.shape[-1]))
+        want = (_with_s8_tc({branch: 1}, k, y.shape[-1])
+                if not branch.startswith("conv") else
+                {branch: 1, **({name: 1} if name != branch else {})})
+        launched = _expect(dict(LAUNCHES), want)
         res[name] = exact and launched
         ok = ok and res[name]
     print(f"int8: (c) all-127 operands, the int32 sum K·127² exactly (K "
-          f"1179-1224, past 2^24; sta_gemm_s8 at K 1179 on the IMAD body "
-          f"and 1184 on the tensor-core one) and one launch each: "
+          f"1152-1224, past 2^24; sta_gemm_s8 at K 1179 on the IMAD body "
+          f"and 1184 on the tensor-core one; conv_gemm_dbb_s8 at C 136 on "
+          f"the IMAD body and C 128 on the tensor-core one) and one launch "
+          f"each: "
           + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in res.items()))
     report["int8"]["exact"] = res
     return ok

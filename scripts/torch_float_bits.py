@@ -19,9 +19,12 @@ flash_prefill and flash_prefill_packed in f32 at D 128 and in bf16 at D
 (f32 x, K4096 N10, DBB k2, bias) on each values plane through dbb_gemm at
 B256 (the narrow split-K body) and dbb_gemm_skinny at B1 and B7; and the
 int8-activation branches of dbb_gemm and dbb_gemm_skinny (M8, M24, M300),
-of sta_gemm (M300, M512; K1024 N1008) and of sta_gemm_skinny (M8, M24,
-M32; the same K and N), each with int32, f32 after scale + bias + gelu
-and int8 requantized after relu.
+of sta_gemm (M300, M512; K1024 N1008), of sta_gemm_skinny (M8, M24,
+M32; the same K and N), of conv_gemm (C 24) and of conv_gemm_dbb (C 64
+and 72), each with int32, f32 after scale + bias + gelu and int8
+requantized after relu; conv_gemm_dbb's f32 branch at C 64 N 48 and at
+convnet conv1's geometry (B2). The "conv_gemm" and "conv_gemm_dbb" keys
+(f32, C 24) run the FMA bodies.
 
 ``--compare`` holds every output of A bit-equal to B's, except those whose
 key starts with one of the PREFIXes: a redesign names the outputs it may
@@ -57,6 +60,15 @@ output either: its sums are integers and its epilogue the same, so every
 ``dbb_gemm_skinny_s8`` and ``sta_gemm_skinny_s8`` key is held bit-equal,
 
     --compare A.pt B.pt
+
+The tensor-core body of conv_gemm_dbb (csrc/conv_tc.cuh: 3xTF32 for f32
+images, s8 wgmma for int8 ones) changes the f32 sums' order and no integer
+sum, so only its f32 keys at C 64 may differ:
+
+    --compare A.pt B.pt "conv_gemm_dbb f32"
+
+(the int8 keys, ``conv_gemm_dbb_s8 C64`` on the new body included, and the
+FMA body's ``conv_gemm_dbb`` at C 24 are held bit-equal).
 """
 import sys
 
@@ -216,6 +228,38 @@ def run(tree: str, out_path: str) -> None:
             xm, wd, bd, sd, act="gelu")
         out[f"sta_gemm_skinny_s8 M{m} i8"] = sta_gemm_skinny(
             xm, wd, None, sd, act="relu", out_dtype=torch.int8)
+    # the convs' int8 branches (conv_gemm_s8 at C 24; conv_gemm_dbb_s8 at C
+    # 64, the tensor-core body, and C 72, the IMAD body), each with int32,
+    # f32 after scale + bias + gelu and int8 requantized after relu; and
+    # conv_gemm_dbb's f32 branch at C 64, N 48 and at convnet conv1's
+    # geometry (B2), both on the tensor-core body
+    xc = torch.randint(-127, 128, (2, 9, 7, 72), generator=g, device=dev,
+                       dtype=torch.int8)
+    wc8 = torch.randint(-127, 128, (9 * 72, 48), generator=g, device=dev,
+                        dtype=torch.int8)
+    bc, sc = rn(48), torch.rand(48, generator=g, device=dev) * 1e-3
+    for name, c in (("conv_gemm_s8", 24), ("conv_gemm_dbb_s8 C64", 64),
+                    ("conv_gemm_dbb_s8 C72", 72)):
+        xm = xc[..., :c].contiguous()
+        wm = wc8[:9 * c].contiguous()
+        if name == "conv_gemm_s8":
+            def fn(*a, **kw):
+                return conv_gemm(xm, wm, *a, kh=3, kw=3, **kw)
+        else:
+            pc = pack_dbb(wm, 8, 2)
+
+            def fn(*a, _p=pc, **kw):
+                return conv_gemm_dbb(xm, _p.values, _p.bitmask, *a, kh=3,
+                                     kw=3, nnz=2, **kw)
+        out[f"{name} i32"] = fn()
+        out[f"{name} f32"] = fn(bc, sc, act="gelu")
+        out[f"{name} i8"] = fn(None, sc, act="relu", out_dtype=torch.int8)
+    for label, shape, n in (("C64 N48", (2, 9, 7, 64), 48),
+                            ("conv1 B2", (2, 16, 16, 64), 128)):
+        xf = rn(*shape)
+        pf = pack_dbb(rn(9 * shape[-1], n) * 0.05, 8, 2)
+        out[f"conv_gemm_dbb f32 {label}"] = conv_gemm_dbb(
+            xf, pf.values, pf.bitmask, rn(n), act="relu", kh=3, kw=3, nnz=2)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, out_path)
     print(f"{tree}: {len(out)} outputs saved to {out_path}")

@@ -12,21 +12,36 @@
 // What bounds it on the H100: at convnet's conv1-2 (K = 576-1152, N =
 // 128-256) the live work, 2·M·N·(live weights per column), is well above
 // the f32 ridge: bound by operations. The weight stream is the smallest
-// operand either way. This first version runs the dense FMAs of every
-// decompressed tile, zeros included, so it does the dense work, not the
-// live work; skipping the zeros is later work.
+// operand either way. The int8 branch's dense int8 work is far below the
+// 1979 TOP/s INT8 tensor rate: bound by its bytes (the image in, the
+// output out).
 //
-// The int8 branch does the same dense work in int32 multiply-adds, bound
-// by operations against the 1979 TOP/s INT8 tensor rate.
+// Two bodies, picked by a rule on dtype, C, kh, kw, stride and N alone
+// (tc_body; never B, H or W, so a pixel's bits do not depend on the batch
+// or the image size):
+//   - the tensor-core body (conv_tc.cuh: TMA in im2col mode for the image,
+//     the DBB planes decompressed into K-major shared-memory tiles by a
+//     worker warpgroup, wgmma; 3xTF32 for f32 images, s8 for int8 ones) for
+//     f32 images with C % 16 == 0 and N % 4 == 0 and int8 images with C %
+//     64 == 0 and N % 16 == 0 (whole 64-byte pieces of channels; 16-byte
+//     rows of x and of the planes for TMA), kh, kw <= 32, stride <= 8:
+//     convnet's conv1 and conv2 in both branches;
+//   - the FMA body, for everything else (bf16 images, which no path
+//     launches, and C or N off the rule): conv_gemm.cu's block body
+//     (gemm_tile.cuh) with the DBB loader of dbb_gemm.cu: each K step of
+//     16 covers two DBB blocks, and each thread decompresses one (block,
+//     column) pair by bitmask rank in registers into the shared-memory
+//     tile, so the dense weight never exists in device memory. It runs the
+//     dense FMAs (int8: IMAD) of every decompressed tile, zeros included.
+// If the tensor-core body cannot be set up or launched, the call returns
+// the error; it never falls back to the FMA body. conv_gemm_dbb_tc_body
+// exports the rule; the wrapper's tc_body mirrors it and counts
+// conv_gemm_dbb_tc / conv_gemm_dbb_s8_tc launches.
 //
-// Design: conv_gemm.cu's block body (gemm_tile.cuh) with the DBB loader
-// of dbb_gemm.cu: each K step of 16 covers two DBB blocks, and each
-// thread decompresses one (block, column) pair by bitmask rank in
-// registers into the shared-memory tile, so the dense weight never
-// exists in device memory. DBB blocks of 8 run along the reference's K
-// order (i*kw + j)*C + c; the dispatch takes this route only where
-// kw*C % 8 == 0, so one kernel row covers whole blocks, as in the
-// reference.
+// DBB blocks of 8 run along the reference's K order (i*kw + j)*C + c; the
+// dispatch takes this route only where kw*C % 8 == 0, so one kernel row
+// covers whole blocks, as in the reference.
+#include "conv_tc.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
@@ -47,7 +62,20 @@ conv_gemm_dbb_kernel(const T* __restrict__ x, const V* __restrict__ values,
   gemm_tile<TO>(a, wl, M, N, K, m0, n0, scale, bias, act, out);
 }
 
+// The tensor-core body's rule: dtype (the image's code), C, kh, kw,
+// stride and N only.
+bool tc_body(int dtype, int C, int kh, int kw, int stride, int N) {
+  return ((dtype == repro::DT_F32 && C % 16 == 0 && N % 4 == 0) ||
+          (dtype == repro::DT_I8 && C % 64 == 0 && N % 16 == 0)) &&
+         kh <= 32 && kw <= 32 && stride <= 8;
+}
+
 }  // namespace
+
+extern "C" int conv_gemm_dbb_tc_body(int dtype, int C, int kh, int kw,
+                                     int stride, int N) {
+  return tc_body(dtype, C, kh, kw, stride, N) ? 1 : 0;
+}
 
 extern "C" int conv_gemm_dbb_launch(const void* x, const void* values,
                                     const void* bitmask, const void* scale,
@@ -57,8 +85,12 @@ extern "C" int conv_gemm_dbb_launch(const void* x, const void* values,
                                     int pad_left, int N, int nnz, int act,
                                     int dtype, void* stream) {
   const ConvGeom g{B, H, W, C, Ho, Wo, kh, kw, stride, pad_top, pad_left};
-  const dim3 grid = grid_for(B * Ho * Wo, N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc_body(dtype, C, kh, kw, stride, N))
+    return repro::convtc::launch<float, float>(x, values, bitmask, scale,
+                                               bias, out, g, N, nnz, act,
+                                               repro::convtc::kAll, s);
+  const dim3 grid = grid_for(B * Ho * Wo, N);
   const float* v = static_cast<const float*>(values);
   const int32_t* mk = static_cast<const int32_t*>(bitmask);
   const float* sc = static_cast<const float*>(scale);
@@ -86,6 +118,15 @@ extern "C" int conv_gemm_dbb_s8_launch(const void* x, const void* values,
                                        void* stream) {
   const ConvGeom g{B, H, W, C, Ho, Wo, kh, kw, stride, pad_top, pad_left};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc_body(repro::DT_I8, C, kh, kw, stride, N)) {
+    int rc = 0;
+    const int last = repro::with_s8_out(out_dtype, [&](auto o) {
+      rc = repro::convtc::launch<int8_t, decltype(o)>(
+          x, values, bitmask, scale, bias, out, g, N, nnz, act,
+          repro::convtc::kAll, s);
+    });
+    return rc != 0 ? rc : last;
+  }
   return repro::with_s8_out(out_dtype, [&](auto o) {
     using TO = decltype(o);
     conv_gemm_dbb_kernel<int8_t, int8_t, TO>
@@ -95,4 +136,30 @@ extern "C" int conv_gemm_dbb_s8_launch(const void* x, const void* values,
             static_cast<const float*>(scale), static_cast<const float*>(bias),
             static_cast<TO*>(out), g, N, nnz, act);
   });
+}
+
+// The tensor-core body alone, one phase set at a time (conv_tc.cuh, Phase:
+// 1 the producers and waits, 2 the fragment loads and wgmma, 3 both; 8 and
+// 16 the diagnoses), its ring `stages` deep (0: as deep as fits), f32
+// output; for scripts/torch_conv_probe.py's phase split and depth sweep.
+// dtype: the image's code (DT_F32 or DT_I8); a shape off the rule launches
+// nothing.
+extern "C" int conv_gemm_dbb_tc_phase_launch(
+    const void* x, const void* values, const void* bitmask,
+    const void* scale, const void* bias, void* out, int B, int H, int W,
+    int C, int Ho, int Wo, int kh, int kw, int stride, int pad_top,
+    int pad_left, int N, int nnz, int act, int dtype, int phase, int stages,
+    void* stream) {
+  const ConvGeom g{B, H, W, C, Ho, Wo, kh, kw, stride, pad_top, pad_left};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!tc_body(dtype, C, kh, kw, stride, N))
+    return (int)cudaErrorInvalidValue;
+  return dtype == repro::DT_F32
+             ? repro::convtc::launch<float, float>(x, values, bitmask, scale,
+                                                   bias, out, g, N, nnz, act,
+                                                   phase, s, stages)
+             : repro::convtc::launch<int8_t, float>(x, values, bitmask,
+                                                    scale, bias, out, g, N,
+                                                    nnz, act, phase, s,
+                                                    stages);
 }

@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core bodies
 // (tc_gemm.cuh: the bf16 M-tiled GEMMs; tc_gemm_s8.cuh: their int8
-// branches; flash_tc.cuh: the bf16 flash prefills; split_k.cuh): PTX
-// wrappers for mbarriers, TMA tensor copies and wgmma (bf16 and s8), and
-// the host-side encoders of the TMA tensor maps.
+// branches; flash_tc.cuh: the bf16 flash prefills; split_k.cuh;
+// conv_tc.cuh: the DBB conv): PTX wrappers for mbarriers, TMA tensor
+// copies (tiled and im2col) and wgmma (bf16, tf32 and s8), and the
+// host-side encoders of the TMA tensor maps.
 //
 // Shared-memory tiles are 128-byte swizzled: a box row of 64 bf16 (or 128
 // int8) values is one 128-byte swizzle row, and 8-row groups sit 1024
 // bytes apart, so every tile starts on a 1024-byte boundary. The
-// descriptors below name that layout (layout type 1, B128).
+// descriptors below name that layout (layout type 1, B128); conv_tc.cuh's
+// im2col tiles have 64-byte rows (layout type 2, B64: 8-row groups 512
+// bytes apart).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -101,6 +104,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 4-D TMA copy in im2col mode (a map from make_map_im2col): the box's
+// pixels walk the output pixels from the one whose window's top-left
+// corner is (w, h) of image n, channels c .. c + box, each pixel read at
+// its window's offset (ow, oh); positions outside the image read as zero
+__device__ __forceinline__ void tma_load_im2col(uint32_t dst,
+                                                const CUtensorMap* map,
+                                                uint32_t bar, int c, int w,
+                                                int h, int n, uint16_t ow,
+                                                uint16_t oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h),
+      "r"(n), "h"(ow), "h"(oh)
+      : "memory");
+}
+
 // 3-D TMA copy of the box at (c0 inner, c1, c2 outer) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1,
@@ -117,12 +138,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 // wgmma
 // ---------------------------------------------------------------------------
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout 1) or
+// 64-byte (layout 2); offsets in bytes
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint64_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+         static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -261,6 +284,76 @@ __device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 32] . B[32 x 128] on int8 operands, both from
+// shared memory and K-major: wgmma_s8_m64n64k32 at twice the width
+// (d[4 j .. 4 j + 3]: columns 8 j + 2 (lane % 4) (+ 1), j < 16)
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 8] . B[8 x 128] on tf32 operands (f32 bit patterns
+// whose low 13 mantissa bits the tensor core ignores), A from registers, B
+// K-major from shared memory (tf32 has no transpose). The A fragment: a[0]
+// row lane / 4, column lane % 4; a[1] row + 8; a[2], a[3] column + 4 (the
+// accumulator layout is the f32 one above).
+__device__ __forceinline__ void wgmma_tf32_rs_m64n128k8(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// an f32 value rounded to tf32 (nearest, ties away from zero: the rounding
+// of cvt.rna.tf32.f32), as f32 bits whose low 13 mantissa bits are zero:
+// half a tf32 unit added to the magnitude, the rest cut, in two integer
+// operations (a carry into the exponent rounds up a binade; inf stays inf)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
 // two f32 values rounded to bf16 (nearest even), a in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -277,23 +370,34 @@ using EncodeTiledFn = CUresult (*)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint: the
-// libraries need no -lcuda
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+using EncodeIm2colFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
+    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a driver function fetched through cudaGetDriverEntryPoint: the libraries
+// need no -lcuda
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
+  cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
+  cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
+  return q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = reinterpret_cast<EncodeTiledFn>(
+      driver_entry("cuTensorMapEncodeTiled"));
+  return fn;
+}
+
+inline EncodeIm2colFn encode_im2col() {
+  static const EncodeIm2colFn fn = reinterpret_cast<EncodeIm2colFn>(
+      driver_entry("cuTensorMapEncodeIm2col"));
   return fn;
 }
 
@@ -346,6 +450,41 @@ inline bool make_map_2d(CUtensorMap* map, const void* base,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
                         : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An NHWC image x[B, H, W, C] of esz-byte elements (`type`) in im2col mode
+// for a kh x kw convolution at `stride` with SAME / VALID offsets (pad_top,
+// pad_left) and Ho x Wo outputs: a box is `pixels` consecutive output
+// pixels (row-major over B, Ho, Wo) x `channels` channels of one filter
+// tap, 64-byte swizzled (channels * esz == 64). The bounding box of window
+// corners runs from -pad to (out - 1) * stride - pad in each spatial
+// dimension, walked at the stride; every read outside the image is zero.
+// The row stride (C * esz) and the base must be 16-byte multiples.
+inline bool make_map_im2col(CUtensorMap* map, const void* base,
+                            CUtensorMapDataType type, int esz, int B, int H,
+                            int W, int C, int Ho, int Wo, int stride,
+                            int pad_top, int pad_left, int channels,
+                            int pixels) {
+  const EncodeIm2colFn encode = encode_im2col();
+  if (encode == nullptr || B <= 0 || H <= 0 || W <= 0 || C <= 0 ||
+      channels * esz != 64)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * esz,
+                                 (cuuint64_t)W * C * esz,
+                                 (cuuint64_t)H * W * C * esz};
+  // corners (W, H): the first window's corner, and the last's relative to
+  // the image's last pixel
+  const int lower[2] = {-pad_left, -pad_top};
+  const int upper[2] = {(Wo - 1) * stride - pad_left - (W - 1),
+                        (Ho - 1) * stride - pad_top - (H - 1)};
+  const cuuint32_t walk[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, lower,
+                upper, (cuuint32_t)channels, (cuuint32_t)pixels, walk,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -48,6 +48,9 @@ INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 # split-K body (f32 x, N <= 16, by dbb_gemm.ops.narrow_body) and
 # ``dbb_gemm_skinny_split`` the dbb_gemm_skinny launches that ran the
 # split-K body (float x, by skinny.ops.split_body; csrc/split_k.cuh).
+# ``conv_gemm_dbb_tc`` and ``conv_gemm_dbb_s8_tc`` count, beside
+# ``conv_gemm_dbb`` and ``conv_gemm_dbb_s8``, the launches that ran the
+# conv's tensor-core body (csrc/conv_tc.cuh), by conv_gemm.ops.tc_body.
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
                             "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
@@ -63,7 +66,9 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "flash_prefill_packed_tc": 0,
                             "dbb_gemm_narrow": 0,
                             "dbb_gemm_skinny_split": 0,
-                            "sta_gemm_s8_tc": 0, "dbb_gemm_s8_tc": 0}
+                            "sta_gemm_s8_tc": 0, "dbb_gemm_s8_tc": 0,
+                            "conv_gemm_dbb_tc": 0,
+                            "conv_gemm_dbb_s8_tc": 0}
 
 
 def reset_launches() -> None:

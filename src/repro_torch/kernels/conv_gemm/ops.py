@@ -12,7 +12,18 @@ runs the plain version (explicit im2col + one product). The kernels read
 the unpadded NHWC image and treat positions outside it as zero (SAME
 padding, XLA's ``lo = total // 2``); output rows and channels past Ho, Wo
 and N are masked in the store. Nothing is padded or copied, and their
-shared memory is fixed, so no image size is refused for lack of it.
+shared memory does not grow with the image, so no image size is refused
+for lack of it.
+
+`conv_gemm_dbb` runs f32 and int8 images whose geometry `tc_body` admits
+(convnet's conv1 and conv2 among them) on its tensor-core body
+(csrc/conv_tc.cuh: TMA im2col boxes, the DBB planes decompressed in
+shared memory, 3xTF32 / s8 wgmma), counted as ``conv_gemm_dbb_tc`` /
+``conv_gemm_dbb_s8_tc`` beside the branch; the rest on the FMA body. The
+tensor-core body's TMA copies need 16-byte rows: x's channels (C·esz) and
+the planes' N (N·4 for f32 values and the bitmask, N for int8 values);
+the rule asks for more (whole 64-byte channel pieces, N % 16 for int8)
+and the wrappers check 16-byte aligned, contiguous operands.
 """
 from __future__ import annotations
 
@@ -30,9 +41,24 @@ from repro_torch.kernels.conv_gemm.ref import (conv_gemm_dbb_ref,
                                                conv_gemm_ref, out_spatial)
 from repro_torch.kernels.epilogue import ACT_CODES
 
-__all__ = ["conv_gemm", "conv_gemm_dbb", "conv_gemm_packed", "out_spatial"]
+__all__ = ["conv_gemm", "conv_gemm_dbb", "conv_gemm_packed", "out_spatial",
+           "tc_body"]
 
 _INT_MAX = 2 ** 31 - 1     # the kernels index pixels and channels in int
+
+
+def tc_body(dtype: torch.dtype, c: int, kh: int, kw: int, stride: int,
+            n: int) -> bool:
+    """Whether `conv_gemm_dbb` runs an image of this dtype and geometry on
+    its tensor-core body: f32 with C % 16 == 0 and N % 4 == 0, or int8 with
+    C % 64 == 0 and N % 16 == 0 (a stage's 64-byte pieces of channels; the
+    16-byte rows TMA copies the planes by), kh, kw <= 32 and stride <= 8
+    (the im2col map's corner and traversal-stride ranges). The rule of
+    csrc/conv_gemm_dbb.cu's tc_body; it reads no B, H or W, and takes no
+    bf16 image."""
+    return (((dtype == torch.float32 and c % 16 == 0 and n % 4 == 0)
+             or (dtype == torch.int8 and c % 64 == 0 and n % 16 == 0))
+            and kh <= 32 and kw <= 32 and stride <= 8)
 
 
 def _geometry(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str
@@ -128,10 +154,14 @@ def conv_gemm_dbb(x: torch.Tensor, values: torch.Tensor,
         return conv_gemm_dbb_ref(x, values, bitmask, bias, scale, kh=kh,
                                  kw=kw, stride=stride, padding=padding,
                                  act=act, block=block, out_dtype=out_dtype)
-    return _run("conv_gemm_dbb", (x.data_ptr(), values.data_ptr(),
-                                  bitmask.data_ptr(), build.ptr(scale),
-                                  build.ptr(bias)),
-                geom, n, (nnz, ACT_CODES[act]), x, out_dtype)
+    y = _run("conv_gemm_dbb", (x.data_ptr(), values.data_ptr(),
+                               bitmask.data_ptr(), build.ptr(scale),
+                               build.ptr(bias)),
+             geom, n, (nnz, ACT_CODES[act]), x, out_dtype)
+    if tc_body(x.dtype, c, kh, kw, stride, n):
+        LAUNCHES["conv_gemm_dbb" + ("_s8" if x.dtype == torch.int8 else "")
+                 + "_tc"] += 1
+    return y
 
 
 def conv_gemm_packed(x: torch.Tensor, p: DbbWeight, bias=None, *, kh: int,

@@ -51,7 +51,14 @@ against the plain versions at ragged M, K off the 128-deep stage, N off
 the tile, both tile heights and every nnz; bit-equal to the IMAD body on
 zero-padded neighbours of its rule (the same sums); the all-127 sums
 exactly; two calls and a row at any M bit-equal; a ``_s8_tc`` launch
-counted by the launchers' own rules.
+counted by the launchers' own rules. The tensor-core body of conv_gemm_dbb
+(f32 images on 3xTF32 wgmma, int8 ones on s8 wgmma, the image by TMA
+im2col boxes): the f32 tolerance above and the int8 branches' against the
+plain version at convnet conv1 / conv2's geometry, ragged pixel tiles, N
+off the tile, stride 2 and VALID; int8 outputs bit-equal to the IMAD
+body on a zero-padded neighbour off the rule; an image's output bit for
+bit the same in any batch; the all-127 sums exactly; a ``_tc`` launch
+counted by the launcher's own rule.
 """
 import numpy as np
 import pytest
@@ -1931,3 +1938,160 @@ def test_gpu_s8_skinny_workspace_follows_the_rule(cuda):
             assert s in (1, 2, 4, 8), (k, n, s)
             if s > 1:
                 assert -(-n // 64) * s <= 2 * 132 and -(-k // 128) >= 2 * s
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body of conv_gemm_dbb (csrc/conv_tc.cuh): the image by TMA
+# im2col boxes, the DBB planes decompressed in shared memory, f32 images on
+# 3xTF32 wgmma, int8 images on s8 wgmma
+# ---------------------------------------------------------------------------
+
+# b, h, w, c, k, n, stride, padding, nnz: convnet conv1 and conv2's
+# geometry; M off the 128-pixel tile (tiles across image rows and images);
+# N off the 128-column tile; stride 2; VALID; C past one tap a stage
+CONV_TC_SHAPES = [(2, 16, 16, 64, 3, 128, 1, "SAME", 2),
+                  (2, 8, 8, 128, 3, 256, 1, "SAME", 2),
+                  (2, 9, 7, 64, 3, 48, 1, "SAME", 1),
+                  (1, 11, 13, 64, 3, 32, 2, "SAME", 4),
+                  (1, 10, 8, 64, 5, 16, 1, "VALID", 8),
+                  (3, 5, 6, 128, 3, 144, 2, "VALID", 3)]
+# f32 only: C at the rule's edge (16: a stage of K 32 is two taps' pieces,
+# K 144 ends half way into a stage), N 20 (N % 4)
+CONV_TC_F32_SHAPES = [(2, 9, 7, 16, 3, 20, 1, "SAME", 1),
+                      (1, 7, 9, 48, 3, 132, 2, "SAME", 4)]
+
+
+def _conv_tc_s8(cuda, b, h, w, c, k, n, nnz, seed):
+    from repro_torch.core.quant import quantize_weight
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda,
+                      dtype=I8)
+    qw = quantize_weight(torch.randn(k * k * c, n, generator=g, device=cuda))
+    bias = torch.randn(n, generator=g, device=cuda) * 100
+    scale = (torch.rand(n, generator=g, device=cuda) + 0.5) * qw.scale
+    return x, pack_dbb(qw.q, 8, nnz), bias, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding,nnz",
+                         CONV_TC_SHAPES + CONV_TC_F32_SHAPES)
+def test_gpu_conv_tc_f32(cuda, b, h, w, c, k, n, stride, padding, nnz):
+    from repro_torch.kernels.conv_gemm.ops import tc_body
+    assert tc_body(torch.float32, c, k, k, stride, n)
+    x, wt, bias, scale = _conv_inputs(cuda, b, h, w, c, k, n, torch.float32)
+    p = pack_dbb(wt, 8, nnz)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act="relu")
+    before = dict(LAUNCHES)
+    got = conv_gemm_dbb(x, p.values, p.bitmask, bias, scale, nnz=nnz, **kw)
+    torch.cuda.synchronize()
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    assert moved == {"conv_gemm_dbb": 1, "conv_gemm_dbb_tc": 1}
+    assert bool(torch.isfinite(got).all())
+    _gpu_close(got, conv_gemm_dbb_ref(x, p.values, p.bitmask, bias, scale,
+                                      **kw), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding,nnz", CONV_TC_SHAPES)
+def test_gpu_conv_tc_s8(cuda, b, h, w, c, k, n, stride, padding, nnz, act,
+                        od, has_scale, has_bias):
+    from repro_torch.kernels.conv_gemm.ops import tc_body
+    assert tc_body(I8, c, k, k, stride, n)
+    x, p, bias, scale = _conv_tc_s8(cuda, b, h, w, c, k, n, nnz, h * w + n)
+    bi, sc = _epi(bias, scale, has_scale, has_bias)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act=act,
+              out_dtype=od)
+    before = dict(LAUNCHES)
+    got = conv_gemm_dbb(x, p.values, p.bitmask, bi, sc, nnz=nnz, **kw)
+    torch.cuda.synchronize()
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    assert moved == {"conv_gemm_dbb_s8": 1, "conv_gemm_dbb_s8_tc": 1}
+    _s8_close(got, conv_gemm_dbb_ref(x, p.values, p.bitmask, bi, sc, **kw),
+              act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nnz", [1, 2, 8])
+def test_gpu_conv_tc_s8_equals_the_fma_body(cuda, nnz):
+    """The int8 tensor-core body and the IMAD body on the same sums: C 64
+    (on the rule) against the image and weight zero-padded to C 72 (off it:
+    the FMA body). Integer sums are exact in any order, so the int32 output
+    and the f32 epilogue's are bit-equal."""
+    from repro_torch.kernels.conv_gemm.ops import tc_body
+    b, h, w, c, k, n = 2, 9, 7, 64, 3, 48
+    x, p, bias, scale = _conv_tc_s8(cuda, b, h, w, c, k, n, nnz, 7 + nnz)
+    from repro_torch.core.dbb import decompress_bitmask
+    dense = decompress_bitmask(p.values, p.bitmask, block=8)
+    xp = torch.zeros((b, h, w, c + 8), dtype=I8, device=cuda)
+    xp[..., :c] = x
+    wp = torch.zeros((k * k, c + 8, n), dtype=I8, device=cuda)
+    wp[:, :c] = dense.reshape(k * k, c, n)
+    pp = pack_dbb(wp.reshape(k * k * (c + 8), n), 8, nnz)
+    assert tc_body(I8, c, k, k, 1, n) and not tc_body(I8, c + 8, k, k, 1, n)
+    for bi, sc, act in ((None, None, "none"), (bias, scale, "gelu")):
+        before = LAUNCHES["conv_gemm_dbb_s8_tc"]
+        got = conv_gemm_dbb(x, p.values, p.bitmask, bi, sc, kh=k, kw=k,
+                            act=act, nnz=nnz)
+        fma = conv_gemm_dbb(xp, pp.values, pp.bitmask, bi, sc, kh=k, kw=k,
+                            act=act, nnz=nnz)
+        torch.cuda.synchronize()
+        assert LAUNCHES["conv_gemm_dbb_s8_tc"] == before + 1
+        assert torch.equal(got, fma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, I8])
+def test_gpu_conv_tc_image_is_the_same_bits_in_any_batch(cuda, dtype):
+    """An image's output does not depend on the batch around it or on its
+    pixels' places in the 128-pixel tiles: image 1 of a batch of 3 (its
+    pixels start at 9·7 = 63, mid-tile) equals a call on it alone, bit for
+    bit."""
+    b, h, w, c, k, n, nnz = 3, 9, 7, 64, 3, 48, 2
+    if dtype == I8:
+        x, p, bias, scale = _conv_tc_s8(cuda, b, h, w, c, k, n, nnz, 3)
+    else:
+        x, wt, bias, scale = _conv_inputs(cuda, b, h, w, c, k, n, dtype)
+        p = pack_dbb(wt, 8, nnz)
+    kw = dict(kh=k, kw=k, act="gelu", nnz=nnz)
+    full = conv_gemm_dbb(x, p.values, p.bitmask, bias, scale, **kw)
+    one = conv_gemm_dbb(x[1:2].contiguous(), p.values, p.bitmask, bias,
+                        scale, **kw)
+    again = conv_gemm_dbb(x, p.values, p.bitmask, bias, scale, **kw)
+    assert torch.equal(full[1:2], one) and torch.equal(full, again)
+
+
+@pytest.mark.gpu
+def test_gpu_conv_tc_counts_follow_the_kernels_own_rule(cuda):
+    """The wrapper's tc_body equals the launcher's exported rule on a grid
+    of dtypes and geometry, and no bf16 image takes the body."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_gemm.ops import tc_body
+    fn = build.load("conv_gemm_dbb").conv_gemm_dbb_tc_body
+    fn.argtypes = [ctypes.c_int] * 6
+    for dt in (torch.float32, torch.bfloat16, I8):
+        for c in (1, 8, 16, 24, 48, 64, 72, 128, 192):
+            for kk in (1, 3, 5, 33):
+                for s in (1, 2, 8, 9):
+                    for n in (6, 10, 16, 20, 48, 130, 256):
+                        want = fn(build.dtype_code(dt), c, kk, kk, s, n) == 1
+                        assert tc_body(dt, c, kk, kk, s, n) is want
+                        assert not (want and dt == torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_gpu_conv_tc_s8_all_127_is_the_exact_integer(cuda):
+    """All-127 operands at C 128 (K 1152, every sum 1152·127² past 2^24)
+    on the int8 tensor-core body: each output is that integer."""
+    x = torch.full((2, 5, 5, 128), 127, dtype=I8, device=cuda)
+    p = pack_dbb(torch.full((1152, 32), 127, dtype=I8, device=cuda), 8, 8)
+    before = LAUNCHES["conv_gemm_dbb_s8_tc"]
+    got = conv_gemm_dbb(x, p.values, p.bitmask, kh=3, kw=3, padding="VALID",
+                        nnz=8)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm_dbb_s8_tc"] == before + 1
+    assert got.dtype == I32 and bool((got == 1152 * 127 * 127).all())
