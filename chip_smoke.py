@@ -66,6 +66,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             weight (f32, TF32 off; for the int8 lines bf16) and the FMA /
             IMAD body's earlier time in brackets, and must count a
             ``conv_gemm_dbb_tc`` / ``conv_gemm_dbb_s8_tc`` launch per call.
+            conv_gemm's f32 and int8 calls at convnet's conv0 and lenet's
+            conv1 (B256) run its small-C body (the filter and a tile's
+            zero-halo window in shared memory, all N channels a block,
+            TMA bulk stores) and at convnet's dense conv1 and conv2
+            (matmul="sta", B256) the tensor-core body of conv_tc.cuh on the
+            dense weight (3xTF32 / s8 wgmma; the f32 bound is three tf32
+            products an f32 one at 495 TFLOP/s): each line prints cuDNN's
+            F.conv2d (f32, TF32 off; bf16 for int8) and the body before it
+            where it was timed, and must count a ``conv_gemm_small`` /
+            ``conv_gemm_tc`` (``_s8_small`` / ``_s8_tc``) launch per call.
+            head_sample_fused runs sta_gemm_skinny's float body
+            (skinny_float.cuh) with a sampling epilogue: at M 1, 8, 24 and
+            32 its line prints the greedy head's time and the row-chunk
+            body's earlier time in brackets, and temperature 0 must equal
+            the greedy head bit for bit.
 4. slice    full-width olmo-1b from seeded random weights, DBB-projected and
             packed, served by ``ServeEngine.generate`` on 8 ragged prompts with
             the launch counts reset just before and read just after; every
@@ -112,7 +127,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             matmul="sta" (dense) at batch 256, and lenet5-dbb under "dbb" at
             batch 256. Each run's launch counts must equal what the route
             table implies (convnet's conv1 and conv2 on conv_gemm_dbb's
-            tensor-core body: ``conv_gemm_dbb_tc`` 2), and its logits must
+            tensor-core body: ``conv_gemm_dbb_tc`` 2, or under "sta" on
+            conv_gemm's: ``conv_gemm_tc`` 2; convnet's conv0 and lenet's
+            conv1 on conv_gemm's small-C body: ``conv_gemm_small`` 1), and
+            its logits must
             agree with the plain route
             (explicit im2col, plain matmul) within 1e-4 of max |logit| with
             equal classes (a row whose top-2 margin is under that tolerance
@@ -147,7 +165,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             bias and relu to f32, max-pool, requantize, ..., classifier) at
             batch 256 and 1: logits and classes bit-equal to the plain
             route's (conv1 and conv2 on the conv's int8 tensor-core body,
-            ``conv_gemm_dbb_s8_tc`` 2); (c) all-127 operands through every
+            ``conv_gemm_dbb_s8_tc`` 2; conv0 on conv_gemm's small-C body,
+            ``conv_gemm_s8_small`` 1); (c) all-127 operands through every
             int8 branch at K 1152-1224 equal the exact integer; (d) every
             run's launch counts exactly those the route table implies (one
             ``_s8`` counter per run, no float branch moving; the conv's
@@ -193,6 +212,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense INT8 tensor-core rate
 REPS = 20
 SPIN_CYCLES = 10_000_000         # ~5 ms at the H100's clock: covers the host
@@ -259,6 +279,12 @@ PLAIN_FMA_MS = {("dbb_gemm", 2048, 2048): 0.3940,
 # (PERF.md's kernel table before the redesign, H100 80GB HBM3, 700 W);
 # printed beside this run's times, never in the record
 ROW_CHUNK_MS = {8: 0.2245, 24: 0.5092, ("paged_decode", "S128"): 0.0420}
+# per-call ms of head_sample_fused's row-chunk body (skinny_tile.cuh's 8-row
+# chunks, 128-column blocks) that the float body replaced, keyed by M
+# (PERF.md's kernel table before the redesign, H100 80GB HBM3, 700 W; M32
+# was not timed there); printed beside this run's times, never in the
+# record
+ROW_CHUNK_SAMPLE_MS = {8: 0.2151, 1: 0.1600, 24: 0.4874}
 # per-call ms of the IMAD body that the int8 tensor-core body replaced at
 # the M512 layer GEMMs (f32 epilogue; PERF.md's kernel table before the
 # redesign, H100 80GB HBM3, 700 W), keyed by (branch, K, N); printed beside
@@ -291,6 +317,11 @@ ROW_CHUNK_S8_MS = {("sta_gemm_skinny_s8", 8, 2048, 2048): 0.0697,
 # (B256; the int8 lines with the f32 epilogue; PERF.md's kernel table
 # before the redesign, H100 80GB HBM3, 700 W), keyed by (branch, layer);
 # printed beside this run's times, never in the record
+# per-call ms of the FMA (f32) and IMAD (int8) bodies that conv_gemm's
+# small-C body replaced at convnet's conv0 (B256; the int8 one with the f32
+# epilogue; PERF.md's kernel table before the redesign, H100 80GB HBM3,
+# 700 W); printed beside this run's times, never in the record
+FMA_CONV0_MS, IMAD_CONV0_S8_MS = 0.0971, 0.1198
 FMA_CONV_MS = {("conv_gemm_dbb", 1): 0.3475, ("conv_gemm_dbb", 2): 0.3460,
                ("conv_gemm_dbb_s8", 1): 0.4146,
                ("conv_gemm_dbb_s8", 2): 0.4328}
@@ -1020,32 +1051,40 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
     entries = []
 
     def measure(name, label, run_kernel, run_plain, run_lib, rtol, nbytes,
-                ops, rate, earlier=None):
-        tc_before = LAUNCHES[name + "_tc"] if earlier else 0
+                ops, rate, earlier=None, body=None):
+        """``earlier``: the replaced body's ms at this shape (a tensor-core
+        body's, counted as ``name_tc``); ``body``: (its launch counter, "new
+        body, old body", the old body's ms or None) for the other
+        redesigned bodies. The call must count one launch of the body."""
+        if earlier is not None and body is None:
+            body = (name + "_tc", "tensor-core body, " + (
+                "FMA body" if name.startswith("conv") else "plain-FMA body"),
+                earlier)
+        before = LAUNCHES[body[0]] if body else 0
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err, ok = _close(torch, got, want, rtol)
         if not ok:
             failures.append(f"{name} {label}: max err {err}")
-        if earlier and LAUNCHES[name + "_tc"] != tc_before + 1:
-            failures.append(f"{name} {label}: no tensor-core launch")
+        if body and LAUNCHES[body[0]] != before + 1:
+            failures.append(f"{name} {label}: no {body[0]} launch")
         ms = _time_ms(torch, run_kernel, flush)
         pms = _time_ms(torch, run_plain, flush)
         lms = _time_ms(torch, run_lib, flush) if run_lib else None
         bms, by = _bound_ms(nbytes, ops, rate)
-        old_body = "FMA" if name.startswith("conv") else "plain-FMA"
         print(f"kernel {name} {label}: max abs err {err:.3e} (tol {rtol:g} "
               f"rel) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, library "
               + (f"{lms:.4f} ms" if lms is not None else "not timed")
               + f", bound {bms:.4f} ms ({by})"
-              + (f"; tensor-core body, {old_body} body before it "
-                 f"{earlier:.4f} ms ({earlier / ms:.1f}x)" if earlier
+              + (f"; {body[1]} before it "
+                 + (f"{body[2]:.4f} ms ({body[2] / ms:.1f}x)"
+                    if body[2] is not None else "not timed") if body
                  else ""))
         return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
                     bound_ms=bms, nbytes=nbytes, ops=ops, rate=rate)
 
-    def entry(name, replaces, cases, shapes):
+    def entry(name, replaces, cases, shapes, source=None):
         tot = {key: sum(c["calls"] * c[key] for c in cases)
                for key in ("ms", "plain_ms", "bound_ms")}
         tot["library_ms"] = (None if any(c["library_ms"] is None
@@ -1056,7 +1095,7 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
         t_ops = sum(c["calls"] * c["ops"] / c["rate"] for c in cases)
         by = "bytes" if t_bytes / HBM_BYTES_PER_S >= t_ops else "operations"
         return dict(name=name, route="cuda",
-                    source=f"src/repro_torch/csrc/{name}.cu",
+                    source=source or f"src/repro_torch/csrc/{name}.cu",
                     replaces=replaces, launches=0,
                     max_abs_err=max(c["err"] for c in cases), bound_by=by,
                     shapes=shapes, **tot)
@@ -1088,7 +1127,7 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
 
     # -- conv_gemm --------------------------------------------------------
     def conv_case(name, label, bsz, hw, c_in, n, k, stride, packed, calls,
-                  earlier=None):
+                  earlier=None, body=None):
         x = randn(bsz, hw, hw, c_in)
         w = randn(k * k * c_in, n) / (k * k * c_in) ** 0.5
         bias = randn(n)
@@ -1112,18 +1151,44 @@ def _gemm_conv_kernels(torch, dev, randn, flush, failures):
                 earlier=earlier), calls=calls)
         wd = w
         nbytes = 4 * (x.numel() + w.numel() + n + m_rows * n)
+        ops, rate = 2.0 * m_rows * k * k * c_in * n, F32_OPS_PER_S
+        if body and body[0] == "conv_gemm_tc":
+            # 3xTF32: three tf32 products for each f32 one
+            ops, rate = 3 * ops, TF32_OPS_PER_S
         return dict(measure(
             name, label, lambda: conv_gemm(x, w, bias, **kw),
-            lambda: conv_gemm_ref(x, w, bias, **kw), lib, 1e-4, nbytes,
-            2.0 * m_rows * k * k * c_in * n, F32_OPS_PER_S), calls=calls)
+            lambda: conv_gemm_ref(x, w, bias, **kw), lib, 1e-4, nbytes, ops,
+            rate, body=body), calls=calls)
 
-    cases = [conv_case("conv_gemm", "convnet conv0 B256 32x32x3 -> 64 3x3 "
-                       "SAME relu f32", 256, 32, 3, 64, 3, 1, False, 1)]
+    small = ("conv_gemm_small", "small-C body, FMA body")
+    dense = ("conv_gemm_tc", "tensor-core body (dense, 3xTF32), FMA body")
+    conv0 = conv_case("conv_gemm", "convnet conv0 B256 32x32x3 -> 64 3x3 "
+                      "SAME relu f32", 256, 32, 3, 64, 3, 1, False, 1,
+                      body=small + (FMA_CONV0_MS,))
+    lenet = conv_case("conv_gemm", "lenet conv1 B256 14x14x6 -> 16 5x5 SAME "
+                      "relu f32", 256, 14, 6, 16, 5, 1, False, 1,
+                      body=small + (None,))
+    stacked = [conv_case("conv_gemm", f"convnet conv{i} (sta) B256 {hw}x{hw}"
+                         f"x{c_in} -> {n} 3x3 SAME relu f32", 256, hw, c_in,
+                         n, 3, 1, False, 1, body=dense + (None,))
+               for i, (hw, c_in, n) in ((1, (16, 64, 128)),
+                                        (2, (8, 128, 256)))]
     conv_case("conv_gemm", "stride 2 B4 32x32x32 -> 64 3x3 SAME relu f32 "
               "(check)", 4, 32, 32, 64, 3, 2, False, 0)
     entries.append(entry(
-        "conv_gemm", "src/repro/kernels/conv_gemm/kernel.py:160", cases,
+        "conv_gemm", "src/repro/kernels/conv_gemm/kernel.py:160", [conv0],
         "convnet conv0: B256 32x32x3 -> 64, 3x3 SAME, bias+relu, f32"))
+    replaces = "src/repro/kernels/conv_gemm/kernel.py:160"
+    entries.append(dict(entry(
+        "conv_gemm_small", replaces, [conv0, lenet],
+        "convnet conv0 (B256 32x32x3 -> 64, 3x3) + lenet conv1 (B256 "
+        "14x14x6 -> 16, 5x5), SAME, bias+relu, f32",
+        source="src/repro_torch/csrc/conv_gemm.cu"), body_of="conv_gemm"))
+    entries.append(dict(entry(
+        "conv_gemm_tc", replaces, stacked,
+        "convnet conv1 + conv2 under matmul='sta' (dense weights): B256 "
+        "16x16x64 -> 128 and 8x8x128 -> 256, 3x3 SAME, bias+relu, f32",
+        source="src/repro_torch/csrc/conv_tc.cuh"), body_of="conv_gemm"))
     cases = [conv_case("conv_gemm_dbb", f"convnet conv{i} B256 {hw}x{hw}x"
                        f"{c_in} -> {n} 3x3 SAME relu f32, DBB k=2", 256, hw,
                        c_in, n, 3, 1, True, 1,
@@ -1208,6 +1273,7 @@ def _s8_kernels(torch, dev, flush, failures):
     from repro_torch.kernels.conv_gemm import (conv_gemm, conv_gemm_dbb,
                                                conv_gemm_dbb_ref,
                                                conv_gemm_ref)
+    from repro_torch.kernels.conv_gemm.ops import small_body
     from repro_torch.kernels.dbb_gemm import dbb_gemm
     from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
     from repro_torch.kernels.skinny import dbb_gemm_skinny, sta_gemm_skinny
@@ -1252,7 +1318,8 @@ def _s8_kernels(torch, dev, flush, failures):
             yard = tc[4] if len(tc) > 4 else "bf16 torch.matmul"
             extra = (f", {yard} {mm:.4f} ms; {tag} output "
                      f"{raw:.4f} ms; {body}, {old} before it "
-                     f"[{tc[1]:.4f} ms] ({tc[1] / ms:.1f}x)")
+                     + (f"[{tc[1]:.4f} ms] ({tc[1] / ms:.1f}x)"
+                        if tc[1] is not None else "[not timed]"))
         print(f"kernel {name} {label}: {'; '.join(offs)} "
               f"{'ok' if good else 'FAIL'}"
               f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
@@ -1354,26 +1421,34 @@ def _s8_kernels(torch, dev, flush, failures):
             + (", INT8 DBB values k4" if dbb else ", int8 w")
             + "; the f32 epilogue (x_s·w_s, bias, silu on N8192) timed"))
 
-    # -- the convs: convnet at batch 256 ------------------------------------
+    # -- the convs at batch 256: convnet's conv0 on conv_gemm's small-C
+    # body (the path's); lenet's conv1 (small-C) and convnet's dense conv1,
+    # conv2 (tensor-core body) as checks; convnet's conv1, conv2 on
+    # conv_gemm_dbb (the path's)
     for name, src, replaces, layers in (
             ("conv_gemm_s8", "src/repro_torch/csrc/conv_gemm.cu",
              "src/repro/kernels/conv_gemm/kernel.py:160",
-             ((0, 32, 3, 64),)),
+             (("convnet conv0", 0, 32, 3, 64, 3, 1),
+              ("lenet conv1", None, 14, 6, 16, 5, 0),
+              ("convnet conv1 (sta)", None, 16, 64, 128, 3, 0),
+              ("convnet conv2 (sta)", None, 8, 128, 256, 3, 0))),
             ("conv_gemm_dbb_s8", "src/repro_torch/csrc/conv_gemm_dbb.cu",
              "src/repro/kernels/conv_gemm/kernel.py:215",
-             ((1, 16, 64, 128), (2, 8, 128, 256)))):
+             (("convnet conv1", 1, 16, 64, 128, 3, 1),
+              ("convnet conv2", 2, 8, 128, 256, 3, 1)))):
         cases = []
-        for i, hw, c_in, n in layers:
+        for label, i, hw, c_in, n, k, calls in layers:
             x, xs = _quantized(torch, gen, (256, hw, hw, c_in), dev)
-            qw = quantize_weight(torch.randn(9 * c_in, n, generator=gen,
+            qw = quantize_weight(torch.randn(k * k * c_in, n, generator=gen,
                                              device=dev))
             bias = torch.randn(n, generator=gen, device=dev)
-            geo = dict(kh=3, kw=3)
+            geo = dict(kh=k, kw=k)
             m_rows = 256 * hw * hw
             if name == "conv_gemm_dbb_s8":
                 p = pack_dbb(qw.q, 8, 2)
                 live = int((p.values != 0).sum().item())
                 stored = p.values.numel() + p.bitmask.numel() * 4
+                wd = decompress_bitmask(p.values, p.bitmask, block=8).float()
 
                 def run(act, _p=p, _x=x, **kw):
                     return conv_gemm_dbb(_x, _p.values, _p.bitmask, act=act,
@@ -1382,30 +1457,36 @@ def _s8_kernels(torch, dev, flush, failures):
                 def plain(act, _p=p, _x=x, **kw):
                     return conv_gemm_dbb_ref(_x, _p.values, _p.bitmask,
                                              act=act, **geo, **kw)
+                tc = ("conv_gemm_dbb_s8_tc", FMA_CONV_MS[name, i],
+                      "int8 tensor-core body, IMAD body")
             else:
                 live, stored = qw.q.numel(), qw.q.numel()
+                wd = qw.q.float()
 
                 def run(act, _w=qw.q, _x=x, **kw):
                     return conv_gemm(_x, _w, act=act, **geo, **kw)
 
                 def plain(act, _w=qw.q, _x=x, **kw):
                     return conv_gemm_ref(_x, _w, act=act, **geo, **kw)
+                small = small_body(torch.int8, c_in, k, k, n)
+                tc = (("conv_gemm_s8_small", IMAD_CONV0_S8_MS if i == 0
+                       else None, "small-C body, IMAD body") if small else
+                      ("conv_gemm_s8_tc", None,
+                       "int8 tensor-core body (dense), IMAD body"))
             ys = act_scale(plain("relu", bias=bias, scale=xs * qw.scale))
             epis = _s8_epilogues(torch, xs, qw.scale, bias, "relu", ys)
-            tc = None
-            if name == "conv_gemm_dbb_s8":
-                wd = decompress_bitmask(p.values, p.bitmask, block=8).float()
-                tc = ("conv_gemm_dbb_s8_tc", FMA_CONV_MS[name, i],
-                      lambda _x=x.float(), _w=wd, _b=bias: _nchw_conv(
-                          torch, _x.bfloat16(), _w.bfloat16(), _b.bfloat16(),
-                          3, 1, 1),
-                      "int8 tensor-core body, IMAD body",
-                      "bf16 F.conv2d (cuDNN)")
-            c = case(name, f"convnet conv{i} B256 {hw}x{hw}x{c_in} -> {n} "
-                     "3x3 SAME", run, plain, epis, None,
-                     x.numel() + stored + 8 * n + 4 * m_rows * n,
+            tc = (tc[0], tc[1],
+                  lambda _x=x.float(), _w=wd, _b=bias, _k=k: _nchw_conv(
+                      torch, _x.bfloat16(), _w.bfloat16(), _b.bfloat16(),
+                      _k, 1, (_k - 1) // 2),
+                  tc[2], "bf16 F.conv2d (cuDNN)")
+            c = case(name, f"{label} B256 {hw}x{hw}x{c_in} -> {n} {k}x{k} "
+                     "SAME" + ("" if calls else " (check)"), run, plain,
+                     epis, None, x.numel() + stored + 8 * n + 4 * m_rows * n,
                      2.0 * m_rows * live, tc)
-            cases.append(dict(c, calls=1))
+            cases.append(dict(c, calls=calls))
+            if name == "conv_gemm_s8" and i == 0:
+                small_cases = [dict(c, calls=1)]
         entries.append(entry(
             name, src, replaces, {256: cases},
             ("convnet conv0: B256 32x32x3 -> 64" if name == "conv_gemm_s8"
@@ -1413,6 +1494,12 @@ def _s8_kernels(torch, dev, flush, failures):
              "-> 256, INT8 DBB values k2")
             + ", 3x3 SAME, int8 image; the f32 epilogue (x_s·w_s, bias, "
             "relu) timed"))
+        if name == "conv_gemm_s8":
+            entries.append(dict(entry(
+                "conv_gemm_s8_small", src, replaces, {256: small_cases},
+                "convnet conv0 (the INT8 chain's): B256 32x32x3 -> 64, 3x3 "
+                "SAME, int8 image; the f32 epilogue (x_s·w_s, bias, relu) "
+                "timed"), body_of="conv_gemm_s8"))
     return entries
 
 
@@ -1444,18 +1531,23 @@ def _head_sample_inputs(torch, dev, m, k, n, seed):
 
 def _head_sample_kernel(torch, dev, flush, failures):
     """head_sample_fused at the sampled decode head (M8 K2048 N50304 f32,
-    the entry) and at M1 (a single-row prefill) and M24 (checks), against
-    its plain version by the near-tie rule: scores within 1e-5 of the
-    largest (f32 sums in another order; logf may differ by an ulp),
+    the entry) and at M1 (a single-row prefill), M24 and M32 (checks),
+    against its plain version by the near-tie rule: scores within 1e-5 of
+    the largest (f32 sums in another order; logf may differ by an ulp),
     indices equal on every row whose top-2 score margin exceeds twice
-    that. No single PyTorch call computes this function: the head's
-    torch.matmul alone is printed as a partial yardstick."""
+    that; at temperature 0 with default penalties it must equal the greedy
+    head (sta_gemm_skinny: one float body, skinny_float.cuh) bit for bit.
+    No single PyTorch call computes this function: the head's torch.matmul
+    alone is printed as a partial yardstick, beside the greedy head's time
+    (the float body with its store epilogue) and the row-chunk body's
+    earlier time in brackets."""
     from repro_torch.kernels.sample import (apply_penalties,
                                             head_sample_fused,
                                             head_sample_fused_ref,
                                             sample_scores)
+    from repro_torch.kernels.skinny import sta_gemm_skinny
     entry = None
-    for m in (8, 1, 24):
+    for m in (8, 1, 24, 32):
         k, n = 2048, 50304
         h, w, counts, rows = _head_sample_inputs(torch, dev, m, k, n, m)
         got_s, got_i = head_sample_fused(h, w, counts, *rows)
@@ -1472,15 +1564,25 @@ def _head_sample_kernel(torch, dev, flush, failures):
         pen = apply_penalties(h @ w, counts, rows[1][:, None],
                               rows[2][:, None], rows[3][:, None])
         differs = int((got_i.long() != pen.argmax(-1)).sum())
-        ok = err <= tol and same
+        z = torch.zeros(m, device=dev)
+        zi = torch.zeros(m, dtype=torch.int32, device=dev)
+        t0_s, t0_i = head_sample_fused(h, w, torch.zeros_like(counts), z,
+                                       z + 1, z, z, zi, zi)
+        greedy = sta_gemm_skinny(h, w)
+        t0_ok = (bool(torch.equal(t0_s, greedy.max(dim=-1).values))
+                 and bool(torch.equal(t0_i.long(), greedy.argmax(dim=-1))))
+        ok = err <= tol and same and t0_ok
         if not ok:
             failures.append(f"head_sample_fused M{m}: max score err {err}, "
-                            f"indices equal on decided rows: {same}")
+                            f"indices equal on decided rows: {same}, "
+                            f"temperature 0 equal to the greedy head: "
+                            f"{t0_ok}")
         ms = _time_ms(torch, lambda: head_sample_fused(h, w, counts, *rows),
                       flush)
         pms = _time_ms(torch, lambda: head_sample_fused_ref(h, w, counts,
                                                             *rows), flush)
         mm_ms = _time_ms(torch, lambda: torch.matmul(h, w), flush)
+        greedy_ms = _time_ms(torch, lambda: sta_gemm_skinny(h, w), flush)
         nbytes = 4 * (k * n + m * n + m * k + 6 * m + 2 * m)
         ops = 2.0 * m * k * n + SAMPLE_EPI_OPS * m * n
         bms, by = _bound_ms(nbytes, ops, F32_OPS_PER_S)
@@ -1488,10 +1590,15 @@ def _head_sample_kernel(torch, dev, flush, failures):
               f"{err:.3e} (tol {tol:.3e}); indices equal on "
               f"{int(decided.sum())}/{m} decided rows "
               f"{'ok' if ok else 'FAIL'} (Gumbel noise moved {differs} of "
-              f"{m} rows off the penalised argmax); kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, no library call computes it (the head's "
-              f"torch.matmul alone, a partial yardstick: {mm_ms:.4f} ms), "
-              f"bound {bms:.4f} ms ({by}: weight + counts + rows)")
+              f"{m} rows off the penalised argmax), temperature 0 "
+              f"{'equal to' if t0_ok else 'DIFFERS FROM'} the greedy head "
+              f"bit for bit; kernel {ms:.4f} ms [row-chunk body "
+              + (f"{ROW_CHUNK_SAMPLE_MS[m]:.4f} ms" if m in ROW_CHUNK_SAMPLE_MS
+                 else "not timed") + f"], greedy head (the same "
+              f"float body) {greedy_ms:.4f} ms, plain {pms:.4f} ms, no "
+              f"library call computes it (the head's torch.matmul alone, a "
+              f"partial yardstick: {mm_ms:.4f} ms), bound {bms:.4f} ms "
+              f"({by}: weight + counts + rows)")
         if entry is None:
             entry = dict(
                 name="head_sample_fused", route="cuda",
@@ -2100,18 +2207,24 @@ def _sample_phase(torch, dev, report, out_dir):
 
 # (label, arch, matmul, batch, the launches the route table implies; convnet's
 # conv1 and conv2 (f32, C 64 / 128, N 128 / 256) on conv_gemm_dbb's
-# tensor-core body, by conv_gemm.ops.tc_body)
+# tensor-core body, by conv_gemm.ops.tc_body, or, dense under "sta", on
+# conv_gemm's (conv_gemm_tc); convnet's conv0 (C 3, 3x3, N 64) and lenet's
+# conv1 (C 6, 5x5, N 16) on conv_gemm's small-C body, by
+# conv_gemm.ops.small_body)
 CNN_RUNS = (
     ("cnn_a_convnet_dbb_b256", "convnet-dbb", "dbb", 256,
-     {"conv_gemm": 1, "conv_gemm_dbb": 2, "conv_gemm_dbb_tc": 2,
-      "dbb_gemm": 1, "dbb_gemm_narrow": 1}),
-    ("cnn_b_convnet_sta_b256", "convnet-dbb", "sta", 256, {"conv_gemm": 3}),
+     {"conv_gemm": 1, "conv_gemm_small": 1, "conv_gemm_dbb": 2,
+      "conv_gemm_dbb_tc": 2, "dbb_gemm": 1, "dbb_gemm_narrow": 1}),
+    ("cnn_b_convnet_sta_b256", "convnet-dbb", "sta", 256,
+     {"conv_gemm": 3, "conv_gemm_small": 1, "conv_gemm_tc": 2}),
     ("cnn_c_convnet_dbb_b1", "convnet-dbb", "dbb", 1,
-     {"conv_gemm": 1, "conv_gemm_dbb": 2, "conv_gemm_dbb_tc": 2,
-      "dbb_gemm_skinny": 1, "dbb_gemm_skinny_split": 1}),
+     {"conv_gemm": 1, "conv_gemm_small": 1, "conv_gemm_dbb": 2,
+      "conv_gemm_dbb_tc": 2, "dbb_gemm_skinny": 1,
+      "dbb_gemm_skinny_split": 1}),
     # lenet's conv0 (N = 6) and, at batch 256, its K = 784 classifier take
     # the plain routes, as in the reference's cost model
-    ("cnn_d_lenet5_dbb_b256", "lenet5-dbb", "dbb", 256, {"conv_gemm": 1}),
+    ("cnn_d_lenet5_dbb_b256", "lenet5-dbb", "dbb", 256,
+     {"conv_gemm": 1, "conv_gemm_small": 1}),
 )
 
 
@@ -2664,6 +2777,7 @@ def _int8_cnn(torch, dev, report, counts):
     from repro_torch.core.quant import quantize_weight
     from repro_torch.core.sparsity import apply_dbb_to_tree
     from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv_gemm.ops import small_body
     from repro_torch.kernels.conv_gemm.ops import tc_body as conv_tc_body
     from repro_torch.models import registry
 
@@ -2690,6 +2804,10 @@ def _int8_cnn(torch, dev, report, counts):
         want = _with_s8_tc({"conv_gemm_s8": 1, "conv_gemm_dbb_s8": 2,
                             fc: 1}, params["fc"]["w"].k_dim,
                            cfg.cnn_classes)
+        # conv0 (C 3, 3x3, N 64) on conv_gemm's small-C body
+        if small_body(torch.int8, cfg.cnn_in_ch, cfg.cnn_kernel,
+                      cfg.cnn_kernel, cfg.cnn_channels[0]):
+            want["conv_gemm_s8_small"] = 1
         # conv1 and conv2 (C 64 / 128) on the conv's int8 tensor-core body
         conv_tc = sum(conv_tc_body(torch.int8, c, cfg.cnn_kernel,
                                    cfg.cnn_kernel, 1, n)
@@ -2720,8 +2838,9 @@ def _int8_cnn(torch, dev, report, counts):
 
 def _int8_exact(torch, dev, report):
     """(c) all-127 operands through every int8 branch at K >= 1152 (the
-    conv's tensor-core body at C 128, its IMAD body at C 136): the int32
-    sum is K·127² (past 2^24) exactly, and each branch launches once."""
+    convs' tensor-core body at C 128, their IMAD bodies at C 131 / 136):
+    the int32 sum is K·127² (past 2^24) exactly, and each branch launches
+    once."""
     from repro_torch.core.dbb import pack_dbb
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.kernels.conv_gemm import conv_gemm, conv_gemm_dbb
@@ -2752,7 +2871,10 @@ def _int8_exact(torch, dev, report):
                 padding="VALID", nnz=8)),
             "conv_gemm_dbb_s8_tc": (1152, lambda: conv_gemm_dbb(
                 full(2, 5, 5, 128), p1152.values, p1152.bitmask, kh=3, kw=3,
-                padding="VALID", nnz=8))}
+                padding="VALID", nnz=8)),
+            "conv_gemm_s8_tc": (1152, lambda: conv_gemm(
+                full(2, 5, 5, 128), full(1152, 64), kh=3, kw=3,
+                padding="VALID"))}
     ok, res = True, {}
     for name, (k, run) in runs.items():
         reset_launches()
@@ -2770,7 +2892,9 @@ def _int8_exact(torch, dev, report):
     print(f"int8: (c) all-127 operands, the int32 sum K·127² exactly (K "
           f"1152-1224, past 2^24; sta_gemm_s8 at K 1179 on the IMAD body "
           f"and 1184 on the tensor-core one; conv_gemm_dbb_s8 at C 136 on "
-          f"the IMAD body and C 128 on the tensor-core one) and one launch "
+          f"the IMAD body and C 128 on the tensor-core one, conv_gemm_s8 at "
+          f"C 131 on the IMAD body and C 128 on the tensor-core one) and one "
+          f"launch "
           f"each: "
           + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in res.items()))
     report["int8"]["exact"] = res

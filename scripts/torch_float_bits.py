@@ -69,6 +69,16 @@ sum, so only its f32 keys at C 64 may differ:
 
 (the int8 keys, ``conv_gemm_dbb_s8 C64`` on the new body included, and the
 FMA body's ``conv_gemm_dbb`` at C 24 are held bit-equal).
+
+The redesign of head_sample_fused (on sta_gemm_skinny's float body, the
+same K order and epilogue arithmetic) and of conv_gemm (a small-C body, one
+ascending-k fmaf chain an output as the FMA body's; the tensor-core body of
+conv_gemm_dbb on dense images, 3xTF32) may change only the dense f32
+outputs on the tensor-core body; the sampling head at M 1 / 8 / 24 / 32,
+the small-C body's f32 and int8 outputs and the dense int8 outputs are
+held bit-equal:
+
+    --compare A.pt B.pt "conv_gemm tc f32"
 """
 import sys
 
@@ -260,6 +270,42 @@ def run(tree: str, out_path: str) -> None:
         pf = pack_dbb(rn(9 * shape[-1], n) * 0.05, 8, 2)
         out[f"conv_gemm_dbb f32 {label}"] = conv_gemm_dbb(
             xf, pf.values, pf.bitmask, rn(n), act="relu", kh=3, kw=3, nnz=2)
+    # the sampling head at M 1, 24 and 32 at olmo-1b's head width (sampled
+    # and temperature-0 rows); conv_gemm at the small-C body's shapes
+    # (convnet conv0, lenet conv1; f32 and int8) and at the dense
+    # tensor-core body's (convnet conv1's geometry at B2; f32 and int8)
+    wh = rn(2048, 50304) * 0.02
+    for m in (1, 24, 32):
+        hm = rn(m, 2048)
+        cm = torch.randint(0, 3, (m, 50304), generator=g, device=dev,
+                           dtype=torch.int32)
+        r = torch.arange(m, device=dev)
+        ones = torch.ones(m, device=dev)
+        score, tok = head_sample_fused(
+            hm, wh, cm, temp=torch.where(r % 4 == 0, 0.0, 0.7).float(),
+            rep=ones * 1.2, pres=ones * 0.1, freq=ones * 0.1,
+            seed=(r * 7919).to(torch.int32), step=(r * 3).to(torch.int32))
+        out[f"head_sample_fused M{m} score"] = score
+        out[f"head_sample_fused M{m} token"] = tok
+    for label, b, hw, c, n, k, body in (
+            ("conv0", 4, 32, 3, 64, 3, "small"),
+            ("lenet conv1", 4, 14, 6, 16, 5, "small"),
+            ("conv1 B2", 2, 16, 64, 128, 3, "tc")):
+        xf = rn(b, hw, hw, c)
+        wf = rn(k * k * c, n) / (k * k * c) ** 0.5
+        out[f"conv_gemm {body} f32 {label}"] = conv_gemm(
+            xf, wf, rn(n), act="relu", kh=k, kw=k)
+        xq = torch.randint(-127, 128, (b, hw, hw, c), generator=g,
+                           device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k * k * c, n), generator=g,
+                           device=dev, dtype=torch.int8)
+        sq = torch.rand(n, generator=g, device=dev) * 1e-3
+        out[f"conv_gemm {body} s8 {label} i32"] = conv_gemm(xq, wq, kh=k,
+                                                            kw=k)
+        out[f"conv_gemm {body} s8 {label} f32"] = conv_gemm(
+            xq, wq, rn(n), sq, act="gelu", kh=k, kw=k)
+        out[f"conv_gemm {body} s8 {label} i8"] = conv_gemm(
+            xq, wq, None, sq, act="relu", kh=k, kw=k, out_dtype=torch.int8)
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, out_path)
     print(f"{tree}: {len(out)} outputs saved to {out_path}")

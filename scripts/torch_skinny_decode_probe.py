@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Per-call times of sta_gemm_skinny's float branch and of paged_decode on
-one CUDA card, at the serving path's shapes, for the kernels of a given
-source tree:
+"""Per-call times of sta_gemm_skinny's float branch, of head_sample_fused
+and of paged_decode on one CUDA card, at the serving path's shapes, for the
+kernels of a given source tree:
 
     python scripts/torch_skinny_decode_probe.py TREE [LABEL]
 
@@ -11,7 +11,9 @@ each in turns in one session (parent, change, change, parent), from a
 checkout unpacked with ``git archive`` into ``build/``.
 
 Shapes: the tied head x[M, 2048] . w[2048, 50304] f32 at M 1, 8, 24 and
-32; the dense decode layers at M8 bf16 (K2048 N2048, K2048 N8192, K8192
+32, greedy (sta_gemm_skinny) and sampled (head_sample_fused: counts in
+{0, 1}, temperature 0.8, repetition penalty 1.1, per-row seeds and
+steps); the dense decode layers at M8 bf16 (K2048 N2048, K2048 N8192, K8192
 N2048); decode attention at B8 Hkv16 G1 D128 page 64 bf16 through the
 contiguous cache's identity table at S 128 (lengths 100, ragged starts)
 and through a shuffled pool at S 640 (lengths 256-639) and S 576 with
@@ -31,6 +33,7 @@ def main(tree: str, label: str) -> None:
     sys.path.insert(0, tree + "/src")
     import torch
     from repro_torch.kernels.attn import paged_decode_attention
+    from repro_torch.kernels.sample import head_sample_fused
     from repro_torch.kernels.skinny import sta_gemm_skinny
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -65,6 +68,18 @@ def main(tree: str, label: str) -> None:
         x = randn(m, 2048)
         print(f"{label}: sta_gemm_skinny head M{m} K2048 N50304 f32: "
               f"{time_ms(lambda: sta_gemm_skinny(x, w)):.4f} ms")
+    for m in (1, 8, 24, 32):
+        x = randn(m, 2048)
+        counts = torch.randint(0, 2, (m, 50304), generator=gen, device=dev,
+                               dtype=torch.int32)
+        ar = torch.arange(m, device=dev)
+        rows = (torch.full((m,), 0.8, device=dev),
+                torch.full((m,), 1.1, device=dev), torch.zeros(m, device=dev),
+                torch.zeros(m, device=dev), (ar * 7919 - 3).int(),
+                (ar * 3).int())
+        ms = time_ms(lambda: head_sample_fused(x, w, counts, *rows))
+        print(f"{label}: head_sample_fused M{m} K2048 N50304 f32: "
+              f"{ms:.4f} ms")
     del w
     for k, n in ((2048, 2048), (2048, 8192), (8192, 2048)):
         x, w = randn(8, k, dtype=torch.bfloat16), randn(

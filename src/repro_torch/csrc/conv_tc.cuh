@@ -1,9 +1,11 @@
-// The tensor-core body of conv_gemm_dbb (conv_gemm_dbb.cu): the paper's
-// STA-DBB convolution on Hopper. out[m, n] = act(scale[n] · sum_k patch[m,
-// k] W[k, n] + bias[n]) for an NHWC image x, M = B·Ho·Wo output pixels, K =
-// kh·kw·C in the reference's order (i·kw + j)·C + c, W given as the DBB
-// planes values [K/8·nnz, N] and bitmask [K/8, N] and decompressed in shared
-// memory only. One implicit-GEMM body for both of the kernel's branches:
+// The tensor-core body of conv_gemm_dbb (conv_gemm_dbb.cu) and of
+// conv_gemm's dense images (conv_gemm.cu): the paper's STA-DBB convolution
+// on Hopper. out[m, n] = act(scale[n] · sum_k patch[m, k] W[k, n] + bias[n])
+// for an NHWC image x, M = B·Ho·Wo output pixels, K = kh·kw·C in the
+// reference's order (i·kw + j)·C + c, W given as the DBB planes values
+// [K/8·nnz, N] and bitmask [K/8, N] and decompressed in shared memory only,
+// or (nnz = kDense) as the dense w [K, N] itself. One implicit-GEMM body for
+// both of the kernels' branches:
 //   - f32 image, f32 values: 3xTF32 on tf32 wgmma. Each operand is split
 //     as a = hi + lo, hi = tf32(a), lo = tf32(a - hi), and the sum takes
 //     lo·B_hi + hi·B_lo + hi·B_hi (small terms first): f32-class accuracy
@@ -41,6 +43,14 @@
 //     then each kept position's slot read straight from the staged values
 //     box (min(rank, nnz - 1), rounded through the activation dtype f32: as
 //     it is), split hi = tf32(w), lo = tf32(w - hi) into two tiles.
+// A dense weight (nnz = kDense; conv_gemm's images) has no bitmask box: the
+// TMA thread stages w's [32 or 128 K rows][128 columns] box, the rows of a
+// DBB values plane of nnz 8 (at nnz 8 the slot order is K order), and the
+// workers transpose it to the same K-major tile: f32 (expand_dense_f32)
+// four K rows a 16-byte chunk, split hi / lo; int8 tc_gemm_s8.cuh's dense
+// transpose (transpose_stage) on each 64-column half. Chosen over an nnz-8
+// plane with an all-ones bitmask (the same product with a mask box to stage
+// and ranks to walk; PERF.md).
 //
 // The consumers: two warpgroups of 64 rows. int8: four wgmma.m64n128k32 a
 // stage from shared memory (A: 64-byte swizzle, B: 128-byte), one stage in
@@ -63,7 +73,8 @@
 //
 // Stages: as many as fit H100's 227 KB of shared memory (kSmemMax), at most
 // kMaxStages: f32 at nnz 2 holds 54 KB a stage (A 16 + B_hi 16 + B_lo 16 +
-// raw 6) -> 4; int8 at nnz 2 44 KB (A 16 + B 16 + raw 12) -> 5. Measured:
+// raw 6) -> 4; int8 at nnz 2 44 KB (A 16 + B 16 + raw 12) -> 5; dense f32
+// 64 KB (raw 16) -> 3, dense int8 48 KB -> 4. Measured:
 // 2 and 3 stages are slower, the rest level (PERF.md). A ring of A pieces,
 // raw boxes and B tiles each its own depth was slower at every depth.
 //
@@ -102,6 +113,9 @@ constexpr int kThreads = kConsumers + 32 + kWorkers;  // + the TMA warp
 constexpr int kATile = kPieces * BM * kPieceBytes;    // 16 KB
 constexpr int kBTile = BN * kSwizzleRow;              // 16 KB
 constexpr int kMaxStages = 6;
+// the nnz code of a dense weight w [K, N] (no bitmask): staged as the
+// values plane of nnz 8, whose slots are the block's K rows in order
+constexpr int kDense = 0;
 constexpr int kSmemMax = 232448;                      // 227 KB a block
 // beside the stages: alignment slack, the int8 expansion table, two tiles'
 // scale and bias columns
@@ -112,6 +126,11 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
 }
 
+// the values rows a DBB block stores: nnz, or its 8 K rows when dense
+__host__ __device__ inline int slots(int nnz) {
+  return nnz == kDense ? kDbbBlock : nnz;
+}
+
 // What a branch puts in a stage.
 template <typename T>
 struct Stage;
@@ -120,9 +139,13 @@ template <>
 struct Stage<float> {
   static constexpr int kEsz = 4, BK = 32, kBlocks = BK / kDbbBlock;  // 4
   static constexpr int kBTiles = 2;                                  // hi, lo
-  // the bitmask box [4][128] int32 and the values box [4 nnz][128] f32
+  // the bitmask box [4][128] int32 (none when dense), then the values box
+  // [4 slots][128] f32
+  __host__ __device__ static int mask_bytes(int nnz) {
+    return nnz == kDense ? 0 : kBlocks * BN * 4;
+  }
   __host__ __device__ static int raw_bytes(int nnz) {
-    return kBlocks * BN * 4 * (1 + nnz);
+    return mask_bytes(nnz) + kBlocks * BN * 4 * slots(nnz);
   }
 };
 
@@ -131,9 +154,12 @@ struct Stage<int8_t> {
   static constexpr int kEsz = 1, BK = 128, kBlocks = BK / kDbbBlock;  // 16
   static constexpr int kBTiles = 1;
   // a DbbS8 staging buffer (bitmask [16][64] int32, values [16 nnz][64]
-  // int8) for each 64-column half
+  // int8; dense: w's [128][64] box alone) for each 64-column half
+  __host__ __device__ static int mask_bytes(int nnz) {
+    return nnz == kDense ? 0 : tc8::kMaskBytes;
+  }
   __host__ __device__ static int half_bytes(int nnz) {
-    return tc8::kMaskBytes + kBlocks * nnz * 64;
+    return mask_bytes(nnz) + kBlocks * slots(nnz) * 64;
   }
   __host__ __device__ static int raw_bytes(int nnz) {
     return 2 * half_bytes(nnz);
@@ -195,24 +221,51 @@ __device__ __forceinline__ void expand_f32(const uint8_t* raw, uint8_t* hi,
   }
 }
 
-// the TMA thread's copies of a stage's DBB boxes to its raw buffer
+// The dense f32 weight producer: worker u writes column u of the B_hi,
+// B_lo tiles from the staged box of w's 32 K rows x 128 columns, four K rows
+// (one 16-byte chunk of each tile's row, chunk c at c ^ (u % 8)) at a time.
+__device__ __forceinline__ void expand_dense_f32(const uint8_t* raw,
+                                                 uint8_t* hi, uint8_t* lo,
+                                                 int u) {
+  const float* vals = reinterpret_cast<const float*>(raw);
+  const int row = u * kSwizzleRow, sw = u & 7;
+#pragma unroll
+  for (int c = 0; c < Stage<float>::BK / 4; ++c) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float w = vals[(4 * c + e) * BN + u];
+      h[e] = tf32_rna(w);
+      l[e] = tf32_rna(w - __uint_as_float(h[e]));
+    }
+    const int off = row + ((c ^ sw) << 4);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// the TMA thread's copies of a stage's weight boxes to its raw buffer: the
+// DBB bitmask and values boxes, or a dense w's box (rows of the values
+// plane of nnz 8)
 template <typename T>
 __device__ __forceinline__ void issue_raw(const CUtensorMap* bmap,
                                           const CUtensorMap* cmap,
                                           uint8_t* raw, uint32_t bar, int n0,
                                           int kt, int nnz) {
   constexpr int kBlocks = Stage<T>::kBlocks;
+  const bool dense = nnz == kDense;
+  const int mask = Stage<T>::mask_bytes(nnz);
+  const int vrow = kt * kBlocks * slots(nnz);  // the values box's first row
   mbar_arrive_tx(bar, Stage<T>::raw_bytes(nnz));
   if constexpr (sizeof(T) == 4) {
-    tma_load(smem_u32(raw), bmap, bar, n0, kt * kBlocks);
-    tma_load(smem_u32(raw + kBlocks * BN * 4), cmap, bar, n0,
-             kt * kBlocks * nnz);
+    if (!dense) tma_load(smem_u32(raw), bmap, bar, n0, kt * kBlocks);
+    tma_load(smem_u32(raw + mask), cmap, bar, n0, vrow);
   } else {
     for (int half = 0; half < 2; ++half) {
       uint8_t* r = raw + half * Stage<T>::half_bytes(nnz);
-      tma_load(smem_u32(r), bmap, bar, n0 + 64 * half, kt * kBlocks);
-      tma_load(smem_u32(r + tc8::kMaskBytes), cmap, bar, n0 + 64 * half,
-               kt * kBlocks * nnz);
+      if (!dense)
+        tma_load(smem_u32(r), bmap, bar, n0 + 64 * half, kt * kBlocks);
+      tma_load(smem_u32(r + mask), cmap, bar, n0 + 64 * half, vrow);
     }
   }
 }
@@ -397,7 +450,7 @@ conv_tc_kernel(const __grid_constant__ CUtensorMap amap,
   };
 
   if constexpr (sizeof(T) == 1) {
-    if (threadIdx.x < 256)
+    if (threadIdx.x < 256 && nnz != kDense)
       table[threadIdx.x] = tc8::expand_selectors(threadIdx.x, nnz);
   }
   if (threadIdx.x == 0) {
@@ -462,12 +515,17 @@ conv_tc_kernel(const __grid_constant__ CUtensorMap amap,
         const int s = it % stages;
         mbar_wait(rawb + 8 * s, (it / stages) & 1);
         if constexpr (sizeof(T) == 4) {
-          expand_f32(raw_buf(s), b_tile(s), b_tile(s) + kBTile, nnz, u);
+          if (nnz == kDense)
+            expand_dense_f32(raw_buf(s), b_tile(s), b_tile(s) + kBTile, u);
+          else
+            expand_f32(raw_buf(s), b_tile(s), b_tile(s) + kBTile, nnz, u);
         } else {
           for (int half = 0; half < 2; ++half) {
             const uint8_t* r = raw_buf(s) + half * S::half_bytes(nnz);
             uint8_t* tile = b_tile(s) + half * 64 * kSwizzleRow;
-            if (nnz <= 4)
+            if (nnz == kDense)
+              tc8::transpose_stage(r, tile, u);
+            else if (nnz <= 4)
               tc8::expand_stage<4>(r, tile, table, nnz, u);
             else
               tc8::expand_stage<8>(r, tile, table, nnz, u);
@@ -569,10 +627,17 @@ conv_tc_kernel(const __grid_constant__ CUtensorMap amap,
 // Host side: the launch
 // ---------------------------------------------------------------------------
 
-// x [B, H, W, C] (f32 or int8), the DBB planes in x's value type; out [M,
-// N] in TO. One persistent block an SM (at most one a tile). `stages`: the
-// ring's depth, or 0 for stages_for (the probe's sweep sets it; at most what
-// fits). Returns a cudaError_t code.
+// x [B, H, W, C] (f32 or int8), the DBB planes in x's value type (nnz
+// kDense: `values` is the dense w [K, N], `bitmask` unused); out [M, N] in
+// TO. One persistent block an SM (at most one a tile). `stages`: the ring's
+// depth, or 0 for stages_for (the probe's sweep sets it; at most what
+// fits). Returns a cudaError_t code. In an unnamed namespace: each library
+// that includes this header (conv_gemm.cu, conv_gemm_dbb.cu) keeps its own
+// per-device state below for its own kernels (a static in an inline
+// template of external linkage is one object across the process, so the
+// second library would skip raising its kernels' shared-memory ceiling).
+namespace {
+
 template <typename T, typename TO>
 int launch(const void* x, const void* values, const void* bitmask,
            const void* scale, const void* bias, void* out, const ConvGeom& g,
@@ -589,13 +654,14 @@ int launch(const void* x, const void* values, const void* bitmask,
                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                        S::kEsz, g.B, g.H, g.W, g.C, g.Ho, g.Wo, g.stride,
                        g.pad_top, g.pad_left, kPieceBytes / S::kEsz, BM) ||
-      !make_map_2d(&bmap, bitmask, CU_TENSOR_MAP_DATA_TYPE_INT32, 4,
-                   K / kDbbBlock, N, S::kBlocks, bn, false) ||
+      (nnz != kDense &&
+       !make_map_2d(&bmap, bitmask, CU_TENSOR_MAP_DATA_TYPE_INT32, 4,
+                    K / kDbbBlock, N, S::kBlocks, bn, false)) ||
       !make_map_2d(&cmap, values,
                    f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                   S::kEsz, K / kDbbBlock * nnz, N, S::kBlocks * nnz, bn,
-                   false))
+                   S::kEsz, K / kDbbBlock * slots(nnz), N,
+                   S::kBlocks * slots(nnz), bn, false))
     return (int)cudaErrorInvalidValue;
   const int fit = stages_for<T>(nnz);
   if (stages <= 1 || stages > fit) stages = fit;
@@ -626,6 +692,8 @@ int launch(const void* x, const void* values, const void* bitmask,
       static_cast<const float*>(bias), static_cast<TO*>(out), act, phase);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 }  // namespace convtc
 }  // namespace repro

@@ -17,32 +17,38 @@
 // Design. The TPU kernel walks N tiles in order and carries a running
 // (best, index) across them; here blocks run in parallel, so the work is
 // two launches:
-// 1. head_sample_tile_kernel: one block per (chunk of up to 8 rows,
-//    128-column tile), the tile walked as four 32-column passes. Each pass
-//    is sta_gemm_skinny.cu's body, shared through skinny_tile.cuh — one
-//    column per lane, 16 warps splitting K in interleaved groups of 8 rows,
-//    the warps' partial sums added in warp order in shared memory — so
-//    every logit is bit-equal to sta_gemm_skinny's (temperature-0 sampling
-//    with default penalties picks greedy's token exactly). The epilogue runs per logit
-//    in registers: penalties from the counts tile, 1/T, and the murmur3
-//    counter hash in native uint32 for the Gumbel noise; a warp argmax
-//    (ties to the lower column) and a running best over the passes leave
-//    one (best, index) partial per row and tile.
-// 2. head_sample_reduce_kernel: one block per row combines the tiles'
-//    partials: the larger score wins, the lower index on ties — so the
-//    result is jnp.argmax's first maximum, independent of block order.
+// 1. the persistent float body of skinny_float.cuh — the greedy head's
+//    (sta_gemm_skinny.cu): 64-column tiles with all M <= 32 rows, one block
+//    a SM walking tiles blockIdx.x, + gridDim.x through one TMA weight ring
+//    — with the sampling epilogue SampleEpi in place of the store. The
+//    logits are that body's sums, so every logit is bit-equal to
+//    sta_gemm_skinny's (temperature-0 sampling with default penalties picks
+//    greedy's token exactly) at any M. Per logit, in registers: penalties
+//    from counts[r, col] (coalesced over a warp's 32 columns), 1/T, and the
+//    murmur3 counter hash in native uint32 for the Gumbel noise; a warp's
+//    argmax by `beats` (ties to the lower column), folded into a running
+//    best per (row, half tile) that the block keeps in shared memory across
+//    its tiles. At the end the block merges the two halves of each row and
+//    leaves one (best, index) partial per row: [M, blocks], blocks from K
+//    and N alone (head_sample_fused_partials).
+// 2. head_sample_reduce_kernel: one block per row merges the blocks'
+//    partials by `beats`: the larger score wins, the lower index on ties —
+//    so the result is jnp.argmax's first maximum, independent of block
+//    order or grid. It is a programmatic dependent launch (its launch
+//    overlaps the body's last blocks; it waits for their stores).
 // Arithmetic follows the reference op by op: no FMA contraction in the
 // epilogue (__fmul_rn / __fsub_rn / __fadd_rn), IEEE division, logf built
 // without --use_fast_math (it may differ from the host's log by an ulp).
 #include <limits.h>
 #include <math.h>
 
-#include "skinny_tile.cuh"
+#include "skinny_float.cuh"
 
 namespace {
 
-constexpr int kTile = 128;       // columns per block: kPasses x 32
-constexpr int kPasses = kTile / 32;
+// K and N multiples of kTile: the routes' rule (the reference's tile), so
+// no vocabulary padding can win the argmax
+constexpr int kTile = 128;
 constexpr uint32_t kSaltToken = 0x9E3779B9u;  // (0x9E3779B9 * (0 + 1)) mod 2^32
 
 __device__ __forceinline__ uint32_t mix(uint32_t h) {  // murmur3 finalizer
@@ -82,72 +88,97 @@ __device__ __forceinline__ bool beats(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
 }
 
-using repro::kSkinnyRows;
-using repro::kSkinnyWarps;
+namespace skf = repro::skinny;
 
-__global__ void __launch_bounds__(kSkinnyWarps * 32)
-head_sample_tile_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w,
-                        const int* __restrict__ counts,
-                        const float* __restrict__ temp,
-                        const float* __restrict__ rep,
-                        const float* __restrict__ pres,
-                        const float* __restrict__ freq,
-                        const int* __restrict__ seed,
-                        const int* __restrict__ step, int base,
-                        float* __restrict__ part_score,
-                        int* __restrict__ part_idx, int M, int K, int N) {
-  __shared__ float part[kSkinnyWarps][kSkinnyRows][32];
-  __shared__ float best[kSkinnyRows];
-  __shared__ int best_idx[kSkinnyRows];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int r0 = blockIdx.x * kSkinnyRows;  // this block's row chunk
-  const int m = min(kSkinnyRows, M - r0);
-  const int tile = blockIdx.y, tiles = gridDim.y;
+// The sampling epilogue of the float body (skinny_float.cuh's policy).
+struct SampleEpi {
+  const int* counts;
+  const float* temp;
+  const float* rep;
+  const float* pres;
+  const float* freq;
+  const int* seed;
+  const int* step;
+  int base;
+  float* part_score;  // [M, gridDim.x]
+  int* part_idx;
+  // M <= 32 rows. Shared stays small: at M 32 the body's ring leaves
+  // under 1 KB of the 227 KB for it.
+  static constexpr int kRows = 32;
+  struct Shared {
+    float inv_t[kRows];
+    uint32_t hrow[kRows];  // the row's hash of (seed, step)
+    float best[kRows][2];  // the running best of (row, half tile)
+    int best_idx[kRows][2];
+  };
 
-  for (int pass = 0; pass < kPasses; ++pass) {
-    const int n = tile * kTile + pass * 32 + lane;  // N % 128 == 0: inside
-    repro::skinny_pass<float>(x + (size_t)r0 * K, w, n, m, K, N, part);
-    __syncthreads();
-    // epilogue: warp v takes chunk row v (m <= 8 < 16 warps); lane = column
-    for (int rl = warp; rl < m; rl += kSkinnyWarps) {
-      const int r = r0 + rl;
-      const float sum = repro::skinny_sum(part, rl, lane);
-      const float t = temp[r];
-      const float inv_t = t > 0.f ? 1.f / t : 1.f;
-      const uint32_t hrow =
-          mix(mix((uint32_t)seed[r] + kSaltToken) ^ (uint32_t)step[r]);
-      float s = sample_score(sum, counts[(size_t)r * N + n], t, inv_t, rep[r],
-                             pres[r], freq[r], hrow, base + n);
-      int i = n;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float os = __shfl_down_sync(0xffffffffu, s, off);
-        const int oi = __shfl_down_sync(0xffffffffu, i, off);
-        if (beats(os, oi, s, i)) {
-          s = os;
-          i = oi;
-        }
+  __device__ __forceinline__ void begin(Shared& sh, int M) const {
+    for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
+      if (r < M) {
+        const float t = temp[r];
+        sh.inv_t[r] = t > 0.f ? 1.f / t : 1.f;
+        sh.hrow[r] =
+            mix(mix((uint32_t)seed[r] + kSaltToken) ^ (uint32_t)step[r]);
       }
-      // passes run in ascending column order: strict > keeps the earlier
-      if (lane == 0 && (pass == 0 || s > best[rl])) {
-        best[rl] = s;
-        best_idx[rl] = i;
+      for (int h = 0; h < 2; ++h) {
+        sh.best[r][h] = -INFINITY;
+        sh.best_idx[r][h] = INT_MAX;
       }
     }
-    __syncthreads();  // part[] is rewritten by the next pass
   }
-  for (int rl = threadIdx.x; rl < m; rl += blockDim.x) {
-    part_score[(size_t)(r0 + rl) * tiles + tile] = best[rl];
-    part_idx[(size_t)(r0 + rl) * tiles + tile] = best_idx[rl];
+
+  // a warp holds row r's 32 adjacent columns (half h of the 64-column
+  // tile): its scores' argmax, folded into the row's running best
+  __device__ __forceinline__ void chunk(Shared& sh, float sum, int r, int col,
+                                        bool live, int N) const {
+    float s = -INFINITY;
+    int i = INT_MAX;
+    if (live) {
+      s = sample_score(sum, counts[(size_t)r * N + col], temp[r], sh.inv_t[r],
+                       rep[r], pres[r], freq[r], sh.hrow[r], base + col);
+      i = col;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float os = __shfl_down_sync(0xffffffffu, s, off);
+      const int oi = __shfl_down_sync(0xffffffffu, i, off);
+      if (beats(os, oi, s, i)) {
+        s = os;
+        i = oi;
+      }
+    }
+    const int h = (threadIdx.x / 32) & 1;
+    if (threadIdx.x % 32 == 0 &&
+        beats(s, i, sh.best[r][h], sh.best_idx[r][h])) {
+      sh.best[r][h] = s;
+      sh.best_idx[r][h] = i;
+    }
   }
-}
+
+  // rank 0 of the cluster (the only one with chunks) leaves the block's
+  // partial of each row
+  __device__ __forceinline__ void end(Shared& sh, int M) const {
+    // the merge may be scheduled (it waits for this grid's stores)
+    asm volatile("griddepcontrol.launch_dependents;");
+    if (blockIdx.y != 0) return;
+    for (int r = threadIdx.x; r < M; r += blockDim.x) {
+      float s = sh.best[r][0];
+      int i = sh.best_idx[r][0];
+      if (beats(sh.best[r][1], sh.best_idx[r][1], s, i)) {
+        s = sh.best[r][1];
+        i = sh.best_idx[r][1];
+      }
+      part_score[(size_t)r * gridDim.x + blockIdx.x] = s;
+      part_idx[(size_t)r * gridDim.x + blockIdx.x] = i;
+    }
+  }
+};
 
 constexpr int kReduceThreads = 256;
 
 __global__ void __launch_bounds__(kReduceThreads)
 head_sample_reduce_kernel(const float* __restrict__ part_score,
-                          const int* __restrict__ part_idx, int tiles,
+                          const int* __restrict__ part_idx, int parts,
                           float* __restrict__ out_score,
                           int* __restrict__ out_idx) {
   __shared__ float ws[kReduceThreads / 32];
@@ -155,9 +186,12 @@ head_sample_reduce_kernel(const float* __restrict__ part_score,
   const int r = blockIdx.x;
   float s = -INFINITY;
   int i = INT_MAX;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-    const float v = part_score[(size_t)r * tiles + t];
-    const int j = part_idx[(size_t)r * tiles + t];
+  // launched early (programmatic dependent launch): wait until the body's
+  // grid has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int t = threadIdx.x; t < parts; t += blockDim.x) {
+    const float v = part_score[(size_t)r * parts + t];
+    const int j = part_idx[(size_t)r * parts + t];
     if (beats(v, j, s, i)) {
       s = v;
       i = j;
@@ -191,6 +225,13 @@ head_sample_reduce_kernel(const float* __restrict__ part_score,
 
 }  // namespace
 
+// The partials a row leaves (the float body's blocks): the wrapper's
+// workspace is [M, head_sample_fused_partials(K, N)], a function of K and N
+// alone.
+extern "C" int head_sample_fused_partials(int K, int N) {
+  return skf::blocks(K, N);
+}
+
 extern "C" int head_sample_fused_launch(
     const void* x, const void* w, const void* counts, const void* temp,
     const void* rep, const void* pres, const void* freq, const void* seed,
@@ -198,26 +239,40 @@ extern "C" int head_sample_fused_launch(
     void* out_score, void* out_idx, int M, int K, int N, void* stream) {
   if (M < 1 || M > 32 || K < kTile || K % kTile || N < kTile || N % kTile)
     return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* wf = static_cast<const float*>(w);
-  const auto* cn = static_cast<const int*>(counts);
-  const auto* tf = static_cast<const float*>(temp);
-  const auto* rp = static_cast<const float*>(rep);
-  const auto* pr = static_cast<const float*>(pres);
-  const auto* fr = static_cast<const float*>(freq);
-  const auto* sd = static_cast<const int*>(seed);
-  const auto* st = static_cast<const int*>(step);
   auto* ps = static_cast<float*>(part_score);
   auto* pi = static_cast<int*>(part_idx);
-  // row chunks vary fastest: the chunks of one tile share its weight slab
-  const dim3 grid((M + kSkinnyRows - 1) / kSkinnyRows, N / kTile);
-  head_sample_tile_kernel<<<grid, kSkinnyWarps * 32, 0, s>>>(
-      xf, wf, cn, tf, rp, pr, fr, sd, st, base, ps, pi, M, K, N);
+  const skf::FloatArgs a{x, w, M, K, N, 0, 0, skf::row_lv((size_t)N * 4),
+                         skf::row_lv((size_t)K * 4)};
+  const SampleEpi e{static_cast<const int*>(counts),
+                    static_cast<const float*>(temp),
+                    static_cast<const float*>(rep),
+                    static_cast<const float*>(pres),
+                    static_cast<const float*>(freq),
+                    static_cast<const int*>(seed),
+                    static_cast<const int*>(step),
+                    base, ps, pi};
+  const cudaError_t err = skf::launch_float<float>(a, e, s);
+  if (err != cudaSuccess) return (int)err;
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  head_sample_reduce_kernel<<<M, kReduceThreads, 0, s>>>(
-      ps, pi, N / kTile, static_cast<float*>(out_score),
-      static_cast<int*>(out_idx));
-  return (int)cudaGetLastError();
+  // the merge, as a programmatic dependent launch: its blocks may be
+  // scheduled while the body's last blocks run, hiding its launch latency
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(M);
+  cfg.blockDim = dim3(kReduceThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, head_sample_reduce_kernel,
+                                 static_cast<const float*>(ps),
+                                 static_cast<const int*>(pi),
+                                 skf::blocks(K, N),
+                                 static_cast<float*>(out_score),
+                                 static_cast<int*>(out_idx));
 }

@@ -40,7 +40,7 @@ KERNEL_SOURCES = {
     "head_sample_fused": "head_sample_fused.cu",
 }
 _HEADERS = ("common.cuh", "conv_tc.cuh", "flash_tc.cuh", "flash_tile.cuh",
-            "gemm_tile.cuh", "hopper.cuh", "skinny_tile.cuh", "split_k.cuh",
+            "gemm_tile.cuh", "hopper.cuh", "skinny_float.cuh", "split_k.cuh",
             "split_k_s8.cuh", "tc_gemm.cuh", "tc_gemm_s8.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

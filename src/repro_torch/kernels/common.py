@@ -50,7 +50,11 @@ INT8_OUT_DTYPES = (torch.int32, torch.float32, torch.int8)
 # split-K body (float x, by skinny.ops.split_body; csrc/split_k.cuh).
 # ``conv_gemm_dbb_tc`` and ``conv_gemm_dbb_s8_tc`` count, beside
 # ``conv_gemm_dbb`` and ``conv_gemm_dbb_s8``, the launches that ran the
-# conv's tensor-core body (csrc/conv_tc.cuh), by conv_gemm.ops.tc_body.
+# conv's tensor-core body (csrc/conv_tc.cuh), by conv_gemm.ops.tc_body;
+# ``conv_gemm_tc`` and ``conv_gemm_s8_tc`` those of ``conv_gemm`` /
+# ``conv_gemm_s8`` (the dense weight), ``conv_gemm_small`` and
+# ``conv_gemm_s8_small`` those that ran conv_gemm's small-C body, by
+# conv_gemm.ops.small_body (taken first).
 LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_i8": 0, "dbb_gemm_skinny_i8": 0,
                             "dbb_gemm_w4": 0, "dbb_gemm_skinny_w4": 0,
@@ -68,7 +72,9 @@ LAUNCHES: Dict[str, int] = {"dbb_gemm": 0, "dbb_gemm_skinny": 0,
                             "dbb_gemm_skinny_split": 0,
                             "sta_gemm_s8_tc": 0, "dbb_gemm_s8_tc": 0,
                             "conv_gemm_dbb_tc": 0,
-                            "conv_gemm_dbb_s8_tc": 0}
+                            "conv_gemm_dbb_s8_tc": 0,
+                            "conv_gemm_tc": 0, "conv_gemm_s8_tc": 0,
+                            "conv_gemm_small": 0, "conv_gemm_s8_small": 0}
 
 
 def reset_launches() -> None:

@@ -24,6 +24,15 @@ tensor-core body's TMA copies need 16-byte rows: x's channels (C·esz) and
 the planes' N (N·4 for f32 values and the bitmask, N for int8 values);
 the rule asks for more (whole 64-byte channel pieces, N % 16 for int8)
 and the wrappers check 16-byte aligned, contiguous operands.
+
+`conv_gemm` picks one of three bodies (csrc/conv_gemm.cu): f32 and int8
+images with a small K = kh·kw·C and N (`small_body`: convnet's conv0,
+lenet's conv1) run the small-C body (the whole filter and a tile's
+zero-halo image window in shared memory, all N channels a block), counted as
+``conv_gemm_small`` / ``conv_gemm_s8_small``; else images that `tc_body`
+admits (convnet's dense conv1 and conv2) run the tensor-core body on the
+dense weight, counted as ``conv_gemm_tc`` / ``conv_gemm_s8_tc``; the rest
+the FMA body.
 """
 from __future__ import annotations
 
@@ -42,9 +51,11 @@ from repro_torch.kernels.conv_gemm.ref import (conv_gemm_dbb_ref,
 from repro_torch.kernels.epilogue import ACT_CODES
 
 __all__ = ["conv_gemm", "conv_gemm_dbb", "conv_gemm_packed", "out_spatial",
-           "tc_body"]
+           "tc_body", "small_body", "SMALL_K", "SMALL_N"]
 
 _INT_MAX = 2 ** 31 - 1     # the kernels index pixels and channels in int
+SMALL_K = 160   # csrc/conv_gemm.cu kSmallK: the largest kh·kw·C it stages
+SMALL_N = 64    # kSmallN: 8 channel lanes of 8 channels
 
 
 def tc_body(dtype: torch.dtype, c: int, kh: int, kw: int, stride: int,
@@ -59,6 +70,16 @@ def tc_body(dtype: torch.dtype, c: int, kh: int, kw: int, stride: int,
     return (((dtype == torch.float32 and c % 16 == 0 and n % 4 == 0)
              or (dtype == torch.int8 and c % 64 == 0 and n % 16 == 0))
             and kh <= 32 and kw <= 32 and stride <= 8)
+
+
+def small_body(dtype: torch.dtype, c: int, kh: int, kw: int, n: int
+               ) -> bool:
+    """Whether `conv_gemm` runs an image of this dtype and geometry on its
+    small-C body: f32 or int8 with kh·kw·C <= SMALL_K and N <= SMALL_N. The
+    rule of csrc/conv_gemm.cu's small_body, taken before `tc_body`; it
+    reads no B, H, W or stride, and takes no bf16 image."""
+    return (dtype in (torch.float32, torch.int8) and kh * kw * c <= SMALL_K
+            and n <= SMALL_N)
 
 
 def _geometry(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str
@@ -119,9 +140,16 @@ def conv_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None, *,
     if x.device.type == "cpu" or _empty(geom, n):
         return conv_gemm_ref(x, w, bias, scale, kh=kh, kw=kw, stride=stride,
                              padding=padding, act=act, out_dtype=out_dtype)
-    return _run("conv_gemm", (x.data_ptr(), w.data_ptr(), build.ptr(scale),
-                              build.ptr(bias)),
-                geom, n, (ACT_CODES[act],), x, out_dtype)
+    y = _run("conv_gemm", (x.data_ptr(), w.data_ptr(), build.ptr(scale),
+                           build.ptr(bias)),
+             geom, n, (ACT_CODES[act],), x, out_dtype)
+    c = x.shape[-1]
+    branch = "conv_gemm" + ("_s8" if x.dtype == torch.int8 else "")
+    if small_body(x.dtype, c, kh, kw, n):
+        LAUNCHES[branch + "_small"] += 1
+    elif tc_body(x.dtype, c, kh, kw, stride, n):
+        LAUNCHES[branch + "_tc"] += 1
+    return y
 
 
 def conv_gemm_dbb(x: torch.Tensor, values: torch.Tensor,

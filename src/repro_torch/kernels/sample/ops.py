@@ -10,10 +10,22 @@ version (`ref.sample_argmax` of the f32 product).
 The kernel takes M ≤ 32 rows and K, N multiples of 128; the wrapper
 raises on anything else. It does not pad the vocabulary: a pad column
 could win the argmax.
+
+The kernel runs the greedy head's persistent float body
+(csrc/skinny_float.cuh, shared with ``sta_gemm_skinny``) with a sampling
+epilogue: each block leaves one (score, index) partial per row, and a
+second launch merges them. The wrapper allocates the ``[M, P]``
+workspace, P the library's ``head_sample_fused_partials(K, N)``: the
+blocks that walk the 64-column tiles (a cluster of Q of them splitting K
+where the tiles are few), a function of K and N alone, so the
+workspace's shape never depends on M and the call is ready for a
+CUDA-graph capture. `partials` mirrors that rule in Python (the tests
+hold it against the C source and the library).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -23,9 +35,35 @@ from repro_torch.kernels.common import (LAUNCHES, SKINNY_M_MAX,
                                         check_operand)
 from repro_torch.kernels.sample.ref import sample_argmax
 
-__all__ = ["head_sample_fused", "head_sample_fused_ref", "TILE_N"]
+__all__ = ["head_sample_fused", "head_sample_fused_ref", "TILE_N",
+           "partials"]
 
-TILE_N = 128        # columns per block; K and N must be multiples of it
+TILE_N = 128        # the reference's tile; K and N must be multiples of it
+
+# csrc/skinny_float.cuh's grid: 64-column tiles, K rounds of 16 strands x
+# 8-row groups, clusters of up to 8 blocks, one block a SM of the H100 SXM
+_COLS, _STRANDS, _GROUP_K, _MAX_CLUSTER, _SMS = 64, 16, 8, 8, 132
+
+
+def partials(k_dim: int, n: int) -> int:
+    """The (score, index) partials a row leaves: the float body's blocks at
+    (K, N) — csrc/skinny_float.cuh's ``blocks`` (via ``cluster_q``), read
+    by the kernel as ``head_sample_fused_partials``."""
+    tiles = -(-n // _COLS)
+    rounds = -(-(k_dim // _GROUP_K) // _STRANDS)
+    q = 1
+    while q < _MAX_CLUSTER and tiles * 2 * q <= _SMS and rounds >= 4 * q:
+        q *= 2
+    return min(tiles, _SMS // q)
+
+
+@functools.lru_cache(maxsize=None)
+def _partials(k_dim: int, n: int) -> int:
+    """`partials` as the library computes it (asked once per shape)."""
+    fn = build.load("head_sample_fused").head_sample_fused_partials
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(k_dim, n)
 
 
 def head_sample_fused_ref(h, w, counts, temp, rep, pres, freq, seed, step,
@@ -78,9 +116,9 @@ def head_sample_fused(h: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
         rows.append(a.contiguous())
     if dev.type == "cpu":
         return head_sample_fused_ref(h, w, counts, *rows, base=base)
-    tiles = n // TILE_N
-    part_score = torch.empty((m, tiles), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((m, tiles), dtype=torch.int32, device=dev)
+    parts = _partials(k_dim, n)
+    part_score = torch.empty((m, parts), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((m, parts), dtype=torch.int32, device=dev)
     score = torch.empty((m,), dtype=torch.float32, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     rc = _launcher()(

@@ -58,7 +58,18 @@ plain version at convnet conv1 / conv2's geometry, ragged pixel tiles, N
 off the tile, stride 2 and VALID; int8 outputs bit-equal to the IMAD
 body on a zero-padded neighbour off the rule; an image's output bit for
 bit the same in any batch; the all-127 sums exactly; a ``_tc`` launch
-counted by the launcher's own rule.
+counted by the launcher's own rule. The fused sampling head on the skinny
+float body: the fused head's tolerance above on every cluster size and
+with blocks that walk two tiles; at temperature 0 the skinny head's logit
+and argmax bit for bit at olmo-1b's head; ties to the lowest index across
+tiles and blocks; a row's sample the same in any batch. conv_gemm's
+small-C body: the f32 tolerance against the plain version, bit-equal to
+the FMA body (f32) and the IMAD body (int8) on the same weights, the int8
+branches' tolerance (bit-equal after none or relu) against the plain
+version; its dense images on the tensor-core body: the f32 tolerance,
+bit-equal to conv_gemm_dbb's body on the weight as an all-ones plane of
+nnz 8, int8 as the int8 branches; ``_small`` / ``_tc`` launches counted
+by the launcher's own rules.
 """
 import numpy as np
 import pytest
@@ -2095,3 +2106,281 @@ def test_gpu_conv_tc_s8_all_127_is_the_exact_integer(cuda):
     torch.cuda.synchronize()
     assert LAUNCHES["conv_gemm_dbb_s8_tc"] == before + 1
     assert got.dtype == I32 and bool((got == 1152 * 127 * 127).all())
+
+
+# ---------------------------------------------------------------------------
+# head_sample_fused on the skinny float body (csrc/skinny_float.cuh, with
+# sta_gemm_skinny): persistent blocks walking 64-column tiles, a running
+# best per row, the blocks' partials merged by a second launch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 9, 24, 32])
+@pytest.mark.parametrize("k,n", [(2048, 1024),    # a cluster of 4 blocks
+                                 (2048, 4096),    # a cluster of 2
+                                 (128, 8960),     # blocks 0-7 walk 2 tiles
+                                 (2048, 50304)])  # the olmo-1b head
+def test_gpu_head_sample_body_matches_the_plain_version(cuda, m, k, n):
+    """The fused kernel's tolerance (module doc) on every cluster size and
+    with blocks that walk more than one tile; one launch counted."""
+    from repro_torch.kernels.sample import (head_sample_fused,
+                                            head_sample_fused_ref,
+                                            sample_scores)
+    h, w, counts, rows = _head_sample_case(cuda, m, k, n, 7 * m + k)
+    before = LAUNCHES["head_sample_fused"]
+    got_s, got_i = head_sample_fused(h, w, counts, *rows, base=11)
+    torch.cuda.synchronize()
+    assert LAUNCHES["head_sample_fused"] == before + 1
+    want_s, want_i = head_sample_fused_ref(h, w, counts, *rows, base=11)
+    tol = 1e-5 * max(want_s.abs().max().item(), 1.0)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=tol)
+    col = 11 + torch.arange(n, device=cuda)[None, :]
+    scores = sample_scores(h @ w, counts, *(a[:, None] for a in rows), col)
+    top2 = scores.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    assert bool((got_i == want_i)[decided].all())
+    assert int(decided.sum()) >= m - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 24, 32])
+def test_gpu_head_sample_t0_is_the_greedy_head_bit_for_bit(cuda, m):
+    """At olmo-1b's head (K2048 N50304): temperature 0 with default
+    penalties gives the skinny head's max logit and its first argmax, bit
+    for bit, at M 1, 8, 24 and 32 (one body, one K order)."""
+    from repro_torch.kernels.sample import head_sample_fused
+    g = torch.Generator(device=cuda).manual_seed(100 + m)
+    h = torch.randn(m, 2048, generator=g, device=cuda)
+    w = torch.randn(2048, 50304, generator=g, device=cuda) * 0.02
+    z = torch.zeros(m, device=cuda)
+    zi = torch.zeros(m, dtype=torch.int32, device=cuda)
+    s, i = head_sample_fused(h, w, torch.zeros((m, 50304), dtype=torch.int32,
+                                               device=cuda),
+                             z, z + 1, z, z, zi, zi)
+    logits = sta_gemm_skinny(h, w)
+    assert torch.equal(s, logits.max(dim=-1).values)
+    assert torch.equal(i.long(), torch.argmax(logits, dim=-1))
+
+
+@pytest.mark.gpu
+def test_gpu_head_sample_ties_across_blocks_take_the_lowest_index(cuda):
+    """K 128, N 8960: 140 tiles on 132 blocks, so block 0 walks tiles 0 and
+    132 and block 5 tiles 5 and 137. Equal columns in both of block 0's
+    tiles, in both of block 5's (different halves) and in block 9's tile
+    beat every other column: the lowest index wins on every row, and each
+    time it is dropped the next-lowest does."""
+    from repro_torch.kernels.sample import head_sample_fused
+    from repro_torch.kernels.sample.ops import partials
+    m, k, n = 8, 128, 8960
+    assert partials(k, n) == 132
+    g = torch.Generator(device=cuda).manual_seed(5)
+    h = torch.rand(m, k, generator=g, device=cuda) + 0.5
+    w = -torch.rand(k, n, generator=g, device=cuda)
+    top = torch.rand(k, generator=g, device=cuda)
+    tied = [5, 64 * 5 + 40, 64 * 9 + 2, 64 * 132 + 3, 64 * 137 + 1]
+    for c in tied:
+        w[:, c] = top
+    z = torch.zeros(m, device=cuda)
+    zi = torch.zeros(m, dtype=torch.int32, device=cuda)
+    fresh = torch.zeros((m, n), dtype=torch.int32, device=cuda)
+    for drop, want in ((None, 5), (5, 360), (360, 578), (578, 8451),
+                       (8451, 8769)):
+        if drop is not None:
+            w[:, drop] = -1.0
+        _, i = head_sample_fused(h, w, fresh, z, z + 1, z, z, zi, zi)
+        assert i.tolist() == [want] * m, drop
+
+
+@pytest.mark.gpu
+def test_gpu_head_sample_workspace_follows_the_rule(cuda):
+    """The wrapper's partial count (sample.ops.partials, a mirror of the
+    body's grid) equals the library's head_sample_fused_partials, and a
+    row's sample does not depend on the rows beside it."""
+    from repro_torch.kernels.sample import head_sample_fused
+    from repro_torch.kernels.sample.ops import _partials, partials
+    for k in (128, 256, 1024, 2048, 8192):
+        for n in (128, 384, 1024, 4096, 4224, 4352, 8960, 50304):
+            assert partials(k, n) == _partials(k, n), (k, n)
+    h, w, counts, rows = _head_sample_case(cuda, 24, 2048, 4096, 3)
+    s24, i24 = head_sample_fused(h, w, counts, *rows)
+    s1, i1 = head_sample_fused(h[5:6].contiguous(), w,
+                               counts[5:6].contiguous(),
+                               *(a[5:6].contiguous() for a in rows))
+    assert torch.equal(s24[5:6], s1) and torch.equal(i24[5:6], i1)
+
+
+# ---------------------------------------------------------------------------
+# conv_gemm's small-C body (the filter and a tile's zero-halo window in
+# shared memory, all N channels a block, TMA bulk stores) and its dense
+# images on conv_tc.cuh
+# ---------------------------------------------------------------------------
+
+# b, h, w, c, k, n, stride, padding: convnet conv0 and lenet conv1's
+# geometry, N 6 (no vector store), stride 2 and 3, VALID, an image wider
+# than a 128-pixel tile, a window cut to fit (stride 8 over W 1030)
+SMALL_SHAPES = [(2, 32, 32, 3, 3, 64, 1, "SAME"),
+                (2, 14, 14, 6, 5, 16, 1, "SAME"),
+                (3, 9, 7, 1, 5, 6, 1, "SAME"),
+                (2, 11, 11, 3, 3, 6, 2, "VALID"),
+                (2, 10, 9, 5, 3, 20, 3, "VALID"),
+                (1, 5, 300, 3, 3, 64, 1, "SAME"),
+                (1, 3, 1030, 16, 3, 8, 8, "SAME")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding", SMALL_SHAPES)
+def test_gpu_conv_small_f32(cuda, b, h, w, c, k, n, stride, padding):
+    from repro_torch.kernels.conv_gemm.ops import small_body
+    assert small_body(torch.float32, c, k, k, n)
+    x, wt, bias, scale = _conv_inputs(cuda, b, h, w, c, k, n, torch.float32)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act="relu")
+    before = dict(LAUNCHES)
+    got = conv_gemm(x, wt, bias, scale, **kw)
+    torch.cuda.synchronize()
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    assert moved == {"conv_gemm": 1, "conv_gemm_small": 1}
+    _gpu_close(got, conv_gemm_ref(x, wt, bias, scale, **kw), torch.float32)
+    assert torch.equal(got, conv_gemm(x, wt, bias, scale, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding", SMALL_SHAPES)
+def test_gpu_conv_small_s8(cuda, b, h, w, c, k, n, stride, padding, act, od,
+                           has_scale, has_bias):
+    """int8 images: bit-equal to the plain version (dp4a sums exactly)."""
+    g = torch.Generator(device=cuda).manual_seed(h * w + c + n)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda,
+                      dtype=I8)
+    wt = torch.randint(-127, 128, (k * k * c, n), generator=g, device=cuda,
+                       dtype=I8)
+    bias = torch.randn(n, generator=g, device=cuda) * 100 if has_bias else None
+    scale = ((torch.rand(n, generator=g, device=cuda) + 0.5) * 1e-3
+             if has_scale else None)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act=act,
+              out_dtype=od)
+    before = LAUNCHES["conv_gemm_s8_small"]
+    got = conv_gemm(x, wt, bias, scale, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm_s8_small"] == before + 1
+    _s8_close(got, conv_gemm_ref(x, wt, bias, scale, **kw), act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, I8])
+@pytest.mark.parametrize("c,n", [(8, 64), (16, 10)])
+def test_gpu_conv_small_equals_the_fma_body(cuda, dtype, c, n):
+    """The small-C body against the FMA (f32) / IMAD (int8) body, reached
+    through conv_gemm_dbb on the dense weight as a DBB plane of nnz 8 (an
+    all-ones bitmask: the same weights in K order) at C 8 and 16 x 3x3
+    (K 72 / 144; off the tensor-core rule at N 10): bit for bit."""
+    from repro_torch.kernels.conv_gemm.ops import small_body, tc_body
+    assert small_body(dtype, c, 3, 3, n) and not tc_body(dtype, c, 3, 3, 1, n)
+    g = torch.Generator(device=cuda).manual_seed(c + n)
+    if dtype == I8:
+        x = torch.randint(-127, 128, (3, 13, 11, c), generator=g, device=cuda,
+                          dtype=I8)
+        wt = torch.randint(-127, 128, (9 * c, n), generator=g, device=cuda,
+                           dtype=I8)
+    else:
+        x, wt, _, _ = _conv_inputs(cuda, 3, 13, 11, c, 3, n, dtype)
+    bias = torch.randn(n, generator=g, device=cuda)
+    scale = torch.rand(n, generator=g, device=cuda) + 0.5
+    ones = torch.full((9 * c // 8, n), 0xFF, dtype=torch.int32, device=cuda)
+    for act in ("none", "relu", "gelu"):
+        kw = dict(kh=3, kw=3, act=act)
+        if dtype == I8:
+            kw["out_dtype"] = torch.float32
+        small = conv_gemm(x, wt, bias, scale, **kw)
+        fma = conv_gemm_dbb(x, wt, ones, bias, scale, nnz=8, **kw)
+        assert torch.equal(small, fma), act
+
+
+DENSE_TC_SHAPES = [(2, 16, 16, 64, 3, 128, 1, "SAME"),   # convnet conv1
+                   (2, 8, 8, 128, 3, 256, 1, "SAME"),    # convnet conv2
+                   (1, 11, 13, 64, 3, 48, 2, "SAME"),
+                   (3, 5, 6, 128, 3, 144, 2, "VALID")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding", DENSE_TC_SHAPES)
+def test_gpu_conv_dense_tc_f32(cuda, b, h, w, c, k, n, stride, padding):
+    """Dense f32 images on conv_tc.cuh's dense mode (3xTF32): the f32
+    tolerance against the plain version; bit-equal to conv_gemm_dbb's
+    tensor-core body on the same weight as an all-ones plane of nnz 8 (the
+    same tiles, expanded another way)."""
+    from repro_torch.kernels.conv_gemm.ops import tc_body
+    assert tc_body(torch.float32, c, k, k, stride, n)
+    x, wt, bias, scale = _conv_inputs(cuda, b, h, w, c, k, n, torch.float32)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act="relu")
+    before = dict(LAUNCHES)
+    got = conv_gemm(x, wt, bias, scale, **kw)
+    torch.cuda.synchronize()
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    assert moved == {"conv_gemm": 1, "conv_gemm_tc": 1}
+    _gpu_close(got, conv_gemm_ref(x, wt, bias, scale, **kw), torch.float32)
+    ones = torch.full((k * k * c // 8, n), 0xFF, dtype=torch.int32,
+                      device=cuda)
+    plane = conv_gemm_dbb(x, wt, ones, bias, scale, nnz=8, **kw)
+    assert torch.equal(got, plane)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,od,has_scale,has_bias", S8_EPILOGUES)
+@pytest.mark.parametrize("b,h,w,c,k,n,stride,padding", DENSE_TC_SHAPES)
+def test_gpu_conv_dense_tc_s8(cuda, b, h, w, c, k, n, stride, padding, act,
+                              od, has_scale, has_bias):
+    """Dense int8 images on the s8 tensor-core body (w transposed to K-major
+    tiles): bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(h * w + c + n)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda,
+                      dtype=I8)
+    wt = torch.randint(-127, 128, (k * k * c, n), generator=g, device=cuda,
+                       dtype=I8)
+    bias = torch.randn(n, generator=g, device=cuda) * 100 if has_bias else None
+    scale = ((torch.rand(n, generator=g, device=cuda) + 0.5) * 1e-4
+             if has_scale else None)
+    kw = dict(kh=k, kw=k, stride=stride, padding=padding, act=act,
+              out_dtype=od)
+    before = LAUNCHES["conv_gemm_s8_tc"]
+    got = conv_gemm(x, wt, bias, scale, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_gemm_s8_tc"] == before + 1
+    _s8_close(got, conv_gemm_ref(x, wt, bias, scale, **kw), act)
+
+
+@pytest.mark.gpu
+def test_gpu_conv_dense_tc_s8_all_127_is_the_exact_integer(cuda):
+    x = torch.full((2, 5, 5, 128), 127, dtype=I8, device=cuda)
+    wt = torch.full((1152, 32), 127, dtype=I8, device=cuda)
+    got = conv_gemm(x, wt, kh=3, kw=3, padding="VALID")
+    assert got.dtype == I32 and bool((got == 1152 * 127 * 127).all())
+
+
+@pytest.mark.gpu
+def test_gpu_conv_gemm_counts_follow_the_kernels_own_rules(cuda):
+    """The wrapper's small_body and tc_body equal the launcher's exported
+    rules (conv_gemm_small_body, conv_gemm_tc_body: the tensor-core rule
+    where the small one does not take the image) on a grid of dtypes and
+    geometry."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_gemm.ops import small_body, tc_body
+    lib = build.load("conv_gemm")
+    small_fn, tc_fn = lib.conv_gemm_small_body, lib.conv_gemm_tc_body
+    small_fn.argtypes = [ctypes.c_int] * 5
+    tc_fn.argtypes = [ctypes.c_int] * 6
+    for dt in (torch.float32, torch.bfloat16, I8):
+        code = build.dtype_code(dt)
+        for c in (1, 3, 6, 8, 16, 17, 24, 64, 128):
+            for kk in (1, 3, 5, 33):
+                for n in (6, 10, 16, 20, 48, 64, 65, 130, 256):
+                    small = small_body(dt, c, kk, kk, n)
+                    assert small is (small_fn(code, c, kk, kk, n) == 1)
+                    for s in (1, 2, 9):
+                        want = tc_fn(code, c, kk, kk, s, n) == 1
+                        assert want is (not small
+                                        and tc_body(dt, c, kk, kk, s, n))
