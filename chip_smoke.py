@@ -175,28 +175,58 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             ``sta_gemm_s8_tc`` / ``dbb_gemm_s8_tc`` equal the branch's
             count (``s8 tc:`` lines; convnet's N 10 classifier stays on
             the IMAD body).
+12. family  the rest of the dense_lm family at the published widths (runs
+            after phase 10), each tree built one layer at a time (drawn from
+            a seed per layer, DBB-projected, packed, copied into [L, ...]
+            planes allocated once; norm scales, norm biases and QKV biases
+            seeded away from their init values) and served with
+            ``gemm_impl="pallas"``: starcoder2-15b (all 40 layers;
+            LayerNorm, GQA G 12, QKV bias, GeLU MLP, 4096-token window):
+            generate of 8 left-padded prompts of 64-15 tokens (32 new),
+            generate of one 5120-token prompt (16 new; the window bites),
+            serve of 8 requests including that one (packed prefill) on the
+            contiguous cache and on the paged pool; qwen2.5-14b (all 48
+            layers; RMSNorm, G 5, QKV bias, vocab 152064): generate as
+            above, a sampled generate (head_sample_fused at N 152064;
+            temperatures from this model's logit spread, one row at 0) and
+            a generate on 8 unpacked layers (sta_gemm); yi-34b (8 of its 60
+            layers: depth is the only cut, the 60-layer f32 planes with the
+            embedding and head leave no room for caches, and 8 keep the
+            phase's time; G 7, K 7168): generate as above. Every generate is held against the plain route on the
+            same tree as the slice's is (LOGIT_TOL and the split rule; the
+            sampled one by the sample phase's score-gap rule at LOGIT_TOL);
+            the two caches' serve streams must be equal and the long
+            request's serve stream must agree with the plain route's
+            generate of it under the split rule; every kernel of each path
+            must launch (the sampled run: head_sample_fused exactly once a
+            prefill and a decode step, sta_gemm_skinny never; the unpacked
+            run no DBB kernel). Per model it prints the build seconds, the
+            packed bytes, the peak device memory of the build and of the
+            runs, decode ms per step, generated tokens per second and the
+            model's seconds.
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8 and 9 must have run the tensor-core body:
+main paths of phases 4-6, 8, 9 and 12 must have run the tensor-core body:
 ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
-phases 4-9 must have run the split-K body (``dbb_gemm_skinny_split``
+phases 4-9 and 12 must have run the split-K body (``dbb_gemm_skinny_split``
 equals the f32, ``_i8`` and ``_w4`` branches' sum) and every f32-x
 dbb_gemm launch (the CNN classifier, N 10) the narrow body
 (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the LM
 runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9 and 11 (a)-(b);
+sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12;
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
 tables of the slice's generate, of serve (a), of the sampled serve (a), of
-the w4 serve (a) and of the batch-256 convnet forward (device time by
-kernel, device busy share) there.
+the w4 serve (a), of the batch-256 convnet forward and of starcoder2-15b's
+serve on the contiguous cache (device time by kernel, device busy share)
+there.
 """
 from __future__ import annotations
 
@@ -466,6 +496,10 @@ def main() -> int:
     by_path.update(quant_counts)
     if not timed("tokens", _token_phase):
         return _fail("smoke-width token equality failed")
+    family_counts, ok = timed("family", _family_phase, args.out)
+    if not ok:
+        return _fail("the dense_lm family phase failed (see above)")
+    by_path.update(family_counts)
     lm = [p for p in by_path if p not in cnn_counts]
     if not _tc_check(by_path, lm):
         return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
@@ -1659,13 +1693,16 @@ def _logits_fn(torch, dev, engine):
 
     def last_logits(c, contexts):
         """f32 head logits at the last position of each left-padded
-        context, through route config ``c``."""
+        context, through route config ``c`` (no ``start`` when no row is
+        padded, so one long context takes the plain route's chunked
+        attention, as generate's own prefill does)."""
         width = max(len(t) for t in contexts)
         toks = torch.zeros((len(contexts), width), dtype=torch.int32)
         for i, t in enumerate(contexts):
             toks[i, width - len(t):] = torch.tensor(t)
-        start = torch.tensor([width - len(t) for t in contexts],
-                             dtype=torch.int32, device=dev)
+        pads = [width - len(t) for t in contexts]
+        start = (torch.tensor(pads, dtype=torch.int32, device=dev)
+                 if any(pads) else None)
         cache = registry.init_cache(c, len(contexts), width + 1, device=dev)
         h, _ = registry.prefill(engine.params, c, toks.to(dev), cache,
                                 start=start)
@@ -2594,6 +2631,394 @@ def _token_phase(torch, dev, report):
           f"({moved}/8 rows differ from greedy)")
     report["tokens_equal"] = ok and sok
     return ok and sok
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the dense_lm family at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers run: None for all; why a depth is cut). Widths are never cut.
+FAMILY_MODELS = (
+    ("starcoder2-15b", None, ""),
+    ("qwen2.5-14b", None, ""),
+    ("yi-34b", 8, "the 60-layer f32 planes (~71 GB) with the embedding and "
+     "head leave no room for caches on 80 GB; 8, not 16, to keep the "
+     "phase's time"))
+FAMILY_LENS = [64, 57, 50, 43, 36, 29, 22, 15]
+FAMILY_NEW = 32
+# one prompt past starcoder2's 4096-token window (5 x attn_chunk, so the
+# plain route's prefill takes attn_chunked)
+FAMILY_LONG, FAMILY_LONG_NEW = 5120, 16
+FAMILY_SERVE_BUDGETS = [16, 24, 8, 32, 12, 20, 28, 16]
+FAMILY_DENSE_LAYERS = 8
+# the kernels each family path must launch
+FAMILY_SAMPLE_KERNELS = ("flash_prefill", "dbb_gemm", "dbb_gemm_skinny",
+                         "paged_decode", "head_sample_fused")
+
+
+def _family_tree(torch, dev, cfg, seed, pack=True, outer=None):
+    """``cfg``'s tree, built one layer at a time at the published widths:
+    each layer drawn by the port's initializers from its own seed (the
+    norm scales 1 + 0.2 N(0, 1), norm and QKV biases 0.2 N(0, 1), so
+    every parameter moves the result), DBB-projected and packed
+    (``pack``), and copied into [L, ...] planes allocated once, so the
+    device holds the packed tree and about two dense layers at a time.
+    ``outer`` (embedding, final norm, untied head) is drawn unless given.
+    Returns (tree, outer)."""
+    from repro_torch.core.dbb import DbbWeight
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree, map_with_path
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.common import embed_init, linear_init, norm_init
+    from repro_torch.models.mlp import mlp_init
+    f32, d, n_l = torch.float32, cfg.d_model, cfg.num_layers
+
+    def into(dst, src, l):
+        if isinstance(src, dict):
+            return {k: into(None if dst is None else dst[k], v, l)
+                    for k, v in src.items()}
+        if isinstance(src, DbbWeight):
+            if dst is None:
+                dst = src.map(lambda a: a.new_empty((n_l, *a.shape[1:])))
+            for a, b in ((dst.values, src.values), (dst.bitmask, src.bitmask),
+                         (dst.scale, src.scale)):
+                if b is not None:
+                    a[l].copy_(b[0])
+            return dst
+        if dst is None:
+            dst = src.new_empty((n_l, *src.shape[1:]))
+        dst[l].copy_(src[0])
+        return dst
+
+    def seeded(gen):
+        def visit(path, leaf):
+            key = path.rsplit("/", 1)[-1]
+            if key in ("scale", "bias", "b"):
+                noise = 0.2 * torch.randn(leaf.shape, generator=gen,
+                                          device=dev)
+                return noise + (1.0 if key == "scale" else 0.0)
+            return leaf
+        return visit
+
+    stack = None
+    for l in range(n_l):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + l)
+        one = {"attn": attn_mod.attention_init(gen, (1,), cfg, f32, dev),
+               "ln_attn": norm_init(cfg.norm, (1,), d, f32, dev),
+               "ln_mlp": norm_init(cfg.norm, (1,), d, f32, dev),
+               "mlp": mlp_init(gen, (1,), d, cfg.d_ff, cfg, f32, dev)}
+        one = map_with_path(seeded(gen), one)
+        if pack:
+            one = pack_tree(apply_dbb_to_tree({"layers": one}, cfg.dbb),
+                            cfg.dbb)["layers"]
+        stack = into(stack, one, l)
+        del one
+    if outer is None:
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + 999)
+        outer = {"embed": embed_init(gen, cfg.vocab_size, d, f32, dev),
+                 "final_norm": map_with_path(
+                     seeded(gen), norm_init(cfg.norm, (), d, f32, dev)),
+                 "lm_head": linear_init(gen, (), d, cfg.vocab_size, f32,
+                                        dev)}
+    return dict(outer, layers=stack), outer
+
+
+def _family_prompts(torch, cfg):
+    """The generate prompts (8 of 64-15 tokens) and the long prompt."""
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in FAMILY_LENS]
+    long = torch.randint(2, cfg.vocab_size, (FAMILY_LONG,),
+                         generator=torch.Generator().manual_seed(2)).tolist()
+    return prompts, long
+
+
+def _family_generate(torch, dev, tag, cfg, tree, prompts, new, need, rec,
+                     sampling=None):
+    """One ``generate`` on the kernel route, the launch counts reset just
+    before and read just after, and a ``max_new_tokens=1`` call for the
+    decode estimate: (tokens, counts, engine, ok)."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    engine = ServeEngine(cfg, tree, max_batch=len(prompts), device=dev)
+    kw = {} if sampling is None else dict(sampling=sampling)
+    engine.generate(prompts, max_new_tokens=2, **kw)      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new, **kw)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    steps = engine.last_decode_steps
+    t0 = time.perf_counter()
+    engine.generate(prompts, max_new_tokens=1, **kw)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (t_total - t_prefill) / max(steps, 1) * 1e3
+    n_tok = sum(len(o) for o in out)
+    missing = [k for k in need if counts[k] == 0]
+    print(f"family: {tag}: generate {len(prompts)} prompts (lengths "
+          f"{[len(p) for p in prompts]}), max_new_tokens {new}"
+          f"{' sampled' if sampling else ''}: {t_total * 1e3:.1f} ms; prefill "
+          f"{t_prefill * 1e3:.1f} ms (a max_new_tokens=1 call); decode "
+          f"{decode_ms:.3f} ms/step over {steps} steps; "
+          f"{n_tok / t_total:.1f} generated tokens/s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }"
+          + (f"; FAIL: never launched {missing}" if missing else ""))
+    rec.update(total_ms=t_total * 1e3, prefill_ms=t_prefill * 1e3,
+               decode_ms_per_step=decode_ms, steps=steps, tokens=n_tok,
+               tokens_per_s=n_tok / t_total, launches=counts)
+    return out, counts, engine, not missing
+
+
+def _family_vs_plain(torch, dev, tag, cfg, engine, prompts, out, new, rec,
+                     sampling=None):
+    """The kernel route's prefill last-position logits and tokens against
+    the plain route's (gemm_impl="xla") on the same tree, under the slice
+    phase's rules: logits within LOGIT_TOL of max |logit|, a split of the
+    greedy (or sampled) streams excused only where the plain route's gap
+    (score gap), recomputed on the shared context, is within twice that."""
+    from repro_torch.serve.engine import ServeEngine
+    xcfg = cfg.replace(gemm_impl="xla")
+    last_logits = _logits_fn(torch, dev, engine)
+    lk, lp = last_logits(cfg, prompts), last_logits(xcfg, prompts)
+    scale = lp.abs().max().item()
+    tol = LOGIT_TOL * scale
+    diff = (lk - lp).abs().max().item()
+    lok = diff <= tol
+    kw = {} if sampling is None else dict(sampling=sampling)
+    t0 = time.perf_counter()
+    xout = ServeEngine(xcfg, engine.params, max_batch=len(prompts),
+                       device=dev).generate(prompts, max_new_tokens=new,
+                                            **kw)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    same, total, split = _split_rows(out, xout)
+    if sampling is None:
+        gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout,
+                           split)
+        bounds = [2 * tol] * len(gaps)
+    else:
+        res = _sample_split_gaps(torch, dev, last_logits, xcfg, prompts,
+                                 sampling, out, xout, split, tol)
+        gaps, bounds = [g for g, _ in res], [b for _, b in res]
+    tok_ok = all(g <= b for g, b in zip(gaps, bounds))
+    print(f"family: {tag}: prefill last-position logits, kernel vs plain "
+          f"route: max abs diff {diff:.4e} of max |logit| {scale:.4e} ("
+          f"{diff / scale:.3e} of max; tol {LOGIT_TOL:g}) "
+          f"{'ok' if lok else 'FAIL'}; tokens {same}/{total} equal; rows "
+          f"that split (row, step, plain-route gap, bound): "
+          f"{[(i, j, g, b) for (i, j), g, b in zip(split, gaps, bounds)]} "
+          f"{'ok' if tok_ok else 'FAIL'}; plain-route generate "
+          f"{t_plain * 1e3:.1f} ms")
+    rec.update(logit_max_abs_diff=diff, logit_scale=scale,
+               logit_diff_of_max=diff / scale, token_agreement=[same, total],
+               token_splits=[[i, j, g] for (i, j), g in zip(split, gaps)])
+    return lok and tok_ok, xout, last_logits
+
+
+def _family_serve(torch, dev, tag, cfg, tree, prompts, long, xlong,
+                  last_logits, rec, out_dir, report):
+    """``serve`` of the generate prompts with the long one in place of the
+    longest (packed prefill) on the contiguous cache and on the paged
+    pool: every kernel of the path launched, equal streams on the two
+    caches, and the long request's stream against the plain route's
+    ``generate`` of it under the split rule."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    reqs = [long] + prompts[1:]
+    scfg = cfg.replace(kv_page_size=64)
+    outs, counts, ok = {}, {}, True
+    for paged in (False, True):
+        name = f"serve_{'paged' if paged else 'packed'}"
+        eng = ServeEngine(scfg, tree, max_batch=8, paged=paged, device=dev)
+        eng.serve(prompts[:2], max_new_tokens=2)            # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = eng.serve(reqs, max_new_tokens=FAMILY_SERVE_BUDGETS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = dict(LAUNCHES)
+        ttft = sorted(eng.serve_stats["ttft_s"])
+        n_tok = sum(len(o) for o in outs[name])
+        missing = [k for k in SERVE_KERNELS if counts[name][k] == 0]
+        ok = ok and not missing
+        print(f"family: {tag}: {name}: 8 requests (one of {len(long)} "
+              f"tokens), budgets {FAMILY_SERVE_BUDGETS}: {wall * 1e3:.1f} "
+              f"ms, {n_tok / wall:.1f} generated tokens/s; ttft median "
+              f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, max "
+              f"{ttft[-1] * 1e3:.1f} ms; launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }"
+              + (f"; FAIL: never launched {missing}" if missing else ""))
+        rec[name] = dict(wall_ms=wall * 1e3, tokens=n_tok,
+                         ttft_median_ms=ttft[len(ttft) // 2] * 1e3,
+                         launches=counts[name])
+        if name == "serve_packed" and out_dir:
+            _profile(torch, lambda: eng.serve(
+                reqs, max_new_tokens=FAMILY_SERVE_BUDGETS),
+                f"{tag} serve(8 requests, packed, contiguous)",
+                f"profile_family_{tag.split('-')[0]}_serve", out_dir, report)
+        del eng
+    same = outs["serve_packed"] == outs["serve_paged"]
+    xcfg = cfg.replace(gemm_impl="xla")
+    got = [outs["serve_packed"][0]]
+    want = [xlong[0][:len(got[0])]]
+    s_same, s_total, split = _split_rows(got, want)
+    gaps = _split_gaps(torch, last_logits, xcfg, [long], got, want, split)
+    tol = LOGIT_TOL * rec["generate"]["logit_scale"]
+    long_ok = all(g <= 2 * tol for g in gaps)
+    print(f"family: {tag}: serve streams, paged vs contiguous "
+          f"{'equal' if same else 'DIFFERENT'}; the long request's stream "
+          f"vs the plain route's generate: {s_same}/{s_total} equal, "
+          f"splits {[(j, g) for (_, j), g in zip(split, gaps)]} "
+          f"{'ok' if long_ok else 'FAIL'}")
+    rec["serve_paged_equal"] = same
+    return counts, ok and same and long_ok
+
+
+def _family_model(torch, dev, report, arch, layers, why, out_dir):
+    """One model of the family phase (see the module doc, phase 12)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import tree_footprint_bytes
+    from repro_torch.serve.sampling import SamplingParams
+    t_model = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(remat="none", gemm_impl="pallas")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    tag = arch
+    qwen = arch.startswith("qwen")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree, outer = _family_tree(torch, dev, cfg, seed=len(arch))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    packed_bytes = tree_footprint_bytes(tree["layers"])
+    all_bytes = tree_footprint_bytes(tree)
+    peak = torch.cuda.max_memory_allocated()
+    cut = (f"{cfg.num_layers} of {full.num_layers} layers (cut: {why})"
+           if layers is not None else f"all {cfg.num_layers} layers")
+    print(f"family: {tag}: {cut}, d {cfg.d_model}, {cfg.num_heads} heads "
+          f"over {cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm}, "
+          f"{'gated ' if cfg.mlp_gated else ''}{cfg.act}, qkv_bias "
+          f"{cfg.qkv_bias}, window {cfg.sliding_window}, {cfg.dtype} "
+          f"activations, f32 DBB planes k {cfg.dbb.nnz} of "
+          f"{cfg.dbb.block}; built layer by layer in {t_build:.1f} s; "
+          f"packed layers "
+          f"{packed_bytes / 1e9:.3f} GB, whole tree {all_bytes / 1e9:.3f} "
+          f"GB; peak device memory of the build "
+          f"{peak / 1e9:.3f} GB ({report['card']})")
+    rec = {"layers": cfg.num_layers, "build_s": t_build,
+           "packed_layer_bytes": packed_bytes, "tree_bytes": all_bytes,
+           "build_peak_bytes": peak}
+    report["family"][arch] = rec
+    prompts, long = _family_prompts(torch, cfg)
+    by_path, ok = {}, True
+    short = arch.split("-")[0].split(".")[0]
+
+    rec["generate"] = {}
+    out, counts, engine, run_ok = _family_generate(
+        torch, dev, tag, cfg, tree, prompts, FAMILY_NEW, GENERATE_KERNELS,
+        rec["generate"])
+    by_path[f"family_{short}_generate"] = counts
+    cmp_ok, _, last_logits = _family_vs_plain(
+        torch, dev, tag, cfg, engine, prompts, out, FAMILY_NEW,
+        rec["generate"])
+    ok = ok and run_ok and cmp_ok
+
+    if arch.startswith("starcoder2"):
+        rec["long"] = {}
+        lout, counts, leng, run_ok = _family_generate(
+            torch, dev, tag + " long", cfg, tree, [long], FAMILY_LONG_NEW,
+            GENERATE_KERNELS, rec["long"])
+        by_path[f"family_{short}_long"] = counts
+        cmp_ok, xlong, llogits = _family_vs_plain(
+            torch, dev, tag + " long", cfg, leng, [long], lout,
+            FAMILY_LONG_NEW, rec["long"])
+        ok = ok and run_ok and cmp_ok
+        del leng
+        counts, run_ok = _family_serve(torch, dev, tag, cfg, tree, prompts,
+                                       long, xlong, llogits, rec, out_dir,
+                                       report)
+        by_path.update({f"family_{short}_{k}": v for k, v in counts.items()})
+        ok = ok and run_ok
+
+    if qwen:
+        lg = last_logits(cfg.replace(gemm_impl="xla"), prompts)
+        spread = statistics.median(lg.std(dim=-1).tolist())
+        n = len(SAMPLE_T_SPREAD)
+        sp = [SamplingParams(
+            temperature=0.0 if i == 0 else spread * SAMPLE_T_SPREAD[i % n],
+            seed=i * 7919 + 1,
+            repetition_penalty=1.1 if i % 3 == 1 else 1.0)
+            for i in range(len(prompts))]
+        print(f"family: {tag}: sampled generate: logit spread {spread:.4e}; "
+              f"temperatures {[round(p.temperature, 3) for p in sp]}")
+        rec["sample"] = {}
+        sout, counts, seng, run_ok = _family_generate(
+            torch, dev, tag, cfg, tree, prompts, FAMILY_NEW,
+            FAMILY_SAMPLE_KERNELS, rec["sample"], sampling=sp)
+        by_path[f"family_{short}_sample"] = counts
+        want = 1 + rec["sample"]["steps"]
+        heads_ok = (counts["head_sample_fused"] == want
+                    and counts["sta_gemm_skinny"] == 0)
+        moved = sum(a != b for i in range(1, len(sp))
+                    for a, b in zip(sout[i], out[i]))
+        print(f"family: {tag}: head_sample_fused launches "
+              f"{counts['head_sample_fused']} (route table: 1 prefill + "
+              f"{want - 1} decode steps = {want}), "
+              f"sta_gemm_skinny {counts['sta_gemm_skinny']} "
+              f"{'ok' if heads_ok else 'FAIL'}; {moved} sampled tokens "
+              f"differ from the greedy stream"
+              + ("" if moved else " FAIL"))
+        cmp_ok, _, _ = _family_vs_plain(
+            torch, dev, tag + " sampled", cfg, seng, prompts, sout,
+            FAMILY_NEW, rec["sample"], sampling=sp)
+        ok = ok and run_ok and heads_ok and moved > 0 and cmp_ok
+        del seng
+
+        dcfg = cfg.replace(num_layers=FAMILY_DENSE_LAYERS)
+        dtree, _ = _family_tree(torch, dev, dcfg, seed=len(arch) + 1,
+                                pack=False, outer=outer)
+        rec["dense"] = {}
+        dout, counts, deng, run_ok = _family_generate(
+            torch, dev, f"{tag} dense {FAMILY_DENSE_LAYERS} layers", dcfg,
+            dtree, prompts, FAMILY_NEW, DENSE_KERNELS, rec["dense"])
+        by_path[f"family_{short}_dense"] = counts
+        dbb = {k: v for k, v in counts.items() if k.startswith("dbb") and v}
+        if dbb:
+            print(f"family: {tag} dense: FAIL: DBB kernels launched {dbb}")
+        cmp_ok, _, _ = _family_vs_plain(
+            torch, dev, f"{tag} dense", dcfg, deng, prompts, dout,
+            FAMILY_NEW, rec["dense"])
+        ok = ok and run_ok and not dbb and cmp_ok
+        del deng, dtree
+
+    del engine, tree, outer
+    gc.collect()
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phase_s"] = time.perf_counter() - t_model
+    print(f"family: {tag}: peak device memory of the model's runs "
+          f"{rec['peak_bytes'] / 1e9:.3f} GB; {rec['phase_s']:.1f} s")
+    return by_path, ok
+
+
+def _family_phase(torch, dev, report, out_dir):
+    report["family"] = {}
+    by_path, ok = {}, True
+    for arch, layers, why in FAMILY_MODELS:
+        counts, model_ok = _family_model(torch, dev, report, arch, layers,
+                                         why, out_dir)
+        by_path.update(counts)
+        ok = ok and model_ok
+    return by_path, ok
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,7 @@ class DbbConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields the ported paths read (dense LM serving, the CNN).
+    """The fields the ported paths read (the dense LM family, the CNN).
 
     gemm_impl:     "pallas" selects the fused kernel route family (the
                    hand-written CUDA kernels on the card, their plain
@@ -57,12 +57,16 @@ class ModelConfig:
     kernel_routes: ((domain, route), ...) pins a dispatch route per
                    domain. Precedence: REPRO_FORCE_ROUTE > kernel_routes
                    > auto.
-    attn_impl:     "auto" lets the route table choose; "naive" pins the
-                   quadratic prefill attention.
+    attn_impl:     "auto" lets the route table choose (flash on the kernel
+                   route family, else chunked or naive by sequence
+                   length); "flash", "chunked" or "naive" pins one.
+    attn_chunk:    query / key block of the chunked prefill attention; it
+                   takes self-attention calls whose S divides it, from
+                   S > 2 · attn_chunk.
     kv_page_size:  decode KV page (cache slots); 0 picks
                    gcd(cache length, 64).
-    norm:          only "nonparam_ln" (OLMo's LayerNorm without affine
-                   parameters) is ported.
+    norm:          "rmsnorm", "layernorm" or "nonparam_ln" (OLMo's
+                   LayerNorm without affine parameters).
     cnn_*:         the cnn family (the paper's own models): conv output
                    channels per layer, square kernel size, classes,
                    square input size and input channels.
@@ -76,7 +80,7 @@ class ModelConfig:
     head_dim: int = 0               # 0 => d_model // num_heads
     d_ff: int = 1024
     vocab_size: int = 32000
-    norm: str = "rmsnorm"           # the port runs nonparam_ln only
+    norm: str = "rmsnorm"           # rmsnorm | layernorm | nonparam_ln
     act: str = "silu"
     mlp_gated: bool = True
     qkv_bias: bool = False
@@ -90,6 +94,7 @@ class ModelConfig:
     kernel_routes: Tuple[Tuple[str, str], ...] = ()
     remat: str = "auto"             # read by training only; kept for parity
     attn_impl: str = "auto"
+    attn_chunk: int = 1024
     sliding_window: int = 0
     attn_logit_softcap: float = 0.0
     kv_page_size: int = 0

@@ -1,7 +1,9 @@
 """Packed parameter trees: `pack_tree` turns dense (projected) weights into
 serving `DbbWeight` leaves (bits=8 float or int8 values, or the w4 nibble
 plane), `decompress` expands one back to dense (the plain path's transient
-per-layer weight), `tree_footprint_bytes` counts device residency."""
+per-layer weight) and `maybe_decompress_tree` every packed leaf of a tree,
+`dbb_linear_apply` is ``act(x @ w + b)`` on a dense or packed weight,
+`tree_footprint_bytes` counts device residency."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -13,8 +15,8 @@ from repro_torch.core.dbb import DbbWeight, pack_dbb, unpack_dbb
 from repro_torch.core.quant import quantize_weight
 from repro_torch.core.sparsity import map_with_path, packable
 
-__all__ = ["decompress", "pack_tree", "tree_footprint_bytes",
-           "iter_leaves"]
+__all__ = ["decompress", "maybe_decompress_tree", "dbb_linear_apply",
+           "pack_tree", "tree_footprint_bytes", "iter_leaves"]
 
 
 def decompress(p: DbbWeight, dtype: Optional[torch.dtype] = None
@@ -29,6 +31,31 @@ def decompress(p: DbbWeight, dtype: Optional[torch.dtype] = None
                      for i in range(flat.values.shape[0])])
     w = w.reshape(*lead, p.k_dim, p.n_dim)
     return w.to(dtype) if dtype is not None else w
+
+
+def maybe_decompress_tree(params: Any,
+                          dtype: Optional[torch.dtype] = None) -> Any:
+    """The tree with every `DbbWeight` leaf expanded to dense (`decompress`
+    to ``dtype``); other leaves as they are."""
+    if isinstance(params, dict):
+        return {k: maybe_decompress_tree(v, dtype) for k, v in params.items()}
+    if isinstance(params, DbbWeight):
+        return decompress(params, dtype=dtype)
+    return params
+
+
+def dbb_linear_apply(x: torch.Tensor, w, bias=None, *, act: str = "none",
+                     impl: str = "xla",
+                     out_dtype: Optional[torch.dtype] = None,
+                     cfg=None) -> torch.Tensor:
+    """``act(x @ w + bias)`` for a dense ``[K, N]`` weight or a
+    `DbbWeight`, through `dispatch.matmul`: ``impl="pallas"`` takes the
+    kernel route family (the DBB kernels for packed weights, bias, act and
+    the per-channel scale in their epilogue), ``"xla"`` the plain route.
+    ``cfg`` supplies ``kernel_routes`` pins."""
+    from repro_torch.kernels import dispatch
+    return dispatch.matmul(x, w, bias, act=act, out_dtype=out_dtype,
+                           cfg=cfg, pallas=(impl == "pallas"))
 
 
 def _w4_eligible(k_dim: int, cfg: DbbConfig) -> bool:

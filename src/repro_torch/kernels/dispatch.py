@@ -35,12 +35,16 @@ Ported routes: matmul ``xla`` (plain torch), ``sta``, ``skinny_sta``,
 reference, int8 activations take the GEMM and conv kernels (their int8
 branches: INT8 × INT8 → INT32), the DBB ones on the INT8 values plane;
 the w4 routes take float activations only. Attention
-``attn_flash``, ``attn_packed_flash``, ``attn_naive``,
+``attn_flash``, ``attn_packed_flash``, ``attn_chunked`` (the blocked
+plain route with a running-softmax combine, no kernel), ``attn_naive``,
 ``attn_packed_ref``; attn_decode
 ``attn_decode_flash``, ``attn_decode_xla``; head_sample
-``head_sample_fused``, ``head_sample_xla``. ``attn_chunked`` is an XLA
-route, not a kernel, and a pin to it takes ``attn_naive`` (its stand-in)
-with a warning.
+``head_sample_fused``, ``head_sample_xla``.
+
+A route may also defer: applicable, but auto takes it only when no other
+applicable route is left (the reference's ``defer``). ``attn_chunked``
+defers up to S = 2 · chunk, where its per-chunk loop costs more than the
+naive route's extra score traffic; a pin takes it all the same.
 """
 from __future__ import annotations
 
@@ -77,7 +81,10 @@ class OpSpec:
     carries its total token count in both); the decode domain maps the
     GQA group to m, head_dim to k and the cache length to n. Convs
     describe the implied GEMM (M = B·Ho·Wo, K = kh·kw·C) and carry
-    ``conv_geom = (b, h, w, c, kh, kw, stride)``."""
+    ``conv_geom = (b, h, w, c, kh, kw, stride)``. Attention also carries
+    ``ragged`` (per-row position ladders), ``chunk`` (the chunked route's
+    block) and ``batch`` (rows of a padded batch; a packed batch keeps 1,
+    its m already counting every token)."""
     domain: str
     m: int
     k: int
@@ -98,6 +105,9 @@ class OpSpec:
     page: int = 0
     flash_active: bool = False
     packed_seq: bool = False      # packed (cu_seqlens) prefill batch
+    ragged: bool = False          # per-row (left-padded) position ladders
+    chunk: int = 1024             # attn_chunked's block (cfg.attn_chunk)
+    batch: int = 1                # rows of a padded attention batch
     sample_tt: bool = False       # some sampled row uses top-k / top-p
 
 
@@ -299,6 +309,18 @@ def _guard_flash_common(s: OpSpec) -> str:
     return ""
 
 
+def _guard_attn_chunked(s: OpSpec) -> str:
+    if s.packed_seq:
+        return "packed cu_seqlens batch (block-diagonal masking required)"
+    if s.ragged:
+        return "ragged per-row positions (chunked masks assume one ladder)"
+    if s.m != s.n:
+        return "not a self-attention full-sequence call (T != S)"
+    if s.n % max(s.chunk, 1):
+        return f"S={s.n} not divisible by attn_chunk={s.chunk}"
+    return ""
+
+
 def _guard_attn_naive(s: OpSpec) -> str:
     return ("packed cu_seqlens batch (block-diagonal masking required)"
             if s.packed_seq else "")
@@ -342,12 +364,18 @@ ROUTES: Dict[str, Tuple[Tuple[str, Callable[[OpSpec], str]], ...]] = {
              ("conv_xla", _always)),
     "attention": (("attn_flash", _guard_attn_flash),
                   ("attn_packed_flash", _guard_attn_packed_flash),
+                  ("attn_chunked", _guard_attn_chunked),
                   ("attn_naive", _guard_attn_naive),
                   ("attn_packed_ref", _guard_attn_packed_ref)),
     "attn_decode": (("attn_decode_flash", _guard_decode_flash),
                     ("attn_decode_xla", _always)),
     "head_sample": (("head_sample_fused", _guard_head_sample_fused),
                     ("head_sample_xla", _always)),
+}
+
+# routes auto passes over while another applicable route is left
+_DEFER: Dict[str, Callable[[OpSpec], bool]] = {
+    "attn_chunked": lambda s: s.n <= 2 * s.chunk,
 }
 
 
@@ -405,21 +433,12 @@ def forced_route(domain: str, cfg_routes: Optional[Dict[str, str]] = None
     return None
 
 
-# unported routes a pin may still name, and the route that stands in
-_STAND_INS = {("attention", "attn_chunked"): "attn_naive"}
-
-
 def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None
            ) -> Tuple[str, Dict[str, str]]:
     """(chosen route, {route: rejection reason or ""}) for ``spec``."""
     table = ROUTES[spec.domain]
     reasons = {name: guard(spec) for name, guard in table}
     forced = forced_route(spec.domain, cfg_routes)
-    stand_in = _STAND_INS.get((spec.domain, forced))
-    if stand_in is not None:
-        _warn_once((spec.domain, forced),
-                   f"route {forced!r} is not ported — taking {stand_in!r}")
-        forced = stand_in
     if forced is not None:
         if forced not in reasons:
             _warn_once((spec.domain, forced),
@@ -432,7 +451,10 @@ def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None
                        "to auto dispatch")
         else:
             return forced, reasons
-    return next(name for name, _ in table if not reasons[name]), reasons
+    live = [name for name, _ in table if not reasons[name]]
+    kept = [name for name in live
+            if not (name in _DEFER and _DEFER[name](spec))]
+    return (kept or live)[0], reasons
 
 
 # ---------------------------------------------------------------------------
@@ -611,12 +633,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               positions: torch.Tensor, cfg, ragged: bool = False
               ) -> torch.Tensor:
     """Full-sequence (prefill) attention on projected q/k/v in model
-    layout, through the flash kernel or the naive route. ``positions``:
-    ``arange(S) - start`` ladders, shared [1, S] or per row [B, S]
-    (``ragged``); the flash route reads ``start`` off their first entry."""
+    layout, through the flash kernel, the chunked route or the naive route.
+    ``positions``: ``arange(S) - start`` ladders, shared [1, S] or per row
+    [B, S] (``ragged``); the flash route reads ``start`` off their first
+    entry."""
     from repro_torch.models import attention as A
     spec = OpSpec(domain="attention", m=q.shape[1], k=q.shape[-1],
-                  n=k.shape[1], flash_active=flash_backend_active(cfg),
+                  n=k.shape[1], ragged=ragged, chunk=cfg.attn_chunk,
+                  batch=q.shape[0], flash_active=flash_backend_active(cfg),
                   float_ok=q.dtype in FLOAT_DTYPES)
     cfg_routes = dict(routes_from_cfg(cfg))
     if cfg.attn_impl in _ATTN_IMPL_ROUTE:
@@ -631,6 +655,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                softcap=cfg.attn_logit_softcap)
     if ragged:
         return A._naive_attention(q, k, v, positions, positions, cfg)
+    if name == "attn_chunked":
+        return A._chunked_causal_attention(q, k, v, cfg, cfg.attn_chunk)
     pos1d = positions[0] if positions.ndim > 1 else positions
     return A._naive_attention(q, k, v, pos1d, pos1d, cfg)
 
@@ -667,10 +693,14 @@ def chunk_attention_route(cfg, *, t: int, s: int, d: int,
                           floating: bool = True) -> str:
     """Route of a chunked-prefill continuation: T chunk queries at an
     absolute offset against one row's S cache slots. Flash takes it
-    through ``q_offset``; everything else takes the naive mask."""
-    spec = OpSpec(domain="attention", m=t, k=d, n=s,
+    through ``q_offset``; everything else takes the naive mask (a pin to
+    the chunked route too: it has no continuation)."""
+    spec = OpSpec(domain="attention", m=t, k=d, n=s, ragged=True,
+                  chunk=cfg.attn_chunk,
                   flash_active=flash_backend_active(cfg), float_ok=floating)
     cfg_routes = dict(routes_from_cfg(cfg))
+    if cfg_routes.get("attention") == "attn_chunked":
+        cfg_routes["attention"] = "attn_naive"
     if cfg.attn_impl in _CHUNK_IMPL_ROUTE:
         cfg_routes.setdefault("attention", _CHUNK_IMPL_ROUTE[cfg.attn_impl])
     name, _ = select(spec, cfg_routes)

@@ -1,10 +1,10 @@
 """GQA/MHA attention: projections; prefill attention over a padded batch
-(flash kernel or naive route), a packed ragged batch (packed flash kernel
-or its plain version) and a chunked-prefill continuation; one-token decode
-against the contiguous KV cache (the paged decode kernel under an identity
-block table, or the plain softmax route) and against a paged pool; and the
-speculative verify pass (T candidate tokens per row, naive attention) on
-both caches."""
+(flash kernel, the chunked route or the naive route), a packed ragged
+batch (packed flash kernel or its plain version) and a chunked-prefill
+continuation; one-token decode against the contiguous KV cache (the paged
+decode kernel under an identity block table, or the plain softmax route)
+and against a paged pool; and the speculative verify pass (T candidate
+tokens per row, naive attention) on both caches."""
 from __future__ import annotations
 
 import math
@@ -108,16 +108,67 @@ def _naive_attention(q, k, v, qpos, kpos, cfg: ModelConfig) -> torch.Tensor:
     return o.reshape(b, t, hq, hd).to(q.dtype).contiguous()
 
 
+def _chunked_causal_attention(q, k, v, cfg: ModelConfig,
+                               chunk: int) -> torch.Tensor:
+    """Blocked causal attention with a running-softmax combine, the
+    reference's order: query chunk i walks key chunks j0..i (j0 skips the
+    chunks wholly outside the sliding window), each chunk's f32 scores
+    folded into the running (max, sum, acc); P·V takes the probabilities
+    in V's dtype with f32 accumulation. q [B,S,Hq,D], k/v [B,S,Hkv,D], S a
+    multiple of ``chunk``; shared positions ``arange(S)``."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    if s % chunk:
+        raise ValueError(f"S={s} not a multiple of chunk={chunk}")
+    n = s // chunk
+    window = cfg.sliding_window
+    qg = q.reshape(b, n, chunk, hkv, g, hd)
+    kc = k.reshape(b, n, chunk, hkv, hd)
+    vc = v.reshape(b, n, chunk, hkv, hd)
+    ar = torch.arange(chunk, device=q.device)
+    outs = []
+    for i in range(n):
+        j0 = max(0, (i * chunk - window) // chunk) if window > 0 else 0
+        qi = qg[:, i]                                   # [B,C,Hkv,G,D]
+        qpos = i * chunk + ar
+        shape_ml = (b, hkv, g, chunk)
+        m_run = torch.full(shape_ml, _NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros(shape_ml, dtype=torch.float32, device=q.device)
+        acc = torch.zeros((*shape_ml, hd), dtype=torch.float32,
+                          device=q.device)
+        for j in range(j0, i + 1):
+            kj, vj = kc[:, j], vc[:, j]
+            sc = _scores(qi, kj, cfg) + _mask_bias(qpos, j * chunk + ar,
+                                                   window)
+            m_new = torch.maximum(m_run, sc.amax(dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            pj = torch.exp(sc - m_new[..., None])
+            l_run = l_run * alpha + pj.sum(dim=-1)
+            oj = torch.einsum("bhgts,bshd->bhgtd", pj.to(vj.dtype).float(),
+                              vj.float())
+            acc = acc * alpha[..., None] + oj
+            m_run = m_new
+        o = acc / torch.clamp(l_run[..., None], min=1e-30)   # [B,H,G,T,D]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, chunk, hq, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 def attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: Optional[torch.Tensor] = None,
+                    window_override: Optional[int] = None,
                     ragged: bool = False,
                     qkv: Optional[Tuple] = None) -> torch.Tensor:
     """Full-sequence (prefill) attention + output projection. ``ragged``:
-    positions are per-row ladders of a left-padded batch. ``qkv`` reuses
-    projections the caller already made for the cache fill."""
+    positions are per-row ladders of a left-padded batch.
+    ``window_override`` replaces the config's sliding window. ``qkv``
+    reuses projections the caller already made for the cache fill."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
+    if window_override is not None:
+        cfg = cfg.replace(sliding_window=window_override)
     q, k, v = qkv if qkv is not None else _project_qkv(p, cfg, x, positions)
     o = dispatch.attention(q, k, v, positions, cfg, ragged=ragged)
     return _lin(p["o_proj"], o.reshape(b, s, -1), cfg)

@@ -9,8 +9,8 @@ import torch
 from repro_torch.config import ModelConfig
 
 __all__ = ["dtype_of", "param_dtype_of", "normal_init", "linear_init",
-           "norm_init", "norm_apply", "rope_freqs", "apply_rope",
-           "embed_init", "embed_apply", "embed_scale"]
+           "linear_apply", "norm_init", "norm_apply", "rope_freqs",
+           "apply_rope", "embed_init", "embed_apply", "embed_scale"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -47,30 +47,58 @@ def linear_init(gen: torch.Generator, lead, d_in: int, d_out: int,
     return p
 
 
+def linear_apply(p: Dict, x: torch.Tensor, *, act: str = "none",
+                 fused: bool = False,
+                 cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """``act(x @ w + b)`` for a `linear_init` dict through
+    `dispatch.matmul`: ``fused=True`` takes the kernel route family (bias
+    and activation in the kernel's epilogue, the output in x's dtype),
+    ``fused=False`` the plain route."""
+    from repro_torch.kernels import dispatch
+    w = p["w"]
+    if isinstance(w, torch.Tensor):
+        w = w.to(x.dtype)
+    return dispatch.matmul(x, w, p.get("b"), act=act,
+                           out_dtype=x.dtype if fused else None, cfg=cfg,
+                           pallas=fused)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
-def _check_norm(kind: str) -> None:
-    if kind != "nonparam_ln":
-        raise NotImplementedError(
-            f"norm={kind!r}: the port has OLMo's nonparam_ln only")
-
-
-def norm_init(kind: str) -> Dict:
-    """OLMo's LayerNorm has no affine parameters: an empty dict."""
-    _check_norm(kind)
-    return {}
+def norm_init(kind: str, lead, d: int, dtype: torch.dtype, device) -> Dict:
+    """The norm's parameters, stacked ``[*lead, d]``: RMSNorm a scale of
+    ones, LayerNorm a scale of ones and a bias of zeros, OLMo's
+    non-parametric LayerNorm none."""
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+                "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(kind)
 
 
 def norm_apply(kind: str, p: Dict, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """Non-parametric LayerNorm in f32, result in x's dtype."""
-    _check_norm(kind)
+    """RMSNorm, LayerNorm or the non-parametric LayerNorm over the last
+    axis: statistics in f32 (the biased variance), the scale and bias taken
+    to f32 before the product, the result in x's dtype."""
     xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    if kind not in ("layernorm", "nonparam_ln"):
+        raise ValueError(kind)
     mean = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -23,15 +23,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits, aux loss) of the cnn family for ``batch["images"]`` (NHWC),
-    through the plain lowering (``matmul="xla"``), as the reference's
-    `forward`; the aux loss is a zero scalar."""
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"forward of family {cfg.family!r} is not ported (the dense_lm "
-            "family serves through prefill / decode_step)")
-    logits = cnn_mod.cnn_apply(params, cfg, batch["images"])
-    return logits, torch.zeros((), device=logits.device)
+    """(output, aux loss), as the reference's `forward`: the cnn family's
+    logits for ``batch["images"]`` (NHWC) through the plain lowering
+    (``matmul="xla"``); the dense_lm family's hidden states ``[B, S, d]``
+    for ``batch["tokens"]`` (`transformer.forward`; ``embeds`` and
+    ``prefix_embeds`` are not ported and raise). The aux loss is a zero
+    scalar."""
+    if cfg.family == "cnn":
+        logits = cnn_mod.cnn_apply(params, cfg, batch["images"])
+        return logits, torch.zeros((), device=logits.device)
+    return tf.forward(params, cfg, tokens=batch.get("tokens"),
+                      embeds=batch.get("embeds"),
+                      prefix_embeds=batch.get("prefix_embeds"))
 
 
 prefill = tf.prefill

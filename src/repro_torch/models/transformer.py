@@ -1,5 +1,7 @@
 """Dense decoder LM: embeddings → layers → final norm (hidden states; the
-LM head is applied by the serving layer).
+LM head is applied by the serving layer). `forward` is the full-sequence
+pass (no cache); `prefill`, `prefill_packed`, `prefill_continue`,
+`decode_step` and `verify_step` serve.
 
 Layer weights are stacked ``[L, ...]`` (packed leaves as stacked
 `DbbWeight` planes) and the layers run in a Python loop over the layer
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.dbb import DbbWeight
-from repro_torch.core.dbb_linear import decompress
+from repro_torch.core.dbb_linear import maybe_decompress_tree
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attn.ref import gather_pages
 from repro_torch.kernels.dispatch import pallas_route_active
@@ -26,8 +28,8 @@ from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
                                        norm_init, param_dtype_of)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
-__all__ = ["init_params", "lm_head_weight", "init_cache", "prefill",
-           "prefill_packed", "prefill_continue", "decode_step",
+__all__ = ["init_params", "lm_head_weight", "init_cache", "forward",
+           "prefill", "prefill_packed", "prefill_continue", "decode_step",
            "verify_step"]
 
 _FAMILIES = ("dense_lm",)
@@ -53,11 +55,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
         "layers": {
             "attn": attn.attention_init(gen, lead, cfg, dt, dev),
-            "ln_attn": norm_init(cfg.norm),
-            "ln_mlp": norm_init(cfg.norm),
+            "ln_attn": norm_init(cfg.norm, lead, d, dt, dev),
+            "ln_mlp": norm_init(cfg.norm, lead, d, dt, dev),
             "mlp": mlp_init(gen, lead, d, cfg.d_ff, cfg, dt, dev),
         },
-        "final_norm": norm_init(cfg.norm),
+        "final_norm": norm_init(cfg.norm, (), d, dt, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, (), d, cfg.vocab_size, dt, dev)
@@ -99,17 +101,40 @@ def _unpack_layer(lp: Any, cfg: ModelConfig) -> Any:
     dtype for this layer only."""
     if pallas_route_active(cfg):
         return lp
-    if isinstance(lp, dict):
-        return {k: _unpack_layer(v, cfg) for k, v in lp.items()}
-    if isinstance(lp, DbbWeight):
-        return decompress(lp, dtype=dtype_of(cfg))
-    return lp
+    return maybe_decompress_tree(lp, dtype=dtype_of(cfg))
 
 
 def _embed(params: Dict, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
     return embed_scale(embed_apply(params["embed"], tokens, dtype_of(cfg)),
                        cfg.d_model)
+
+
+def forward(params: Dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, embeds=None,
+            prefix_embeds=None, window_override: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence pass without a cache: ``tokens [B, S]`` → (hidden [B,
+    S, d], aux loss — a zero scalar for the dense family). Attention goes
+    through `attention_apply`, so the dispatch picks flash, chunked or
+    naive; ``window_override`` replaces the config's sliding window.
+    ``embeds`` / ``prefix_embeds`` (the vlm and audio families' inputs)
+    are not ported."""
+    _check_family(cfg)
+    if embeds is not None or prefix_embeds is not None:
+        raise NotImplementedError(
+            "forward(embeds=, prefix_embeds=): the vlm and audio families' "
+            "inputs are not ported")
+    x = _embed(params, cfg, tokens)
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        h = norm_apply(cfg.norm, lp["ln_attn"], x)
+        x = x + attn.attention_apply(lp["attn"], cfg, h,
+                                     window_override=window_override)
+        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
+        x = x + mlp_apply(lp["mlp"], cfg, h)
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -177,17 +177,29 @@ def test_chunk_continuation_route_matches_reference(attn_impl, want):
 
 @pytest.mark.parametrize("front_door", ["select", "chunk_continuation"])
 def test_chunked_pin_warns_and_takes_naive(front_door):
-    """attn_chunked is an XLA route, not a kernel: a pin to it takes
-    attn_naive with a warning, as the reference's continuation does."""
+    """A pin to attn_chunked where it cannot run takes attn_naive, as in
+    the reference: through `select` on a call its guard refuses (S = 6 not
+    a multiple of the chunk, no flash backend) with the reference's "not
+    applicable" warning; on a chunked-prefill continuation, which has no
+    chunked route, without a warning (the reference's continuation maps
+    the pin to naive)."""
+    import warnings
     jcfg, tcfg = configs(kernel_routes=(("attention", "attn_chunked"),))
     td._warned.discard(("attention", "attn_chunked"))
-    with pytest.warns(UserWarning, match="not ported"):
-        if front_door == "select":
-            spec = td.OpSpec(domain="attention", m=6, k=32, n=6,
-                             flash_active=True)
+    if front_door == "select":
+        spec = td.OpSpec(domain="attention", m=6, k=32, n=6,
+                         flash_active=False)
+        with pytest.warns(UserWarning, match="not applicable"):
             name, _ = td.select(spec, td.routes_from_cfg(tcfg))
-        else:
+        jspec = jd.OpSpec(domain="attention", m=6, k=32, n=6, itemsize=4,
+                          out_itemsize=4, flash_active=False)
+        jd._warned_forced.discard(("attention", "attn_chunked"))
+        with pytest.warns(UserWarning, match="not applicable"):
+            assert name == jd.select(jspec, jd.routes_from_cfg(jcfg))[0]
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
             name = td.chunk_attention_route(tcfg, t=8, s=48, d=32)
-            assert name == jd.chunk_attention_route(jcfg, t=8, s=48, d=32,
-                                                    itemsize=4)
+        assert name == jd.chunk_attention_route(jcfg, t=8, s=48, d=32,
+                                                itemsize=4)
     assert name == "attn_naive"

@@ -2384,3 +2384,223 @@ def test_gpu_conv_gemm_counts_follow_the_kernels_own_rules(cuda):
                         want = tc_fn(code, c, kk, kk, s, n) == 1
                         assert want is (not small
                                         and tc_body(dt, c, kk, kk, s, n))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense_lm family's shapes: GQA groups 5, 7, 12 at D 128,
+# the 4096-token window over a 5120-token prompt, QKV bias at the K/V
+# projections' N 512 / 1024, starcoder2's GeLU up-projection, the untied
+# heads at K 5120, N 152064
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(10, 2), (14, 2), (12, 1)])
+def test_gpu_flash_prefill_gqa_groups(cuda, dtype, hq, hkv):
+    """GQA groups of 5 (qwen), 7 (yi) and 12 (starcoder2): ragged starts,
+    T = S off the tile, and a continuation chunk."""
+    _flash_case(cuda, dtype, 2, 300, 300, hq, hkv, 128, (0, 37), (0, 0), 0,
+                0.0)
+    _flash_case(cuda, dtype, 2, 70, 400, hq, hkv, 128, (0, 5), (330, 256),
+                0, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv", [(12, 1), (48, 4)])
+def test_gpu_flash_prefill_window_4096_at_5120(cuda, hq, hkv):
+    """starcoder2's 4096-token window over a 5120-token prompt in bf16 at
+    D 128 (G 12): rows past 4096 drop their oldest keys, tiles wholly
+    outside the window are skipped; the second case is the layer's own
+    48 query heads over 4 KV heads."""
+    _flash_case(cuda, torch.bfloat16, 1, 5120, 5120, hq, hkv, 128, (0,),
+                (0,), 4096, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64])
+def test_gpu_flash_prefill_packed_gqa_12(cuda, dtype, window):
+    """The packed prefill at starcoder2's group (Hq 12 over one KV head),
+    segments off the tile, with and without a window."""
+    lens, pad = (70, 300, 5, 129), 10
+    t = sum(lens) + pad
+    g = torch.Generator(device=cuda).manual_seed(t + window)
+    q = torch.randn(t, 12, 128, generator=g, device=cuda).to(dtype)
+    k = torch.randn(t, 1, 128, generator=g, device=cuda).to(dtype)
+    v = torch.randn(t, 1, 128, generator=g, device=cuda).to(dtype)
+    seg = torch.repeat_interleave(
+        torch.arange(len(lens) + 1, dtype=torch.int32),
+        torch.tensor(list(lens) + [pad])).to(cuda)
+    before = dict(LAUNCHES)
+    got = packed_flash_attention(q, k, v, seg, window=window)
+    torch.cuda.synchronize()
+    _flash_tc_counted(before, "flash_prefill_packed", dtype, 128)
+    assert torch.isfinite(got.float()).all()
+    want = packed_prefill_ref(q.transpose(0, 1), k.transpose(0, 1),
+                              v.transpose(0, 1), seg, sm_scale=128 ** -0.5,
+                              window=window).transpose(0, 1)
+    _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,page,window", [(5, 64, 0), (7, 64, 100),
+                                           (12, 16, 37), (12, 64, 4096)])
+def test_gpu_paged_decode_gqa_groups(cuda, dtype, g, page, window):
+    """Decode at G 5, 7 and 12 (D 128) through a shuffled pool, with and
+    without a window; the last case at starcoder2's window over contexts
+    of 2560-5119 slots."""
+    s = 5120 if window == 4096 else 512
+    args = _decode_operands(2, 2, g, 128, s, page, seed=g + window,
+                            shuffle=True)
+    q, kp, vp, table, lengths, start = (torch.from_numpy(a).to(cuda)
+                                        for a in args)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = LAUNCHES["paged_decode"]
+    got = paged_decode_attention(q, kp, vp, table, lengths, start,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode"] == before + 1
+    want = paged_decode_ref(q, kp, vp, table, lengths, start,
+                            sm_scale=128 ** -0.5, window=window)
+    _gpu_close(got, want, dtype, bf16_atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,act", [(512, 5120, 1024, "none"),
+                                       (512, 6144, 512, "none"),
+                                       (300, 7168, 1024, "none"),
+                                       (512, 6144, 24576, "gelu")])
+def test_gpu_dbb_gemm_family_shapes(cuda, m, k, n, act):
+    """bf16 x on the tensor-core body: the QKV bias at the K/V
+    projections' N 1024 (qwen, yi) and 512 (starcoder2), and
+    starcoder2's GeLU up-projection (K 6144, N 24576)."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    p = pack_dbb(torch.randn(k, n, generator=g, device=cuda) / k ** 0.5, 8,
+                 4)
+    bias = torch.randn(n, generator=g, device=cuda)
+    before = dict(LAUNCHES)
+    got = dbb_gemm(x, p.values, p.bitmask, bias, act=act)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm"] == before["dbb_gemm"] + 1
+    assert LAUNCHES["dbb_gemm_tc"] == before["dbb_gemm_tc"] + 1
+    _gpu_close(got, dbb_gemm_ref(x, p.values, p.bitmask, bias, act=act),
+               torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,act", [(8, 5120, 1024, "none"),
+                                       (8, 6144, 512, "none"),
+                                       (24, 7168, 1024, "none"),
+                                       (8, 6144, 24576, "gelu"),
+                                       (32, 6144, 24576, "gelu")])
+def test_gpu_dbb_gemm_skinny_family_shapes(cuda, dtype, m, k, n, act):
+    """The split-K body at the same shapes: decode (M8) and verify (M24,
+    M32) rows, the bias and the GeLU added after the slices meet."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    p = pack_dbb(torch.randn(k, n, generator=g, device=cuda) / k ** 0.5, 8,
+                 4)
+    bias = torch.randn(n, generator=g, device=cuda)
+    before = dict(LAUNCHES)
+    got = dbb_gemm_skinny(x, p.values, p.bitmask, bias, act=act)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dbb_gemm_skinny"] == before["dbb_gemm_skinny"] + 1
+    assert (LAUNCHES["dbb_gemm_skinny_split"]
+            == before["dbb_gemm_skinny_split"] + 1)
+    _gpu_close(got, dbb_gemm_ref(x, p.values, p.bitmask, bias, act=act),
+               dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 5120, 152064), (24, 5120, 152064),
+                                   (8, 7168, 64000), (8, 6144, 49152)])
+def test_gpu_sta_gemm_skinny_untied_heads(cuda, m, k, n):
+    """The untied f32 heads (qwen N 152064 at K 5120, yi, starcoder2) on
+    the persistent float body: the f32 tolerance against torch.matmul with
+    TF32 off, and a row the same bits in an M8 call as in the M24 one."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(k, n, generator=g, device=cuda) / k ** 0.5
+    got = sta_gemm_skinny(x, w)
+    _gpu_close(got, sta_gemm_ref(x, w), torch.float32)
+    assert torch.equal(got[:8], sta_gemm_skinny(x[:8].contiguous(), w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 24])
+def test_gpu_head_sample_fused_at_152064(cuda, m):
+    """The fused sampling head at qwen's head (K 5120, N 152064): scores
+    within the f32 tolerance of the plain version, indices equal where the
+    top-2 margin decides them; temperature-0 rows equal the skinny head's
+    argmax."""
+    from repro_torch.kernels.sample import (head_sample_fused,
+                                            head_sample_fused_ref,
+                                            sample_scores)
+    k, n = 5120, 152064
+    h, w, counts, rows = _head_sample_case(cuda, m, k, n, m + 7)
+    got_s, got_i = head_sample_fused(h, w, counts, *rows)
+    torch.cuda.synchronize()
+    want_s, want_i = head_sample_fused_ref(h, w, counts, *rows)
+    tol = 1e-5 * max(want_s.abs().max().item(), 1.0)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=tol)
+    temp, rep, pres, freq, seed_, step = (a[:, None] for a in rows)
+    scores = sample_scores(h @ w, counts, temp, rep, pres, freq, seed_, step,
+                           torch.arange(n, device=cuda)[None, :])
+    top2 = scores.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    assert bool((got_i == want_i)[decided].all())
+    assert int(decided.sum()) >= m - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "yi-34b", "starcoder2-15b"])
+def test_gpu_family_generate_kernel_route_matches_plain_route(cuda, arch):
+    """Smoke-width f32 qwen2.5-14b, yi-34b and starcoder2-15b (starcoder2
+    with an 8-token window), packed, with seeded norm scales and biases and
+    QKV biases: greedy generate and packed serve on the kernel route give
+    the plain route's tokens, and every layer GEMM launches a DBB kernel
+    (7 a layer gated, 6 not, each forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(arch, smoke=True).replace(remat="none",
+                                               gemm_impl="pallas")
+    if arch == "starcoder2-15b":
+        cfg = cfg.replace(sliding_window=8)
+    params = registry.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params["embed"]["table"] *= 0.1
+    lay = params["layers"]
+    for name in ("ln_attn", "ln_mlp"):
+        for key, leaf in lay[name].items():
+            noise = 0.2 * torch.randn(leaf.shape, generator=gen, device=cuda)
+            leaf.copy_(noise + (1.0 if key == "scale" else 0.0))
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        if "b" in lay["attn"][proj]:
+            b = lay["attn"][proj]["b"]
+            b.copy_(0.2 * torch.randn(b.shape, generator=gen, device=cuda))
+    for part in ("attn", "mlp"):
+        for sub in lay[part].values():
+            sub["w"] *= 3.0
+    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+    r = np.random.default_rng(5)
+    ps = [list(map(int, r.integers(2, 512, n))) for n in (12, 7, 40, 9)]
+    eng = ServeEngine(cfg, packed, max_batch=4, device=cuda)
+    reset_launches()
+    out = eng.generate(ps, max_new_tokens=8)
+    per_pass = (7 if cfg.mlp_gated else 6) * cfg.num_layers
+    assert LAUNCHES["dbb_gemm"] == per_pass
+    assert LAUNCHES["dbb_gemm_skinny"] == per_pass * eng.last_decode_steps
+    xcfg = cfg.replace(gemm_impl="xla")
+    assert out == ServeEngine(xcfg, packed, max_batch=4,
+                              device=cuda).generate(ps, max_new_tokens=8)
+    served = eng.serve(ps, max_new_tokens=[8, 5, 3, 6])
+    assert served == ServeEngine(xcfg, packed, max_batch=4,
+                                 device=cuda).serve(
+                                     ps, max_new_tokens=[8, 5, 3, 6])
