@@ -176,10 +176,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             count (``s8 tc:`` lines; convnet's N 10 classifier stays on
             the IMAD body).
 12. family  the rest of the dense_lm family at the published widths (runs
-            after phase 10), each tree built one layer at a time (drawn from
-            a seed per layer, DBB-projected, packed, copied into [L, ...]
-            planes allocated once; norm scales, norm biases and QKV biases
-            seeded away from their init values) and served with
+            after phase 10), each tree built one layer at a time
+            (`registry.init_params_by_layer`: drawn from a seed per layer,
+            DBB-projected, packed, copied into [L, ...] planes allocated
+            once; its ``layer_hook`` here seeds norm scales, norm biases and
+            QKV biases away from their init values) and served with
             ``gemm_impl="pallas"``: starcoder2-15b (all 40 layers;
             LayerNorm, GQA G 12, QKV bias, GeLU MLP, 4096-token window):
             generate of 8 left-padded prompts of 64-15 tokens (32 new),
@@ -204,22 +205,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             packed bytes, the peak device memory of the build and of the
             runs, decode ms per step, generated tokens per second and the
             model's seconds.
+13. cli     the serve CLI (``repro_torch.launch.serve.main``) in process at
+            full width and full depth, the counts reset before each call
+            and read after it, each tree freed before the next: olmo-1b
+            ``--packed`` serve of 24 requests (prompts of 128, 32 new);
+            starcoder2-15b (40 layers) ``--packed`` generate; qwen2.5-14b
+            (48 layers) ``--packed`` paged (page 64) sampled serve (T 0.8)
+            of 16 requests; yi-34b (all 60 layers) ``--packed
+            --weight-bits 4`` generate (prompts of 64, 16 new), its prefill
+            logits held against the plain route on the same tree within
+            LOGIT_TOL. Every kernel route its printed tables choose must
+            have launched its kernel, and each run's path kernels too (the
+            w4 run no other DBB plane's). Per run it prints the build
+            seconds, the tree's bytes, the peak device memory and the wall
+            time beside the card.
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8, 9 and 12 must have run the tensor-core body:
+main paths of phases 4-6, 8, 9, 12 and 13 must have run the tensor-core body:
 ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
-phases 4-9 and 12 must have run the split-K body (``dbb_gemm_skinny_split``
+phases 4-9, 12 and 13 must have run the split-K body (``dbb_gemm_skinny_split``
 equals the f32, ``_i8`` and ``_w4`` branches' sum) and every f32-x
 dbb_gemm launch (the CNN classifier, N 10) the narrow body
 (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the LM
 runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12;
+sum over the main-path runs of phases 4-9, 11 (a)-(b), 12 and 13;
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -239,8 +254,15 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
-BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+try:
+    from repro_torch.roofline.analysis import HW_H100
+except ImportError:              # no package beside the script: main fails
+    HW_H100 = None
+else:
+    HBM_BYTES_PER_S = HW_H100.hbm_bw      # H100 SXM memory rate
+    BF16_OPS_PER_S = HW_H100.peak_flops   # H100 SXM dense bf16 tensor cores
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense INT8 tensor-core rate
@@ -426,8 +448,6 @@ def main() -> int:
                     "report into this directory")
     args = ap.parse_args()
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
     import torch
     if not torch.cuda.is_available():
         return _fail("torch.cuda.is_available() is False")
@@ -435,6 +455,8 @@ def main() -> int:
         from repro_torch.kernels import build
     except ImportError as e:
         return _fail(f"the port's package is missing ({e})")
+    if HW_H100 is None:
+        return _fail("the port's package is missing (repro_torch.roofline)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -500,6 +522,10 @@ def main() -> int:
     if not ok:
         return _fail("the dense_lm family phase failed (see above)")
     by_path.update(family_counts)
+    cli_counts, ok = timed("cli", _cli_phase)
+    if not ok:
+        return _fail("the serve CLI phase failed (see above)")
+    by_path.update(cli_counts)
     lm = [p for p in by_path if p not in cnn_counts]
     if not _tc_check(by_path, lm):
         return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
@@ -2656,71 +2682,22 @@ FAMILY_SAMPLE_KERNELS = ("flash_prefill", "dbb_gemm", "dbb_gemm_skinny",
                          "paged_decode", "head_sample_fused")
 
 
-def _family_tree(torch, dev, cfg, seed, pack=True, outer=None):
-    """``cfg``'s tree, built one layer at a time at the published widths:
-    each layer drawn by the port's initializers from its own seed (the
-    norm scales 1 + 0.2 N(0, 1), norm and QKV biases 0.2 N(0, 1), so
-    every parameter moves the result), DBB-projected and packed
-    (``pack``), and copied into [L, ...] planes allocated once, so the
-    device holds the packed tree and about two dense layers at a time.
-    ``outer`` (embedding, final norm, untied head) is drawn unless given.
-    Returns (tree, outer)."""
-    from repro_torch.core.dbb import DbbWeight
-    from repro_torch.core.dbb_linear import pack_tree
-    from repro_torch.core.sparsity import apply_dbb_to_tree, map_with_path
-    from repro_torch.models import attention as attn_mod
-    from repro_torch.models.common import embed_init, linear_init, norm_init
-    from repro_torch.models.mlp import mlp_init
-    f32, d, n_l = torch.float32, cfg.d_model, cfg.num_layers
+def _family_noise(tree, gen):
+    """The family phase's ``layer_hook`` for
+    `registry.init_params_by_layer`: norm scales 1 + 0.2 N(0, 1), norm and
+    QKV biases 0.2 N(0, 1), drawn from the layer's own generator after its
+    weights, so every parameter moves the result."""
+    import torch
+    from repro_torch.core.sparsity import map_with_path
 
-    def into(dst, src, l):
-        if isinstance(src, dict):
-            return {k: into(None if dst is None else dst[k], v, l)
-                    for k, v in src.items()}
-        if isinstance(src, DbbWeight):
-            if dst is None:
-                dst = src.map(lambda a: a.new_empty((n_l, *a.shape[1:])))
-            for a, b in ((dst.values, src.values), (dst.bitmask, src.bitmask),
-                         (dst.scale, src.scale)):
-                if b is not None:
-                    a[l].copy_(b[0])
-            return dst
-        if dst is None:
-            dst = src.new_empty((n_l, *src.shape[1:]))
-        dst[l].copy_(src[0])
-        return dst
-
-    def seeded(gen):
-        def visit(path, leaf):
-            key = path.rsplit("/", 1)[-1]
-            if key in ("scale", "bias", "b"):
-                noise = 0.2 * torch.randn(leaf.shape, generator=gen,
-                                          device=dev)
-                return noise + (1.0 if key == "scale" else 0.0)
-            return leaf
-        return visit
-
-    stack = None
-    for l in range(n_l):
-        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + l)
-        one = {"attn": attn_mod.attention_init(gen, (1,), cfg, f32, dev),
-               "ln_attn": norm_init(cfg.norm, (1,), d, f32, dev),
-               "ln_mlp": norm_init(cfg.norm, (1,), d, f32, dev),
-               "mlp": mlp_init(gen, (1,), d, cfg.d_ff, cfg, f32, dev)}
-        one = map_with_path(seeded(gen), one)
-        if pack:
-            one = pack_tree(apply_dbb_to_tree({"layers": one}, cfg.dbb),
-                            cfg.dbb)["layers"]
-        stack = into(stack, one, l)
-        del one
-    if outer is None:
-        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + 999)
-        outer = {"embed": embed_init(gen, cfg.vocab_size, d, f32, dev),
-                 "final_norm": map_with_path(
-                     seeded(gen), norm_init(cfg.norm, (), d, f32, dev)),
-                 "lm_head": linear_init(gen, (), d, cfg.vocab_size, f32,
-                                        dev)}
-    return dict(outer, layers=stack), outer
+    def visit(path, leaf):
+        key = path.rsplit("/", 1)[-1]
+        if key in ("scale", "bias", "b"):
+            noise = 0.2 * torch.randn(leaf.shape, generator=gen,
+                                      device=leaf.device)
+            return noise + (1.0 if key == "scale" else 0.0)
+        return leaf
+    return map_with_path(visit, tree)
 
 
 def _family_prompts(torch, cfg):
@@ -2884,6 +2861,7 @@ def _family_model(torch, dev, report, arch, layers, why, out_dir):
 
     from repro_torch.configs import get_config
     from repro_torch.core.dbb_linear import tree_footprint_bytes
+    from repro_torch.models import registry
     from repro_torch.serve.sampling import SamplingParams
     t_model = time.perf_counter()
     full = get_config(arch)
@@ -2896,7 +2874,9 @@ def _family_model(torch, dev, report, arch, layers, why, out_dir):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tree, outer = _family_tree(torch, dev, cfg, seed=len(arch))
+    tree = registry.init_params_by_layer(cfg, seed=len(arch), device=dev,
+                                         pack=True, layer_hook=_family_noise)
+    outer = {k: v for k, v in tree.items() if k != "layers"}
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     packed_bytes = tree_footprint_bytes(tree["layers"])
@@ -2985,8 +2965,9 @@ def _family_model(torch, dev, report, arch, layers, why, out_dir):
         del seng
 
         dcfg = cfg.replace(num_layers=FAMILY_DENSE_LAYERS)
-        dtree, _ = _family_tree(torch, dev, dcfg, seed=len(arch) + 1,
-                                pack=False, outer=outer)
+        dtree = registry.init_params_by_layer(
+            dcfg, seed=len(arch) + 1, device=dev, layer_hook=_family_noise,
+            outer=outer)
         rec["dense"] = {}
         dout, counts, deng, run_ok = _family_generate(
             torch, dev, f"{tag} dense {FAMILY_DENSE_LAYERS} layers", dcfg,
@@ -3018,6 +2999,113 @@ def _family_phase(torch, dev, report, out_dir):
                                          why, out_dir)
         by_path.update(counts)
         ok = ok and model_ok
+    return by_path, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the serve CLI at full width and depth
+# ---------------------------------------------------------------------------
+
+# (path, CLI arguments, kernels the run must launch beyond its tables')
+CLI_RUNS = (
+    ("cli_olmo_serve",
+     "--arch olmo-1b --full --packed --gemm-impl pallas --batch 8 "
+     "--requests 24 --prompt-len 128 --max-new 32", SERVE_KERNELS),
+    ("cli_starcoder2_generate",
+     "--arch starcoder2-15b --full --packed --gemm-impl pallas --batch 8 "
+     "--prompt-len 64 --max-new 16", GENERATE_KERNELS),
+    ("cli_qwen_paged_sampled_serve",
+     "--arch qwen2.5-14b --full --packed --gemm-impl pallas --batch 8 "
+     "--requests 16 --kv-page-size 64 --temperature 0.8 --prompt-len 64 "
+     "--max-new 16", SAMPLE_KERNELS),
+    ("cli_yi_w4_generate",
+     "--arch yi-34b --full --packed --weight-bits 4 --gemm-impl pallas "
+     "--batch 8 --prompt-len 64 --max-new 16",
+     ("dbb_gemm_w4", "dbb_gemm_skinny_w4", "sta_gemm_skinny",
+      "paged_decode", "flash_prefill")),
+)
+# the kernels each table route launches (plain routes launch none)
+ROUTE_KERNELS = {
+    "skinny_dbb": ("dbb_gemm_skinny", "dbb_gemm_skinny_i8"),
+    "skinny_dbb_w4": ("dbb_gemm_skinny_w4",),
+    "dbb_packed": ("dbb_gemm", "dbb_gemm_i8"),
+    "dbb_packed_w4": ("dbb_gemm_w4",),
+    "skinny_sta": ("sta_gemm_skinny",), "sta": ("sta_gemm",),
+    "attn_flash": ("flash_prefill",),
+    "attn_packed_flash": ("flash_prefill_packed",),
+    "attn_decode_flash": ("paged_decode",),
+    "head_sample_fused": ("head_sample_fused",),
+}
+
+
+def _cli_phase(torch, dev, report):
+    """``repro_torch.launch.serve.main`` in process on each of CLI_RUNS
+    (see the module doc, phase 13)."""
+    import gc
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    report["cli"] = {}
+    by_path, ok = {}, True
+    for path, argv, need in CLI_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rep = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = serve.main(argv.split(), report=rep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        by_path[path] = counts
+        cfg = rep["cfg"]
+        missing = [f"{dom} {r}" for dom, r in rep["routes"].items()
+                   if r in ROUTE_KERNELS
+                   and not sum(counts[k] for k in ROUTE_KERNELS[r])]
+        missing += [k for k in need if counts[k] == 0]
+        run_ok = rc == 0 and not missing
+        if cfg.dbb.weight_bits == 4:
+            stray = {k: v for k, v in counts.items() if v and k in (
+                "dbb_gemm", "dbb_gemm_skinny", "dbb_gemm_i8",
+                "dbb_gemm_skinny_i8")}
+            if stray:
+                print(f"cli: {path}: FAIL: non-w4 DBB kernels launched "
+                      f"{stray}")
+                run_ok = False
+        n_tok = sum(len(o) for o in rep["outs"])
+        rec = {"argv": argv, "layers": cfg.num_layers,
+               "build_s": rep["build_s"], "tree_bytes": rep["tree_bytes"],
+               "peak_bytes": peak, "wall_s": wall,
+               "engine_wall_s": rep["wall_s"], "tokens": n_tok,
+               "routes": rep["routes"],
+               "launches": {k: v for k, v in counts.items() if v}}
+        print(f"cli: {path}: {cfg.name} {cfg.num_layers} layers: tables "
+              f"chose {rep['routes']}; launches {rec['launches']}; "
+              f"{'ok' if run_ok else 'FAIL: no launch of ' + str(missing)}")
+        print(f"cli: {path}: build {rep['build_s']:.1f} s, tree "
+              f"{rep['tree_bytes'] / 1e9:.3f} GB, peak device memory "
+              f"{peak / 1e9:.3f} GB, wall {wall:.1f} s ({n_tok} tokens in "
+              f"{rep['wall_s']:.2f} s of engine time) ({report['card']})")
+        if cfg.name == "yi-34b":
+            last_logits = _logits_fn(torch, dev, rep["engine"])
+            lk = last_logits(cfg, rep["prompts"])
+            lp = last_logits(cfg.replace(gemm_impl="xla"), rep["prompts"])
+            scale = lp.abs().max().item()
+            diff = (lk - lp).abs().max().item()
+            lok = diff <= LOGIT_TOL * scale
+            print(f"cli: {path}: prefill last-position logits, kernel vs "
+                  f"plain route on the w4 tree: max abs diff {diff:.4e} of "
+                  f"max |logit| {scale:.4e} ({diff / scale:.3e} of max; tol "
+                  f"{LOGIT_TOL:g}) {'ok' if lok else 'FAIL'}")
+            rec.update(logit_max_abs_diff=diff, logit_scale=scale)
+            run_ok = run_ok and lok
+        report["cli"][path] = rec
+        ok = ok and run_ok
+        del rep
+    gc.collect()
+    torch.cuda.empty_cache()
     return by_path, ok
 
 

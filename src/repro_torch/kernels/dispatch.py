@@ -1,6 +1,6 @@
 """Kernel dispatch: the route tables of the ``matmul``, ``conv``,
 ``attention``, ``attn_decode`` and ``head_sample`` domains, their guards,
-and the front doors the model layers call.
+their roofline costs, and the front doors the model layers call.
 
 Route names and the override order are the JAX package's, so overrides
 carry over: ``REPRO_FORCE_ROUTE`` (one bare route name, or
@@ -8,25 +8,18 @@ carry over: ``REPRO_FORCE_ROUTE`` (one bare route name, or
 > auto. A forced route whose guard rejects the op, or that this port does
 not implement, warns once and falls back to auto.
 
-Auto is a rule table, not a cost model: the first applicable route in the
-domain's preference order. On the serving path's and the CNN's shapes it
-picks what the reference's roofline selection picks;
-tests/test_torch_dispatch.py holds the two against each other. Guards are
-stated for the H100 kernels in ``csrc/`` — what each kernel takes — not
-carried over from TPU VMEM budgets. Two rules only keep the reference's
-choice where its cost model turns a kernel down:
-
-- narrow N (``N < NARROW_N``): every kernel computes 128-column output
-  tiles, so under 16 columns more than 7/8 of a tile's FMAs fall on
-  masked columns, while the plain route computes only the live ones.
-  Dense GEMMs and convs take the plain route there (the CNN's N = 10
-  classifier, lenet's N = 6 conv0); a packed GEMM keeps its kernel while
-  the plain route's dense round trip of the weight (2·K·N elements)
-  exceeds the kernel's masked output lanes (M·(128 − N)) — the
-  reference's roofline comparison at these shapes, kept until an H100
-  cost model measured on the card replaces it.
-- the head GEMV (``gemv=True``) stays off the M-tiled ``sta`` route: its
-  M-tiling buys nothing on ``[B, d]·[d, V]``, as in the reference.
+Auto is the reference's roofline selection (`repro.kernels.dispatch`):
+each route's cost is ``max(flops / peak_flops, bytes / hbm_bw)`` from the
+reference's formulas term for term (FLOPs at the kernels' padded M / N /
+K, the weight stream compressed or dense, unfused epilogue passes charged
+to the plain route), costed on `roofline.analysis.HW_H100`. Among the
+applicable routes that do not defer, the cheapest wins; costs within
+``COST_TIE_RTOL`` of it tie, and the lower ``priority`` (the more
+specialised kernel) wins the tie. `explain` returns the ranked table with
+every route's terms and `format_table` renders it, as the serve CLI logs
+it. Guards are stated for the H100 kernels in ``csrc/`` — what each
+kernel takes — not carried over from TPU VMEM budgets; the head GEMV
+(``gemv=True``) stays off the M-tiled ``sta`` route, as in the reference.
 
 Ported routes: matmul ``xla`` (plain torch), ``sta``, ``skinny_sta``,
 ``dbb_packed``, ``skinny_dbb`` (f32 or int8 values planes),
@@ -51,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,18 +53,26 @@ from repro_torch.kernels.attn.ops import PAGE_MIN, flash_ok, paged_decode_ok
 from repro_torch.kernels.common import (FLOAT_DTYPES, OPERAND_DTYPES,
                                         SKINNY_M_MAX, skinny_ok)
 from repro_torch.kernels.sample.ops import TILE_N as _HS_TILE
+from repro_torch.roofline.analysis import HW_H100, Hardware
 
-__all__ = ["OpSpec", "select", "matmul", "conv", "attention",
+__all__ = ["OpSpec", "Route", "RouteDecision", "select", "explain",
+           "format_table", "matmul", "conv", "attention",
            "packed_attention", "chunk_attention_route", "head_sample",
            "decode_attention_route", "pallas_route_active",
            "flash_backend_active", "forced_route", "routes_from_cfg",
-           "FORCE_ROUTE_ENV", "ROUTES", "NARROW_N"]
+           "FORCE_ROUTE_ENV", "COST_TIE_RTOL", "ROUTES"]
 
 FORCE_ROUTE_ENV = "REPRO_FORCE_ROUTE"
-# below this many output columns a kernel's 128-column tile is mostly
-# masked lanes (see the module doc)
-NARROW_N = 16
-_TILE_N = 128
+# relative cost window treated as a tie (the roofline model is first
+# order; within it the more specialised kernel wins on priority)
+COST_TIE_RTOL = 0.10
+
+_MASK_BYTES = 1          # DBB bitmask storage: 1 byte per 8-block
+_F32 = 4
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,19 +82,26 @@ class OpSpec:
     carries its total token count in both); the decode domain maps the
     GQA group to m, head_dim to k and the cache length to n. Convs
     describe the implied GEMM (M = B·Ho·Wo, K = kh·kw·C) and carry
-    ``conv_geom = (b, h, w, c, kh, kw, stride)``. Attention also carries
-    ``ragged`` (per-row position ladders), ``chunk`` (the chunked route's
-    block) and ``batch`` (rows of a padded batch; a packed batch keeps 1,
-    its m already counting every token)."""
+    ``conv_geom = (b, h, w, c, kh, kw, stride[, padding])`` (padding
+    "SAME" when left out). Attention also carries ``ragged`` (per-row
+    position ladders), ``chunk`` (the chunked route's block) and
+    ``batch`` (rows of a padded batch; a packed batch keeps 1, its m
+    already counting every token). ``itemsize``, ``out_itemsize``,
+    ``vals_itemsize`` and ``epilogue_ops`` feed the route costs only."""
     domain: str
     m: int
     k: int
     n: int
+    itemsize: int = 4             # operand bytes (activations / q)
+    out_itemsize: int = 4
     packed: bool = False          # weight is a DbbWeight
     block: int = 8
     nnz: int = 4
+    vals_itemsize: int = 1        # packed values-plane bytes
     bits: int = 8
     group: int = 0                # w4 scale group along dense K (bits=4)
+    epilogue_ops: int = 0         # bias / scale / act passes the plain
+                                  # route runs unfused
     pallas: bool = False          # fused kernel route family is active
     dense_fused: bool = True      # call site opts dense weights into kernels
     gemv: bool = False            # the decode head GEMV: never M-tiled
@@ -101,7 +109,7 @@ class OpSpec:
     x_int8: bool = False          # int8 activations (the kernels' int8
                                   # branches: INT8 x INT8 -> INT32)
     int8_values: bool = False     # a packed weight's values plane is int8
-    conv_geom: Tuple[int, ...] = ()
+    conv_geom: Tuple[Any, ...] = ()
     page: int = 0
     flash_active: bool = False
     packed_seq: bool = False      # packed (cu_seqlens) prefill batch
@@ -109,6 +117,41 @@ class OpSpec:
     chunk: int = 1024             # attn_chunked's block (cfg.attn_chunk)
     batch: int = 1                # rows of a padded attention batch
     sample_tt: bool = False       # some sampled row uses top-k / top-p
+
+
+class Route(NamedTuple):
+    """One entry of a domain's table: its guard ("" = applicable, else the
+    reason), its tie-break ``priority`` (lower wins), its ``cost`` (flops,
+    bytes), an optional ``defer`` (auto passes it over while another
+    applicable route is left) and ``wbytes``, the weight-stream bytes it
+    is costed at (None: it streams no weight)."""
+    name: str
+    guard: Callable[[OpSpec], str]
+    priority: int
+    cost: Callable[[OpSpec], Tuple[float, float]]
+    defer: Optional[Callable[[OpSpec], bool]] = None
+    wbytes: Optional[Callable[[OpSpec], float]] = None
+
+
+@dataclasses.dataclass
+class RouteDecision:
+    """One row of the explain table."""
+    name: str
+    applicable: bool
+    reason: str                  # why not applicable ("" if it is)
+    flops: float
+    bytes: float
+    compute_s: float
+    memory_s: float
+    cost_s: float
+    priority: int
+    deferred: bool = False
+    chosen: bool = False
+    forced: bool = False
+    weight_bytes: float = 0.0    # weight-stream traffic term (0 = n/a)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +171,6 @@ def _guard_dense(s: OpSpec) -> str:
         return "call site keeps dense weights on the plain matmul"
     if not s.float_ok:
         return "operand dtype outside the kernel contract (f32/bf16/int8)"
-    if s.n < NARROW_N:
-        return (f"N={s.n} under {NARROW_N}: the 128-column tile would be "
-                "mostly masked lanes")
     return ""
 
 
@@ -175,14 +215,6 @@ def _int8_plane_reason(s: OpSpec) -> str:
     return ""
 
 
-def _narrow_packed_reason(s: OpSpec) -> str:
-    if s.n < NARROW_N and s.m * (_TILE_N - s.n) > 2 * s.k * s.n:
-        return (f"N={s.n} under {NARROW_N}: the masked output lanes "
-                f"M·(128−N) = {s.m * (_TILE_N - s.n)} exceed the plain "
-                f"route's dense weight round trip 2·K·N = {2 * s.k * s.n}")
-    return ""
-
-
 def _guard_dbb_packed(s: OpSpec) -> str:
     r = _guard_packed_base(s)
     if r:
@@ -192,7 +224,7 @@ def _guard_dbb_packed(s: OpSpec) -> str:
                 "stream it)")
     if not s.float_ok:
         return "operand dtype outside the kernel contract (f32/bf16/int8)"
-    return _int8_plane_reason(s) or _narrow_packed_reason(s)
+    return _int8_plane_reason(s)
 
 
 def _guard_dbb_packed_w4(s: OpSpec) -> str:
@@ -209,7 +241,7 @@ def _guard_dbb_packed_w4(s: OpSpec) -> str:
                 f"the DBB block {s.block}")
     if s.k % s.group:
         return f"K={s.k} not divisible by the scale group {s.group}"
-    return _narrow_packed_reason(s)
+    return ""
 
 
 def _skinny_reason(s: OpSpec) -> str:
@@ -228,8 +260,8 @@ def _guard_skinny_dbb_w4(s: OpSpec) -> str:
 
 def _guard_conv_kernel(s: OpSpec) -> str:
     """What both implicit-GEMM conv kernels need. Their shared-memory
-    staging is a fixed 16.6 KB (one [128, 16] patch tile and one [16, 128]
-    weight tile), so no image size is refused for it."""
+    staging does not grow with the image, so no image size is refused
+    for it."""
     if not s.pallas:
         return "implicit-GEMM kernels not selected (use_kernel=False)"
     if not s.float_ok:
@@ -242,13 +274,7 @@ def _guard_conv_kernel(s: OpSpec) -> str:
 def _guard_conv_sta(s: OpSpec) -> str:
     if s.packed:
         return "weight is DBB-packed"
-    r = _guard_conv_kernel(s)
-    if r:
-        return r
-    if s.n < NARROW_N:
-        return (f"N={s.n} under {NARROW_N}: the 128-channel tile would be "
-                "mostly masked lanes")
-    return ""
+    return _guard_conv_kernel(s)
 
 
 def _guard_conv_dbb(s: OpSpec) -> str:
@@ -350,32 +376,197 @@ def _always(_s: OpSpec) -> str:
     return ""
 
 
-# each domain's routes in auto's preference order (first applicable wins)
-ROUTES: Dict[str, Tuple[Tuple[str, Callable[[OpSpec], str]], ...]] = {
-    "matmul": (("skinny_dbb", _guard_skinny_dbb),
-               ("skinny_dbb_w4", _guard_skinny_dbb_w4),
-               ("dbb_packed", _guard_dbb_packed),
-               ("dbb_packed_w4", _guard_dbb_packed_w4),
-               ("skinny_sta", _guard_skinny_sta),
-               ("sta", _guard_sta),
-               ("xla", _always)),
-    "conv": (("conv_dbb", _guard_conv_dbb),
-             ("conv_sta", _guard_conv_sta),
-             ("conv_xla", _always)),
-    "attention": (("attn_flash", _guard_attn_flash),
-                  ("attn_packed_flash", _guard_attn_packed_flash),
-                  ("attn_chunked", _guard_attn_chunked),
-                  ("attn_naive", _guard_attn_naive),
-                  ("attn_packed_ref", _guard_attn_packed_ref)),
-    "attn_decode": (("attn_decode_flash", _guard_decode_flash),
-                    ("attn_decode_xla", _always)),
-    "head_sample": (("head_sample_fused", _guard_head_sample_fused),
-                    ("head_sample_xla", _always)),
-}
+# ---------------------------------------------------------------------------
+# route costs: the reference's roofline terms, (flops, bytes) per route
+# ---------------------------------------------------------------------------
 
-# routes auto passes over while another applicable route is left
-_DEFER: Dict[str, Callable[[OpSpec], bool]] = {
-    "attn_chunked": lambda s: s.n <= 2 * s.chunk,
+def _mm_dims(s: OpSpec, skinny: bool) -> Tuple[int, int, int]:
+    """Padded (mp, kp, np) the reference costs a kernel at: M-tiled
+    kernels pad M to a tile of min(128, round_up(m, 8)) rows, skinny ones
+    to the 8-row quantum; K and N to 128."""
+    if skinny:
+        mp = _round_up(max(s.m, 1), 8)
+    else:
+        mp = _round_up(max(s.m, 1), min(128, _round_up(max(s.m, 1), 8)))
+    return mp, _round_up(max(s.k, 1), 128), _round_up(max(s.n, 1), 128)
+
+
+def _dense_w_bytes(s: OpSpec, kp: int, np_: int) -> float:
+    return kp * np_ * s.itemsize
+
+
+def _packed_w_bytes(s: OpSpec) -> float:
+    """Compressed weight stream: values + bitmask (62.5% of dense INT8 at
+    B=8, k=4); ``bits=4`` halves the values term and adds the groupwise
+    f32 scale plane."""
+    nb = max(s.k // max(s.block, 1), 1)
+    if s.bits == 4 and s.group > 0:
+        return (nb * s.nnz * s.n * 0.5 + nb * s.n * _MASK_BYTES
+                + max(s.k // s.group, 1) * s.n * 4.0)
+    return nb * s.nnz * s.n * s.vals_itemsize + nb * s.n * _MASK_BYTES
+
+
+def _xla_w_bytes(s: OpSpec) -> float:
+    if s.packed:
+        # decompress: read compressed, write + re-read dense
+        return _packed_w_bytes(s) + 2.0 * s.k * s.n * s.itemsize
+    return float(s.k) * s.n * s.itemsize
+
+
+def _mm_xla_cost(s: OpSpec) -> Tuple[float, float]:
+    flops = 2.0 * s.m * s.k * s.n
+    nbytes = (s.m * s.k * s.itemsize + s.m * s.n * s.out_itemsize
+              + _xla_w_bytes(s))
+    # every unfused epilogue op re-reads + re-writes the [M, N] output
+    nbytes += 2.0 * s.m * s.n * s.out_itemsize * s.epilogue_ops
+    return flops, nbytes
+
+
+def _mm_kernel_cost(s: OpSpec, *, skinny: bool, dbb: bool
+                    ) -> Tuple[float, float]:
+    mp, kp, np_ = _mm_dims(s, skinny)
+    w = _packed_w_bytes(s) if dbb else _dense_w_bytes(s, kp, np_)
+    return (2.0 * mp * kp * np_,
+            mp * kp * s.itemsize + w + mp * np_ * s.out_itemsize)
+
+
+def _default_tiles(ho: int, wo: int) -> Tuple[int, int]:
+    """The reference's conv tile: th rows so the M tile th·Wo lands near
+    128; bn one 128-lane tile. The conv costs read it."""
+    th = max(1, min(ho, -(-128 // max(wo, 1))))
+    return th, 128
+
+
+def _conv_padded_geom(s: OpSpec) -> Tuple[int, int, int, int, int]:
+    from repro_torch.kernels.conv_gemm.ref import out_spatial
+    b, h, w_dim, c, kh, kw, stride = s.conv_geom[:7]
+    pad = s.conv_geom[7] if len(s.conv_geom) > 7 else "SAME"
+    ho, _, _ = out_spatial(h, kh, stride, pad)
+    wo, _, _ = out_spatial(w_dim, kw, stride, pad)
+    th, _ = _default_tiles(ho, wo)
+    hp = (_round_up(max(ho, 1), th) - 1) * stride + kh
+    wp = (wo - 1) * stride + kw
+    return ho, wo, th, hp, wp
+
+
+def _conv_kernel_cost(s: OpSpec, dbb: bool) -> Tuple[float, float]:
+    kp, np_ = _round_up(s.k, 128), _round_up(s.n, 128)
+    w_bytes = _packed_w_bytes(s) if dbb else kp * np_ * s.itemsize
+    if len(s.conv_geom) < 7:
+        # no geometry (the guard refuses the op): the implied GEMM's reads
+        img_bytes = float(s.m) * s.k * s.itemsize
+    else:
+        _, _, _, hp, wp = _conv_padded_geom(s)
+        img_bytes = s.conv_geom[0] * hp * wp * s.conv_geom[3] * s.itemsize
+    return (2.0 * s.m * kp * np_,
+            img_bytes + w_bytes + s.m * np_ * s.out_itemsize)
+
+
+def _conv_xla_cost(s: OpSpec) -> Tuple[float, float]:
+    w_bytes = (_packed_w_bytes(s) + s.k * s.n * s.itemsize
+               if s.packed else s.k * s.n * s.itemsize)
+    # the explicit path gathers the image, then writes AND re-reads the
+    # materialised [M, K] im2col
+    nbytes = (3.0 * s.m * s.k * s.itemsize + w_bytes
+              + s.m * s.n * s.out_itemsize
+              + 2.0 * s.m * s.n * s.out_itemsize * s.epilogue_ops)
+    return 2.0 * s.m * s.k * s.n, nbytes
+
+
+def _attn_cost(s: OpSpec, score_passes: float) -> Tuple[float, float]:
+    """Per-row (t, s) work times the padded batch's rows; a packed spec
+    carries the whole batch's tokens in m with batch 1."""
+    t, n, d, b = s.m, s.n, s.k, max(s.batch, 1)
+    return (4.0 * b * t * n * d,
+            b * ((2 * t * d + 2 * n * d) * s.itemsize
+                 + score_passes * t * n * _F32))
+
+
+def _decode_cost(s: OpSpec, score_bytes: float) -> Tuple[float, float]:
+    return (4.0 * s.m * s.n * s.k,
+            (s.m * s.k + 2 * s.n * s.k) * s.itemsize + score_bytes)
+
+
+# operations per logit of the sampling epilogue: penalty selects, 3 hash
+# mixes of ~4 ops each, the Gumbel transform's log / log / scale
+_SAMPLE_EPI_OPS = 16.0
+
+
+def _hs_fused_cost(s: OpSpec) -> Tuple[float, float]:
+    mp, kp, np_ = _mm_dims(s, skinny=True)
+    # resident rows, streamed weight and counts; the logits never leave
+    # the chip, the output is the [M] (score, id) pair
+    return (2.0 * mp * kp * np_ + _SAMPLE_EPI_OPS * mp * np_,
+            mp * kp * s.itemsize + kp * np_ * s.itemsize + mp * np_ * _F32
+            + 2.0 * mp * _F32)
+
+
+def _hs_xla_cost(s: OpSpec) -> Tuple[float, float]:
+    m, k, n = s.m, s.k, s.n
+    # the GEMV writes [M, N] logits, the sampler re-reads them for the
+    # penalty pass and the score / argmax pass, and reads the counts
+    nbytes = (m * k * s.itemsize + k * n * s.itemsize + m * n * _F32
+              + 4.0 * m * n * _F32 + m * n * _F32)
+    if s.sample_tt:
+        # sort + softmax / cumsum of the sorted row: ~2 more round trips
+        nbytes += 4.0 * m * n * _F32
+    return 2.0 * m * k * n + _SAMPLE_EPI_OPS * m * n, nbytes
+
+
+def _mm_kernel(skinny: bool, dbb: bool):
+    return lambda s: _mm_kernel_cost(s, skinny=skinny, dbb=dbb)
+
+
+def _mm_dense_wbytes(skinny: bool):
+    return lambda s: _dense_w_bytes(s, *_mm_dims(s, skinny)[1:])
+
+
+# each domain's routes (selection is by cost, so the order is for reading)
+ROUTES: Dict[str, Tuple[Route, ...]] = {
+    "matmul": (
+        Route("skinny_dbb", _guard_skinny_dbb, 0, _mm_kernel(True, True),
+              wbytes=_packed_w_bytes),
+        Route("skinny_dbb_w4", _guard_skinny_dbb_w4, 0,
+              _mm_kernel(True, True), wbytes=_packed_w_bytes),
+        Route("dbb_packed", _guard_dbb_packed, 1, _mm_kernel(False, True),
+              wbytes=_packed_w_bytes),
+        Route("dbb_packed_w4", _guard_dbb_packed_w4, 1,
+              _mm_kernel(False, True), wbytes=_packed_w_bytes),
+        Route("skinny_sta", _guard_skinny_sta, 0, _mm_kernel(True, False),
+              wbytes=_mm_dense_wbytes(True)),
+        Route("sta", _guard_sta, 1, _mm_kernel(False, False),
+              wbytes=_mm_dense_wbytes(False)),
+        Route("xla", _always, 9, _mm_xla_cost, wbytes=_xla_w_bytes)),
+    "conv": (
+        Route("conv_dbb", _guard_conv_dbb, 0,
+              lambda s: _conv_kernel_cost(s, dbb=True)),
+        Route("conv_sta", _guard_conv_sta, 0,
+              lambda s: _conv_kernel_cost(s, dbb=False)),
+        Route("conv_xla", _always, 9, _conv_xla_cost)),
+    "attention": (
+        Route("attn_flash", _guard_attn_flash, 0,
+              lambda s: _attn_cost(s, 0.0)),
+        Route("attn_packed_flash", _guard_attn_packed_flash, 0,
+              lambda s: _attn_cost(s, 0.0)),
+        # one recomputed score-tile pass; deferred up to 2 chunks, where
+        # the per-chunk loop costs more than naive's extra score traffic
+        Route("attn_chunked", _guard_attn_chunked, 1,
+              lambda s: _attn_cost(s, 1.0),
+              defer=lambda s: s.n <= 2 * s.chunk),
+        Route("attn_naive", _guard_attn_naive, 2,
+              lambda s: _attn_cost(s, 2.0)),
+        Route("attn_packed_ref", _guard_attn_packed_ref, 3,
+              lambda s: _attn_cost(s, 2.0))),
+    "attn_decode": (
+        Route("attn_decode_flash", _guard_decode_flash, 0,
+              lambda s: _decode_cost(s, 0.0)),
+        # the plain route materialises [B, H, G, 1, Smax] scores
+        Route("attn_decode_xla", _always, 1,
+              lambda s: _decode_cost(s, 2.0 * s.m * s.n * _F32))),
+    "head_sample": (
+        Route("head_sample_fused", _guard_head_sample_fused, 0,
+              _hs_fused_cost),
+        Route("head_sample_xla", _always, 9, _hs_xla_cost)),
 }
 
 
@@ -408,7 +599,7 @@ _warned: set = set()
 def _warn_once(key, msg: str) -> None:
     if key not in _warned:
         _warned.add(key)
-        warnings.warn(msg, stacklevel=3)
+        warnings.warn(msg, stacklevel=4)
 
 
 def forced_route(domain: str, cfg_routes: Optional[Dict[str, str]] = None
@@ -422,10 +613,10 @@ def forced_route(domain: str, cfg_routes: Optional[Dict[str, str]] = None
                 d, _, r = pair.partition("=")
                 if d.strip() == domain and r.strip():
                     return r.strip()
-        elif any(env == name for name, _ in ROUTES[domain]):
+        elif any(env == r.name for r in ROUTES[domain]):
             return env
-        elif not any(env == name for table in ROUTES.values()
-                     for name, _ in table):
+        elif not any(env == r.name for table in ROUTES.values()
+                     for r in table):
             _warn_once(("*", env), f"{FORCE_ROUTE_ENV}={env!r} names no "
                        "route of this port — ignoring the override")
     if cfg_routes:
@@ -433,28 +624,122 @@ def forced_route(domain: str, cfg_routes: Optional[Dict[str, str]] = None
     return None
 
 
-def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None
-           ) -> Tuple[str, Dict[str, str]]:
-    """(chosen route, {route: rejection reason or ""}) for ``spec``."""
-    table = ROUTES[spec.domain]
-    reasons = {name: guard(spec) for name, guard in table}
+# ---------------------------------------------------------------------------
+# selection
+# ---------------------------------------------------------------------------
+
+def _decide(route: Route, spec: OpSpec, hw: Hardware) -> RouteDecision:
+    reason = route.guard(spec)
+    flops, nbytes = route.cost(spec)
+    compute_s, memory_s = flops / hw.peak_flops, nbytes / hw.hbm_bw
+    return RouteDecision(
+        name=route.name, applicable=reason == "", reason=reason,
+        flops=flops, bytes=nbytes, compute_s=compute_s, memory_s=memory_s,
+        cost_s=max(compute_s, memory_s), priority=route.priority,
+        deferred=bool(route.defer and route.defer(spec)),
+        weight_bytes=float(route.wbytes(spec)) if route.wbytes else 0.0)
+
+
+def _rank(spec: OpSpec, cfg_routes: Optional[Dict[str, str]],
+          hw: Hardware) -> Tuple[str, List[RouteDecision]]:
+    """(chosen route, the ranked decisions): a forced route whose guard
+    passes, else the cheapest applicable route that does not defer (any
+    applicable one if all defer), priority breaking ties within
+    ``COST_TIE_RTOL``."""
+    decisions = [_decide(r, spec, hw) for r in ROUTES[spec.domain]]
+    by_name = {d.name: d for d in decisions}
+    chosen = None
     forced = forced_route(spec.domain, cfg_routes)
     if forced is not None:
-        if forced not in reasons:
+        dec = by_name.get(forced)
+        if dec is None:
             _warn_once((spec.domain, forced),
                        f"forced route {forced!r} for domain {spec.domain!r} "
                        "is not ported — falling back to auto dispatch")
-        elif reasons[forced]:
+        elif not dec.applicable:
             _warn_once((spec.domain, forced),
                        f"forced route {forced!r} for domain {spec.domain!r} "
-                       f"not applicable ({reasons[forced]}) — falling back "
-                       "to auto dispatch")
+                       f"not applicable ({dec.reason}) — falling back to "
+                       "auto dispatch")
         else:
-            return forced, reasons
-    live = [name for name, _ in table if not reasons[name]]
-    kept = [name for name in live
-            if not (name in _DEFER and _DEFER[name](spec))]
-    return (kept or live)[0], reasons
+            dec.forced = True
+            chosen = forced
+    if chosen is None:
+        live = [d for d in decisions if d.applicable]
+        cands = [d for d in live if not d.deferred] or live
+        best = min(d.cost_s for d in cands)
+        tied = [d for d in cands if d.cost_s <= best * (1.0 + COST_TIE_RTOL)]
+        chosen = min(tied, key=lambda d: (d.priority, d.cost_s, d.name)).name
+    by_name[chosen].chosen = True
+    decisions.sort(key=lambda d: (not d.chosen, not d.applicable, d.cost_s,
+                                  d.priority))
+    return chosen, decisions
+
+
+def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None,
+           hw: Hardware = HW_H100) -> Tuple[str, Dict[str, str]]:
+    """(chosen route, {route: rejection reason or ""}) for ``spec``."""
+    name, decisions = _rank(spec, cfg_routes, hw)
+    return name, {d.name: d.reason for d in decisions}
+
+
+def explain(domain: str = "matmul", *, m: int, k: int, n: int,
+            dtype=torch.float32, packed: bool = False, cfg=None,
+            pallas: Optional[bool] = None, hw: Hardware = HW_H100,
+            tp: Optional[int] = None, **spec_kw) -> List[RouteDecision]:
+    """Ranked route table for a hypothetical op, costed on ``hw``: the
+    chosen route first, then the applicable ones by cost. ``dtype`` (a
+    torch dtype or its name) is the operand's; ``pallas=None`` derives the
+    route family from ``cfg`` (off without one). Other fields of `OpSpec`
+    pass through ``spec_kw``: give ``epilogue_ops`` (the bias / scale /
+    act passes the real call fuses) when the table describes an actual
+    dispatch — near the tie window the plain route's unfused epilogue
+    passes can decide the winner. Tensor parallelism (``tp > 1``) is not
+    ported and raises."""
+    if tp not in (None, 1):
+        raise NotImplementedError(
+            f"tp={tp}: the port costs single-device ops only")
+    if pallas is None:
+        pallas = pallas_route_active(cfg)
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    floating = dt.is_floating_point
+    spec_kw.setdefault("out_itemsize", dt.itemsize)
+    if domain in ("attention", "attn_decode", "head_sample"):
+        spec_kw.setdefault("float_ok", floating)
+    else:
+        spec_kw.setdefault("float_ok", floating or dt == torch.int8)
+        spec_kw.setdefault("x_int8", dt == torch.int8)
+    if domain in ("attention", "attn_decode"):
+        spec_kw.setdefault("flash_active", flash_backend_active(cfg)
+                           if cfg is not None else bool(pallas))
+    if domain == "attention":
+        spec_kw.setdefault("chunk", cfg.attn_chunk if cfg is not None
+                           else 1024)
+    spec = OpSpec(domain=domain, m=m, k=k, n=n, itemsize=dt.itemsize,
+                  packed=packed, pallas=bool(pallas), **spec_kw)
+    return _rank(spec, routes_from_cfg(cfg), hw)[1]
+
+
+def format_table(decisions: List[RouteDecision]) -> str:
+    """Fixed-width rendering of an `explain` table for logs, in the
+    reference's columns (``coll``, its TP collective bytes, is 0 on one
+    device)."""
+    lines = [f"{'route':<18} {'ok':<3} {'cost':>10} {'flops':>10} "
+             f"{'bytes':>10} {'wbytes':>9} {'coll':>9}  note"]
+    for d in decisions:
+        mark = "*" if d.chosen else ("f" if d.forced else "")
+        note = d.reason if not d.applicable else (
+            "deferred" if d.deferred and not d.chosen else "")
+        wb = f"{d.weight_bytes:>9.3g}" if d.weight_bytes else f"{'-':>9}"
+        lines.append(
+            f"{d.name:<18} {('y' + mark) if d.applicable else 'n':<3} "
+            f"{d.cost_s * 1e6:>9.2f}u {d.flops:>10.3g} {d.bytes:>10.3g} "
+            f"{wb} {0.0:>9.3g}  {note}")
+    return "\n".join(lines)
+
+
+def _epilogue_ops(bias, scale, act: str) -> int:
+    return int(bias is not None) + int(scale is not None) + int(act != "none")
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +763,12 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
     if k_w != k_dim:
         raise ValueError(f"x {tuple(x.shape)} against weight K={k_w}")
     spec = OpSpec(
-        domain="matmul", m=m, k=k_dim, n=n, packed=packed,
+        domain="matmul", m=m, k=k_dim, n=n, itemsize=x.element_size(),
+        out_itemsize=(out_dtype or x.dtype).itemsize, packed=packed,
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
+        vals_itemsize=w.values.element_size() if packed else 1,
         bits=w.bits if packed else 8, group=w.group if packed else 0,
+        epilogue_ops=_epilogue_ops(bias, None if packed else scale, act),
         pallas=bool(pallas), dense_fused=dense_fused, gemv=gemv,
         float_ok=x.dtype in OPERAND_DTYPES, x_int8=x.dtype == torch.int8,
         int8_values=packed and w.values.dtype == torch.int8)
@@ -592,12 +880,15 @@ def conv(x: torch.Tensor, w, bias=None, scale=None, *, kh: int, kw: int,
     wo, _, _ = R.out_spatial(w_dim, kw, stride, padding)
     spec = OpSpec(
         domain="conv", m=b * ho * wo, k=kh * kw * c,
-        n=w.n_dim if packed else w.shape[1], packed=packed,
+        n=w.n_dim if packed else w.shape[1], itemsize=x.element_size(),
+        out_itemsize=x.element_size(), packed=packed,
         block=w.block if packed else 8, nnz=w.nnz if packed else 4,
+        vals_itemsize=w.values.element_size() if packed else 1,
+        epilogue_ops=_epilogue_ops(bias, scale, act),
         pallas=use_kernel, float_ok=x.dtype in OPERAND_DTYPES,
         x_int8=x.dtype == torch.int8,
         int8_values=packed and w.values.dtype == torch.int8,
-        conv_geom=(b, h, w_dim, c, kh, kw, stride))
+        conv_geom=(b, h, w_dim, c, kh, kw, stride, padding))
     name, _ = select(spec, routes_from_cfg(cfg))
     geom = dict(kh=kh, kw=kw, stride=stride, padding=padding, act=act,
                 out_dtype=out_dtype)
@@ -639,7 +930,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry."""
     from repro_torch.models import attention as A
     spec = OpSpec(domain="attention", m=q.shape[1], k=q.shape[-1],
-                  n=k.shape[1], ragged=ragged, chunk=cfg.attn_chunk,
+                  n=k.shape[1], itemsize=q.element_size(),
+                  out_itemsize=q.element_size(), ragged=ragged,
+                  chunk=cfg.attn_chunk,
                   batch=q.shape[0], flash_active=flash_backend_active(cfg),
                   float_ok=q.dtype in FLOAT_DTYPES)
     cfg_routes = dict(routes_from_cfg(cfg))
@@ -669,7 +962,9 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels.attn.ops import packed_flash_attention
     from repro_torch.kernels.attn.ref import packed_prefill_ref
     t, d = q.shape[1], q.shape[-1]
-    spec = OpSpec(domain="attention", m=t, k=d, n=t, packed_seq=True,
+    spec = OpSpec(domain="attention", m=t, k=d, n=t,
+                  itemsize=q.element_size(), out_itemsize=q.element_size(),
+                  packed_seq=True, chunk=cfg.attn_chunk,
                   flash_active=flash_backend_active(cfg),
                   float_ok=q.dtype in FLOAT_DTYPES)
     cfg_routes = dict(routes_from_cfg(cfg))
@@ -690,13 +985,13 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def chunk_attention_route(cfg, *, t: int, s: int, d: int,
-                          floating: bool = True) -> str:
+                          itemsize: int = 4, floating: bool = True) -> str:
     """Route of a chunked-prefill continuation: T chunk queries at an
     absolute offset against one row's S cache slots. Flash takes it
     through ``q_offset``; everything else takes the naive mask (a pin to
     the chunked route too: it has no continuation)."""
-    spec = OpSpec(domain="attention", m=t, k=d, n=s, ragged=True,
-                  chunk=cfg.attn_chunk,
+    spec = OpSpec(domain="attention", m=t, k=d, n=s, itemsize=itemsize,
+                  out_itemsize=itemsize, ragged=True, chunk=cfg.attn_chunk,
                   flash_active=flash_backend_active(cfg), float_ok=floating)
     cfg_routes = dict(routes_from_cfg(cfg))
     if cfg_routes.get("attention") == "attn_chunked":
@@ -708,11 +1003,13 @@ def chunk_attention_route(cfg, *, t: int, s: int, d: int,
 
 
 def decode_attention_route(cfg, *, group: int, head_dim: int, page: int,
-                           smax: int, floating: bool = True) -> str:
+                           smax: int, itemsize: int = 4,
+                           floating: bool = True) -> str:
     """Route of one-token decode attention (``attn_decode`` domain) on the
     contiguous cache."""
     spec = OpSpec(domain="attn_decode", m=group, k=head_dim, n=smax,
-                  page=page, flash_active=flash_backend_active(cfg),
+                  itemsize=itemsize, out_itemsize=itemsize, page=page,
+                  flash_active=flash_backend_active(cfg),
                   float_ok=floating)
     name, _ = select(spec, routes_from_cfg(cfg))
     return name
@@ -743,7 +1040,7 @@ def head_sample(h: torch.Tensor, w_head: torch.Tensor, counts: torch.Tensor,
                   pallas=bool(pallas), gemv=True, sample_tt=bool(use_tt),
                   float_ok=h.dtype in FLOAT_DTYPES)
     if route is not None:
-        guard = dict(ROUTES["head_sample"]).get(route)
+        guard = {r.name: r.guard for r in ROUTES["head_sample"]}.get(route)
         reason = "not a head_sample route" if guard is None else guard(spec)
         if reason:
             raise ValueError(f"route {route!r} rejected this op: {reason}")

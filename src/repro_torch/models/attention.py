@@ -200,7 +200,7 @@ def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
     c, s = q.shape[1], cache_k.shape[1]
     hq, hd = q.shape[2], q.shape[3]
     route = dispatch.chunk_attention_route(
-        cfg, t=c, s=s, d=hd,
+        cfg, t=c, s=s, d=hd, itemsize=q.element_size(),
         floating=q.dtype in FLOAT_DTYPES)
     off = offset.reshape(1).to(torch.int32)
     if route == "attn_flash":
@@ -242,6 +242,7 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     page = cfg.kv_page_size or math.gcd(smax, DEFAULT_PAGE)
     route = dispatch.decode_attention_route(
         cfg, group=g, head_dim=hd, page=page, smax=smax,
+        itemsize=cache_k.element_size(),
         floating=x.dtype in (torch.float32, torch.bfloat16))
     if route == "attn_decode_flash":
         n_log = smax // page
