@@ -181,13 +181,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             DBB-projected, packed, copied into [L, ...] planes allocated
             once; its ``layer_hook`` here seeds norm scales, norm biases and
             QKV biases away from their init values) and served with
-            ``gemm_impl="pallas"``: starcoder2-15b (all 40 layers;
+            ``gemm_impl="pallas"``: starcoder2-15b (20 of its 40 layers
+            since the train phase joined: the cli phase runs all 40;
             LayerNorm, GQA G 12, QKV bias, GeLU MLP, 4096-token window):
             generate of 8 left-padded prompts of 64-15 tokens (32 new),
             generate of one 5120-token prompt (16 new; the window bites),
             serve of 8 requests including that one (packed prefill) on the
-            contiguous cache and on the paged pool; qwen2.5-14b (all 48
-            layers; RMSNorm, G 5, QKV bias, vocab 152064): generate as
+            contiguous cache and on the paged pool; qwen2.5-14b (24 of
+            48 layers, as starcoder2's cut; RMSNorm, G 5, QKV bias, vocab
+            152064): generate as
             above, a sampled generate (head_sample_fused at N 152064;
             temperatures from this model's logit spread, one row at 0) and
             a generate on 8 unpacked layers (sta_gemm); yi-34b (8 of its 60
@@ -219,22 +221,51 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             w4 run no other DBB plane's). Per run it prints the build
             seconds, the tree's bytes, the peak device memory and the wall
             time beside the card.
+14. train   the paper's pipeline (after phase 13): (a) Table I on the card:
+            lenet5-dbb and convnet-dbb at their published sizes, dense and
+            DBB k 2 / 3 / 4 (apply_to conv), TRAIN_CNN_STEPS steps of
+            ``launch.train.train_loop`` at the reference's Table I ratios
+            (lr 3e-3, prune start and ramp a third of the steps each,
+            batch 64); no kernel launch while training, finite and falling
+            losses; held-out accuracy through ``make_eval_step`` (the
+            plain route); every DBB model packed (f32 and INT8 planes) and
+            run at batch 256 through ``cnn_apply(matmul="dbb")`` (the cnn
+            phase's exact B256 launch counts) and the INT8 planes through
+            phase 11's INT8 chain, classes equal to the plain route's
+            outside near ties (the excused rows counted); the Table I rows
+            printed. (b) olmo-1b at full width through
+            ``repro_torch.launch.train.main`` (TRAIN_LM_ARGV, AdamW, the
+            bound ramped 8 -> 4, checkpoints under build/train_ckpt): every
+            leaf's first-step gradient finite and nonzero, zero kernel
+            launches in training, the loss falling, per-step ms and peak
+            memory printed; the last checkpoint dropped and the run resumed
+            from the one before it, its losses within TRAIN_RESUME_RTOL of
+            the straight run's. (c) the trained masters projected at k 4
+            and packed as f32, INT8 and w4 planes: held-out CE through
+            ``registry.forward`` on the kernel route per plane (the f32
+            planes within TRAIN_CE_RTOL of the plain route); greedy
+            generate of 8 held-out prompts against the plain route
+            (TRAIN_LOGIT_TOL and the split rule); ``draft_k=2`` at
+            temperature 0 and 1 on both caches, equal streams, the
+            acceptance rate printed, temperature 0 against greedy under
+            the split rule. Then the area model's Table II and Fig. 5 rows
+            (CPU arithmetic).
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8, 9, 12 and 13 must have run the tensor-core body:
+main paths of phases 4-6, 8, 9 and 12-14 must have run the tensor-core body:
 ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
-phases 4-9, 12 and 13 must have run the split-K body (``dbb_gemm_skinny_split``
-equals the f32, ``_i8`` and ``_w4`` branches' sum) and every f32-x
-dbb_gemm launch (the CNN classifier, N 10) the narrow body
-(``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the LM
-runs).
+phases 4-9 and 12-14 must have run the split-K body
+(``dbb_gemm_skinny_split`` equals the f32, ``_i8`` and ``_w4`` branches'
+sum) and every f32-x dbb_gemm launch (the CNN classifier, N 10) the narrow
+body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
+LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b), 12 and 13;
+sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-14;
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -526,11 +557,16 @@ def main() -> int:
     if not ok:
         return _fail("the serve CLI phase failed (see above)")
     by_path.update(cli_counts)
-    lm = [p for p in by_path if p not in cnn_counts]
+    train_counts, train_cnn, ok = timed("train", _train_phase)
+    if not ok:
+        return _fail("the training phase failed (see above)")
+    by_path.update(train_counts)
+    cnn_paths = list(cnn_counts) + train_cnn
+    lm = [p for p in by_path if p not in cnn_paths]
     if not _tc_check(by_path, lm):
         return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
                      "a main path missed the tensor-core body (see above)")
-    if not _split_check(by_path, list(cnn_counts)):
+    if not _split_check(by_path, cnn_paths):
         return _fail("a float dbb_gemm_skinny or f32-x dbb_gemm launch on a "
                      "main path missed its split-K body (see above)")
     int8_counts, ok = timed("int8", _int8_phase)
@@ -1748,7 +1784,8 @@ def _slice_phase(torch, dev, report, out_dir):
     xcfg = cfg.replace(gemm_impl="xla")
     t0 = time.perf_counter()
     packed = pack_tree(apply_dbb_to_tree(
-        registry.init_params(cfg, seed=0, device=dev), cfg.dbb), cfg.dbb)
+        registry.init_params(cfg, seed=0, device=dev), cfg.dbb,
+        straight_through=False), cfg.dbb)
     torch.cuda.synchronize()
     footprint = tree_footprint_bytes(packed)
     print(f"slice: olmo-1b full width ({cfg.num_layers} layers, d "
@@ -2101,7 +2138,8 @@ def _sample_phase(torch, dev, report, out_dir):
     params["embed"]["table"] *= SAMPLE_EMBED_SCALE
     for leaf in iter_leaves(params["layers"]):
         leaf *= SAMPLE_LAYER_GAIN
-    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb,
+                                         straight_through=False), cfg.dbb)
     del params
     report["sample"] = {}
     engine = ServeEngine(cfg, packed, max_batch=8, paged=False, device=dev)
@@ -2304,7 +2342,8 @@ def _cnn_phase(torch, dev, report, out_dir):
         cfg = get_config(arch)
         params = registry.init_params(cfg, seed=0, device=dev)
         if mode == "dbb":
-            params = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+            params = pack_tree(apply_dbb_to_tree(
+                params, cfg.dbb, straight_through=False), cfg.dbb)
         gen = torch.Generator(device=dev).manual_seed(batch)
         images = torch.randn(batch, cfg.cnn_img, cfg.cnn_img, cfg.cnn_in_ch,
                              generator=gen, device=dev)
@@ -2487,7 +2526,7 @@ def _quant_phase(torch, dev, report, out_dir):
         base.dbb, weight_bits=4, quant_group=W4_GROUP))
     t0 = time.perf_counter()
     proj = apply_dbb_to_tree(registry.init_params(base, seed=0, device=dev),
-                             base.dbb)
+                             base.dbb, straight_through=False)
     torch.cuda.synchronize()
     t_proj = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(1)
@@ -2633,7 +2672,8 @@ def _token_phase(torch, dev, report):
     params["embed"]["table"] *= 0.1
     for leaf in iter_leaves(params["layers"]):
         leaf *= 3.0
-    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb), cfg.dbb)
+    packed = pack_tree(apply_dbb_to_tree(params, cfg.dbb,
+                                         straight_through=False), cfg.dbb)
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in (12, 7, 12, 3, 9, 12, 5, 1)]
@@ -2664,9 +2704,11 @@ def _token_phase(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 # (arch, layers run: None for all; why a depth is cut). Widths are never cut.
+HALF_DEPTH = ("the cli phase runs every layer; half the depth here keeps "
+              "the script near 12 minutes beside the train phase")
 FAMILY_MODELS = (
-    ("starcoder2-15b", None, ""),
-    ("qwen2.5-14b", None, ""),
+    ("starcoder2-15b", 20, HALF_DEPTH),
+    ("qwen2.5-14b", 24, HALF_DEPTH),
     ("yi-34b", 8, "the 60-layer f32 planes (~71 GB) with the embedding and "
      "head leave no room for caches on 80 GB; 8, not 16, to keep the "
      "phase's time"))
@@ -3110,6 +3152,490 @@ def _cli_phase(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the paper's pipeline — DBB-annealed training, then the trained
+# models through the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_CNN_STEPS = 60             # Table I runs: the reference's benchmark
+                                 # default (at 200 every run reaches 1.0)
+TRAIN_CNN_NNZ = (None, 2, 3, 4)  # dense, then DBB k = 2 / 3 / 4 of 8
+# the run resumes from its --checkpoint-every checkpoint
+TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 200 --seq-len 256 --batch 8 "
+                 "--dbb-ramp 50 --checkpoint-every 150")
+TRAIN_RESUME_RTOL = 1e-3         # resumed vs uninterrupted losses
+TRAIN_CE_RTOL = 5e-3             # f32 planes' held-out CE vs the plain route
+# kernel vs plain prefill logits of the trained olmo-1b, of max |logit|: its
+# logits reach ~230 and differ by ~1.2e-3 of that, within what bf16
+# activations alone move them (the plain route at f32 activations, printed)
+TRAIN_LOGIT_TOL = 2e-3
+TRAIN_HELD_OUT = 100_000         # stream steps no training run reads
+TRAIN_NEW = 32                   # greedy / speculative tokens per prompt
+
+
+def _train_phase(torch, dev, report):
+    """The paper's pipeline (module doc, phase 14): Table I on the card,
+    olmo-1b trained at full width through the training CLI, the trained
+    models through the kernels, and the area model's tables."""
+    report["train"] = {}
+    counts = {}
+    ok, cnn_paths = _train_table1(torch, dev, report, counts)
+    ok = _train_olmo(torch, dev, report, counts) and ok
+    _area_tables()
+    return counts, cnn_paths, ok
+
+
+def _int8_tree(torch, proj, cfg):
+    """A trained CNN's INT8 planes for the INT8 chain: the packable leaves
+    `pack_tree(quantize=True)`, every other conv / fc weight
+    `quantize_weight` (dense INT8)."""
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.quant import quantize_weight
+    tree = pack_tree(proj, cfg.dbb, quantize=True)
+    for name, p in tree.items():
+        if name.startswith("conv") and isinstance(p["w"], torch.Tensor):
+            tree[name] = dict(p, w=quantize_weight(p["w"]))
+    return tree
+
+
+def _argmax_agreement(torch, got, plain, tol_rel):
+    """(rows whose class differs outside near-ties, excused rows): a row is
+    a near tie where the plain logits' top-2 margin is within ``tol_rel``
+    of max |logit|."""
+    tol = tol_rel * plain.abs().max().item()
+    top2 = plain.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= tol
+    differ = got.argmax(-1) != plain.argmax(-1)
+    return int((differ & ~tie).sum()), int(tie.sum())
+
+
+def _train_table1(torch, dev, report, counts):
+    """(a) lenet5-dbb and convnet-dbb at their published sizes: dense and
+    DBB k 2 / 3 / 4 (apply_to conv), TRAIN_CNN_STEPS steps of
+    `train_loop` at the reference's Table I ratios (lr 3e-3, prune start
+    and ramp each a third of the steps, batch 64). Each run: no kernel
+    launch while training, finite losses, the last logged loss below the
+    first; held-out accuracy (4 batches of 64 at steps 100000+i) through
+    `make_eval_step` (the plain route); each DBB model packed as f32 and as
+    INT8 planes and run through ``cnn_apply(matmul="dbb")`` on the kernels
+    (exact launch counts as the cnn phase's B256 runs) and the INT8 planes
+    through the INT8 chain, each held against the plain route's classes
+    outside near-ties."""
+    import math
+
+    from repro_torch.config import DbbConfig, RunConfig, ShapeSpec, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.data.pipeline import SyntheticCNN
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import cnn
+    from repro_torch.train.loop import make_eval_step
+
+    steps = TRAIN_CNN_STEPS
+    ok, paths, rows = True, [], []
+    expect = {"lenet5-dbb": CNN_RUNS[3][4], "convnet-dbb": CNN_RUNS[0][4]}
+    for arch in ("lenet5-dbb", "convnet-dbb"):
+        base = get_config(arch)
+        held = SyntheticCNN(base, 64, seed=0)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in held.batch_at(TRAIN_HELD_OUT + i).items()}
+                   for i in range(4)]
+        images = torch.cat([b["images"] for b in batches])
+        labels = torch.cat([b["labels"] for b in batches]).long()
+        dense_acc = None
+        for nnz in TRAIN_CNN_NNZ:
+            dbb = (DbbConfig(enabled=False) if nnz is None else
+                   DbbConfig(enabled=True, block=8, nnz=nnz,
+                             apply_to=("conv",)))
+            cfg = base.replace(dbb=dbb)
+            rc = RunConfig(model=cfg, train=TrainConfig(
+                steps=steps, learning_rate=3e-3, log_every=steps // 10,
+                seed=0, dbb_prune_start=steps // 3,
+                dbb_prune_ramp=steps // 3))
+            reset_launches()
+            t0 = time.perf_counter()
+            state, hist = train_loop(rc, ShapeSpec("t", 16, 64, "train"),
+                                     log=lambda *_: None, device=dev)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            stray = {k: v for k, v in LAUNCHES.items() if v}
+            losses = [h["loss"] for h in hist]
+            train_ok = (not stray and all(map(math.isfinite, losses))
+                        and losses[-1] < losses[0])
+            ev = make_eval_step(rc, nnz=nnz)
+            acc = statistics.mean(float(ev(state.params, b)["acc"])
+                                  for b in batches)
+            tag = "dense" if nnz is None else f"k{nnz}"
+            line = (f"train: {arch} {tag}: {steps} steps in {t_train:.1f} s "
+                    f"({t_train / steps * 1e3:.2f} ms a step), loss "
+                    f"{losses[0]:.4f} -> {losses[-1]:.4f}, nnz "
+                    f"{hist[-1]['nnz']}, kernel launches while training "
+                    f"{stray or 0}; held-out acc (plain route) {acc:.4f}")
+            rec = dict(steps=steps, train_s=t_train, losses=losses, acc=acc)
+            if nnz is None:
+                dense_acc = acc
+                print(line + (" ok" if train_ok else " FAIL"))
+                ok = ok and train_ok
+                report["train"][f"{arch}_{tag}"] = rec
+                continue
+            with torch.no_grad():
+                proj = apply_dbb_to_tree(state.params, cfg.dbb,
+                                         straight_through=False)
+                plain = cnn.cnn_apply(proj, cfg, images)
+                path = f"train_{arch}_{tag}_dbb_b256"
+                reset_launches()
+                logits = cnn.cnn_apply(pack_tree(proj, cfg.dbb), cfg, images,
+                                       matmul="dbb")
+                torch.cuda.synchronize()
+                counts[path] = dict(LAUNCHES)
+                i8 = _int8_tree(torch, proj, cfg)
+                path_i8 = f"train_{arch}_{tag}_int8_b256"
+                reset_launches()
+                li8 = _int8_cnn_forward(torch, i8, cfg, images, True)
+                torch.cuda.synchronize()
+                counts[path_i8] = dict(LAUNCHES)
+                pi8 = _int8_cnn_forward(torch, i8, cfg, images, False)
+            paths += [path, path_i8]
+            want = {k: expect[arch].get(k, 0) for k in LAUNCHES}
+            launch_ok = counts[path] == want
+            s8 = {k: v for k, v in counts[path_i8].items() if v}
+            s8_ok = bool(s8) and all("_s8" in k for k in s8)
+            bad, ties = _argmax_agreement(torch, logits, plain,
+                                          CNN_LOGIT_TOL)
+            bad8, ties8 = _argmax_agreement(torch, li8, pi8, CNN_LOGIT_TOL)
+            k_acc = float((logits.argmax(-1) == labels).float().mean())
+            i8_acc = float((li8.argmax(-1) == labels).float().mean())
+            run_ok = (train_ok and launch_ok and s8_ok and not bad
+                      and not bad8 and bool(torch.isfinite(logits).all())
+                      and bool(torch.isfinite(li8).all()))
+            ok = ok and run_ok
+            print(line + f"; kernel route (f32 planes, matmul='dbb') acc "
+                  f"{k_acc:.4f}, classes vs plain route: {bad} differ "
+                  f"outside near ties ({ties} rows excused, top-2 margin <= "
+                  f"{CNN_LOGIT_TOL:g} of max); INT8 planes through the INT8 "
+                  f"chain acc {i8_acc:.4f} ({bad8} differ, {ties8} excused; "
+                  f"logits vs its plain route max abs diff "
+                  f"{(li8 - pi8).abs().max().item():.3e}); launches "
+                  f"{ {k: v for k, v in counts[path].items() if v} } (want "
+                  f"{expect[arch]}{'' if launch_ok else ', FAIL'}), INT8 "
+                  f"chain {s8}{'' if s8_ok else ' FAIL'} "
+                  f"{'ok' if run_ok else 'FAIL'}")
+            rec.update(kernel_acc=k_acc, int8_acc=i8_acc, excused=ties,
+                       launches=counts[path], launches_int8=counts[path_i8])
+            report["train"][f"{arch}_{tag}"] = rec
+            rows.append((arch, f"{100 * nnz / 8:g}%", dense_acc, acc,
+                         dense_acc - acc, k_acc, i8_acc))
+    print(f"train: Table I on the card ({report['card']}; {steps} steps, "
+          "held-out accuracy on 256 images; DBB acc on the plain route, "
+          "kernel acc on the f32 planes, INT8 acc through the INT8 chain):")
+    for arch, pct, d, a, delta, k_acc, i8 in rows:
+        print(f"train: table1: {arch:12s} NNZ <= {pct:6s} dense {d:.4f} "
+              f"dbb {a:.4f} delta {delta:+.4f} kernel {k_acc:.4f} "
+              f"int8 {i8:.4f}")
+    report["train"]["table1"] = rows
+    return ok, paths
+
+
+def _train_olmo(torch, dev, report, counts):
+    """(b) olmo-1b at full width through ``repro_torch.launch.train.main``
+    (TRAIN_LM_ARGV): every leaf's gradient on the first step finite and
+    nonzero, no kernel launch during training, the loss falling; per-step
+    ms, peak memory, the projection's time; then a resume from the
+    ``--checkpoint-every`` checkpoint against the straight run's losses. (c)
+    The
+    trained masters projected at k 4 and packed as f32, INT8 and w4
+    planes: held-out CE through ``registry.forward`` on the kernel route
+    per plane beside the plain route; greedy generate of 8 held-out
+    prompts against the plain route (TRAIN_LOGIT_TOL and the split rule);
+    speculative serve (draft_k=2) at temperature 0 and 1 on both caches
+    with the acceptance rate."""
+    import gc
+
+    from repro_torch.config import RunConfig, ShapeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import apply_dbb_to_tree, map_with_path
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import (init_train_state, loss_and_grads,
+                                        make_loss_fn)
+
+    argv = TRAIN_LM_ARGV.split()
+    seq, batch, resume_at = (int(argv[argv.index(f) + 1]) for f in (
+        "--seq-len", "--batch", "--checkpoint-every"))
+    cfg = get_config("olmo-1b")
+    pipe = make_pipeline(cfg, ShapeSpec("cli", seq, batch, "train"), seed=0)
+
+    def on_dev(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # the first step's gradients reach every leaf
+    st0 = init_train_state(RunConfig(model=cfg), seed=0, device=dev)
+    reset_launches()
+    grads, _ = loss_and_grads(make_loss_fn(cfg, project_dbb=False),
+                              st0.params, on_dev(pipe.batch_at(0)))
+    norms = {}
+    map_with_path(lambda p, g: norms.__setitem__(p, g.float().norm().item()),
+                  grads)
+    dead = [p for p, n in norms.items() if not 0 < n < float("inf")]
+    grad_ok = not dead and not any(LAUNCHES.values())
+    print(f"train: olmo-1b full width: first step's gradient norms on all "
+          f"{len(norms)} leaves finite and nonzero (min "
+          f"{min(norms.values()):.3e}, max {max(norms.values()):.3e})"
+          + (f" FAIL: {dead}" if dead else " ok"))
+    del st0, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv += ["--checkpoint-dir", ckdir]
+    runs = {}
+    for name in ("straight", "resumed"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rep, lines = {}, []
+        t0 = time.perf_counter()
+        train_cli.main(argv, log=lines.append, report=rep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = rep["history"]
+        # step 0 carries the first call's set-up
+        dts = [h["dt"] for h in hist if h["step"] > 0]
+        runs[name] = dict(
+            wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(),
+            launches={k: v for k, v in LAUNCHES.items() if v},
+            losses={h["step"]: h["loss"] for h in hist},
+            step_ms=1e3 * statistics.median(dts),
+            first_line=lines[0], steps=len(hist), state=rep["state"])
+        r = runs[name]
+        print(f"train: olmo-1b {name}: `python -m repro_torch.launch.train "
+              f"{' '.join(argv[:-2])} --checkpoint-dir <build/train_ckpt>` "
+              f"in process: {r['first_line']}; wall {wall:.1f} s, median "
+              f"logged step {r['step_ms']:.1f} ms, peak device memory "
+              f"{r['peak_bytes'] / 1e9:.3f} GB, kernel launches while "
+              f"training {r['launches'] or 0} ({report['card']})")
+        if name == "straight":
+            saved = ckpt.available_steps(ckdir)
+            print(f"train: checkpoints after the straight run: {saved}; "
+                  f"resuming from step {resume_at}")
+            shutil.rmtree(os.path.join(ckdir, f"step_{max(saved):09d}"))
+            rep["state"].opt_state = None               # keep the masters
+    shutil.rmtree(ckdir, ignore_errors=True)
+    straight, resumed = runs["straight"], runs["resumed"]
+    curve = sorted(straight["losses"].items())
+    falls = curve[-1][1] < curve[0][1]
+    common = sorted(set(resumed["losses"]) & set(straight["losses"]))
+    spread = max(abs(resumed["losses"][s] - straight["losses"][s])
+                 / straight["losses"][s] for s in common) if common else 1.0
+    resume_ok = (bool(common) and min(common) == resume_at
+                 and spread <= TRAIN_RESUME_RTOL)
+    lm_ok = (grad_ok and falls and resume_ok and not straight["launches"]
+             and not resumed["launches"])
+    print(f"train: olmo-1b loss {curve[0][1]:.4f} (step {curve[0][0]}) -> "
+          f"{curve[-1][1]:.4f} (step {curve[-1][0]}) "
+          f"{'falls' if falls else 'FAIL: does not fall'}; resumed vs "
+          f"straight losses at steps {common[0] if common else '-'}.."
+          f"{common[-1] if common else '-'}: max relative difference "
+          f"{spread:.3e} (tol {TRAIN_RESUME_RTOL:g}) "
+          f"{'ok' if resume_ok else 'FAIL'}")
+
+    masters = straight["state"].params
+    del runs, straight["state"], resumed["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proj = apply_dbb_to_tree(masters, cfg.dbb,
+                                     straight_through=False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"train: apply_dbb_to_tree over the {cfg.num_layers}-layer "
+          f"masters (k {cfg.dbb.nnz}): {statistics.median(times):.1f} ms "
+          f"(median of 3; a train step projects once)")
+    report["train"]["olmo"] = dict(
+        loss_curve=curve, step_ms=straight["step_ms"],
+        peak_bytes=straight["peak_bytes"], wall_s=straight["wall_s"],
+        resumed_wall_s=resumed["wall_s"], resume_spread=spread,
+        project_ms=statistics.median(times))
+    del masters
+    gc.collect()
+    return _train_olmo_kernels(torch, dev, report, counts, cfg, proj,
+                               pipe) and lm_ok
+
+
+def _train_olmo_kernels(torch, dev, report, counts, cfg, proj, pipe):
+    """(c) of `_train_olmo`: the trained, projected olmo-1b through the
+    kernels."""
+    import dataclasses
+    import gc
+    import math
+
+    from repro_torch.core.dbb_linear import pack_tree, tree_footprint_bytes
+    from repro_torch.dist.collectives import cross_entropy
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    kcfg = cfg.replace(remat="none", gemm_impl="pallas")
+    xcfg = kcfg.replace(gemm_impl="xla")
+    w4 = dataclasses.replace(cfg.dbb, weight_bits=4, quant_group=W4_GROUP)
+    planes = {"f32": ("", pack_tree(proj, cfg.dbb)),
+              "int8": ("_i8", pack_tree(proj, cfg.dbb, quantize=True)),
+              "w4": ("_w4", pack_tree(proj, w4))}
+    held = [{k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(TRAIN_HELD_OUT + i).items()}
+            for i in range(2)]
+
+    def held_out_ce(tree, c):
+        with torch.no_grad():
+            ces = []
+            for b in held:
+                h, _ = registry.forward(tree, c, b)
+                ces.append(cross_entropy(h, registry.lm_head_weight(tree, c),
+                                         b["labels"], b["loss_mask"]).item())
+        return statistics.mean(ces)
+
+    ok = True
+    ce = {"plain": held_out_ce(proj, xcfg)}
+    del proj
+    gc.collect()
+    for name, (suffix, tree) in planes.items():
+        reset_launches()
+        ce[name] = held_out_ce(tree, kcfg)
+        torch.cuda.synchronize()
+        path = f"train_olmo_ce_{name}"
+        counts[path] = dict(LAUNCHES)
+        need = ("dbb_gemm" + suffix, "flash_prefill")
+        other = {k: v for k, v in counts[path].items() if v and k.startswith(
+            "dbb") and not k.endswith((suffix, "_tc"))}
+        run_ok = (all(counts[path][k] for k in need) and not other
+                  and math.isfinite(ce[name]))
+        ok = ok and run_ok
+        print(f"train: olmo-1b held-out CE ({len(held)} batches of "
+              f"{held[0]['tokens'].shape[0]} x {held[0]['tokens'].shape[1]} "
+              f"at stream steps {TRAIN_HELD_OUT}+) on {name} planes "
+              f"({tree_footprint_bytes(tree) / 1e9:.3f} GB), kernel route: "
+              f"{ce[name]:.5f} (plain route on the projected f32 masters "
+              f"{ce['plain']:.5f}, {ce[name] - ce['plain']:+.5f}); launches "
+              f"{ {k: v for k, v in counts[path].items() if v} } "
+              f"{'ok' if run_ok else 'FAIL'}")
+    rel = abs(ce["f32"] - ce["plain"]) / ce["plain"]
+    ce_ok = rel <= TRAIN_CE_RTOL
+    ok = ok and ce_ok
+    print(f"train: f32 planes' CE vs the plain route: {rel:.3e} relative "
+          f"(tol {TRAIN_CE_RTOL:g}) {'ok' if ce_ok else 'FAIL'}")
+
+    packed = planes["f32"][1]
+    del planes
+    gc.collect()
+    toks = held[0]["tokens"].cpu()
+    prompts = [toks[i, :n].tolist() for i, n in enumerate(FAMILY_LENS)]
+    engine = ServeEngine(kcfg, packed, max_batch=8, paged=False, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=TRAIN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["train_olmo_generate"] = dict(LAUNCHES)
+    missing = [k for k in GENERATE_KERNELS
+               if not counts["train_olmo_generate"][k]]
+    last_logits = _logits_fn(torch, dev, engine)
+    lk, lp = last_logits(kcfg, prompts), last_logits(xcfg, prompts)
+    control = (last_logits(xcfg.replace(dtype="float32"), prompts)
+               - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    tol = TRAIN_LOGIT_TOL * scale
+    diff = (lk - lp).abs().max().item()
+    xout = ServeEngine(xcfg, packed, max_batch=8, paged=False,
+                       device=dev).generate(prompts,
+                                            max_new_tokens=TRAIN_NEW)
+    same, total, split = _split_rows(out, xout)
+    gaps = _split_gaps(torch, last_logits, xcfg, prompts, out, xout, split)
+    gen_ok = not missing and diff <= tol and all(g <= 2 * tol for g in gaps)
+    ok = ok and gen_ok
+    print(f"train: trained olmo-1b greedy generate (f32 planes, 8 held-out "
+          f"prompts of {FAMILY_LENS[-1]}-{FAMILY_LENS[0]} tokens, "
+          f"{TRAIN_NEW} new): {wall * 1e3:.1f} ms; prefill logits vs plain "
+          f"route max abs diff {diff:.4e} of max |logit| {scale:.4e} "
+          f"({diff / scale:.3e} of max; tol {TRAIN_LOGIT_TOL:g}; control: "
+          f"the plain route at bf16 vs f32 activations {control / scale:.3e})"
+          f"; tokens {same}/{total} equal, splits (row, step, "
+          f"plain-route gap) {[(i, j, g) for (i, j), g in zip(split, gaps)]}"
+          f" (excused where gap <= {2 * tol:.4e}); launches "
+          f"{ {k: v for k, v in counts['train_olmo_generate'].items() if v} }"
+          + (f"; FAIL: never launched {missing}" if missing else "")
+          + (" ok" if gen_ok else " FAIL"))
+
+    spec, rates = {}, {}
+    for temp in (0.0, 1.0):
+        sp = [SamplingParams(temperature=temp, seed=i)
+              for i in range(len(prompts))]
+        for paged in (False, True):
+            name = f"train_olmo_spec_t{temp:g}_{'paged' if paged else 'contig'}"
+            eng = ServeEngine(kcfg.replace(kv_page_size=64), packed,
+                              max_batch=8, paged=paged, device=dev)
+            reset_launches()
+            spec[name] = eng.serve(prompts, max_new_tokens=TRAIN_NEW,
+                                   sampling=sp, draft_k=2)
+            torch.cuda.synchronize()
+            counts[name] = dict(LAUNCHES)
+            stats = eng.serve_stats
+            rates[name] = (stats["spec_emitted"] / stats["spec_steps"] - 1) / 2
+            missing = [k for k in SPEC_KERNELS if not counts[name][k]]
+            ok = ok and not missing and 0 <= rates[name] <= 1
+            print(f"train: {name} (draft_k=2, temperature {temp:g}): "
+                  f"{stats['spec_steps']} speculative row-steps emitted "
+                  f"{stats['spec_emitted']} tokens: acceptance rate "
+                  f"{rates[name]:.4f} (an earlier sample phase on random "
+                  f"weights at sampled temperatures: 0.8452)"
+                  + (f"; FAIL: never launched {missing}" if missing else ""))
+        a, b = (spec[f"train_olmo_spec_t{temp:g}_{c}"]
+                for c in ("contig", "paged"))
+        ok = ok and a == b
+        print(f"train: speculative streams at temperature {temp:g}, "
+              f"contiguous vs paged cache: {'equal' if a == b else 'FAIL'}")
+    same, total, split = _split_rows(spec["train_olmo_spec_t0_contig"], out)
+    gaps = _split_gaps(torch, last_logits, xcfg, prompts,
+                       spec["train_olmo_spec_t0_contig"], out, split)
+    t0_ok = all(g <= 2 * tol for g in gaps)
+    ok = ok and t0_ok
+    print(f"train: speculative at temperature 0 vs greedy generate: "
+          f"{same}/{total} tokens equal, splits "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]} "
+          f"{'ok' if t0_ok else 'FAIL'}")
+    report["train"]["olmo"].update(
+        held_out_ce=ce, ce_rel_f32=rel, logit_max_abs_diff=diff,
+        logit_scale=scale, bf16_control=control,
+        token_agreement=[same, total], acceptance=rates)
+    return ok
+
+
+def _area_tables():
+    """The STA area model's Table II and Fig. 5 sweep (CPU arithmetic,
+    printed for the record)."""
+    from repro_torch.core import area_model
+    for name, (area, power) in area_model.table2().items():
+        paper = area_model.PAPER_TABLE2[name]
+        print(f"train: table2: {name:14s} area eff {area:.3f} power eff "
+              f"{power:.3f} (paper {paper[0]:.2f} / {paper[1]:.2f})")
+    rows = area_model.fig5_sweep()
+    print("train: fig5 (AxBxC: STA area / power, STA-DBB area / power, "
+          "normalized to SA): " + "; ".join(
+              f"{r['a']}x{r['b']}x{r['c']} {r['sta_area']:.3f}/"
+              f"{r['sta_power']:.3f}"
+              + (f" {r['dbb_area']:.3f}/{r['dbb_power']:.3f}"
+                 if "dbb_area" in r else "") for r in rows))
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the INT8 datapath (INT8 x INT8 -> INT32) at full width
 # ---------------------------------------------------------------------------
 
@@ -3175,7 +3701,7 @@ def _int8_olmo(torch, dev, report, counts):
 
     cfg = get_config("olmo-1b")
     proj = apply_dbb_to_tree(registry.init_params(cfg, seed=0, device=dev),
-                             cfg.dbb)
+                             cfg.dbb, straight_through=False)
     packed = pack_tree(proj, cfg.dbb, quantize=True)
     leaves = [(f"{g}.{n}", sub["w"], packed["layers"][g][n]["w"])
               for g in ("attn", "mlp")
@@ -3296,8 +3822,8 @@ def _int8_cnn(torch, dev, report, counts):
 
     cfg = get_config("convnet-dbb")
     params = pack_tree(apply_dbb_to_tree(
-        registry.init_params(cfg, seed=0, device=dev), cfg.dbb), cfg.dbb,
-        quantize=True)
+        registry.init_params(cfg, seed=0, device=dev), cfg.dbb,
+        straight_through=False), cfg.dbb, quantize=True)
     params["conv0"] = dict(params["conv0"],
                            w=quantize_weight(params["conv0"]["w"]))
     ok = True

@@ -1,9 +1,10 @@
-"""Model configuration for the PyTorch port.
+"""Configuration for the PyTorch port.
 
 Plain frozen dataclasses with the `ModelConfig` / `DbbConfig` fields the
-serving path reads, under the same names and defaults as the JAX
-package's configs, so a config (and its ``kernel_routes`` overrides)
-carries over field for field.
+serving and training paths read, and the run-level `ShapeSpec`,
+`MeshConfig`, `TrainConfig`, `ServeConfig` and `RunConfig`, under the
+same names and defaults as the JAX package's configs, so a config (and
+its ``kernel_routes`` overrides) carries over field for field.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
-__all__ = ["DbbConfig", "ModelConfig"]
+__all__ = ["DbbConfig", "StaConfig", "ModelConfig", "ShapeSpec",
+           "MeshConfig", "TrainConfig", "ServeConfig", "RunConfig"]
 
 
 @dataclass(frozen=True)
@@ -48,6 +50,24 @@ class DbbConfig:
 
 
 @dataclass(frozen=True)
+class StaConfig:
+    """The paper's A×B×C tensor-PE geometry (§III-B): an M×N grid of
+    tensor PEs, each an A×C array of B-input dot-product units. The area
+    model (`core/area_model.py`) prices PEs of this shape; the block
+    fields are the reference's Pallas tiling, carried for parity (the CUDA
+    bodies pick their own tiles)."""
+    a: int = 4
+    b: int = 8
+    c: int = 4
+    block_m: int = 128
+    block_k: int = 128
+    block_n: int = 128
+
+    def macs_per_pe(self) -> int:
+        return self.a * self.b * self.c
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """The fields the ported paths read (the dense LM family, the CNN).
 
@@ -63,10 +83,16 @@ class ModelConfig:
     attn_chunk:    query / key block of the chunked prefill attention; it
                    takes self-attention calls whose S divides it, from
                    S > 2 · attn_chunk.
+    remat:         activation checkpointing of the layer bodies in a
+                   training forward (`transformer.forward`): "none",
+                   "full", "dots", or "auto" (by d_model).
     kv_page_size:  decode KV page (cache slots); 0 picks
                    gcd(cache length, 64).
     norm:          "rmsnorm", "layernorm" or "nonparam_ln" (OLMo's
                    LayerNorm without affine parameters).
+    prefix_embed_len, embeds_input: the vlm and audio families' inputs
+                   (the data pipeline draws them; `transformer.forward`
+                   refuses them until those families are ported).
     cnn_*:         the cnn family (the paper's own models): conv output
                    channels per layer, square kernel size, classes,
                    square input size and input channels.
@@ -87,12 +113,14 @@ class ModelConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     rope: bool = True
+    prefix_embed_len: int = 0       # vlm: prefix embedding positions
+    embeds_input: bool = False      # audio / vlm: the frontend gives embeds
     dbb: DbbConfig = field(default_factory=DbbConfig)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     gemm_impl: str = "xla"
     kernel_routes: Tuple[Tuple[str, str], ...] = ()
-    remat: str = "auto"             # read by training only; kept for parity
+    remat: str = "auto"             # auto | none | full | dots (training)
     attn_impl: str = "auto"
     attn_chunk: int = 1024
     sliding_window: int = 0
@@ -110,3 +138,75 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# run-level configs (shapes, mesh, training, serving)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input shape: sequence length, global batch and its kind
+    ("train" | "prefill" | "decode")."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's shape and axis names. Carried only: the port runs
+    on one device until tensor parallelism is ported."""
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """One training run. ``dbb_prune_start`` / ``dbb_prune_ramp``: the
+    density bound stays dense until the start step, then shrinks from
+    ``block`` to ``dbb.nnz`` non-zeros over the ramp
+    (`core.sparsity.dbb_schedule_nnz`)."""
+    steps: int = 100
+    microbatches: int = 1            # gradient-accumulation microbatches
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"         # adamw | adafactor | sgd
+    grad_compress: str = "none"      # none | bf16 | int8_ef
+    seed: int = 0
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    log_every: int = 10
+    dbb_prune_start: int = 0
+    dbb_prune_ramp: int = 0
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 8
+    max_seq_len: int = 2048
+    prefill_chunk: int = 512
+    eos_id: int = 1
+    temperature: float = 0.0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)

@@ -86,16 +86,32 @@ def _top_slots(mag: torch.Tensor, nnz: int) -> torch.Tensor:
 
 def dbb_mask(w: torch.Tensor, block: int, nnz: int) -> torch.Tensor:
     """Boolean keep-mask of ``w [K, N]``: the ``nnz`` largest |w| of every
-    B-block along K, ties broken toward the lower index."""
+    B-block along K, ties broken toward the lower index (the set
+    `_top_slots` selects). Found without a sort, which would dominate a
+    train step's projection: each entry gets a distinct int64 key — |w|'s
+    f32 bits (monotone for non-negative floats) above the inverted index —
+    and min(nnz, B - nnz) passes peel the largest (or smallest) key off
+    every block to find the cut."""
     k_dim, n = w.shape
     _check_dims(k_dim, block, nnz)
     if nnz == block:
         return torch.ones_like(w, dtype=torch.bool)
-    blocks = w.abs().reshape(k_dim // block, block, n).transpose(1, 2)
-    idx = _top_slots(blocks, nnz)                            # [Kb, N, k]
-    keep = torch.zeros(blocks.shape, dtype=torch.bool, device=w.device)
-    keep.scatter_(-1, idx, True)
-    return keep.transpose(1, 2).reshape(k_dim, n)
+    mag = w.abs().float().reshape(k_dim // block, block, n)   # [Kb, B, N]
+    rev = torch.arange(block - 1, -1, -1, device=w.device)
+    key = mag.view(torch.int32).long() * block + rev[None, :, None]
+    left = key
+    if nnz <= block - nnz:                    # peel the nnz largest
+        for _ in range(nnz):
+            cut = left.amax(dim=1, keepdim=True)
+            left = torch.where(left == cut, -1, left)
+        keep = key >= cut
+    else:                                     # peel the B - nnz smallest
+        for _ in range(block - nnz):
+            cut = left.amin(dim=1, keepdim=True)
+            left = torch.where(left == cut, torch.iinfo(torch.int64).max,
+                               left)
+        keep = key > cut
+    return keep.reshape(k_dim, n)
 
 
 def dbb_project(w: torch.Tensor, block: int, nnz: int) -> torch.Tensor:

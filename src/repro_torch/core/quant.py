@@ -5,6 +5,8 @@
   * activations: a symmetric per-tensor scale
   * ``int8_matmul``: the plain int8 × int8 → int32 product, exact (the
     sums are taken in f64, which holds every int32 sum of these terms)
+  * ``fake_quant``: quantize-dequantize with a straight-through gradient
+    (quantization-aware training)
 
 The arithmetic is the JAX package's (f32 scales, round half to even,
 clip to ±127), so quantized planes are byte-equal across the two.
@@ -17,7 +19,7 @@ from typing import Optional
 import torch
 
 __all__ = ["QuantizedWeight", "quantize_weight", "dequantize_weight",
-           "act_scale", "int8_matmul", "quant_error"]
+           "fake_quant", "act_scale", "int8_matmul", "quant_error"]
 
 _INT8_MAX = 127.0
 
@@ -40,6 +42,24 @@ def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
 def dequantize_weight(qw: QuantizedWeight,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (qw.q.to(torch.float32) * qw.scale[None, :]).to(dtype)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Forward: quantize-dequantize. Backward: the upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return dequantize_weight(quantize_weight(w), w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(w: torch.Tensor) -> torch.Tensor:
+    """``W[K, N]`` through the INT8 grid (per-out-channel scales) and back
+    in its own dtype, with a straight-through gradient (QAT)."""
+    return _FakeQuant.apply(w)
 
 
 def act_scale(x: torch.Tensor) -> torch.Tensor:

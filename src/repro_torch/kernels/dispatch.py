@@ -60,7 +60,8 @@ __all__ = ["OpSpec", "Route", "RouteDecision", "select", "explain",
            "packed_attention", "chunk_attention_route", "head_sample",
            "decode_attention_route", "pallas_route_active",
            "flash_backend_active", "forced_route", "routes_from_cfg",
-           "FORCE_ROUTE_ENV", "COST_TIE_RTOL", "ROUTES"]
+           "FORCE_ROUTE_ENV", "COST_TIE_RTOL", "ROUTES", "KERNEL_ROUTES",
+           "no_autograd"]
 
 FORCE_ROUTE_ENV = "REPRO_FORCE_ROUTE"
 # relative cost window treated as a tie (the roofline model is first
@@ -738,6 +739,30 @@ def format_table(decisions: List[RouteDecision]) -> str:
     return "\n".join(lines)
 
 
+# the routes that launch a hand-written kernel (every other route is plain
+# PyTorch and differentiates)
+KERNEL_ROUTES = frozenset((
+    "sta", "skinny_sta", "dbb_packed", "skinny_dbb", "dbb_packed_w4",
+    "skinny_dbb_w4", "conv_sta", "conv_dbb", "attn_flash",
+    "attn_packed_flash", "attn_decode_flash", "head_sample_fused"))
+
+
+def no_autograd(route: str, *operands) -> None:
+    """Raise if kernel route ``route`` would run while autograd records and
+    an operand requires grad: the kernels' wrappers return tensors without
+    a ``grad_fn``, so the operands' gradients would silently never come
+    (on the CPU the plain versions would differentiate and hide it)."""
+    if route not in KERNEL_ROUTES or not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad
+           for t in operands):
+        raise RuntimeError(
+            f"kernel route {route!r} would run on operands that require "
+            "grad: the CUDA kernels have no backward. Differentiate through "
+            "the plain routes (gemm_impl='xla' and a plain attn_impl, as "
+            "train.loop.make_loss_fn does) or run under torch.no_grad()")
+
+
 def _epilogue_ops(bias, scale, act: str) -> int:
     return int(bias is not None) + int(scale is not None) + int(act != "none")
 
@@ -773,6 +798,7 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
         float_ok=x.dtype in OPERAND_DTYPES, x_int8=x.dtype == torch.int8,
         int8_values=packed and w.values.dtype == torch.int8)
     name, _ = select(spec, routes_from_cfg(cfg))
+    no_autograd(name, x, w, bias, scale)
 
     if name == "sta":
         from repro_torch.kernels.sta_gemm.ops import sta_gemm
@@ -890,6 +916,7 @@ def conv(x: torch.Tensor, w, bias=None, scale=None, *, kh: int, kw: int,
         int8_values=packed and w.values.dtype == torch.int8,
         conv_geom=(b, h, w_dim, c, kh, kw, stride, padding))
     name, _ = select(spec, routes_from_cfg(cfg))
+    no_autograd(name, x, w, bias, scale)
     geom = dict(kh=kh, kw=kw, stride=stride, padding=padding, act=act,
                 out_dtype=out_dtype)
     if name == "conv_dbb":
@@ -939,6 +966,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cfg.attn_impl in _ATTN_IMPL_ROUTE:
         cfg_routes.setdefault("attention", _ATTN_IMPL_ROUTE[cfg.attn_impl])
     name, _ = select(spec, cfg_routes)
+    no_autograd(name, q, k, v)
     if name == "attn_flash":
         from repro_torch.kernels.attn.ops import flash_attention
         start = (-positions[..., 0]).to(torch.int32).expand(q.shape[0])
@@ -973,6 +1001,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cfg.attn_impl in _PACKED_IMPL_ROUTE:
         cfg_routes.setdefault("attention", _PACKED_IMPL_ROUTE[cfg.attn_impl])
     name, _ = select(spec, cfg_routes)
+    no_autograd(name, q, k, v)
     seg = seg_ids.to(torch.int32).reshape(t).contiguous()
     kw = dict(window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
     if name == "attn_packed_flash":
@@ -1047,6 +1076,7 @@ def head_sample(h: torch.Tensor, w_head: torch.Tensor, counts: torch.Tensor,
         name = route
     else:
         name, _ = select(spec, routes_from_cfg(cfg))
+    no_autograd(name, h, w_head)
     rows = dict(temp=temp, rep=rep, pres=pres, freq=freq, seed=seed,
                 step=step)
     if name == "head_sample_fused":

@@ -203,6 +203,7 @@ def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
         cfg, t=c, s=s, d=hd, itemsize=q.element_size(),
         floating=q.dtype in FLOAT_DTYPES)
     off = offset.reshape(1).to(torch.int32)
+    dispatch.no_autograd(route, q, cache_k, cache_v)
     if route == "attn_flash":
         o = flash_attention(q.contiguous(), cache_k, cache_v,
                             q_offset=off.contiguous(),
@@ -245,6 +246,7 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         itemsize=cache_k.element_size(),
         floating=x.dtype in (torch.float32, torch.bfloat16))
     if route == "attn_decode_flash":
+        dispatch.no_autograd(route, q, cache_k, cache_v)
         n_log = smax // page
         o = paged_decode_attention(
             q.reshape(b, hkv, g, hd),
@@ -297,6 +299,7 @@ def paged_decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     off = (lengths % page).long()
     k_pages[phys, off] = k[:, 0].to(k_pages.dtype)
     v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
+    dispatch.no_autograd("attn_decode_flash", q, k_pages, v_pages)
     o = paged_decode_attention(
         q.reshape(b, hkv, g, hd), k_pages, v_pages, block_table, lengths,
         start, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)

@@ -1,7 +1,7 @@
 """Gated / plain MLP blocks (the main DBB surface of the model)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -10,7 +10,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.epilogue import apply_act
 from repro_torch.models.common import linear_init
 
-__all__ = ["mlp_init", "mlp_apply"]
+__all__ = ["mlp_init", "mlp_apply", "mlp_up", "mlp_down"]
 
 
 def mlp_init(gen: torch.Generator, lead, d: int, f: int, cfg: ModelConfig,
@@ -41,14 +41,25 @@ def _mlp_fused(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return _fused_gemm(h, p["wo"], "none", cfg)
 
 
+def mlp_up(p: Dict, cfg: ModelConfig, x: torch.Tensor
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain MLP's up-projections ``(x @ wi, x @ wg or None)`` against
+    dense weights."""
+    hg = x @ p["wg"]["w"].to(x.dtype) if cfg.mlp_gated else None
+    return x @ p["wi"]["w"].to(x.dtype), hg
+
+
+def mlp_down(p: Dict, cfg: ModelConfig, hi: torch.Tensor,
+             hg: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain MLP's rest: the (gated) activation, then ``@ wo``."""
+    h = apply_act(hg, cfg.act) * hi if cfg.mlp_gated else apply_act(
+        hi, cfg.act)
+    return h @ p["wo"]["w"].to(h.dtype)
+
+
 def _mlp_plain(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Plain matmuls against dense weights (the layer was decompressed)."""
-    h = x @ p["wi"]["w"].to(x.dtype)
-    if cfg.mlp_gated:
-        h = apply_act(x @ p["wg"]["w"].to(x.dtype), cfg.act) * h
-    else:
-        h = apply_act(h, cfg.act)
-    return h @ p["wo"]["w"].to(x.dtype)
+    return mlp_down(p, cfg, *mlp_up(p, cfg, x))
 
 
 def mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

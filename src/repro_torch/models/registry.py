@@ -82,7 +82,8 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         if layer_hook is not None:
             one = layer_hook(one, gen)
         if pack:
-            one = pack_tree(apply_dbb_to_tree({"layers": one}, cfg.dbb),
+            one = pack_tree(apply_dbb_to_tree({"layers": one}, cfg.dbb,
+                                              straight_through=False),
                             cfg.dbb)["layers"]
         stack = into(stack, one, l)
         del one

@@ -26,7 +26,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
                                        embed_scale, linear_init, norm_apply,
                                        norm_init, param_dtype_of)
-from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.mlp import mlp_apply, mlp_down, mlp_init, mlp_up
 
 __all__ = ["init_params", "lm_head_weight", "init_cache", "forward",
            "prefill", "prefill_packed", "prefill_continue", "decode_step",
@@ -95,6 +95,19 @@ def _layer(tree: Any, l: int) -> Any:
     return tree[l]
 
 
+def _layers(tree: Any, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, each dense leaf split
+    by one ``unbind``: under autograd its backward stacks the layers'
+    gradients once, where indexing layer by layer would scatter each
+    layer's gradient into a zeroed ``[L, ...]`` tensor (L² traffic)."""
+    if isinstance(tree, dict):
+        subs = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: subs[k][l] for k in tree} for l in range(n)]
+    if isinstance(tree, DbbWeight):
+        return [tree.map(lambda a, l=l: a[l]) for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _unpack_layer(lp: Any, cfg: ModelConfig) -> Any:
     """On the fused route packed leaves stay packed (the kernels stream
     them); otherwise every packed leaf is decompressed to the activation
@@ -102,6 +115,94 @@ def _unpack_layer(lp: Any, cfg: ModelConfig) -> Any:
     if pallas_route_active(cfg):
         return lp
     return maybe_decompress_tree(lp, dtype=dtype_of(cfg))
+
+
+def _attn_block(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
+                window_override: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's attention half: (the residual after attention, its
+    ``ln_mlp`` norm — the MLP's input)."""
+    h = norm_apply(cfg.norm, lp["ln_attn"], x)
+    x = x + attn.attention_apply(lp["attn"], cfg, h,
+                                 window_override=window_override)
+    return x, norm_apply(cfg.norm, lp["ln_mlp"], x)
+
+
+def _attn_mlp_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    window_override: Optional[int]) -> torch.Tensor:
+    """One layer of the full-sequence pass (no cache)."""
+    lp = _unpack_layer(lp, cfg)
+    x, h = _attn_block(lp, cfg, x, window_override)
+    return x + mlp_apply(lp["mlp"], cfg, h)
+
+
+def _auto_remat_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
+                      window_override: Optional[int]) -> torch.Tensor:
+    """`_attn_mlp_layer` (plain route) under the "auto" policy: the MLP's
+    up-projections (``mlp_wi`` / ``mlp_wg``) run outside the checkpointed
+    regions, so their outputs (and their input, which their backward
+    needs) are kept; the attention half and the MLP's down half are
+    recomputed in the backward pass."""
+    from torch.utils.checkpoint import checkpoint
+    lp = _unpack_layer(lp, cfg)
+    x, h = checkpoint(_attn_block, lp, cfg, x, window_override,
+                      use_reentrant=False)
+    hi, hg = mlp_up(lp["mlp"], cfg, h)
+    return x + checkpoint(mlp_down, lp["mlp"], cfg, hi, hg,
+                          use_reentrant=False)
+
+
+def _dots_policy():
+    """A selective-checkpoint policy keeping every ``aten.mm`` output (the
+    reference's ``dots_with_no_batch_dims_saveable``: plain 2-D matmuls,
+    not the attention's batched products)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    mm = torch.ops.aten.mm.default
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op is mm
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def _wrap_remat(fn, cfg: ModelConfig):
+    """The layer body under the config's activation checkpointing, as the
+    reference's ``_wrap_remat``; a pass without gradients runs ``fn`` as
+    it is, and so does the kernel route family (the kernels have no
+    backward). The values are the same under every policy.
+
+    "none" runs the layer as it is; "full" recomputes the whole layer in
+    the backward pass (`torch.utils.checkpoint`, non-reentrant); "auto"
+    does nothing below d_model 1024 and above it keeps the MLP's
+    up-projections (`_auto_remat_layer`: the layer split around them,
+    which costs no per-op dispatch); "dots" keeps every plain matmul's
+    output through selective checkpointing
+    (`create_selective_checkpoint_contexts`; a torch without it
+    checkpoints the whole layer instead)."""
+    if (cfg.remat == "none" or (cfg.remat == "auto" and cfg.d_model < 1024)
+            or pallas_route_active(cfg)):     # the kernels: no backward
+        return fn
+    if cfg.remat not in ("full", "dots", "auto"):
+        raise ValueError(f"remat={cfg.remat!r}")
+    from torch.utils import checkpoint as ckpt
+    if cfg.remat == "auto":
+        remat = _auto_remat_layer
+    elif cfg.remat == "dots" and hasattr(
+            ckpt, "create_selective_checkpoint_contexts"):
+        policy = _dots_policy()
+
+        def remat(*args):
+            return ckpt.checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                    policy))
+    else:
+        def remat(*args):
+            return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+    def wrapped(*args):
+        return remat(*args) if torch.is_grad_enabled() else fn(*args)
+    return wrapped
 
 
 def _embed(params: Dict, cfg: ModelConfig,
@@ -117,7 +218,8 @@ def forward(params: Dict, cfg: ModelConfig,
     """Full-sequence pass without a cache: ``tokens [B, S]`` → (hidden [B,
     S, d], aux loss — a zero scalar for the dense family). Attention goes
     through `attention_apply`, so the dispatch picks flash, chunked or
-    naive; ``window_override`` replaces the config's sliding window.
+    naive; ``window_override`` replaces the config's sliding window. Under
+    autograd each layer runs under ``cfg.remat`` (`_wrap_remat`).
     ``embeds`` / ``prefix_embeds`` (the vlm and audio families' inputs)
     are not ported."""
     _check_family(cfg)
@@ -126,13 +228,9 @@ def forward(params: Dict, cfg: ModelConfig,
             "forward(embeds=, prefix_embeds=): the vlm and audio families' "
             "inputs are not ported")
     x = _embed(params, cfg, tokens)
-    for l in range(cfg.num_layers):
-        lp = _unpack_layer(_layer(params["layers"], l), cfg)
-        h = norm_apply(cfg.norm, lp["ln_attn"], x)
-        x = x + attn.attention_apply(lp["attn"], cfg, h,
-                                     window_override=window_override)
-        h = norm_apply(cfg.norm, lp["ln_mlp"], x)
-        x = x + mlp_apply(lp["mlp"], cfg, h)
+    body = _wrap_remat(_attn_mlp_layer, cfg)
+    for lp in _layers(params["layers"], cfg.num_layers):
+        x = body(lp, cfg, x, window_override)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
