@@ -250,6 +250,54 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             acceptance rate printed, temperature 0 against greedy under
             the split rule. Then the area model's Table II and Fig. 5 rows
             (CPU arithmetic).
+15. moe     the moe_lm family at the published widths (after phase 14), each
+            tree built one layer at a time with the family phase's noise
+            hook, on w4 planes (G 128; the router and the dense residual
+            MLP stay f32, as the reference's packing leaves them), served
+            with ``gemm_impl="pallas"``; the MoE layers are decompressed
+            layer by layer (the reference streams packed weights for
+            dense_lm only), so the experts run on the dense kernels and no
+            DBB kernel launches. arctic-480b (16 of 128 experts: the
+            reference's fused-expert ceiling; 8 of 35 layers; top-2,
+            dense residual 4864, G 7): layer 0's ``moe_apply`` on one h
+            [8, 64, d] on both routes (equal top-k, outputs within
+            MOE_LAYER_TOL of max |y|, no host sync on the plain route,
+            both times); generate of 8 prompts of
+            32 tokens (16 new) on both routes, a row left out of the
+            comparison where its recorded routing (top-k or the kept pairs
+            under capacity) differs between the routes in some layer (a
+            flip, or a pair displaced past capacity by another row's flip),
+            every top-k difference of a row not yet left out at a router
+            near-tie (k-th and (k+1)-th gates within MOE_TIE_RTOL on one
+            route; the count of near-tie rows printed), prefill logits of the rows left within LOGIT_TOL and
+            their streams equal outside the split rule; ms a decode step and
+            time to first token on each route; serve of 10 requests of
+            17-128 tokens (packed prefill) on the contiguous cache and the
+            paged pool, equal streams; the per-layer expand timed (layer
+            0's gate expert stack and its whole `_unpack_layer`) beside the
+            decode step. kimi-k2-1t-a32b (32 of 384 experts:
+            above 16, so the batched expert products run, top-8 of 32; 4 of
+            61 layers; D 112, so flash_prefill runs its FMA body; vocab
+            163840): generate on both routes as above, and a sampled serve
+            on the paged pool whose streams differ from the greedy serve's.
+            Each run's launches equal exactly those its config implies:
+            per MoE call (recorded: one per layer and forward pass) 3 GEMMs
+            per expert at M = capacity (arctic) and the dense MLP's 3 at M
+            = the call's tokens, each on the kernel the route table picks,
+            the attention per layer and call, one head a call; the
+            attention projections' dense weights take the plain matmul, as
+            in the reference. Then the serve CLI on arctic-480b smoke
+            (``--packed --gemm-impl pallas``, f32), its table routes
+            against its launches (the packed decode-GEMM table's route held
+            as its dense counterpart: the layers run expanded), and the
+            kernels at the phase's new shapes, each against its plain
+            version, beside their bounds and the library calls
+            (``moe_shapes`` in the kernels line): the expert GEMMs,
+            flash_prefill, flash_prefill_packed (a packed call of the
+            serve lengths) and paged_decode at arctic's G 7 D 128 and
+            kimi's G 8 D 112, and head_sample_fused at kimi's sampled
+            decode head (M8 K7168 N163840 f32) under the kernel phase's
+            near-tie and temperature-0 rules.
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
 main paths of phases 4-6, 8, 9 and 12-14 must have run the tensor-core body:
@@ -258,14 +306,14 @@ main paths of phases 4-6, 8, 9 and 12-14 must have run the tensor-core body:
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
-phases 4-9 and 12-14 must have run the split-K body
+phases 4-9 and 12-15 must have run the split-K body
 (``dbb_gemm_skinny_split`` equals the f32, ``_i8`` and ``_w4`` branches'
 sum) and every f32-x dbb_gemm launch (the CNN classifier, N 10) the narrow
 body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
 LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-14;
+sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-15;
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -561,8 +609,15 @@ def main() -> int:
     if not ok:
         return _fail("the training phase failed (see above)")
     by_path.update(train_counts)
+    moe_counts, ok = timed("moe", _moe_phase, args.out)
+    if not ok:
+        return _fail("the moe_lm family phase failed (see above)")
+    by_path.update(moe_counts)
     cnn_paths = list(cnn_counts) + train_cnn
-    lm = [p for p in by_path if p not in cnn_paths]
+    # the moe paths check their tensor-core counts themselves (kimi's D 112
+    # prefill runs the FMA body; the CLI run's smoke config is f32)
+    lm = [p for p in by_path
+          if p not in cnn_paths and not p.startswith("moe_")]
     if not _tc_check(by_path, lm):
         return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
                      "a main path missed the tensor-core body (see above)")
@@ -575,6 +630,10 @@ def main() -> int:
     by_path.update(int8_counts)
     for entry in kernels:
         name = entry["name"]
+        moe = {k: v for k, v in report["moe"]["kernels"].items()
+               if k.startswith(name + " ")}
+        if moe:
+            entry["moe_shapes"] = moe
         entry["launches"] = sum(c[name] for c in by_path.values())
         entry["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     if args.out:
@@ -1625,86 +1684,97 @@ def _head_sample_inputs(torch, dev, m, k, n, seed):
     return h, w, counts, rows
 
 
-def _head_sample_kernel(torch, dev, flush, failures):
-    """head_sample_fused at the sampled decode head (M8 K2048 N50304 f32,
-    the entry) and at M1 (a single-row prefill), M24 and M32 (checks),
-    against its plain version by the near-tie rule: scores within 1e-5 of
-    the largest (f32 sums in another order; logf may differ by an ulp),
-    indices equal on every row whose top-2 score margin exceeds twice
-    that; at temperature 0 with default penalties it must equal the greedy
-    head (sta_gemm_skinny: one float body, skinny_float.cuh) bit for bit.
-    No single PyTorch call computes this function: the head's torch.matmul
-    alone is printed as a partial yardstick, beside the greedy head's time
-    (the float body with its store epilogue) and the row-chunk body's
-    earlier time in brackets."""
+def _head_sample_case(torch, dev, flush, m, k, n, seed):
+    """head_sample_fused at [M, K] x [K, N] f32 against its plain version
+    by the near-tie rule: scores within 1e-5 of the largest (f32 sums in
+    another order; logf may differ by an ulp), indices equal on every row
+    whose top-2 score margin exceeds twice that; at temperature 0 with
+    default penalties it must equal the greedy head (sta_gemm_skinny: one
+    float body, skinny_float.cuh) bit for bit. Prints the case and returns
+    (its numbers, a failure message or None). No single PyTorch call
+    computes this function: the head's torch.matmul alone is printed as a
+    partial yardstick, beside the greedy head's time (the float body with
+    its store epilogue) and, at the kernel phase's shape, the row-chunk
+    body's earlier time in brackets."""
     from repro_torch.kernels.sample import (apply_penalties,
                                             head_sample_fused,
                                             head_sample_fused_ref,
                                             sample_scores)
     from repro_torch.kernels.skinny import sta_gemm_skinny
+    h, w, counts, rows = _head_sample_inputs(torch, dev, m, k, n, seed)
+    got_s, got_i = head_sample_fused(h, w, counts, *rows)
+    want_s, want_i = head_sample_fused_ref(h, w, counts, *rows)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(want_s.abs().max().item(), 1.0)
+    err = (got_s - want_s).abs().max().item()
+    col = torch.arange(n, device=dev)[None, :]
+    scores = sample_scores(h @ w, counts, *(a[:, None] for a in rows), col)
+    top2 = scores.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = bool((got_i == want_i)[decided].all())
+    pen = apply_penalties(h @ w, counts, rows[1][:, None], rows[2][:, None],
+                          rows[3][:, None])
+    differs = int((got_i.long() != pen.argmax(-1)).sum())
+    del scores, pen
+    z = torch.zeros(m, device=dev)
+    zi = torch.zeros(m, dtype=torch.int32, device=dev)
+    t0_s, t0_i = head_sample_fused(h, w, torch.zeros_like(counts), z, z + 1,
+                                   z, z, zi, zi)
+    greedy = sta_gemm_skinny(h, w)
+    t0_ok = (bool(torch.equal(t0_s, greedy.max(dim=-1).values))
+             and bool(torch.equal(t0_i.long(), greedy.argmax(dim=-1))))
+    ok = err <= tol and same and t0_ok
+    fail = None if ok else (
+        f"head_sample_fused M{m} K{k} N{n}: max score err {err}, indices "
+        f"equal on decided rows: {same}, temperature 0 equal to the greedy "
+        f"head: {t0_ok}")
+    ms = _time_ms(torch, lambda: head_sample_fused(h, w, counts, *rows),
+                  flush)
+    pms = _time_ms(torch, lambda: head_sample_fused_ref(h, w, counts, *rows),
+                   flush)
+    mm_ms = _time_ms(torch, lambda: torch.matmul(h, w), flush)
+    greedy_ms = _time_ms(torch, lambda: sta_gemm_skinny(h, w), flush)
+    nbytes = 4 * (k * n + m * n + m * k + 6 * m + 2 * m)
+    ops = 2.0 * m * k * n + SAMPLE_EPI_OPS * m * n
+    bms, by = _bound_ms(nbytes, ops, F32_OPS_PER_S)
+    earlier = ROW_CHUNK_SAMPLE_MS.get(m) if (k, n) == (2048, 50304) else None
+    print(f"kernel head_sample_fused M{m} K{k} N{n} f32: max score err "
+          f"{err:.3e} (tol {tol:.3e}); indices equal on "
+          f"{int(decided.sum())}/{m} decided rows {'ok' if ok else 'FAIL'} "
+          f"(Gumbel noise moved {differs} of {m} rows off the penalised "
+          f"argmax), temperature 0 "
+          f"{'equal to' if t0_ok else 'DIFFERS FROM'} the greedy head bit "
+          f"for bit; kernel {ms:.4f} ms"
+          + (f" [row-chunk body {earlier:.4f} ms]" if earlier else "")
+          + f", greedy head (the same float body) {greedy_ms:.4f} ms, plain "
+          f"{pms:.4f} ms, no library call computes it (the head's "
+          f"torch.matmul alone, a partial yardstick: {mm_ms:.4f} ms), bound "
+          f"{bms:.4f} ms ({by}: weight + counts + rows)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None, head_matmul_ms=mm_ms,
+                greedy_ms=greedy_ms), fail
+
+
+def _head_sample_kernel(torch, dev, flush, failures):
+    """head_sample_fused at the sampled decode head (M8 K2048 N50304 f32,
+    the entry) and at M1 (a single-row prefill), M24 and M32 (checks),
+    each by `_head_sample_case`'s rules."""
     entry = None
     for m in (8, 1, 24, 32):
-        k, n = 2048, 50304
-        h, w, counts, rows = _head_sample_inputs(torch, dev, m, k, n, m)
-        got_s, got_i = head_sample_fused(h, w, counts, *rows)
-        want_s, want_i = head_sample_fused_ref(h, w, counts, *rows)
-        torch.cuda.synchronize()
-        tol = 1e-5 * max(want_s.abs().max().item(), 1.0)
-        err = (got_s - want_s).abs().max().item()
-        col = torch.arange(n, device=dev)[None, :]
-        scores = sample_scores(h @ w, counts, *(a[:, None] for a in rows),
-                               col)
-        top2 = scores.topk(2, dim=-1).values
-        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
-        same = bool((got_i == want_i)[decided].all())
-        pen = apply_penalties(h @ w, counts, rows[1][:, None],
-                              rows[2][:, None], rows[3][:, None])
-        differs = int((got_i.long() != pen.argmax(-1)).sum())
-        z = torch.zeros(m, device=dev)
-        zi = torch.zeros(m, dtype=torch.int32, device=dev)
-        t0_s, t0_i = head_sample_fused(h, w, torch.zeros_like(counts), z,
-                                       z + 1, z, z, zi, zi)
-        greedy = sta_gemm_skinny(h, w)
-        t0_ok = (bool(torch.equal(t0_s, greedy.max(dim=-1).values))
-                 and bool(torch.equal(t0_i.long(), greedy.argmax(dim=-1))))
-        ok = err <= tol and same and t0_ok
-        if not ok:
-            failures.append(f"head_sample_fused M{m}: max score err {err}, "
-                            f"indices equal on decided rows: {same}, "
-                            f"temperature 0 equal to the greedy head: "
-                            f"{t0_ok}")
-        ms = _time_ms(torch, lambda: head_sample_fused(h, w, counts, *rows),
-                      flush)
-        pms = _time_ms(torch, lambda: head_sample_fused_ref(h, w, counts,
-                                                            *rows), flush)
-        mm_ms = _time_ms(torch, lambda: torch.matmul(h, w), flush)
-        greedy_ms = _time_ms(torch, lambda: sta_gemm_skinny(h, w), flush)
-        nbytes = 4 * (k * n + m * n + m * k + 6 * m + 2 * m)
-        ops = 2.0 * m * k * n + SAMPLE_EPI_OPS * m * n
-        bms, by = _bound_ms(nbytes, ops, F32_OPS_PER_S)
-        print(f"kernel head_sample_fused M{m} K{k} N{n} f32: max score err "
-              f"{err:.3e} (tol {tol:.3e}); indices equal on "
-              f"{int(decided.sum())}/{m} decided rows "
-              f"{'ok' if ok else 'FAIL'} (Gumbel noise moved {differs} of "
-              f"{m} rows off the penalised argmax), temperature 0 "
-              f"{'equal to' if t0_ok else 'DIFFERS FROM'} the greedy head "
-              f"bit for bit; kernel {ms:.4f} ms [row-chunk body "
-              + (f"{ROW_CHUNK_SAMPLE_MS[m]:.4f} ms" if m in ROW_CHUNK_SAMPLE_MS
-                 else "not timed") + f"], greedy head (the same "
-              f"float body) {greedy_ms:.4f} ms, plain {pms:.4f} ms, no "
-              f"library call computes it (the head's torch.matmul alone, a "
-              f"partial yardstick: {mm_ms:.4f} ms), bound {bms:.4f} ms "
-              f"({by}: weight + counts + rows)")
+        res, fail = _head_sample_case(torch, dev, flush, m, 2048, 50304, m)
+        if fail:
+            failures.append(fail)
         if entry is None:
             entry = dict(
                 name="head_sample_fused", route="cuda",
                 source="src/repro_torch/csrc/head_sample_fused.cu",
                 replaces="src/repro/kernels/sample/kernel.py:83",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=pms,
-                bound_ms=bms, bound_by=by, library_ms=None,
-                head_matmul_ms=mm_ms,
+                launches=0, max_abs_err=res["max_abs_err"], ms=res["ms"],
+                plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                bound_by=res["bound_by"], library_ms=None,
+                head_matmul_ms=res["head_matmul_ms"],
                 shapes="M8 K2048 N50304 f32 (the sampled decode head)")
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["max_abs_err"] = max(entry["max_abs_err"], res["max_abs_err"])
     return entry
 
 
@@ -3633,6 +3703,747 @@ def _area_tables():
               f"{r['sta_power']:.3f}"
               + (f" {r['dbb_area']:.3f}/{r['dbb_power']:.3f}"
                  if "dbb_area" in r else "") for r in rows))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the moe_lm family at full width
+# ---------------------------------------------------------------------------
+
+# (arch, experts run, layers run, why the cuts). Widths are never cut.
+MOE_MODELS = (
+    ("arctic-480b", 16, 8,
+     "experts 128 -> 16, the reference's fused-expert ceiling "
+     "(_FUSED_EXPERT_MAX; at 128 one layer's w4 planes take ~5.5 GB and "
+     "its dense expand ~27 GB of bf16, and the batched expert route is "
+     "kimi's run); layers 35 -> 8 keep the phase's time"),
+    ("kimi-k2-1t-a32b", 32, 4,
+     "experts 384 -> 32 (above 16, so the expert FFN takes the batched "
+     "route, top-8 of 32); layers 61 -> 4 keep the phase's time"))
+# generate: 8 prompts of one length (a left pad's row is unspecified on the
+# flash route and still takes expert capacity, so a ragged batch's rows
+# would not be comparable across the routes; serve's packed prefill has
+# no such rows and takes the ragged requests)
+MOE_PROMPTS, MOE_PROMPT_LEN, MOE_NEW = 8, 32, 16
+MOE_SERVE_LENS = [96, 40, 72, 17, 55, 128, 33, 80, 64, 21]
+MOE_SERVE_BUDGETS = [8, 16, 12, 10, 14, 9, 16, 11, 13, 8]
+MOE_TIE_RTOL = 1e-3       # router near-tie: k-th vs (k+1)-th gate, relative
+# one layer's moe_apply, kernel vs plain route, of max |y|: bf16 outputs of
+# a chain of three bf16 GEMMs, where one bf16 step at the largest value is
+# up to 2^-7 of it
+MOE_LAYER_TOL = 2e-2
+MOE_CLI_ARGV = ("--arch arctic-480b --packed --gemm-impl pallas --batch 4 "
+                "--requests 7 --prompt-len 16 --max-new 8")
+# the GEMM routes that launch a kernel on the expanded (dense) MoE layers
+MOE_GEMM_KERNELS = {"sta": "sta_gemm", "skinny_sta": "sta_gemm_skinny"}
+
+
+class _RouteRecorder:
+    """Wraps ``repro_torch.models.moe._route`` (the package has no switch
+    for this): each call records the tokens' top-k experts and the
+    relative gap between their k-th and (k+1)-th gates, recomputed from
+    the same f32 router product."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.mod, self.real = torch, moe, moe._route
+        self.calls = []
+
+    def __enter__(self):
+        self.calls = []
+        self.mod._route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.real
+
+    def _route(self, x, w, cfg):
+        out = self.real(x, w, cfg)
+        torch = self.torch
+        with torch.no_grad():
+            gates = torch.softmax(x.float() @ w.float(), dim=-1)
+            k = cfg.moe.top_k
+            top = torch.topk(gates, k + 1, dim=-1).values
+            gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        self.calls.append((out[0], gap))
+        return out
+
+
+def _moe_kept(torch, top_idx, e: int, cap: int):
+    """Which (token, expert) pairs `_dispatch_compute_combine` keeps: the
+    first ``cap`` of each expert in token order."""
+    flat = top_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    se = flat[order]
+    start = torch.searchsorted(se, torch.arange(e, device=flat.device))
+    rank = torch.empty_like(flat)
+    rank[order] = torch.arange(flat.numel(), device=flat.device) - start[se]
+    return (rank < cap).reshape(top_idx.shape)
+
+
+def _moe_route_diff(torch, cfg, kcalls, pcalls, rows_of):
+    """Compare two runs' recorded routing call by call, in order: (rows
+    with a router near-tie on either route, rows whose top-k or kept pairs
+    differ in some call, the top-k set differences in rows whose routing
+    had not yet differed that sit at no near-tie, as (call, row, kernel-route
+    gap, plain-route gap) — where both routes saw the same inputs up to
+    rounding, only a near-tie may flip). ``rows_of(i, T)`` gives call i's
+    [T] row per token (-1: no real token of a row whose inputs still
+    agree)."""
+    from repro_torch.models import moe
+    near, moved, bad = set(), set(), []
+    e = cfg.moe.num_experts
+    for i, ((ki, kg), (pi, pg)) in enumerate(zip(kcalls, pcalls)):
+        # a token's expert set decides its output, not the set's order
+        ki, pi = ki.sort(1).values, pi.sort(1).values
+        t = ki.shape[0]
+        rows = rows_of(i, t)
+        real = rows >= 0
+        cap = moe._capacity(t, cfg)
+        tie = (kg < MOE_TIE_RTOL) | (pg < MOE_TIE_RTOL)
+        flip = (ki != pi).any(1)
+        kept = (_moe_kept(torch, ki, e, cap)
+                != _moe_kept(torch, pi, e, cap)).any(1)
+        fresh = torch.tensor([r not in moved for r in rows.tolist()],
+                             device=rows.device)
+        near.update(rows[tie & real].tolist())
+        for tok in (flip & ~tie & real & fresh).nonzero()[:, 0].tolist():
+            bad.append((i, int(rows[tok]), kg[tok].item(), pg[tok].item()))
+        moved.update(rows[(flip | kept) & real].tolist())
+    return near, moved, bad
+
+
+def _moe_expected(torch, cfg, calls, heads, head_kernel, attn):
+    """The launches a run's config implies, from its recorded MoE calls
+    (one per layer and forward pass, each with its token count T): per
+    call the experts' three GEMMs at M = capacity(T) each (E <= 16 on the
+    kernel route; the batched products above it launch nothing) and the
+    dense MLP's three at M = T, on the kernel the route table picks; plus
+    ``heads`` head launches of ``head_kernel`` and the attention launches
+    ``attn`` ({kernel: count}). The tensor-core counters follow their
+    bodies' rules (`sta_gemm.ops.tc_body`, `attn.ops.tc_body`); no DBB
+    kernel runs (the MoE layers run expanded)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attn.ops import tc_body as flash_tc
+    from repro_torch.kernels.sta_gemm.ops import tc_body as gemm_tc
+    from repro_torch.models import moe
+    from repro_torch.models.common import dtype_of
+    dt = dtype_of(cfg)
+    want = dict(attn)
+    if flash_tc(dt, cfg.resolved_head_dim):
+        for k in ("flash_prefill", "flash_prefill_packed"):
+            want[k + "_tc"] = want.get(k, 0)
+    want[head_kernel] = want.get(head_kernel, 0) + heads
+    d, f, df = cfg.d_model, cfg.d_ff, cfg.moe.dense_residual_ff
+    fused = cfg.moe.num_experts <= moe._FUSED_EXPERT_MAX
+    memo = {}
+
+    def kernel(m, k, n, ops):
+        key = (m, k, n, ops)
+        if key not in memo:
+            memo[key] = MOE_GEMM_KERNELS.get(dispatch.explain(
+                "matmul", m=m, k=k, n=n, dtype=dt, cfg=cfg,
+                epilogue_ops=ops)[0].name)
+        return memo[key]
+
+    for top_idx, _ in calls:
+        t = top_idx.shape[0]
+        gemms = [(t, d, df, 0), (t, d, df, 1), (t, df, d, 0)] if df else []
+        if fused:
+            c = moe._capacity(t, cfg)
+            gemms += [(c, d, f, 0), (c, d, f, 1),
+                      (c, f, d, 0)] * cfg.moe.num_experts
+        for g in gemms:
+            name = kernel(*g)
+            if name:
+                want[name] = want.get(name, 0) + 1
+            if name == "sta_gemm" and gemm_tc(dt, g[1], g[2]):
+                want["sta_gemm_tc"] = want.get("sta_gemm_tc", 0) + 1
+    return {k: v for k, v in want.items() if v}
+
+
+def _moe_check_launches(tag, counts, want):
+    """Every kernel's launches against ``want`` (missing keys: zero)."""
+    got = {k: v for k, v in counts.items() if v}
+    ok = got == want
+    print(f"moe: {tag}: launches {got}; expected from the config {want} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _moe_generate(torch, dev, tag, cfg, tree, prompts, rec, run):
+    """``generate`` on one route, the launch counts reset just before and
+    read just after and the routing recorded, then a
+    ``max_new_tokens=1`` call for the time to first token: (tokens,
+    counts, routing calls, engine)."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    engine = ServeEngine(cfg, tree, max_batch=len(prompts), device=dev)
+    engine.generate(prompts, max_new_tokens=2)                # warm-up
+    torch.cuda.synchronize()
+    engine.last_decode_steps = 0
+    with _RouteRecorder(torch) as routes:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=MOE_NEW)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    steps = engine.last_decode_steps
+    t0 = time.perf_counter()
+    engine.generate(prompts, max_new_tokens=1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    decode_ms = (t_total - ttft) / max(steps, 1) * 1e3
+    print(f"moe: {tag}: {run} route generate {len(prompts)} x "
+          f"{len(prompts[0])} tokens, {MOE_NEW} new: {t_total * 1e3:.1f} "
+          f"ms; ttft {ttft * 1e3:.1f} ms (a max_new_tokens=1 call); decode "
+          f"{decode_ms:.3f} ms/step over {steps} steps")
+    rec[run] = dict(total_ms=t_total * 1e3, ttft_ms=ttft * 1e3,
+                    decode_ms_per_step=decode_ms, steps=steps)
+    return out, counts, routes.calls, engine
+
+
+def _moe_layer_check(torch, dev, tag, cfg, tree, rec):
+    """Layer 0's ``moe_apply`` at full width on one h [8, 64, d] (bf16),
+    expanded as the layer bodies expand it, on both routes: equal top-k,
+    outputs within MOE_LAYER_TOL of max |y|, no host synchronisation on the
+    plain route (CUDA's sync debug mode), and each route's time."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    xcfg = cfg.replace(gemm_impl="xla")
+    lp = tf._unpack_layer(tf._layer(tree["layers"], 0), cfg)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((8, 64, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    res = {}
+    for c in (cfg, xcfg):
+        with _RouteRecorder(torch) as r:
+            y, aux = moe.moe_apply(lp, c, h)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(3):
+            moe.moe_apply(lp, c, h)
+        e.record()
+        e.synchronize()
+        res[c.gemm_impl] = (y, aux, r.calls[0][0], s.elapsed_time(e) / 3)
+    (yk, ak, ik, mk), (yp, ap, ip, mp) = res["pallas"], res["xla"]
+    # routing, dispatch and combine read nothing back to the host: a
+    # synchronising call raises here (the plain route: no kernel wrapper)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply(lp, xcfg, h)
+        sync_free = True
+    except RuntimeError as e:
+        sync_free = False
+        print(f"moe: {tag}: FAIL: moe_apply synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same = torch.equal(ik, ip)
+    err = (yk.float() - yp.float()).abs().max().item()
+    scale = yp.float().abs().max().item()
+    ok = same and sync_free and err <= MOE_LAYER_TOL * scale and bool(
+        torch.isfinite(yk).all())
+    print(f"moe: {tag}: layer 0 moe_apply on h [8, 64, {cfg.d_model}] "
+          f"bf16: top-k {'equal' if same else 'DIFFERENT'} on the two "
+          f"routes; output max abs diff {err:.3e} of max |y| {scale:.3e} "
+          f"({err / scale:.2e} of max; tol {MOE_LAYER_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}; aux {ak.item():.5f} / "
+          f"{ap.item():.5f}; kernel route {mk:.2f} ms, plain route "
+          f"{mp:.2f} ms")
+    rec["layer"] = dict(topk_equal=same, max_abs_diff=err, scale=scale,
+                        kernel_ms=mk, plain_ms=mp)
+    del lp
+    return ok
+
+
+def _moe_vs_plain(torch, dev, tag, cfg, tree, rec):
+    """generate of MOE_PROMPTS prompts on both routes, compared as the
+    module doc says (phase 15): a row is left out where its routing (top-k
+    or kept pairs, recorded on both runs) differs in some layer, and every
+    top-k difference must sit at a router near-tie. Returns the kernel
+    route's (tokens, counts, routing calls) and whether the check held."""
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(2, cfg.vocab_size, (MOE_PROMPT_LEN,),
+                             generator=gen).tolist()
+               for _ in range(MOE_PROMPTS)]
+    out, counts, kcalls, engine = _moe_generate(
+        torch, dev, tag, cfg, tree, prompts, rec, "kernel")
+    xcfg = cfg.replace(gemm_impl="xla")
+    xout, _, pcalls, _ = _moe_generate(torch, dev, tag, xcfg, tree, prompts,
+                                       rec, "plain")
+    b, n_l = len(prompts), cfg.num_layers
+    # the step whose input token first differs between the two streams
+    # (a split at a logit near-tie): from then on the row's routing is
+    # not comparable
+    split_at = {r: next((j for j, (u, v) in enumerate(zip(out[r], xout[r]))
+                         if u != v), None) for r in range(b)}
+
+    def rows_of(i, t):
+        rows = torch.arange(t, device=dev) // (t // b)
+        if i >= n_l:                      # decode step (i - L) // L
+            step = (i - n_l) // n_l
+            for r, j in split_at.items():
+                if j is not None and j <= step:
+                    rows[r] = -1
+        return rows
+    near, moved, bad = _moe_route_diff(torch, cfg, kcalls, pcalls, rows_of)
+    excluded = moved
+    keep = [i for i in range(b) if i not in excluded]
+    last_logits = _logits_fn(torch, dev, engine)
+    lk, lp = last_logits(cfg, prompts), last_logits(xcfg, prompts)
+    scale = lp.abs().max().item()
+    tol = LOGIT_TOL * scale
+    diff = ((lk - lp)[keep].abs().max().item() if keep else float("nan"))
+    lok = bool(keep) and diff <= tol
+    same, total, split = _split_rows([out[i] for i in keep],
+                                     [xout[i] for i in keep])
+    gaps = _split_gaps(torch, last_logits, xcfg, [prompts[i] for i in keep],
+                       [out[i] for i in keep], [xout[i] for i in keep],
+                       split)
+    tok_ok = all(g <= 2 * tol for g in gaps)
+    ok = lok and tok_ok and not bad
+    print(f"moe: {tag}: rows excluded from the comparison (their top-k or "
+          f"kept pairs differ between the routes in some layer): "
+          f"{len(excluded)} of {b}; rows with a router near-tie (within "
+          f"{MOE_TIE_RTOL:g} on either route; compared unless excluded): "
+          f"{len(near)}; top-k differences away from a near-tie (call, "
+          f"row, kernel-route gap, plain-route gap): {bad[:8]}"
+          f"{f' and {len(bad) - 8} more' if len(bad) > 8 else ''} "
+          f"{'FAIL' if bad else 'ok'}")
+    print(f"moe: {tag}: prefill last-position logits of the {len(keep)} "
+          f"rows left, kernel vs plain route: max abs diff {diff:.4e} of "
+          f"max |logit| {scale:.4e} (tol {LOGIT_TOL:g}) "
+          f"{'ok' if lok else 'FAIL'}; tokens {same}/{total} equal; splits "
+          f"(row, step, plain-route gap) "
+          f"{[(keep[i], j, g) for (i, j), g in zip(split, gaps)]} "
+          f"{'ok' if tok_ok else 'FAIL'}")
+    rec.update(excluded=sorted(excluded), near_tie_rows=sorted(near),
+               moved_rows=sorted(moved), logit_max_abs_diff=diff,
+               logit_scale=scale, token_agreement=[same, total],
+               logit_spread=statistics.median(lp.std(dim=-1).tolist()))
+    del engine
+    return out, counts, kcalls, ok
+
+
+def _moe_expand(torch, dev, tag, cfg, tree, rec):
+    """The expand each MoE layer pays on every forward pass (the layers run
+    decompressed): `decompress` of layer 0's gate expert stack [E, d, f]
+    and `_unpack_layer` of the whole layer, as `_time_ms` times (L2
+    flushed), against the kernel route's decode step."""
+    from repro_torch.core.dbb_linear import decompress
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import dtype_of
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    lp = tf._layer(tree["layers"], 0)
+    wi = lp["moe"]["experts"]["wi"]
+    stack_ms = _time_ms(torch, lambda: decompress(wi, dtype_of(cfg)), flush)
+    layer_ms = _time_ms(torch, lambda: tf._unpack_layer(lp, cfg), flush)
+    step = rec["generate"]["kernel"]["decode_ms_per_step"]
+    share = cfg.num_layers * layer_ms / step
+    print(f"moe: {tag}: expand of one expert stack ({cfg.moe.num_experts} x "
+          f"{cfg.d_model} x {cfg.d_ff}, w4 -> bf16) {stack_ms:.3f} ms; of "
+          f"layer 0 (_unpack_layer) {layer_ms:.3f} ms; x {cfg.num_layers} "
+          f"layers = {share:.1%} of the kernel route's {step:.3f} ms decode "
+          f"step")
+    rec["expand"] = dict(stack_ms=stack_ms, layer_ms=layer_ms,
+                         decode_share=share)
+
+
+def _moe_serve(torch, dev, tag, cfg, tree, rec, sampling=None,
+               caches=(False, True)):
+    """``serve`` of MOE_SERVE_LENS requests (packed prefill) through 8
+    slots on the contiguous cache and / or the paged pool (page 64), the
+    counts reset before and read after each, the routing recorded:
+    ({path: (counts, routing calls, prefill calls, decode steps)},
+    {path: streams})."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    gen = torch.Generator().manual_seed(3)
+    reqs = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in MOE_SERVE_LENS]
+    scfg = cfg.replace(kv_page_size=64)
+    runs, outs = {}, {}
+    kw = {} if sampling is None else dict(sampling=sampling)
+    for paged in caches:
+        name = (f"serve_{'paged' if paged else 'packed'}"
+                + ("_sampled" if sampling else ""))
+        eng = ServeEngine(scfg, tree, max_batch=8, paged=paged, device=dev)
+        eng.serve(reqs[:2], max_new_tokens=2)                # warm-up
+        torch.cuda.synchronize()
+        eng.last_decode_steps = 0
+        with _RouteRecorder(torch) as routes:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs[name] = eng.serve(reqs, max_new_tokens=MOE_SERVE_BUDGETS,
+                                   **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        st = eng.serve_stats
+        ttft = sorted(st["ttft_s"])
+        n_tok = sum(len(o) for o in outs[name])
+        print(f"moe: {tag}: {name}: {len(reqs)} requests of "
+              f"{min(MOE_SERVE_LENS)}-{max(MOE_SERVE_LENS)} tokens, budgets "
+              f"{MOE_SERVE_BUDGETS}: {wall * 1e3:.1f} ms, "
+              f"{n_tok / wall:.1f} generated tokens/s; ttft median "
+              f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, max "
+              f"{ttft[-1] * 1e3:.1f} ms; {st['prefill_calls']} prefill "
+              f"calls, {eng.last_decode_steps} decode steps")
+        rec[name] = dict(wall_ms=wall * 1e3, tokens=n_tok,
+                         ttft_median_ms=ttft[len(ttft) // 2] * 1e3,
+                         prefill_calls=st["prefill_calls"],
+                         decode_steps=eng.last_decode_steps)
+        runs[name] = (counts, routes.calls, st["prefill_calls"],
+                      eng.last_decode_steps)
+        del eng
+    return runs, outs
+
+
+def _moe_model(torch, dev, report, arch, experts, layers, why):
+    """One model of the moe phase (module doc, phase 15): (by_path, ok)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import tree_footprint_bytes
+    from repro_torch.models import registry
+    from repro_torch.serve.sampling import SamplingParams
+    t_model = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(
+        num_layers=layers, remat="none", gemm_impl="pallas",
+        moe=dataclasses.replace(full.moe, num_experts=experts),
+        dbb=dataclasses.replace(full.dbb, weight_bits=4, quant_group=128))
+    short = arch.split("-")[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = registry.init_params_by_layer(cfg, seed=len(arch), device=dev,
+                                         pack=True, layer_hook=_family_noise)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    layer_bytes = tree_footprint_bytes(tree["layers"])
+    resident = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe: {arch}: {layers} of {full.num_layers} layers, "
+          f"{experts} of {full.moe.num_experts} experts (cut: {why}); d "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
+          f"heads of {cfg.resolved_head_dim}, expert d_ff {cfg.d_ff}, top-"
+          f"{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor}, "
+          f"dense residual {cfg.moe.dense_residual_ff}, vocab "
+          f"{cfg.vocab_size}; w4 planes (G 128) of the attention and the "
+          f"experts, f32 dense_mlp and router; built layer by layer in "
+          f"{t_build:.1f} s; layers {layer_bytes / 1e9:.3f} GB (format "
+          f"bytes), {resident / 1e9:.3f} GB resident on the card, build "
+          f"peak {peak / 1e9:.3f} GB ({report['card']})")
+    rec = {"layers": layers, "experts": experts, "build_s": t_build,
+           "layer_bytes": layer_bytes, "resident_bytes": resident,
+           "build_peak_bytes": peak, "generate": {}}
+    report["moe"][arch] = rec
+    by_path = {}
+    ok = _moe_layer_check(torch, dev, arch, cfg, tree, rec)
+    out, counts, kcalls, cmp_ok = _moe_vs_plain(torch, dev, arch, cfg, tree,
+                                                rec["generate"])
+    ok = ok and cmp_ok
+    _moe_expand(torch, dev, arch, cfg, tree, rec)
+    steps = rec["generate"]["kernel"]["steps"]
+    head = _head_kernel(torch, cfg, MOE_PROMPTS)
+    attn = {"flash_prefill": layers, "paged_decode": layers * steps}
+    want = _moe_expected(torch, cfg, kcalls, 1 + steps, head, attn)
+    path = f"moe_{short}_generate"
+    by_path[path] = counts
+    ok = _moe_check_launches(path, counts, want) and ok
+
+    if short == "arctic":
+        runs, outs = _moe_serve(torch, dev, arch, cfg, tree, rec)
+        for name, (counts, calls, prefills, steps) in runs.items():
+            attn = {"flash_prefill_packed": layers * prefills,
+                    "paged_decode": layers * steps}
+            want = _moe_expected(torch, cfg, calls, prefills + steps, head,
+                                 attn)
+            path = f"moe_{short}_{name}"
+            by_path[path] = counts
+            ok = _moe_check_launches(path, counts, want) and ok
+        same = outs["serve_packed"] == outs["serve_paged"]
+        print(f"moe: {arch}: serve streams, paged vs contiguous "
+              f"{'equal' if same else 'DIFFERENT'}")
+        ok = ok and same
+    else:
+        spread = rec["generate"]["logit_spread"]
+        n = len(SAMPLE_T_SPREAD)
+        sp = [SamplingParams(
+            temperature=0.0 if i == 0 else spread * SAMPLE_T_SPREAD[i % n],
+            seed=i * 7919 + 1) for i in range(len(MOE_SERVE_LENS))]
+        runs, outs = _moe_serve(torch, dev, arch, cfg, tree, rec,
+                                sampling=sp, caches=(True,))
+        _, gouts = _moe_serve(torch, dev, arch, cfg, tree, rec,
+                              caches=(True,))
+        for name, (counts, calls, prefills, steps) in runs.items():
+            attn = {"flash_prefill_packed": layers * prefills,
+                    "paged_decode": layers * steps}
+            want = _moe_expected(torch, cfg, calls, prefills + steps,
+                                 "head_sample_fused", attn)
+            path = f"moe_{short}_{name}"
+            by_path[path] = counts
+            ok = _moe_check_launches(path, counts, want) and ok
+        sout, gout = outs["serve_paged_sampled"], gouts["serve_paged"]
+        moved = sum(a != b for s, g in zip(sout, gout) for a, b in zip(s, g))
+        valid = all(0 <= t < cfg.vocab_size for s in sout for t in s)
+        print(f"moe: {arch}: sampled serve (temperatures "
+              f"{[round(p.temperature, 3) for p in sp]}): {moved} tokens "
+              f"differ from the greedy serve's, all in the vocabulary "
+              f"{'ok' if moved and valid else 'FAIL'}")
+        ok = ok and moved > 0 and valid
+
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phase_s"] = time.perf_counter() - t_model
+    g = rec["generate"]
+    print(f"moe: {arch}: decode {g['kernel']['decode_ms_per_step']:.3f} "
+          f"ms/step on the kernel route, {g['plain']['decode_ms_per_step']:.3f}"
+          f" on the plain route (the expand {rec['expand']['layer_ms']:.3f} "
+          f"ms a layer); ttft {g['kernel']['ttft_ms']:.1f} / "
+          f"{g['plain']['ttft_ms']:.1f} ms; peak device memory "
+          f"{rec['peak_bytes'] / 1e9:.3f} GB; {rec['phase_s']:.1f} s "
+          f"({report['card']})")
+    return by_path, ok
+
+
+def _head_kernel(torch, cfg, rows: int) -> str:
+    """The kernel the greedy head GEMV at ``rows`` rows takes."""
+    from repro_torch.kernels import dispatch
+    name = dispatch.explain("matmul", m=rows, k=cfg.d_model,
+                            n=cfg.vocab_size, dtype=torch.float32, cfg=cfg,
+                            gemv=True)[0].name
+    return MOE_GEMM_KERNELS.get(name, name)
+
+
+def _moe_cli(torch, dev, report):
+    """The serve CLI on arctic-480b smoke, packed, kernel route: every
+    route its tables choose launched its kernel. Its decode-layer table is
+    the packed one (as the reference CLI prints it) while the MoE layers
+    run expanded, so a DBB route there is held against its dense kernel."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    dense_of = {"skinny_dbb": "skinny_sta", "skinny_dbb_w4": "skinny_sta",
+                "dbb_packed": "sta", "dbb_packed_w4": "sta"}
+    rep = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(MOE_CLI_ARGV.split(), report=rep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    routes = {dom: dense_of.get(r, r) if dom == "matmul" else r
+              for dom, r in rep["routes"].items()}
+    missing = [f"{dom} {r}" for dom, r in routes.items()
+               if r in ROUTE_KERNELS
+               and not sum(counts[k] for k in ROUTE_KERNELS[r])]
+    dbb = {k: v for k, v in counts.items() if k.startswith("dbb") and v}
+    ok = rc == 0 and not missing and not dbb
+    print(f"moe: cli {MOE_CLI_ARGV}: tables chose {rep['routes']} (the "
+          f"matmul route held as {routes['matmul']}: the layers run "
+          f"expanded); launches { {k: v for k, v in counts.items() if v} }; "
+          f"wall {wall:.1f} s "
+          + ("ok" if ok else f"FAIL: missing {missing}, DBB {dbb}"))
+    report["moe"]["cli"] = dict(argv=MOE_CLI_ARGV, routes=rep["routes"],
+                                wall_s=wall, launches={
+                                    k: v for k, v in counts.items() if v})
+    return counts, ok
+
+
+def _moe_phase(torch, dev, report, out_dir):
+    """The moe_lm family at the published widths (module doc, phase 15)."""
+    report["moe"] = {}
+    by_path, ok = {}, True
+    for arch, experts, layers, why in MOE_MODELS:
+        counts, model_ok = _moe_model(torch, dev, report, arch, experts,
+                                      layers, why)
+        by_path.update(counts)
+        ok = ok and model_ok
+    counts, cli_ok = _moe_cli(torch, dev, report)
+    by_path["moe_cli_arctic_smoke"] = counts
+    report["moe"]["kernels"] = _moe_kernels(torch, dev)
+    return by_path, ok and cli_ok
+
+
+def _moe_kernels(torch, dev):
+    """The kernels at the moe phase's new shapes (bf16), each against its
+    plain version and timed as the kernel phase times (medians of single
+    calls, L2 flushed) beside its bound and the library call: the skinny
+    GEMM at arctic's decode capacity (M8: the expert's gate K7168 N4864
+    with silu, its down projection K4864 N7168), the M-tiled GEMM at its
+    generate capacity (M40, the same two), flash_prefill at arctic's G 7 D
+    128 and kimi's G 8 D 112 (the FMA body: D is no multiple of 64; B8
+    T=S=32, generate's prefill), flash_prefill_packed at the same two (a
+    packed call of the first 8 serve lengths, the body each takes
+    printed), paged_decode at the same two (B8, S48 in 16-slot pages,
+    lengths 40; through the identity table), and head_sample_fused at
+    kimi's sampled decode head (M8 K7168 N163840 f32; `_head_sample_case`'s
+    rules)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn.ops import (flash_attention,
+                                              packed_flash_attention,
+                                              paged_decode_attention)
+    from repro_torch.kernels.attn.ref import (flash_prefill_ref,
+                                              packed_prefill_ref,
+                                              paged_decode_ref)
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.skinny.ops import sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm.ops import sta_gemm
+    from repro_torch.kernels.sta_gemm.ref import sta_gemm_ref
+    from repro_torch.models.moe import _capacity
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16, i32 = torch.bfloat16, dict(dtype=torch.int32, device=dev)
+    rows, failures = {}, []
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(bf16)
+
+    def record(label, err, ok, ms, pms, lms, lib, bms, by, note=""):
+        if not ok:
+            failures.append(f"{label}: max err {err}")
+        print(f"kernel {label}: max abs err {err:.3e} {'ok' if ok else 'FAIL'}"
+              f"; kernel {ms:.4f} ms{note}, plain {pms:.4f} ms, {lib} "
+              f"{lms:.4f} ms ({ms / lms:.2f}x), bound {bms:.4f} ms ({by})")
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                           library_ms=lms, bound_ms=bms, bound_by=by)
+
+    arctic = get_config("arctic-480b")
+    cap = _capacity(MOE_PROMPTS * MOE_PROMPT_LEN, arctic.replace(
+        moe=dataclasses.replace(arctic.moe, num_experts=MOE_MODELS[0][1])))
+    for name, fn, m, k, n, act in (
+            ("sta_gemm_skinny", sta_gemm_skinny, 8, 7168, 4864, "silu"),
+            ("sta_gemm_skinny", sta_gemm_skinny, 8, 4864, 7168, "none"),
+            ("sta_gemm", sta_gemm, cap, 7168, 4864, "silu"),
+            ("sta_gemm", sta_gemm, cap, 4864, 7168, "none")):
+        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+        got, want = fn(x, w, act=act), sta_gemm_ref(x, w, act=act)
+        err, ok = _close(torch, got, want, 2e-2)
+        ms = _time_ms(torch, lambda: fn(x, w, act=act), flush)
+        pms = _time_ms(torch, lambda: sta_gemm_ref(x, w, act=act), flush)
+        lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
+        bms, by = _bound_ms((x.numel() + w.numel() + m * n) * 2,
+                            2.0 * m * k * n, BF16_OPS_PER_S)
+        record(f"{name} M{m} K{k} N{n} bf16 act {act}", err, ok, ms, pms,
+               lms, "torch.matmul", bms, by)
+
+    b, t = MOE_PROMPTS, MOE_PROMPT_LEN
+    for hq, hkv, d in ((56, 8, 128), (64, 8, 112)):
+        g = hq // hkv
+        scale = d ** -0.5
+        q, k, v = randn(b, t, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
+        st = torch.zeros((b,), **i32)
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        kx, vx = (a.repeat_interleave(g, dim=1) for a in (kh, vh))
+        tc_before = LAUNCHES["flash_prefill_tc"]
+        got = flash_attention(q, k, v, st)
+        want = flash_prefill_ref(qh, kh, vh, st, st, sm_scale=scale)
+        torch.cuda.synchronize()
+        body = ("tensor-core" if LAUNCHES["flash_prefill_tc"] > tc_before
+                else "FMA")
+        err, ok = _close(torch, got, want.transpose(1, 2), ATTN_RTOL,
+                         ATTN_ATOL)
+        ms = _time_ms(torch, lambda: flash_attention(q, k, v, st), flush)
+        pms = _time_ms(torch, lambda: flash_prefill_ref(
+            qh, kh, vh, st, st, sm_scale=scale), flush)
+        lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kx, vx, is_causal=True), flush)
+        pairs = b * t * (t + 1) // 2
+        bms, by = _bound_ms(2 * 2 * b * t * (hq + hkv) * d,
+                            4.0 * d * pairs * hq, BF16_OPS_PER_S)
+        record(f"flash_prefill B{b} T=S={t} Hq{hq} Hkv{hkv} D{d} bf16", err,
+               ok, ms, pms, lms, "scaled_dot_product_attention", bms, by,
+               f" ({body} body)")
+
+        lens = MOE_SERVE_LENS[:8]
+        tp = sum(lens)
+        q, k, v = randn(tp, hq, d), randn(tp, hkv, d), randn(tp, hkv, d)
+        seg = torch.repeat_interleave(torch.arange(len(lens), **i32),
+                                      torch.tensor(lens, device=dev))
+        ii = torch.arange(tp, device=dev)
+        mask = (ii[None, :] <= ii[:, None]) & (seg[None, :] == seg[:, None])
+        qh, kh, vh = (a.transpose(0, 1).contiguous() for a in (q, k, v))
+        kx, vx = (a.repeat_interleave(g, dim=0) for a in (kh, vh))
+        tc_before = LAUNCHES["flash_prefill_packed_tc"]
+        got = packed_flash_attention(q, k, v, seg)
+        want = packed_prefill_ref(qh, kh, vh, seg, sm_scale=scale)
+        torch.cuda.synchronize()
+        body = ("tensor-core"
+                if LAUNCHES["flash_prefill_packed_tc"] > tc_before else "FMA")
+        err, ok = _close(torch, got, want.transpose(0, 1), ATTN_RTOL,
+                         ATTN_ATOL)
+        ms = _time_ms(torch, lambda: packed_flash_attention(q, k, v, seg),
+                      flush)
+        pms = _time_ms(torch, lambda: packed_prefill_ref(
+            qh, kh, vh, seg, sm_scale=scale), flush)
+        lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh[None], kx[None], vx[None], attn_mask=mask), flush)
+        pairs = sum(n * (n + 1) // 2 for n in lens)
+        bms, by = _bound_ms(2 * 2 * tp * (hq + hkv) * d,
+                            4.0 * d * pairs * hq, BF16_OPS_PER_S)
+        record(f"flash_prefill_packed T{tp} over {len(lens)} segments "
+               f"Hq{hq} Hkv{hkv} D{d} bf16", err, ok, ms, pms, lms,
+               "scaled_dot_product_attention", bms, by, f" ({body} body)")
+        del q, k, v, qh, kh, vh, kx, vx, mask
+
+        s, page, length = t + MOE_NEW, 16, t + MOE_NEW // 2
+        n_log = s // page
+        qd = randn(b, hkv, g, d)
+        kc, vc = randn(b, s, hkv, d), randn(b, s, hkv, d)
+        kp = kc.view(b * n_log, page, hkv, d)
+        vp = vc.view(b * n_log, page, hkv, d)
+        table = (torch.arange(b, **i32)[:, None] * n_log
+                 + torch.arange(n_log, **i32)[None, :])
+        lengths = torch.full((b,), length, **i32)
+
+        def run_kernel():
+            return paged_decode_attention(qd, kp, vp, table, lengths, st)
+        got = run_kernel()
+        want = paged_decode_ref(qd, kp, vp, table, lengths, st,
+                                sm_scale=scale)
+        err, ok = _close(torch, got, want, 2e-2)
+        qs = qd.reshape(b, hq, 1, d)
+        ks, vs = (a.transpose(1, 2).repeat_interleave(g, dim=1)
+                  for a in (kc, vc))
+        am = (torch.arange(s, device=dev) <= length)[None, None, None, :]
+        ms = _time_ms(torch, run_kernel, flush)
+        pms = _time_ms(torch, lambda: paged_decode_ref(
+            qd, kp, vp, table, lengths, st, sm_scale=scale), flush)
+        lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=am), flush)
+        valid = b * (length + 1)
+        bms, by = _bound_ms(qd.numel() * 2 * 2 + valid * hkv * d * 2 * 2,
+                            4.0 * valid * hq * d, BF16_OPS_PER_S)
+        record(f"paged_decode B{b} Hkv{hkv} G{g} D{d} S{s} page{page} bf16",
+               err, ok, ms, pms, lms, "scaled_dot_product_attention", bms,
+               by)
+
+    kimi = get_config("kimi-k2-1t-a32b")
+    res, fail = _head_sample_case(torch, dev, flush, 8, kimi.d_model,
+                                  kimi.vocab_size, 8)
+    if fail:
+        failures.append(fail)
+    rows[f"head_sample_fused M8 K{kimi.d_model} N{kimi.vocab_size} f32"] = {
+        key: res[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "head_matmul_ms")}
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(_fail("a kernel disagrees with its plain version "
+                               "at the moe shapes: " + "; ".join(failures)))
+    return rows
 
 
 # ---------------------------------------------------------------------------

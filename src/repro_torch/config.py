@@ -12,7 +12,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
-__all__ = ["DbbConfig", "StaConfig", "ModelConfig", "ShapeSpec",
+__all__ = ["DbbConfig", "StaConfig", "MoeConfig", "ModelConfig", "ShapeSpec",
            "MeshConfig", "TrainConfig", "ServeConfig", "RunConfig"]
 
 
@@ -68,8 +68,29 @@ class StaConfig:
 
 
 @dataclass(frozen=True)
+class MoeConfig:
+    """Mixture-of-experts FFN (the moe_lm family): ``num_experts`` experts,
+    each token routed to its ``top_k``; an expert takes at most
+    ``capacity_factor`` times its even share of the routed tokens (the
+    rest drop). ``dense_residual_ff`` > 0 adds an always-active MLP of that
+    width beside the experts (Arctic's dense residual, Kimi's shared
+    expert). ``aux_loss_weight`` scales the load-balance loss in training.
+    ``impl``: "auto" and "local" run every expert on the one device;
+    "ep" (expert parallelism) is not ported. ``router_jitter`` is carried
+    as the reference carries it (neither package reads it)."""
+    num_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    dense_residual_ff: int = 0
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+    impl: str = "auto"
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """The fields the ported paths read (the dense LM family, the CNN).
+    """The fields the ported paths read (the dense and MoE LM families,
+    the CNN).
 
     gemm_impl:     "pallas" selects the fused kernel route family (the
                    hand-written CUDA kernels on the card, their plain
@@ -115,6 +136,7 @@ class ModelConfig:
     rope: bool = True
     prefix_embed_len: int = 0       # vlm: prefix embedding positions
     embeds_input: bool = False      # audio / vlm: the frontend gives embeds
+    moe: MoeConfig = field(default_factory=MoeConfig)
     dbb: DbbConfig = field(default_factory=DbbConfig)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -138,6 +160,43 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding, layers, head), the
+        reference's formula for the cnn, dense_lm and moe_lm families (it
+        counts no norm or bias parameters)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        if self.family == "cnn":
+            n, cin, k = 0, self.cnn_in_ch, self.cnn_kernel
+            for cout in self.cnn_channels:
+                n += cin * cout * k * k + cout
+                cin = cout
+            img = self.cnn_img // (2 ** len(self.cnn_channels))
+            return n + cin * img * img * self.cnn_classes
+        if self.family not in ("dense_lm", "moe_lm"):
+            raise NotImplementedError(
+                f"param_count of family {self.family!r} is not ported")
+        n = v * d * (1 if self.tie_embeddings else 2)
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+        mats = 3 if self.mlp_gated else 2
+        if self.family == "moe_lm":
+            ff = self.moe.num_experts * mats * d * f + d * self.moe.num_experts
+            ff += mats * d * self.moe.dense_residual_ff
+        else:
+            ff = mats * d * f
+        return n + self.num_layers * (attn + ff)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: a MoE layer's ``top_k`` experts of its
+        ``num_experts`` (every parameter elsewhere)."""
+        if self.family != "moe_lm" or not self.moe.num_experts:
+            return self.param_count()
+        per_expert = (3 if self.mlp_gated else 2) * self.d_model * self.d_ff
+        inactive = ((self.moe.num_experts - self.moe.top_k) * per_expert
+                    * self.num_layers)
+        return self.param_count() - inactive
 
 
 # ---------------------------------------------------------------------------

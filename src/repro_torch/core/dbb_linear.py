@@ -11,7 +11,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config import DbbConfig
-from repro_torch.core.dbb import DbbWeight, pack_dbb, unpack_dbb
+from repro_torch.core.dbb import DbbWeight, pack_dbb
 from repro_torch.core.quant import quantize_weight
 from repro_torch.core.sparsity import map_with_path, packable
 
@@ -21,16 +21,65 @@ __all__ = ["decompress", "maybe_decompress_tree", "dbb_linear_apply",
 
 def decompress(p: DbbWeight, dtype: Optional[torch.dtype] = None
                ) -> torch.Tensor:
-    """Dense ``[..., K, N]``: `unpack_dbb` of each matrix of the stack —
-    scale applied in f32 (a w4 leaf dequantized groupwise, an int8-valued
-    leaf times its per-channel scale) — then cast to ``dtype``; the plain
-    counterpart of the reference's `decompress_xla`."""
+    """Dense ``[..., K, N]`` of every matrix of the stack, scale applied in
+    f32 (a w4 leaf dequantized groupwise, an int8-valued leaf times its
+    per-channel scale), then cast to ``dtype``; the plain counterpart of
+    the reference's `decompress_xla`. Bit-equal to `unpack_dbb` of each
+    matrix of a valid plane (at most nnz bits a block): a bitmask plane's
+    slots are scaled (k values a block, not its B rows) and scattered onto
+    their blocks' set bits in one pass over a group of matrices."""
     lead = p.values.shape[:-2]
     flat = p.map(lambda a: a.reshape(-1, *a.shape[len(lead):]))
-    w = torch.stack([unpack_dbb(flat.map(lambda a: a[i]))
-                     for i in range(flat.values.shape[0])])
-    w = w.reshape(*lead, p.k_dim, p.n_dim)
-    return w.to(dtype) if dtype is not None else w
+    if dtype is None:
+        dtype = (torch.float32 if p.bits == 4 or p.scale is not None
+                 else p.values.dtype)
+    m, n = flat.values.shape[0], p.n_dim
+    out = torch.empty((m, p.k_dim, n), dtype=dtype, device=p.values.device)
+    step = max(1, _EXPAND_CHUNK // max(p.k_dim * n, 1))
+    for i in range(0, m, step):
+        _expand_into(out[i:i + step], flat.map(lambda a: a[i:i + step]))
+    return out.reshape(*lead, p.k_dim, n)
+
+
+# weights a `decompress` scatter expands at once (bounds its transients)
+_EXPAND_CHUNK = 1 << 28
+
+
+def _slot_rows(block: int, nnz: int, device) -> torch.Tensor:
+    """``[nnz, 2^block]`` int64: the block row slot s of a block with
+    bitmask m fills — m's s-th set bit (its rank is s) — or, for a dead
+    slot (m has at most s bits set), m's lowest clear bit, which stays zero
+    (a dead slot holds zero). Valid planes only: at most ``nnz`` bits
+    set."""
+    m = torch.arange(2 ** block, device=device)[:, None]
+    bits = (m >> torch.arange(block, device=device)) & 1      # [2^B, B]
+    rank = torch.cumsum(bits, 1) - bits
+    slots = torch.arange(nnz, device=device)[None, :, None]
+    live = (bits[:, None, :] == 1) & (rank[:, None, :] == slots)
+    first_clear = (bits == 0).long().argmax(1)                 # first max
+    return torch.where(live.any(2), live.long().argmax(2),
+                       first_clear[:, None]).T
+
+
+def _expand_into(out: torch.Tensor, p: DbbWeight) -> None:
+    """Write the dense ``[c, K, N]`` of the c bitmask-plane matrices of
+    ``p`` into ``out``: each block's slots scattered onto its rows."""
+    c, n = p.values.shape[0], p.n_dim
+    kb, k, blk = p.num_blocks, p.nnz, p.block
+    vals = p.values
+    if p.bits == 4:                      # as `unpack_nibbles`
+        v = vals.to(torch.int32)
+        vals = torch.stack([(v << 28) >> 28, v >> 4], dim=2)
+    vals = vals.reshape(c, kb, k, n)
+    if p.bits == 4:                      # as `dequantize_groups`
+        group = torch.arange(kb, device=vals.device) * blk // p.group
+        vals = vals.to(torch.float32) * p.scale[:, group, None, :]
+    elif p.scale is not None:
+        vals = vals.to(torch.float32) * p.scale[:, None, None, :]
+    rows = _slot_rows(blk, k, vals.device)[:, p.bitmask.long()]
+    dense = out.view(c, kb, blk, n)
+    dense.zero_()
+    dense.scatter_(2, rows.permute(1, 2, 0, 3), vals.to(out.dtype))
 
 
 def maybe_decompress_tree(params: Any,

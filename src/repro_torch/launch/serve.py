@@ -209,7 +209,7 @@ def main(argv=None, *, device=None, report: Optional[dict] = None) -> int:
                          "serving (--kv-page-size, or a config that sets "
                          "kv_page_size); without it the contiguous cache "
                          "ignores the pool budget")
-    if cfg.family != "dense_lm":
+    if cfg.family == "cnn" or cfg.embeds_input or cfg.prefix_embed_len:
         raise SystemExit(f"{args.arch}: token-decoder serving only "
                          "(modality frontends are stubs)")
     packed = bool(args.packed and cfg.dbb.enabled)

@@ -1,5 +1,5 @@
 """Model registry: uniform entry points keyed by config family (the port
-serves the dense_lm family and runs the cnn family)."""
+serves the dense_lm and moe_lm families and runs the cnn family)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -28,9 +28,10 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                          pack: bool = False,
                          layer_hook: Optional[LayerHook] = None,
                          outer: Optional[Dict] = None) -> Dict:
-    """A dense_lm tree built one layer at a time, so a full-width model
-    never holds more than about two dense layers beside its stacked
-    planes: layer ``l`` is drawn by the port's initializers from its own
+    """A dense_lm or moe_lm tree built one layer at a time, so a
+    full-width model never holds more than about two dense layers (a MoE
+    layer's dense experts among them) beside its stacked planes: layer
+    ``l`` is drawn by the port's initializers from its own
     generator (seed ``seed * 1000 + l``), passed through ``layer_hook``,
     DBB-projected and packed by `pack_tree` when ``pack`` (f32 values, or
     the w4 plane where ``cfg.dbb.weight_bits == 4``), and copied into
@@ -47,10 +48,8 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     from repro_torch.core.dbb_linear import pack_tree
     from repro_torch.core.sparsity import apply_dbb_to_tree
     from repro_torch.device import resolve_device
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models.common import (embed_init, linear_init,
                                            norm_init, param_dtype_of)
-    from repro_torch.models.mlp import mlp_init
     tf._check_family(cfg)
     dev = resolve_device(device)
     dt, d, n_l = param_dtype_of(cfg), cfg.d_model, cfg.num_layers
@@ -75,10 +74,7 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     stack = None
     for l in range(n_l):
         gen = torch.Generator(device=dev).manual_seed(seed * 1000 + l)
-        one = {"attn": attn_mod.attention_init(gen, (1,), cfg, dt, dev),
-               "ln_attn": norm_init(cfg.norm, (1,), d, dt, dev),
-               "ln_mlp": norm_init(cfg.norm, (1,), d, dt, dev),
-               "mlp": mlp_init(gen, (1,), d, cfg.d_ff, cfg, dt, dev)}
+        one = tf.layer_init(gen, (1,), cfg, dt, dev)
         if layer_hook is not None:
             one = layer_hook(one, gen)
         if pack:
@@ -103,10 +99,11 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(output, aux loss), as the reference's `forward`: the cnn family's
     logits for ``batch["images"]`` (NHWC) through the plain lowering
-    (``matmul="xla"``); the dense_lm family's hidden states ``[B, S, d]``
-    for ``batch["tokens"]`` (`transformer.forward`; ``embeds`` and
-    ``prefix_embeds`` are not ported and raise). The aux loss is a zero
-    scalar."""
+    (``matmul="xla"``); the LM families' hidden states ``[B, S, d]`` for
+    ``batch["tokens"]`` (`transformer.forward`; ``embeds`` and
+    ``prefix_embeds`` are not ported and raise). The aux loss is the MoE
+    layers' summed load-balance loss, a zero scalar for the other
+    families."""
     if cfg.family == "cnn":
         logits = cnn_mod.cnn_apply(params, cfg, batch["images"])
         return logits, torch.zeros((), device=logits.device)

@@ -1,14 +1,17 @@
-"""Dense decoder LM: embeddings → layers → final norm (hidden states; the
-LM head is applied by the serving layer). `forward` is the full-sequence
-pass (no cache); `prefill`, `prefill_packed`, `prefill_continue`,
+"""Decoder LM (the dense_lm and moe_lm families): embeddings → layers →
+final norm (hidden states; the LM head is applied by the serving layer).
+A layer is attention then an MLP (dense_lm) or a MoE block (moe_lm, which
+also yields a load-balance aux loss). `forward` is the full-sequence pass
+(no cache); `prefill`, `prefill_packed`, `prefill_continue`,
 `decode_step` and `verify_step` serve.
 
 Layer weights are stacked ``[L, ...]`` (packed leaves as stacked
 `DbbWeight` planes) and the layers run in a Python loop over the layer
 index — the reference's scan over the stack. On the fused route the
-packed planes of a layer go to the DBB kernels as they are; on the plain
-route each layer is decompressed transiently (one layer's dense weights
-live at a time).
+packed planes of a dense_lm layer go to the DBB kernels as they are; on
+the plain route, and for every moe_lm layer, each layer is decompressed
+transiently (one layer's dense weights live at a time), as the reference
+does (its ``_STREAM_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -27,12 +30,19 @@ from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
                                        embed_scale, linear_init, norm_apply,
                                        norm_init, param_dtype_of)
 from repro_torch.models.mlp import mlp_apply, mlp_down, mlp_init, mlp_up
+from repro_torch.models.moe import (dense_mlp_cfg, moe_apply, moe_init,
+                                    moe_routed)
 
 __all__ = ["init_params", "lm_head_weight", "init_cache", "forward",
            "prefill", "prefill_packed", "prefill_continue", "decode_step",
            "verify_step"]
 
-_FAMILIES = ("dense_lm",)
+_FAMILIES = ("dense_lm", "moe_lm")
+# families whose packed layer weights stream through the DBB kernels on the
+# fused route (the reference's tuple; the vlm and audio families are not
+# ported): a MoE layer is expanded to dense, its experts then take the
+# dense kernels
+_STREAM_FAMILIES = ("dense_lm", "vlm_lm", "audio_lm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -50,20 +60,30 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = param_dtype_of(cfg)
-    d, lead = cfg.d_model, (cfg.num_layers,)
+    d = cfg.d_model
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
-        "layers": {
-            "attn": attn.attention_init(gen, lead, cfg, dt, dev),
-            "ln_attn": norm_init(cfg.norm, lead, d, dt, dev),
-            "ln_mlp": norm_init(cfg.norm, lead, d, dt, dev),
-            "mlp": mlp_init(gen, lead, d, cfg.d_ff, cfg, dt, dev),
-        },
+        "layers": layer_init(gen, (cfg.num_layers,), cfg, dt, dev),
         "final_norm": norm_init(cfg.norm, (), d, dt, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, (), d, cfg.vocab_size, dt, dev)
     return params
+
+
+def layer_init(gen: torch.Generator, lead, cfg: ModelConfig,
+               dtype: torch.dtype, device) -> Dict:
+    """The layer stack's parameters ``[*lead, ...]``: attention, its two
+    norms, and the MLP (dense_lm) or the MoE block (moe_lm)."""
+    d = cfg.d_model
+    p = {"attn": attn.attention_init(gen, lead, cfg, dtype, device),
+         "ln_attn": norm_init(cfg.norm, lead, d, dtype, device),
+         "ln_mlp": norm_init(cfg.norm, lead, d, dtype, device)}
+    if cfg.family == "moe_lm":
+        p["moe"] = moe_init(gen, lead, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, lead, d, cfg.d_ff, cfg, dtype, device)
+    return p
 
 
 def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -109,12 +129,22 @@ def _layers(tree: Any, n: int) -> list:
 
 
 def _unpack_layer(lp: Any, cfg: ModelConfig) -> Any:
-    """On the fused route packed leaves stay packed (the kernels stream
-    them); otherwise every packed leaf is decompressed to the activation
-    dtype for this layer only."""
-    if pallas_route_active(cfg):
+    """On the fused route a streaming family's packed leaves stay packed
+    (the kernels stream them); otherwise — the plain route, or a moe_lm
+    layer — every packed leaf is decompressed to the activation dtype for
+    this layer only."""
+    if cfg.family in _STREAM_FAMILIES and pallas_route_active(cfg):
         return lp
     return maybe_decompress_tree(lp, dtype=dtype_of(cfg))
+
+
+def _ffn(lp: Dict, cfg: ModelConfig, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's second half on its ``ln_mlp`` input: (the MLP's or the MoE
+    block's output, the MoE aux loss or None)."""
+    if cfg.family == "moe_lm":
+        return moe_apply(lp["moe"], cfg, h)
+    return mlp_apply(lp["mlp"], cfg, h), None
 
 
 def _attn_block(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -129,27 +159,52 @@ def _attn_block(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _attn_mlp_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    window_override: Optional[int]) -> torch.Tensor:
-    """One layer of the full-sequence pass (no cache)."""
+                    window_override: Optional[int]
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer of the full-sequence pass (no cache): (x, aux or None)."""
     lp = _unpack_layer(lp, cfg)
     x, h = _attn_block(lp, cfg, x, window_override)
-    return x + mlp_apply(lp["mlp"], cfg, h)
+    y, aux = _ffn(lp, cfg, h)
+    return x + y, aux
+
+
+def _moe_down(p: Dict, cfg: ModelConfig, h: torch.Tensor,
+              hi: Optional[torch.Tensor], hg: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A MoE block past its dense MLP's up-projections: the routed experts
+    on ``h`` plus the dense MLP's rest on ``(hi, hg)`` (None: no dense
+    MLP)."""
+    y, aux = moe_routed(p, cfg, h)
+    if hi is not None:
+        y = y + mlp_down(p["dense_mlp"], dense_mlp_cfg(cfg), hi, hg)
+    return y, aux
 
 
 def _auto_remat_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
-                      window_override: Optional[int]) -> torch.Tensor:
+                      window_override: Optional[int]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`_attn_mlp_layer` (plain route) under the "auto" policy: the MLP's
-    up-projections (``mlp_wi`` / ``mlp_wg``) run outside the checkpointed
-    regions, so their outputs (and their input, which their backward
-    needs) are kept; the attention half and the MLP's down half are
-    recomputed in the backward pass."""
+    up-projections (``mlp_wi`` / ``mlp_wg``; in a MoE block, its dense
+    MLP's — the reference names no expert product) run outside the
+    checkpointed regions, so their outputs (and their input, which their
+    backward needs) are kept; the attention half, the MLP's down half and
+    a MoE block's router and experts are recomputed in the backward
+    pass."""
     from torch.utils.checkpoint import checkpoint
     lp = _unpack_layer(lp, cfg)
     x, h = checkpoint(_attn_block, lp, cfg, x, window_override,
                       use_reentrant=False)
+    if cfg.family == "moe_lm":
+        p = lp["moe"]
+        hi = hg = None
+        if "dense_mlp" in p:
+            hi, hg = mlp_up(p["dense_mlp"], dense_mlp_cfg(cfg), h)
+        y, aux = checkpoint(_moe_down, p, cfg, h, hi, hg,
+                            use_reentrant=False)
+        return x + y, aux
     hi, hg = mlp_up(lp["mlp"], cfg, h)
     return x + checkpoint(mlp_down, lp["mlp"], cfg, hi, hg,
-                          use_reentrant=False)
+                          use_reentrant=False), None
 
 
 def _dots_policy():
@@ -216,7 +271,8 @@ def forward(params: Dict, cfg: ModelConfig,
             prefix_embeds=None, window_override: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass without a cache: ``tokens [B, S]`` → (hidden [B,
-    S, d], aux loss — a zero scalar for the dense family). Attention goes
+    S, d], aux loss — the sum of the MoE layers' load-balance losses, a
+    zero scalar for the dense family). Attention goes
     through `attention_apply`, so the dispatch picks flash, chunked or
     naive; ``window_override`` replaces the config's sliding window. Under
     autograd each layer runs under ``cfg.remat`` (`_wrap_remat`).
@@ -229,10 +285,13 @@ def forward(params: Dict, cfg: ModelConfig,
             "inputs are not ported")
     x = _embed(params, cfg, tokens)
     body = _wrap_remat(_attn_mlp_layer, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(params["layers"], cfg.num_layers):
-        x = body(lp, cfg, x, window_override)
+        x, a = body(lp, cfg, x, window_override)
+        if a is not None:
+            aux = aux + a
     x = norm_apply(cfg.norm, params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -261,7 +320,7 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + attn.attention_apply(lp["attn"], cfg, h, positions=positions,
                                      ragged=start is not None, qkv=(q, k, v))
         h = norm_apply(cfg.norm, lp["ln_mlp"], x)
-        x = x + mlp_apply(lp["mlp"], cfg, h)
+        x = x + _ffn(lp, cfg, h)[0]
     x = norm_apply(cfg.norm, params["final_norm"], x)
     new_cache = dict(cache, length=cache["length"] + s)
     if start is not None:
@@ -317,7 +376,7 @@ def prefill_packed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + attn.packed_attention_apply(lp["attn"], cfg, h, seg_ids,
                                             positions, qkv=(q, k, v))
         h = norm_apply(cfg.norm, lp["ln_mlp"], x)
-        x = x + mlp_apply(lp["mlp"], cfg, h)
+        x = x + _ffn(lp, cfg, h)[0]
     return norm_apply(cfg.norm, params["final_norm"], x), cache
 
 
@@ -355,7 +414,7 @@ def prefill_continue(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + attn.chunk_attention_apply(lp["attn"], cfg, q, krow, vrow,
                                            offset)
         h = norm_apply(cfg.norm, lp["ln_mlp"], x)
-        x = x + mlp_apply(lp["mlp"], cfg, h)
+        x = x + _ffn(lp, cfg, h)[0]
     return norm_apply(cfg.norm, params["final_norm"], x), cache
 
 
@@ -384,7 +443,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache["length"], start=start)
         x = x + y
         h = norm_apply(cfg.norm, lp["ln_mlp"], x)
-        x = x + mlp_apply(lp["mlp"], cfg, h)
+        x = x + _ffn(lp, cfg, h)[0]
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return x, dict(cache, length=cache["length"] + 1)
 
@@ -417,5 +476,5 @@ def verify_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 start=start)
         x = x + y
         h = norm_apply(cfg.norm, lp["ln_mlp"], x)
-        x = x + mlp_apply(lp["mlp"], cfg, h)
+        x = x + _ffn(lp, cfg, h)[0]
     return norm_apply(cfg.norm, params["final_norm"], x), cache

@@ -32,11 +32,6 @@ from repro_torch.train.tree import tree_map
 __all__ = ["TrainState", "init_train_state", "make_loss_fn",
            "make_train_step", "make_eval_step", "loss_and_grads"]
 
-# MoE load-balancing weight (MoeConfig's default in the reference); the
-# dense families' aux loss is zero
-AUX_LOSS_WEIGHT = 0.01
-
-
 @dataclasses.dataclass
 class TrainState:
     params: Any
@@ -94,7 +89,8 @@ def make_loss_fn(cfg: ModelConfig, nnz: Optional[int] = None,
         w_head = registry.lm_head_weight(p_eff, cfg)
         loss = cross_entropy(hidden, w_head, batch["labels"],
                              mask=batch.get("loss_mask"))
-        return loss + AUX_LOSS_WEIGHT * aux, {"loss": loss, "aux": aux}
+        total = loss + cfg.moe.aux_loss_weight * aux
+        return total, {"loss": loss, "aux": aux}
 
     return loss_fn
 

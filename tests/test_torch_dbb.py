@@ -157,16 +157,22 @@ def test_config_fields_match_reference():
     from repro_torch import config as tc
     from repro_torch.configs import get_config as tget
     for tcls, jcls in ((tc.ModelConfig, jc.ModelConfig),
-                       (tc.DbbConfig, jc.DbbConfig)):
+                       (tc.DbbConfig, jc.DbbConfig),
+                       (tc.MoeConfig, jc.MoeConfig)):
         jfields = {f.name: f for f in dataclasses.fields(jcls)}
         for f in dataclasses.fields(tcls):
             assert f.name in jfields, f.name
+            tv, jv = getattr(tcls(), f.name), getattr(jcls(), f.name)
+            if f.name == "moe":      # the sub-config, field for field
+                tv, jv = dataclasses.asdict(tv), dataclasses.asdict(jv)
             if f.name != "dbb":
-                assert getattr(tcls(), f.name) == getattr(jcls(), f.name)
+                assert tv == jv, f.name
     for smoke in (False, True):
         jcfg, tcfg = get_config("olmo-1b", smoke), tget("olmo-1b", smoke)
         for f in dataclasses.fields(tcfg):
             tv, jv = getattr(tcfg, f.name), getattr(jcfg, f.name)
+            if f.name == "moe":
+                tv, jv = dataclasses.asdict(tv), dataclasses.asdict(jv)
             if f.name == "dbb":      # the port's DbbConfig fields
                 names = [g.name for g in dataclasses.fields(tv)]
                 tv = [getattr(tv, g) for g in names]
