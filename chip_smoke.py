@@ -298,22 +298,72 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             kimi's G 8 D 112, and head_sample_fused at kimi's sampled
             decode head (M8 K7168 N163840 f32) under the kernel phase's
             near-tie and temperature-0 rules.
+16. zamba2  the zamba2 hybrid (after phase 15) at full width and all 38
+            layers: zamba2-1.2b (d 2048, d_in 4096, N 64, P 64, chunk
+            128; the shared attention + MLP block, 32 heads of D 64, d_ff
+            8192, a 4096-token window, after every 6 Mamba2 layers: 7
+            calls a pass; vocab 32000), built one layer at a time with
+            the family phase's noise hook, packed with f32 values (k 4),
+            ``gemm_impl="pallas"``. ``registry.forward`` on B2 x 256
+            tokens (the Mamba layers expanded layer by layer, the shared
+            block streaming its packed planes through dbb_gemm) against
+            the plain route: at f32 activations within ZAMBA_F32_TOL of
+            max |h|, at bf16 no farther from the f32 plain route than
+            ZAMBA_BF16_MARGIN times the bf16 plain route is (bf16's own
+            error here is ~3e-2 of max |h|, ~1.5e-2 of max |logit|).
+            Greedy ``generate`` on both routes of 8 prompts of 256 tokens
+            (the chunked scan; 32 new), of a ragged batch of 64-200 tokens
+            (the recurrence; 16 new; the pads-feed-the-state warning must
+            be given) and of one 4608-token prompt (16 new; the ring wraps
+            in the prefill; one decode step must write ring slot 4608 %
+            4096 and no other): prefill logits within LOGIT_TOL of max at
+            f32 activations and, at bf16, by the forward's margin rule;
+            streams equal outside the split rule at bf16's reach (gaps
+            recomputed on each row's own context: a zamba2 row's pads
+            feed its state); ms a decode step and time to first token on
+            both routes. A sampled generate of the 8 prompts on the kernel
+            route through head_sample_fused with ``draft_k=2`` refused
+            (the warning; the temperature-0 row equal to the greedy
+            stream, the others moved by the noise); serve of 12 requests
+            through max_batch 8 as static waves (the warning), streams
+            equal to generate on the same waves; two training steps
+            through ``launch.train`` at B4 S256 (plain route, no launch,
+            finite loss and parameters, peak memory); the serve CLI
+            (``--full --packed --gemm-impl pallas --batch 8``). Every
+            run's launches equal exactly those the config implies: per
+            prefill or decode call 7 shared-block calls, each with its
+            MLP's three GEMMs on the route the table picks (the engine
+            expands the shared block, so its projections take the plain
+            matmul and no DBB kernel runs; ``forward`` on the packed tree
+            adds its four projections on dbb_gemm), flash_prefill once per
+            shared-block call of a full-sequence pass, no paged_decode
+            (the ring decode takes the plain route), one head a call.
+            Then one Mamba layer's parts in a decode step (the transient
+            expand, norm + in_proj, conv, SSD step, gate + norm, out_proj)
+            and the 256-token chunked scan timed beside the decode step,
+            and the kernels at the phase's new shapes, each against its
+            plain version beside bound and library call
+            (``zamba2_shapes`` in the kernels line): flash_prefill bf16
+            Hq = Hkv = 32 D 64 at B8 T=S=256 and B1 T=S=4608 with the 4096
+            window, sta_gemm at M2048 K2048 N8192 (gelu) and K8192 N2048,
+            sta_gemm_skinny at the head (M8 K2048 N32000 f32) and
+            head_sample_fused at M8 K2048 N32000.
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8, 9 and 12-14 must have run the tensor-core body:
-``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
+main paths of phases 4-6, 8, 9, 12-14 and 16 must have run the tensor-core
+body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
-phases 4-9 and 12-15 must have run the split-K body
+phases 4-9 and 12-16 must have run the split-K body
 (``dbb_gemm_skinny_split`` equals the f32, ``_i8`` and ``_w4`` branches'
 sum) and every f32-x dbb_gemm launch (the CNN classifier, N 10) the narrow
 body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
 LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-15;
+sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-16;
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -613,6 +663,10 @@ def main() -> int:
     if not ok:
         return _fail("the moe_lm family phase failed (see above)")
     by_path.update(moe_counts)
+    zamba_counts, ok = timed("zamba2", _zamba_phase, args.out)
+    if not ok:
+        return _fail("the zamba2 phase failed (see above)")
+    by_path.update(zamba_counts)
     cnn_paths = list(cnn_counts) + train_cnn
     # the moe paths check their tensor-core counts themselves (kimi's D 112
     # prefill runs the FMA body; the CLI run's smoke config is f32)
@@ -634,6 +688,10 @@ def main() -> int:
                if k.startswith(name + " ")}
         if moe:
             entry["moe_shapes"] = moe
+        zamba = {k: v for k, v in report["zamba2"]["kernels"].items()
+                 if k.startswith(name + " ")}
+        if zamba:
+            entry["zamba2_shapes"] = zamba
         entry["launches"] = sum(c[name] for c in by_path.values())
         entry["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     if args.out:
@@ -3861,11 +3919,11 @@ def _moe_expected(torch, cfg, calls, heads, head_kernel, attn):
     return {k: v for k, v in want.items() if v}
 
 
-def _moe_check_launches(tag, counts, want):
+def _check_launches(phase, tag, counts, want):
     """Every kernel's launches against ``want`` (missing keys: zero)."""
     got = {k: v for k, v in counts.items() if v}
     ok = got == want
-    print(f"moe: {tag}: launches {got}; expected from the config {want} "
+    print(f"{phase}: {tag}: launches {got}; expected from the config {want} "
           f"{'ok' if ok else 'FAIL'}")
     return ok
 
@@ -4155,7 +4213,7 @@ def _moe_model(torch, dev, report, arch, experts, layers, why):
     want = _moe_expected(torch, cfg, kcalls, 1 + steps, head, attn)
     path = f"moe_{short}_generate"
     by_path[path] = counts
-    ok = _moe_check_launches(path, counts, want) and ok
+    ok = _check_launches("moe", path, counts, want) and ok
 
     if short == "arctic":
         runs, outs = _moe_serve(torch, dev, arch, cfg, tree, rec)
@@ -4166,7 +4224,7 @@ def _moe_model(torch, dev, report, arch, experts, layers, why):
                                  attn)
             path = f"moe_{short}_{name}"
             by_path[path] = counts
-            ok = _moe_check_launches(path, counts, want) and ok
+            ok = _check_launches("moe", path, counts, want) and ok
         same = outs["serve_packed"] == outs["serve_paged"]
         print(f"moe: {arch}: serve streams, paged vs contiguous "
               f"{'equal' if same else 'DIFFERENT'}")
@@ -4188,7 +4246,7 @@ def _moe_model(torch, dev, report, arch, experts, layers, why):
                                  "head_sample_fused", attn)
             path = f"moe_{short}_{name}"
             by_path[path] = counts
-            ok = _moe_check_launches(path, counts, want) and ok
+            ok = _check_launches("moe", path, counts, want) and ok
         sout, gout = outs["serve_paged_sampled"], gouts["serve_paged"]
         moved = sum(a != b for s, g in zip(sout, gout) for a, b in zip(s, g))
         valid = all(0 <= t < cfg.vocab_size for s in sout for t in s)
@@ -4763,6 +4821,749 @@ def _int8_phase(torch, dev, report):
     ok = _int8_exact(torch, dev, report) and ok
     ok = _s8_tc_check(counts) and ok
     return counts, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the zamba2 hybrid at full width and full depth
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_FWD = (2, 256)                  # forward: B2 x 256 tokens
+ZAMBA_LEN, ZAMBA_NEW = 256, 32        # 8 prompts of two scan chunks each
+# left-padded to 200 tokens, no multiple of the chunk: the recurrence
+ZAMBA_RAGGED, ZAMBA_RAGGED_NEW = [200, 64, 137, 90, 175, 112, 153, 71], 16
+ZAMBA_LONG, ZAMBA_LONG_NEW = 4608, 16  # past the 4096-token window
+ZAMBA_SERVE_LENS = [96, 40, 72, 17, 55, 128, 33, 80, 64, 21, 100, 48]
+ZAMBA_SERVE_BUDGETS = [8, 16, 12, 10, 14, 9, 16, 11, 13, 8, 15, 12]
+# forward hidden states at f32 activations, kernel vs plain route, of max
+# |h| (both routes take the same f32 products in another order)
+ZAMBA_F32_TOL = 1e-4
+# at the config's bf16 activations the plain route's own rounding moves
+# zamba2's O(1) logits (an untied random head) by ~1.7e-2 of max and its
+# hidden states by ~3e-2 against the same route at f32, growing block by
+# block through the 45 residual blocks: far above LOGIT_TOL. So the bf16
+# kernel route is held against the f32 plain route, within this factor of
+# the bf16 plain route's own distance from it, and a stream split is
+# excused where the plain route's gap is within twice that distance
+ZAMBA_BF16_MARGIN = 1.5
+ZAMBA_TRAIN_ARGV = ("--arch zamba2-1.2b --full --steps 2 --seq-len 256 "
+                    "--batch 4")
+ZAMBA_CLI_ARGV = ("--arch zamba2-1.2b --full --packed --gemm-impl pallas "
+                  "--batch 8")
+# a GEMM route's kernel and the body counter beside it
+ZAMBA_GEMM_KERNELS = dict(MOE_GEMM_KERNELS, dbb_packed="dbb_gemm",
+                          skinny_dbb="dbb_gemm_skinny")
+ZAMBA_WARN_RAGGED = "ragged batch pads feed the recurrent state"
+ZAMBA_WARN_SPEC = "has no slot-addressed K/V cache for batched verify"
+ZAMBA_WARN_WAVES = "falling back to static waves"
+
+
+def _zamba_expected(torch, cfg, calls, head=None, packed=False):
+    """The launches the config implies for ``calls`` [(kind, rows, M)]:
+    kind "prefill" (M = rows x tokens), "decode" (M = rows) or "forward"
+    (no head). Each call runs the shared block once per group (7 at full
+    depth): on a packed block (``forward`` on the packed tree) its four
+    attention projections and three MLP GEMMs, on the expanded block
+    (the engine's) its three MLP GEMMs (the projections take the plain
+    matmul, as in the reference), each on the kernel the route table
+    picks; flash_prefill once per group on a full-sequence call (decode
+    attention on the ring takes the plain route: no paged_decode); and
+    ``head`` once per prefill or decode call. The body counters follow
+    their rules (`sta_gemm.ops.tc_body`, `dbb_gemm.ops.tc_body`,
+    `attn.ops.tc_body`; a float DBB skinny launch runs the split-K
+    body)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attn.ops import tc_body as flash_tc
+    from repro_torch.kernels.sta_gemm.ops import tc_body as gemm_tc
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.transformer import _n_groups
+    dt = dtype_of(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    hq = cfg.num_heads * cfg.resolved_head_dim
+    hkv = cfg.num_kv_heads * cfg.resolved_head_dim
+    groups = _n_groups(cfg)
+    want, memo = {}, {}
+
+    def add(name, n=1):
+        want[name] = want.get(name, 0) + n
+
+    def kernel(m, k, n, ops):
+        key = (m, k, n, ops)
+        if key not in memo:
+            memo[key] = ZAMBA_GEMM_KERNELS.get(dispatch.explain(
+                "matmul", m=m, k=k, n=n, dtype=dt, cfg=cfg, packed=packed,
+                epilogue_ops=ops)[0].name)
+        return memo[key]
+
+    for kind, rows, m in calls:
+        gemms = [(m, d, f, 0), (m, d, f, 1), (m, f, d, 0)]
+        if packed:
+            gemms += [(m, d, hq, 0), (m, d, hkv, 0), (m, d, hkv, 0),
+                      (m, hq, d, 0)]
+        for g in gemms:
+            name = kernel(*g)
+            if name is None:
+                continue
+            add(name, groups)
+            if name == "sta_gemm" and gemm_tc(dt, g[1], g[2]):
+                add("sta_gemm_tc", groups)
+            elif name == "dbb_gemm" and dt == torch.bfloat16:
+                add("dbb_gemm_tc", groups)
+            elif name == "dbb_gemm_skinny":
+                add("dbb_gemm_skinny_split", groups)
+        if kind != "decode":
+            add("flash_prefill", groups)
+            if flash_tc(dt, cfg.resolved_head_dim):
+                add("flash_prefill_tc", groups)
+        if kind != "forward":
+            add(head)
+    return want
+
+
+def _zamba_logits(torch, dev, engine):
+    """`_logits_fn` one context at a time, for contexts of unequal length:
+    a zamba2 row's pads feed its recurrent state, so a context is run
+    exactly as its generate row ran it (its own left pads, given in the
+    context, and no others)."""
+    base = _logits_fn(torch, dev, engine)
+
+    def last_logits(c, contexts):
+        return torch.cat([base(c, [t]) for t in contexts])
+    return last_logits
+
+
+def _zamba_generate(torch, dev, cfg, tree, prompts, new, sampling=None):
+    """``generate`` on one route: a prefill-only warm-up, the run with the
+    launch counts reset just before and read just after (warnings
+    recorded; a sampled call asks for ``draft_k=2``), and a
+    ``max_new_tokens=1`` call for the time to first token: (tokens,
+    counts, decode steps, engine, warnings, times)."""
+    import warnings
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    engine = ServeEngine(cfg, tree, max_batch=len(prompts), device=dev)
+    kw = {} if sampling is None else dict(sampling=sampling, draft_k=2)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        engine.generate(prompts, max_new_tokens=1, **kw)      # warm-up
+        torch.cuda.synchronize()
+        seen.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        warned = [str(w.message) for w in seen]
+        steps = engine.last_decode_steps
+        t0 = time.perf_counter()
+        engine.generate(prompts, max_new_tokens=1, **kw)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+    times = dict(total_ms=t_total * 1e3, ttft_ms=ttft * 1e3, steps=steps,
+                 decode_ms_per_step=(t_total - ttft) / max(steps, 1) * 1e3)
+    return out, counts, steps, engine, warned, times
+
+
+def _zamba_warned(warned, need) -> bool:
+    """The run's warnings are exactly ``need``, in order (substrings)."""
+    return (len(warned) == len(need)
+            and all(n in w for n, w in zip(need, warned)))
+
+
+def _zamba_run(torch, dev, tag, cfg, tree, prompts, new, rec):
+    """One greedy batch on the kernel route and on the plain route:
+    prefill logits at f32 activations within LOGIT_TOL of max |logit|;
+    at bf16, the kernel route's no farther from the f32 plain route than
+    ZAMBA_BF16_MARGIN times the bf16 plain route's own distance from it
+    (bf16's reach); streams equal outside the split rule at that reach;
+    launches exactly those the config implies; ms per decode step and
+    the time to first token on both routes: (kernel tokens, counts,
+    engine, bf16 plain-route logits, ok)."""
+    from repro_torch.models.transformer import _n_groups
+    from repro_torch.serve.engine import ServeEngine
+    xcfg = cfg.replace(gemm_impl="xla")
+    out, counts, steps, engine, warned, kt = _zamba_generate(
+        torch, dev, cfg, tree, prompts, new)
+    xout, _, _, _, _, pt = _zamba_generate(torch, dev, xcfg, tree, prompts,
+                                           new)
+    # the rows as generate ran them: each with its own left pads (equal
+    # widths, so the batch adds none)
+    pads = [[0] * (max(map(len, prompts)) - len(p)) + p for p in prompts]
+    last_logits = _logits_fn(torch, dev, engine)
+    lk, lp = last_logits(cfg, pads), last_logits(xcfg, pads)
+    cfg32 = cfg.replace(dtype="float32")
+    e32 = ServeEngine(cfg32, tree, max_batch=len(prompts), device=dev)
+    logits32 = _logits_fn(torch, dev, e32)
+    lk32 = logits32(cfg32, pads)
+    lp32 = logits32(cfg32.replace(gemm_impl="xla"), pads)
+    del e32
+    scale = lp32.abs().max().item()
+    f32 = (lk32 - lp32).abs().max().item()
+    reach = (lp - lp32).abs().max().item()         # bf16's own reach
+    diff = (lk - lp32).abs().max().item()
+    same, total, split = _split_rows(out, xout)
+    gaps = _split_gaps(torch, _zamba_logits(torch, dev, engine), xcfg, pads,
+                       out, xout, split)
+    rows = len(prompts)
+    want = _zamba_expected(torch, cfg, [("prefill", rows, rows * len(pads[0]))]
+                           + [("decode", rows, rows)] * steps,
+                           _head_kernel(torch, cfg, rows))
+    ragged = len(set(map(len, prompts))) > 1
+    ok = (f32 <= LOGIT_TOL * scale and diff <= ZAMBA_BF16_MARGIN * reach
+          and all(g <= 2 * reach for g in gaps)
+          and _zamba_warned(warned, [ZAMBA_WARN_RAGGED] if ragged else []))
+    print(f"zamba2: {tag}: {rows} prompt(s) of "
+          f"{sorted(set(map(len, prompts)))} tokens, {new} new: prefill "
+          f"last-position logits, of max |logit| "
+          f"{scale:.4e}: f32 activations, kernel vs plain route "
+          f"{f32 / scale:.3e} (tol {LOGIT_TOL:g}); bf16 against the f32 "
+          f"plain route: plain {reach / scale:.3e}, kernel {diff / scale:.3e}"
+          f" (tol {ZAMBA_BF16_MARGIN:g} x plain's); tokens {same}/{total} "
+          f"equal; splits (row, step, plain-route gap; bound "
+          f"{2 * reach:.4e}) {[(i, j, g) for (i, j), g in zip(split, gaps)]}"
+          f"; warnings {warned} {'ok' if ok else 'FAIL'}")
+    print(f"zamba2: {tag}: kernel route decode "
+          f"{kt['decode_ms_per_step']:.3f} ms/step over {steps} steps, ttft "
+          f"{kt['ttft_ms']:.1f} ms; plain route decode "
+          f"{pt['decode_ms_per_step']:.3f} ms/step, ttft {pt['ttft_ms']:.1f} "
+          f"ms ({_n_groups(cfg)} shared-block calls a step)")
+    rec[tag] = dict(kernel=kt, plain=pt, logit_f32_diff=f32,
+                    logit_bf16_plain_diff=reach, logit_bf16_kernel_diff=diff,
+                    logit_scale=scale, token_agreement=[same, total],
+                    token_splits=[[i, j, g] for (i, j), g in zip(split, gaps)],
+                    warnings=warned, launches={k: v for k, v in counts.items()
+                                               if v})
+    ok = _check_launches("zamba2", tag, counts, want) and ok
+    return out, counts, engine, lp, ok
+
+
+def _zamba_sampled(torch, dev, cfg, tree, prompts, greedy, lp, rec):
+    """A sampled generate of the greedy batch on the kernel route, with
+    ``draft_k=2`` asked (refused with the warning): one head_sample_fused
+    launch a call, row 0 (temperature 0, no penalty) equal to the greedy
+    stream token for token (the sampling epilogue at T 0 is the greedy
+    head bit for bit), and other rows moved by the noise (temperatures of
+    SAMPLE_T_SPREAD times the plain route's logit spread ``lp``):
+    (counts, ok)."""
+    from repro_torch.serve.sampling import SamplingParams
+    spread = statistics.median(lp.std(dim=-1).tolist())
+    n = len(SAMPLE_T_SPREAD)
+    sp = [SamplingParams(
+        temperature=0.0 if i == 0 else spread * SAMPLE_T_SPREAD[i % n],
+        seed=i * 7919 + 1) for i in range(len(prompts))]
+    out, counts, steps, _, warned, kt = _zamba_generate(
+        torch, dev, cfg, tree, prompts, ZAMBA_NEW, sampling=sp)
+    rows = len(prompts)
+    want = _zamba_expected(torch, cfg, [("prefill", rows, rows * ZAMBA_LEN)]
+                           + [("decode", rows, rows)] * steps,
+                           "head_sample_fused")
+    moved = sum(a != b for s, g in zip(out[1:], greedy[1:])
+                for a, b in zip(s, g))
+    ok = (out[0] == greedy[0] and moved > 0
+          and _zamba_warned(warned, [ZAMBA_WARN_SPEC]))
+    print(f"zamba2: generate_sampled: {rows} prompts of {ZAMBA_LEN} tokens, "
+          f"{ZAMBA_NEW} new, temperatures "
+          f"{[round(p.temperature, 3) for p in sp]}, draft_k=2 asked: row 0 "
+          f"(T 0) {'equal to' if out[0] == greedy[0] else 'DIFFERS FROM'} "
+          f"the greedy stream; {moved} tokens of the other rows moved; "
+          f"warnings {warned}; decode {kt['decode_ms_per_step']:.3f} ms/step"
+          f", ttft {kt['ttft_ms']:.1f} ms {'ok' if ok else 'FAIL'}")
+    rec["generate_sampled"] = dict(kernel=kt, moved=moved, warnings=warned,
+                                   launches={k: v for k, v in counts.items()
+                                             if v})
+    ok = _check_launches("zamba2", "generate_sampled", counts, want) and ok
+    return counts, ok
+
+
+def _zamba_forward(torch, dev, cfg, tree, rec):
+    """`registry.forward` on B2 x 256 tokens, kernel route (the shared
+    block streams its packed planes through dbb_gemm) against the plain
+    route: at f32 activations within ZAMBA_F32_TOL of max |h|; at bf16
+    no farther from the f32 plain route than ZAMBA_BF16_MARGIN times the
+    bf16 plain route's own distance from it; exact launches."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import registry
+    b, s = ZAMBA_FWD
+    toks = torch.randint(2, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    xcfg = cfg.replace(gemm_impl="xla")
+    with torch.no_grad():
+        registry.forward(tree, cfg, {"tokens": toks})       # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hk, _ = registry.forward(tree, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        tk = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        hp, _ = registry.forward(tree, xcfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        tp = time.perf_counter() - t0
+        hk32, _ = registry.forward(tree, cfg.replace(dtype="float32"),
+                                   {"tokens": toks})
+        hp32, _ = registry.forward(tree, xcfg.replace(dtype="float32"),
+                                   {"tokens": toks})
+    scale = hp32.abs().max().item()
+    f32 = (hk32 - hp32).abs().max().item() / scale
+    own = (hp.float() - hp32).abs().max().item() / scale
+    kern = (hk.float() - hp32).abs().max().item() / scale
+    routes = (hk.float() - hp.float()).abs().max().item() / scale
+    ok = (f32 <= ZAMBA_F32_TOL and kern <= ZAMBA_BF16_MARGIN * own
+          and bool(torch.isfinite(hk).all()))
+    print(f"zamba2: forward B{b} x {s}: hidden states, of max |h| "
+          f"{scale:.4e}: f32 activations, kernel vs plain route "
+          f"{f32:.3e} (tol {ZAMBA_F32_TOL:g}); bf16 against the f32 plain "
+          f"route: plain {own:.3e}, kernel {kern:.3e} (tol "
+          f"{ZAMBA_BF16_MARGIN:g} x plain's); bf16 kernel vs plain route "
+          f"{routes:.3e} {'ok' if ok else 'FAIL'}; bf16 kernel route "
+          f"{tk * 1e3:.1f} ms, plain route {tp * 1e3:.1f} ms")
+    want = _zamba_expected(torch, cfg, [("forward", b, b * s)], packed=True)
+    rec["forward"] = dict(f32_diff_of_max=f32, bf16_plain_of_max=own,
+                          bf16_kernel_of_max=kern, bf16_routes_of_max=routes,
+                          kernel_ms=tk * 1e3, plain_ms=tp * 1e3)
+    ok = _check_launches("zamba2", "forward", counts, want) and ok
+    return counts, ok
+
+
+def _zamba_ring(torch, dev, cfg, engine, long):
+    """The long prompt's prefill on the kernel route, then one decode
+    step: past the window the step writes ring slot ``length % win`` and
+    no other, in every group."""
+    from repro_torch.models import registry
+    cache = registry.init_cache(cfg, 1, len(long) + ZAMBA_LONG_NEW,
+                                device=dev)
+    win = cache["shared_k"].shape[2]
+    with torch.no_grad():
+        _, cache = registry.prefill(engine.params, cfg,
+                                    torch.tensor([long], device=dev), cache)
+        before = cache["shared_k"].clone()
+        registry.decode_step(engine.params, cfg,
+                             torch.tensor([5], device=dev), cache)
+    changed = (cache["shared_k"] != before).any(dim=-1).any(dim=-1)[:, 0]
+    slots = sorted({int(i) for i in changed.nonzero()[:, 1]})
+    ok = slots == [len(long) % win]
+    print(f"zamba2: ring: window {win}, prompt {len(long)}: the decode step "
+          f"wrote ring slot(s) {slots} (expected {[len(long) % win]}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _zamba_serve(torch, dev, cfg, tree, rec):
+    """``serve`` of 12 ragged requests through max_batch 8: static waves
+    (the warning), streams equal to ``generate`` on the same waves cut to
+    the budgets, and exactly the launches those waves' calls imply."""
+    import warnings
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    gen = torch.Generator().manual_seed(4)
+    reqs = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in ZAMBA_SERVE_LENS]
+    engine = ServeEngine(cfg, tree, max_batch=8, device=dev)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        engine.serve(reqs[:2], max_new_tokens=2)              # warm-up
+        torch.cuda.synchronize()
+        seen.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = engine.serve(reqs, max_new_tokens=ZAMBA_SERVE_BUDGETS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        warned = [str(w.message) for w in seen]
+        # the same waves through generate: the streams, and each wave's
+        # calls (8 rows: generate pads a short wave to max_batch)
+        want_out, calls = [], []
+        for i in range(0, len(reqs), 8):
+            wave, bud = reqs[i:i + 8], ZAMBA_SERVE_BUDGETS[i:i + 8]
+            res = engine.generate(wave, max_new_tokens=max(bud))
+            want_out += [r[:n] for r, n in zip(res, bud)]
+            calls += ([("prefill", 8, 8 * max(map(len, wave)))]
+                      + [("decode", 8, 8)] * engine.last_decode_steps)
+    same = outs == want_out
+    waves = any(ZAMBA_WARN_WAVES in w for w in warned)
+    n_tok = sum(len(o) for o in outs)
+    ok = same and waves
+    print(f"zamba2: serve: {len(reqs)} requests (lengths "
+          f"{ZAMBA_SERVE_LENS}), budgets {ZAMBA_SERVE_BUDGETS}, max_batch "
+          f"8: {wall * 1e3:.1f} ms, {n_tok / wall:.1f} generated tokens/s; "
+          f"streams {'equal to' if same else 'DIFFERENT FROM'} generate on "
+          f"the same waves; static-wave warning "
+          f"{'given' if waves else 'MISSING'} {'ok' if ok else 'FAIL'}")
+    rec["serve"] = dict(wall_ms=wall * 1e3, tokens=n_tok, warnings=warned,
+                        launches={k: v for k, v in counts.items() if v})
+    want = _zamba_expected(torch, cfg, calls, _head_kernel(torch, cfg, 8))
+    ok = _check_launches("zamba2", "serve", counts, want) and ok
+    return counts, ok
+
+
+def _zamba_train(torch, dev, rec):
+    """Two steps of ``repro_torch.launch.train.main`` (ZAMBA_TRAIN_ARGV,
+    the plain route under autograd): finite loss and parameters, no
+    kernel launch, peak memory."""
+    import gc
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lines, rep = [], {}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(ZAMBA_TRAIN_ARGV.split(), log=lines.append,
+                        report=rep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    logged = [json.loads(x) for x in lines if x.startswith("{")]
+    finite = all(bool(torch.isfinite(a).all())
+                 for a in tree_leaves(rep["state"].params))
+    loss = logged[0]["loss"] if logged else float("nan")
+    ok = (rc == 0 and rep["state"].step == 2 and finite and not launched
+          and abs(loss) < float("inf"))
+    print(f"zamba2: train {ZAMBA_TRAIN_ARGV}: loss at step 0 {loss:.4f}, "
+          f"parameters finite after 2 steps: {finite}; kernel launches "
+          f"{launched or 'none'}; wall {wall:.1f} s (the first step "
+          f"{logged[0]['dt'] if logged else float('nan'):.3f} s); peak "
+          f"device memory {peak / 1e9:.3f} GB {'ok' if ok else 'FAIL'}")
+    rec["train"] = dict(argv=ZAMBA_TRAIN_ARGV, loss=loss, wall_s=wall,
+                        peak_bytes=peak, logged=logged)
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _zamba_cli(torch, dev, rec):
+    """The serve CLI (ZAMBA_CLI_ARGV) in process: its tables' routes
+    against its launches (the packed decode-GEMM table's route held as its
+    dense counterpart: the engine expands the shared block; the decode
+    attention table's route held as the plain route: the shared block's
+    cache is a ring), and exact launches from the config."""
+    import gc
+    import warnings
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    dense_of = {"skinny_dbb": "skinny_sta", "skinny_dbb_w4": "skinny_sta",
+                "dbb_packed": "sta", "dbb_packed_w4": "sta"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rc = serve.main(ZAMBA_CLI_ARGV.split(), report=rep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(rep["routes"])
+    routes["matmul"] = dense_of.get(routes["matmul"], routes["matmul"])
+    routes["attn_decode"] = "attn_decode_xla"
+    missing = [f"{dom} {r}" for dom, r in routes.items()
+               if r in ROUTE_KERNELS
+               and not sum(counts[k] for k in ROUTE_KERNELS[r])]
+    cfg, rows = rep["cfg"], len(rep["prompts"])
+    width = max(map(len, rep["prompts"]))
+    steps = rep["engine"].last_decode_steps
+    want = _zamba_expected(torch, cfg, [("prefill", rows, rows * width)]
+                           + [("decode", rows, rows)] * steps,
+                           _head_kernel(torch, cfg, rows))
+    ok = rc == 0 and not missing
+    print(f"zamba2: cli {ZAMBA_CLI_ARGV}: tables chose {rep['routes']} "
+          f"(held as {routes}); build {rep['build_s']:.1f} s, tree "
+          f"{rep['tree_bytes'] / 1e9:.3f} GB, peak device memory "
+          f"{peak / 1e9:.3f} GB, wall {wall:.1f} s "
+          + ("ok" if ok else f"FAIL: no launch of {missing}"))
+    rec["cli"] = dict(argv=ZAMBA_CLI_ARGV, routes=rep["routes"],
+                      build_s=rep["build_s"], tree_bytes=rep["tree_bytes"],
+                      peak_bytes=peak, wall_s=wall)
+    ok = _check_launches("zamba2", "cli", counts, want) and ok
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, ok
+
+
+def _zamba_decode_parts(torch, dev, cfg, engine, rec):
+    """Where a decode step's time goes: one Mamba layer's parts at B8, T 1
+    (the transient expand of its packed in/out projections, the norm and
+    in_proj, the conv, the SSD step, the gate and norm, out_proj, and the
+    whole layer) and the chunked scan of a B8 x 256 prefill, each as
+    device time (`_time_ms`: median of single calls, L2 flushed) and as
+    host time (a loop of calls, synchronised at its end, per call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import norm_apply
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b = 8
+    d_in, h, pp, n = m2._dims(cfg)
+    lp = tf._unpack_layer(tf._layer(engine.params["layers"], 0), cfg)
+    mp = lp["mamba"]
+    dt_ = torch.bfloat16
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device=dev).to(dt_)
+    ctx = torch.randn((b, cfg.ssm.conv_width - 1, d_in + 2 * n),
+                      generator=gen, device=dev).to(dt_)
+    st = torch.zeros((b, h, pp, n), device=dev)
+    hn = norm_apply(cfg.norm, lp["ln"], x)
+    proj = hn @ mp["in_proj"]["w"]
+    z, xs, bm, cm, dtr = m2._split_proj(cfg, proj)
+    conv_in = torch.cat([xs, bm, cm], dim=-1)
+    co, _ = m2._causal_conv(conv_in, mp["conv_w"].to(dt_),
+                            mp["conv_b"].to(dt_), ctx)
+    co = F.silu(co)
+    xs2, bm2, cm2 = torch.split(co, [d_in, n, n], dim=-1)
+
+    def ssd():
+        dtv = m2._softplus(dtr.float() + mp["dt_bias"][None, None, :])
+        la = dtv * -torch.exp(mp["a_log"])[None, None, :]
+        xh = xs2.reshape(b, 1, h, pp).float() * dtv[..., None]
+        y, _ = m2.ssd_recurrent(xh, bm2, cm2, la, st)
+        return y + mp["d_skip"][None, None, :, None] * \
+            xs2.reshape(b, 1, h, pp).float()
+    y = ssd().reshape(b, 1, d_in).to(dt_)
+    g = norm_apply("rmsnorm", mp["norm"], y * F.silu(z))
+    packed = tf._layer(engine.params["layers"], 0)
+    parts = {
+        "expand (in_proj + out_proj planes -> bf16)":
+            lambda: tf._unpack_layer(packed, cfg),
+        "norm + in_proj": lambda: norm_apply(cfg.norm, lp["ln"], x)
+            @ mp["in_proj"]["w"],
+        "conv + silu": lambda: F.silu(m2._causal_conv(
+            conv_in, mp["conv_w"].to(dt_), mp["conv_b"].to(dt_), ctx)[0]),
+        "ssd step (softplus, decay, recurrence, skip)": ssd,
+        "gate + norm": lambda: norm_apply("rmsnorm", mp["norm"],
+                                          y * F.silu(z)),
+        "out_proj": lambda: g @ mp["out_proj"]["w"],
+        "whole layer (no expand)": lambda: m2.mamba2_apply(
+            mp, cfg, hn, state=st, conv_ctx=ctx),
+    }
+    xc = torch.randn((b, ZAMBA_LEN, h, pp), generator=gen, device=dev)
+    bc = torch.randn((b, ZAMBA_LEN, n), generator=gen, device=dev)
+    cc = torch.randn((b, ZAMBA_LEN, n), generator=gen, device=dev)
+    lc = -torch.rand((b, ZAMBA_LEN, h), generator=gen, device=dev)
+    s0 = torch.zeros((b, h, pp, n), device=dev)
+    parts[f"chunked scan B{b} x {ZAMBA_LEN} (prefill)"] = \
+        lambda: m2.ssd_chunked(xc, bc, cc, lc, s0, chunk=cfg.ssm.chunk)
+    res = {}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            dev_ms = _time_ms(torch, fn, flush)
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / REPS * 1e3
+            res[name] = dict(device_ms=dev_ms, host_ms=host_ms)
+    step = rec["generate_b8"]["kernel"]["decode_ms_per_step"]
+    layer = (res["expand (in_proj + out_proj planes -> bf16)"]["host_ms"]
+             + res["whole layer (no expand)"]["host_ms"])
+    for name, r in res.items():
+        print(f"zamba2: decode parts: {name}: device {r['device_ms']:.4f} "
+              f"ms, host {r['host_ms']:.4f} ms a call")
+    print(f"zamba2: decode parts: {cfg.num_layers} Mamba layers x (expand + "
+          f"layer) host time {cfg.num_layers * layer:.3f} ms of the "
+          f"kernel route's {step:.3f} ms decode step "
+          f"({100 * cfg.num_layers * layer / step:.1f}%)")
+    rec["decode_parts"] = dict(parts=res, step_ms=step,
+                               mamba_share=cfg.num_layers * layer / step)
+
+
+def _zamba_phase(torch, dev, report, out_dir):
+    """zamba2-1.2b at full width and all 38 layers (module doc, phase
+    16): (by_path, ok)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import tree_footprint_bytes
+    from repro_torch.models import registry
+    rec = report["zamba2"] = {}
+    t_phase = time.perf_counter()
+    cfg = get_config(ZAMBA_ARCH).replace(gemm_impl="pallas")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = registry.init_params_by_layer(cfg, seed=29, device=dev, pack=True,
+                                         layer_hook=_family_noise)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    layer_bytes = tree_footprint_bytes(tree["layers"])
+    print(f"zamba2: {cfg.name}: {cfg.num_layers} Mamba2 layers (d "
+          f"{cfg.d_model}, d_in {cfg.ssm.expand * cfg.d_model}, N "
+          f"{cfg.ssm.state_size}, P {cfg.ssm.head_dim}, chunk "
+          f"{cfg.ssm.chunk}) with the shared block (32 heads of D "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, window "
+          f"{cfg.ssm.shared_window}) after every {cfg.ssm.shared_period}; "
+          f"vocab {cfg.vocab_size}; packed f32 planes (k 4) built layer by "
+          f"layer in {t_build:.1f} s; layers {layer_bytes / 1e9:.3f} GB; "
+          f"build peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"({report['card']})")
+    rec.update(build_s=t_build, layer_bytes=layer_bytes)
+    by_path = {}
+    counts, ok = _zamba_forward(torch, dev, cfg, tree, rec)
+    by_path["zamba2_forward"] = counts
+
+    gen = torch.Generator().manual_seed(5)
+
+    def draw(n):
+        return torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+    equal = [draw(ZAMBA_LEN) for _ in range(8)]
+    ragged = [draw(n) for n in ZAMBA_RAGGED]
+    long = [draw(ZAMBA_LONG)]
+    out, counts, engine, lp, run_ok = _zamba_run(
+        torch, dev, "generate_b8", cfg, tree, equal, ZAMBA_NEW, rec)
+    by_path["zamba2_generate_b8"] = counts
+    ok = ok and run_ok
+    _, counts, _, _, run_ok = _zamba_run(
+        torch, dev, "generate_ragged", cfg, tree, ragged, ZAMBA_RAGGED_NEW,
+        rec)
+    by_path["zamba2_generate_ragged"] = counts
+    ok = ok and run_ok
+    _, counts, lengine, _, run_ok = _zamba_run(
+        torch, dev, "generate_long", cfg, tree, long, ZAMBA_LONG_NEW, rec)
+    by_path["zamba2_generate_long"] = counts
+    ok = ok and run_ok and _zamba_ring(torch, dev, cfg, lengine, long[0])
+    del lengine
+    counts, run_ok = _zamba_sampled(torch, dev, cfg, tree, equal, out, lp,
+                                    rec)
+    by_path["zamba2_generate_sampled"] = counts
+    ok = ok and run_ok
+    counts, run_ok = _zamba_serve(torch, dev, cfg, tree, rec)
+    by_path["zamba2_serve"] = counts
+    ok = ok and run_ok
+    _zamba_decode_parts(torch, dev, cfg, engine, rec)
+    del engine, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = _zamba_train(torch, dev, rec) and ok
+    counts, run_ok = _zamba_cli(torch, dev, rec)
+    by_path["zamba2_cli"] = counts
+    ok = ok and run_ok
+    rec["kernels"] = _zamba_kernels(torch, dev)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"zamba2: phase {rec['phase_s']:.1f} s ({report['card']})")
+    return by_path, ok
+
+
+def _zamba_kernels(torch, dev):
+    """The kernels at zamba2's new shapes, each against its plain version
+    and timed as the kernel phase times them, beside the bound and the
+    library call (``zamba2_shapes`` in the kernels line): flash_prefill
+    bf16 Hq = Hkv = 32 D 64 at B8 T=S=256 (causal) and B1 T=S=4608 with
+    the 4096 window; sta_gemm at the shared MLP's prefill GEMMs (M2048 =
+    8 x 256: K2048 N8192 with gelu, K8192 N2048); sta_gemm_skinny at the
+    greedy head (M8 K2048 N32000 f32, TF32 off for torch.matmul);
+    head_sample_fused at the sampled head (M8 K2048 N32000 f32,
+    `_head_sample_case`'s rules)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn.ops import flash_attention
+    from repro_torch.kernels.attn.ref import flash_prefill_ref
+    from repro_torch.kernels.skinny.ops import sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm.ops import sta_gemm
+    from repro_torch.kernels.sta_gemm.ref import sta_gemm_ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16, i32 = torch.bfloat16, dict(dtype=torch.int32, device=dev)
+    rows, failures = {}, []
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def record(label, err, ok, ms, pms, lms, lib, bms, by):
+        if not ok:
+            failures.append(f"{label}: max err {err}")
+        print(f"kernel {label}: max abs err {err:.3e} {'ok' if ok else 'FAIL'}"
+              f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, {lib} {lms:.4f} ms "
+              f"({ms / lms:.2f}x), bound {bms:.4f} ms ({by})")
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                           library_ms=lms, bound_ms=bms, bound_by=by)
+
+    hq = hkv = 32
+    d = 64
+    for b, t, window in ((8, ZAMBA_LEN, 0), (1, ZAMBA_LONG, 4096)):
+        scale = d ** -0.5
+        q, k, v = randn(b, t, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
+        st = torch.zeros((b,), **i32)
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        got = flash_attention(q, k, v, st, window=window)
+        want = flash_prefill_ref(qh, kh, vh, st, st, sm_scale=scale,
+                                 window=window)
+        err, ok = _close(torch, got, want.transpose(1, 2), ATTN_RTOL,
+                         ATTN_ATOL)
+        ii = torch.arange(t, device=dev)
+        mask = ii[None, :] <= ii[:, None]
+        if window:
+            mask &= ii[None, :] > ii[:, None] - window
+        ms = _time_ms(torch, lambda: flash_attention(q, k, v, st,
+                                                     window=window), flush)
+        pms = _time_ms(torch, lambda: flash_prefill_ref(
+            qh, kh, vh, st, st, sm_scale=scale, window=window), flush)
+        lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), flush)
+        pairs = b * int(mask.sum().item())
+        bms, by = _bound_ms(2 * 2 * b * t * (hq + hkv) * d,
+                            4.0 * d * pairs * hq, BF16_OPS_PER_S)
+        record(f"flash_prefill B{b} T=S={t} Hq{hq} Hkv{hkv} D{d} "
+               f"window {window or 'none'} bf16", err, ok, ms, pms, lms,
+               "scaled_dot_product_attention", bms, by)
+        del q, k, v, qh, kh, vh, got, want, mask
+
+    m = 8 * ZAMBA_LEN
+    for k_dim, n, act in ((2048, 8192, "gelu"), (8192, 2048, "none")):
+        x, w = randn(m, k_dim), randn(k_dim, n, scale=k_dim ** -0.5)
+        got, want = sta_gemm(x, w, act=act), sta_gemm_ref(x, w, act=act)
+        err, ok = _close(torch, got, want, 2e-2)
+        ms = _time_ms(torch, lambda: sta_gemm(x, w, act=act), flush)
+        pms = _time_ms(torch, lambda: sta_gemm_ref(x, w, act=act), flush)
+        lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
+        bms, by = _bound_ms((x.numel() + w.numel() + m * n) * 2,
+                            2.0 * m * k_dim * n, BF16_OPS_PER_S)
+        record(f"sta_gemm M{m} K{k_dim} N{n} bf16 act {act}", err, ok, ms,
+               pms, lms, "torch.matmul", bms, by)
+
+    x = randn(8, 2048, dtype=torch.float32)
+    w = randn(2048, 32000, scale=2048 ** -0.5, dtype=torch.float32)
+    got, want = sta_gemm_skinny(x, w), sta_gemm_ref(x, w)
+    err, ok = _close(torch, got, want, 1e-4)
+    ms = _time_ms(torch, lambda: sta_gemm_skinny(x, w), flush)
+    pms = _time_ms(torch, lambda: sta_gemm_ref(x, w), flush)
+    lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
+    bms, by = _bound_ms((x.numel() + w.numel() + 8 * 32000) * 4,
+                        2.0 * 8 * 2048 * 32000, F32_OPS_PER_S)
+    record("sta_gemm_skinny M8 K2048 N32000 f32 (greedy head)", err, ok, ms,
+           pms, lms, "torch.matmul", bms, by)
+    del x, w, got, want
+
+    res, fail = _head_sample_case(torch, dev, flush, 8, 2048, 32000, 9)
+    if fail:
+        failures.append(fail)
+    rows["head_sample_fused M8 K2048 N32000 f32"] = {
+        key: res[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "head_matmul_ms")}
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(_fail("a kernel disagrees with its plain version "
+                               "at the zamba2 shapes: " + "; ".join(failures)))
+    return rows
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
-__all__ = ["DbbConfig", "StaConfig", "MoeConfig", "ModelConfig", "ShapeSpec",
+__all__ = ["DbbConfig", "StaConfig", "MoeConfig", "SsmConfig", "ModelConfig",
+           "ShapeSpec",
            "MeshConfig", "TrainConfig", "ServeConfig", "RunConfig"]
 
 
@@ -88,9 +89,27 @@ class MoeConfig:
 
 
 @dataclass(frozen=True)
+class SsmConfig:
+    """The zamba2 hybrid's Mamba2 layers and shared attention block:
+    ``state_size`` N and ``head_dim`` P of the SSD state (one [P, N] state
+    per head, ``expand * d_model / head_dim`` heads), the depthwise causal
+    conv's ``conv_width``, the chunked scan's ``chunk``, and the one shared
+    attention + MLP block applied after every ``shared_period`` Mamba
+    layers with a ``shared_window``-token sliding window (its ring-buffer
+    K/V cache holds that many slots)."""
+    state_size: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 128
+    shared_period: int = 6
+    shared_window: int = 4096
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """The fields the ported paths read (the dense and MoE LM families,
-    the CNN).
+    """The fields the ported paths read (the dense, MoE and zamba2 LM
+    families, the CNN).
 
     gemm_impl:     "pallas" selects the fused kernel route family (the
                    hand-written CUDA kernels on the card, their plain
@@ -137,6 +156,7 @@ class ModelConfig:
     prefix_embed_len: int = 0       # vlm: prefix embedding positions
     embeds_input: bool = False      # audio / vlm: the frontend gives embeds
     moe: MoeConfig = field(default_factory=MoeConfig)
+    ssm: SsmConfig = field(default_factory=SsmConfig)
     dbb: DbbConfig = field(default_factory=DbbConfig)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -163,8 +183,10 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding, layers, head), the
-        reference's formula for the cnn, dense_lm and moe_lm families (it
-        counts no norm or bias parameters)."""
+        reference's formula for the cnn, dense_lm, moe_lm and zamba2
+        families (it counts no norm or bias parameters; zamba2's is the
+        reference's rough estimate: the Mamba projections, conv and head
+        vectors per layer plus the MLP's share spread over the layers)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         if self.family == "cnn":
@@ -174,7 +196,7 @@ class ModelConfig:
                 cin = cout
             img = self.cnn_img // (2 ** len(self.cnn_channels))
             return n + cin * img * img * self.cnn_classes
-        if self.family not in ("dense_lm", "moe_lm"):
+        if self.family not in ("dense_lm", "moe_lm", "zamba2"):
             raise NotImplementedError(
                 f"param_count of family {self.family!r} is not ported")
         n = v * d * (1 if self.tie_embeddings else 2)
@@ -186,7 +208,12 @@ class ModelConfig:
             ff += mats * d * self.moe.dense_residual_ff
         else:
             ff = mats * d * f
-        return n + self.num_layers * (attn + ff)
+        per_layer = attn + ff
+        if self.family == "zamba2":
+            di = self.ssm.expand * d
+            mamba = d * 2 * di + di * d + di * (self.ssm.conv_width + 3)
+            per_layer = mamba + ff // max(1, self.num_layers)
+        return n + self.num_layers * per_layer
 
     def active_param_count(self) -> int:
         """Parameters a token uses: a MoE layer's ``top_k`` experts of its

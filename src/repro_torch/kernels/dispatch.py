@@ -118,6 +118,8 @@ class OpSpec:
     chunk: int = 1024             # attn_chunked's block (cfg.attn_chunk)
     batch: int = 1                # rows of a padded attention batch
     sample_tt: bool = False       # some sampled row uses top-k / top-p
+    ring: bool = False            # decode on a ring-buffer (sliding-window)
+                                  # cache: the new token's slot wraps
 
 
 class Route(NamedTuple):
@@ -299,6 +301,8 @@ def _guard_conv_dbb(s: OpSpec) -> str:
 
 
 def _guard_decode_flash(s: OpSpec) -> str:
+    if s.ring:
+        return "ring-buffer (sliding-window) cache layout"
     if not s.flash_active:
         return "flash backend not selected (attn_impl / gemm_impl)"
     if not s.float_ok:
@@ -1032,13 +1036,14 @@ def chunk_attention_route(cfg, *, t: int, s: int, d: int,
 
 
 def decode_attention_route(cfg, *, group: int, head_dim: int, page: int,
-                           smax: int, itemsize: int = 4,
+                           smax: int, itemsize: int = 4, ring: bool = False,
                            floating: bool = True) -> str:
     """Route of one-token decode attention (``attn_decode`` domain) on the
-    contiguous cache."""
+    contiguous cache; ``ring``: the cache is a ring buffer (zamba2's
+    shared block), which the paged kernel does not take."""
     spec = OpSpec(domain="attn_decode", m=group, k=head_dim, n=smax,
                   itemsize=itemsize, out_itemsize=itemsize, page=page,
-                  flash_active=flash_backend_active(cfg),
+                  ring=ring, flash_active=flash_backend_active(cfg),
                   float_ok=floating)
     name, _ = select(spec, routes_from_cfg(cfg))
     return name

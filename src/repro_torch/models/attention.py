@@ -2,9 +2,10 @@
 (flash kernel, the chunked route or the naive route), a packed ragged
 batch (packed flash kernel or its plain version) and a chunked-prefill
 continuation; one-token decode against the contiguous KV cache (the paged
-decode kernel under an identity block table, or the plain softmax route)
-and against a paged pool; and the speculative verify pass (T candidate
-tokens per row, naive attention) on both caches."""
+decode kernel under an identity block table, or the plain softmax route;
+a ring-buffer cache always the latter) and against a paged pool; and the
+speculative verify pass (T candidate tokens per row, naive attention) on
+both caches."""
 from __future__ import annotations
 
 import math
@@ -219,31 +220,44 @@ def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
 def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
                            lengths: torch.Tensor,
-                           start: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           start: Optional[torch.Tensor] = None,
+                           window_override: Optional[int] = None,
+                           ring: bool = False) -> torch.Tensor:
     """One-token decode: x [B, 1, d]; cache_k/v [B, Smax, Hkv, D] (one
-    layer of the contiguous cache); lengths [B] the new token's slot.
+    layer of the contiguous cache); lengths [B] the new token's absolute
+    position.
 
     The new K/V are written INTO cache_k / cache_v in place (the reference
     returns updated copies); the slot clamps to Smax - 1 as the
     reference's dynamic_update_slice clamps an overshooting write.
     ``start`` [B]: first real slot of a left-padded row — RoPE runs at
-    ``lengths - start`` and slots below ``start`` are masked."""
+    ``lengths - start`` and slots below ``start`` are masked.
+    ``window_override`` replaces the config's sliding window.
+
+    ``ring``: the cache is a sliding-window ring buffer of Smax slots
+    (zamba2's shared block): the new K/V go to slot ``lengths % Smax``
+    and every slot written so far is attended (``kpos < min(length + 1,
+    Smax)``: the window is Smax by construction). K stays RoPE-rotated at
+    its absolute position, so relative offsets hold across the wrap. The
+    paged kernel has no ring layout, so a ring decode takes the plain
+    softmax route."""
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = hq // hkv
     smax = cache_k.shape[1]
+    window = (cfg.sliding_window if window_override is None
+              else window_override)
     rope_pos = lengths if start is None else lengths - start
     q, k, v = _project_qkv(p, cfg, x, rope_pos[:, None])
     rows = torch.arange(b, device=x.device)
-    ins = lengths.clamp(max=smax - 1).long()
+    ins = (lengths % smax if ring else lengths.clamp(max=smax - 1)).long()
     cache_k[rows, ins] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, ins] = v[:, 0].to(cache_v.dtype)
 
     page = cfg.kv_page_size or math.gcd(smax, DEFAULT_PAGE)
     route = dispatch.decode_attention_route(
         cfg, group=g, head_dim=hd, page=page, smax=smax,
-        itemsize=cache_k.element_size(),
+        itemsize=cache_k.element_size(), ring=ring,
         floating=x.dtype in (torch.float32, torch.bfloat16))
     if route == "attn_decode_flash":
         dispatch.no_autograd(route, q, cache_k, cache_v)
@@ -253,17 +267,20 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             cache_k.view(b * n_log, page, hkv, hd),
             cache_v.view(b * n_log, page, hkv, hd),
             identity_block_table(b, n_log, x.device), lengths, start,
-            window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+            window=window, softcap=cfg.attn_logit_softcap)
         return _lin(p["o_proj"], o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
 
     qg = q.reshape(b, 1, hkv, g, hd)
     sc = _scores(qg, cache_k, cfg)                       # [B,H,G,1,Smax]
     kpos = torch.arange(smax, device=x.device)[None, :]
-    valid = kpos <= lengths[:, None]
-    if start is not None:
-        valid &= kpos >= start[:, None]
-    if cfg.sliding_window > 0:
-        valid &= kpos > (lengths[:, None] - cfg.sliding_window)
+    if ring:
+        valid = kpos < torch.clamp(lengths[:, None] + 1, max=smax)
+    else:
+        valid = kpos <= lengths[:, None]
+        if start is not None:
+            valid &= kpos >= start[:, None]
+        if window > 0:
+            valid &= kpos > (lengths[:, None] - window)
     sc = sc + torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
     pr = torch.softmax(sc, dim=-1)
     o = torch.einsum("bhgts,bshd->bthgd", pr.to(cache_v.dtype).float(),

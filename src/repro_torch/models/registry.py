@@ -1,5 +1,6 @@
 """Model registry: uniform entry points keyed by config family (the port
-serves the dense_lm and moe_lm families and runs the cnn family)."""
+serves the dense_lm, moe_lm and zamba2 families and runs the cnn
+family)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -28,7 +29,7 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                          pack: bool = False,
                          layer_hook: Optional[LayerHook] = None,
                          outer: Optional[Dict] = None) -> Dict:
-    """A dense_lm or moe_lm tree built one layer at a time, so a
+    """A dense_lm, moe_lm or zamba2 tree built one layer at a time, so a
     full-width model never holds more than about two dense layers (a MoE
     layer's dense experts among them) beside its stacked planes: layer
     ``l`` is drawn by the port's initializers from its own
@@ -39,11 +40,14 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     ``pack_tree(apply_dbb_to_tree(...))`` of the ``pack=False`` tree of the
     same seed, layer for layer.
 
-    ``outer`` (the embedding, the final norm and an untied head) is taken
-    as given, or drawn from seed ``seed * 1000 + 999`` (the final norm
-    passed through ``layer_hook`` before the head is drawn). The weights
-    differ from `init_params`'s, which draws the whole stack from one
-    generator."""
+    ``outer`` (the embedding, the final norm, an untied head and zamba2's
+    shared block) is taken as given, or drawn from seed ``seed * 1000 +
+    999`` (the final norm passed through ``layer_hook`` before the head is
+    drawn; the shared block drawn last, passed through ``layer_hook`` and,
+    with ``pack``, DBB-projected and packed as the layers are, so the
+    whole tree stays ``pack_tree(apply_dbb_to_tree(...))`` of the
+    unpacked one). The weights differ from `init_params`'s, which draws
+    the whole stack from one generator."""
     from repro_torch.core.dbb import DbbWeight
     from repro_torch.core.dbb_linear import pack_tree
     from repro_torch.core.sparsity import apply_dbb_to_tree
@@ -92,6 +96,15 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         if not cfg.tie_embeddings:
             outer["lm_head"] = linear_init(gen, (), d, cfg.vocab_size, dt,
                                            dev)
+        if cfg.family == "zamba2":
+            sb = tf.shared_block_init(gen, cfg, dt, dev)
+            if layer_hook is not None:
+                sb = layer_hook(sb, gen)
+            if pack:
+                sb = pack_tree(apply_dbb_to_tree(
+                    {"shared_block": sb}, cfg.dbb, straight_through=False),
+                    cfg.dbb)["shared_block"]
+            outer["shared_block"] = sb
     return dict(outer, layers=stack)
 
 

@@ -1,9 +1,14 @@
-"""Decoder LM (the dense_lm and moe_lm families): embeddings → layers →
-final norm (hidden states; the LM head is applied by the serving layer).
-A layer is attention then an MLP (dense_lm) or a MoE block (moe_lm, which
-also yields a load-balance aux loss). `forward` is the full-sequence pass
-(no cache); `prefill`, `prefill_packed`, `prefill_continue`,
-`decode_step` and `verify_step` serve.
+"""Decoder LM (the dense_lm, moe_lm and zamba2 families): embeddings →
+layers → final norm (hidden states; the LM head is applied by the serving
+layer). A layer is attention then an MLP (dense_lm) or a MoE block
+(moe_lm, which also yields a load-balance aux loss). zamba2 is a Mamba2
+backbone with one *shared* attention + MLP block applied after every
+group of ``ssm.shared_period`` layers (the last group included); its
+cache holds each layer's recurrent state and, per group, a ring buffer of
+the shared block's last ``shared_window`` K/V. `forward` is the
+full-sequence pass (no cache); `prefill`, `decode_step` serve every
+family, `prefill_packed`, `prefill_continue` and `verify_step` the
+families with a slot-addressed K/V cache.
 
 Layer weights are stacked ``[L, ...]`` (packed leaves as stacked
 `DbbWeight` planes) and the layers run in a Python loop over the layer
@@ -26,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.attn.ref import gather_pages
 from repro_torch.kernels.dispatch import pallas_route_active
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
                                        embed_scale, linear_init, norm_apply,
                                        norm_init, param_dtype_of)
@@ -37,7 +43,10 @@ __all__ = ["init_params", "lm_head_weight", "init_cache", "forward",
            "prefill", "prefill_packed", "prefill_continue", "decode_step",
            "verify_step"]
 
-_FAMILIES = ("dense_lm", "moe_lm")
+_FAMILIES = ("dense_lm", "moe_lm", "zamba2")
+# families with a slot-addressed K/V cache: packed prefill, chunked
+# continuation and speculative verify (the reference asserts the same)
+_KV_FAMILIES = ("dense_lm", "moe_lm")
 # families whose packed layer weights stream through the DBB kernels on the
 # fused route (the reference's tuple; the vlm and audio families are not
 # ported): a MoE layer is expanded to dense, its experts then take the
@@ -45,10 +54,14 @@ _FAMILIES = ("dense_lm", "moe_lm")
 _STREAM_FAMILIES = ("dense_lm", "vlm_lm", "audio_lm")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves {_FAMILIES}")
+def _check_family(cfg: ModelConfig, families=_FAMILIES) -> None:
+    if cfg.family in families:
+        return
+    if cfg.family in _FAMILIES:
+        raise ValueError(f"family {cfg.family!r} has no slot-addressed K/V "
+                         f"cache: this entry point serves {families}")
+    raise NotImplementedError(
+        f"family {cfg.family!r}: the port serves {_FAMILIES}")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -68,14 +81,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, (), d, cfg.vocab_size, dt, dev)
+    if cfg.family == "zamba2":
+        params["shared_block"] = shared_block_init(gen, cfg, dt, dev)
     return params
 
 
 def layer_init(gen: torch.Generator, lead, cfg: ModelConfig,
                dtype: torch.dtype, device) -> Dict:
     """The layer stack's parameters ``[*lead, ...]``: attention, its two
-    norms, and the MLP (dense_lm) or the MoE block (moe_lm)."""
+    norms, and the MLP (dense_lm) or the MoE block (moe_lm); a zamba2
+    layer is a Mamba2 block and its norm."""
     d = cfg.d_model
+    if cfg.family == "zamba2":
+        return {"mamba": m2.mamba2_init(gen, lead, cfg, dtype, device),
+                "ln": norm_init(cfg.norm, lead, d, dtype, device)}
     p = {"attn": attn.attention_init(gen, lead, cfg, dtype, device),
          "ln_attn": norm_init(cfg.norm, lead, d, dtype, device),
          "ln_mlp": norm_init(cfg.norm, lead, d, dtype, device)}
@@ -84,6 +103,16 @@ def layer_init(gen: torch.Generator, lead, cfg: ModelConfig,
     else:
         p["mlp"] = mlp_init(gen, lead, d, cfg.d_ff, cfg, dtype, device)
     return p
+
+
+def shared_block_init(gen: torch.Generator, cfg: ModelConfig,
+                      dtype: torch.dtype, device) -> Dict:
+    """zamba2's shared attention + MLP block (one set of weights)."""
+    d = cfg.d_model
+    return {"attn": attn.attention_init(gen, (), cfg, dtype, device),
+            "mlp": mlp_init(gen, (), d, cfg.d_ff, cfg, dtype, device),
+            "ln_attn": norm_init(cfg.norm, (), d, dtype, device),
+            "ln_mlp": norm_init(cfg.norm, (), d, dtype, device)}
 
 
 def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -96,9 +125,28 @@ def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict:
     """Contiguous KV cache ``[L, B, max_len, Hkv, D]`` in the activation
-    dtype, with per-row lengths."""
+    dtype, with per-row lengths. zamba2's hybrid cache instead: the SSD
+    states ``ssd [L, B, H, P, N]`` (f32), the conv contexts ``conv [L, B,
+    W-1, C]`` and, per shared-block call, ring buffers ``shared_k`` /
+    ``shared_v [G, B, win, Hkv, D]`` with ``win = min(max_len,
+    shared_window or max_len)``."""
     _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "zamba2":
+        d_in, h, p, n = m2._dims(cfg)
+        win = min(max_len, cfg.ssm.shared_window or max_len)
+        kv = (_n_groups(cfg), batch, win, cfg.num_kv_heads,
+              cfg.resolved_head_dim)
+        act = dict(dtype=dtype_of(cfg), device=dev)
+        return {"ssd": torch.zeros((cfg.num_layers, batch, h, p, n),
+                                   dtype=torch.float32, device=dev),
+                "conv": torch.zeros((cfg.num_layers, batch,
+                                     cfg.ssm.conv_width - 1, d_in + 2 * n),
+                                    **act),
+                "shared_k": torch.zeros(kv, **act),
+                "shared_v": torch.zeros(kv, **act),
+                "length": torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev)}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
@@ -130,9 +178,9 @@ def _layers(tree: Any, n: int) -> list:
 
 def _unpack_layer(lp: Any, cfg: ModelConfig) -> Any:
     """On the fused route a streaming family's packed leaves stay packed
-    (the kernels stream them); otherwise — the plain route, or a moe_lm
-    layer — every packed leaf is decompressed to the activation dtype for
-    this layer only."""
+    (the kernels stream them); otherwise — the plain route, a moe_lm
+    layer or a zamba2 Mamba layer — every packed leaf is decompressed to
+    the activation dtype for this layer only."""
     if cfg.family in _STREAM_FAMILIES and pallas_route_active(cfg):
         return lp
     return maybe_decompress_tree(lp, dtype=dtype_of(cfg))
@@ -220,7 +268,7 @@ def _dots_policy():
     return policy
 
 
-def _wrap_remat(fn, cfg: ModelConfig):
+def _wrap_remat(fn, cfg: ModelConfig, auto=_auto_remat_layer):
     """The layer body under the config's activation checkpointing, as the
     reference's ``_wrap_remat``; a pass without gradients runs ``fn`` as
     it is, and so does the kernel route family (the kernels have no
@@ -228,10 +276,12 @@ def _wrap_remat(fn, cfg: ModelConfig):
 
     "none" runs the layer as it is; "full" recomputes the whole layer in
     the backward pass (`torch.utils.checkpoint`, non-reentrant); "auto"
-    does nothing below d_model 1024 and above it keeps the MLP's
-    up-projections (`_auto_remat_layer`: the layer split around them,
-    which costs no per-op dispatch); "dots" keeps every plain matmul's
-    output through selective checkpointing
+    does nothing below d_model 1024 and above it runs ``auto``: for an
+    attention layer `_auto_remat_layer`, which keeps the MLP's
+    up-projections (the layer split around them, which costs no per-op
+    dispatch); None (a Mamba layer, which has no ``mlp_wi`` / ``mlp_wg``
+    to keep) checkpoints the whole layer; "dots" keeps every plain
+    matmul's output through selective checkpointing
     (`create_selective_checkpoint_contexts`; a torch without it
     checkpoints the whole layer instead)."""
     if (cfg.remat == "none" or (cfg.remat == "auto" and cfg.d_model < 1024)
@@ -240,8 +290,8 @@ def _wrap_remat(fn, cfg: ModelConfig):
     if cfg.remat not in ("full", "dots", "auto"):
         raise ValueError(f"remat={cfg.remat!r}")
     from torch.utils import checkpoint as ckpt
-    if cfg.remat == "auto":
-        remat = _auto_remat_layer
+    if cfg.remat == "auto" and auto is not None:
+        remat = auto
     elif cfg.remat == "dots" and hasattr(
             ckpt, "create_selective_checkpoint_contexts"):
         policy = _dots_policy()
@@ -262,8 +312,132 @@ def _wrap_remat(fn, cfg: ModelConfig):
 
 def _embed(params: Dict, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    return embed_scale(embed_apply(params["embed"], tokens, dtype_of(cfg)),
-                       cfg.d_model)
+    """The token embeddings, times sqrt(d_model) for the attention
+    families (the reference scales dense_lm, moe_lm and vlm_lm, not
+    zamba2)."""
+    x = embed_apply(params["embed"], tokens, dtype_of(cfg))
+    if cfg.family in ("dense_lm", "moe_lm", "vlm_lm"):
+        x = embed_scale(x, cfg.d_model)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# zamba2: Mamba2 layers and the shared attention + MLP block
+# ---------------------------------------------------------------------------
+
+def _n_groups(cfg: ModelConfig) -> int:
+    """Shared-block calls a pass: one after every group of
+    ``shared_period`` Mamba layers, the last (shorter) group included."""
+    return -(-cfg.num_layers // cfg.ssm.shared_period)
+
+
+def _shared_after(l: int, cfg: ModelConfig) -> bool:
+    """Whether the shared block runs after Mamba layer ``l``."""
+    return (l + 1) % cfg.ssm.shared_period == 0 or l == cfg.num_layers - 1
+
+
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared block runs as an attention + MLP layer (the reference's
+    ``cfg.replace(family="dense_lm")``): on the kernel route its packed
+    leaves stream through the DBB kernels."""
+    return cfg.replace(family="dense_lm")
+
+
+def _mamba_layer(lp: Dict, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """One Mamba layer of the full-sequence pass (expanded to dense)."""
+    lp = _unpack_layer(lp, cfg)
+    y, _ = m2.mamba2_apply(lp["mamba"], cfg,
+                           norm_apply(cfg.norm, lp["ln"], x))
+    return x + y
+
+
+def _zamba2_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    window_override: Optional[int]) -> torch.Tensor:
+    """The Mamba layers with the shared block after every group, each
+    under ``cfg.remat`` (the Mamba body whole under "auto"; the shared
+    block by the attention layer's rule)."""
+    scfg = _shared_cfg(cfg)
+    body = _wrap_remat(_mamba_layer, cfg, auto=None)
+    shared = _wrap_remat(_attn_mlp_layer, scfg)
+    for l, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
+        x = body(lp, cfg, x)
+        if _shared_after(l, cfg):
+            x, _ = shared(params["shared_block"], scfg, x, window_override)
+    return x
+
+
+def _shared_ffn(sb: Dict, scfg: ModelConfig, x: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """The shared block past its attention (output ``y``): residual, norm,
+    MLP, residual."""
+    x = x + y
+    h = norm_apply(scfg.norm, sb["ln_mlp"], x)
+    return x + mlp_apply(sb["mlp"], scfg, h)
+
+
+def _zamba2_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The full-context pass that fills the hybrid cache in place: each
+    layer's final SSD state and conv context, and per shared-block call
+    the K/V of the last ``win`` positions at their ring slots ``t %
+    win``. The shared attention runs with ``window_override=win``. Its
+    q/k/v are projected once, for the cache and the attention (the
+    reference projects them twice; the values are the same)."""
+    b, s, _ = x.shape
+    scfg = _shared_cfg(cfg)
+    sb = _unpack_layer(params["shared_block"], scfg)
+    win = cache["shared_k"].shape[2]
+    tail = min(win, s)
+    positions = torch.arange(s, device=x.device)[None, :]
+    slots = positions[0, s - tail:] % win
+    gi = 0
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        y, (ssd, conv) = m2.mamba2_apply(lp["mamba"], cfg,
+                                         norm_apply(cfg.norm, lp["ln"], x))
+        cache["ssd"][l] = ssd
+        cache["conv"][l] = conv
+        x = x + y
+        if _shared_after(l, cfg):
+            h = norm_apply(scfg.norm, sb["ln_attn"], x)
+            q, k, v = attn._project_qkv(sb["attn"], scfg, h, positions)
+            cache["shared_k"][gi][:, slots] = k[:, s - tail:].to(
+                cache["shared_k"].dtype)
+            cache["shared_v"][gi][:, slots] = v[:, s - tail:].to(
+                cache["shared_v"].dtype)
+            x = _shared_ffn(sb, scfg, x, attn.attention_apply(
+                sb["attn"], scfg, h, positions=positions,
+                window_override=win, qkv=(q, k, v)))
+            gi += 1
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    return x, dict(cache, length=cache["length"] + s)
+
+
+def _zamba2_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                   cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One token through the Mamba layers' recurrence (state and conv
+    context updated in place) and the shared block's ring-buffer decode
+    attention."""
+    scfg = _shared_cfg(cfg)
+    sb = _unpack_layer(params["shared_block"], scfg)
+    gi = 0
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        y, (ssd, conv) = m2.mamba2_apply(
+            lp["mamba"], cfg, norm_apply(cfg.norm, lp["ln"], x),
+            state=cache["ssd"][l], conv_ctx=cache["conv"][l])
+        cache["ssd"][l] = ssd
+        cache["conv"][l] = conv
+        x = x + y
+        if _shared_after(l, cfg):
+            h = norm_apply(scfg.norm, sb["ln_attn"], x)
+            x = _shared_ffn(sb, scfg, x, attn.decode_attention_apply(
+                sb["attn"], scfg, h, cache["shared_k"][gi],
+                cache["shared_v"][gi], cache["length"], ring=True))
+            gi += 1
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    return x, dict(cache, length=cache["length"] + 1)
 
 
 def forward(params: Dict, cfg: ModelConfig,
@@ -284,8 +458,11 @@ def forward(params: Dict, cfg: ModelConfig,
             "forward(embeds=, prefix_embeds=): the vlm and audio families' "
             "inputs are not ported")
     x = _embed(params, cfg, tokens)
-    body = _wrap_remat(_attn_mlp_layer, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "zamba2":
+        x = _zamba2_forward(params, cfg, x, window_override)
+        return norm_apply(cfg.norm, params["final_norm"], x), aux
+    body = _wrap_remat(_attn_mlp_layer, cfg)
     for lp in _layers(params["layers"], cfg.num_layers):
         x, a = body(lp, cfg, x, window_override)
         if a is not None:
@@ -304,9 +481,13 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     start [B]: per-row left-pad counts of a ragged batch — RoPE positions
     shift to ``t - start`` and pad keys are masked, so a row prefills as
-    it would alone."""
+    it would alone. zamba2 fills its hybrid cache (`_zamba2_prefill`) and
+    ignores ``start``: its recurrent state takes the pads as tokens, as
+    the reference's does."""
     _check_family(cfg)
     x = _embed(params, cfg, tokens)
+    if cfg.family == "zamba2":
+        return _zamba2_prefill(params, cfg, x, cache)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     if start is not None:
@@ -363,7 +544,7 @@ def prefill_packed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``cache`` IN PLACE. The bookkeeping leaves (length / start /
     block_table) are untouched: the engine installs them when a request's
     prefill completes, which keeps half-prefilled rows out of decode."""
-    _check_family(cfg)
+    _check_family(cfg, _KV_FAMILIES)
     x = _embed(params, cfg, tokens)
     kk, vv = _kv_keys(cache)
     keep, r, c = _scatter_index(rows, cols, cache[kk].shape[1], x.device)
@@ -393,7 +574,7 @@ def prefill_continue(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     row (paged; its pages are gathered into one contiguous row). The chunk
     attends its own keys and every earlier slot of its row — never another
     row's."""
-    _check_family(cfg)
+    _check_family(cfg, _KV_FAMILIES)
     x = _embed(params, cfg, tokens)
     offset = positions[0, :1]
     kk, vv = _kv_keys(cache)
@@ -424,9 +605,12 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     Each layer's new K/V go into ``cache`` in place (the contiguous cache,
     or the paged pool through the block table); the returned dict shares
     its tensors with ``length + 1``. A ragged cache (``start``) masks the
-    left-pad slots and shifts RoPE per row."""
+    left-pad slots and shifts RoPE per row. zamba2 decodes through its
+    hybrid cache (`_zamba2_decode`)."""
     _check_family(cfg)
     x = _embed(params, cfg, tokens[:, None])
+    if cfg.family == "zamba2":
+        return _zamba2_decode(params, cfg, x, cache)
     start = cache.get("start")
     paged = "k_pages" in cache
     for l in range(cfg.num_layers):
@@ -457,7 +641,7 @@ def verify_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     the block table), and the hidden states ``[B, T, d]`` give the full
     model's distribution at each candidate. ``cache["length"]`` is left
     as it was: the caller advances it by the accepted count."""
-    _check_family(cfg)
+    _check_family(cfg, _KV_FAMILIES)
     x = _embed(params, cfg, tokens)
     start = cache.get("start")
     lengths = cache["length"]

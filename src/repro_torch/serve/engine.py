@@ -6,7 +6,9 @@ steps. `ServeEngine.serve` is continuous batching over any number of
 requests: requests are admitted into free slots between decode chunks,
 finished rows retire at the chunk boundary, and every request decodes
 token-identically to running alone (per-row lengths, ``start`` offsets and
-RoPE positions isolate the rows). With ``cfg.kv_page_size > 0`` serve
+RoPE positions isolate the rows); zamba2, whose recurrent state has no
+slot-addressed cache, serves static waves through `generate` instead and
+never speculates. With ``cfg.kv_page_size > 0`` serve
 keeps K/V in a shared page pool instead of an ``smax`` stripe per slot and
 admits a request with the pages it uses (first fit over the queue); both
 layouts decode through the same paged kernel in the same page order, so
@@ -57,6 +59,11 @@ from repro_torch.models.common import dtype_of
 from repro_torch.serve import sampling as smp
 from repro_torch.serve.kv_cache import (DUMMY_PAGE, PageAllocator,
                                         init_paged_cache, pages_needed)
+
+# families with a slot-addressed K/V cache: continuous batching and
+# speculative verify; the others (zamba2's recurrent state) serve static
+# waves through `generate`
+_CONT_BATCH_FAMILIES = ("dense_lm", "moe_lm", "vlm_lm", "audio_lm")
 
 __all__ = ["greedy_from_hidden", "greedy_head", "sample_head",
            "first_sample_head", "make_prefill_step", "make_decode_step",
@@ -449,6 +456,14 @@ class ServeEngine:
         total = max_len + max_new_tokens + (ke if dk else 0)
         cache = registry.init_cache(self.cfg, self.max_batch, total,
                                     device=self.device)
+        if (mode is None and st is not None
+                and self.cfg.family in ("rwkv6", "zamba2")):
+            # the reference warns on its greedy path only
+            warnings.warn(
+                f"{self.cfg.family}: ragged batch pads feed the "
+                "recurrent state — short prompts may decode "
+                "differently than solo (needs right-padding + state "
+                "masking; see transformer.prefill)", stacklevel=2)
         if mode is None:
             cur, cache = self._prefill(self.params, self.head, cache, toks,
                                        st)
@@ -491,7 +506,10 @@ class ServeEngine:
         dk = self.draft_k if draft_k is None else draft_k
         if dk > 0:
             reason = ""
-            if use_tt:
+            if self.cfg.family not in _CONT_BATCH_FAMILIES:
+                reason = (f"family {self.cfg.family!r} has no "
+                          "slot-addressed K/V cache for batched verify")
+            elif use_tt:
                 reason = ("top-k/top-p requests in the batch — the "
                           "acceptance rule needs untruncated p/q")
             elif self.cfg.num_layers < 2:
@@ -549,6 +567,8 @@ class ServeEngine:
                              "prompts")
         if n_req == 0:
             return []
+        if self.cfg.family not in _CONT_BATCH_FAMILIES:
+            return self._serve_waves(prompts, budgets, sampling, draft_k)
         mode = None if sampling is None else self._spec_mode(sampling,
                                                              draft_k)
         # speculative margin: verify writes a (k+1)-slot slab at the write
@@ -586,6 +606,26 @@ class ServeEngine:
         if pmode == "padded":
             return self._serve_loop(run, smax)
         raise ValueError(f"prefill_mode={pmode!r}: 'packed' or 'padded'")
+
+    def _serve_waves(self, prompts: List[List[int]], budgets: List[int],
+                     sampling, draft_k: Optional[int]) -> List[List[int]]:
+        """A family without a slot-addressed K/V cache (zamba2's recurrent
+        state cannot be scattered into a slot) serves as static waves of
+        ``max_batch`` requests through `generate`, each output cut to its
+        own budget (a warning says so)."""
+        warnings.warn(
+            f"{self.cfg.family}: continuous batching needs the attention "
+            "K/V cache layout — falling back to static waves", stacklevel=3)
+        outs: List[List[int]] = []
+        for i in range(0, len(prompts), self.max_batch):
+            wave_b = budgets[i:i + self.max_batch]
+            res = self.generate(
+                prompts[i:i + self.max_batch], max_new_tokens=max(wave_b),
+                sampling=(None if sampling is None
+                          else sampling[i:i + self.max_batch]),
+                draft_k=draft_k)
+            outs.extend(r[:bud] for r, bud in zip(res, wave_b))
+        return outs
 
     def _decode_and_retire(self, run: "_ServeRun", cache: Dict,
                            cur: torch.Tensor) -> Tuple[Dict, torch.Tensor,

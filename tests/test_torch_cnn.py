@@ -74,7 +74,7 @@ def test_cnn_configs_match_reference(arch):
         jc, tc = jget(arch, smoke), tget(arch, smoke)
         for f in dataclasses.fields(tc):
             tv, jv = getattr(tc, f.name), getattr(jc, f.name)
-            if f.name == "moe":      # the sub-config, field for field
+            if f.name in ("moe", "ssm"):   # the sub-configs, field for field
                 tv, jv = dataclasses.asdict(tv), dataclasses.asdict(jv)
             if f.name == "dbb":
                 names = [g.name for g in dataclasses.fields(tv)]

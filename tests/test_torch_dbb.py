@@ -158,12 +158,13 @@ def test_config_fields_match_reference():
     from repro_torch.configs import get_config as tget
     for tcls, jcls in ((tc.ModelConfig, jc.ModelConfig),
                        (tc.DbbConfig, jc.DbbConfig),
-                       (tc.MoeConfig, jc.MoeConfig)):
+                       (tc.MoeConfig, jc.MoeConfig),
+                       (tc.SsmConfig, jc.SsmConfig)):
         jfields = {f.name: f for f in dataclasses.fields(jcls)}
         for f in dataclasses.fields(tcls):
             assert f.name in jfields, f.name
             tv, jv = getattr(tcls(), f.name), getattr(jcls(), f.name)
-            if f.name == "moe":      # the sub-config, field for field
+            if f.name in ("moe", "ssm"):   # the sub-configs, field for field
                 tv, jv = dataclasses.asdict(tv), dataclasses.asdict(jv)
             if f.name != "dbb":
                 assert tv == jv, f.name
@@ -171,7 +172,7 @@ def test_config_fields_match_reference():
         jcfg, tcfg = get_config("olmo-1b", smoke), tget("olmo-1b", smoke)
         for f in dataclasses.fields(tcfg):
             tv, jv = getattr(tcfg, f.name), getattr(jcfg, f.name)
-            if f.name == "moe":
+            if f.name in ("moe", "ssm"):
                 tv, jv = dataclasses.asdict(tv), dataclasses.asdict(jv)
             if f.name == "dbb":      # the port's DbbConfig fields
                 names = [g.name for g in dataclasses.fields(tv)]
