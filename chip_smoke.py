@@ -348,22 +348,67 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             window, sta_gemm at M2048 K2048 N8192 (gelu) and K8192 N2048,
             sta_gemm_skinny at the head (M8 K2048 N32000 f32) and
             head_sample_fused at M8 K2048 N32000.
+17. rwkv6   rwkv6-1.6b (after phase 16) at full width and all 24 layers (d
+            2048, 32 WKV heads of D 64, d_ff 7168, vocab 65536, untied;
+            its layers expanded from packed f32 planes layer by layer and
+            run in plain PyTorch, as the reference runs them in plain XLA,
+            so its paths launch the heads only): ``registry.forward`` on
+            B2 x 256 (no launch) against the plain route at f32 within
+            LM_F32_TOL and at bf16 by the LM_BF16_MARGIN rule (zamba2's);
+            greedy ``generate`` on both routes of 8 prompts of 256 tokens
+            (the chunked WKV; 32 new) and of a ragged batch of 64-200
+            tokens (the recurrence; 16 new; the pads-feed-the-state
+            warning), held as zamba2's; a sampled generate with
+            ``draft_k=2`` refused (the warning; row 0 at temperature 0
+            equal to the greedy stream); serve of 12 requests as static
+            waves; two training steps (B4 S256) and the serve CLI
+            (``--full --packed --gemm-impl pallas --batch 8``).
+18. vlm_audio  paligemma-3b (all 18 layers: MQA, 8 query heads on one KV
+            head of D 256; gated GeLU d_ff 16384; the tied f32 head
+            [2048, 257216]) and musicgen-medium (all 48 layers: 24 heads of
+            D 64, GeLU d_ff 6144, vocab 2048), packed f32 planes streamed
+            through the DBB kernels: ``registry.forward`` on B2 x 256 (256
+            prefix embeds in front for paligemma, frame embeds for
+            musicgen), ``prefill`` from the family's own inputs then 4
+            token decode steps, both by the forward's rules; greedy
+            ``generate`` of 8 ragged prompts (64-200 tokens, 32 new) as
+            above; ``serve`` of 12 requests in 64-slot pages: packed into
+            the contiguous cache and into the paged pool (equal streams),
+            paligemma's with 64-token chunks too (split rule against the
+            packed streams), and sampled on the pool (paligemma: its head
+            at vocab 257216, no multiple of head_sample_fused's 128-column
+            tile, takes the plain sampler, as the reference's guard sends
+            it; musicgen: ``draft_k=2``); two training steps each
+            (paligemma B2 x (256 + 128), musicgen B4 S256); the serve
+            CLI's refusal of both (the reference's own text). Every run of
+            phases 17 and 18 launches exactly what its recorded entry-point
+            and head calls imply (`_CallRecorder`, `_lm_expected`): per
+            call and layer the four projections and the MLP's GEMMs on the
+            kernels the route table picks, the attention kernel of the
+            call's kind and cache, one head a call. Then the kernels at the
+            new shapes beside plain version, bound and library call
+            (``last_families_shapes``): flash_prefill / flash_prefill_packed
+            at D 256 G 8 (the two-warpgroup tensor-core body),
+            paged_decode at G 8 D 256, the greedy heads at N 257216 and
+            65536, head_sample_fused at N 65536, and the paligemma and
+            musicgen MLP GEMMs (dbb_gemm M512, dbb_gemm_skinny M8, and
+            paligemma's N 256 K/V projection).
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8, 9, 12-14 and 16 must have run the tensor-core
-body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
+main paths of phases 4-6, 8, 9, 12-14 and 16-18 must have run the
+tensor-core body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
-D 128), or the run fails. Likewise every float dbb_gemm_skinny launch of
-phases 4-9 and 12-16 must have run the split-K body
+D 64, 128 or 256), or the run fails. Likewise every float dbb_gemm_skinny
+launch of phases 4-9 and 12-18 must have run the split-K body
 (``dbb_gemm_skinny_split`` equals the f32, ``_i8`` and ``_w4`` branches'
 sum) and every f32-x dbb_gemm launch (the CNN classifier, N 10) the narrow
 body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
 LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-16;
+sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-18;
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -577,6 +622,7 @@ def main() -> int:
                     "report into this directory")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         return _fail("torch.cuda.is_available() is False")
@@ -602,7 +648,8 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     secs = build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s wall "
+    t_build = time.perf_counter() - t0
+    print(f"build: {t_build:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     _ptxas_report(build)
     if args.out:
@@ -667,6 +714,14 @@ def main() -> int:
     if not ok:
         return _fail("the zamba2 phase failed (see above)")
     by_path.update(zamba_counts)
+    rwkv_counts, ok = timed("rwkv6", _rwkv_phase, args.out)
+    if not ok:
+        return _fail("the rwkv6 phase failed (see above)")
+    by_path.update(rwkv_counts)
+    vlm_counts, ok = timed("vlm_audio", _vlm_audio_phase, args.out)
+    if not ok:
+        return _fail("the vlm / audio phase failed (see above)")
+    by_path.update(vlm_counts)
     cnn_paths = list(cnn_counts) + train_cnn
     # the moe paths check their tensor-core counts themselves (kimi's D 112
     # prefill runs the FMA body; the CLI run's smoke config is f32)
@@ -692,8 +747,16 @@ def main() -> int:
                  if k.startswith(name + " ")}
         if zamba:
             entry["zamba2_shapes"] = zamba
+        last = {k: v for k, v in report["vlm_audio"]["kernels"].items()
+                if k.startswith(name + " ")}
+        if last:
+            entry["last_families_shapes"] = last
         entry["launches"] = sum(c[name] for c in by_path.values())
         entry["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+    report["total_s"] = time.perf_counter() - t_start
+    print(f"total: {report['total_s']:.1f} s (build {t_build:.1f} s; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in report["phase_s"].items())
+          + ")")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"), "w") as f:
             json.dump(dict(report, kernels=kernels), f, indent=1)
@@ -4933,37 +4996,12 @@ def _zamba_logits(torch, dev, engine):
 
 
 def _zamba_generate(torch, dev, cfg, tree, prompts, new, sampling=None):
-    """``generate`` on one route: a prefill-only warm-up, the run with the
-    launch counts reset just before and read just after (warnings
-    recorded; a sampled call asks for ``draft_k=2``), and a
-    ``max_new_tokens=1`` call for the time to first token: (tokens,
+    """`_lm_generate` with ``draft_k=2`` asked on a sampled call: (tokens,
     counts, decode steps, engine, warnings, times)."""
-    import warnings
-
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
-    from repro_torch.serve.engine import ServeEngine
-    engine = ServeEngine(cfg, tree, max_batch=len(prompts), device=dev)
-    kw = {} if sampling is None else dict(sampling=sampling, draft_k=2)
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        engine.generate(prompts, max_new_tokens=1, **kw)      # warm-up
-        torch.cuda.synchronize()
-        seen.clear()
-        reset_launches()
-        t0 = time.perf_counter()
-        out = engine.generate(prompts, max_new_tokens=new, **kw)
-        torch.cuda.synchronize()
-        t_total = time.perf_counter() - t0
-        counts = dict(LAUNCHES)
-        warned = [str(w.message) for w in seen]
-        steps = engine.last_decode_steps
-        t0 = time.perf_counter()
-        engine.generate(prompts, max_new_tokens=1, **kw)
-        torch.cuda.synchronize()
-        ttft = time.perf_counter() - t0
-    times = dict(total_ms=t_total * 1e3, ttft_ms=ttft * 1e3, steps=steps,
-                 decode_ms_per_step=(t_total - ttft) / max(steps, 1) * 1e3)
-    return out, counts, steps, engine, warned, times
+    out, counts, _, engine, warned, times = _lm_generate(
+        torch, dev, cfg, tree, prompts, new, sampling,
+        draft_k=None if sampling is None else 2)
+    return out, counts, times["steps"], engine, warned, times
 
 
 def _zamba_warned(warned, need) -> bool:
@@ -5201,46 +5239,6 @@ def _zamba_serve(torch, dev, cfg, tree, rec):
     return counts, ok
 
 
-def _zamba_train(torch, dev, rec):
-    """Two steps of ``repro_torch.launch.train.main`` (ZAMBA_TRAIN_ARGV,
-    the plain route under autograd): finite loss and parameters, no
-    kernel launch, peak memory."""
-    import gc
-
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
-    from repro_torch.launch import train as train_cli
-    from repro_torch.train.tree import tree_leaves
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    lines, rep = [], {}
-    reset_launches()
-    t0 = time.perf_counter()
-    rc = train_cli.main(ZAMBA_TRAIN_ARGV.split(), log=lines.append,
-                        report=rep)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = {k: v for k, v in LAUNCHES.items() if v}
-    peak = torch.cuda.max_memory_allocated()
-    logged = [json.loads(x) for x in lines if x.startswith("{")]
-    finite = all(bool(torch.isfinite(a).all())
-                 for a in tree_leaves(rep["state"].params))
-    loss = logged[0]["loss"] if logged else float("nan")
-    ok = (rc == 0 and rep["state"].step == 2 and finite and not launched
-          and abs(loss) < float("inf"))
-    print(f"zamba2: train {ZAMBA_TRAIN_ARGV}: loss at step 0 {loss:.4f}, "
-          f"parameters finite after 2 steps: {finite}; kernel launches "
-          f"{launched or 'none'}; wall {wall:.1f} s (the first step "
-          f"{logged[0]['dt'] if logged else float('nan'):.3f} s); peak "
-          f"device memory {peak / 1e9:.3f} GB {'ok' if ok else 'FAIL'}")
-    rec["train"] = dict(argv=ZAMBA_TRAIN_ARGV, loss=loss, wall_s=wall,
-                        peak_bytes=peak, logged=logged)
-    del rep
-    gc.collect()
-    torch.cuda.empty_cache()
-    return ok
-
-
 def _zamba_cli(torch, dev, rec):
     """The serve CLI (ZAMBA_CLI_ARGV) in process: its tables' routes
     against its launches (the packed decode-GEMM table's route held as its
@@ -5451,7 +5449,7 @@ def _zamba_phase(torch, dev, report, out_dir):
     del engine, tree
     gc.collect()
     torch.cuda.empty_cache()
-    ok = _zamba_train(torch, dev, rec) and ok
+    ok = _lm_train(torch, dev, "zamba2", ZAMBA_TRAIN_ARGV, rec) and ok
     counts, run_ok = _zamba_cli(torch, dev, rec)
     by_path["zamba2_cli"] = counts
     ok = ok and run_ok
@@ -5565,6 +5563,1076 @@ def _zamba_kernels(torch, dev):
                                "at the zamba2 shapes: " + "; ".join(failures)))
     return rows
 
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: rwkv6, then the vlm and audio families, at full width
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH, VLM_ARCH, AUDIO_ARCH = "rwkv6-1.6b", "paligemma-3b", \
+    "musicgen-medium"
+LM_FWD = (2, 256)                     # forward: B2 x 256 tokens (or frames)
+LM_LEN, LM_NEW = 256, 32              # rwkv6: 8 chunks of the chunked WKV
+# left-padded to 200 tokens, no multiple of rwkv6's 32-token chunk: the
+# recurrence
+LM_RAGGED, LM_RAGGED_NEW = [200, 64, 137, 90, 175, 112, 153, 71], 16
+LM_SERVE_LENS = [96, 40, 72, 17, 55, 128, 33, 80, 64, 21, 100, 48]
+LM_SERVE_BUDGETS = [8, 16, 12, 10, 14, 9, 16, 11, 13, 8, 15, 12]
+LM_DECODE_STEPS = 4                   # decode steps after a direct prefill
+LM_CHUNK = 64                         # serve's chunked-prefill chunk
+# hidden states at f32 activations, kernel vs plain route, of max |h|
+LM_F32_TOL = 1e-4
+# at bf16 activations the plain route's own rounding moves these models'
+# logits far past LOGIT_TOL (as zamba2's, phase 16): the bf16 kernel route
+# is held against the f32 plain route, within this factor of the bf16
+# plain route's own distance from it, and a stream split is excused where
+# the plain route's gap is within twice that distance
+LM_BF16_MARGIN = 1.5
+VLM_PREFIX_PROMPT = 128               # tokens after paligemma's 256 patches
+RWKV_TRAIN_ARGV = ("--arch rwkv6-1.6b --full --steps 2 --seq-len 256 "
+                   "--batch 4")
+RWKV_CLI_ARGV = ("--arch rwkv6-1.6b --full --packed --gemm-impl pallas "
+                 "--batch 8")
+# paligemma's sequence is its 256 patches plus --seq-len tokens. AdamW
+# over its 2.5 B parameters at full depth fits: the step peaked at 75.2 GB
+# at batch 2 and at batch 1 alike (the f32 parameters, gradients, two
+# moments and the DBB-projected copy, not the batch; H100 80GB HBM3, 700 W)
+VLM_TRAIN_ARGV = ("--arch paligemma-3b --full --steps 2 --seq-len 128 "
+                  "--batch 2")
+AUDIO_TRAIN_ARGV = ("--arch musicgen-medium --full --steps 2 --seq-len 256 "
+                    "--batch 4")
+LM_REFUSED = "token-decoder serving only (modality frontends are stubs)"
+LM_WARN_RAGGED = "ragged batch pads feed the recurrent state"
+LM_WARN_SPEC = "has no slot-addressed K/V cache for batched verify"
+LM_WARN_WAVES = "falling back to static waves"
+
+
+class _CallRecorder:
+    """While active, records the engine's model and head calls: the
+    registry's cached entry points (module attributes the engine looks up
+    at each call; the package has no hook for this) as (kind, cfg, M,
+    the attention kernel the call's cache and the route table give), each
+    head GEMV (`dispatch.matmul` with ``gemv=True``) as ("head", cfg,
+    rows, kernel route) and each sampling head as ("sample", cfg, rows,
+    top-k / top-p in the batch). `_lm_expected` turns the records into
+    launches."""
+    ENTRIES = ("prefill", "prefill_packed", "prefill_continue",
+               "decode_step", "verify_step")
+
+    def __init__(self, torch):
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import registry
+        from repro_torch.serve import sampling
+        self.torch, self.calls, self.real = torch, [], {}
+        self.slots = ([(registry, e) for e in self.ENTRIES]
+                      + [(dispatch, "matmul"),
+                         (sampling, "sample_from_hidden")])
+
+    def __enter__(self):
+        self.calls = []
+        for mod, name in self.slots:
+            self.real[mod, name] = getattr(mod, name)
+            setattr(mod, name, self._wrap(name, getattr(mod, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), real in self.real.items():
+            setattr(mod, name, real)
+
+    def _attn_kernel(self, kind, cfg, cache):
+        """The attention kernel of one layer of this call: flash prefill
+        (padded or chunk continuation) or the packed one where the flash
+        backend is active, paged_decode on a paged pool or where the
+        contiguous cache's decode route picks it, none for verify (the
+        naive route, as the reference's)."""
+        import math
+
+        from repro_torch.kernels import dispatch
+        from repro_torch.kernels.attn.ops import DEFAULT_PAGE, flash_ok
+        from repro_torch.models.common import dtype_of
+        if cfg.family not in ("dense_lm", "vlm_lm", "audio_lm"):
+            return None
+        hd, dt = cfg.resolved_head_dim, dtype_of(cfg)
+        flash = dispatch.flash_backend_active(cfg) and flash_ok(hd, dt)
+        if kind in ("prefill", "prefill_continue"):
+            return "flash_prefill" if flash else None
+        if kind == "prefill_packed":
+            return "flash_prefill_packed" if flash else None
+        if kind == "verify_step":
+            return None
+        if "k_pages" in cache:
+            return "paged_decode"
+        smax = cache["k"].shape[2]
+        route = dispatch.decode_attention_route(
+            cfg, group=cfg.num_heads // cfg.num_kv_heads, head_dim=hd,
+            page=cfg.kv_page_size or math.gcd(smax, DEFAULT_PAGE),
+            smax=smax, itemsize=dt.itemsize)
+        return "paged_decode" if route == "attn_decode_flash" else None
+
+    def _wrap(self, name, real):
+        from repro_torch.kernels import dispatch
+        calls = self.calls
+        if name == "matmul":
+            def matmul(x, w, *a, **kw):
+                if kw.get("gemv"):
+                    cfg, pallas = kw.get("cfg"), kw.get("pallas")
+                    if pallas is None:
+                        pallas = dispatch.pallas_route_active(cfg)
+                    calls.append(("head", cfg, x.shape[0], bool(pallas)))
+                return real(x, w, *a, **kw)
+            return matmul
+        if name == "sample_from_hidden":
+            def sample(hidden, w, state, **kw):
+                calls.append(("sample", kw.get("cfg"), hidden.shape[0],
+                              bool(kw.get("use_tt", False))))
+                return real(hidden, w, state, **kw)
+            return sample
+
+        def entry(params, cfg, *a, **kw):
+            tokens = a[0] if a else kw.get("tokens")
+            cache = kw.get("cache")
+            if cache is None:
+                cache = next((c for c in a[1:] if isinstance(c, dict)), {})
+            parts = [t for t in (tokens, kw.get("embeds"),
+                                 kw.get("prefix_embeds")) if t is not None]
+            m = (parts[0].shape[0] if name == "decode_step"
+                 else sum(t.shape[0] * t.shape[1] for t in parts))
+            calls.append((name, cfg, m, self._attn_kernel(name, cfg, cache)))
+            return real(params, cfg, *a, **kw)
+        return entry
+
+
+def _lm_expected(torch, calls):
+    """The launches the route table implies for recorded calls
+    (`_CallRecorder`; a ("forward", cfg, M, attention kernel) record stands
+    for `registry.forward`). A call of an attention family runs, in each
+    of its ``cfg.num_layers`` layers, the four attention projections and
+    the MLP's GEMMs (gated: wi, wg with the activation, wo; else wi with
+    it, wo) on the packed planes at M, each on the kernel the table picks
+    (`dispatch.explain`), and the attention kernel recorded; an rwkv6
+    call runs its layers in plain matmuls (none). A head record adds the
+    greedy head's kernel at its rows where the kernel route is active, a
+    sampling head one head_sample_fused where the head_sample table picks
+    it (not at paligemma's vocab 257216, no multiple of the 128-column
+    tile: the plain sampler, as in the reference). The trees are packed with
+    f32 values (vals_itemsize 4). The body counters follow
+    their rules (`sta_gemm.ops.tc_body`, `attn.ops.tc_body`; a bf16
+    dbb_gemm launch runs the tensor-core body, a float dbb_gemm_skinny
+    launch the split-K body)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attn.ops import tc_body as flash_tc
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.sta_gemm.ops import tc_body as gemm_tc
+    from repro_torch.models.common import dtype_of
+    want, memo = {}, {}
+
+    def add(name, n=1):
+        if name in LAUNCHES and n:
+            want[name] = want.get(name, 0) + n
+
+    def kernel(cfg, m, k, n, ops):
+        key = (cfg, m, k, n, ops)
+        if key not in memo:
+            memo[key] = ZAMBA_GEMM_KERNELS.get(dispatch.explain(
+                "matmul", m=m, k=k, n=n, dtype=dtype_of(cfg), cfg=cfg,
+                packed=True, block=cfg.dbb.block, nnz=cfg.dbb.nnz,
+                vals_itemsize=4, epilogue_ops=ops)[0].name)
+        return memo[key]
+
+    for kind, cfg, m, extra in calls:
+        if kind == "head":
+            if extra:
+                add(_head_kernel(torch, cfg, m))
+            continue
+        if kind == "sample":
+            add(dispatch.explain(
+                "head_sample", m=m, k=cfg.d_model, n=cfg.vocab_size,
+                dtype=torch.float32, cfg=cfg, sample_tt=extra)[0].name)
+            continue
+        if cfg.family not in ("dense_lm", "vlm_lm", "audio_lm"):
+            continue
+        n_l, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+        hq = cfg.num_heads * cfg.resolved_head_dim
+        hkv = cfg.num_kv_heads * cfg.resolved_head_dim
+        mlp = ([(d, f, 0), (d, f, 1), (f, d, 0)] if cfg.mlp_gated
+               else [(d, f, 1), (f, d, 0)])
+        for k, n, ops in [(d, hq, 0), (d, hkv, 0), (d, hkv, 0),
+                          (hq, d, 0)] + mlp:
+            name = kernel(cfg, m, k, n, ops)
+            add(name, n_l)
+            if name == "sta_gemm" and gemm_tc(dtype_of(cfg), k, n):
+                add("sta_gemm_tc", n_l)
+            elif name == "dbb_gemm" and dtype_of(cfg) == torch.bfloat16:
+                add("dbb_gemm_tc", n_l)
+            elif name == "dbb_gemm_skinny":
+                add("dbb_gemm_skinny_split", n_l)
+        add(extra, n_l)
+        if extra in ("flash_prefill", "flash_prefill_packed") and flash_tc(
+                dtype_of(cfg), cfg.resolved_head_dim):
+            add(extra + "_tc", n_l)
+    return want
+
+
+def _lm_generate(torch, dev, cfg, tree, prompts, new, sampling=None,
+                 draft_k=None):
+    """``generate`` on one route: a warm-up, the run with the launch
+    counts reset just before and read just after and its calls recorded
+    (warnings too), and a ``max_new_tokens=1`` call for the time to first
+    token: (tokens, counts, calls, engine, warnings, times)."""
+    import warnings
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    engine = ServeEngine(cfg, tree, max_batch=len(prompts), device=dev)
+    kw = {} if sampling is None else dict(sampling=sampling, draft_k=draft_k)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        engine.generate(prompts, max_new_tokens=1, **kw)      # warm-up
+        torch.cuda.synchronize()
+        seen.clear()
+        with _CallRecorder(torch) as rec:
+            reset_launches()
+            t0 = time.perf_counter()
+            out = engine.generate(prompts, max_new_tokens=new, **kw)
+            torch.cuda.synchronize()
+            t_total = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        warned = [str(w.message) for w in seen]
+        steps = engine.last_decode_steps
+        t0 = time.perf_counter()
+        engine.generate(prompts, max_new_tokens=1, **kw)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+    times = dict(total_ms=t_total * 1e3, ttft_ms=ttft * 1e3, steps=steps,
+                 decode_ms_per_step=(t_total - ttft) / max(steps, 1) * 1e3)
+    return out, counts, rec.calls, engine, warned, times
+
+
+def _lm_logits(torch, dev, engine, cfg):
+    """Last-position f32 logits of contexts: `_logits_fn` (left-padded with
+    ``start``), or one context at a time for rwkv6, whose pads feed the
+    state (`_zamba_logits`)."""
+    if cfg.family == "rwkv6":
+        return _zamba_logits(torch, dev, engine)
+    return _logits_fn(torch, dev, engine)
+
+
+def _lm_contexts(cfg, prompts):
+    """The contexts as generate ran them: rwkv6 rows with their left pads
+    written out (pads are tokens to its state), the others as given (the
+    logits take them left-padded with ``start``)."""
+    if cfg.family != "rwkv6":
+        return prompts
+    width = max(map(len, prompts))
+    return [[0] * (width - len(p)) + p for p in prompts]
+
+
+def _lm_run(torch, dev, tag, cfg, tree, prompts, new, rec):
+    """One greedy batch on the kernel route and on the plain route:
+    prefill logits at f32 activations within LOGIT_TOL of max |logit|; at
+    bf16 the kernel route no farther from the f32 plain route than
+    LM_BF16_MARGIN times the bf16 plain route's own distance from it;
+    streams equal outside the split rule at that reach; exactly the
+    launches the recorded calls imply; rwkv6's ragged batch warns. Returns
+    (kernel tokens, counts, engine, bf16 plain-route logits, reach, ok)."""
+    from repro_torch.serve.engine import ServeEngine
+    name = cfg.name
+    xcfg = cfg.replace(gemm_impl="xla")
+    out, counts, calls, engine, warned, kt = _lm_generate(
+        torch, dev, cfg, tree, prompts, new)
+    xout, _, _, xengine, _, pt = _lm_generate(torch, dev, xcfg, tree,
+                                              prompts, new)
+    del xengine
+    ctx = _lm_contexts(cfg, prompts)
+    last_logits = _logits_fn(torch, dev, engine)
+    lk, lp = last_logits(cfg, ctx), last_logits(xcfg, ctx)
+    cfg32 = cfg.replace(dtype="float32")
+    e32 = ServeEngine(cfg32, tree, max_batch=len(prompts), device=dev)
+    logits32 = _logits_fn(torch, dev, e32)
+    lk32 = logits32(cfg32, ctx)
+    lp32 = logits32(cfg32.replace(gemm_impl="xla"), ctx)
+    del e32
+    scale = lp32.abs().max().item()
+    f32 = (lk32 - lp32).abs().max().item()
+    reach = (lp - lp32).abs().max().item()         # bf16's own reach
+    diff = (lk - lp32).abs().max().item()
+    same, total, split = _split_rows(out, xout)
+    gaps = _split_gaps(torch, _lm_logits(torch, dev, engine, cfg), xcfg,
+                       ctx, out, xout, split)
+    ragged = len(set(map(len, prompts))) > 1 and cfg.family == "rwkv6"
+    ok = (f32 <= LOGIT_TOL * scale and diff <= LM_BF16_MARGIN * reach
+          and all(g <= 2 * reach for g in gaps)
+          and _zamba_warned(warned, [LM_WARN_RAGGED] if ragged else []))
+    print(f"{name}: {tag}: {len(prompts)} prompt(s) of "
+          f"{sorted(set(map(len, prompts)))} tokens, {new} new: prefill "
+          f"last-position logits, of max |logit| {scale:.4e}: f32 "
+          f"activations, kernel vs plain route {f32 / scale:.3e} (tol "
+          f"{LOGIT_TOL:g}); bf16 against the f32 plain route: plain "
+          f"{reach / scale:.3e}, kernel {diff / scale:.3e} (tol "
+          f"{LM_BF16_MARGIN:g} x plain's); tokens {same}/{total} equal; "
+          f"splits (row, step, plain-route gap; bound {2 * reach:.4e}) "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]}; warnings "
+          f"{warned} {'ok' if ok else 'FAIL'}")
+    print(f"{name}: {tag}: kernel route decode "
+          f"{kt['decode_ms_per_step']:.3f} ms/step over {kt['steps']} "
+          f"steps, ttft {kt['ttft_ms']:.1f} ms; plain route decode "
+          f"{pt['decode_ms_per_step']:.3f} ms/step, ttft {pt['ttft_ms']:.1f} "
+          f"ms")
+    rec[tag] = dict(kernel=kt, plain=pt, logit_f32_diff=f32,
+                    logit_bf16_plain_diff=reach, logit_bf16_kernel_diff=diff,
+                    logit_scale=scale, token_agreement=[same, total],
+                    token_splits=[[i, j, g] for (i, j), g in zip(split, gaps)],
+                    warnings=warned, launches={k: v for k, v in counts.items()
+                                               if v})
+    ok = _check_launches(name, tag, counts, _lm_expected(torch, calls)) \
+        and ok
+    return out, counts, engine, lp, reach, ok
+
+
+def _lm_sampling(torch, lp, n):
+    """``n`` SamplingParams: row 0 at temperature 0, the others at
+    SAMPLE_T_SPREAD times the median spread of the plain route's logits
+    ``lp`` (so the noise decides tokens)."""
+    from repro_torch.serve.sampling import SamplingParams
+    spread = statistics.median(lp.std(dim=-1).tolist())
+    k = len(SAMPLE_T_SPREAD)
+    return [SamplingParams(
+        temperature=0.0 if i == 0 else spread * SAMPLE_T_SPREAD[i % k],
+        seed=i * 7919 + 1) for i in range(n)]
+
+
+def _lm_sampled(torch, dev, tag, cfg, tree, prompts, greedy, lp, rec):
+    """A sampled generate of the greedy batch on the kernel route with
+    ``draft_k=2`` asked (rwkv6 refuses it with the warning; the attention
+    families speculate): row 0 (temperature 0) equal to the greedy
+    stream, the other rows moved by the noise, exactly the launches the
+    recorded calls imply (head_sample_fused for the fused heads; a
+    speculative step's draft and verify heads take the greedy head's
+    kernel)."""
+    sp = _lm_sampling(torch, lp, len(prompts))
+    out, counts, calls, _, warned, kt = _lm_generate(
+        torch, dev, cfg, tree, prompts, LM_NEW, sampling=sp, draft_k=2)
+    moved = sum(a != b for s, g in zip(out[1:], greedy[1:])
+                for a, b in zip(s, g))
+    need = [LM_WARN_SPEC] if cfg.family == "rwkv6" else []
+    ok = (out[0] == greedy[0] and moved > 0
+          and _zamba_warned(warned, need))
+    print(f"{cfg.name}: {tag}: {len(prompts)} prompts, {LM_NEW} new, "
+          f"temperatures {[round(p.temperature, 3) for p in sp]}, draft_k=2 "
+          f"asked: row 0 (T 0) "
+          f"{'equal to' if out[0] == greedy[0] else 'DIFFERS FROM'} the "
+          f"greedy stream; {moved} tokens of the other rows moved; "
+          f"warnings {warned}; decode {kt['decode_ms_per_step']:.3f} ms/step"
+          f", ttft {kt['ttft_ms']:.1f} ms {'ok' if ok else 'FAIL'}")
+    rec[tag] = dict(kernel=kt, moved=moved, warnings=warned,
+                    launches={k: v for k, v in counts.items() if v})
+    ok = _check_launches(cfg.name, tag, counts,
+                         _lm_expected(torch, calls)) and ok
+    return counts, ok
+
+
+def _lm_hidden(torch, fn, cfg):
+    """``fn(cfg)`` on the kernel route, timed, with the launch counts reset
+    just before and read just after and its entry-point calls recorded;
+    then the plain route at bf16, and both routes at f32 activations:
+    ((kernel, plain, kernel f32, plain f32) hidden states, counts, calls,
+    kernel ms, plain ms)."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    xcfg = cfg.replace(gemm_impl="xla")
+    with torch.no_grad():
+        fn(cfg)                                               # warm-up
+        torch.cuda.synchronize()
+        with _CallRecorder(torch) as rec:
+            reset_launches()
+            t0 = time.perf_counter()
+            hk = fn(cfg)
+            torch.cuda.synchronize()
+            tk = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        hp = fn(xcfg)
+        torch.cuda.synchronize()
+        tp = time.perf_counter() - t0
+        hk32 = fn(cfg.replace(dtype="float32"))
+        hp32 = fn(xcfg.replace(dtype="float32"))
+    return (hk, hp, hk32, hp32), counts, rec.calls, tk * 1e3, tp * 1e3
+
+
+def _lm_held(torch, name, tag, hs, tk, tp, want, counts, rec):
+    """`_lm_hidden`'s states held: f32 activations within LM_F32_TOL of max
+    |value|, bf16 no farther from the f32 plain route than LM_BF16_MARGIN
+    times the bf16 plain route, finite; exact launches."""
+    hk, hp, hk32, hp32 = (h.float() for h in hs)
+    scale = hp32.abs().max().item()
+    f32 = (hk32 - hp32).abs().max().item() / scale
+    own = (hp - hp32).abs().max().item() / scale
+    kern = (hk - hp32).abs().max().item() / scale
+    ok = (f32 <= LM_F32_TOL and kern <= LM_BF16_MARGIN * own
+          and bool(torch.isfinite(hk).all()))
+    print(f"{name}: {tag}: of max |value| {scale:.4e}: f32 activations, "
+          f"kernel vs plain route {f32:.3e} (tol {LM_F32_TOL:g}); bf16 "
+          f"against the f32 plain route: plain {own:.3e}, kernel {kern:.3e} "
+          f"(tol {LM_BF16_MARGIN:g} x plain's) {'ok' if ok else 'FAIL'}; "
+          f"bf16 kernel route {tk:.1f} ms, plain route {tp:.1f} ms")
+    rec[tag] = dict(f32_diff_of_max=f32, bf16_plain_of_max=own,
+                    bf16_kernel_of_max=kern, kernel_ms=tk, plain_ms=tp)
+    return _check_launches(name, tag, counts, want) and ok
+
+
+def _lm_inputs(torch, dev, cfg, b, s, seed):
+    """A batch of ``b`` rows: ``s`` tokens, or ``s`` frame embeddings
+    (audio), with the vlm family's prefix embeddings in front (0.1 N(0, 1),
+    as the data pipeline draws them)."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {}
+    if cfg.embeds_input:
+        batch["embeds"] = 0.1 * torch.randn((b, s, cfg.d_model),
+                                            generator=gen)
+    else:
+        batch["tokens"] = torch.randint(2, cfg.vocab_size, (b, s),
+                                        generator=gen)
+    if cfg.prefix_embed_len:
+        batch["prefix_embeds"] = 0.1 * torch.randn(
+            (b, cfg.prefix_embed_len, cfg.d_model), generator=gen)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _lm_forward(torch, dev, cfg, tree, rec):
+    """`registry.forward` on B2 x 256 (tokens, frames, or paligemma's 256
+    patches in front of 256 tokens) on the kernel route (the attention
+    families stream their packed planes through the DBB kernels) against
+    the plain route by `_lm_held`'s rules: (counts, ok)."""
+    from repro_torch.kernels.attn.ops import flash_ok
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    from repro_torch.models.common import dtype_of
+    b, s = LM_FWD
+    batch = _lm_inputs(torch, dev, cfg, b, s, 3)
+    hs, counts, _, tk, tp = _lm_hidden(
+        torch, lambda c: registry.forward(tree, c, batch)[0], cfg)
+    m = b * (s + cfg.prefix_embed_len)
+    attn = ("flash_prefill" if dispatch.flash_backend_active(cfg)
+            and flash_ok(cfg.resolved_head_dim, dtype_of(cfg)) else None)
+    want = _lm_expected(torch, [("forward", cfg, m, attn)])
+    ok = _lm_held(torch, cfg.name, f"forward B{b} x {s}"
+                  + (f" after {cfg.prefix_embed_len} prefix embeds"
+                     if cfg.prefix_embed_len else "")
+                  + (" frames" if cfg.embeds_input else ""),
+                  hs, tk, tp, want, counts, rec)
+    return counts, ok
+
+
+def _lm_prefill_decode(torch, dev, cfg, tree, rec):
+    """`registry.prefill` from the family's own inputs (paligemma: 256
+    prefix embeds and a 128-token prompt; musicgen: 256 frame embeds),
+    then LM_DECODE_STEPS token decode steps, on the kernel route against
+    the plain route by `_lm_held`'s rules on the hidden states of every
+    call; exactly the launches of those calls (the prefill's and each
+    step's head taken outside): (counts, ok)."""
+    from repro_torch.models import registry
+    b = 2
+    s = VLM_PREFIX_PROMPT if cfg.prefix_embed_len else LM_LEN
+    batch = _lm_inputs(torch, dev, cfg, b, s, 4)
+    total = s + cfg.prefix_embed_len
+    nxt = torch.randint(2, cfg.vocab_size, (LM_DECODE_STEPS, b),
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+
+    def run(c):
+        cache = registry.init_cache(c, b, total + LM_DECODE_STEPS,
+                                    device=dev)
+        h, cache = registry.prefill(tree, c, batch.get("tokens"), cache,
+                                    embeds=batch.get("embeds"),
+                                    prefix_embeds=batch.get("prefix_embeds"))
+        hs = [h[:, -1]]
+        for i in range(LM_DECODE_STEPS):
+            h, cache = registry.decode_step(tree, c, nxt[i], cache)
+            hs.append(h[:, -1])
+        return torch.stack(hs, 1)
+
+    hs, counts, calls, tk, tp = _lm_hidden(torch, run, cfg)
+    tag = (f"prefill B{b}: {cfg.prefix_embed_len} prefix embeds + {s} "
+           f"tokens" if cfg.prefix_embed_len else f"prefill B{b} x {s} "
+           f"frame embeds") + f", then {LM_DECODE_STEPS} token decode steps"
+    ok = _lm_held(torch, cfg.name, tag, hs, tk, tp,
+                  _lm_expected(torch, calls), counts, rec)
+    return counts, ok
+
+
+def _lm_serve_waves(torch, dev, cfg, tree, rec):
+    """rwkv6's ``serve`` of 12 ragged requests through max_batch 8: static
+    waves (the warning), streams equal to ``generate`` on the same waves
+    cut to the budgets, exactly the launches of the recorded calls."""
+    import warnings
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    gen = torch.Generator().manual_seed(4)
+    reqs = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in LM_SERVE_LENS]
+    engine = ServeEngine(cfg, tree, max_batch=8, device=dev)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        engine.serve(reqs[:2], max_new_tokens=2)              # warm-up
+        torch.cuda.synchronize()
+        seen.clear()
+        with _CallRecorder(torch) as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs = engine.serve(reqs, max_new_tokens=LM_SERVE_BUDGETS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        warned = [str(w.message) for w in seen]
+        want_out = []
+        for i in range(0, len(reqs), 8):
+            wave, bud = reqs[i:i + 8], LM_SERVE_BUDGETS[i:i + 8]
+            res = engine.generate(wave, max_new_tokens=max(bud))
+            want_out += [r[:n] for r, n in zip(res, bud)]
+    same = outs == want_out
+    waves = any(LM_WARN_WAVES in w for w in warned)
+    n_tok = sum(len(o) for o in outs)
+    ok = same and waves
+    print(f"{cfg.name}: serve: {len(reqs)} requests (lengths "
+          f"{LM_SERVE_LENS}), budgets {LM_SERVE_BUDGETS}, max_batch 8: "
+          f"{wall * 1e3:.1f} ms, {n_tok / wall:.1f} generated tokens/s; "
+          f"streams {'equal to' if same else 'DIFFERENT FROM'} generate on "
+          f"the same waves; static-wave warning "
+          f"{'given' if waves else 'MISSING'} {'ok' if ok else 'FAIL'}")
+    rec["serve"] = dict(wall_ms=wall * 1e3, tokens=n_tok, warnings=warned,
+                        launches={k: v for k, v in counts.items() if v})
+    ok = _check_launches(cfg.name, "serve", counts,
+                         _lm_expected(torch, calls.calls)) and ok
+    return counts, ok
+
+
+def _lm_serve(torch, dev, cfg, tree, greedy_logits, reach, sampled, chunked,
+              rec):
+    """The attention families' ``serve`` of 12 requests through max_batch
+    8, 64-slot pages, on the kernel route: packed prefill into (a) the
+    contiguous cache and (b) the paged pool, (c) where ``chunked``, packed
+    with 64-token chunks, then (d) sampled on the paged pool with ``draft_k=sampled``
+    (paligemma: 0, its sampled head at vocab 257216 on the plain sampler,
+    no multiple of the fused head's 128-column tile, as in the reference;
+    musicgen: 2, speculative). Each with exactly the
+    launches of its recorded calls; (a) and (b) equal streams; (c) equal
+    to (a) outside the split rule at bf16's reach (gaps on the plain
+    route); (d)'s temperature-0 request equal to (b)'s stream outside that
+    rule, others moved. Returns ({path: counts}, ok)."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    gen = torch.Generator().manual_seed(4)
+    reqs = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in LM_SERVE_LENS]
+    scfg = cfg.replace(kv_page_size=64)
+    xcfg = scfg.replace(gemm_impl="xla")
+    runs = (("serve_packed", False, 0, None),
+            ("serve_paged", True, 0, None))
+    if chunked:
+        runs += (("serve_chunked", False, LM_CHUNK, None),)
+    runs += (("serve_sampled", True, 0, sampled),)
+    outs, by_path, ok = {}, {}, True
+    for name, paged, chunk, smp in runs:
+        sp = None
+        if smp is not None:
+            sp = _lm_sampling(torch, greedy_logits, len(reqs))
+        eng = ServeEngine(scfg, tree, max_batch=8, paged=paged,
+                          prefill_chunk=chunk, device=dev)
+        kw = {} if sp is None else dict(sampling=sp, draft_k=smp)
+        eng.serve(reqs[:2], max_new_tokens=2,
+                  **({} if sp is None else dict(sampling=sp[:2],
+                                                draft_k=smp)))
+        torch.cuda.synchronize()
+        with _CallRecorder(torch) as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs[name] = eng.serve(reqs, max_new_tokens=LM_SERVE_BUDGETS,
+                                   **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        n_tok = sum(len(o) for o in outs[name])
+        ttft = sorted(eng.serve_stats["ttft_s"])
+        print(f"{cfg.name}: {name}: {len(reqs)} requests, budgets "
+              f"{LM_SERVE_BUDGETS}"
+              + (f", sampled (draft_k={smp})" if sp else "")
+              + f": {wall * 1e3:.1f} ms, {n_tok / wall:.1f} generated "
+              f"tokens/s; ttft median {ttft[len(ttft) // 2] * 1e3:.1f} ms")
+        rec[name] = dict(wall_ms=wall * 1e3, tokens=n_tok,
+                         ttft_median_ms=ttft[len(ttft) // 2] * 1e3,
+                         launches={k: v for k, v in counts.items() if v})
+        ok = _check_launches(cfg.name, name, counts,
+                             _lm_expected(torch, calls.calls)) and ok
+        by_path[name] = counts
+        del eng
+    last_logits = _logits_fn(torch, dev, ServeEngine(xcfg, tree, max_batch=8,
+                                                     device=dev))
+    same = outs["serve_packed"] == outs["serve_paged"]
+    chunk = outs.get("serve_chunked", outs["serve_packed"])
+    c_same, c_total, split = _split_rows(chunk, outs["serve_packed"])
+    gaps = _split_gaps(torch, last_logits, xcfg, reqs, chunk,
+                       outs["serve_packed"], split)
+    chunk_ok = all(g <= 2 * reach for g in gaps)
+    s0 = [outs["serve_sampled"][0]]
+    g0 = [outs["serve_paged"][0]]
+    _, _, split0 = _split_rows(s0, g0)
+    gaps0 = _split_gaps(torch, last_logits, xcfg, reqs[:1], s0, g0, split0)
+    moved = sum(a != b for s, g in zip(outs["serve_sampled"][1:],
+                                       outs["serve_paged"][1:])
+                for a, b in zip(s, g))
+    t0_ok = all(g <= 2 * reach for g in gaps0) and moved > 0
+    ok = ok and same and chunk_ok and t0_ok
+    print(f"{cfg.name}: serve streams: paged vs contiguous "
+          f"{'equal' if same else 'DIFFERENT'}; "
+          + (f"chunked vs packed {c_same}/{c_total} equal, splits (row, "
+             f"step, plain-route gap; bound {2 * reach:.4e}) "
+             f"{[(i, j, g) for (i, j), g in zip(split, gaps)]} "
+             f"{'ok' if chunk_ok else 'FAIL'}; " if chunked else "")
+          + f"sampled: the temperature-0 "
+          f"request vs the greedy paged stream, splits "
+          f"{[(j, g) for (_, j), g in zip(split0, gaps0)]}, {moved} tokens "
+          f"of the others moved {'ok' if t0_ok else 'FAIL'}")
+    return by_path, ok
+
+
+def _lm_train(torch, dev, label, argv, rec):
+    """Two steps of ``repro_torch.launch.train.main`` (``argv``, the plain
+    route under autograd): finite loss and parameters, no kernel launch,
+    peak memory."""
+    import gc
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lines, rep = [], {}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(argv.split(), log=lines.append, report=rep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    logged = [json.loads(x) for x in lines if x.startswith("{")]
+    finite = all(bool(torch.isfinite(a).all())
+                 for a in tree_leaves(rep["state"].params))
+    loss = logged[0]["loss"] if logged else float("nan")
+    ok = (rc == 0 and rep["state"].step == 2 and finite and not launched
+          and abs(loss) < float("inf"))
+    print(f"{label}: train {argv}: loss at step 0 {loss:.4f}, "
+          f"parameters finite after 2 steps: {finite}; kernel launches "
+          f"{launched or 'none'}; wall {wall:.1f} s (the first step "
+          f"{logged[0]['dt'] if logged else float('nan'):.3f} s); peak "
+          f"device memory {peak / 1e9:.3f} GB {'ok' if ok else 'FAIL'}")
+    rec["train"] = dict(argv=argv, loss=loss, wall_s=wall, peak_bytes=peak,
+                        logged=logged)
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _rwkv_cli(torch, dev, rec):
+    """The serve CLI (RWKV_CLI_ARGV) in process: exactly the launches of
+    its recorded calls (the greedy head's; rwkv6's layers run expanded in
+    plain matmuls and it has no attention, so its tables' layer and
+    attention routes launch nothing, as in the reference)."""
+    import gc
+    import warnings
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = {}
+    with _CallRecorder(torch) as calls:
+        reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rc = serve.main(RWKV_CLI_ARGV.split(), report=rep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ok = rc == 0
+    print(f"{RWKV_ARCH}: cli {RWKV_CLI_ARGV}: tables chose {rep['routes']}; "
+          f"build {rep['build_s']:.1f} s, tree "
+          f"{rep['tree_bytes'] / 1e9:.3f} GB, peak device memory "
+          f"{peak / 1e9:.3f} GB, wall {wall:.1f} s {'ok' if ok else 'FAIL'}")
+    rec["cli"] = dict(argv=RWKV_CLI_ARGV, routes=rep["routes"],
+                      build_s=rep["build_s"], tree_bytes=rep["tree_bytes"],
+                      peak_bytes=peak, wall_s=wall)
+    ok = _check_launches(RWKV_ARCH, "cli", counts,
+                         _lm_expected(torch, calls.calls)) and ok
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, ok
+
+
+def _lm_refused(torch, dev, rec):
+    """The serve CLI refuses the two modality families with the
+    reference's own SystemExit text, before it builds anything."""
+    from repro_torch.launch import serve
+    ok = True
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        try:
+            serve.main(["--arch", arch, "--full"])
+            said = "no SystemExit"
+        except SystemExit as e:
+            said = str(e)
+        good = said == f"{arch}: {LM_REFUSED}"
+        ok = ok and good
+        print(f"{arch}: cli: {said!r} {'ok' if good else 'FAIL'}")
+    rec["cli_refused"] = ok
+    return ok
+
+
+def _lm_build(torch, dev, cfg, seed, report):
+    """The packed full-width tree of ``cfg``, one layer at a time with the
+    family phase's noise hook: (tree, record)."""
+    import gc
+
+    from repro_torch.core.dbb_linear import tree_footprint_bytes
+    from repro_torch.models import registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = registry.init_params_by_layer(cfg, seed=seed, device=dev,
+                                         pack=True, layer_hook=_family_noise)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    layer_bytes = tree_footprint_bytes(tree["layers"])
+    attn = ("attention-free (time mix, channel mix)"
+            if cfg.family == "rwkv6" else
+            f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of D "
+            f"{cfg.resolved_head_dim}, {'gated ' if cfg.mlp_gated else ''}"
+            f"{cfg.act} MLP")
+    print(f"{cfg.name}: all {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, {attn}, vocab {cfg.vocab_size}"
+          f"{' (tied head)' if cfg.tie_embeddings else ''}; packed f32 "
+          f"planes (k {cfg.dbb.nnz}) built layer by layer in {t_build:.1f} "
+          f"s; layers {layer_bytes / 1e9:.3f} GB; build peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"({report['card']})")
+    return tree, dict(build_s=t_build, layer_bytes=layer_bytes)
+
+
+def _lm_prompts(torch, cfg, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(n):
+        return torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+    return [draw(LM_LEN) for _ in range(8)], [draw(n) for n in LM_RAGGED]
+
+
+def _rwkv_phase(torch, dev, report, out_dir):
+    """rwkv6-1.6b at full width and all 24 layers (module doc, phase 17):
+    (by_path, ok)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH).replace(gemm_impl="pallas")
+    tree, rec = _lm_build(torch, dev, cfg, 30, report)
+    report["rwkv6"] = rec
+    by_path = {}
+    counts, ok = _lm_forward(torch, dev, cfg, tree, rec)
+    by_path["rwkv6_forward"] = counts
+    equal, ragged = _lm_prompts(torch, cfg, 5)
+    out, counts, engine, lp, _, run_ok = _lm_run(
+        torch, dev, "generate_b8", cfg, tree, equal, LM_NEW, rec)
+    by_path["rwkv6_generate_b8"] = counts
+    ok = ok and run_ok
+    del engine
+    _, counts, _, _, _, run_ok = _lm_run(
+        torch, dev, "generate_ragged", cfg, tree, ragged, LM_RAGGED_NEW, rec)
+    by_path["rwkv6_generate_ragged"] = counts
+    ok = ok and run_ok
+    counts, run_ok = _lm_sampled(torch, dev, "generate_sampled", cfg, tree,
+                                 equal, out, lp, rec)
+    by_path["rwkv6_generate_sampled"] = counts
+    ok = ok and run_ok
+    counts, run_ok = _lm_serve_waves(torch, dev, cfg, tree, rec)
+    by_path["rwkv6_serve"] = counts
+    ok = ok and run_ok
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = _lm_train(torch, dev, RWKV_ARCH, RWKV_TRAIN_ARGV, rec) and ok
+    counts, run_ok = _rwkv_cli(torch, dev, rec)
+    by_path["rwkv6_cli"] = counts
+    ok = ok and run_ok
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"{RWKV_ARCH}: phase {rec['phase_s']:.1f} s ({report['card']})")
+    return by_path, ok
+
+
+def _vlm_audio_model(torch, dev, report, arch, seed, sampled, chunked,
+                     train_argv):
+    """One model of phase 18 (``sampled``: the sampled serve's draft_k;
+    ``chunked``: also serve with chunked prefill): (by_path, ok)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    t_model = time.perf_counter()
+    cfg = get_config(arch).replace(gemm_impl="pallas")
+    tree, rec = _lm_build(torch, dev, cfg, seed, report)
+    report["vlm_audio"][arch] = rec
+    short = arch.split("-")[0]
+    by_path = {}
+    counts, ok = _lm_forward(torch, dev, cfg, tree, rec)
+    by_path[f"{short}_forward"] = counts
+    counts, run_ok = _lm_prefill_decode(torch, dev, cfg, tree, rec)
+    by_path[f"{short}_prefill_decode"] = counts
+    ok = ok and run_ok
+    equal, _ = _lm_prompts(torch, cfg, 5)
+    prompts = [p[:n] for p, n in zip(equal, LM_RAGGED)]      # ragged
+    out, counts, engine, lp, reach, run_ok = _lm_run(
+        torch, dev, "generate", cfg, tree, prompts, LM_NEW, rec)
+    by_path[f"{short}_generate"] = counts
+    ok = ok and run_ok
+    del engine
+    counts, run_ok = _lm_serve(torch, dev, cfg, tree, lp, reach, sampled,
+                               chunked, rec)
+    by_path.update({f"{short}_{k}": v for k, v in counts.items()})
+    ok = ok and run_ok
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = _lm_train(torch, dev, arch, train_argv, rec) and ok
+    rec["phase_s"] = time.perf_counter() - t_model
+    print(f"{arch}: {rec['phase_s']:.1f} s")
+    return by_path, ok
+
+
+def _vlm_audio_phase(torch, dev, report, out_dir):
+    """paligemma-3b and musicgen-medium at full width and depth (module
+    doc, phase 18), then the kernels at the three families' new shapes:
+    (by_path, ok)."""
+    t_phase = time.perf_counter()
+    report["vlm_audio"] = {}
+    by_path = {}
+    # the chunked serve on paligemma only: musicgen's 48 layers make it
+    # ~17 s there (H100 80GB HBM3, 700 W), and it tests the same engine path
+    counts, ok = _vlm_audio_model(torch, dev, report, VLM_ARCH, 31, 0, True,
+                                  VLM_TRAIN_ARGV)
+    by_path.update(counts)
+    counts, run_ok = _vlm_audio_model(torch, dev, report, AUDIO_ARCH, 32, 2,
+                                      False, AUDIO_TRAIN_ARGV)
+    by_path.update(counts)
+    ok = ok and run_ok and _lm_refused(torch, dev, report["vlm_audio"])
+    report["vlm_audio"]["kernels"] = _last_kernels(torch, dev)
+    report["vlm_audio"]["phase_s"] = time.perf_counter() - t_phase
+    print(f"vlm_audio: phase {report['vlm_audio']['phase_s']:.1f} s "
+          f"({report['card']})")
+    return by_path, ok
+
+
+def _last_kernels(torch, dev):
+    """The kernels at the last three families' new shapes, each against
+    its plain version and timed as the kernel phase times them, beside the
+    bound and the library call (``last_families_shapes`` in the kernels
+    line): flash_prefill bf16 at paligemma's MQA (Hq 8, Hkv 1, D 256) for
+    B1 T=S=384 (the prefix and a 128-token prompt) and flash_prefill_packed
+    at the serve lengths (both on the two-warpgroup tensor-core body, a
+    ``_tc`` launch each), paged_decode at G 8 D 256 (B8, 64-slot pages),
+    the greedy heads sta_gemm_skinny at M8 K2048 N257216 (paligemma's tied
+    head) and N65536 (rwkv6's) f32 beside torch.matmul (TF32 off),
+    head_sample_fused at rwkv6's sampled head M8 K2048 N65536
+    (`_head_sample_case`'s rules; paligemma's N 257216 is no multiple of
+    its 128-column tile, so its sampled head takes the plain sampler, as
+    the reference's guard sends it),
+    and the DBB MLP GEMMs: dbb_gemm at M512 K2048 N16384 with gelu
+    (paligemma's gate) and K16384 N2048, musicgen's M512 K1536 N6144 (gelu)
+    and K6144 N1536, and dbb_gemm_skinny at M8 of the same four plus
+    paligemma's K/V projection (K2048 N256), beside torch.matmul on the
+    decompressed weight."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
+    from repro_torch.kernels.attn.ops import (flash_attention,
+                                              packed_flash_attention,
+                                              paged_decode_attention)
+    from repro_torch.kernels.attn.ref import (flash_prefill_ref,
+                                              packed_prefill_ref,
+                                              paged_decode_ref)
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.dbb_gemm.ops import dbb_gemm
+    from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
+    from repro_torch.kernels.skinny.ops import dbb_gemm_skinny, \
+        sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm.ref import sta_gemm_ref
+    gen = torch.Generator(device=dev).manual_seed(10)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16, i32 = torch.bfloat16, dict(dtype=torch.int32, device=dev)
+    rows, failures = {}, []
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def record(label, err, ok, ms, pms, lms, lib, bms, by, note=""):
+        if not ok:
+            failures.append(f"{label}: max err {err}")
+        print(f"kernel {label}: max abs err {err:.3e} {'ok' if ok else 'FAIL'}"
+              f"; kernel {ms:.4f} ms{note}, plain {pms:.4f} ms, {lib} "
+              f"{lms:.4f} ms ({ms / lms:.2f}x), bound {bms:.4f} ms ({by})")
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                           library_ms=lms, bound_ms=bms, bound_by=by)
+
+    hq, hkv, d = 8, 1, 256
+    g, scale = hq // hkv, d ** -0.5
+    b, t = 1, 256 + VLM_PREFIX_PROMPT
+    q, k, v = randn(b, t, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
+    st = torch.zeros((b,), **i32)
+    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    kx, vx = (a.repeat_interleave(g, dim=1) for a in (kh, vh))
+    tc_before = LAUNCHES["flash_prefill_tc"]
+    got = flash_attention(q, k, v, st)
+    want = flash_prefill_ref(qh, kh, vh, st, st, sm_scale=scale)
+    torch.cuda.synchronize()
+    tc = LAUNCHES["flash_prefill_tc"] == tc_before + 1
+    err, ok = _close(torch, got, want.transpose(1, 2), ATTN_RTOL, ATTN_ATOL)
+    ms = _time_ms(torch, lambda: flash_attention(q, k, v, st), flush)
+    pms = _time_ms(torch, lambda: flash_prefill_ref(
+        qh, kh, vh, st, st, sm_scale=scale), flush)
+    lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kx, vx, is_causal=True), flush)
+    pairs = b * t * (t + 1) // 2
+    bms, by = _bound_ms(2 * 2 * b * t * (hq + hkv) * d,
+                        4.0 * d * pairs * hq, BF16_OPS_PER_S)
+    record(f"flash_prefill B{b} T=S={t} Hq{hq} Hkv{hkv} D{d} bf16", err,
+           ok and tc, ms, pms, lms, "scaled_dot_product_attention", bms, by,
+           " (two-warpgroup tensor-core body)" if tc else " (NO _tc launch)")
+
+    lens = LM_SERVE_LENS[:8]
+    tp = sum(lens)
+    q, k, v = randn(tp, hq, d), randn(tp, hkv, d), randn(tp, hkv, d)
+    seg = torch.repeat_interleave(torch.arange(len(lens), **i32),
+                                  torch.tensor(lens, device=dev))
+    ii = torch.arange(tp, device=dev)
+    mask = (ii[None, :] <= ii[:, None]) & (seg[None, :] == seg[:, None])
+    qh, kh, vh = (a.transpose(0, 1).contiguous() for a in (q, k, v))
+    kx, vx = (a.repeat_interleave(g, dim=0) for a in (kh, vh))
+    tc_before = LAUNCHES["flash_prefill_packed_tc"]
+    got = packed_flash_attention(q, k, v, seg)
+    want = packed_prefill_ref(qh, kh, vh, seg, sm_scale=scale)
+    torch.cuda.synchronize()
+    tc = LAUNCHES["flash_prefill_packed_tc"] == tc_before + 1
+    err, ok = _close(torch, got, want.transpose(0, 1), ATTN_RTOL, ATTN_ATOL)
+    ms = _time_ms(torch, lambda: packed_flash_attention(q, k, v, seg), flush)
+    pms = _time_ms(torch, lambda: packed_prefill_ref(
+        qh, kh, vh, seg, sm_scale=scale), flush)
+    lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh[None], kx[None], vx[None], attn_mask=mask), flush)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    bms, by = _bound_ms(2 * 2 * tp * (hq + hkv) * d, 4.0 * d * pairs * hq,
+                        BF16_OPS_PER_S)
+    record(f"flash_prefill_packed T{tp} over {len(lens)} segments Hq{hq} "
+           f"Hkv{hkv} D{d} bf16", err, ok and tc, ms, pms, lms,
+           "scaled_dot_product_attention", bms, by,
+           " (two-warpgroup tensor-core body)" if tc else " (NO _tc launch)")
+    del q, k, v, qh, kh, vh, kx, vx, mask
+
+    b, page, s = 8, 64, 512
+    length, n_log = 400, s // page
+    qd = randn(b, hkv, g, d)
+    kc, vc = randn(b, s, hkv, d), randn(b, s, hkv, d)
+    kp, vp = (a.view(b * n_log, page, hkv, d) for a in (kc, vc))
+    table = (torch.arange(b, **i32)[:, None] * n_log
+             + torch.arange(n_log, **i32)[None, :])
+    lengths = torch.full((b,), length, **i32)
+    st = torch.zeros((b,), **i32)
+    got = paged_decode_attention(qd, kp, vp, table, lengths, st)
+    want = paged_decode_ref(qd, kp, vp, table, lengths, st, sm_scale=scale)
+    err, ok = _close(torch, got, want, 2e-2)
+    qs = qd.reshape(b, hq, 1, d)
+    ks, vs = (a.transpose(1, 2).repeat_interleave(g, dim=1)
+              for a in (kc, vc))
+    am = (torch.arange(s, device=dev) <= length)[None, None, None, :]
+    ms = _time_ms(torch, lambda: paged_decode_attention(
+        qd, kp, vp, table, lengths, st), flush)
+    pms = _time_ms(torch, lambda: paged_decode_ref(
+        qd, kp, vp, table, lengths, st, sm_scale=scale), flush)
+    lms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=am), flush)
+    valid = b * (length + 1)
+    bms, by = _bound_ms(qd.numel() * 2 * 2 + valid * hkv * d * 2 * 2,
+                        4.0 * valid * hq * d, BF16_OPS_PER_S)
+    record(f"paged_decode B{b} Hkv{hkv} G{g} D{d} S{s} page{page} bf16", err,
+           ok, ms, pms, lms, "scaled_dot_product_attention", bms, by)
+    del qd, kc, vc, kp, vp, qs, ks, vs
+
+    for n in (257216, 65536):
+        x = randn(8, 2048, dtype=torch.float32)
+        w = randn(2048, n, scale=2048 ** -0.5, dtype=torch.float32)
+        got, want = sta_gemm_skinny(x, w), sta_gemm_ref(x, w)
+        err, ok = _close(torch, got, want, 1e-4)
+        ms = _time_ms(torch, lambda: sta_gemm_skinny(x, w), flush)
+        pms = _time_ms(torch, lambda: sta_gemm_ref(x, w), flush)
+        lms = _time_ms(torch, lambda: torch.matmul(x, w), flush)
+        bms, by = _bound_ms((x.numel() + w.numel() + 8 * n) * 4,
+                            2.0 * 8 * 2048 * n, F32_OPS_PER_S)
+        record(f"sta_gemm_skinny M8 K2048 N{n} f32 (greedy head)", err, ok,
+               ms, pms, lms, "torch.matmul", bms, by)
+        del x, w, got, want
+    torch.cuda.empty_cache()
+    res, fail = _head_sample_case(torch, dev, flush, 8, 2048, 65536, 10)
+    if fail:
+        failures.append(fail)
+    rows["head_sample_fused M8 K2048 N65536 f32"] = {
+        key: res[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "head_matmul_ms")}
+    torch.cuda.empty_cache()
+
+    for name, fn, m, k_dim, n, act in (
+            ("dbb_gemm", dbb_gemm, 512, 2048, 16384, "gelu"),
+            ("dbb_gemm", dbb_gemm, 512, 16384, 2048, "none"),
+            ("dbb_gemm", dbb_gemm, 512, 1536, 6144, "gelu"),
+            ("dbb_gemm", dbb_gemm, 512, 6144, 1536, "none"),
+            ("dbb_gemm_skinny", dbb_gemm_skinny, 8, 2048, 16384, "gelu"),
+            ("dbb_gemm_skinny", dbb_gemm_skinny, 8, 16384, 2048, "none"),
+            ("dbb_gemm_skinny", dbb_gemm_skinny, 8, 1536, 6144, "gelu"),
+            ("dbb_gemm_skinny", dbb_gemm_skinny, 8, 6144, 1536, "none"),
+            ("dbb_gemm_skinny", dbb_gemm_skinny, 8, 2048, 256, "none")):
+        x = randn(m, k_dim)
+        p = pack_dbb(torch.randn((k_dim, n), generator=gen, device=dev)
+                     * k_dim ** -0.5, 8, 4)
+        vals, bits = p.values, p.bitmask
+        wd = decompress_bitmask(vals, bits, block=8)
+        counter = REDESIGN[name][0]
+        before = LAUNCHES[counter]
+        got = fn(x, vals, bits, act=act)
+        want = dbb_gemm_ref(x, vals, bits, act=act)
+        torch.cuda.synchronize()
+        err, ok = _close(torch, got, want, 2e-2)
+        body = LAUNCHES[counter] == before + 1
+        w_bf16 = wd.to(bf16)
+        ms = _time_ms(torch, lambda: fn(x, vals, bits, act=act), flush)
+        pms = _time_ms(torch, lambda: dbb_gemm_ref(x, vals, bits, act=act),
+                       flush)
+        lms = _time_ms(torch, lambda: torch.matmul(x, w_bf16), flush)
+        stored = vals.numel() * vals.element_size() + bits.numel() \
+            * bits.element_size()
+        live = int((wd != 0).sum().item())
+        bms, by = _bound_ms(x.numel() * 2 + stored + m * n * 2,
+                            2.0 * m * live, BF16_OPS_PER_S)
+        record(f"{name} M{m} K{k_dim} N{n} bf16 f32 planes act {act}", err,
+               ok and body, ms, pms, lms,
+               "torch.matmul on the decompressed weight", bms, by,
+               f" ({counter} body)" if body else f" (NO {counter} launch)")
+        del x, p, wd, vals, bits, got, want, w_bf16
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(_fail("a kernel disagrees with its plain version "
+                               "at the last families' shapes: "
+                               + "; ".join(failures)))
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

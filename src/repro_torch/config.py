@@ -90,7 +90,10 @@ class MoeConfig:
 
 @dataclass(frozen=True)
 class SsmConfig:
-    """The zamba2 hybrid's Mamba2 layers and shared attention block:
+    """The recurrent families' settings (the reference's one sub-config
+    for both): rwkv6 reads ``head_dim`` (its WKV heads) and ``chunk`` (the
+    chunked WKV, capped at 32); the zamba2 hybrid's Mamba2 layers and
+    shared attention block read them all:
     ``state_size`` N and ``head_dim`` P of the SSD state (one [P, N] state
     per head, ``expand * d_model / head_dim`` heads), the depthwise causal
     conv's ``conv_width``, the chunked scan's ``chunk``, and the one shared
@@ -108,8 +111,8 @@ class SsmConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields the ported paths read (the dense, MoE and zamba2 LM
-    families, the CNN).
+    """The fields the ported paths read (the dense_lm, moe_lm, zamba2,
+    rwkv6, vlm_lm and audio_lm LM families, the CNN).
 
     gemm_impl:     "pallas" selects the fused kernel route family (the
                    hand-written CUDA kernels on the card, their plain
@@ -131,8 +134,10 @@ class ModelConfig:
     norm:          "rmsnorm", "layernorm" or "nonparam_ln" (OLMo's
                    LayerNorm without affine parameters).
     prefix_embed_len, embeds_input: the vlm and audio families' inputs
-                   (the data pipeline draws them; `transformer.forward`
-                   refuses them until those families are ported).
+                   (``prefix_embeds`` in front of the token embeddings;
+                   frame ``embeds`` in place of them), which the data
+                   pipeline draws and `transformer.forward` / `prefill`
+                   take.
     cnn_*:         the cnn family (the paper's own models): conv output
                    channels per layer, square kernel size, classes,
                    square input size and input channels.
@@ -178,15 +183,26 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "rwkv6"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k eligibility: the SSM / hybrid families only."""
+        return self.family in ("rwkv6", "zamba2")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding, layers, head), the
-        reference's formula for the cnn, dense_lm, moe_lm and zamba2
-        families (it counts no norm or bias parameters; zamba2's is the
-        reference's rough estimate: the Mamba projections, conv and head
-        vectors per layer plus the MLP's share spread over the layers)."""
+        reference's formula for every family (it counts no norm or bias
+        parameters; zamba2's is the reference's rough estimate: the Mamba
+        projections, conv and head vectors per layer plus the MLP's share
+        spread over the layers; rwkv6's its approximation ``5 d² + 2 d f +
+        2 · d · 96`` a layer: the r, k, v, g, o projections, the channel
+        mix's two d × f matrices and the decay LoRA at a nominal rank)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         if self.family == "cnn":
@@ -196,10 +212,9 @@ class ModelConfig:
                 cin = cout
             img = self.cnn_img // (2 ** len(self.cnn_channels))
             return n + cin * img * img * self.cnn_classes
-        if self.family not in ("dense_lm", "moe_lm", "zamba2"):
-            raise NotImplementedError(
-                f"param_count of family {self.family!r} is not ported")
         n = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "rwkv6":
+            return n + self.num_layers * (5 * d * d + 2 * d * f + 2 * d * 96)
         attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
                 + self.num_heads * hd * d)
         mats = 3 if self.mlp_gated else 2

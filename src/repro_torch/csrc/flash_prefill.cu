@@ -13,11 +13,12 @@
 // bf16 tensor-core rate up to T = S of about 1200).
 //
 // Two bodies, chosen by a rule on (dtype, D) alone, never on B, T, S:
-//   - bf16 with D a multiple of 64 and at most 128 (olmo-1b's D 128) runs
+//   - bf16 with D 64, 128 or 256 (olmo-1b's D 128, paligemma's 256) runs
 //     on the tensor-core body (flash_tc.cuh: TMA-fed K/V stages, wgmma for
-//     both products, the softmax on the accumulator fragment);
-//   - everything else (f32, bf16 at other D) runs the plain-FMA body
-//     (flash_tile.cuh).
+//     both products, the softmax on the accumulator fragment; D 256 on two
+//     consumer warpgroups);
+//   - everything else (f32, bf16 at other D up to 256) runs the plain-FMA
+//     body (flash_tile.cuh).
 // flash_prefill_tc_body exports the rule; the wrapper's tc_body mirrors it.
 //
 // Design: one block per (tile of 64 query rows, query head, row) walks the
@@ -57,7 +58,7 @@ struct CausalPolicy {
   }
 };
 
-template <typename T>
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
@@ -73,7 +74,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_q = min(kBQ, T_len - i0);
   const int qi0 = q_offset[b] + i0;
   const CausalPolicy pol{qi0, qi0 + n_q - 1, start[b], window, S};
-  flash_block<T>(q + q_base, k + kv_base, v + kv_base, out + q_base, n_q,
+  flash_block<kCols, T>(q + q_base, k + kv_base, v + kv_base, out + q_base, n_q,
                  q_stride, S, kv_stride, D, sm_scale, softcap, pol);
 }
 
@@ -84,10 +85,13 @@ int launch(const void* q, const void* k, const void* v, const void* start,
            cudaStream_t s) {
   if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(D);
-  const cudaError_t e = allow_smem(flash_prefill_kernel<T>, smem);
+  // the columns a thread owns by D (cols_for): D <= 128 keeps its 16
+  const auto kernel =
+      D > 128 ? flash_prefill_kernel<T, cols_for(256)> : flash_prefill_kernel<T, cols_for(128)>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T_len + kBQ - 1) / kBQ, Hq, B);
-  flash_prefill_kernel<T><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(q_offset), static_cast<T*>(out), T_len, S,
@@ -98,7 +102,7 @@ int launch(const void* q, const void* k, const void* v, const void* start,
 // The tensor-core body: one block per (query head, tile of 64 rows, row),
 // the tiles of the diagonal's end first (they walk the most keys).
 template <int D>
-__global__ void __launch_bounds__(repro::flash_tc::kThreads)
+__global__ void __launch_bounds__(repro::flash_tc::threads<D>())
 flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
@@ -135,7 +139,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* start,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ft::smem_bytes<D>());
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hq, (T_len + kBQ - 1) / kBQ, B);
-  kernel<<<grid, ft::kThreads, ft::smem_bytes<D>(), s>>>(
+  kernel<<<grid, ft::threads<D>(), ft::smem_bytes<D>(), s>>>(
       qm, km, vm, static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(q_offset), static_cast<__nv_bfloat16*>(out),
       T_len, S, Hq, Hkv, sm_scale, window, softcap);
@@ -143,7 +147,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* start,
 }
 
 bool tc_body(int dtype, int D) {
-  return dtype == repro::DT_BF16 && D > 0 && D % 64 == 0 && D <= 128;
+  return dtype == repro::DT_BF16 && (D == 64 || D == 128 || D == 256);
 }
 
 }  // namespace
@@ -160,11 +164,12 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     float sm_scale, int window, float softcap,
                                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tc_body(dtype, D))
-    return D == 64 ? launch_tc<64>(q, k, v, start, q_offset, out, B, T_len, S,
-                                   Hq, Hkv, sm_scale, window, softcap, s)
-                   : launch_tc<128>(q, k, v, start, q_offset, out, B, T_len,
-                                    S, Hq, Hkv, sm_scale, window, softcap, s);
+  if (tc_body(dtype, D)) {
+    const auto tc = D == 64 ? launch_tc<64>
+                    : D == 128 ? launch_tc<128> : launch_tc<256>;
+    return tc(q, k, v, start, q_offset, out, B, T_len, S, Hq, Hkv, sm_scale,
+              window, softcap, s);
+  }
   if (dtype == repro::DT_BF16)
     return launch<__nv_bfloat16>(q, k, v, start, q_offset, out, B, T_len, S,
                                  Hq, Hkv, D, sm_scale, window, softcap, s);

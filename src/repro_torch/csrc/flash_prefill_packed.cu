@@ -12,9 +12,8 @@
 // over segments of len^2 / 2, at the bf16 tensor-core rate).
 //
 // Two bodies, by flash_prefill.cu's rule on (dtype, D) alone, never on T or
-// the segments: bf16 with D a multiple of 64 and at most 128 runs on the
-// tensor-core body (flash_tc.cuh), everything else on the plain-FMA body
-// (flash_tile.cuh). flash_prefill_packed_tc_body exports the rule; the
+// the segments: bf16 with D 64, 128 or 256 runs on the tensor-core body
+// (flash_tc.cuh), everything else on the plain-FMA body (flash_tile.cuh). flash_prefill_packed_tc_body exports the rule; the
 // wrapper's tc_body mirrors it.
 //
 // Design: either block body over one packed axis — one block per (tile of
@@ -57,7 +56,7 @@ struct PackedPolicy {
   }
 };
 
-template <typename T>
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -71,7 +70,7 @@ flash_prefill_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long q_base = (long)i0 * q_stride + (long)h * D;
   const int n_q = min(kBQ, T_len - i0);
   const PackedPolicy pol{seg, i0, i0 + n_q - 1, window, T_len, seg[i0]};
-  flash_block<T>(q + q_base, k + (long)hk * D, v + (long)hk * D,
+  flash_block<kCols, T>(q + q_base, k + (long)hk * D, v + (long)hk * D,
                  out + q_base, n_q, q_stride, T_len, kv_stride, D, sm_scale,
                  softcap, pol);
 }
@@ -82,10 +81,13 @@ int launch(const void* q, const void* k, const void* v, const void* seg,
            int window, float softcap, cudaStream_t s) {
   if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(D);
-  const cudaError_t e = allow_smem(flash_prefill_packed_kernel<T>, smem);
+  // the columns a thread owns by D (cols_for): D <= 128 keeps its 16
+  const auto kernel =
+      D > 128 ? flash_prefill_packed_kernel<T, cols_for(256)> : flash_prefill_packed_kernel<T, cols_for(128)>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T_len + kBQ - 1) / kBQ, Hq);
-  flash_prefill_packed_kernel<T><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(seg),
       static_cast<T*>(out), T_len, Hq, Hkv, D, sm_scale, window, softcap);
@@ -95,7 +97,7 @@ int launch(const void* q, const void* k, const void* v, const void* seg,
 // The tensor-core body: one block per (query head, tile of 64 rows), the
 // last tiles first (the rows deepest into their segments come late).
 template <int D>
-__global__ void __launch_bounds__(repro::flash_tc::kThreads)
+__global__ void __launch_bounds__(repro::flash_tc::threads<D>())
 flash_prefill_packed_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                                const __grid_constant__ CUtensorMap kmap,
                                const __grid_constant__ CUtensorMap vmap,
@@ -128,7 +130,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* seg,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ft::smem_bytes<D>());
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hq, (T_len + kBQ - 1) / kBQ);
-  kernel<<<grid, ft::kThreads, ft::smem_bytes<D>(), s>>>(
+  kernel<<<grid, ft::threads<D>(), ft::smem_bytes<D>(), s>>>(
       qm, km, vm, static_cast<const int32_t*>(seg),
       static_cast<__nv_bfloat16*>(out), T_len, Hq, Hkv, sm_scale, window,
       softcap);
@@ -136,7 +138,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* seg,
 }
 
 bool tc_body(int dtype, int D) {
-  return dtype == repro::DT_BF16 && D > 0 && D % 64 == 0 && D <= 128;
+  return dtype == repro::DT_BF16 && (D == 64 || D == 128 || D == 256);
 }
 
 }  // namespace
@@ -153,11 +155,12 @@ extern "C" int flash_prefill_packed_launch(const void* q, const void* k,
                                            int window, float softcap,
                                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tc_body(dtype, D))
-    return D == 64 ? launch_tc<64>(q, k, v, seg, out, T_len, Hq, Hkv,
-                                   sm_scale, window, softcap, s)
-                   : launch_tc<128>(q, k, v, seg, out, T_len, Hq, Hkv,
-                                    sm_scale, window, softcap, s);
+  if (tc_body(dtype, D)) {
+    const auto tc = D == 64 ? launch_tc<64>
+                    : D == 128 ? launch_tc<128> : launch_tc<256>;
+    return tc(q, k, v, seg, out, T_len, Hq, Hkv, sm_scale, window, softcap,
+              s);
+  }
   if (dtype == repro::DT_BF16)
     return launch<__nv_bfloat16>(q, k, v, seg, out, T_len, Hq, Hkv, D,
                                  sm_scale, window, softcap, s);

@@ -1,6 +1,6 @@
 // The tensor-core block body of the two flash prefill kernels' bf16
-// branch (flash_prefill.cu, flash_prefill_packed.cu; head dim D of 64 or
-// 128): one thread block owns kBQ = 64 query rows of one query head and
+// branch (flash_prefill.cu, flash_prefill_packed.cu; head dim D of 64,
+// 128 or 256): one thread block owns kBQ = 64 query rows of one query head and
 // walks the key/value tiles of its KV head in ascending order with an
 // online softmax, as flash_tile.cuh's FMA body does for every other call.
 // The kernels differ only in their mask and tile-skip rule, the same
@@ -23,7 +23,8 @@
 // get near it.
 //
 // Design. 160 threads: one consumer warpgroup (warps 0-3, 16 query rows a
-// warp) and one producer warp.
+// warp) and one producer warp; at D 256, 288 threads: two consumer
+// warpgroups, each owning 128 of O's columns (see "D 256" below).
 //   - The producer's first thread copies Q once and K, V per tile with TMA
 //     through 3-D tensor maps (H * D inner, then T or S, then B), so a box
 //     past a row's own T or S reads zeros, never the next batch row's
@@ -51,6 +52,19 @@
 // chunk 64, generate's B8 T 64 128, the packed buckets 16 per 64 tokens;
 // two blocks fit an SM's shared memory (D 128: 83,000 bytes a block).
 //
+// D 256 (paligemma's head dim). The tiles still fit, one block an SM: Q,
+// two stages of K and V, 164,920 bytes (a third stage would be 230,480 of
+// the 232,448). Registers do not: O [64 x 256] in f32 is 128 accumulator
+// registers a thread of one warpgroup, beside S's 32 and P's 16. So O's
+// columns split over two consumer warpgroups, 128 each (wgmma m64n128 for
+// P.V on its half of V's boxes). Both warpgroups compute the whole S =
+// Q.K^T and the softmax from the same shared tiles: the same wgmma sums
+// in the same order, so their (m, l, P) agree bit for bit and no P crosses
+// shared memory. That doubles the Q.K^T work (2 D flops a pair of the
+// tile's 4 D): simple and right first; handing P over is later work.
+// Each consumer warp arrives on `empty`, so a stage frees once both
+// warpgroups' P.V are done.
+//
 // Invariants (those of flash_tile.cuh): the tiles walked are the policy's,
 // in ascending order — the causal kernel's first tile holds key `start`,
 // so it needs no probability mask; tiles wholly above the diagonal, left
@@ -68,7 +82,7 @@
 // sums, bit for bit) was tried and was slower.
 //
 // What the caller guarantees (the launchers' tc_body rule): bf16 q, k, v,
-// D of 64 or 128 (16-byte row strides), 16-byte aligned data (the wrappers
+// D of 64, 128 or 256 (16-byte row strides), 16-byte aligned data (the wrappers
 // check).
 #pragma once
 
@@ -85,11 +99,25 @@ using flash::kLEps;
 using flash::kNegInf;
 
 constexpr int kStages = 2;
-constexpr int kConsumers = 128;             // one warpgroup: kBQ = 64 rows
-constexpr int kThreads = kConsumers + 32;   // + one producer warp
 constexpr int kBarriers = 1 + 3 * kStages;  // q_full; k_full, v_full, empty
 static_assert(kBQ == 64 && kBKV == 64,
               "one m64 warpgroup; S = Q.K^T is one m64n64 accumulator");
+
+// consumer warpgroups of a block (each computes all kBQ = 64 rows of S and
+// owns D / groups of O's columns), their threads, and the block's threads
+// (+ one producer warp)
+template <int D>
+__host__ __device__ constexpr int groups() {
+  return D > 128 ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int consumers() {
+  return 128 * groups<D>();
+}
+template <int D>
+__host__ __device__ constexpr int threads() {
+  return consumers<D>() + 32;
+}
 
 // one [rows x D] bf16 tile: D / 64 boxes of rows x 128 bytes
 template <int D>
@@ -142,7 +170,10 @@ __device__ __forceinline__ void flash_block(
     int q_col, int kv_col, int i0, int b, __nv_bfloat16* __restrict__ o,
     long o_stride, int n_q, int n_kv, float sm_scale, float softcap,
     const Policy& pol) {
-  static_assert(D == 64 || D == 128, "the tensor-core body takes D 64, 128");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the tensor-core body takes D 64, 128, 256");
+  constexpr int kConsumers = consumers<D>();
+  constexpr int kN = D / groups<D>();  // O's columns of one warpgroup
   constexpr int kQBytes = tile_bytes<D>(kBQ), kKVBytes = tile_bytes<D>(kBKV);
   extern __shared__ __align__(16) uint8_t flash_tc_smem[];
   // 128-byte swizzle atoms must sit on 1024-byte boundaries
@@ -192,12 +223,13 @@ __device__ __forceinline__ void flash_block(
     return;
   }
 
-  // ---- consumer warpgroup: rows r0 and r0 + 8 of each warp's 16 ----
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // ---- consumer warpgroups: rows r0 and r0 + 8 of each warp's 16 ----
+  const int wg = threadIdx.x / 128;  // O's columns wg * kN .. + kN - 1
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
-  float acc[D / 2];  // O [64 x D]: columns 8 j + c0 (+ 1) in acc[4 j ..]
+  float acc[kN / 2];  // O [64 x kN]: columns 8 j + c0 (+ 1) in acc[4 j ..]
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const uint32_t q_base = smem_u32(q_s);
   mbar_wait(q_full, 0);
@@ -265,7 +297,7 @@ __device__ __forceinline__ void flash_block(
       m[hf] = m_cur;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kN / 8; ++j) {
       acc[4 * j] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
@@ -281,14 +313,16 @@ __device__ __forceinline__ void flash_block(
         pa[kk][i] = pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
 
     // O += P.V: V's rows are K of this product, 16 rows (2048 bytes) a
-    // slice; its D / 64 column boxes kBKV * 128 bytes apart
+    // slice; its column boxes kBKV * 128 bytes apart, this warpgroup's
+    // kN / 64 of them from box wg * kN / 64
     mbar_wait(v_full + 8 * s, parity);
+    const uint32_t v_cols = v_base + wg * (kN / 64) * kBKV * kSwizzleRow;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk)
-      wgmma_rs_m64k16_tb<D>(
+      wgmma_rs_m64k16_tb<kN>(
           acc, pa[kk],
-          smem_desc(v_base + kk * 16 * kSwizzleRow, kBKV * kSwizzleRow,
+          smem_desc(v_cols + kk * 16 * kSwizzleRow, kBKV * kSwizzleRow,
                     1024));
     wgmma_commit();
     wgmma_wait<0>();
@@ -304,9 +338,9 @@ __device__ __forceinline__ void flash_block(
     if (row >= n_q) continue;
     // one division a row, then products (within an ulp of dividing each)
     const float inv = 1.f / fmaxf(l[hf], kLEps);
-    __nv_bfloat16* orow = o + row * o_stride;
+    __nv_bfloat16* orow = o + row * o_stride + wg * kN;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kN / 8; ++j) {
       const __nv_bfloat162 two = __halves2bfloat162(
           __float2bfloat16(acc[4 * j + 2 * hf] * inv),
           __float2bfloat16(acc[4 * j + 2 * hf + 1] * inv));

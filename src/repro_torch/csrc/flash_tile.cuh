@@ -15,9 +15,10 @@
 //
 // Layout: 128 threads; thread (r, c) = (tid / 8, tid % 8) owns query rows
 // r + 16 i (i < 4), keys c + 8 j (j < 8) of each tile, and output columns
-// c + 8 j (j < 16, so D <= 128). Q and K sit transposed in shared memory as
-// f32 with one float of padding per row, so the eight threads of a row
-// group read neighbouring banks; P (rounded to V's dtype) reuses K's space
+// c + 8 j (j < kCols: 16 where D <= 128, 32 where D <= 256; the launchers
+// pick by D, so a D <= 128 call keeps its 16-column registers). Q and K
+// sit transposed in shared memory as f32 with one float of padding per
+// row, so the eight threads of a row group read neighbouring banks; P (rounded to V's dtype) reuses K's space
 // once the scores are in registers. Row statistics reduce over the eight
 // lanes of a group with shuffles. Plain FMA, no tensor cores: the first
 // port is the simple one.
@@ -31,7 +32,10 @@ namespace flash {
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBKV = 64;      // keys per tile
 constexpr int kThreads = 128;
-constexpr int kDMax = 128;    // largest head dim: 16 output columns a thread
+constexpr int kDMax = 256;    // largest head dim: 32 output columns a thread
+
+// output columns a thread owns at head dim D (the flash_block template)
+__host__ __device__ constexpr int cols_for(int D) { return D > 128 ? 32 : 16; }
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF sentinel
 constexpr float kLEps = 1e-30f;
 
@@ -66,7 +70,7 @@ __device__ __forceinline__ float group8_sum(float v) {
 //                              some row (block-uniform)
 //   valid(i, kj)               whether row i (block-local) sees key kj
 //   kProbMask                  zero masked probabilities
-template <typename T, typename Policy>
+template <int kCols, typename T, typename Policy>
 __device__ __forceinline__ void flash_block(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int n_q, long q_stride,
@@ -85,13 +89,13 @@ __device__ __forceinline__ void flash_block(
     qt[d * (kBQ + 1) + i] = i < n_q ? to_f32(q[i * q_stride + d]) : 0.f;
   }
 
-  float m[4], l[4], acc[4][16];
+  float m[4], l[4], acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
 
   const int t_hi = pol.last_tile();
@@ -168,20 +172,20 @@ __device__ __forceinline__ void flash_block(
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] *= alpha[i];
+      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha[i];
     for (int j = 0; j < n_k; ++j) {
-      float pv[4], vv[16];
+      float pv[4], vv[kCols];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(r + 16 * i) * (kBKV + 1) + j];
 #pragma unroll
-      for (int jd = 0; jd < 16; ++jd) {
+      for (int jd = 0; jd < kCols; ++jd) {
         const int d = c + 8 * jd;
         vv[jd] = d < D ? v_s[j * D + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jd = 0; jd < 16; ++jd)
+        for (int jd = 0; jd < kCols; ++jd)
           acc[i][jd] = fmaf(pv[i], vv[jd], acc[i][jd]);
     }
   }
@@ -192,7 +196,7 @@ __device__ __forceinline__ void flash_block(
     if (row >= n_q) continue;
     const float lsum = fmaxf(l[i], kLEps);
 #pragma unroll
-    for (int jd = 0; jd < 16; ++jd) {
+    for (int jd = 0; jd < kCols; ++jd) {
       const int d = c + 8 * jd;
       if (d < D) o[row * q_stride + d] = from_f32<T>(acc[i][jd] / lsum);
     }

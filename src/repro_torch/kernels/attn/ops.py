@@ -8,11 +8,12 @@ raises. The prefill kernels read q/k/v through strides in the model layout
 and mask their ragged edges, so neither wrapper transposes or pads.
 
 The two prefill kernels have two bodies each, by `tc_body`'s rule on
-(dtype, D) and never on B, T, S or the segments: bf16 with D a multiple of
-64 and at most 128 runs on the tensor-core body (csrc/flash_tc.cuh: TMA,
-wgmma) and counts as ``flash_prefill_tc`` / ``flash_prefill_packed_tc``
-too; f32, and bf16 at any other D, run the plain-FMA body
-(csrc/flash_tile.cuh).
+(dtype, D) and never on B, T, S or the segments: bf16 with D 64, 128 or
+256 runs on the tensor-core body (csrc/flash_tc.cuh: TMA, wgmma; D 256 on
+two consumer warpgroups) and counts as ``flash_prefill_tc`` /
+``flash_prefill_packed_tc`` too; f32, and bf16 at any other D, run the
+plain-FMA body (csrc/flash_tile.cuh). Both take D up to 256, as the
+reference's flash kernels take paligemma's head dim 256.
 
 A contiguous ``[B, S, Hkv, D]`` decode cache is served by the same decode
 wrapper as the pool ``[B · S/page, page, Hkv, D]`` (a view, no copy) under
@@ -55,9 +56,11 @@ _DECODE_K_PAD = 32
 # a block's shared memory on the H100 (227 KB usable)
 SMEM_LIMIT = 232448
 # flash prefill tiles (csrc/flash_tile.cuh, csrc/flash_tc.cuh): 64 query
-# rows x 64 keys; the FMA body has 16 output columns a thread
+# rows x 64 keys; the FMA body has 16 output columns a thread up to D 128
+# and 32 up to D 256 (kDMax), the tensor-core body splits D 256 over two
+# consumer warpgroups
 _FLASH_BQ = _FLASH_BKV = 64
-FLASH_D_MAX = 128
+FLASH_D_MAX = 256
 # the tensor-core body's K/V ring and barriers (q_full; k_full, v_full and
 # empty per stage)
 _FLASH_TC_STAGES = 2
@@ -66,10 +69,10 @@ _FLASH_TC_BARRIERS = 1 + 3 * _FLASH_TC_STAGES
 
 def tc_body(dtype: torch.dtype, d: int) -> bool:
     """Whether the flash prefill kernels run these operands on their
-    tensor-core body: bf16 with D a multiple of 64 and at most 128. The
-    rule of csrc/flash_prefill.cu's and flash_prefill_packed.cu's tc_body;
-    it reads no B, T, S or segment."""
-    return dtype == torch.bfloat16 and d > 0 and d % 64 == 0 and d <= 128
+    tensor-core body: bf16 with D 64, 128 or 256. The rule of
+    csrc/flash_prefill.cu's and flash_prefill_packed.cu's tc_body; it
+    reads no B, T, S or segment."""
+    return dtype == torch.bfloat16 and d in (64, 128, 256)
 
 
 def _flash_smem_bytes(d: int, dtype: torch.dtype) -> int:
@@ -87,8 +90,9 @@ def _flash_smem_bytes(d: int, dtype: torch.dtype) -> int:
 
 def flash_ok(d: int, dtype: Optional[torch.dtype] = None) -> bool:
     """Whether the flash prefill kernels take head dim ``d`` in ``dtype``
-    (every float dtype when None): at most 128 output columns and the
-    block's tiles, in the body the call takes, within 227 KB."""
+    (every float dtype when None): at most FLASH_D_MAX (256) output
+    columns and the block's tiles, in the body the call takes, within 227
+    KB."""
     dtypes = FLOAT_DTYPES if dtype is None else (dtype,)
     return 1 <= d <= FLASH_D_MAX and all(
         _flash_smem_bytes(d, dt) <= SMEM_LIMIT for dt in dtypes)

@@ -49,7 +49,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.dbb import DbbWeight
-from repro_torch.kernels.attn.ops import PAGE_MIN, flash_ok, paged_decode_ok
+from repro_torch.kernels.attn.ops import (FLASH_D_MAX, PAGE_MIN, flash_ok,
+                                          paged_decode_ok)
 from repro_torch.kernels.common import (FLOAT_DTYPES, OPERAND_DTYPES,
                                         SKINNY_M_MAX, skinny_ok)
 from repro_torch.kernels.sample.ops import TILE_N as _HS_TILE
@@ -336,7 +337,8 @@ def _guard_flash_common(s: OpSpec) -> str:
     if not s.float_ok:
         return "non-float operands"
     if not flash_ok(s.k):
-        return f"head dim {s.k}: the flash block's tiles exceed 227 KB"
+        return (f"head dim {s.k}: the flash kernels take 1 <= D <= "
+                f"{FLASH_D_MAX}, their tiles within 227 KB")
     return ""
 
 

@@ -1,6 +1,6 @@
 """Model registry: uniform entry points keyed by config family (the port
-serves the dense_lm, moe_lm and zamba2 families and runs the cnn
-family)."""
+serves every LM family of the reference — dense_lm, moe_lm, zamba2,
+rwkv6, vlm_lm, audio_lm — and runs the cnn family)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -29,7 +29,7 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                          pack: bool = False,
                          layer_hook: Optional[LayerHook] = None,
                          outer: Optional[Dict] = None) -> Dict:
-    """A dense_lm, moe_lm or zamba2 tree built one layer at a time, so a
+    """An LM tree of any family built one layer at a time, so a
     full-width model never holds more than about two dense layers (a MoE
     layer's dense experts among them) beside its stacked planes: layer
     ``l`` is drawn by the port's initializers from its own
@@ -113,10 +113,10 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     """(output, aux loss), as the reference's `forward`: the cnn family's
     logits for ``batch["images"]`` (NHWC) through the plain lowering
     (``matmul="xla"``); the LM families' hidden states ``[B, S, d]`` for
-    ``batch["tokens"]`` (`transformer.forward`; ``embeds`` and
-    ``prefix_embeds`` are not ported and raise). The aux loss is the MoE
-    layers' summed load-balance loss, a zero scalar for the other
-    families."""
+    ``batch["tokens"]``, or the audio family's frame ``batch["embeds"]``,
+    with the vlm family's ``batch["prefix_embeds"]`` in front
+    (`transformer.forward`). The aux loss is the MoE layers' summed
+    load-balance loss, a zero scalar for the other families."""
     if cfg.family == "cnn":
         logits = cnn_mod.cnn_apply(params, cfg, batch["images"])
         return logits, torch.zeros((), device=logits.device)

@@ -1,14 +1,23 @@
-"""Decoder LM (the dense_lm, moe_lm and zamba2 families): embeddings →
-layers → final norm (hidden states; the LM head is applied by the serving
-layer). A layer is attention then an MLP (dense_lm) or a MoE block
-(moe_lm, which also yields a load-balance aux loss). zamba2 is a Mamba2
-backbone with one *shared* attention + MLP block applied after every
-group of ``ssm.shared_period`` layers (the last group included); its
-cache holds each layer's recurrent state and, per group, a ring buffer of
-the shared block's last ``shared_window`` K/V. `forward` is the
-full-sequence pass (no cache); `prefill`, `decode_step` serve every
-family, `prefill_packed`, `prefill_continue` and `verify_step` the
-families with a slot-addressed K/V cache.
+"""Decoder LM (every LM family of the reference): embeddings → layers →
+final norm (hidden states; the LM head is applied by the serving layer).
+A layer is attention then an MLP (dense_lm, and vlm_lm and audio_lm,
+which are the dense block with another input) or a MoE block (moe_lm,
+which also yields a load-balance aux loss). rwkv6 is attention-free:
+each layer a time mix and a channel mix, its cache the per-layer WKV
+state and the two shifts' last inputs. zamba2 is a Mamba2 backbone with
+one *shared* attention + MLP block applied after every group of
+``ssm.shared_period`` layers (the last group included); its cache holds
+each layer's recurrent state and, per group, a ring buffer of the shared
+block's last ``shared_window`` K/V. `forward` is the full-sequence pass
+(no cache); `prefill`, `decode_step` serve every family,
+`prefill_packed`, `prefill_continue` and `verify_step` the families with
+a slot-addressed K/V cache.
+
+The vlm and audio families' inputs (`_embed_inputs`): ``embeds [B, S,
+d]`` (audio frames) are taken in place of the token embeddings as given,
+unscaled; ``prefix_embeds [B, P, d]`` (image patches) go in front of
+them, unscaled. Token embeddings are scaled by sqrt(d_model) for
+dense_lm, moe_lm and vlm_lm only.
 
 Layer weights are stacked ``[L, ...]`` (packed leaves as stacked
 `DbbWeight` planes) and the layers run in a Python loop over the layer
@@ -32,6 +41,7 @@ from repro_torch.kernels.attn.ref import gather_pages
 from repro_torch.kernels.dispatch import pallas_route_active
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
                                        embed_scale, linear_init, norm_apply,
                                        norm_init, param_dtype_of)
@@ -43,14 +53,15 @@ __all__ = ["init_params", "lm_head_weight", "init_cache", "forward",
            "prefill", "prefill_packed", "prefill_continue", "decode_step",
            "verify_step"]
 
-_FAMILIES = ("dense_lm", "moe_lm", "zamba2")
+_FAMILIES = ("dense_lm", "moe_lm", "zamba2", "rwkv6", "vlm_lm", "audio_lm")
 # families with a slot-addressed K/V cache: packed prefill, chunked
 # continuation and speculative verify (the reference asserts the same)
-_KV_FAMILIES = ("dense_lm", "moe_lm")
+_KV_FAMILIES = ("dense_lm", "moe_lm", "vlm_lm", "audio_lm")
 # families whose packed layer weights stream through the DBB kernels on the
-# fused route (the reference's tuple; the vlm and audio families are not
-# ported): a MoE layer is expanded to dense, its experts then take the
-# dense kernels
+# fused route (the reference's tuple): the dense, vlm and audio layers'
+# planes go to the kernels as they are; a MoE layer is expanded to dense,
+# its experts then take the dense kernels; rwkv6 and zamba2 layers are
+# expanded too (plain matmuls)
 _STREAM_FAMILIES = ("dense_lm", "vlm_lm", "audio_lm")
 
 
@@ -60,8 +71,8 @@ def _check_family(cfg: ModelConfig, families=_FAMILIES) -> None:
     if cfg.family in _FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no slot-addressed K/V "
                          f"cache: this entry point serves {families}")
-    raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves {_FAMILIES}")
+    raise ValueError(f"family {cfg.family!r} is not a decoder LM family: "
+                     f"the LM entry points serve {_FAMILIES}")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -89,9 +100,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def layer_init(gen: torch.Generator, lead, cfg: ModelConfig,
                dtype: torch.dtype, device) -> Dict:
     """The layer stack's parameters ``[*lead, ...]``: attention, its two
-    norms, and the MLP (dense_lm) or the MoE block (moe_lm); a zamba2
-    layer is a Mamba2 block and its norm."""
+    norms, and the MLP (dense_lm, vlm_lm, audio_lm) or the MoE block
+    (moe_lm); a zamba2 layer is a Mamba2 block and its norm, an rwkv6
+    layer its time mix, channel mix and two norms."""
     d = cfg.d_model
+    if cfg.family == "rwkv6":
+        return rw.rwkv6_layer_init(gen, lead, cfg, dtype, device)
     if cfg.family == "zamba2":
         return {"mamba": m2.mamba2_init(gen, lead, cfg, dtype, device),
                 "ln": norm_init(cfg.norm, lead, d, dtype, device)}
@@ -125,13 +139,19 @@ def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict:
     """Contiguous KV cache ``[L, B, max_len, Hkv, D]`` in the activation
-    dtype, with per-row lengths. zamba2's hybrid cache instead: the SSD
-    states ``ssd [L, B, H, P, N]`` (f32), the conv contexts ``conv [L, B,
-    W-1, C]`` and, per shared-block call, ring buffers ``shared_k`` /
-    ``shared_v [G, B, win, Hkv, D]`` with ``win = min(max_len,
-    shared_window or max_len)``."""
+    dtype, with per-row lengths. rwkv6's recurrent state instead (any
+    ``max_len``): ``wkv [L, B, H, D, D]`` (f32) and the two shifts' last
+    inputs ``shift_tm`` / ``shift_cm [L, B, d]``. zamba2's hybrid cache:
+    the SSD states ``ssd [L, B, H, P, N]`` (f32), the conv contexts
+    ``conv [L, B, W-1, C]`` and, per shared-block call, ring buffers
+    ``shared_k`` / ``shared_v [G, B, win, Hkv, D]`` with ``win =
+    min(max_len, shared_window or max_len)``."""
     _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "rwkv6":
+        return dict(rw.init_rwkv_state(cfg, batch, dtype_of(cfg), dev),
+                    length=torch.zeros((batch,), dtype=torch.int32,
+                                       device=dev))
     if cfg.family == "zamba2":
         d_in, h, p, n = m2._dims(cfg)
         win = min(max_len, cfg.ssm.shared_window or max_len)
@@ -279,8 +299,8 @@ def _wrap_remat(fn, cfg: ModelConfig, auto=_auto_remat_layer):
     does nothing below d_model 1024 and above it runs ``auto``: for an
     attention layer `_auto_remat_layer`, which keeps the MLP's
     up-projections (the layer split around them, which costs no per-op
-    dispatch); None (a Mamba layer, which has no ``mlp_wi`` / ``mlp_wg``
-    to keep) checkpoints the whole layer; "dots" keeps every plain
+    dispatch); None (a Mamba or rwkv6 layer, which has no ``mlp_wi`` /
+    ``mlp_wg`` to keep) checkpoints the whole layer; "dots" keeps every plain
     matmul's output through selective checkpointing
     (`create_selective_checkpoint_contexts`; a torch without it
     checkpoints the whole layer instead)."""
@@ -319,6 +339,47 @@ def _embed(params: Dict, cfg: ModelConfig,
     if cfg.family in ("dense_lm", "moe_lm", "vlm_lm"):
         x = embed_scale(x, cfg.d_model)
     return x
+
+
+def _embed_inputs(params: Dict, cfg: ModelConfig,
+                  tokens: Optional[torch.Tensor] = None,
+                  embeds: Optional[torch.Tensor] = None,
+                  prefix_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """The layers' input, as the reference's ``_embed_inputs``: ``embeds``
+    as given (cast to the activation dtype, unscaled) or the token
+    embeddings (`_embed`), with ``prefix_embeds`` (unscaled) in front."""
+    dt = dtype_of(cfg)
+    x = embeds.to(dt) if embeds is not None else _embed(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], dim=1)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# rwkv6: time mix + channel mix layers over a recurrent state
+# ---------------------------------------------------------------------------
+
+def _rwkv_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """One rwkv6 layer of the full-sequence pass (expanded to dense), from
+    a zero state."""
+    return rw.rwkv6_layer_apply(_unpack_layer(lp, cfg), cfg, x)[0]
+
+
+def _rwkv6_pass(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict, carry: bool) -> torch.Tensor:
+    """Every rwkv6 layer over ``x``, each writing its final state into
+    ``cache`` in place; ``carry`` starts each layer from the cache's state
+    (decode), else from zeros (prefill: the reference's prefill starts
+    fresh whatever the cache holds)."""
+    for l in range(cfg.num_layers):
+        lp = _unpack_layer(_layer(params["layers"], l), cfg)
+        st = ({k: cache[k][l] for k in ("wkv", "shift_tm", "shift_cm")}
+              if carry else None)
+        x, st = rw.rwkv6_layer_apply(lp, cfg, x, state=st)
+        for k, v in st.items():
+            cache[k][l] = v.to(cache[k].dtype)
+    return norm_apply(cfg.norm, params["final_norm"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -444,21 +505,23 @@ def forward(params: Dict, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None, embeds=None,
             prefix_embeds=None, window_override: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence pass without a cache: ``tokens [B, S]`` → (hidden [B,
-    S, d], aux loss — the sum of the MoE layers' load-balance losses, a
-    zero scalar for the dense family). Attention goes
-    through `attention_apply`, so the dispatch picks flash, chunked or
-    naive; ``window_override`` replaces the config's sliding window. Under
-    autograd each layer runs under ``cfg.remat`` (`_wrap_remat`).
-    ``embeds`` / ``prefix_embeds`` (the vlm and audio families' inputs)
-    are not ported."""
+    """Full-sequence pass without a cache: ``tokens [B, S]`` (or frame
+    ``embeds [B, S, d]``; ``prefix_embeds [B, P, d]`` in front, see
+    `_embed_inputs`) → (hidden [B, P + S, d], aux loss — the sum of the
+    MoE layers' load-balance losses, a zero scalar for the other
+    families). Attention goes through `attention_apply`, so the dispatch
+    picks flash, chunked or naive; ``window_override`` replaces the
+    config's sliding window. Under autograd each layer runs under
+    ``cfg.remat`` (`_wrap_remat`; an rwkv6 layer, like a Mamba layer, is
+    checkpointed whole under "auto")."""
     _check_family(cfg)
-    if embeds is not None or prefix_embeds is not None:
-        raise NotImplementedError(
-            "forward(embeds=, prefix_embeds=): the vlm and audio families' "
-            "inputs are not ported")
-    x = _embed(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, embeds, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "rwkv6":
+        body = _wrap_remat(_rwkv_layer, cfg, auto=None)
+        for lp in _layers(params["layers"], cfg.num_layers):
+            x = body(lp, cfg, x)
+        return norm_apply(cfg.norm, params["final_norm"], x), aux
     if cfg.family == "zamba2":
         x = _zamba2_forward(params, cfg, x, window_override)
         return norm_apply(cfg.norm, params["final_norm"], x), aux
@@ -471,24 +534,35 @@ def forward(params: Dict, cfg: ModelConfig,
     return x, aux
 
 
-def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Dict, start: Optional[torch.Tensor] = None
+def prefill(params: Dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            cache: Optional[Dict] = None,
+            start: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
-    """Full-prompt forward that fills the cache: ``tokens [B, S]`` →
-    (hidden [B, S, d], cache). The K/V of every layer are written into
-    ``cache`` IN PLACE (slots 0..S-1); the returned dict shares its
-    tensors and carries ``length + S`` (and ``start``).
+    """Full-prompt forward that fills the cache: ``tokens [B, S]`` (or
+    ``embeds``, with ``prefix_embeds`` in front: `_embed_inputs`) →
+    (hidden [B, S, d], cache; S counts the prefix). The K/V of every layer
+    are written into ``cache`` IN PLACE (slots 0..S-1); the returned dict
+    shares its tensors and carries ``length + S`` (and ``start``). A
+    ``cache`` of None is made at S slots, as the reference makes it.
 
     start [B]: per-row left-pad counts of a ragged batch — RoPE positions
     shift to ``t - start`` and pad keys are masked, so a row prefills as
-    it would alone. zamba2 fills its hybrid cache (`_zamba2_prefill`) and
-    ignores ``start``: its recurrent state takes the pads as tokens, as
-    the reference's does."""
+    it would alone. rwkv6 and zamba2 fill their recurrent caches and
+    ignore ``start``: the state takes the pads as tokens, as the
+    reference's does; rwkv6 starts every layer from a zero state."""
     _check_family(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, embeds, prefix_embeds)
+    s = x.shape[1]
+    if cache is None:
+        cache = init_cache(cfg, x.shape[0], s, device=x.device)
+    if cfg.family == "rwkv6":
+        x = _rwkv6_pass(params, cfg, x, cache, carry=False)
+        return x, dict(cache, length=cache["length"] + s)
     if cfg.family == "zamba2":
         return _zamba2_prefill(params, cfg, x, cache)
-    s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     if start is not None:
         positions = positions - start[:, None]
@@ -599,16 +673,23 @@ def prefill_continue(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     return norm_apply(cfg.norm, params["final_norm"], x), cache
 
 
-def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One new token per row: ``tokens [B]`` → (hidden [B, 1, d], cache).
-    Each layer's new K/V go into ``cache`` in place (the contiguous cache,
-    or the paged pool through the block table); the returned dict shares
-    its tensors with ``length + 1``. A ragged cache (``start``) masks the
-    left-pad slots and shifts RoPE per row. zamba2 decodes through its
-    hybrid cache (`_zamba2_decode`)."""
+def decode_step(params: Dict, cfg: ModelConfig,
+                tokens: Optional[torch.Tensor], cache: Dict,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One new token per row: ``tokens [B]`` (or ``embeds [B, 1, d]``, as
+    given) → (hidden [B, 1, d], cache). Each layer's new K/V go into
+    ``cache`` in place (the contiguous cache, or the paged pool through
+    the block table); the returned dict shares its tensors with ``length +
+    1``. A ragged cache (``start``) masks the left-pad slots and shifts
+    RoPE per row. rwkv6 steps each layer's state in place; zamba2 decodes
+    through its hybrid cache (`_zamba2_decode`)."""
     _check_family(cfg)
-    x = _embed(params, cfg, tokens[:, None])
+    x = (embeds.to(dtype_of(cfg)) if embeds is not None
+         else _embed(params, cfg, tokens[:, None]))
+    if cfg.family == "rwkv6":
+        x = _rwkv6_pass(params, cfg, x, cache, carry=True)
+        return x, dict(cache, length=cache["length"] + 1)
     if cfg.family == "zamba2":
         return _zamba2_decode(params, cfg, x, cache)
     start = cache.get("start")

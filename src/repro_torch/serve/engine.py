@@ -6,9 +6,9 @@ steps. `ServeEngine.serve` is continuous batching over any number of
 requests: requests are admitted into free slots between decode chunks,
 finished rows retire at the chunk boundary, and every request decodes
 token-identically to running alone (per-row lengths, ``start`` offsets and
-RoPE positions isolate the rows); zamba2, whose recurrent state has no
-slot-addressed cache, serves static waves through `generate` instead and
-never speculates. With ``cfg.kv_page_size > 0`` serve
+RoPE positions isolate the rows); rwkv6 and zamba2, whose recurrent
+states have no slot-addressed cache, serve static waves through
+`generate` instead and never speculate. With ``cfg.kv_page_size > 0`` serve
 keeps K/V in a shared page pool instead of an ``smax`` stripe per slot and
 admits a request with the pages it uses (first fit over the queue); both
 layouts decode through the same paged kernel in the same page order, so
@@ -61,8 +61,8 @@ from repro_torch.serve.kv_cache import (DUMMY_PAGE, PageAllocator,
                                         init_paged_cache, pages_needed)
 
 # families with a slot-addressed K/V cache: continuous batching and
-# speculative verify; the others (zamba2's recurrent state) serve static
-# waves through `generate`
+# speculative verify; the others (rwkv6's and zamba2's recurrent states)
+# serve static waves through `generate`
 _CONT_BATCH_FAMILIES = ("dense_lm", "moe_lm", "vlm_lm", "audio_lm")
 
 __all__ = ["greedy_from_hidden", "greedy_head", "sample_head",
@@ -609,8 +609,8 @@ class ServeEngine:
 
     def _serve_waves(self, prompts: List[List[int]], budgets: List[int],
                      sampling, draft_k: Optional[int]) -> List[List[int]]:
-        """A family without a slot-addressed K/V cache (zamba2's recurrent
-        state cannot be scattered into a slot) serves as static waves of
+        """A family without a slot-addressed K/V cache (rwkv6's or zamba2's
+        recurrent state cannot be scattered into a slot) serves as static waves of
         ``max_batch`` requests through `generate`, each output cut to its
         own budget (a warning says so)."""
         warnings.warn(

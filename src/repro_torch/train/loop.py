@@ -115,16 +115,21 @@ def loss_and_grads(loss_fn, params: Any, batch: Dict
     ``params``, in the params' structure; the detached metrics). Raises if
     a leaf received no gradient: every trainable leaf takes part in the
     loss, so a missing one means the graph was cut (a kernel's output has
-    no ``grad_fn``)."""
+    no ``grad_fn``). The one exception: a batch of frame ``embeds`` and
+    no ``tokens`` (the audio family) never reads the embedding table,
+    whose gradient is then zeros, as ``jax.grad`` gives."""
     req, leaves = _grad_leaves(params)
     with torch.enable_grad():
         loss, metrics = loss_fn(req, batch)
         grads = torch.autograd.grad(loss, [t for _, t in leaves],
                                     allow_unused=True)
-    missing = [p for (p, _), g in zip(leaves, grads) if g is None]
+    unread = {"embed/table"} if "tokens" not in batch else set()
+    missing = [p for (p, _), g in zip(leaves, grads)
+               if g is None and p not in unread]
     if missing:
         raise RuntimeError(f"no gradient reached {missing}")
-    by_path = {p: g for (p, _), g in zip(leaves, grads)}
+    by_path = {p: torch.zeros_like(t) if g is None else g
+               for (p, t), g in zip(leaves, grads)}
     out = map_with_path(lambda p, leaf: by_path.get(p, leaf), params)
     return out, {k: v.detach() for k, v in metrics.items()}
 

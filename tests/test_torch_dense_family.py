@@ -53,13 +53,22 @@ def test_forward_matches_reference(arch, gemm_impl):
 
 
 def test_forward_refuses_embeds():
-    _, tcfg = configs(arch="qwen2.5-14b")
-    _, tp = trees("qwen2.5-14b")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
+    """`forward` takes ``embeds`` (in place of the tokens) and
+    ``prefix_embeds`` (in front of them) on a dense_lm config too, as the
+    reference's does: the vlm and audio families' inputs are ported (the
+    name is kept from when the port refused them)."""
+    jcfg, tcfg = configs(arch="qwen2.5-14b")
+    jp, tp = trees("qwen2.5-14b")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(2, 512, (1, 4)).astype(np.int32)
     for key in ("embeds", "prefix_embeds"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            treg.forward(tp, tcfg, {"tokens": toks,
-                                    key: torch.zeros((1, 4, 128))})
+        e = rng.standard_normal((1, 4, 128)).astype(np.float32)
+        want, _ = jreg.forward(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                          key: jnp.asarray(e)})
+        got, _ = treg.forward(tp, tcfg, {"tokens": torch.from_numpy(toks),
+                                         key: torch.from_numpy(e)})
+        assert got.shape[1] == (8 if key == "prefix_embeds" else 4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def _inputs(ragged: bool):

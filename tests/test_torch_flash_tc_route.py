@@ -12,8 +12,10 @@ never to send f32 to the tensor cores; the shared-memory formula against
 the C constants; and the CPU route of the shapes the tensor-core body
 takes on the card (bf16, D 128 and 64: T and S off the 64-row tile,
 ``start`` inside a tile, ``q_offset``, a window, a softcap, GQA g = 2, a
-packed segment boundary inside a tile and a pad segment) against the
-Pallas kernels in interpret mode.
+packed segment boundary inside a tile and a pad segment; D 256, which
+the body takes on two consumer warpgroups: paligemma's MQA g = 8, a
+ragged ``start``, a packed segment edge) against the Pallas kernels in
+interpret mode.
 
 Tolerance (bf16 outputs): |got - want| <= 2e-2 |want| + 1e-2 max |want|,
 that of the card's bf16 attention tests: the Pallas kernel rounds each
@@ -96,7 +98,7 @@ def test_f32_never_takes_the_tensor_cores(dtype):
 
 @pytest.mark.parametrize("d,want", [(64, True), (128, True), (72, False),
                                     (32, False), (96, False), (192, False),
-                                    (256, False), (0, False)])
+                                    (256, True), (320, False), (0, False)])
 def test_bf16_takes_the_tensor_cores_at_d_64_and_128(d, want):
     assert tc_body(BF, d) is want
 
@@ -111,11 +113,12 @@ def test_smem_formula_matches_the_c_constants():
     stages = _c_int("flash_tc.cuh", "kStages")
     tc_src = (CSRC / "flash_tc.cuh").read_text()
     assert "constexpr int kBarriers = 1 + 3 * kStages;" in tc_src
-    for d in (64, 128):
+    for d in (64, 128, 256):
         want = 2 * bq * d + 2 * stages * 2 * bkv * d + 8 * (1 + 3 * stages) \
             + 1024
         assert _flash_smem_bytes(d, BF) == want
     assert _flash_smem_bytes(128, BF) == 83000     # two blocks an SM
+    assert _flash_smem_bytes(256, BF) == 164920    # one block an SM
     assert 2 * _flash_smem_bytes(128, BF) + 2048 <= SMEM_LIMIT
     for d in (1, 64, 72, 128):
         for dt in (torch.float32,) + (() if tc_body(BF, d) else (BF,)):
@@ -134,6 +137,21 @@ def test_flash_ok_takes_every_d_up_to_128_in_either_body(d, dtype):
 def test_flash_ok_refuses_d_outside_the_bodies(dtype):
     assert not flash_ok(0, dtype)
     assert not flash_ok(FLASH_D_MAX + 1, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, BF, None],
+                         ids=str)
+def test_flash_ok_takes_d_256_in_every_float_dtype(dtype):
+    """paligemma's head dim: the reference's flash kernels take it (its
+    flash_ok asks only that the smallest block pair fits VMEM), so the
+    port's do too — bf16 on the tensor-core body (164,920 bytes), f32 and
+    f16 on the FMA body with 32 output columns a thread (198,656 bytes).
+    The FMA body's D limit is the C constant kDMax."""
+    from repro.kernels.attn.ops import flash_ok as ref_flash_ok
+    assert FLASH_D_MAX == _c_int("flash_tile.cuh", "kDMax") == 256
+    assert flash_ok(256, dtype) and flash_ok(192, dtype)
+    assert ref_flash_ok(512, 512, 256, 2) and ref_flash_ok(512, 512, 256, 4)
+    assert _flash_smem_bytes(256, torch.float32) == 198656 <= SMEM_LIMIT
 
 
 def test_flash_ok_reports_the_body_the_call_takes():
@@ -203,5 +221,56 @@ def test_packed_prefill_bf16_cpu_route_matches_pallas(lens, pad, hq, hkv, d,
     assert LAUNCHES == before
     assert got.dtype == BF
     real = seg < len(lens)       # the pad segment's rows are never read
+    _close_bf16(got.float().numpy()[real],
+                np.asarray(want.astype(jnp.float32))[real])
+
+
+@pytest.mark.parametrize("b,t,s,hq,hkv,start,q_offset", [
+    (1, 130, 130, 8, 1, (0,), (0,)),              # MQA g 8, T off the tile
+    (2, 70, 70, 8, 1, (0, 23), (0, 0)),           # a ragged start
+    (1, 40, 150, 4, 1, (3,), (110,)),             # a continuation chunk
+])
+def test_flash_prefill_bf16_d256_cpu_route_matches_pallas(b, t, s, hq, hkv,
+                                                          start, q_offset):
+    """paligemma's head dim on the route the card runs on the tensor-core
+    body's two warpgroups, held against the Pallas kernel (64 x 64
+    blocks)."""
+    d = 256
+    assert tc_body(BF, d) and flash_ok(d, BF)
+    q, k, v = _bf16_operands(b, t, s, hq, hkv, d, seed=t + s + d)
+    st, qo = np.asarray(start, np.int32), np.asarray(q_offset, np.int32)
+    want = jflash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                  jnp.asarray(st), q_offset=jnp.asarray(qo),
+                  block_q=64, block_kv=64)
+    before = dict(LAUNCHES)
+    got = flash_attention(*(torch.from_numpy(a).to(BF) for a in (q, k, v)),
+                          torch.from_numpy(st), q_offset=torch.from_numpy(qo))
+    assert LAUNCHES == before
+    real = (np.arange(t)[None, :] + qo[:, None]) >= st[:, None]
+    _close_bf16(got.float().numpy()[real],
+                np.asarray(want.astype(jnp.float32))[real])
+
+
+@pytest.mark.parametrize("lens,pad,hq,hkv", [
+    ((70, 90, 7), 25, 8, 1),     # segment edges inside the 64-row tiles
+    ((1, 64, 3), 4, 2, 1),       # an edge on a tile boundary
+])
+def test_packed_prefill_bf16_d256_cpu_route_matches_pallas(lens, pad, hq,
+                                                           hkv):
+    d = 256
+    assert tc_body(BF, d)
+    t = sum(lens) + pad
+    q, k, v = (a[0] for a in _bf16_operands(1, t, t, hq, hkv, d,
+                                            seed=t + d))
+    seg = np.repeat(np.arange(len(lens) + 1, dtype=np.int32),
+                    list(lens) + [pad])
+    want = jpacked(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                   jnp.asarray(seg), block_q=64, block_kv=64)
+    before = dict(LAUNCHES)
+    got = packed_flash_attention(
+        *(torch.from_numpy(a).to(BF) for a in (q, k, v)),
+        torch.from_numpy(seg))
+    assert LAUNCHES == before
+    real = seg < len(lens)
     _close_bf16(got.float().numpy()[real],
                 np.asarray(want.astype(jnp.float32))[real])

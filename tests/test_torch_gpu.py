@@ -34,7 +34,7 @@ most 0.1% of the elements (at least one). The tensor-core body of the
 bf16 sta_gemm and dbb_gemm branches: the bf16 GEMM tolerance against the
 plain versions; exact where the math is exact (one-hot probes, a row at
 any M, dbb_gemm against sta_gemm on the decompressed weight). The
-tensor-core body of the bf16 flash prefills (D 64, 128): the bf16
+tensor-core body of the bf16 flash prefills (D 64, 128, 256): the bf16
 attention tolerance against the plain versions at T and S of 1 to 1000,
 ragged starts, offsets, whole tiles masked, views at 16-byte offsets;
 every output finite; a row's output bit for bit the same at any T or
@@ -352,11 +352,12 @@ def test_gpu_sta_gemm_skinny_rows_equal_at_any_m(cuda, dtype, k, n):
 
 
 def _flash_tc_counted(before, name, dtype, d):
-    """A bf16 launch at D 64 / 128 counts one ``_tc`` launch beside the
-    kernel's; any other launch leaves the ``_tc`` count alone."""
+    """A bf16 launch at D 64 / 128 / 256 counts one ``_tc`` launch beside
+    the kernel's; any other launch leaves the ``_tc`` count alone."""
     from repro_torch.kernels.attn.ops import tc_body
     assert LAUNCHES[name] == before[name] + 1
-    assert tc_body(dtype, d) == (dtype == torch.bfloat16 and d in (64, 128))
+    assert tc_body(dtype, d) == (dtype == torch.bfloat16
+                                 and d in (64, 128, 256))
     assert LAUNCHES[name + "_tc"] == before[name + "_tc"] + tc_body(dtype, d)
 
 
@@ -398,6 +399,14 @@ def _flash_case(cuda, dtype, b, t, s, hq, hkv, d, start, q_offset, window,
     (2, 1, 1000, 2, 2, 128, (0, 500), (999, 640), 0, 0.0),  # one-row chunk
     (2, 63, 1000, 2, 2, 64, (65, 0), (937, 65), 0, 0.0),
     (1, 100, 100, 2, 2, 72, (7,), (0,), 0, 0.0),         # D 72: FMA body
+    # D 256 (paligemma: MQA, 8 query heads on one KV head): two consumer
+    # warpgroups in bf16, 32 columns a thread in the FMA body
+    (1, 384, 384, 8, 1, 256, (0,), (0,), 0, 0.0),
+    (2, 77, 77, 8, 1, 256, (0, 13), (0, 0), 0, 0.0),
+    (2, 50, 190, 8, 1, 256, (5, 0), (120, 64), 0, 0.0),  # continuation
+    (1, 130, 130, 2, 1, 256, (3,), (0,), 33, 20.0),      # window, softcap
+    (2, 1, 1000, 2, 2, 256, (0, 500), (999, 640), 0, 0.0),
+    (1, 100, 100, 2, 2, 192, (7,), (0,), 0, 0.0),        # D 192: FMA body
 ])
 def test_gpu_flash_prefill(cuda, dtype, b, t, s, hq, hkv, d, start,
                            q_offset, window, softcap):
@@ -407,7 +416,7 @@ def test_gpu_flash_prefill(cuda, dtype, b, t, s, hq, hkv, d, start,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_gpu_flash_prefill_whole_tiles_masked(cuda, dtype, d):
     """Batch row 0's keys start at 200, so its first three query tiles
     (rows 0-191) see no key at all and run no tile; a 16-key window leaves
@@ -432,6 +441,9 @@ def test_gpu_flash_prefill_whole_tiles_masked(cuda, dtype, d):
     ((129, 500, 371), 0, 2, 2, 128, 0, 0.0),     # T 1000
     ((5, 3, 7, 64, 1, 1, 2, 90), 27, 2, 2, 128, 8, 0.0),
     ((100, 100), 0, 2, 2, 72, 0, 0.0),           # D 72: FMA body
+    ((70, 90, 7, 150), 45, 8, 1, 256, 0, 0.0),   # D 256, MQA g 8
+    ((129, 500, 371), 0, 2, 1, 256, 0, 0.0),
+    ((5, 3, 7, 64, 1, 1, 2, 90), 27, 2, 2, 256, 8, 0.0),
 ])
 def test_gpu_flash_prefill_packed(cuda, dtype, lens, pad, hq, hkv, d,
                                   window, softcap):
@@ -490,7 +502,7 @@ def test_gpu_flash_prefill_views_at_16_byte_offsets(cuda, dtype, packed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_gpu_flash_tc_row_is_the_same_bits_at_any_t(cuda, d):
     """The tensor-core body sums a row's keys tile by tile in one order
     whatever T, S or its place in the block: row 150 of a T = S = 200

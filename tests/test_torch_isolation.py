@@ -41,7 +41,11 @@ def test_every_module_is_listed():
                  "repro_torch.kernels.sample.ref",
                  "repro_torch.serve.sampling",
                  "repro_torch.serve.sampling.params",
-                 "repro_torch.serve.sampling.ops"):
+                 "repro_torch.serve.sampling.ops",
+                 "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
+                 "repro_torch.configs.rwkv6_1b6",
+                 "repro_torch.configs.paligemma_3b",
+                 "repro_torch.configs.musicgen_medium"):
         assert name in mods
 
 
@@ -79,3 +83,34 @@ def test_chip_smoke_fails_without_a_card():
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """Every import statement of chip_smoke.py, its functions' included,
+    names neither JAX nor the JAX package; importing it with both blocked
+    works."""
+    import ast
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    path = os.path.join(root, "chip_smoke.py")
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    tops = {n.split(".")[0] for n in names}
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "repro"}, tops
+    code = f"""
+import sys
+sys.modules['jax'] = None
+sys.modules['repro'] = None
+sys.path.insert(0, {root!r})
+import chip_smoke
+print('ok')
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
