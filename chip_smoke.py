@@ -393,6 +393,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             65536, head_sample_fused at N 65536, and the paligemma and
             musicgen MLP GEMMs (dbb_gemm M512, dbb_gemm_skinny M8, and
             paligemma's N 256 K/V projection).
+19. analysis  after int8 (phase 11): the port's verifier on the card,
+            ``repro_torch.analysis.lint.run()``: one line a materialization
+            check (``analysis:``; name, shape, the walker's largest tensor,
+            the allocator's peak requested / allocated, out + workspace and
+            the dense bound, in bytes), the absence claims per kernel route
+            (no [B,Hq,T,S] scores on the flash prefills, no [Hq,T,T] on the
+            packed one, no dense [K,N] on dbb_gemm / dbb_gemm_skinny on the
+            f32, INT8 and w4 planes with bf16 and int8 x, no gathered
+            [B,S,Hkv,D] K/V in paged decode, no [M,V] logits in the
+            sampling head, no [M,K] im2col in conv_gemm / conv_gemm_dbb, a
+            full-width olmo-1b decode step with no [K,N] of a packed leaf
+            and 0 ``decompress`` calls, > 0 on the plain route), each
+            kernel's launch counted; one line a shared-memory body
+            (``smem:``; its instances' largest dynamic + ptxas static bytes
+            against the card's opt-in limit); the workspace split counts
+            against the libraries'; the dispatch sweep and the layering.
+            Any violation fails the run.
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
 main paths of phases 4-6, 8, 9, 12-14 and 16-18 must have run the
@@ -737,6 +754,8 @@ def main() -> int:
     if not ok:
         return _fail("the INT8 datapath phase failed (see above)")
     by_path.update(int8_counts)
+    if not timed("analysis", _analysis_phase):
+        return _fail("the analysis phase found violations (see above)")
     for entry in kernels:
         name = entry["name"]
         moe = {k: v for k, v in report["moe"]["kernels"].items()
@@ -3350,9 +3369,12 @@ def _cli_phase(torch, dev, report):
 TRAIN_CNN_STEPS = 60             # Table I runs: the reference's benchmark
                                  # default (at 200 every run reaches 1.0)
 TRAIN_CNN_NNZ = (None, 2, 3, 4)  # dense, then DBB k = 2 / 3 / 4 of 8
-# the run resumes from its --checkpoint-every checkpoint
-TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 200 --seq-len 256 --batch 8 "
-                 "--dbb-ramp 50 --checkpoint-every 150")
+# the run resumes from its --checkpoint-every checkpoint. 100 steps (200
+# until PR 30): the straight and resumed runs took 116 + 55 s of a 1138.5 s
+# script on a slower host (PR 31), and the checks need a falling loss, a
+# bit-exact resume and a trained tree, not a longer curve
+TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 100 --seq-len 256 --batch 8 "
+                 "--dbb-ramp 25 --checkpoint-every 80")
 TRAIN_RESUME_RTOL = 1e-3         # resumed vs uninterrupted losses
 TRAIN_CE_RTOL = 5e-3             # f32 planes' held-out CE vs the plain route
 # kernel vs plain prefill logits of the trained olmo-1b, of max |logit|: its
@@ -4884,6 +4906,50 @@ def _int8_phase(torch, dev, report):
     ok = _int8_exact(torch, dev, report) and ok
     ok = _s8_tc_check(counts) and ok
     return counts, ok
+
+
+def _analysis_phase(torch, dev, report):
+    """Phase 19: ``repro_torch.analysis.lint.run()`` on the card; a line a
+    materialization case and a shared-memory body, the rest by count.
+    True when every pass is clean."""
+    from repro_torch.analysis import lint
+    torch.cuda.empty_cache()
+    rep = lint.run(device="cuda")
+    report["analysis"] = rep
+    for r in rep["passes"]["materialize"]["rows"]:
+        if "skipped" in r:
+            print(f"analysis: {r['check']}: SKIPPED ({r['skipped']})")
+            continue
+        extra = "".join(
+            f", {k} {v}" for k, v in (
+                ("out + workspace", r["allowed_bytes"]),
+                ("dense", r["dense_bytes"]), ("launches", r["launches"]),
+                ("decompress calls", r["decompress_calls"])) if v)
+        print(f"analysis: {r['check']} [{r['case']}]: walker peak "
+              f"{r['peak_bytes']} B ({r['peak_op']}), allocator peak "
+              f"{r['requested_peak']} B requested / {r['alloc_peak']} B "
+              f"allocated{extra}")
+    bodies = {}
+    for r in rep["passes"]["smem"]["rows"]:
+        if r["admitted"]:
+            name = r["name"].split("[")[0]
+            total = r["dynamic"] + (r["static"] or 0)
+            if total > bodies.get(name, (0,))[0]:
+                bodies[name] = (total, r)
+    for name, (total, r) in bodies.items():
+        print(f"smem: {name}: largest admitted {r['name']}: dynamic "
+              f"{r['dynamic']} B + static {r['static']} B = {total} B of "
+              f"{r['limit']} B")
+    splits = [r for r in rep["passes"]["workspace"]["rows"]
+              if "library" in r]
+    print(f"analysis: {len(splits)} split counts, Python rule == library "
+          f"on {sum(r['python'] == r['library'] for r in splits)}")
+    for name, p in rep["passes"].items():
+        print(f"analysis pass {name}: checked {p['checked']}, "
+              f"{len(p['violations'])} violation(s)")
+        for v in p["violations"]:
+            print(f"  FAIL [{v['code']}] {v['subject']}: {v['message']}")
+    return rep["ok"]
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,15 @@ from repro_torch.core.quant import quantize_weight
 from repro_torch.core.sparsity import map_with_path, packable
 
 __all__ = ["decompress", "maybe_decompress_tree", "dbb_linear_apply",
-           "pack_tree", "tree_footprint_bytes", "iter_leaves"]
+           "pack_tree", "tree_footprint_bytes", "iter_leaves",
+           "DECOMPRESS_STATS"]
+
+# Every `decompress` call (every place a dense copy of a packed weight is
+# built) adds one here, as the reference counts its ``decompress_xla``
+# calls. A kernel-route decode step must leave it flat: the structural
+# proof that no packed layer weight expands to dense
+# (repro_torch.analysis.materialize, check ``decode-step-no-dense``).
+DECOMPRESS_STATS = {"calls": 0}
 
 
 def decompress(p: DbbWeight, dtype: Optional[torch.dtype] = None
@@ -28,6 +36,7 @@ def decompress(p: DbbWeight, dtype: Optional[torch.dtype] = None
     matrix of a valid plane (at most nnz bits a block): a bitmask plane's
     slots are scaled (k values a block, not its B rows) and scattered onto
     their blocks' set bits in one pass over a group of matrices."""
+    DECOMPRESS_STATS["calls"] += 1
     lead = p.values.shape[:-2]
     flat = p.map(lambda a: a.reshape(-1, *a.shape[len(lead):]))
     if dtype is None:

@@ -25,6 +25,10 @@ enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I32 = 3 };
 constexpr int kDbbBlock = 8;
 constexpr int kNnzMax = 8;
 
+// A block's dynamic shared memory on the H100: the opt-in per-block limit,
+// 227 KB (repro_torch.kernels.common.SMEM_LIMIT). The one C spelling of it.
+constexpr int kSmemLimit = 232448;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

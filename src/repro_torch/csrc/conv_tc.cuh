@@ -116,7 +116,7 @@ constexpr int kMaxStages = 6;
 // the nnz code of a dense weight w [K, N] (no bitmask): staged as the
 // values plane of nnz 8, whose slots are the block's K rows in order
 constexpr int kDense = 0;
-constexpr int kSmemMax = 232448;                      // 227 KB a block
+constexpr int kSmemMax = kSmemLimit;                  // 227 KB a block
 // beside the stages: alignment slack, the int8 expansion table, two tiles'
 // scale and bias columns
 constexpr int kFixedBytes = 1024 + 256 * 4 + 2 * 2 * BN * 4;

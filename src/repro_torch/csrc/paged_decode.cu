@@ -44,6 +44,7 @@
 namespace {
 
 namespace sk = repro::splitk;
+using repro::kSmemLimit;  // the H100's per-block shared memory
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -381,7 +382,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int dtype, void* stream) {
   const int esz = dtype == repro::DT_BF16 ? 2 : 4;
   if (page < kPageMin || D < 1 || D % kDAlign || D > kDMax ||
-      smem_bytes(G, D, esz) > 232448)
+      smem_bytes(G, D, esz) > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   // the pools' rows are whole 16-byte copies (D % 8 == 0) from 16-byte
   // aligned bases
@@ -397,4 +398,14 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DT_BF16) return launch<__nv_bfloat16>(a, s);
   return launch<float>(a, s);
+}
+
+// The card's opt-in per-block shared memory (the limit every body's
+// dynamic and static shared memory must fit, beside kSmemLimit), or
+// -cudaError on failure: read by repro_torch.analysis.smem.
+extern "C" int paged_decode_smem_optin(int device) {
+  int v = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return e == cudaSuccess ? v : -(int)e;
 }

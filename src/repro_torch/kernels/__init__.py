@@ -17,3 +17,9 @@ dispatch:  route tables and the front doors the model layers call
            (matmul, conv, attention, attn_decode, head_sample).
 build:     nvcc + ctypes loader (builds at first use, never at import).
 """
+from repro_torch.kernels.epilogue import apply_act
+
+# the one kernel helper the model layer's plain paths share with the
+# epilogue (so fused and unfused activations cannot drift): the model layer
+# takes it from this root, never from the private ``epilogue`` module
+__all__ = ["apply_act"]

@@ -34,12 +34,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attn.ref import (flash_prefill_ref,
                                           packed_prefill_ref,
                                           paged_decode_ref)
-from repro_torch.kernels.common import FLOAT_DTYPES, LAUNCHES, check_operand
+from repro_torch.kernels.common import (FLOAT_DTYPES, LAUNCHES, SMEM_LIMIT,
+                                        check_operand)
 
 __all__ = ["flash_attention", "packed_flash_attention",
            "paged_decode_attention", "identity_block_table", "DEFAULT_PAGE",
            "flash_ok", "paged_decode_ok", "PAGE_MIN", "SMEM_LIMIT",
-           "FLASH_D_MAX", "tc_body", "split_pages", "decode_splits"]
+           "FLASH_D_MAX", "tc_body", "split_pages", "decode_splits",
+           "decode_workspace_elems"]
 
 # default KV page (slots) when the config leaves kv_page_size unset
 DEFAULT_PAGE = 64
@@ -53,8 +55,6 @@ _DECODE_SPLIT_KEYS = _DECODE_CHUNK = 64
 _DECODE_WARPS = 4
 _DECODE_D_ALIGN, _DECODE_D_MAX = 8, 256
 _DECODE_K_PAD = 32
-# a block's shared memory on the H100 (227 KB usable)
-SMEM_LIMIT = 232448
 # flash prefill tiles (csrc/flash_tile.cuh, csrc/flash_tc.cuh): 64 query
 # rows x 64 keys; the FMA body has 16 output columns a thread up to D 128
 # and 32 up to D 256 (kDMax), the tensor-core body splits D 256 over two
@@ -131,6 +131,16 @@ def decode_splits(n_log: int, page: int) -> int:
     pages wide: every split any row of it can have (csrc/paged_decode.cu,
     max_splits)."""
     return -(-n_log // split_pages(page))
+
+
+def decode_workspace_elems(b: int, hkv: int, g: int, d: int, n_log: int,
+                           page: int) -> int:
+    """f32 elements of the decode kernel's per-call workspace: for every
+    (row, KV head) and every split a table ``n_log`` pages wide can have,
+    the split's running acc [G, D] and its (m, l) [G] statistics
+    (csrc/paged_decode.cu, DecodeArgs.work). A pure function of the
+    shapes; the wrapper allocates exactly this."""
+    return b * hkv * decode_splits(n_log, page) * g * (d + 2)
 
 
 def identity_block_table(b: int, n_log: int,
@@ -267,8 +277,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     real slot. Returns ``o [B, Hkv, G, D]`` in q's dtype.
 
     On the card each call allocates an f32 workspace of
-    ``B · Hkv · decode_splits(n_log, page) · G · (D + 2)`` elements, a pure
-    function of the shapes, which the split launch fills and the combine
+    `decode_workspace_elems` = ``B · Hkv · decode_splits(n_log, page) · G ·
+    (D + 2)`` elements, a pure function of the shapes, which the split launch fills and the combine
     launch reads: a CUDA graph that captures this call captures that
     allocation too."""
     b, hkv, g, d = q.shape
@@ -296,7 +306,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{_DECODE_D_ALIGN} up to {_DECODE_D_MAX} and "
                          f"shared memory within {SMEM_LIMIT} B ({smem})")
     out = torch.empty_like(q)
-    work = torch.empty(b * hkv * decode_splits(n_log, page) * g * (d + 2),
+    work = torch.empty(decode_workspace_elems(b, hkv, g, d, n_log, page),
                        dtype=torch.float32, device=dev)
     rc = _bind("paged_decode", 8, 6)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

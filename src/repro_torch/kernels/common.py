@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
+__all__ = ["SKINNY_M_MAX", "SMEM_LIMIT", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
            "reset_launches", "check_operand", "FLOAT_DTYPES",
            "OPERAND_DTYPES", "INT8_OUT_DTYPES", "resolve_out_dtype",
            "gemm_acc"]
@@ -23,6 +23,11 @@ __all__ = ["SKINNY_M_MAX", "skinny_ok", "coerce_bias_scale", "LAUNCHES",
 # every branch (csrc/sta_gemm_skinny.cu, csrc/dbb_gemm_skinny.cu, the int8
 # branches' csrc/split_k_s8.cuh).
 SKINNY_M_MAX = 32
+
+# A block's dynamic shared memory on the H100: the opt-in per-block limit,
+# 227 KB. The one Python spelling of it (csrc/common.cuh's kSmemLimit is
+# the one C spelling); every guard and test reads it from here.
+SMEM_LIMIT = 232448
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 # operand dtypes of the GEMM and conv kernels: float, or the paper's INT8

@@ -36,7 +36,7 @@ from repro_torch.kernels.common import (LAUNCHES, SKINNY_M_MAX,
 from repro_torch.kernels.sample.ref import sample_argmax
 
 __all__ = ["head_sample_fused", "head_sample_fused_ref", "TILE_N",
-           "partials"]
+           "partials", "workspace_elems"]
 
 TILE_N = 128        # the reference's tile; K and N must be multiples of it
 
@@ -64,6 +64,26 @@ def _partials(k_dim: int, n: int) -> int:
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(k_dim, n)
+
+
+def workspace_elems(m: int, k_dim: int, n: int) -> int:
+    """Elements of each of the call's two workspace planes (the partials'
+    f32 scores and int32 indices, ``[M, partials(K, N)]``): a pure function
+    of the shapes; the wrapper allocates exactly this."""
+    return m * partials(k_dim, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_partials(k_dim: int, n: int) -> int:
+    """`partials`, held once per shape against the library's count: a
+    workspace sized by a rule the kernel does not follow would be written
+    past its end."""
+    want, got = partials(k_dim, n), _partials(k_dim, n)
+    if got != want:
+        raise RuntimeError(f"head_sample_fused: the library leaves {got} "
+                           f"partials at K={k_dim} N={n}, the Python rule "
+                           f"{want}")
+    return want
 
 
 def head_sample_fused_ref(h, w, counts, temp, rep, pres, freq, seed, step,
@@ -116,9 +136,11 @@ def head_sample_fused(h: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
         rows.append(a.contiguous())
     if dev.type == "cpu":
         return head_sample_fused_ref(h, w, counts, *rows, base=base)
-    parts = _partials(k_dim, n)
-    part_score = torch.empty((m, parts), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((m, parts), dtype=torch.int32, device=dev)
+    _checked_partials(k_dim, n)
+    part_score = torch.empty((workspace_elems(m, k_dim, n),),
+                             dtype=torch.float32, device=dev)
+    part_idx = torch.empty((workspace_elems(m, k_dim, n),),
+                           dtype=torch.int32, device=dev)
     score = torch.empty((m,), dtype=torch.float32, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     rc = _launcher()(

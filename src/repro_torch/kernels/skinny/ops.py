@@ -13,13 +13,14 @@ order that head_sample_fused shares, so its bits do not depend on M.
 
 `dbb_gemm_skinny` runs float x on its split-K body (all M <= 32 rows in
 one block, K split across blocks whose partial sums a second pass adds in
-a fixed order from a workspace this wrapper allocates, the planes streamed
+a fixed order from a workspace this wrapper allocates (`workspace_elems`),
+the planes streamed
 through a TMA or cp.async ring; bf16 x on mma.sync), counted as
 ``dbb_gemm_skinny_split`` too (`split_body`: the rule on x's dtype).
 
 The int8 branches of both kernels run one int8 split-K body
 (csrc/split_k_s8.cuh): all M <= 32 rows and 64 columns a block, K in
-128-deep stages split over ``_s8_splits(K, N)`` blocks, s8 mma.sync on
+128-deep stages split over ``s8_splits(K, N)`` blocks, s8 mma.sync on
 int32 accumulators; the slices' sums meet in a workspace this wrapper
 allocates, added by a second launch. Integer sums are exact, so the
 outputs equal the plain version's bit for bit."""
@@ -39,7 +40,17 @@ from repro_torch.kernels.dbb_gemm.ops import check_dbb_operands, run_dbb_kernel
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.skinny.ref import dbb_gemm_ref, sta_gemm_ref
 
-__all__ = ["dbb_gemm_skinny", "sta_gemm_skinny", "split_body"]
+__all__ = ["dbb_gemm_skinny", "sta_gemm_skinny", "split_body", "splits",
+           "s8_splits", "workspace_elems", "library_splits"]
+
+# csrc/split_k.cuh: the most K slices (the largest portable cluster) and
+# the H100 SXM's SMs
+_MAX_SPLIT, _SMS = 8, 132
+# the float split-K body (csrc/dbb_gemm_skinny.cu): 64 columns a block, 8
+# DBB blocks of 8 (64 K) a stage
+_COLS, _DBB_BLOCK, _STAGE_KB = 64, 8, 8
+# the int8 body (csrc/split_k_s8.cuh): 64 columns a block, 128 K a stage
+_S8_STAGE_K = 128
 
 
 def _check_m(m: int) -> None:
@@ -48,32 +59,69 @@ def _check_m(m: int) -> None:
                          f"{SKINNY_M_MAX}]")
 
 
-@functools.lru_cache(maxsize=None)
-def _splits(k_dim: int, n: int) -> int:
-    """The split-K body's K slices at (K, N) (csrc/dbb_gemm_skinny.cu's
-    splits, a pure function of K and N, asked once per shape): its
-    workspace holds that many [M, N] f32 partial sums."""
-    fn = build.load("dbb_gemm_skinny").dbb_gemm_skinny_splits
+def splits(k_dim: int, n: int) -> int:
+    """The float split-K body's K slices at (K, N): doubled while the grid
+    holds under 2 blocks per SM, up to 8, as long as each slice keeps at
+    least two stages (csrc/dbb_gemm_skinny.cu's splits, a rule on K and N
+    alone)."""
+    kb, tiles, s = k_dim // _DBB_BLOCK, -(-n // _COLS), 1
+    while (s < _MAX_SPLIT and tiles * s < 2 * _SMS
+           and kb >= 2 * s * 2 * _STAGE_KB):
+        s *= 2
+    return s
+
+
+def s8_splits(k_dim: int, n: int) -> int:
+    """The int8 body's K slices at (K, N): doubled while the grid stays
+    within 2 blocks per SM and every slice keeps at least two 128-deep
+    stages, up to 8 (csrc/split_k_s8.cuh's splits)."""
+    stages, tiles, s = -(-k_dim // _S8_STAGE_K), -(-n // _COLS), 1
+    while (s < _MAX_SPLIT and tiles * 2 * s <= 2 * _SMS
+           and stages >= 2 * 2 * s):
+        s *= 2
+    return s
+
+
+def workspace_elems(m: int, k_dim: int, n: int, dtype: torch.dtype) -> int:
+    """Elements of the workspace a skinny call on x of ``dtype``
+    allocates: each K slice's [M, N] partial sums, f32 (float x) or int32
+    (int8 x). A pure function of the shapes; the wrappers allocate exactly
+    this."""
+    s = s8_splits(k_dim, n) if dtype == torch.int8 else splits(k_dim, n)
+    return s * m * n
+
+
+def library_splits(kernel: str, s8: bool, k_dim: int, n: int) -> int:
+    """The slices as the kernel's library computes them:
+    ``dbb_gemm_skinny_splits`` (the float body) or ``<kernel>_s8_splits``
+    (the int8 body of either skinny kernel)."""
+    fn = getattr(build.load(kernel),
+                 f"{kernel}_s8_splits" if s8 else f"{kernel}_splits")
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(k_dim, n)
 
 
 @functools.lru_cache(maxsize=None)
-def _s8_splits(kernel: str, k_dim: int, n: int) -> int:
-    """The int8 body's K slices at (K, N) (csrc/split_k_s8.cuh's splits,
-    exported by each skinny kernel's library, asked once per shape): its
-    workspace holds that many [M, N] int32 partial sums."""
-    fn = getattr(build.load(kernel), f"{kernel}_s8_splits")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(k_dim, n)
+def _checked_splits(kernel: str, s8: bool, k_dim: int, n: int) -> int:
+    """`splits` / `s8_splits`, held once per shape against the library's
+    count: a workspace sized by a rule the kernel does not follow would
+    be written past its end."""
+    want = (s8_splits if s8 else splits)(k_dim, n)
+    got = library_splits(kernel, s8, k_dim, n)
+    if got != want:
+        raise RuntimeError(f"{kernel}: the library splits K={k_dim} N={n} "
+                           f"in {got}, the Python rule in {want}")
+    return want
 
 
-def _s8_work(kernel: str, m: int, k_dim: int, n: int,
-             device: torch.device) -> torch.Tensor:
-    return torch.empty((_s8_splits(kernel, k_dim, n), m, n),
-                       dtype=torch.int32, device=device)
+def _work(kernel: str, m: int, k_dim: int, n: int,
+          dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    s8 = dtype == torch.int8
+    _checked_splits(kernel, s8, k_dim, n)
+    return torch.empty((workspace_elems(m, k_dim, n, dtype),),
+                       dtype=torch.int32 if s8 else torch.float32,
+                       device=device)
 
 
 def split_body(dtype: torch.dtype) -> bool:
@@ -105,9 +153,7 @@ def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
                          out_dtype=out_dtype)
     else:
         split = split_body(x.dtype)
-        work = (torch.empty((_splits(k_dim, n), m, n), dtype=torch.float32,
-                            device=x.device) if split else
-                _s8_work("dbb_gemm_skinny", m, k_dim, n, x.device))
+        work = _work("dbb_gemm_skinny", m, k_dim, n, x.dtype, x.device)
         y = run_dbb_kernel("dbb_gemm_skinny", plane, x2, values, bitmask,
                            bias, scale, m=m, k_dim=k_dim, n=n, nnz=nnz,
                            act=act, out_dtype=out_dtype, group=group,
@@ -151,7 +197,7 @@ def sta_gemm_skinny(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None,
     else:
         branch = "_s8" if x.dtype == torch.int8 else ""
         y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-        work = (_s8_work("sta_gemm_skinny", m, k_dim, n, x.device)
+        work = (_work("sta_gemm_skinny", m, k_dim, n, x.dtype, x.device)
                 if branch else None)
         rc = _sta_launcher(branch)(
             x2.data_ptr(), w.data_ptr(), build.ptr(scale), build.ptr(bias),

@@ -6,8 +6,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import dispatch
-from repro_torch.kernels.epilogue import apply_act
+from repro_torch.kernels import apply_act, dispatch
 from repro_torch.models.common import linear_init
 
 __all__ = ["mlp_init", "mlp_apply", "mlp_up", "mlp_down"]

@@ -20,8 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import dispatch
-from repro_torch.kernels.epilogue import apply_act
+from repro_torch.kernels import apply_act, dispatch
 from repro_torch.models.common import normal_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
 

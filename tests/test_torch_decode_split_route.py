@@ -42,8 +42,8 @@ from repro_torch.kernels.attn.ops import (PAGE_MIN, SMEM_LIMIT,
                                           paged_decode_ok, split_pages)
 
 torch.set_num_threads(1)
-SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
-       / "paged_decode.cu").read_text()
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+SRC = (CSRC / "paged_decode.cu").read_text()
 TOL = dict(rtol=1e-5, atol=1e-5)
 NEG_INF, L_EPS = -1e30, 1e-30
 
@@ -54,6 +54,10 @@ def _consts():
     c = {m.group(1): int(m.group(2)) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", SRC)}
     c["kWarps"] = c["kThreads"] // 32
+    # the shared-memory limit the launcher's guard reads (common.cuh)
+    c["kSmemLimit"] = int(re.search(
+        r"constexpr int kSmemLimit = (\d+);",
+        (CSRC / "common.cuh").read_text()).group(1))
     return c
 
 
@@ -193,7 +197,7 @@ def test_guard_mirrors_the_launcher():
                 assert paged_decode_ok(g, page, d) == both
     # the serving path's shapes and the card tests' largest one fit
     assert paged_decode_ok(1, 64, 128) and paged_decode_ok(32, 256, 128)
-    assert c["kChunk"] == 64 and SMEM_LIMIT == 232448
+    assert c["kChunk"] == 64 and SMEM_LIMIT == c["kSmemLimit"] == 232448
 
 
 # ---------------------------------------------------------------------------

@@ -1940,14 +1940,15 @@ def test_gpu_s8_skinny_all_127_at_k8192(cuda, kernel):
 
 @pytest.mark.gpu
 def test_gpu_s8_skinny_workspace_follows_the_rule(cuda):
-    """The workspace the wrappers allocate holds ``_s8_splits(K, N)``
-    slices, which both libraries' exported rule gives on a grid of K and
-    N: 1, 2, 4 or 8, within 2 blocks an SM and two 128-deep stages a slice
-    where it splits."""
+    """The workspace the wrappers allocate holds ``s8_splits(K, N)``
+    slices (the Python mirror they allocate through), which both
+    libraries' exported rule gives on a grid of K and N: 1, 2, 4 or 8,
+    within 2 blocks an SM and two 128-deep stages a slice where it
+    splits."""
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.skinny.ops import _s8_splits
+    from repro_torch.kernels.skinny.ops import s8_splits
     rules = []
     for kernel in ("sta_gemm_skinny", "dbb_gemm_skinny"):
         fn = getattr(build.load(kernel), kernel + "_s8_splits")
@@ -1957,7 +1958,7 @@ def test_gpu_s8_skinny_workspace_follows_the_rule(cuda):
         for n in (1, 10, 136, 200, 640, 2048, 8192, 50304):
             s = rules[0][1](k, n)
             for kernel, fn in rules:
-                assert fn(k, n) == s == _s8_splits(kernel, k, n), (k, n)
+                assert fn(k, n) == s == s8_splits(k, n), (k, n)
             assert s in (1, 2, 4, 8), (k, n, s)
             if s > 1:
                 assert -(-n // 64) * s <= 2 * 132 and -(-k // 128) >= 2 * s
@@ -2616,3 +2617,72 @@ def test_gpu_family_generate_kernel_route_matches_plain_route(cuda, arch):
     assert served == ServeEngine(xcfg, packed, max_batch=4,
                                  device=cuda).serve(
                                      ps, max_new_tokens=[8, 5, 3, 6])
+
+
+# ---------------------------------------------------------------------------
+# the analysis package's kernel-route checks at edge shapes
+# ---------------------------------------------------------------------------
+
+def _analysis_clean(cuda, name, cases):
+    from repro_torch.analysis import materialize as M
+    chk = M.MaterializationCheck(name, "edge shapes", lambda dev: cases,
+                                 needs_card=True)
+    n, violations, rows = M.run_checks([chk], cuda)
+    assert n == 1 and len(rows) == len(cases)
+    assert not violations, [(v.subject, v.code, v.message)
+                            for v in violations]
+    return rows
+
+
+@pytest.mark.gpu
+def test_gpu_analysis_flash_at_ragged_edges(cuda):
+    """No score tensor at T = S = 1000 (ragged tiles) on both bodies: the
+    allocator's peak is the output and the front door's index vectors."""
+    from repro_torch.analysis.materialize import _attn_case
+    cases = [_attn_case(cuda, "flash", 3, 1000, 6, 2, 64, torch.bfloat16),
+             _attn_case(cuda, "flash", 3, 1000, 6, 2, 72, torch.float32)]
+    _analysis_clean(cuda, "attn-no-score-tensor", cases)
+
+
+@pytest.mark.gpu
+def test_gpu_analysis_dbb_at_ragged_edges(cuda):
+    """No dense [K, N] (nor w4's slot plane) at M 13 and 300, N 200 off the
+    tile, on every plane and both activation dtypes; the skinny split-K
+    workspace is the Python rule's and the library's."""
+    from repro_torch.analysis.materialize import _dbb_no_dense
+    rows = _analysis_clean(cuda, "dbb-no-dense-weight",
+                           _dbb_no_dense(cuda, (300, 13), 1280, 200))
+    assert all(r["requested_peak"] <= r["allowed_bytes"] for r in rows)
+
+
+@pytest.mark.gpu
+def test_gpu_analysis_decode_head_and_conv_at_edges(cuda):
+    """paged decode at G 7, page 16 (f32 and bf16), the sampling head at
+    M 5, N 4224 (the cluster edge) and the convs on a 15x17 image of 16
+    channels: no gathered K/V, no logits, no im2col."""
+    from repro_torch.analysis import materialize as M
+    _analysis_clean(cuda, "decode-no-gathered-kv", M._decode_no_gather(
+        cuda, ((3, 2, 7, 128, 400, 16, torch.float32),
+               (3, 2, 7, 128, 400, 16, torch.bfloat16))))
+    _analysis_clean(cuda, "head-no-logits",
+                    [M._head_no_logits(cuda, 5, 1024, 4224)])
+    _analysis_clean(cuda, "conv-no-im2col", M._conv_no_im2col(
+        cuda, dict(b=3, h=15, w=17, c=16, n=40, k=3)))
+
+
+@pytest.mark.gpu
+def test_gpu_analysis_workspace_and_smem_on_the_card(cuda):
+    """Every Python split count equals the library's at the checks' shapes;
+    every shared-memory contract fits the card's opt-in limit with
+    ptxas's static bytes added."""
+    from repro_torch.analysis import lint, smem
+    from repro_torch.kernels import build
+    n, v, rows = lint.workspace_pass(cuda)
+    assert not v and any("library" in r for r in rows)
+    build.build()
+    assert smem.optin_limit() == smem.SMEM_LIMIT
+    cs = smem.contracts()
+    static, missing = smem.with_static(cs, smem.static_smem(build.BUILD_DIR))
+    assert not missing
+    _, v = smem.check_contracts(cs, static, smem.optin_limit())
+    assert not v, [(x.subject, x.message) for x in v]

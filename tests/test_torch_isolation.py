@@ -45,7 +45,13 @@ def test_every_module_is_listed():
                  "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
                  "repro_torch.configs.rwkv6_1b6",
                  "repro_torch.configs.paligemma_3b",
-                 "repro_torch.configs.musicgen_medium"):
+                 "repro_torch.configs.musicgen_medium",
+                 "repro_torch.analysis", "repro_torch.analysis.contracts",
+                 "repro_torch.analysis.materialize",
+                 "repro_torch.analysis.smem",
+                 "repro_torch.analysis.layering",
+                 "repro_torch.analysis.dispatch_check",
+                 "repro_torch.analysis.lint"):
         assert name in mods
 
 

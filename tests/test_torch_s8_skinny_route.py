@@ -46,7 +46,7 @@ import torch
 from repro.core.dbb import pack_dbb as jpack
 from repro.kernels.dbb_gemm.ops import dbb_gemm as jdbb_gemm
 from repro.kernels.sta_gemm.ops import sta_gemm as jsta_gemm
-from repro_torch.kernels.common import LAUNCHES
+from repro_torch.kernels.common import LAUNCHES, SMEM_LIMIT
 from repro_torch.kernels.epilogue import Epilogue, apply_epilogue
 from repro_torch.kernels.skinny import dbb_gemm_skinny, sta_gemm_skinny
 
@@ -202,7 +202,7 @@ def test_the_stage_and_the_ring():
         for nnz in range(1, 9):
             for mp in (8, 16, 24, 32):
                 smem = _returns("smem_bytes", dbb=dbb, nnz=nnz, mp=mp)
-                assert smem <= 227 * 1024, (dbb, nnz, mp, smem)
+                assert smem <= SMEM_LIMIT, (dbb, nnz, mp, smem)
                 if nnz <= 4:
                     assert 2 * (smem + 1024) <= 228 * 1024, (dbb, nnz, mp)
                 ring = c["kStages"] * _returns("slot_bytes", dbb=dbb,
