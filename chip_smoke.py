@@ -181,13 +181,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             DBB-projected, packed, copied into [L, ...] planes allocated
             once; its ``layer_hook`` here seeds norm scales, norm biases and
             QKV biases away from their init values) and served with
-            ``gemm_impl="pallas"``: starcoder2-15b (20 of its 40 layers
-            since the train phase joined: the cli phase runs all 40;
+            ``gemm_impl="pallas"``: starcoder2-15b (10 of its 40 layers;
+            the cli phase runs all 40;
             LayerNorm, GQA G 12, QKV bias, GeLU MLP, 4096-token window):
             generate of 8 left-padded prompts of 64-15 tokens (32 new),
             generate of one 5120-token prompt (16 new; the window bites),
             serve of 8 requests including that one (packed prefill) on the
-            contiguous cache and on the paged pool; qwen2.5-14b (24 of
+            contiguous cache and on the paged pool; qwen2.5-14b (12 of
             48 layers, as starcoder2's cut; RMSNorm, G 5, QKV bias, vocab
             152064): generate as
             above, a sampled generate (head_sample_fused at N 152064;
@@ -258,7 +258,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             layer by layer (the reference streams packed weights for
             dense_lm only), so the experts run on the dense kernels and no
             DBB kernel launches. arctic-480b (16 of 128 experts: the
-            reference's fused-expert ceiling; 8 of 35 layers; top-2,
+            reference's fused-expert ceiling; 4 of 35 layers; top-2,
             dense residual 4864, G 7): layer 0's ``moe_apply`` on one h
             [8, 64, d] on both routes (equal top-k, outputs within
             MOE_LAYER_TOL of max |y|, no host sync on the plain route,
@@ -276,7 +276,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             paged pool, equal streams; the per-layer expand timed (layer
             0's gate expert stack and its whole `_unpack_layer`) beside the
             decode step. kimi-k2-1t-a32b (32 of 384 experts:
-            above 16, so the batched expert products run, top-8 of 32; 4 of
+            above 16, so the batched expert products run, top-8 of 32; 2 of
             61 layers; D 112, so flash_prefill runs its FMA body; vocab
             163840): generate on both routes as above, and a sampled serve
             on the paged pool whose streams differ from the greedy serve's.
@@ -298,57 +298,54 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             kimi's G 8 D 112, and head_sample_fused at kimi's sampled
             decode head (M8 K7168 N163840 f32) under the kernel phase's
             near-tie and temperature-0 rules.
-16. zamba2  the zamba2 hybrid (after phase 15) at full width and all 38
-            layers: zamba2-1.2b (d 2048, d_in 4096, N 64, P 64, chunk
-            128; the shared attention + MLP block, 32 heads of D 64, d_ff
-            8192, a 4096-token window, after every 6 Mamba2 layers: 7
-            calls a pass; vocab 32000), built one layer at a time with
-            the family phase's noise hook, packed with f32 values (k 4),
-            ``gemm_impl="pallas"``. ``registry.forward`` on B2 x 256
-            tokens (the Mamba layers expanded layer by layer, the shared
-            block streaming its packed planes through dbb_gemm) against
-            the plain route: at f32 activations within ZAMBA_F32_TOL of
-            max |h|, at bf16 no farther from the f32 plain route than
-            ZAMBA_BF16_MARGIN times the bf16 plain route is (bf16's own
-            error here is ~3e-2 of max |h|, ~1.5e-2 of max |logit|).
-            Greedy ``generate`` on both routes of 8 prompts of 256 tokens
-            (the chunked scan; 32 new), of a ragged batch of 64-200 tokens
-            (the recurrence; 16 new; the pads-feed-the-state warning must
-            be given) and of one 4608-token prompt (16 new; the ring wraps
-            in the prefill; one decode step must write ring slot 4608 %
-            4096 and no other): prefill logits within LOGIT_TOL of max at
-            f32 activations and, at bf16, by the forward's margin rule;
+16. zamba2  the zamba2 hybrid (after phase 15) at full width and 19 of 38
+            layers: zamba2-1.2b (d 2048, d_in 4096, N 64, P 64, chunk 128; the
+            shared attention + MLP block, 32 heads of D 64, d_ff 8192, a
+            4096-token window, after every 6 Mamba2 layers: 4 calls a pass at
+            19 layers; vocab 32000), built one layer at a time with the family
+            phase's noise hook, packed with f32 values (k 4),
+            ``gemm_impl="pallas"``. ``registry.forward`` on B2 x 256 tokens
+            (the Mamba layers expanded layer by layer, the shared block
+            streaming its packed planes through dbb_gemm) against the plain
+            route: at f32 activations within ZAMBA_F32_TOL of max |h|, at bf16
+            no farther from the f32 plain route than ZAMBA_BF16_MARGIN times
+            the bf16 plain route is (bf16's own error here is ~3e-2 of max |h|,
+            ~1.5e-2 of max |logit|). Greedy ``generate`` on both routes of 8
+            prompts of 256 tokens (the chunked scan; 32 new), of a ragged batch
+            of 64-200 tokens (the recurrence; 16 new; the pads-feed-the-state
+            warning must be given) and of one 4608-token prompt (16 new; the
+            ring wraps in the prefill; one decode step must write ring slot
+            4608 % 4096 and no other): prefill logits within LOGIT_TOL of max
+            at f32 activations and, at bf16, by the forward's margin rule;
             streams equal outside the split rule at bf16's reach (gaps
-            recomputed on each row's own context: a zamba2 row's pads
-            feed its state); ms a decode step and time to first token on
-            both routes. A sampled generate of the 8 prompts on the kernel
-            route through head_sample_fused with ``draft_k=2`` refused
-            (the warning; the temperature-0 row equal to the greedy
-            stream, the others moved by the noise); serve of 12 requests
-            through max_batch 8 as static waves (the warning), streams
-            equal to generate on the same waves; two training steps
-            through ``launch.train`` at B4 S256 (plain route, no launch,
-            finite loss and parameters, peak memory); the serve CLI
-            (``--full --packed --gemm-impl pallas --batch 8``). Every
-            run's launches equal exactly those the config implies: per
-            prefill or decode call 7 shared-block calls, each with its
-            MLP's three GEMMs on the route the table picks (the engine
-            expands the shared block, so its projections take the plain
-            matmul and no DBB kernel runs; ``forward`` on the packed tree
-            adds its four projections on dbb_gemm), flash_prefill once per
-            shared-block call of a full-sequence pass, no paged_decode
-            (the ring decode takes the plain route), one head a call.
-            Then one Mamba layer's parts in a decode step (the transient
-            expand, norm + in_proj, conv, SSD step, gate + norm, out_proj)
-            and the 256-token chunked scan timed beside the decode step,
-            and the kernels at the phase's new shapes, each against its
-            plain version beside bound and library call
-            (``zamba2_shapes`` in the kernels line): flash_prefill bf16
-            Hq = Hkv = 32 D 64 at B8 T=S=256 and B1 T=S=4608 with the 4096
-            window, sta_gemm at M2048 K2048 N8192 (gelu) and K8192 N2048,
+            recomputed on each row's own context: a zamba2 row's pads feed its
+            state); ms a decode step and time to first token on both routes. A
+            sampled generate of the 8 prompts on the kernel route through
+            head_sample_fused with ``draft_k=2`` refused (the warning; the
+            temperature-0 row equal to the greedy stream, the others moved by
+            the noise); serve of 12 requests through max_batch 8 as static
+            waves (the warning), streams equal to generate on the same waves;
+            two training steps through ``launch.train`` at B4 S256 (plain
+            route, no launch, finite loss and parameters, peak memory); the
+            serve CLI (``--full --packed --gemm-impl pallas --batch 8``). Every
+            run's launches equal exactly those the config implies: per prefill
+            or decode call 4 shared-block calls, each with its MLP's three
+            GEMMs on the route the table picks (the engine expands the shared
+            block, so its projections take the plain matmul and no DBB kernel
+            runs; ``forward`` on the packed tree adds its four projections on
+            dbb_gemm), flash_prefill once per shared-block call of a
+            full-sequence pass, no paged_decode (the ring decode takes the
+            plain route), one head a call. Then one Mamba layer's parts in a
+            decode step (the transient expand, norm + in_proj, conv, SSD step,
+            gate + norm, out_proj) and the 256-token chunked scan timed beside
+            the decode step, and the kernels at the phase's new shapes, each
+            against its plain version beside bound and library call
+            (``zamba2_shapes`` in the kernels line): flash_prefill bf16 Hq =
+            Hkv = 32 D 64 at B8 T=S=256 and B1 T=S=4608 with the 4096 window,
+            sta_gemm at M2048 K2048 N8192 (gelu) and K8192 N2048,
             sta_gemm_skinny at the head (M8 K2048 N32000 f32) and
             head_sample_fused at M8 K2048 N32000.
-17. rwkv6   rwkv6-1.6b (after phase 16) at full width and all 24 layers (d
+17. rwkv6   rwkv6-1.6b (after phase 16) at full width and 12 of 24 layers (d
             2048, 32 WKV heads of D 64, d_ff 7168, vocab 65536, untied;
             its layers expanded from packed f32 planes layer by layer and
             run in plain PyTorch, as the reference runs them in plain XLA,
@@ -363,9 +360,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             equal to the greedy stream); serve of 12 requests as static
             waves; two training steps (B4 S256) and the serve CLI
             (``--full --packed --gemm-impl pallas --batch 8``).
-18. vlm_audio  paligemma-3b (all 18 layers: MQA, 8 query heads on one KV
+18. vlm_audio  paligemma-3b (9 of 18 layers: MQA, 8 query heads on one KV
             head of D 256; gated GeLU d_ff 16384; the tied f32 head
-            [2048, 257216]) and musicgen-medium (all 48 layers: 24 heads of
+            [2048, 257216]) and musicgen-medium (24 of 48 layers: 24 heads of
             D 64, GeLU d_ff 6144, vocab 2048), packed f32 planes streamed
             through the DBB kernels: ``registry.forward`` on B2 x 256 (256
             prefix embeds in front for paligemma, frame embeds for
@@ -408,24 +405,67 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             kernel's launch counted; one line a shared-memory body
             (``smem:``; its instances' largest dynamic + ptxas static bytes
             against the card's opt-in limit); the workspace split counts
-            against the libraries'; the dispatch sweep and the layering.
-            Any violation fails the run.
+            against the libraries'; the dispatch sweep, the tp-smem pass
+            and the layering. Any violation fails the run.
+20. tp      after sample (phase 6): tensor-parallel serving. Each rank is
+            a process spawned (the ``spawn`` start method) on cuda:0 that
+            joins a gloo world through a ``file://`` store: the ranks
+            share one H100, so this holds the port at the shard shapes,
+            not TP speed (NCCL refuses two ranks on one device). olmo-1b
+            at full width and 16 layers, packed f32 planes (k 4), built
+            by every rank from seed 0 as the slice phase builds them,
+            under ``use_mesh(make_mesh(1, tp))``: the engine's TP wrap on
+            every rank (column-parallel QKV and up-projections,
+            row-parallel o_proj / wo with one boundary all-reduce each,
+            local KV heads, the vocab-parallel embedding and head).
+            Both worlds start at once; the 4-rank one sets up and waits
+            for a gate that opens when the 2-rank one is done.
+            tp 2 and 4: f32 ``generate`` of the slice's 8 prompts (64 new
+            at tp 2, 16 at tp 4, where four contexts time-share the card):
+            prefill logits within TP_LOGIT_TOL of the single-device kernel
+            route, greedy streams equal outside the split rule, every
+            rank's kernels launched as often as the single device's, 0
+            ``decompress`` calls, the ranks' streams equal. tp 2 only:
+            bf16 ``serve`` of the serve phase's first 8 requests (packed
+            prefill, paged, 256-token chunks): their logits no farther
+            from the f32 single-device route than LM_BF16_MARGIN times
+            the single-device bf16 route's own distance, streams against
+            the serve phase's ``serve_chunked`` streams by the split rule
+            at that distance, kernels as its; a sampled ``draft_k=2``
+            serve of 3 requests (request 0 at temperature 0 against its
+            greedy stream); expert parallelism on arctic-480b's config
+            (2 layers, 16 experts, w4 planes, f32 activations; the wrap
+            stays off for MoE, each rank runs its 8 experts and one
+            all-reduce sums them) against the single-device kernel route
+            at TP_LOGIT_TOL, each rank's expert window read from its MoE
+            dispatches, its expert GEMMs launched half as often as the
+            single device's and its other kernels as often. The routes ``dispatch.explain(tp=2,
+            collective=...)`` picks at olmo's M8 / M512 GEMMs and head are
+            the kernels the ranks launched. The collectives' host ms a
+            decode step is printed (gloo on one card). Then the kernels at
+            the 2-rank shard shapes (``tp_shapes`` in the kernels line):
+            dbb_gemm / dbb_gemm_skinny at N/2 and K/2, sta_gemm, the
+            greedy head at N 25152, paged_decode at 8 KV heads, the flash
+            prefills at 8 heads, and head_sample_fused on a 128-aligned
+            column slice with ``base`` 25088 (olmo's N/2 is no multiple of
+            its tile, so the TP sampled head takes the plain sampler).
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8, 9, 12-14 and 16-18 must have run the
+main paths of phases 4-6, 8, 9, 12-14, 16-18 and 20 (bf16) must have run the
 tensor-core body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 64, 128 or 256), or the run fails. Likewise every float dbb_gemm_skinny
-launch of phases 4-9 and 12-18 must have run the split-K body
+launch of phases 4-9, 12-18 and 20 must have run the split-K body
 (``dbb_gemm_skinny_split`` equals the f32, ``_i8`` and ``_w4`` branches'
 sum) and every f32-x dbb_gemm launch (the CNN classifier, N 10) the narrow
 body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
 LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b) and 12-18;
+sum over the main-path runs of phases 4-9, 11 (a)-(b), 12-18 and 20 (rank
+0's counts);
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -437,6 +477,8 @@ there.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import shutil
@@ -697,6 +739,10 @@ def main() -> int:
     if not ok:
         return _fail("the sample phase failed (see above)")
     by_path.update(sample_counts)
+    tp_counts, ok = timed("tp", _tp_phase, args.out)
+    if not ok:
+        return _fail("the tensor-parallel phase failed (see above)")
+    by_path.update(tp_counts)
     cnn_counts, ok = timed("cnn", _cnn_phase, args.out)
     if not ok:
         return _fail("the cnn phase failed (see above)")
@@ -741,9 +787,11 @@ def main() -> int:
     by_path.update(vlm_counts)
     cnn_paths = list(cnn_counts) + train_cnn
     # the moe paths check their tensor-core counts themselves (kimi's D 112
-    # prefill runs the FMA body; the CLI run's smoke config is f32)
+    # prefill runs the FMA body; the CLI run's smoke config is f32), and
+    # the tp phase's f32 runs take no tensor-core body
     lm = [p for p in by_path
-          if p not in cnn_paths and not p.startswith("moe_")]
+          if p not in cnn_paths and not p.startswith("moe_")
+          and not (p.startswith("tp") and p.endswith("_f32"))]
     if not _tc_check(by_path, lm):
         return _fail("a bf16 sta_gemm / dbb_gemm / flash prefill launch on "
                      "a main path missed the tensor-core body (see above)")
@@ -770,6 +818,10 @@ def main() -> int:
                 if k.startswith(name + " ")}
         if last:
             entry["last_families_shapes"] = last
+        tp = {k: v for k, v in report["tp"]["kernels"].items()
+              if k.startswith(name + " ")}
+        if tp:
+            entry["tp_shapes"] = tp
         entry["launches"] = sum(c[name] for c in by_path.values())
         entry["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     report["total_s"] = time.perf_counter() - t_start
@@ -2200,6 +2252,7 @@ def _serve_phase(torch, dev, report, packed, out_dir):
         report["serve"][name].update(token_agreement=[same, total],
                                      token_splits=splits)
     report["serve"]["paged_equal"] = paged_ok
+    report["serve"]["streams"] = outs
     return counts, ok and paged_ok and tok_ok
 
 
@@ -2914,11 +2967,12 @@ def _token_phase(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 # (arch, layers run: None for all; why a depth is cut). Widths are never cut.
-HALF_DEPTH = ("the cli phase runs every layer; half the depth here keeps "
-              "the script near 12 minutes beside the train phase")
+QUARTER_DEPTH = ("the cli phase runs every layer; a quarter of the depth "
+                 "here keeps the script in its time limit beside the train "
+                 "and tp phases")
 FAMILY_MODELS = (
-    ("starcoder2-15b", 20, HALF_DEPTH),
-    ("qwen2.5-14b", 24, HALF_DEPTH),
+    ("starcoder2-15b", 10, QUARTER_DEPTH),
+    ("qwen2.5-14b", 12, QUARTER_DEPTH),
     ("yi-34b", 8, "the 60-layer f32 planes (~71 GB) with the embedding and "
      "head leave no room for caches on 80 GB; 8, not 16, to keep the "
      "phase's time"))
@@ -3369,12 +3423,12 @@ def _cli_phase(torch, dev, report):
 TRAIN_CNN_STEPS = 60             # Table I runs: the reference's benchmark
                                  # default (at 200 every run reaches 1.0)
 TRAIN_CNN_NNZ = (None, 2, 3, 4)  # dense, then DBB k = 2 / 3 / 4 of 8
-# the run resumes from its --checkpoint-every checkpoint. 100 steps (200
-# until PR 30): the straight and resumed runs took 116 + 55 s of a 1138.5 s
-# script on a slower host (PR 31), and the checks need a falling loss, a
-# bit-exact resume and a trained tree, not a longer curve
-TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 100 --seq-len 256 --batch 8 "
-                 "--dbb-ramp 25 --checkpoint-every 80")
+# the run resumes from its --checkpoint-every checkpoint. 70 steps: the
+# checks need a falling loss, a bit-exact resume over two logged steps (50
+# and 60) and a trained tree, not a longer curve (at 100 steps the straight
+# and resumed runs took 63 + 37 s of the script's 1200 s on the H100)
+TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 70 --seq-len 256 --batch 8 "
+                 "--dbb-ramp 25 --checkpoint-every 50")
 TRAIN_RESUME_RTOL = 1e-3         # resumed vs uninterrupted losses
 TRAIN_CE_RTOL = 5e-3             # f32 planes' held-out CE vs the plain route
 # kernel vs plain prefill logits of the trained olmo-1b, of max |logit|: its
@@ -3854,14 +3908,14 @@ def _area_tables():
 
 # (arch, experts run, layers run, why the cuts). Widths are never cut.
 MOE_MODELS = (
-    ("arctic-480b", 16, 8,
+    ("arctic-480b", 16, 4,
      "experts 128 -> 16, the reference's fused-expert ceiling "
      "(_FUSED_EXPERT_MAX; at 128 one layer's w4 planes take ~5.5 GB and "
      "its dense expand ~27 GB of bf16, and the batched expert route is "
-     "kimi's run); layers 35 -> 8 keep the phase's time"),
-    ("kimi-k2-1t-a32b", 32, 4,
+     "kimi's run); layers 35 -> 4 keep the script's time"),
+    ("kimi-k2-1t-a32b", 32, 2,
      "experts 384 -> 32 (above 16, so the expert FFN takes the batched "
-     "route, top-8 of 32); layers 61 -> 4 keep the phase's time"))
+     "route, top-8 of 32); layers 61 -> 2 keep the script's time"))
 # generate: 8 prompts of one length (a left pad's row is unspecified on the
 # flash route and still takes expert capacity, so a ragged batch's rows
 # would not be comparable across the routes; serve's packed prefill has
@@ -5449,8 +5503,8 @@ def _zamba_decode_parts(torch, dev, cfg, engine, rec):
 
 
 def _zamba_phase(torch, dev, report, out_dir):
-    """zamba2-1.2b at full width and all 38 layers (module doc, phase
-    16): (by_path, ok)."""
+    """zamba2-1.2b at full width and LM_DEPTH's 19 of 38 layers (module
+    doc, phase 16): (by_path, ok)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -5458,7 +5512,8 @@ def _zamba_phase(torch, dev, report, out_dir):
     from repro_torch.models import registry
     rec = report["zamba2"] = {}
     t_phase = time.perf_counter()
-    cfg = get_config(ZAMBA_ARCH).replace(gemm_impl="pallas")
+    cfg = get_config(ZAMBA_ARCH).replace(gemm_impl="pallas",
+                                         num_layers=LM_DEPTH[ZAMBA_ARCH])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5634,6 +5689,11 @@ def _zamba_kernels(torch, dev):
 # phases 17 and 18: rwkv6, then the vlm and audio families, at full width
 # ---------------------------------------------------------------------------
 
+# the depth phases 16-18 run each model at (of 38 / 24 / 18 / 48 layers):
+# half, which frees room for the tp phase in the run's time limit; the
+# serve CLI and training steps keep every layer (their own --full argv)
+LM_DEPTH = {"zamba2-1.2b": 19, "rwkv6-1.6b": 12, "paligemma-3b": 9,
+            "musicgen-medium": 24}
 RWKV_ARCH, VLM_ARCH, AUDIO_ARCH = "rwkv6-1.6b", "paligemma-3b", \
     "musicgen-medium"
 LM_FWD = (2, 256)                     # forward: B2 x 256 tokens (or frames)
@@ -6377,7 +6437,7 @@ def _lm_build(torch, dev, cfg, seed, report):
             f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of D "
             f"{cfg.resolved_head_dim}, {'gated ' if cfg.mlp_gated else ''}"
             f"{cfg.act} MLP")
-    print(f"{cfg.name}: all {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"{cfg.name}: {cfg.num_layers} layers (LM_DEPTH), d {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, {attn}, vocab {cfg.vocab_size}"
           f"{' (tied head)' if cfg.tie_embeddings else ''}; packed f32 "
           f"planes (k {cfg.dbb.nnz}) built layer by layer in {t_build:.1f} "
@@ -6396,13 +6456,14 @@ def _lm_prompts(torch, cfg, seed):
 
 
 def _rwkv_phase(torch, dev, report, out_dir):
-    """rwkv6-1.6b at full width and all 24 layers (module doc, phase 17):
-    (by_path, ok)."""
+    """rwkv6-1.6b at full width and LM_DEPTH's 12 of 24 layers (module
+    doc, phase 17): (by_path, ok)."""
     import gc
 
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
-    cfg = get_config(RWKV_ARCH).replace(gemm_impl="pallas")
+    cfg = get_config(RWKV_ARCH).replace(gemm_impl="pallas",
+                                        num_layers=LM_DEPTH[RWKV_ARCH])
     tree, rec = _lm_build(torch, dev, cfg, 30, report)
     report["rwkv6"] = rec
     by_path = {}
@@ -6445,7 +6506,8 @@ def _vlm_audio_model(torch, dev, report, arch, seed, sampled, chunked,
 
     from repro_torch.configs import get_config
     t_model = time.perf_counter()
-    cfg = get_config(arch).replace(gemm_impl="pallas")
+    cfg = get_config(arch).replace(gemm_impl="pallas",
+                                   num_layers=LM_DEPTH[arch])
     tree, rec = _lm_build(torch, dev, cfg, seed, report)
     report["vlm_audio"][arch] = rec
     short = arch.split("-")[0]
@@ -6476,9 +6538,9 @@ def _vlm_audio_model(torch, dev, report, arch, seed, sampled, chunked,
 
 
 def _vlm_audio_phase(torch, dev, report, out_dir):
-    """paligemma-3b and musicgen-medium at full width and depth (module
-    doc, phase 18), then the kernels at the three families' new shapes:
-    (by_path, ok)."""
+    """paligemma-3b and musicgen-medium at full width and LM_DEPTH's
+    depth (module doc, phase 18), then the kernels at the three
+    families' new shapes: (by_path, ok)."""
     t_phase = time.perf_counter()
     report["vlm_audio"] = {}
     by_path = {}
@@ -6697,6 +6759,852 @@ def _last_kernels(torch, dev):
     if failures:
         raise SystemExit(_fail("a kernel disagrees with its plain version "
                                "at the last families' shapes: "
+                               + "; ".join(failures)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 20: tensor-parallel serving, gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_BACKEND = "gloo"              # NCCL refuses two ranks on one device
+TP_NEW = 64                      # f32 generate: the slice phase's prompts
+TP4_NEW = 16                     # tp 4: 4 contexts time-share the card
+TP_CHUNK = 256                   # bf16 serve: packed prefill, paged, chunks
+TP_SERVE_REQS = 8                # bf16 serve: the serve phase's first 8
+                                 # requests (one prompt over TP_CHUNK); all
+                                 # 24 took 47-61 s of a 133-148 s phase
+TP_SAMPLE_REQS = 3               # the sampled draft_k=2 serve's requests
+# f32 TP logits vs the single device, of max |logit|: a row split sums its
+# partials in another order (1.2e-7 of max read at tp 2 and 4 on olmo-1b),
+# while bf16 activations move them 6.3e-4; a limit between the two fails a
+# TP path that lost f32 somewhere (a bf16 collective, embedding or head)
+TP_LOGIT_TOL = 1e-5
+TP_EP = ("arctic-480b", 16, 2)   # experts, layers (the moe phase's w4 tree)
+TP_TIMEOUT = 240                 # seconds a world may take once it runs
+TP_SMOKE = False                 # smoke configs (a CPU rehearsal sets it)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_olmo(torch, dev, dtype):
+    """olmo-1b at full width and all 16 layers, packed f32 planes (k 4),
+    as the slice phase builds them (seed 0; kv_page_size 0, the slice's
+    generate config; serve runs take 64-slot pages): (config, tree)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.models import registry
+    cfg = get_config("olmo-1b", smoke=TP_SMOKE).replace(
+        remat="none", gemm_impl="pallas", dtype=dtype)
+    tree = pack_tree(apply_dbb_to_tree(
+        registry.init_params(cfg, seed=0, device=dev), cfg.dbb,
+        straight_through=False), cfg.dbb)
+    return cfg, tree
+
+
+def _tp_ep_model(torch, dev):
+    """The EP run's model: the moe phase's arctic tree (w4 planes of the
+    attention and the experts, seed len(arch)) cut to TP_EP's experts and
+    layers, f32 activations: (config, tree)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    arch, experts, layers = TP_EP
+    full = get_config(arch, smoke=TP_SMOKE)
+    cfg = full.replace(
+        num_layers=layers, remat="none", gemm_impl="pallas", dtype="float32",
+        moe=dataclasses.replace(full.moe, num_experts=experts),
+        dbb=dataclasses.replace(full.dbb, weight_bits=4, quant_group=128))
+    tree = registry.init_params_by_layer(cfg, seed=len(arch), device=dev,
+                                         pack=True, layer_hook=_family_noise)
+    return cfg, tree
+
+
+def _tp_logits(torch, engine, cfg, contexts):
+    """Last-position f32 head logits of left-padded ``contexts`` through
+    the engine's own prefill step (under its TP wrap a shard body, the
+    vocab columns gathered), in batches of 8."""
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.mesh_ctx import shard_tp
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import make_prefill_step
+
+    def head_logits(c):
+        def head(last, w):
+            lg = dispatch.matmul(last[:, -1].float().contiguous(), w,
+                                 cfg=c, gemv=True)
+            return all_gather(lg, dim=-1) if shard_tp() > 1 else lg
+        return head
+
+    step = engine._tp_step(make_prefill_step, head_logits)
+    dev, out = engine.device, []
+    for a in range(0, len(contexts), 8):
+        ctx = contexts[a:a + 8]
+        width = max(len(t) for t in ctx)
+        toks = torch.zeros((len(ctx), width), dtype=torch.int32)
+        for i, t in enumerate(ctx):
+            toks[i, width - len(t):] = torch.tensor(t)
+        pads = [width - len(t) for t in ctx]
+        start = (torch.tensor(pads, dtype=torch.int32, device=dev)
+                 if any(pads) else None)
+        cache = registry.init_cache(engine._lcfg, len(ctx), width + 1,
+                                    device=dev)
+        lg, _ = step(engine.params, engine.head, cache, toks.to(dev), start)
+        out.append(lg)
+    return torch.cat(out)
+
+
+def _tp_sampling(lg, n):
+    """SamplingParams fields of ``n`` requests from the spread of logits
+    ``lg`` (the sample phase's rule: temperatures SAMPLE_T_SPREAD times
+    the median std over the vocabulary; request 0 at temperature 0)."""
+    spread = statistics.median(lg.std(dim=-1).tolist())
+    return [dict(temperature=0.0 if i == 0 else
+                 spread * SAMPLE_T_SPREAD[i % len(SAMPLE_T_SPREAD)],
+                 seed=i * 7919 + 1,
+                 repetition_penalty=1.1 if i % 3 == 1 else 1.0)
+            for i in range(n)]
+
+
+def _tp_collective_ms(torch, dev, cfg, dtype, reps=5):
+    """Host ms of one decode step's collectives at B8, timed alone: per
+    layer the two boundary all-reduces ([8, 1, d] in the activation
+    dtype), the embedding's f32 all-reduce, and the greedy head's [tp, 2,
+    8] f64 gather."""
+    from repro_torch.dist.collectives import all_gather, all_reduce
+    y = torch.ones((8, 1, cfg.d_model), dtype=dtype, device=dev)
+    e = torch.ones((8, 1, cfg.d_model), dtype=torch.float32, device=dev)
+    s = torch.ones((2, 8), dtype=torch.float64, device=dev)
+
+    def step():
+        for _ in range(2 * cfg.num_layers):
+            all_reduce(y)
+        all_reduce(e)
+        all_gather(s)
+    step()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    _sync(torch, dev)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _tp_run(torch, engine, call, *args, **kw):
+    """``engine.generate`` or ``.serve`` with the launch counts and the
+    decompress calls reset just before and read just after: (tokens,
+    counts, decompress calls, decode steps, wall ms)."""
+    from repro_torch.core.dbb_linear import DECOMPRESS_STATS
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    d0 = DECOMPRESS_STATS["calls"]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = getattr(engine, call)(*args, **kw)
+    _sync(torch, engine.device)
+    return (out, dict(LAUNCHES), DECOMPRESS_STATS["calls"] - d0,
+            engine.last_decode_steps, (time.perf_counter() - t0) * 1e3)
+
+
+@contextlib.contextmanager
+def _ep_probe():
+    """Records each MoE dispatch while it is open: the expert window a
+    call ran (``e0``, ``e_loc``) and the kernel launches made inside it
+    (the experts' GEMMs). Yields the list of ``(e0, e_loc, launches)``;
+    the dispatch is `repro_torch.models.moe`'s own, called unchanged."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.models import moe
+    inner = moe._dispatch_compute_combine
+    calls = []
+
+    def probe(x, ew, top_idx, top_p, e0, e_loc, capacity, cfg):
+        before = dict(LAUNCHES)
+        y = inner(x, ew, top_idx, top_p, e0, e_loc, capacity, cfg)
+        calls.append((e0, e_loc, {k: v - before[k] for k, v in
+                                  LAUNCHES.items() if v != before[k]}))
+        return y
+    moe._dispatch_compute_combine = probe
+    try:
+        yield calls
+    finally:
+        moe._dispatch_compute_combine = inner
+
+
+def _ep_split(counts, calls):
+    """(experts' launches, the other launches, sorted expert windows) of
+    a run whose MoE dispatches `_ep_probe` recorded."""
+    inside = collections.Counter()
+    for _, _, launched in calls:
+        inside.update(launched)
+    outside = {k: v - inside[k] for k, v in counts.items()
+               if v - inside[k]}
+    return dict(inside), outside, sorted({(e0, n) for e0, n, _ in calls})
+
+
+def _tp_rank(rank, world, store, path, queue):
+    """One rank of a TP world on the job's device (spawned by
+    `_tp_start`): the job's runs under the mesh; the result dict (or the
+    traceback) goes to ``queue``. Every rank runs every collective; rank 0
+    keeps the gathered logits, as numpy (a queued tensor's storage dies
+    with its process)."""
+    import pickle
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(path, "rb") as f:
+            job = pickle.load(f)
+        global TP_SMOKE
+        TP_SMOKE = job["smoke"]
+        dev = torch.device(job["device"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group(TP_BACKEND, init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        from repro_torch.dist.mesh_ctx import make_mesh, use_mesh
+        from repro_torch.serve.engine import ServeEngine
+        from repro_torch.serve.sampling import SamplingParams
+        mesh = make_mesh(1, world, backend=TP_BACKEND)
+        res = {"rank": rank}
+        if job["gate"]:
+            # started early: the set-up above overlaps the world before;
+            # the runs wait until the parent opens the gate
+            torch.zeros(1, device=dev)
+            t0 = time.perf_counter()
+            while not os.path.exists(job["gate"]):
+                if time.perf_counter() - t0 > 2 * TP_TIMEOUT:
+                    raise RuntimeError("the gate never opened")
+                time.sleep(0.05)
+
+        def keep(key, lg):
+            if rank == 0:
+                res[key] = lg.cpu().float().numpy()
+
+        with use_mesh(mesh):
+            cfg32, tree = _tp_olmo(torch, dev, "float32")
+            eng = ServeEngine(cfg32, tree, max_batch=8, device=dev)
+            res["tp_reason"] = eng.tp_reason
+            res["gen"] = _tp_run(torch, eng, "generate", job["prompts"],
+                                 max_new_tokens=job["new"])
+            keep("gen_logits", _tp_logits(torch, eng, cfg32,
+                                          job["prompts"]))
+            res["collective_ms_f32"] = _tp_collective_ms(
+                torch, dev, cfg32, torch.float32)
+            del eng
+            if job["full"]:
+                cfg16 = cfg32.replace(dtype="bfloat16", kv_page_size=64)
+                eng = ServeEngine(cfg16, tree, max_batch=8, device=dev,
+                                  paged=True, prefill_chunk=TP_CHUNK)
+                res["serve"] = _tp_run(torch, eng, "serve", job["serve"],
+                                       max_new_tokens=job["budgets"])
+                lg = _tp_logits(torch, eng, cfg16, job["serve"])
+                keep("serve_logits", lg)
+                # the same gathered logits on every rank: the same knobs
+                sp = [SamplingParams(**k)
+                      for k in _tp_sampling(lg.float(), TP_SAMPLE_REQS)]
+                n = len(sp)
+                res["sample"] = _tp_run(
+                    torch, eng, "serve", job["serve"][:n],
+                    max_new_tokens=job["budgets"][:n], sampling=sp,
+                    draft_k=2)
+                res["collective_ms_bf16"] = _tp_collective_ms(
+                    torch, dev, cfg16, torch.bfloat16)
+                del eng, tree
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                cfg_ep, tree_ep = _tp_ep_model(torch, dev)
+                eng = ServeEngine(cfg_ep, tree_ep, max_batch=8, device=dev)
+                res["ep_reason"] = eng.tp_reason
+                with _ep_probe() as calls:
+                    res["ep"] = _tp_run(torch, eng, "generate",
+                                        job["ep_prompts"],
+                                        max_new_tokens=job["ep_new"])
+                res["ep_calls"] = calls
+                keep("ep_logits", _tp_logits(torch, eng, cfg_ep,
+                                             job["ep_prompts"]))
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put(res)
+    except Exception:                                   # noqa: BLE001
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def _tp_start(torch, world, job, gated=False):
+    """Spawn ``world`` ranks of `_tp_rank` (the ``spawn`` start method, a
+    ``file://`` store in a temporary directory; the job goes through a
+    file, as a Process's arguments go down a pipe its child reads only
+    after its imports) and return the world for `_tp_collect`. A
+    ``gated`` world sets up (imports, CUDA context, process group) and
+    then waits for `_tp_release`. The ranks are daemons: a parent that
+    fails takes them down with it."""
+    import pickle
+    import tempfile
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "job.pkl")
+    gate = os.path.join(tmp.name, "gate")
+    with open(path, "wb") as f:
+        pickle.dump(dict(job, gate=gate if gated else None), f)
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, daemon=True,
+                         args=(r, world, os.path.join(tmp.name, "store"),
+                               path, q)) for r in range(world)]
+    for p in procs:
+        p.start()
+    return world, procs, q, tmp, time.perf_counter()
+
+
+def _tp_release(started):
+    """Open a gated world's gate; its clock starts now."""
+    world, procs, q, tmp, _ = started
+    open(os.path.join(tmp.name, "gate"), "w").close()
+    return world, procs, q, tmp, time.perf_counter()
+
+
+def _tp_stop(started):
+    """Terminate a world that will not be collected."""
+    _, procs, _, tmp, _ = started
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join()
+    tmp.cleanup()
+
+
+def _tp_collect(started):
+    """The ranks' results in rank order and the world's wall seconds; a
+    rank's error, a rank gone without a result or a world past TP_TIMEOUT
+    raises. Every rank is joined, or terminated, before this returns."""
+    import queue as queue_mod
+    world, procs, q, tmp, t0 = started
+    got = []
+    try:
+        while len(got) < world:
+            try:
+                got.append(q.get(timeout=5))
+                continue
+            except queue_mod.Empty:
+                pass
+            dead = [p.exitcode for p in procs
+                    if not p.is_alive() and p.exitcode != 0]
+            if dead or time.perf_counter() - t0 > TP_TIMEOUT:
+                got.append({"rank": -1, "error": (
+                    f"a rank exited with code {dead[0]} and no result"
+                    if dead else f"no result within {TP_TIMEOUT} s")})
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        tmp.cleanup()
+    errs = [g["error"] for g in got if "error" in g]
+    if errs:
+        raise RuntimeError(f"a rank of the tp={world} world failed:\n"
+                           + errs[0])
+    return sorted(got, key=lambda g: g["rank"]), time.perf_counter() - t0
+
+
+def _tp_kernel_names(counts):
+    """The kernels a run launched (sub-body counters left out)."""
+    return {k: v for k, v in counts.items()
+            if v and not k.endswith(("_tc", "_split", "_narrow", "_small"))}
+
+
+def _tp_phase(torch, dev, report, out_dir):
+    """Tensor-parallel serving (module doc, phase 20): olmo-1b over 2 and 4
+    ranks and arctic's expert parallelism over 2, each rank a spawned
+    process on cuda:0 over gloo, against the single-device kernel route;
+    then the kernels at the shard shapes. Both worlds start first: the
+    2-rank world builds and runs while this process runs the single-device
+    references, the 4-rank world sets up and waits for its gate, which
+    opens once the 2-rank world is done. (by_path, ok)."""
+    import gc
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.perf_counter()
+    rec = report["tp"] = {}
+    print(f"tp: backend {TP_BACKEND}: 2 and 4 ranks sharing one H100, not "
+          f"NVLink; no TP speed is measured ({report['card']})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(1)
+    cfg32, tree = _tp_olmo(torch, dev, "float32")
+    cfg16 = cfg32.replace(dtype="bfloat16", kv_page_size=64)
+    prompts = [torch.randint(2, cfg32.vocab_size, (n,),
+                             generator=gen).tolist()
+               for n in [64, 57, 50, 43, 36, 29, 22, 15]]
+    serve_prompts, budgets = (a[:TP_SERVE_REQS] for a in
+                              _serve_requests(torch, cfg16))
+    from repro_torch.configs import get_config
+    gen = torch.Generator().manual_seed(7)
+    ep_prompts = [torch.randint(2, get_config(TP_EP[0],
+                                              smoke=TP_SMOKE).vocab_size,
+                                (MOE_PROMPT_LEN,), generator=gen).tolist()
+                  for _ in range(MOE_PROMPTS)]
+    job = dict(prompts=prompts, serve=serve_prompts, budgets=budgets,
+               ep_prompts=ep_prompts, device=str(dev), smoke=TP_SMOKE,
+               ep_new=MOE_NEW)
+    world2 = _tp_start(torch, 2, dict(job, full=True, new=TP_NEW))
+    world4 = _tp_start(torch, 4, dict(job, full=False, new=TP4_NEW),
+                       gated=True)
+    try:
+        # -- the single-device kernel route, f32 and bf16 ------------------
+        eng32 = ServeEngine(cfg32, tree, max_batch=8, device=dev)
+        single = {new: _tp_run(torch, eng32, "generate", prompts,
+                               max_new_tokens=new)
+                  for new in (TP_NEW, TP4_NEW)}
+        last32 = _logits_fn(torch, dev, eng32)
+        lg1 = last32(cfg32, prompts)
+        lg32_serve = last32(cfg32, serve_prompts)
+        eng16 = ServeEngine(cfg16, tree, max_batch=8, device=dev)
+        last16 = _logits_fn(torch, dev, eng16)
+        lg16_serve = last16(cfg16, serve_prompts)
+        # the launches the ranks' bf16 serve must match: one device's serve
+        # of the same requests on the same engine settings (the streams
+        # are the serve phase's)
+        eng16 = ServeEngine(cfg16, tree, max_batch=8, device=dev,
+                            paged=True, prefill_chunk=TP_CHUNK)
+        serve16 = _tp_run(torch, eng16, "serve", serve_prompts,
+                          max_new_tokens=budgets)
+        del eng32, eng16, tree
+        cfg_ep, tree_ep = _tp_ep_model(torch, dev)
+        eng_ep = ServeEngine(cfg_ep, tree_ep, max_batch=8, device=dev)
+        with _ep_probe() as ep_calls:
+            ep1 = _tp_run(torch, eng_ep, "generate", ep_prompts,
+                          max_new_tokens=MOE_NEW)
+        last_ep = _logits_fn(torch, dev, eng_ep)
+        lg_ep1 = last_ep(cfg_ep, ep_prompts)
+        _sync(torch, dev)
+        # hand the references' cached blocks back to the card: the ranks
+        # share it, and their EP runs expand a layer at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs = dict(cfg32=cfg32, cfg16=cfg16, prompts=prompts, lg1=lg1,
+                    last32=last32, serve_prompts=serve_prompts, last16=last16,
+                    lg32_serve=lg32_serve, lg16_serve=lg16_serve,
+                    single16=report["serve"]["streams"]["serve_chunked"][
+                        :TP_SERVE_REQS],
+                    single16_counts=serve16[1],
+                    cfg_ep=cfg_ep, ep_prompts=ep_prompts, ep1=ep1,
+                    ep_calls=ep_calls,
+                    lg_ep1=lg_ep1, last_ep=last_ep)
+
+        by_path, ok = {}, True
+        for world in (2, 4):
+            new = TP_NEW if world == 2 else TP4_NEW
+            if world == 4:
+                world4 = _tp_release(world4)
+            ranks, wall = _tp_collect(world2 if world == 2 else world4)
+            ok = _tp_generate_check(torch, dev, world, new, wall, ranks,
+                                    single[new], refs, by_path, rec) and ok
+            if world == 2:
+                ok = _tp_full_checks(torch, dev, ranks, refs, by_path,
+                                     rec) and ok
+        # the routes explain() picks at olmo's serving shapes on 2 ranks are
+        # the kernels each rank launched
+        d, f = cfg32.d_model, cfg32.d_ff
+        want = set()
+        for m in (8, 512):
+            for k, n, coll in ((d, d, ""), (d, d, "all-reduce"), (d, f, ""),
+                               (f, d, "all-reduce")):
+                dec = dispatch.explain("matmul", m=m, k=k, n=n, cfg=cfg32,
+                                       tp=2, collective=coll, packed=True,
+                                       nnz=4, vals_itemsize=4)
+                want.add(dec[0].name)
+        head = dispatch.explain("matmul", m=8, k=d, n=cfg32.vocab_size,
+                                cfg=cfg32, tp=2, gemv=True, pallas=True)
+        want.add(head[0].name)
+        names = {"skinny_dbb": "dbb_gemm_skinny", "dbb_packed": "dbb_gemm",
+                 "skinny_sta": "sta_gemm_skinny", "sta": "sta_gemm"}
+        got = {k for k in by_path["tp2_generate_f32"] if k in names.values()
+               and by_path["tp2_generate_f32"][k]}
+        ex_ok = {names.get(w, w) for w in want} == got
+        print(f"tp: explain(tp=2, collective=...) at olmo's M8 / M512 GEMMs "
+              f"and head chose {sorted(want)}; rank 0 launched {sorted(got)} "
+              f"{'ok' if ex_ok else 'FAIL'}")
+        print(dispatch.format_table(dispatch.explain(
+            "matmul", m=8, k=f, n=d, cfg=cfg32, tp=2, collective="all-reduce",
+            packed=True, nnz=4, vals_itemsize=4)))
+        ok = ok and ex_ok
+        del tree_ep, eng_ep
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["kernels"] = _tp_kernels(torch, dev,
+                                     [len(p) for p in serve_prompts])
+        rec["phase_s"] = time.perf_counter() - t_phase
+        print(f"tp: phase {rec['phase_s']:.1f} s ({report['card']})")
+        return by_path, ok
+    finally:
+        if any(p.is_alive() for p in world4[1]):
+            _tp_stop(world4)
+
+
+def _tp_generate_check(torch, dev, world, new, wall, ranks, single, refs,
+                       by_path, rec):
+    """A world's f32 generate against the single-device kernel route:
+    prefill logits within TP_LOGIT_TOL, greedy streams by the split rule,
+    every rank's kernels launched as often, 0 decompress calls, the ranks'
+    streams equal. ok."""
+    out1, counts1, _, steps1, _ = single
+    r0 = ranks[0]
+    out, counts, _, _, ms = r0["gen"]
+    tag = f"tp{world}"
+    same_ranks = all(r["gen"][0] == out for r in ranks)
+    wrap = all(r["tp_reason"] == "" for r in ranks)
+    lg1 = refs["lg1"]
+    scale = lg1.abs().max().item()
+    tol = TP_LOGIT_TOL * scale
+    diff = (torch.from_numpy(r0["gen_logits"]).to(dev)
+            - lg1).abs().max().item()
+    same, total, split = _split_rows(out, out1)
+    gaps = _split_gaps(torch, refs["last32"], refs["cfg32"],
+                       refs["prompts"], out, out1, split)
+    f32_ok = diff <= tol and all(g <= 2 * tol for g in gaps)
+    kern1 = _tp_kernel_names(counts1)
+    launch_ok = all(_tp_kernel_names(r["gen"][1]) == kern1
+                    and r["gen"][2] == 0 and r["gen"][3] == steps1
+                    for r in ranks)
+    since = "spawn" if world == 2 else "its gate (set up while tp 2 ran)"
+    print(f"{tag}: {world} ranks, {wall:.1f} s from {since} to the last "
+          f"result; wrap {'on' if wrap else 'OFF'} on every rank; f32 "
+          f"generate 8 prompts x {new} new ({ms:.1f} ms): prefill "
+          f"logits vs the single-device kernel route max abs diff "
+          f"{diff:.4e} of max |logit| {scale:.4e} (tol {TP_LOGIT_TOL:g} of "
+          f"max); greedy tokens {same}/{total} equal, splits (row, step, "
+          f"single-device gap; bound {2 * tol:.4e}) "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]}; ranks' "
+          f"streams {'equal' if same_ranks else 'DIFFERENT'}; collectives "
+          f"alone {r0['collective_ms_f32']:.3f} ms a decode step (gloo on "
+          f"one card, not NVLink) {'ok' if f32_ok else 'FAIL'}")
+    print(f"{tag}: rank 0 launches {counts}; single device {counts1}; "
+          f"decompress calls {[r['gen'][2] for r in ranks]} "
+          f"{'ok' if launch_ok else 'FAIL'}")
+    by_path[f"{tag}_generate_f32"] = counts
+    rec[tag] = dict(wall_s=wall, generate_ms=ms, logit_diff=diff,
+                    logit_scale=scale, token_agreement=[same, total],
+                    token_splits=[[i, j, g] for (i, j), g
+                                  in zip(split, gaps)],
+                    collective_ms_f32=r0["collective_ms_f32"])
+    return same_ranks and wrap and f32_ok and launch_ok
+
+
+def _tp_full_checks(torch, dev, ranks, refs, by_path, rec):
+    """The 2-rank world's bf16 serve, sampled serve and EP run against the
+    single-device kernel route: ok."""
+    r0 = ranks[0]
+    same_ranks = all(r[k][0] == r0[k][0] for r in ranks
+                     for k in ("serve", "sample", "ep"))
+    # bf16: distance from f32 within LM_BF16_MARGIN x the single device's
+    lg32, lg16 = refs["lg32_serve"], refs["lg16_serve"]
+    reach = (lg16 - lg32).abs().max().item()          # bf16's own
+    scale = lg32.abs().max().item()
+    dist = (torch.from_numpy(r0["serve_logits"]).to(dev)
+            - lg32).abs().max().item()
+    out, counts, _, _, ms = r0["serve"]
+    single16 = refs["single16"]
+    same, total, split = _split_rows(out, single16)
+    gaps = _split_gaps(torch, refs["last16"], refs["cfg16"],
+                       refs["serve_prompts"], out, single16, split)
+    kern = _tp_kernel_names(refs["single16_counts"])
+    launch_ok = all(_tp_kernel_names(r["serve"][1]) == kern
+                    and r["serve"][2] == 0 for r in ranks)
+    bf16_ok = (dist <= LM_BF16_MARGIN * reach
+               and all(g <= 2 * reach for g in gaps) and launch_ok)
+    print(f"tp2: bf16 serve of the serve phase's first {TP_SERVE_REQS} "
+          f"requests (packed prefill, paged, {TP_CHUNK}-token chunks): "
+          f"{ms:.1f} ms; "
+          f"last-position logits' distance from the single-device f32 "
+          f"route {dist / scale:.3e} of max |logit|, the single-device "
+          f"bf16 route's {reach / scale:.3e} (tol {LM_BF16_MARGIN:g} x); "
+          f"tokens vs the serve phase's serve_chunked streams {same}/"
+          f"{total} equal, splits (row, step, gap; bound {2 * reach:.4e}) "
+          f"{[(i, j, g) for (i, j), g in zip(split, gaps)]}; launches "
+          f"{counts} (as one device's serve of the same requests, "
+          f"{refs['single16_counts']}: {'ok' if launch_ok else 'FAIL'}); "
+          f"collectives alone "
+          f"{r0['collective_ms_bf16']:.3f} ms a decode step (gloo on one "
+          f"card) {'ok' if bf16_ok else 'FAIL'}")
+    by_path["tp2_serve"] = counts
+    # sampled draft_k=2: the temperature-0 request follows its greedy
+    # stream up to the split rule (verify's head rounds apart from decode's)
+    sout, scounts, _, _, sms = r0["sample"]
+    tsame, ttotal, tsplit = _split_rows(sout[:1], out[:1])
+    tgaps = _split_gaps(torch, refs["last16"], refs["cfg16"],
+                        refs["serve_prompts"][:1], sout[:1], out[:1],
+                        tsplit)
+    t0_ok = all(g <= 2 * reach for g in tgaps)
+    moved = sum(a != b for i in range(1, len(sout))
+                for a, b in zip(sout[i], out[i]))
+    print(f"tp2: sampled serve, draft_k=2, requests 0-{len(sout) - 1}: "
+          f"{sms:.1f} ms; request 0 (temperature 0) vs its greedy stream "
+          f"{tsame}/{ttotal} tokens equal, splits "
+          f"{[(i, j, g) for (i, j), g in zip(tsplit, tgaps)]} (bound "
+          f"{2 * reach:.4e}); {moved} tokens of the others moved by the "
+          f"noise; launches {scounts} {'ok' if t0_ok else 'FAIL'}")
+    by_path["tp2_sample"] = scounts
+    # EP: arctic at tp 2 against the single-device kernel route
+    eout, ecounts = r0["ep"][0], r0["ep"][1]
+    ep1, ep_counts1 = refs["ep1"][0], refs["ep1"][1]
+    lg_ep1 = refs["lg_ep1"]
+    ep_scale = lg_ep1.abs().max().item()
+    ep_tol = TP_LOGIT_TOL * ep_scale
+    ep_diff = (torch.from_numpy(r0["ep_logits"]).to(dev)
+               - lg_ep1).abs().max().item()
+    esame, etotal, esplit = _split_rows(eout, ep1)
+    egaps = _split_gaps(torch, refs["last_ep"], refs["cfg_ep"],
+                        refs["ep_prompts"], eout, ep1, esplit)
+    # expert parallelism ran: each rank's dispatches took its own half of
+    # the experts, so (every expert runs) its expert GEMMs launch half as
+    # often as the single device's and the rest (attention, the dense
+    # residual, the head) as often
+    arch, experts, layers = TP_EP
+    in1, out1, win1 = _ep_split(ep_counts1, refs["ep_calls"])
+    split = [_ep_split(r["ep"][1], r["ep_calls"]) for r in ranks]
+    e_loc = experts // len(ranks)
+    ep_split_ok = (win1 == [(0, experts)] and bool(in1) and all(
+        win == [(i * e_loc, e_loc)] and out == out1
+        and {k: 2 * v for k, v in inn.items()} == in1
+        for i, (inn, out, win) in enumerate(split)))
+    ep_ok = (ep_diff <= ep_tol and all(g <= 2 * ep_tol for g in egaps)
+             and r0["ep_reason"] != "" and ep_split_ok)
+    print(f"tp2: EP {arch} ({layers} layers, {experts} experts, w4 planes, "
+          f"f32): wrap off ({r0['ep_reason']!r}); experts a rank, read "
+          f"from each rank's MoE dispatches: "
+          f"{[[n for _, n in win] for _, _, win in split]} (windows "
+          f"{[win for _, _, win in split]}; single device {win1}); expert "
+          f"GEMM launches a rank {[inn for inn, _, _ in split]}, single "
+          f"device {in1}; other launches a rank as the single device's "
+          f"{out1}: {'ok' if ep_split_ok else 'FAIL'}; prefill logits vs "
+          f"the single-device kernel route {ep_diff:.4e} of max |logit| "
+          f"{ep_scale:.4e} (tol {TP_LOGIT_TOL:g} of max); tokens "
+          f"{esame}/{etotal} equal, splits "
+          f"{[(i, j, g) for (i, j), g in zip(esplit, egaps)]}; rank 0 "
+          f"launches {ecounts}, single device {ep_counts1} "
+          f"{'ok' if ep_ok else 'FAIL'}")
+    by_path["tp2_ep_f32"] = ecounts
+    print(f"tp2: the ranks' bf16, sampled and EP streams "
+          f"{'equal' if same_ranks else 'DIFFERENT'}")
+    rec["tp2"].update(serve_ms=ms, bf16_dist=dist, bf16_reach=reach,
+                      logit_scale_serve=scale,
+                      serve_agreement=[same, total], sample_ms=sms,
+                      ep_logit_diff=ep_diff, ep_agreement=[esame, etotal],
+                      ep_experts_a_rank=[[n for _, n in win]
+                                         for _, _, win in split],
+                      collective_ms_bf16=r0["collective_ms_bf16"])
+    return same_ranks and bf16_ok and t0_ok and ep_ok
+
+
+def _tp_kernels(torch, dev, lens):
+    """The kernels at olmo-1b's 2-rank shard shapes (``tp_shapes`` in the
+    kernels line), each against its plain version and timed as the kernel
+    phase times them: dbb_gemm (M512) and dbb_gemm_skinny (M8) bf16 on f32
+    planes at the column splits K2048 N1024 (q / k / v) and N4096 (wi, wg)
+    and the row splits K1024 N2048 (o_proj) and K4096 N2048 (wo), sta_gemm
+    at M512 K2048 N4096 bf16 (a dense column split), the greedy head
+    sta_gemm_skinny M8 K2048 N25152 f32, paged_decode at 8 KV heads (B8,
+    S640, 64-slot pages, bf16), flash_prefill at 8 heads (B8 T=S=64 f32,
+    generate's) and flash_prefill_packed (``lens``: the first 8 serve
+    requests, bf16), and head_sample_fused on the 128-multiple column
+    slice [25088, 50176) of olmo's head with base 25088 (olmo's N/2 =
+    25152 is no multiple of the 128-column tile, so the TP sampled head
+    takes the plain sampler)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.dbb import decompress_bitmask, pack_dbb
+    from repro_torch.kernels.attn.ops import (flash_attention,
+                                              packed_flash_attention,
+                                              paged_decode_attention)
+    from repro_torch.kernels.attn.ref import (flash_prefill_ref,
+                                              packed_prefill_ref,
+                                              paged_decode_ref)
+    from repro_torch.kernels.dbb_gemm.ops import dbb_gemm
+    from repro_torch.kernels.dbb_gemm.ref import dbb_gemm_ref
+    from repro_torch.kernels.sample import (head_sample_fused,
+                                            head_sample_fused_ref,
+                                            sample_scores)
+    from repro_torch.kernels.skinny.ops import dbb_gemm_skinny, \
+        sta_gemm_skinny
+    from repro_torch.kernels.sta_gemm.ops import sta_gemm
+    from repro_torch.kernels.sta_gemm.ref import sta_gemm_ref
+    gen = torch.Generator(device=dev).manual_seed(32)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16, i32 = torch.bfloat16, dict(dtype=torch.int32, device=dev)
+    rows, failures = {}, []
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def record(label, err, ok, ms, pms, lms, lib, bms, by):
+        if not ok:
+            failures.append(f"{label}: max err {err}")
+        ratio = f" ({ms / lms:.2f}x)" if lms else ""
+        print(f"kernel {label} (tp 2 shard): max abs err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, "
+              + (f"{lib} {lms:.4f} ms{ratio}" if lms else "no library call "
+                 "computes it")
+              + f", bound {bms:.4f} ms ({by})")
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                           library_ms=lms, bound_ms=bms, bound_by=by)
+
+    for name, fn, m in (("dbb_gemm", dbb_gemm, 512),
+                        ("dbb_gemm_skinny", dbb_gemm_skinny, 8)):
+        for k_dim, n in ((2048, 1024), (2048, 4096), (1024, 2048),
+                         (4096, 2048)):
+            x = randn(m, k_dim)
+            p = pack_dbb(torch.randn((k_dim, n), generator=gen, device=dev)
+                         * k_dim ** -0.5, 8, 4)
+            vals, bits = p.values, p.bitmask
+            wd = decompress_bitmask(vals, bits, block=8).to(bf16)
+            got, want = fn(x, vals, bits), dbb_gemm_ref(x, vals, bits)
+            err, ok = _close(torch, got, want, 2e-2)
+            ms = _time_ms(torch, lambda: fn(x, vals, bits), flush)
+            pms = _time_ms(torch, lambda: dbb_gemm_ref(x, vals, bits), flush)
+            lms = _time_ms(torch, lambda: torch.matmul(x, wd), flush)
+            stored = vals.numel() * 4 + bits.numel() * 4
+            live = int((wd != 0).sum().item())
+            bms, by = _bound_ms(x.numel() * 2 + stored + m * n * 2,
+                                2.0 * m * live, BF16_OPS_PER_S)
+            record(f"{name} M{m} K{k_dim} N{n} bf16 f32 planes", err, ok,
+                   ms, pms, lms, "torch.matmul on the decompressed weight",
+                   bms, by)
+            del x, p, vals, bits, wd, got, want
+    x, w = randn(512, 2048), randn(2048, 4096, scale=2048 ** -0.5)
+    err, ok = _close(torch, sta_gemm(x, w), sta_gemm_ref(x, w), 2e-2)
+    record("sta_gemm M512 K2048 N4096 bf16", err, ok,
+           _time_ms(torch, lambda: sta_gemm(x, w), flush),
+           _time_ms(torch, lambda: sta_gemm_ref(x, w), flush),
+           _time_ms(torch, lambda: torch.matmul(x, w), flush),
+           "torch.matmul", *_bound_ms((x.numel() + w.numel() + 512 * 4096)
+                                      * 2, 2.0 * 512 * 2048 * 4096,
+                                      BF16_OPS_PER_S))
+    x = randn(8, 2048, dtype=torch.float32)
+    w = randn(2048, 25152, scale=2048 ** -0.5, dtype=torch.float32)
+    err, ok = _close(torch, sta_gemm_skinny(x, w), sta_gemm_ref(x, w), 1e-4)
+    record("sta_gemm_skinny M8 K2048 N25152 f32 (greedy head)", err, ok,
+           _time_ms(torch, lambda: sta_gemm_skinny(x, w), flush),
+           _time_ms(torch, lambda: sta_gemm_ref(x, w), flush),
+           _time_ms(torch, lambda: torch.matmul(x, w), flush),
+           "torch.matmul", *_bound_ms((x.numel() + w.numel() + 8 * 25152)
+                                      * 4, 2.0 * 8 * 2048 * 25152,
+                                      F32_OPS_PER_S))
+    del x, w
+
+    b, hkv, g, d, page, s = 8, 8, 1, 128, 64, 640
+    scale = d ** -0.5
+    n_log = s // page
+    qd = randn(b, hkv, g, d)
+    kc, vc = randn(b, s, hkv, d), randn(b, s, hkv, d)
+    kp, vp = (a.view(b * n_log, page, hkv, d) for a in (kc, vc))
+    table = (torch.arange(b, **i32)[:, None] * n_log
+             + torch.arange(n_log, **i32)[None, :])
+    lengths = torch.arange(256, 256 + 48 * b, 48, **i32)[:b]
+    st = torch.zeros((b,), **i32)
+    got = paged_decode_attention(qd, kp, vp, table, lengths, st)
+    want = paged_decode_ref(qd, kp, vp, table, lengths, st, sm_scale=scale)
+    err, ok = _close(torch, got, want, 2e-2)
+    qs = qd.reshape(b, hkv * g, 1, d)
+    ks, vs = (a.transpose(1, 2) for a in (kc, vc))
+    am = (torch.arange(s, device=dev)[None, :]
+          <= lengths[:, None])[:, None, None, :]
+    valid = int((lengths + 1).sum().item())
+    record(f"paged_decode B{b} Hkv{hkv} G{g} D{d} S{s} page{page} bf16",
+           err, ok,
+           _time_ms(torch, lambda: paged_decode_attention(
+               qd, kp, vp, table, lengths, st), flush),
+           _time_ms(torch, lambda: paged_decode_ref(
+               qd, kp, vp, table, lengths, st, sm_scale=scale), flush),
+           _time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qs, ks, vs, attn_mask=am), flush),
+           "scaled_dot_product_attention",
+           *_bound_ms(qd.numel() * 2 * 2 + valid * hkv * d * 2 * 2,
+                      4.0 * valid * hkv * g * d, BF16_OPS_PER_S))
+    del qd, kc, vc, kp, vp, qs, ks, vs
+
+    hq = 8
+    b, t = 8, 64
+    q, k, v = (randn(b, t, hq, d, dtype=torch.float32) for _ in range(3))
+    st = torch.zeros((b,), **i32)
+    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    err, ok = _close(torch, flash_attention(q, k, v, st), flash_prefill_ref(
+        qh, kh, vh, st, st, sm_scale=scale).transpose(1, 2), 1e-4)
+    pairs = b * t * (t + 1) // 2
+    record(f"flash_prefill B{b} T=S={t} Hq{hq} Hkv{hq} D{d} f32", err, ok,
+           _time_ms(torch, lambda: flash_attention(q, k, v, st), flush),
+           _time_ms(torch, lambda: flash_prefill_ref(
+               qh, kh, vh, st, st, sm_scale=scale), flush),
+           _time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, is_causal=True), flush),
+           "scaled_dot_product_attention",
+           *_bound_ms(4 * 4 * b * t * hq * d, 4.0 * d * pairs * hq,
+                      F32_OPS_PER_S))
+    tt = sum(lens)
+    q, k, v = randn(tt, hq, d), randn(tt, hq, d), randn(tt, hq, d)
+    seg = torch.repeat_interleave(torch.arange(len(lens), **i32),
+                                  torch.tensor(lens, device=dev))
+    ii = torch.arange(tt, device=dev)
+    mask = (ii[None, :] <= ii[:, None]) & (seg[None, :] == seg[:, None])
+    qh, kh, vh = (a.transpose(0, 1).contiguous() for a in (q, k, v))
+    err, ok = _close(torch, packed_flash_attention(q, k, v, seg),
+                     packed_prefill_ref(qh, kh, vh, seg,
+                                        sm_scale=scale).transpose(0, 1),
+                     ATTN_RTOL, ATTN_ATOL)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    record(f"flash_prefill_packed T{tt} over {len(lens)} segments Hq{hq} "
+           f"Hkv{hq} D{d} bf16", err, ok,
+           _time_ms(torch, lambda: packed_flash_attention(q, k, v, seg),
+                    flush),
+           _time_ms(torch, lambda: packed_prefill_ref(
+               qh, kh, vh, seg, sm_scale=scale), flush),
+           _time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qh[None], kh[None], vh[None], attn_mask=mask), flush),
+           "scaled_dot_product_attention",
+           *_bound_ms(4 * 2 * tt * hq * d, 4.0 * d * pairs * hq,
+                      BF16_OPS_PER_S))
+    del q, k, v, qh, kh, vh, mask
+
+    # head_sample_fused on the second rank's 128-aligned column slice
+    h, w, counts, knobs = _head_sample_inputs(torch, dev, 8, 2048, 50304, 32)
+    lo, hi = 25088, 50176
+    ws, cs = w[:, lo:hi].contiguous(), counts[:, lo:hi].contiguous()
+    got_s, got_i = head_sample_fused(h, ws, cs, *knobs, base=lo)
+    want_s, want_i = head_sample_fused_ref(h, ws, cs, *knobs, base=lo)
+    torch.cuda.synchronize()
+    # `_head_sample_case`'s rule: scores within 1e-5 of the largest, the
+    # indices equal on every row whose top-2 score margin exceeds twice it
+    tol = 1e-5 * max(want_s.abs().max().item(), 1.0)
+    err = (got_s - want_s).abs().max().item()
+    m, n = 8, hi - lo
+    col = lo + torch.arange(n, device=dev)[None, :]
+    top2 = sample_scores(h @ ws, cs, *(a[:, None] for a in knobs),
+                         col).topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    ok = err <= tol and bool((got_i == want_i)[decided].all())
+    record(f"head_sample_fused M8 K2048 N{n} f32 base {lo}", err, ok,
+           _time_ms(torch, lambda: head_sample_fused(h, ws, cs, *knobs,
+                                                     base=lo), flush),
+           _time_ms(torch, lambda: head_sample_fused_ref(
+               h, ws, cs, *knobs, base=lo), flush), None,
+           "",
+           *_bound_ms(4 * (2048 * n + m * n + m * 2048 + 8 * m),
+                      2.0 * m * 2048 * n + SAMPLE_EPI_OPS * m * n,
+                      F32_OPS_PER_S))
+    if failures:
+        raise SystemExit(_fail("a kernel disagrees with its plain version "
+                               "at the TP shard shapes: "
                                + "; ".join(failures)))
     return rows
 

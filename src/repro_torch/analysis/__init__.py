@@ -1,6 +1,6 @@
 """The port's kernel verifier (the counterpart of ``repro.analysis``).
 
-Five passes, run by ``python -m repro_torch.analysis.lint``:
+Six passes, run by ``python -m repro_torch.analysis.lint``:
 
   smem           each CUDA body's dynamic shared memory (the Python mirror
                  of its formula) against the H100's per-block limit, in
@@ -17,6 +17,9 @@ Five passes, run by ``python -m repro_torch.analysis.lint``:
                  library's
   dispatch       the route tables swept over the configs' shapes:
                  unreachable, shadowed, non-monotone-cost
+  tp-smem        the matmul guards on each TP-split instance of that sweep
+                 (tp 2, 4, 8; column and row splits) against the local
+                 shape a rank runs: tp-smem-overflow, tp-route-loss
   layering       the reference's import rules, mapped to the port
 
 The reference's ``races`` and ``bounds`` passes are not ported: they
@@ -24,7 +27,7 @@ evaluate the BlockSpec index maps of a Pallas grid over the whole grid,
 and a CUDA body has no declarative grid to evaluate. Their bug classes
 (overlapping writes, revisited accumulators, out-of-bounds tiles) are
 what the card tests' ragged edges in tests/test_torch_gpu.py hold each
-body to. ``tp_vmem`` waits for tensor parallelism.
+body to. The reference's ``tp_vmem`` is ``tp_smem`` here.
 """
 from repro_torch.analysis.contracts import SmemContract, Violation
 from repro_torch.analysis.materialize import (Case, MaterializationCheck,

@@ -2,7 +2,8 @@
 
 Default: the repo's shared-memory contracts and the source pass on the
 limit's spelling, the materialization checks, the workspace sizes, the
-real dispatch registry over the configs' sweep, and the import layering.
+real dispatch registry over the configs' sweep (and its guards on the
+per-shard instances of a TP split), and the import layering.
 Exit 0 when clean, 1 when any pass reports a violation.
 
 It runs on the card (``--device cuda``, the default): the kernel-route
@@ -32,7 +33,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.analysis import dispatch_check, layering, materialize, smem
+from repro_torch.analysis import (dispatch_check, layering, materialize,
+                                  smem, tp_smem)
 from repro_torch.analysis.contracts import Violation
 
 __all__ = ["run", "main", "workspace_pass"]
@@ -194,8 +196,10 @@ def run(contracts_module: Optional[str] = None,
         record("workspace", 0, [], skipped=True)
     if routes and specs:
         record("dispatch", *dispatch_check.check_registry(routes, specs))
+        record("tp-smem", *tp_smem.check_registry(routes, specs))
     else:
         record("dispatch", 0, [], skipped=True)
+        record("tp-smem", 0, [], skipped=True)
     if repo_mode:
         record("layering", *layering.check(_src_root()))
     else:
@@ -246,7 +250,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
         description="the port's kernel verifier: shared-memory contracts, "
-                    "materialization, workspaces, dispatch, layering")
+                    "materialization, workspaces, dispatch, TP shards, "
+                    "layering")
     ap.add_argument("--json", metavar="PATH",
                     help="write the JSON report here")
     ap.add_argument("--contracts", metavar="MODULE",

@@ -76,8 +76,10 @@ class MoeConfig:
     rest drop). ``dense_residual_ff`` > 0 adds an always-active MLP of that
     width beside the experts (Arctic's dense residual, Kimi's shared
     expert). ``aux_loss_weight`` scales the load-balance loss in training.
-    ``impl``: "auto" and "local" run every expert on the one device;
-    "ep" (expert parallelism) is not ported. ``router_jitter`` is carried
+    ``impl``: "local" runs every expert on each device; "ep" (expert
+    parallelism) splits the experts over a live mesh's model axis; "auto"
+    takes "ep" under such a mesh when the experts divide it, else
+    "local". ``router_jitter`` is carried
     as the reference carries it (neither package reads it)."""
     num_experts: int = 0
     top_k: int = 2
@@ -131,6 +133,9 @@ class ModelConfig:
                    "full", "dots", or "auto" (by d_model).
     kv_page_size:  decode KV page (cache slots); 0 picks
                    gcd(cache length, 64).
+    parallel:      "tp": the mesh's model axis carries tensor
+                   parallelism; "dp": it joins the batch axes (params
+                   replicated, ZeRO), so no TP split (`dist.sharding`).
     norm:          "rmsnorm", "layernorm" or "nonparam_ln" (OLMo's
                    LayerNorm without affine parameters).
     prefix_embed_len, embeds_input: the vlm and audio families' inputs
@@ -173,6 +178,7 @@ class ModelConfig:
     sliding_window: int = 0
     attn_logit_softcap: float = 0.0
     kv_page_size: int = 0
+    parallel: str = "tp"            # tp | dp (the model axis joins ZeRO)
     cnn_channels: Tuple[int, ...] = ()
     cnn_kernel: int = 3
     cnn_classes: int = 10
@@ -257,8 +263,9 @@ class ShapeSpec:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh's shape and axis names. Carried only: the port runs
-    on one device until tensor parallelism is ported."""
+    """The device mesh's shape and axis names. Carried only: serving builds
+    its mesh with `dist.mesh_ctx.make_mesh`; training on a mesh is not
+    ported (ROADMAP.md, Queue 1, item 3)."""
     shape: Tuple[int, ...] = (16, 16)
     axes: Tuple[str, ...] = ("data", "model")
 

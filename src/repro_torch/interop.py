@@ -6,7 +6,8 @@ leaves read by attribute — ``values``, ``bitmask``, ``scale``, ``block``,
 ``nnz``, ``k_dim``, ``bits``, ``group`` (and ``indices`` when present) —
 and INT8 weights read by attribute — ``q``, ``scale`` (the reference's
 ``QuantizedWeight``) — and returns the same tree of torch tensors, port
-`DbbWeight`s and port `QuantizedWeight`s.
+`DbbWeight`s and port `QuantizedWeight`s. `shard_from_numpy` returns one
+TP rank's part of that tree instead (the serving wrap's specs).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.core.quant import QuantizedWeight
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "shard_from_numpy"]
 
 
 def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
@@ -54,3 +55,24 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
             bits=int(getattr(tree, "bits", 8)),
             group=int(getattr(tree, "group", 0)))
     return tensor_from_numpy(tree, device)
+
+
+def shard_from_numpy(tree: Any, cfg, mesh, device="cpu") -> Any:
+    """This rank's shard of a reference tree under the TP serving specs
+    (`dist.sharding.param_specs` without ZeRO), cut before it moves to
+    ``device``."""
+    from repro_torch.dist.sharding import param_specs, shard_tree
+    full = params_from_numpy(tree)
+    shard = shard_tree(full, param_specs(full, mesh, cfg,
+                                         fsdp_min_shard_elems=None), mesh)
+    return _to(shard, device)
+
+
+def _to(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, DbbWeight):
+        return tree.map(lambda a: a.to(device))
+    if isinstance(tree, QuantizedWeight):
+        return QuantizedWeight(q=tree.q.to(device), scale=tree.scale.to(device))
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -38,6 +38,17 @@ A route may also defer: applicable, but auto takes it only when no other
 applicable route is left (the reference's ``defer``). ``attn_chunked``
 defers up to S = 2 · chunk, where its per-chunk loop costs more than the
 naive route's extra score traffic; a pin takes it all the same.
+
+Tensor parallelism (``OpSpec.tp > 1``): a GEMM is costed as the per-shard
+instance a TP rank runs — K split when the op pays a boundary
+``collective`` ("all-reduce" / "reduce-scatter": row-parallel), N split
+otherwise (column-parallel) — and the collective's bytes over
+`roofline.analysis.collective_bw` are a third pipe beside compute and
+memory, as in the reference. Guards read the local dims, and name an axis
+split that does not divide. Inside a TP shard body (``shard_tp() > 0``)
+the dims a caller gives are already local. Unlike the reference, a live
+mesh does not turn the kernel routes off: each rank's operands are its
+own local tensors, with no global graph for a kernel to be kept out of.
 """
 from __future__ import annotations
 
@@ -54,7 +65,7 @@ from repro_torch.kernels.attn.ops import (FLASH_D_MAX, PAGE_MIN, flash_ok,
 from repro_torch.kernels.common import (FLOAT_DTYPES, OPERAND_DTYPES,
                                         SKINNY_M_MAX, skinny_ok)
 from repro_torch.kernels.sample.ops import TILE_N as _HS_TILE
-from repro_torch.roofline.analysis import HW_H100, Hardware
+from repro_torch.roofline.analysis import HW_H100, Hardware, collective_bw
 
 __all__ = ["OpSpec", "Route", "RouteDecision", "select", "explain",
            "format_table", "matmul", "conv", "attention",
@@ -121,6 +132,10 @@ class OpSpec:
     sample_tt: bool = False       # some sampled row uses top-k / top-p
     ring: bool = False            # decode on a ring-buffer (sliding-window)
                                   # cache: the new token's slot wraps
+    tp: int = 1                   # TP split: cost the per-shard instance
+    collective: str = ""          # the boundary collective the op's block
+                                  # pays ("all-reduce", "reduce-scatter",
+                                  # "all-gather"; "": none, column split)
 
 
 class Route(NamedTuple):
@@ -153,6 +168,11 @@ class RouteDecision:
     chosen: bool = False
     forced: bool = False
     weight_bytes: float = 0.0    # weight-stream traffic term (0 = n/a)
+    # TP terms (0 / tp=1 outside a sharded costing)
+    collective_bytes: float = 0.0
+    collective_s: float = 0.0
+    tp: int = 1
+    mesh: str = ""               # the mesh the table was costed for
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -165,6 +185,35 @@ class RouteDecision:
 _NO_PALLAS = "fused route not selected (gemm_impl != 'pallas')"
 
 
+def _shard_dims(s: OpSpec) -> Tuple[int, int, int]:
+    """Per-shard (m, k, n) of a TP-split GEMM: row-parallel ops (a
+    reduction-boundary collective) split K, the others split N; tp=1
+    passes the dims through."""
+    if s.tp <= 1:
+        return s.m, s.k, s.n
+    if s.collective in ("all-reduce", "reduce-scatter"):
+        return s.m, max(s.k // s.tp, 1), s.n
+    return s.m, s.k, max(s.n // s.tp, 1)
+
+
+def _tp_split_reason(s: OpSpec) -> str:
+    """The declared TP split's divisibility ("" = clean): a dim that does
+    not divide tp has no per-shard kernel instance."""
+    if s.tp <= 1:
+        return ""
+    if s.collective in ("all-reduce", "reduce-scatter"):
+        if s.k % s.tp:
+            return (f"unsupported axis split: K={s.k} % tp={s.tp} != 0 "
+                    "(row-parallel shard)")
+    elif s.n % s.tp:
+        return f"unsupported axis split: N={s.n} % tp={s.tp} != 0"
+    return ""
+
+
+def _per_shard(s: OpSpec) -> str:
+    return "per-shard " if s.tp > 1 else ""
+
+
 def _guard_dense(s: OpSpec) -> str:
     """What both dense GEMM kernels need."""
     if s.packed:
@@ -175,7 +224,7 @@ def _guard_dense(s: OpSpec) -> str:
         return "call site keeps dense weights on the plain matmul"
     if not s.float_ok:
         return "operand dtype outside the kernel contract (f32/bf16/int8)"
-    return ""
+    return _tp_split_reason(s)
 
 
 def _guard_skinny_sta(s: OpSpec) -> str:
@@ -184,8 +233,10 @@ def _guard_skinny_sta(s: OpSpec) -> str:
         return r
     if not skinny_ok(s.m):
         return f"outside the skinny regime (M ≤ {SKINNY_M_MAX})"
-    if s.k % 8:
-        return f"K={s.k} not a multiple of the kernel's 8-row groups"
+    _, k_loc, _ = _shard_dims(s)
+    if k_loc % 8:
+        return (f"{_per_shard(s)}K={k_loc} not a multiple of the kernel's "
+                "8-row groups")
     return ""
 
 
@@ -209,6 +260,13 @@ def _guard_packed_base(s: OpSpec) -> str:
         return f"DBB B={s.block}, k={s.nnz}: the kernels take B=8, k≤8"
     if s.k % s.block:
         return f"K={s.k} not divisible by the DBB block {s.block}"
+    r = _tp_split_reason(s)
+    if r:
+        return r
+    _, k_loc, _ = _shard_dims(s)
+    if k_loc % s.block:
+        return (f"per-shard K={k_loc} not divisible by the DBB block "
+                f"{s.block} (tp={s.tp} splits inside a block)")
     return ""
 
 
@@ -243,8 +301,10 @@ def _guard_dbb_packed_w4(s: OpSpec) -> str:
     if s.group <= 0 or s.group % s.block:
         return (f"scale group {s.group} must be a positive multiple of "
                 f"the DBB block {s.block}")
-    if s.k % s.group:
-        return f"K={s.k} not divisible by the scale group {s.group}"
+    _, k_loc, _ = _shard_dims(s)
+    if k_loc % s.group:
+        return (f"{_per_shard(s)}K={k_loc} not divisible by the scale "
+                f"group {s.group}")
     return ""
 
 
@@ -371,11 +431,16 @@ def _guard_head_sample_fused(s: OpSpec) -> str:
     if s.sample_tt:
         return ("top-k/top-p are global order statistics — the streaming "
                 "epilogue cannot sort the row (the plain sampler takes it)")
+    r = _tp_split_reason(s)             # vocab-parallel: N splits
+    if r:
+        return r
     if not skinny_ok(s.m):
         return f"outside the skinny regime (M ≤ {SKINNY_M_MAX})"
-    if s.k % _HS_TILE or s.n % _HS_TILE:
-        return (f"K={s.k} / N={s.n} not divisible by the {_HS_TILE}-column "
-                "tile (vocab padding could win the argmax)")
+    _, _, n_loc = _shard_dims(s)
+    if s.k % _HS_TILE or n_loc % _HS_TILE:
+        return (f"K={s.k} / {'local ' if s.tp > 1 else ''}N={n_loc} not "
+                f"divisible by the {_HS_TILE}-column tile (vocab padding "
+                "could win the argmax)")
     return ""
 
 
@@ -388,14 +453,16 @@ def _always(_s: OpSpec) -> str:
 # ---------------------------------------------------------------------------
 
 def _mm_dims(s: OpSpec, skinny: bool) -> Tuple[int, int, int]:
-    """Padded (mp, kp, np) the reference costs a kernel at: M-tiled
-    kernels pad M to a tile of min(128, round_up(m, 8)) rows, skinny ones
-    to the 8-row quantum; K and N to 128."""
+    """Padded (mp, kp, np) the reference costs a kernel at, of the
+    per-shard instance: M-tiled kernels pad M to a tile of min(128,
+    round_up(m, 8)) rows, skinny ones to the 8-row quantum; K and N to
+    128."""
+    m, k, n = _shard_dims(s)
     if skinny:
-        mp = _round_up(max(s.m, 1), 8)
+        mp = _round_up(max(m, 1), 8)
     else:
-        mp = _round_up(max(s.m, 1), min(128, _round_up(max(s.m, 1), 8)))
-    return mp, _round_up(max(s.k, 1), 128), _round_up(max(s.n, 1), 128)
+        mp = _round_up(max(m, 1), min(128, _round_up(max(m, 1), 8)))
+    return mp, _round_up(max(k, 1), 128), _round_up(max(n, 1), 128)
 
 
 def _dense_w_bytes(s: OpSpec, kp: int, np_: int) -> float:
@@ -405,27 +472,29 @@ def _dense_w_bytes(s: OpSpec, kp: int, np_: int) -> float:
 def _packed_w_bytes(s: OpSpec) -> float:
     """Compressed weight stream: values + bitmask (62.5% of dense INT8 at
     B=8, k=4); ``bits=4`` halves the values term and adds the groupwise
-    f32 scale plane."""
-    nb = max(s.k // max(s.block, 1), 1)
+    f32 scale plane (the per-shard planes under a TP split)."""
+    _, k, n = _shard_dims(s)
+    nb = max(k // max(s.block, 1), 1)
     if s.bits == 4 and s.group > 0:
-        return (nb * s.nnz * s.n * 0.5 + nb * s.n * _MASK_BYTES
-                + max(s.k // s.group, 1) * s.n * 4.0)
-    return nb * s.nnz * s.n * s.vals_itemsize + nb * s.n * _MASK_BYTES
+        return (nb * s.nnz * n * 0.5 + nb * n * _MASK_BYTES
+                + max(k // s.group, 1) * n * 4.0)
+    return nb * s.nnz * n * s.vals_itemsize + nb * n * _MASK_BYTES
 
 
 def _xla_w_bytes(s: OpSpec) -> float:
+    _, k, n = _shard_dims(s)
     if s.packed:
         # decompress: read compressed, write + re-read dense
-        return _packed_w_bytes(s) + 2.0 * s.k * s.n * s.itemsize
-    return float(s.k) * s.n * s.itemsize
+        return _packed_w_bytes(s) + 2.0 * k * n * s.itemsize
+    return float(k) * n * s.itemsize
 
 
 def _mm_xla_cost(s: OpSpec) -> Tuple[float, float]:
-    flops = 2.0 * s.m * s.k * s.n
-    nbytes = (s.m * s.k * s.itemsize + s.m * s.n * s.out_itemsize
-              + _xla_w_bytes(s))
+    m, k, n = _shard_dims(s)
+    flops = 2.0 * m * k * n
+    nbytes = m * k * s.itemsize + m * n * s.out_itemsize + _xla_w_bytes(s)
     # every unfused epilogue op re-reads + re-writes the [M, N] output
-    nbytes += 2.0 * s.m * s.n * s.out_itemsize * s.epilogue_ops
+    nbytes += 2.0 * m * n * s.out_itemsize * s.epilogue_ops
     return flops, nbytes
 
 
@@ -509,7 +578,7 @@ def _hs_fused_cost(s: OpSpec) -> Tuple[float, float]:
 
 
 def _hs_xla_cost(s: OpSpec) -> Tuple[float, float]:
-    m, k, n = s.m, s.k, s.n
+    m, k, n = _shard_dims(s)
     # the GEMV writes [M, N] logits, the sampler re-reads them for the
     # penalty pass and the score / argmax pass, and reads the counts
     nbytes = (m * k * s.itemsize + k * n * s.itemsize + m * n * _F32
@@ -635,16 +704,30 @@ def forced_route(domain: str, cfg_routes: Optional[Dict[str, str]] = None
 # selection
 # ---------------------------------------------------------------------------
 
+def _collective_term(spec: OpSpec, hw: Hardware) -> Tuple[float, float]:
+    """(bytes, seconds) of a TP-split op's boundary collective: its [M, N]
+    output over `collective_bw` (0 at tp=1 or with no collective)."""
+    if spec.tp <= 1 or not spec.collective:
+        return 0.0, 0.0
+    payload = float(spec.m) * spec.n * spec.out_itemsize
+    return payload, payload / collective_bw(spec.collective, hw)
+
+
 def _decide(route: Route, spec: OpSpec, hw: Hardware) -> RouteDecision:
     reason = route.guard(spec)
     flops, nbytes = route.cost(spec)
     compute_s, memory_s = flops / hw.peak_flops, nbytes / hw.hbm_bw
+    # the collective is the same for every route of a shard; it is a third
+    # pipe under max(), as the boundary all-reduce runs beside the
+    # epilogue's stores in the reference's overlapped schedule
+    coll_b, coll_s = _collective_term(spec, hw)
     return RouteDecision(
         name=route.name, applicable=reason == "", reason=reason,
         flops=flops, bytes=nbytes, compute_s=compute_s, memory_s=memory_s,
-        cost_s=max(compute_s, memory_s), priority=route.priority,
+        cost_s=max(compute_s, memory_s, coll_s), priority=route.priority,
         deferred=bool(route.defer and route.defer(spec)),
-        weight_bytes=float(route.wbytes(spec)) if route.wbytes else 0.0)
+        weight_bytes=float(route.wbytes(spec)) if route.wbytes else 0.0,
+        collective_bytes=coll_b, collective_s=coll_s, tp=spec.tp)
 
 
 def _rank(spec: OpSpec, cfg_routes: Optional[Dict[str, str]],
@@ -693,7 +776,8 @@ def select(spec: OpSpec, cfg_routes: Optional[Dict[str, str]] = None,
 def explain(domain: str = "matmul", *, m: int, k: int, n: int,
             dtype=torch.float32, packed: bool = False, cfg=None,
             pallas: Optional[bool] = None, hw: Hardware = HW_H100,
-            tp: Optional[int] = None, **spec_kw) -> List[RouteDecision]:
+            tp: Optional[int] = None, collective: str = "",
+            **spec_kw) -> List[RouteDecision]:
     """Ranked route table for a hypothetical op, costed on ``hw``: the
     chosen route first, then the applicable ones by cost. ``dtype`` (a
     torch dtype or its name) is the operand's; ``pallas=None`` derives the
@@ -701,11 +785,26 @@ def explain(domain: str = "matmul", *, m: int, k: int, n: int,
     pass through ``spec_kw``: give ``epilogue_ops`` (the bias / scale /
     act passes the real call fuses) when the table describes an actual
     dispatch — near the tie window the plain route's unfused epilogue
-    passes can decide the winner. Tensor parallelism (``tp > 1``) is not
-    ported and raises."""
-    if tp not in (None, 1):
-        raise NotImplementedError(
-            f"tp={tp}: the port costs single-device ops only")
+    passes can decide the winner.
+
+    ``tp=None`` takes the model-axis size of the live mesh (1 without one,
+    and 1 inside a TP shard body, where the dims given are already
+    local). With ``tp > 1`` the dims are GLOBAL and the table costs the
+    per-shard instance (K split when ``collective`` names a reduction
+    boundary, N split otherwise) with the collective's bytes per route;
+    `format_table` heads it with the mesh it was costed for."""
+    from repro_torch.dist.mesh_ctx import current_mesh, shard_tp
+    mesh = current_mesh()
+    mesh_desc = ""
+    if tp is None:
+        tp = 1
+        if shard_tp() > 0:
+            mesh_desc = f"TP shard body (tp={shard_tp()}, local dims)"
+        elif mesh is not None and "model" in mesh.axis_names:
+            tp = int(mesh.shape["model"])
+    if tp > 1 and not mesh_desc:
+        mesh_desc = (str(dict(mesh.shape)) if mesh is not None
+                     else f"(model={tp})")
     if pallas is None:
         pallas = pallas_route_active(cfg)
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
@@ -723,16 +822,24 @@ def explain(domain: str = "matmul", *, m: int, k: int, n: int,
         spec_kw.setdefault("chunk", cfg.attn_chunk if cfg is not None
                            else 1024)
     spec = OpSpec(domain=domain, m=m, k=k, n=n, itemsize=dt.itemsize,
-                  packed=packed, pallas=bool(pallas), **spec_kw)
-    return _rank(spec, routes_from_cfg(cfg), hw)[1]
+                  packed=packed, pallas=bool(pallas), tp=int(tp),
+                  collective=collective, **spec_kw)
+    decisions = _rank(spec, routes_from_cfg(cfg), hw)[1]
+    for d in decisions:
+        d.mesh = mesh_desc
+    return decisions
 
 
 def format_table(decisions: List[RouteDecision]) -> str:
     """Fixed-width rendering of an `explain` table for logs, in the
-    reference's columns (``coll``, its TP collective bytes, is 0 on one
-    device)."""
-    lines = [f"{'route':<18} {'ok':<3} {'cost':>10} {'flops':>10} "
-             f"{'bytes':>10} {'wbytes':>9} {'coll':>9}  note"]
+    reference's columns (``coll``: the TP collective's bytes), headed by
+    the mesh a TP table was costed for."""
+    lines = []
+    if decisions and (decisions[0].mesh or decisions[0].tp > 1):
+        lines.append(f"costed for mesh {decisions[0].mesh or '?'} "
+                     f"(model-axis tp={decisions[0].tp})")
+    lines.append(f"{'route':<18} {'ok':<3} {'cost':>10} {'flops':>10} "
+                 f"{'bytes':>10} {'wbytes':>9} {'coll':>9}  note")
     for d in decisions:
         mark = "*" if d.chosen else ("f" if d.forced else "")
         note = d.reason if not d.applicable else (
@@ -741,7 +848,7 @@ def format_table(decisions: List[RouteDecision]) -> str:
         lines.append(
             f"{d.name:<18} {('y' + mark) if d.applicable else 'n':<3} "
             f"{d.cost_s * 1e6:>9.2f}u {d.flops:>10.3g} {d.bytes:>10.3g} "
-            f"{wb} {0.0:>9.3g}  {note}")
+            f"{wb} {d.collective_bytes:>9.3g}  {note}")
     return "\n".join(lines)
 
 

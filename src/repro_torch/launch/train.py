@@ -4,8 +4,9 @@ The port's counterpart of ``repro.launch.train``, with its flags, names
 and defaults: config → synthetic data pipeline → DBB-annealed train loop →
 checkpoints → fault tolerance, logging one JSON metric line every
 ``log_every`` steps (and on every straggler) and, for a DBB model, the
-sparsity report at the end. ``--mesh`` other than ``none`` exits: tensor
-parallelism is not ported.
+sparsity report at the end. ``--mesh`` other than ``none`` exits:
+training with tensor parallelism is not ported (serving is:
+`serve.engine`).
 
 A checkpoint is named by the number of steps it holds (``state.step``),
 so resuming from any of them, periodic, final or emergency, continues
@@ -138,8 +139,9 @@ def main(argv=None, *, device=None, log=print,
     final state and metric history."""
     args = build_parser().parse_args(argv)
     if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh}: tensor parallelism is not "
-                         "ported yet; the port trains on one device "
+        raise SystemExit(f"--mesh {args.mesh}: training with tensor "
+                         "parallelism is not ported yet (ROADMAP.md, Queue "
+                         "1, item 3); the port trains on one device "
                          "(--mesh none)")
     dev = resolve_device("cuda" if device is None else device)
     cfg = get_config(args.arch, smoke=args.smoke)

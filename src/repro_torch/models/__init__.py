@@ -1,1 +1,2 @@
-"""Dense-LM model code of the port (single device)."""
+"""The port's model code: every LM family and the paper's CNNs; on a TP
+mesh the blocks take the boundary collectives (`dist`)."""

@@ -58,6 +58,20 @@ def _lin(pp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                            pallas=packed, dense_fused=False)
 
 
+def _o_proj(p: Dict, o2d: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The output projection. Inside a TP shard body ``o_proj`` arrives
+    row-split over the local heads' K slice, so its product is a partial
+    sum and one boundary all-reduce in the activation dtype completes the
+    attention block (issued once, not in the reference's chunks: see
+    `dist.collectives`); outside one it is `_lin`."""
+    from repro_torch.dist.mesh_ctx import shard_tp
+    y = _lin(p["o_proj"], o2d, cfg)
+    if shard_tp() > 1:
+        from repro_torch.dist.collectives import all_reduce
+        y = all_reduce(y)
+    return y
+
+
 def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
     b, s, _ = x.shape
@@ -172,7 +186,7 @@ def attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         cfg = cfg.replace(sliding_window=window_override)
     q, k, v = qkv if qkv is not None else _project_qkv(p, cfg, x, positions)
     o = dispatch.attention(q, k, v, positions, cfg, ragged=ragged)
-    return _lin(p["o_proj"], o.reshape(b, s, -1), cfg)
+    return _o_proj(p, o.reshape(b, s, -1), cfg)
 
 
 def packed_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -186,7 +200,7 @@ def packed_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = qkv if qkv is not None else _project_qkv(p, cfg, x, positions)
     o = dispatch.packed_attention(q, k, v, seg_ids, cfg)
     b, t, hq, hd = o.shape
-    return _lin(p["o_proj"], o.reshape(b, t, hq * hd), cfg)
+    return _o_proj(p, o.reshape(b, t, hq * hd), cfg)
 
 
 def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
@@ -214,7 +228,7 @@ def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
         qpos = off + torch.arange(c, device=q.device)
         kpos = torch.arange(s, device=q.device)
         o = _naive_attention(q, cache_k, cache_v, qpos, kpos, cfg)
-    return _lin(p["o_proj"], o.reshape(1, c, hq * hd), cfg)
+    return _o_proj(p, o.reshape(1, c, hq * hd), cfg)
 
 
 def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -268,7 +282,7 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             cache_v.view(b * n_log, page, hkv, hd),
             identity_block_table(b, n_log, x.device), lengths, start,
             window=window, softcap=cfg.attn_logit_softcap)
-        return _lin(p["o_proj"], o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
+        return _o_proj(p, o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
 
     qg = q.reshape(b, 1, hkv, g, hd)
     sc = _scores(qg, cache_k, cfg)                       # [B,H,G,1,Smax]
@@ -286,7 +300,7 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     o = torch.einsum("bhgts,bshd->bthgd", pr.to(cache_v.dtype).float(),
                      cache_v.float())
     o = o.reshape(b, 1, hq * hd).to(x.dtype).contiguous()
-    return _lin(p["o_proj"], o, cfg)
+    return _o_proj(p, o, cfg)
 
 
 def paged_decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -320,7 +334,7 @@ def paged_decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     o = paged_decode_attention(
         q.reshape(b, hkv, g, hd), k_pages, v_pages, block_table, lengths,
         start, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-    return _lin(p["o_proj"], o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
+    return _o_proj(p, o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
 
 
 def _verify_positions(lengths: torch.Tensor, start: Optional[torch.Tensor],
@@ -361,7 +375,7 @@ def verify_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # slot s holds logical position s - start: pad slots fall below zero
     kpos = torch.arange(smax, device=x.device)[None, :] - st[:, None]
     o = _naive_attention(q, cache_k, cache_v, qpos, kpos, cfg)
-    return _lin(p["o_proj"], o.reshape(b, t, hq * hd), cfg)
+    return _o_proj(p, o.reshape(b, t, hq * hd), cfg)
 
 
 def paged_verify_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -393,4 +407,4 @@ def paged_verify_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     vrow = gather_pages(v_pages, block_table)
     kpos = torch.arange(n_log * page, device=x.device)[None, :] - st[:, None]
     o = _naive_attention(q, krow, vrow, qpos, kpos, cfg)
-    return _lin(p["o_proj"], o.reshape(b, t, hq * hd), cfg)
+    return _o_proj(p, o.reshape(b, t, hq * hd), cfg)

@@ -62,6 +62,17 @@ def _mlp_plain(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if dispatch.pallas_route_active(cfg):
-        return _mlp_fused(p, cfg, x)
-    return _mlp_plain(p, cfg, x)
+    """The MLP block. Inside a TP shard body ``wi`` / ``wg`` arrive
+    column-split and ``wo`` row-split, so the block runs on the local
+    d_ff slice and one boundary all-reduce in x's dtype sums the partial
+    outputs (issued once: see `dist.collectives`). The
+    reference's explicit-TP branch for a global graph under a mesh (with
+    sequence parallelism) is not ported: outside a shard body every rank
+    holds the whole MLP."""
+    from repro_torch.dist.mesh_ctx import shard_tp
+    y = (_mlp_fused(p, cfg, x) if dispatch.pallas_route_active(cfg)
+         else _mlp_plain(p, cfg, x))
+    if shard_tp() > 1:
+        from repro_torch.dist.collectives import all_reduce
+        y = all_reduce(y)
+    return y

@@ -10,8 +10,17 @@ gated MLPs and adds each token's weighted contributions back. Arctic's
 dense residual MLP and Kimi's shared expert are both ``dense_residual_ff``
 (an always-active MLP beside the experts).
 
-The reference's expert-parallel path (``impl="ep"``, experts sharded over a
-mesh axis) is not ported.
+Expert parallelism (``impl="ep"``, or "auto" under a live mesh whose model
+axis divides the experts): every rank routes all tokens, runs the experts
+``[rank · e_loc, (rank + 1) · e_loc)`` through the same dispatch and
+combine, and one all-reduce over the model axis sums the ranks' partial
+outputs. The capacity is the local path's (the even share over all E
+experts), so a pair is kept or dropped exactly as without the split; only
+the order of the sum differs. Each rank holds the whole residual stream,
+so the reference's sequence-parallel all-gather / reduce-scatter pair
+would only split that all-reduce in two; it waits for training, as do the
+reference's 16k-token chunking of the dispatch and its ``mean_axes`` on
+the aux loss (each rank's aux is the whole batch's here).
 """
 from __future__ import annotations
 
@@ -188,25 +197,54 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def _ep_mesh(cfg: ModelConfig):
+    """The live mesh expert parallelism runs over, or None for the local
+    path: "auto" takes EP where a mesh's model axis (> 1) divides the
+    experts; "ep" requires such a mesh."""
+    from repro_torch.dist.mesh_ctx import current_mesh
+    impl, e = cfg.moe.impl, cfg.moe.num_experts
+    if impl not in ("auto", "local", "ep"):
+        raise ValueError(f"moe.impl={impl!r}")
+    if impl == "local":
+        return None
+    mesh = current_mesh()
+    tp = (mesh.shape["model"]
+          if mesh is not None and "model" in mesh.axis_names else 1)
+    if tp > 1 and e % tp == 0:
+        return mesh
+    if impl == "ep":
+        raise ValueError(
+            "moe.impl='ep' needs a live TP mesh whose model axis (> 1) "
+            f"divides num_experts={e} (use_mesh(make_mesh(...))); got "
+            + ("no mesh" if mesh is None else f"model axis {tp}"))
+    return None
+
+
 def moe_routed(p: Dict, cfg: ModelConfig, x: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed experts alone: ``x [B, S, d]`` → (y [B, S, d], aux
     loss). All B·S tokens share one capacity (pad rows and positions
-    included, as in the reference)."""
-    impl = cfg.moe.impl
-    if impl == "ep":
-        raise NotImplementedError(
-            "moe.impl='ep' (expert parallelism) is not ported: it comes "
-            "with tensor parallelism (ROADMAP.md, Queue 1, item 2)")
-    if impl not in ("auto", "local"):
-        raise ValueError(f"moe.impl={impl!r}")
+    included, as in the reference). Under expert parallelism (see the
+    module doc) the expert planes may be whole ``[E, ...]`` (each rank
+    takes its window) or already the rank's ``[E/tp, ...]``."""
+    mesh = _ep_mesh(cfg)
     b, s, d = x.shape
     e = cfg.moe.num_experts
     xt = x.reshape(b * s, d)
     top_idx, top_p, aux = _route(xt, p["router"]["w"], cfg)
-    y = _dispatch_compute_combine(xt, p["experts"], top_idx, top_p, 0, e,
-                                  _capacity(b * s, cfg), cfg)
-    return y.reshape(b, s, d), aux
+    cap = _capacity(b * s, cfg)
+    if mesh is None:
+        y = _dispatch_compute_combine(xt, p["experts"], top_idx, top_p, 0,
+                                      e, cap, cfg)
+        return y.reshape(b, s, d), aux
+    from repro_torch.dist.collectives import all_reduce
+    e_loc = e // mesh.shape["model"]
+    e0 = mesh.index["model"] * e_loc
+    ew = {k: (w[e0:e0 + e_loc] if w.shape[0] == e else w)
+          for k, w in p["experts"].items()}
+    y = _dispatch_compute_combine(xt, ew, top_idx, top_p, e0, e_loc, cap,
+                                  cfg)
+    return all_reduce(y, "model").reshape(b, s, d), aux
 
 
 def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor

@@ -33,6 +33,18 @@ rides beside the cache. ``draft_k > 0`` adds self-speculative decode: the
 first ``draft_layers`` layers draft ``draft_k`` tokens, the full model
 verifies them in one pass, and the rejection-sampling rule keeps a prefix
 (1 to draft_k + 1 tokens per step).
+
+Tensor-parallel serving: built under ``use_mesh(mesh)`` with a model axis
+> 1 (`dist.mesh_ctx.make_mesh`; one process per rank, every rank calling
+the same entry point on the same inputs), the engine shards its tree by
+the Megatron specs (`dist.sharding.param_specs`: column-parallel QKV and
+up-projections, row-parallel ``o_proj`` / ``wo``, vocab-parallel
+embedding and head) and runs every step as a shard body: a localized
+config (heads ÷ tp, ``head_dim`` pinned), caches of local KV heads, the
+kernels at the per-shard shapes, one boundary all-reduce after each
+row-parallel block, and the vocab-parallel heads' scalar combine. The host
+scheduler is the same on every rank, so the token streams and page tables
+are too. ``tp_reason`` says why the wrap is off ("" when it is on).
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ from repro_torch.core.dbb import DbbWeight
 from repro_torch.core.dbb_linear import decompress
 from repro_torch.core.sparsity import map_with_path
 from repro_torch.device import resolve_device
+from repro_torch.dist.mesh_ctx import current_mesh, shard_tp, shard_tp_ctx
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.attn.ops import PAGE_MIN, paged_decode_ok
 from repro_torch.kernels.common import SKINNY_M_MAX, skinny_ok
@@ -68,7 +81,7 @@ _CONT_BATCH_FAMILIES = ("dense_lm", "moe_lm", "vlm_lm", "audio_lm")
 __all__ = ["greedy_from_hidden", "greedy_head", "sample_head",
            "first_sample_head", "make_prefill_step", "make_decode_step",
            "make_packed_prefill_step", "make_chunk_prefill_step",
-           "make_spec_decode_step", "ServeEngine"]
+           "make_spec_decode_step", "ServeEngine", "tp_serve_reason"]
 
 
 def greedy_from_hidden(hidden: torch.Tensor, w_head: torch.Tensor,
@@ -78,8 +91,13 @@ def greedy_from_hidden(hidden: torch.Tensor, w_head: torch.Tensor,
     position, in f32. impl="pallas" hands the head GEMV to the dispatch
     (the skinny dense kernel at B ≤ 32, the plain matmul above: as a GEMV
     it never takes the M-tiled route). Ties go to the first maximum, as
-    in the reference."""
+    in the reference. Inside a TP shard body the head is the rank's vocab
+    column slice ``[d, V/tp]``: the local GEMV and a combine of [B]-sized
+    (max, global argmax) pairs pick the token, never [B, V] logits."""
     h = hidden[:, -1].float().contiguous()
+    if shard_tp() > 1:
+        from repro_torch.dist.collectives import shard_greedy
+        return shard_greedy(h, w_head, impl=impl, cfg=cfg)
     logits = dispatch.matmul(h, w_head.float(), cfg=cfg,
                              pallas=(impl == "pallas"), gemv=True)
     return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -118,11 +136,13 @@ def sample_head(cfg: ModelConfig, use_tt: bool = False):
 def first_sample_head(cfg: ModelConfig, use_tt: bool = False):
     """head(last, w, fvals [G, 5], ivals [G, 2]) → the first tokens [G] of
     fresh requests (`pack_params` rows; zero history, RNG ordinal 0). The
-    caller installs their state (`ServeEngine._sstate_admit`)."""
+    caller installs their state (`ServeEngine._sstate_admit`). Under a TP
+    split ``w`` is the rank's vocab slice; the history covers all V."""
     sample = sample_head(cfg, use_tt)
 
     def head(last, w, fvals, ivals):
-        return sample(last, w, smp.fresh_state(fvals, ivals, w.shape[-1]))[0]
+        vocab = w.shape[-1] * max(1, shard_tp())
+        return sample(last, w, smp.fresh_state(fvals, ivals, vocab))[0]
 
     return head
 
@@ -225,9 +245,14 @@ def make_spec_decode_step(cfg: ModelConfig, draft_k: int, draft_layers: int):
     def head_logits(h2d, head):
         """[M, d] → [M, V] f32 logits (the accept rule needs whole
         distributions): the skinny dense kernel at M ≤ 32, the plain
-        matmul above, as the reference's head GEMV."""
-        return dispatch.matmul(h2d.float().contiguous(), head, cfg=cfg,
-                               pallas=pallas, gemv=True)
+        matmul above, as the reference's head GEMV. Under a TP split each
+        rank's [M, V/tp] columns are gathered (M ≤ B·(k+1) rows)."""
+        lg = dispatch.matmul(h2d.float().contiguous(), head, cfg=cfg,
+                             pallas=pallas, gemv=True)
+        if shard_tp() > 1:
+            from repro_torch.dist.collectives import all_gather
+            lg = all_gather(lg, dim=-1)
+        return lg
 
     def step(params, head, cache, tokens, sstate):
         s = sstate
@@ -258,6 +283,59 @@ def make_spec_decode_step(cfg: ModelConfig, draft_k: int, draft_layers: int):
         return (emit, n_emit, smp.record_emitted(s, emit, n_emit)), new_cache
 
     return step
+
+
+def tp_serve_reason(cfg: ModelConfig, mesh=None, params: Any = None) -> str:
+    """Why the TP serving wrap is NOT on ("" when it is). The wrap splits
+    heads, KV heads, d_ff and the vocab over the model axis, so each must
+    divide it; with ``params`` the inferred specs must split every
+    TP-eligible leaf (`dist.sharding.tp_spec_violations`: a leaf the
+    divisibility fallback kept whole would be summed tp times). The
+    reference's reasons, in its order, and one of the port's own: a w4
+    row-parallel leaf, whose group scales the reference's row rule keeps
+    whole against a K slice (`dist.sharding`), is refused rather than
+    served wrong."""
+    from repro_torch.dist.sharding import (param_specs, tp_spec_violations,
+                                           w4_row_leaves)
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or "model" not in mesh.axis_names \
+            or mesh.shape["model"] <= 1:
+        return "no live mesh with a model axis > 1"
+    tp = mesh.shape["model"]
+    if cfg.gemm_impl != "pallas":
+        return (f"gemm_impl={cfg.gemm_impl!r} — the wrap exists to put the "
+                "kernels on per-shard shapes; the plain route serves whole "
+                "on every rank")
+    if cfg.parallel == "dp":
+        return 'parallel="dp": the model axis carries ZeRO, not TP'
+    if cfg.family not in _CONT_BATCH_FAMILIES or cfg.family == "moe_lm":
+        return (f"family {cfg.family!r}: MoE expert dispatch / SSM state "
+                "keep their own sharding (no generic KV-head split)")
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        return (f"heads do not divide the model axis: num_heads="
+                f"{cfg.num_heads}, num_kv_heads={cfg.num_kv_heads}, "
+                f"tp={tp}")
+    if cfg.d_ff % tp:
+        return f"d_ff={cfg.d_ff} % tp={tp} != 0 (column-parallel MLP split)"
+    if cfg.vocab_size % tp:
+        return (f"vocab_size={cfg.vocab_size} % tp={tp} != 0 "
+                "(vocab-parallel embed/head split)")
+    if params is not None:
+        gaps = tp_spec_violations(
+            params, param_specs(params, mesh, cfg, fsdp_min_shard_elems=None))
+        if gaps:
+            return ("weight leaves fall back to replication under the TP "
+                    "specs (packed K-planes must split on DBB block "
+                    "boundaries): " + ", ".join(gaps[:4])
+                    + ("..." if len(gaps) > 4 else ""))
+        w4 = w4_row_leaves(params)
+        if w4:
+            return ("bits=4 row-parallel leaves: their K planes split but "
+                    "the [K//G, N] group-scale plane stays whole (the "
+                    "reference's row rule), so a shard would scale its K "
+                    "slice by the first slice's groups: " + ", ".join(w4[:4])
+                    + ("..." if len(w4) > 4 else ""))
+    return ""
 
 
 def _consume_slot(host_emit: np.ndarray, host_nem: np.ndarray, slot: int,
@@ -309,7 +387,9 @@ class ServeEngine:
 
     Construction strips the diagnostic ``indices`` plane of every packed
     leaf, moves the tree to ``device``, expands packed leaves outside the
-    layer stack once and builds the contiguous f32 head. Ragged prompt
+    layer stack once and builds the contiguous f32 head. Under a live TP
+    mesh (module doc) it first cuts this rank's shard out of the tree, so
+    the head is the local ``[d, V/tp]`` slice. Ragged prompt
     batches are left-padded; the per-row pad counts travel as ``start``
     (only when some row is padded) so each row decodes as it would alone.
 
@@ -340,6 +420,20 @@ class ServeEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         dev = self.device
+        mesh = current_mesh()
+        self.tp_reason = tp_serve_reason(self.cfg, mesh, self.params)
+        self._tp = 0 if self.tp_reason else mesh.shape["model"]
+        # the config the model steps and caches run under: heads and KV
+        # heads ÷ tp in a shard (head_dim pinned, so it survives)
+        self._lcfg = self.cfg
+        if self._tp:
+            from repro_torch.dist.sharding import param_specs, shard_tree
+            self.params = shard_tree(self.params, param_specs(
+                self.params, mesh, self.cfg, fsdp_min_shard_elems=None), mesh)
+            self._lcfg = self.cfg.replace(
+                num_heads=self.cfg.num_heads // self._tp,
+                num_kv_heads=self.cfg.num_kv_heads // self._tp,
+                head_dim=self.cfg.resolved_head_dim)
 
         def to_dev(_path, leaf):
             if isinstance(leaf, DbbWeight):
@@ -356,13 +450,29 @@ class ServeEngine:
             expand, map_with_path(to_dev, self.params))
         self.head = registry.lm_head_weight(
             self.params, self.cfg).to(torch.float32).contiguous()
-        self._prefill = make_prefill_step(self.cfg)
-        self._decode = make_decode_step(self.cfg)
-        self._packed_prefill = make_packed_prefill_step(self.cfg)
-        self._prefill_continue = make_chunk_prefill_step(self.cfg)
+        self.vocab = self.head.shape[-1] * max(1, self._tp)
+        self._prefill = self._tp_step(make_prefill_step)
+        self._decode = self._tp_step(make_decode_step)
+        self._packed_prefill = self._tp_step(make_packed_prefill_step)
+        self._prefill_continue = self._tp_step(make_chunk_prefill_step)
         self._sample_steps: Dict[Tuple[bool, int], Any] = {}
         self.last_decode_steps = 0
         self.serve_stats: Dict[str, Any] = {}
+
+    def _tp_step(self, maker, *head):
+        """``maker(cfg, *head)`` on the localized config; under the TP wrap
+        each call runs as a shard body (`shard_tp_ctx`). ``head``: head
+        makers, called on the same config."""
+        inner = maker(self._lcfg, *(h(self._lcfg) for h in head))
+        if not self._tp:
+            return inner
+        tp = self._tp
+
+        def stepped(*args):
+            with shard_tp_ctx(tp):
+                return inner(*args)
+
+        return stepped
 
     # -- decode chunks: one host fetch per chunk ----------------------------
 
@@ -373,11 +483,11 @@ class ServeEngine:
         """The sampled (``dk`` = 0) or speculative decode step."""
         key = (use_tt, dk)
         if key not in self._sample_steps:
+            nd = self._resolved_draft_layers()
             self._sample_steps[key] = (
-                make_spec_decode_step(self.cfg, dk,
-                                      self._resolved_draft_layers())
-                if dk else make_decode_step(self.cfg,
-                                            sample_head(self.cfg, use_tt)))
+                self._tp_step(lambda c: make_spec_decode_step(c, dk, nd))
+                if dk else self._tp_step(
+                    make_decode_step, lambda c: sample_head(c, use_tt)))
         return self._sample_steps[key]
 
     def _fetch_chunk(self, cache: Dict, cur: torch.Tensor, sstate,
@@ -454,7 +564,7 @@ class ServeEngine:
         # speculative verify writes a (k+1)-slot slab at the write cursor:
         # the cache gets that margin past the budget
         total = max_len + max_new_tokens + (ke if dk else 0)
-        cache = registry.init_cache(self.cfg, self.max_batch, total,
+        cache = registry.init_cache(self._lcfg, self.max_batch, total,
                                     device=self.device)
         if (mode is None and st is not None
                 and self.cfg.family in ("rwkv6", "zamba2")):
@@ -470,11 +580,11 @@ class ServeEngine:
             sstate = None
         else:
             knobs = self._knob_rows(sampling, self.max_batch)
-            cur, cache = make_prefill_step(
-                self.cfg, first_sample_head(self.cfg, mode[0]))(
+            cur, cache = self._tp_step(
+                make_prefill_step, lambda c: first_sample_head(c, mode[0]))(
                     self.params, self.head, cache, toks, st, *knobs)
             sstate = smp.record_tokens(
-                smp.fresh_state(*knobs, self.head.shape[-1]), cur)
+                smp.fresh_state(*knobs, self.vocab), cur)
         first = np.zeros((1, self.max_batch, ke), np.int64)
         first[0, :, 0] = cur.cpu().numpy()
         he, hn = [first], [np.ones((1, self.max_batch), np.int64)]
@@ -662,7 +772,7 @@ class ServeEngine:
         # one scratch cache for every admission: each prefill overwrites
         # slots 0..bucket-1, and slots past a row's length are written by
         # decode before it attends them
-        c1_template = registry.init_cache(self.cfg, 1, smax, device=dev)
+        c1_template = registry.init_cache(self._lcfg, 1, smax, device=dev)
 
         def admit(slot: int, ridx: int):
             grant = backend.reserve(ridx, blens[ridx],
@@ -928,7 +1038,7 @@ class _ServeRun:
         self.outs: List[List[int]] = [[] for _ in prompts]
         self.active: Dict[int, int] = {}             # slot -> request idx
         self.left: Dict[int, int] = {}               # request idx -> budget
-        self.sstate = (smp.sampling_state(eng.max_batch, eng.head.shape[-1],
+        self.sstate = (smp.sampling_state(eng.max_batch, eng.vocab,
                                           eng.device)
                        if self.sampled else None)
         self._eng = eng
@@ -957,8 +1067,9 @@ class _ServeRun:
             maker = {"padded": make_prefill_step,
                      "packed": make_packed_prefill_step,
                      "chunk": make_chunk_prefill_step}[kind]
-            self._prefills[kind] = maker(
-                eng.cfg, first_sample_head(eng.cfg, self.mode[0]))
+            use_tt = self.mode[0]
+            self._prefills[kind] = eng._tp_step(
+                maker, lambda c: first_sample_head(c, use_tt))
         return self._prefills[kind]
 
 
@@ -970,7 +1081,10 @@ def _paged_unsupported_reason(cfg: ModelConfig) -> str:
     """Why the paged scheduler cannot serve ``cfg`` (empty = it can). Its
     decode always runs the paged kernel, so it is offered only where the
     contiguous cache would decode through that kernel too — otherwise the
-    two layouts would not give the same tokens."""
+    two layouts would not give the same tokens. The answer is the same
+    inside a TP shard (the reference's ``tp`` argument re-activates its
+    kernels there; here a mesh never turns them off, and the GQA group is
+    the same at local heads)."""
     if not dispatch.flash_backend_active(cfg):
         return (f"flash attention backend inactive (attn_impl="
                 f"{cfg.attn_impl!r}, gemm_impl={cfg.gemm_impl!r}; needs "
@@ -994,7 +1108,7 @@ class _ContiguousKvBackend:
 
     def init_cache(self) -> Dict:
         eng = self.eng
-        cache = registry.init_cache(eng.cfg, eng.max_batch, self.smax,
+        cache = registry.init_cache(eng._lcfg, eng.max_batch, self.smax,
                                     device=eng.device)
         cache["start"] = torch.zeros((eng.max_batch,), dtype=torch.int32,
                                      device=eng.device)
@@ -1071,7 +1185,7 @@ class _PagedKvBackend:
 
     def init_cache(self) -> Dict:
         eng = self.eng
-        return init_paged_cache(eng.cfg, eng.max_batch, self.pool_pages,
+        return init_paged_cache(eng._lcfg, eng.max_batch, self.pool_pages,
                                 self.page, self.n_log, device=eng.device)
 
     def reserve(self, ridx: int, blen: int, budget: int):

@@ -42,9 +42,20 @@ _Q_TINY = 1e-30
 def sample_from_hidden(hidden: torch.Tensor, w_head: torch.Tensor,
                        state: Dict[str, torch.Tensor], *, impl: str = "xla",
                        cfg=None, use_tt: bool = False) -> torch.Tensor:
-    """hidden [B, T, d] → sampled next token [B] i32 (last position)."""
+    """hidden [B, T, d] → sampled next token [B] i32 (last position).
+    Inside a TP shard body the head arrives as the rank's vocab column
+    slice: `dist.collectives.shard_sample` runs the same epilogue on it
+    with the noise keyed to global ids and combines [B]-sized (score, id)
+    pairs across the ranks."""
+    from repro_torch.dist.mesh_ctx import shard_tp
     s = state
     h = hidden[:, -1].float().contiguous()
+    if shard_tp() > 1:
+        from repro_torch.dist.collectives import shard_sample
+        return shard_sample(h, w_head, s["counts"], s["temp"], s["rep"],
+                            s["pres"], s["freq"], s["seed"], s["step"],
+                            top_k=s["top_k"], top_p=s["top_p"],
+                            use_tt=use_tt, impl=impl, cfg=cfg)
     return dispatch.head_sample(
         h, w_head, s["counts"], s["temp"], s["rep"], s["pres"], s["freq"],
         s["seed"], s["step"], top_k=s["top_k"], top_p=s["top_p"],

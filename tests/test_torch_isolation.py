@@ -51,7 +51,10 @@ def test_every_module_is_listed():
                  "repro_torch.analysis.smem",
                  "repro_torch.analysis.layering",
                  "repro_torch.analysis.dispatch_check",
-                 "repro_torch.analysis.lint"):
+                 "repro_torch.analysis.lint",
+                 "repro_torch.analysis.tp_smem",
+                 "repro_torch.dist.mesh_ctx", "repro_torch.dist.sharding",
+                 "repro_torch.dist.collectives"):
         assert name in mods
 
 

@@ -265,6 +265,9 @@ def test_moe_apply_with_dense_residual_matches_reference(kind, gemm_impl):
 
 
 def test_moe_impl_ep_raises_and_local_auto_agree():
+    """Without a live mesh "auto" is "local", and "ep" (expert
+    parallelism over a TP mesh; tests/test_torch_tp_serve.py runs it)
+    says it needs one."""
     _, tcfg = moe_cfgs("xla")
     _, tp = moe_trees("arctic", "dense")
     lp = ttf._layer(tp["layers"]["moe"], 0)
@@ -272,7 +275,7 @@ def test_moe_impl_ep_raises_and_local_auto_agree():
     outs = [tmoe.moe_apply(lp, tcfg.replace(moe=dataclasses.replace(
         tcfg.moe, impl=impl)), x)[0] for impl in ("auto", "local")]
     assert torch.equal(outs[0], outs[1])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+    with pytest.raises(ValueError, match="needs a live TP mesh"):
         tmoe.moe_apply(lp, tcfg.replace(moe=dataclasses.replace(
             tcfg.moe, impl="ep")), x)
     with pytest.raises(ValueError):

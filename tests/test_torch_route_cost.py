@@ -241,6 +241,11 @@ def test_format_table_prints_the_reference_columns():
 
 
 def test_explain_refuses_tensor_parallel():
-    with pytest.raises(NotImplementedError, match="tp=2"):
-        td.explain("matmul", m=8, k=2048, n=8192, tp=2)
-    assert td.explain("matmul", m=8, k=2048, n=8192, tp=1)[0].name == "xla"
+    """explain(tp=2) no longer refuses: it costs the per-shard instance
+    (tests/test_torch_tp_specs.py holds it against the reference), and
+    tp=1 is the single-device table."""
+    two = td.explain("matmul", m=8, k=2048, n=8192, tp=2)
+    assert two[0].tp == 2 and two[0].mesh == "(model=2)"
+    one = td.explain("matmul", m=8, k=2048, n=8192, tp=1)
+    assert one[0].name == "xla" and one[0].tp == 1
+    assert two[0].flops == pytest.approx(one[0].flops / 2)
