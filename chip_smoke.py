@@ -298,11 +298,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             kimi's G 8 D 112, and head_sample_fused at kimi's sampled
             decode head (M8 K7168 N163840 f32) under the kernel phase's
             near-tie and temperature-0 rules.
-16. zamba2  the zamba2 hybrid (after phase 15) at full width and 19 of 38
+16. zamba2  the zamba2 hybrid (after phase 15) at full width and 12 of 38
             layers: zamba2-1.2b (d 2048, d_in 4096, N 64, P 64, chunk 128; the
             shared attention + MLP block, 32 heads of D 64, d_ff 8192, a
-            4096-token window, after every 6 Mamba2 layers: 4 calls a pass at
-            19 layers; vocab 32000), built one layer at a time with the family
+            4096-token window, after every 6 Mamba2 layers: 2 calls a pass at
+            12 layers; vocab 32000), built one layer at a time with the family
             phase's noise hook, packed with f32 values (k 4),
             ``gemm_impl="pallas"``. ``registry.forward`` on B2 x 256 tokens
             (the Mamba layers expanded layer by layer, the shared block
@@ -329,7 +329,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             route, no launch, finite loss and parameters, peak memory); the
             serve CLI (``--full --packed --gemm-impl pallas --batch 8``). Every
             run's launches equal exactly those the config implies: per prefill
-            or decode call 4 shared-block calls, each with its MLP's three
+            or decode call one shared-block call a group of 6 Mamba2 layers,
+            each with its MLP's three
             GEMMs on the route the table picks (the engine expands the shared
             block, so its projections take the plain matmul and no DBB kernel
             runs; ``forward`` on the packed tree adds its four projections on
@@ -345,7 +346,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             sta_gemm at M2048 K2048 N8192 (gelu) and K8192 N2048,
             sta_gemm_skinny at the head (M8 K2048 N32000 f32) and
             head_sample_fused at M8 K2048 N32000.
-17. rwkv6   rwkv6-1.6b (after phase 16) at full width and 12 of 24 layers (d
+17. rwkv6   rwkv6-1.6b (after phase 16) at full width and 8 of 24 layers (d
             2048, 32 WKV heads of D 64, d_ff 7168, vocab 65536, untied;
             its layers expanded from packed f32 planes layer by layer and
             run in plain PyTorch, as the reference runs them in plain XLA,
@@ -360,9 +361,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             equal to the greedy stream); serve of 12 requests as static
             waves; two training steps (B4 S256) and the serve CLI
             (``--full --packed --gemm-impl pallas --batch 8``).
-18. vlm_audio  paligemma-3b (9 of 18 layers: MQA, 8 query heads on one KV
+18. vlm_audio  paligemma-3b (6 of 18 layers: MQA, 8 query heads on one KV
             head of D 256; gated GeLU d_ff 16384; the tied f32 head
-            [2048, 257216]) and musicgen-medium (24 of 48 layers: 24 heads of
+            [2048, 257216]) and musicgen-medium (12 of 48 layers: 24 heads of
             D 64, GeLU d_ff 6144, vocab 2048), packed f32 planes streamed
             through the DBB kernels: ``registry.forward`` on B2 x 256 (256
             prefix embeds in front for paligemma, frame embeds for
@@ -450,6 +451,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             column slice with ``base`` 25088 (olmo's N/2 is no multiple of
             its tile, so the TP sampled head takes the plain sampler).
 
+21. tp_train after train (phase 14): training on a mesh. Two gloo
+            worlds spawned on cuda:0 at once, of 2 and 4 ranks, each
+            running its jobs in turn (a gated job once the parent opens
+            its gate): olmo-1b at full width cut to TP_TRAIN_LAYERS
+            layers, f32, B8 S256, AdamW, the DBB bound annealed 8 -> 4
+            over TP_TRAIN_STEPS steps, on 1 x 2 (TP + sequence
+            parallelism) and 2 x 2 (data x model; ZeRO on every leaf at
+            this width): each step's loss and grad norm within
+            TP_TRAIN_LOSS_RTOL of one device's (run here first, its params
+            saved after every step), the ranks' update (params less the
+            initial tree) within TP_TRAIN_UPDATE_RTOL of its update,
+            relative to its size, and their params within
+            TP_TRAIN_PARAM_TOL of its params, the step's ms, no kernel launch while training, each rank's peak
+            device memory beside one device's and the split leaves' (with
+            their Adam moments) bytes on a rank against whole; arctic-480b's
+            expert-parallel training on 1 x 2 (TP_TRAIN_MOE: 16 experts,
+            1 layer, f32, SGD) against one device's loss, aux and grad
+            norm; the
+            training CLI (``python -m repro_torch.launch.train``
+            TP_TRAIN_ARGV ``--mesh 2x2``) as 4 torchrun-style ranks (the
+            env:// variables set, ``launch.train.main`` called in process,
+            the depth cut and a metric line every step by patching its
+            ``get_config`` and run config) with a checkpoint after each
+            step, its first line naming the mesh and backend, every step's
+            loss and grad norm against ``--mesh none`` run here;
+            then a run that resumes from the checkpoint before the last,
+            whose last checkpoint must equal the straight run's leaf for
+            leaf (bit-exact); that checkpoint restored on one device (its
+            update within TP_TRAIN_CLI_UPDATE_RTOL of ``--mesh none``'s,
+            bf16 activations), projected at k 4, packed as f32 planes and greedy-served
+            through the kernels against the one-device run's tree
+            (logits within TP_TRAIN_LOGIT_TOL, streams by the
+            split rule; its launches are the ``tp_train_serve_f32`` path).
+
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
 main paths of phases 4-6, 8, 9, 12-14, 16-18 and 20 (bf16) must have run the
 tensor-core body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
@@ -464,8 +499,8 @@ body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
 LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
-sum over the main-path runs of phases 4-9, 11 (a)-(b), 12-18 and 20 (rank
-0's counts);
+sum over the main-path runs of phases 4-9, 11 (a)-(b), 12-18, 20 (rank
+0's counts) and 21 (the served tree);
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -765,10 +800,17 @@ def main() -> int:
     if not ok:
         return _fail("the serve CLI phase failed (see above)")
     by_path.update(cli_counts)
+    # the mesh-training ranks start and warm up while the train phase runs
+    tp_train = _tp_train_spawn(torch, dev)
     train_counts, train_cnn, ok = timed("train", _train_phase)
     if not ok:
+        _tp_train_stop(tp_train)
         return _fail("the training phase failed (see above)")
     by_path.update(train_counts)
+    tp_train_counts, ok = timed("tp_train", _tp_train_phase, tp_train)
+    if not ok:
+        return _fail("the mesh-training phase failed (see above)")
+    by_path.update(tp_train_counts)
     moe_counts, ok = timed("moe", _moe_phase, args.out)
     if not ok:
         return _fail("the moe_lm family phase failed (see above)")
@@ -3423,12 +3465,13 @@ def _cli_phase(torch, dev, report):
 TRAIN_CNN_STEPS = 60             # Table I runs: the reference's benchmark
                                  # default (at 200 every run reaches 1.0)
 TRAIN_CNN_NNZ = (None, 2, 3, 4)  # dense, then DBB k = 2 / 3 / 4 of 8
-# the run resumes from its --checkpoint-every checkpoint. 70 steps: the
-# checks need a falling loss, a bit-exact resume over two logged steps (50
-# and 60) and a trained tree, not a longer curve (at 100 steps the straight
-# and resumed runs took 63 + 37 s of the script's 1200 s on the H100)
-TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 70 --seq-len 256 --batch 8 "
-                 "--dbb-ramp 25 --checkpoint-every 50")
+# the run resumes from its --checkpoint-every checkpoint. 50 steps: the
+# checks need a falling loss, a bit-exact resume over two logged steps (30
+# and 40) and a trained tree, not a longer curve (at 70 steps the straight
+# and resumed runs took 59.9 + 36.6 s of the script's 1200 s on the H100;
+# the mesh-training phase took the time)
+TRAIN_LM_ARGV = ("--arch olmo-1b --full --steps 50 --seq-len 256 --batch 8 "
+                 "--dbb-ramp 25 --checkpoint-every 30")
 TRAIN_RESUME_RTOL = 1e-3         # resumed vs uninterrupted losses
 TRAIN_CE_RTOL = 5e-3             # f32 planes' held-out CE vs the plain route
 # kernel vs plain prefill logits of the trained olmo-1b, of max |logit|: its
@@ -5503,7 +5546,7 @@ def _zamba_decode_parts(torch, dev, cfg, engine, rec):
 
 
 def _zamba_phase(torch, dev, report, out_dir):
-    """zamba2-1.2b at full width and LM_DEPTH's 19 of 38 layers (module
+    """zamba2-1.2b at full width and LM_DEPTH's 12 of 38 layers (module
     doc, phase 16): (by_path, ok)."""
     import gc
 
@@ -5690,10 +5733,11 @@ def _zamba_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 # the depth phases 16-18 run each model at (of 38 / 24 / 18 / 48 layers):
-# half, which frees room for the tp phase in the run's time limit; the
+# a third to a quarter, which frees room for the tp and tp_train phases in
+# the run's time limit (half until the mesh-training phase came); the
 # serve CLI and training steps keep every layer (their own --full argv)
-LM_DEPTH = {"zamba2-1.2b": 19, "rwkv6-1.6b": 12, "paligemma-3b": 9,
-            "musicgen-medium": 24}
+LM_DEPTH = {"zamba2-1.2b": 12, "rwkv6-1.6b": 8, "paligemma-3b": 6,
+            "musicgen-medium": 12}
 RWKV_ARCH, VLM_ARCH, AUDIO_ARCH = "rwkv6-1.6b", "paligemma-3b", \
     "musicgen-medium"
 LM_FWD = (2, 256)                     # forward: B2 x 256 tokens (or frames)
@@ -6456,7 +6500,7 @@ def _lm_prompts(torch, cfg, seed):
 
 
 def _rwkv_phase(torch, dev, report, out_dir):
-    """rwkv6-1.6b at full width and LM_DEPTH's 12 of 24 layers (module
+    """rwkv6-1.6b at full width and LM_DEPTH's 8 of 24 layers (module
     doc, phase 17): (by_path, ok)."""
     import gc
 
@@ -7038,14 +7082,15 @@ def _tp_rank(rank, world, store, path, queue):
         queue.put({"rank": rank, "error": traceback.format_exc()})
 
 
-def _tp_start(torch, world, job, gated=False):
+def _tp_start(torch, world, job, gated=False, target=None):
     """Spawn ``world`` ranks of `_tp_rank` (the ``spawn`` start method, a
     ``file://`` store in a temporary directory; the job goes through a
     file, as a Process's arguments go down a pipe its child reads only
     after its imports) and return the world for `_tp_collect`. A
     ``gated`` world sets up (imports, CUDA context, process group) and
     then waits for `_tp_release`. The ranks are daemons: a parent that
-    fails takes them down with it."""
+    fails takes them down with it. ``target``: the rank function
+    (default `_tp_rank`)."""
     import pickle
     import tempfile
     ctx = torch.multiprocessing.get_context("spawn")
@@ -7055,7 +7100,7 @@ def _tp_start(torch, world, job, gated=False):
     with open(path, "wb") as f:
         pickle.dump(dict(job, gate=gate if gated else None), f)
     q = ctx.Queue()
-    procs = [ctx.Process(target=_tp_rank, daemon=True,
+    procs = [ctx.Process(target=target or _tp_rank, daemon=True,
                          args=(r, world, os.path.join(tmp.name, "store"),
                                path, q)) for r in range(world)]
     for p in procs:
@@ -7607,6 +7652,756 @@ def _tp_kernels(torch, dev, lens):
                                "at the TP shard shapes: "
                                + "; ".join(failures)))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 21: training on a mesh, gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_LAYERS = 2              # olmo-1b's depth here (16 published): the
+                                 # 2 x 2 run moves its gradients through the
+                                 # host (gloo on CUDA tensors), ~0.5 GB/layer
+TP_TRAIN_SEQ, TP_TRAIN_BATCH = 256, 8   # the train phase's shape
+TP_TRAIN_STEPS = 3
+TP_TRAIN_RAMP = 2                # the bound anneals 8 -> 6 -> 4 over them
+TP_TRAIN_MESHES = ((1, 2), (2, 2))      # data x model: TP + SP; DP x TP
+# experts, layers, steps of arctic's EP run (SGD: two ranks' AdamW states
+# at 1 layer, 9.4 GB of params, did not fit beside each other on the card)
+TP_TRAIN_MOE = ("arctic-480b", 16, 1, 2)
+# the CLI on the 2 x 2 mesh (in process on each rank, as under torchrun),
+# and on one device: 2 steps, a checkpoint after each
+TP_TRAIN_CLI_STEPS = 2
+TP_TRAIN_ARGV = (f"--arch olmo-1b --full --steps {TP_TRAIN_CLI_STEPS} "
+                 "--seq-len 256 --batch 8 --dbb-ramp 2 --checkpoint-every 1")
+TP_TRAIN_LOSS_RTOL = 1e-4        # a mesh step's loss and grad norm (and
+                                 # aux) vs one device's
+# params after a mesh step vs one device's, max |diff|: the reference's
+# bound (its own test holds a 2 x 4 step to 5e-4 at lr 1e-3). At AdamW's
+# warm-up lr here (3e-5, 6e-5, 9e-5) 3 steps move a param by 2.6e-4 at
+# most (measured), so this bound alone would pass a mesh that never
+# updated:
+TP_TRAIN_PARAM_TOL = 5e-4
+# the update's relative error ||Δmesh - Δone|| / ||Δone|| (Δ from the
+# initial tree), which a mesh left at its initial state reads as 1 and one
+# without its gradient sum over "data" as 0.81-0.97 (olmo smoke, CPU).
+# Measured on the H100: f32 (the step jobs) 3.9e-6 to 1.9e-5; the CLI's
+# bf16 activations 2.8e-2 after 2 steps, 6.1e-2 after 1 (AdamW's first
+# steps move each element by ~lr in the sign of its gradient, and bf16
+# rounding flips the sign of the smallest: 163,348 of 237M elements
+# after step 1; scripts/torch_mesh_train_probe.py cli)
+TP_TRAIN_UPDATE_RTOL = 1e-3
+TP_TRAIN_CLI_UPDATE_RTOL = 0.15
+TP_TRAIN_LOGIT_TOL = 1e-3        # the two trained trees' f32 serve logits
+TP_TRAIN_NEW = 16                # greedy tokens per prompt in the serve
+
+
+def _tp_train_config(arch, layers, experts=0):
+    """The phase's config of ``arch``: published widths (smoke widths in
+    a CPU rehearsal) at ``layers`` layers, f32, ``experts`` experts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=TP_SMOKE).replace(num_layers=layers,
+                                                   dtype="float32")
+    if experts:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  num_experts=experts))
+    return cfg
+
+
+def _tp_train_cut_config(arch, smoke=False):
+    """`get_config` for the CLI runs: the phase's olmo-1b depth."""
+    from repro_torch.configs import get_config
+    return get_config(arch, smoke=smoke or TP_SMOKE).replace(
+        num_layers=TP_TRAIN_LAYERS)
+
+
+def _tp_train_patch_cli(ttrain):
+    """Point the training CLI (``ttrain``, its module) at the phase's depth
+    (its `get_config`) and a metric line every step (its run config's
+    ``log_every``: the CLI logs every 10th step, as the reference's, and
+    has no flag for it). Returns the undo."""
+    import dataclasses
+    saved = ttrain.get_config, ttrain._run_cfg
+
+    def every_step(args):
+        rc = saved[1](args)
+        return dataclasses.replace(rc, train=dataclasses.replace(
+            rc.train, log_every=1))
+    ttrain.get_config, ttrain._run_cfg = _tp_train_cut_config, every_step
+
+    def undo():
+        ttrain.get_config, ttrain._run_cfg = saved
+    return undo
+
+
+def _tp_train_runcfg(cfg):
+    from repro_torch.config import RunConfig, TrainConfig
+    return RunConfig(model=cfg, train=TrainConfig(
+        steps=TP_TRAIN_STEPS, dbb_prune_ramp=TP_TRAIN_RAMP,
+        optimizer="adamw" if cfg.family == "dense_lm" else "sgd"))
+
+
+def _tp_train_job(arch, steps):
+    """(config, run config, the pipeline, the bound per step) of a run."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.core.sparsity import dbb_schedule_nnz
+    from repro_torch.data.pipeline import make_pipeline
+    if arch == "olmo-1b":
+        cfg = _tp_train_config(arch, TP_TRAIN_LAYERS)
+    else:
+        cfg = _tp_train_config(arch, TP_TRAIN_MOE[2], TP_TRAIN_MOE[1])
+    rc = _tp_train_runcfg(cfg)
+    pipe = make_pipeline(cfg, ShapeSpec("t", TP_TRAIN_SEQ, TP_TRAIN_BATCH,
+                                        "train"), seed=0)
+    nnz = [dbb_schedule_nnz(cfg.dbb, s, 0, TP_TRAIN_RAMP)
+           for s in range(steps)]
+    return cfg, rc, pipe, nnz
+
+
+def _tp_train_steps(torch, dev, arch, steps, plan=None, state=None,
+                    save=None):
+    """``steps`` train steps of ``arch`` from seed 0's tree (one device, or
+    this rank's shards under ``plan``): per step (loss, aux, grad_norm,
+    ms, kernel launches); ``save(step, state)`` after each."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.train.loop import (init_train_state, make_train_step,
+                                        rank_batch)
+    cfg, rc, pipe, nnz = _tp_train_job(arch, steps)
+    if state is None:
+        state = init_train_state(rc, device=dev)
+    fns, rows = {}, []
+    for s in range(steps):
+        if nnz[s] not in fns:
+            fns[nnz[s]] = make_train_step(rc, nnz=nnz[s], plan=plan)
+        host = pipe.batch_at(s)
+        if plan is not None:
+            host = rank_batch(host, plan)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+        _sync(torch, dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, m = fns[nnz[s]](state, batch)
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(step=s, nnz=nnz[s], loss=float(m["loss"]),
+                         aux=float(m["aux"]), grad_norm=float(m["grad_norm"]),
+                         ms=ms, launches=sum(LAUNCHES.values())))
+        if save is not None:
+            save(s, state)
+    return state, rows
+
+
+def _tp_train_split_bytes(torch, plan, params, opt_state):
+    """(whole bytes, this rank's bytes) of the leaves the plan splits and
+    their optimizer moments."""
+    from repro_torch.train.tree import tree_map
+    acc = [0, 0]
+
+    def add(t, spec):
+        axes = [a for e in tuple(spec)
+                for a in ((e,) if isinstance(e, str) else (e or ()))]
+        if axes:
+            n = 1
+            for a in axes:
+                n *= plan.mesh.shape[a]
+            acc[0] += t.numel() * t.element_size() * n
+            acc[1] += t.numel() * t.element_size()
+    tree_map(add, params, plan.specs)
+    for moment in opt_state.values():
+        tree_map(add, moment, plan.specs)
+    return acc
+
+
+def _tp_train_rank(rank, world, store, path, queue):
+    """One rank of a mesh-training world (spawned by `_tp_start`): the
+    world's jobs in turn, each after its gate file (if any) exists, each
+    result dict (or the traceback) to ``queue`` tagged with the job's
+    index. A ``steps`` job trains on the job's mesh under `train.loop`'s
+    plan (a process group over a ``file://`` store) and holds each step's
+    params against the single-device run's files; a ``cli`` job runs
+    ``repro_torch.launch.train.main`` as one rank of a torchrun-style
+    world (the env:// variables set, the CLI patched by
+    `_tp_train_patch_cli`). A ``steps`` job makes its process group and
+    mesh before its gate, and a ``warm`` one runs steps at the phase's
+    shapes on them there (`_tp_train_warm`: the first step's cold cost),
+    so the world can be spawned a phase early. One process runs several
+    jobs, so only the first pays the cold start."""
+    import gc
+    import pickle
+    import traceback
+    i = -1
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(path, "rb") as f:
+            world_job = pickle.load(f)
+        global TP_SMOKE
+        TP_SMOKE = world_job["smoke"]
+        dev = torch.device(world_job["device"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+            torch.zeros(1, device=dev)
+        from repro_torch.dist.mesh_ctx import make_mesh
+        for i, job in enumerate(world_job["jobs"]):
+            if job["kind"] == "steps":
+                dist.init_process_group(
+                    TP_BACKEND, init_method=f"file://{store}{i}",
+                    rank=rank, world_size=world)
+                mesh = make_mesh(*job["mesh"], backend=TP_BACKEND)
+                if job.get("warm"):
+                    _tp_train_warm(torch, mesh, dev, job["warm"])
+            t0 = time.perf_counter()
+            while job.get("gate") and not os.path.exists(job["gate"]):
+                if time.perf_counter() - t0 > 8 * TP_TIMEOUT:
+                    raise RuntimeError("the gate never opened")
+                time.sleep(0.05)
+            if job["kind"] == "cli":
+                res = _tp_train_cli_rank(torch, rank, world, job, dev)
+            else:
+                res = _tp_train_steps_rank(torch, job, dev, mesh)
+                dist.barrier()
+                dist.destroy_process_group()
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            queue.put(dict(res, rank=rank, job=i))
+    except Exception:                                   # noqa: BLE001
+        queue.put({"rank": rank, "job": i, "error": traceback.format_exc()})
+
+
+def _tp_train_collect(started, job):
+    """The ranks' results of job ``job`` of a world started by `_tp_start`
+    (results of later jobs that arrive first are kept for their turn) and
+    the seconds since the world's clock (its spawn or its last collect);
+    a rank's error, a rank gone or TP_TIMEOUT raises."""
+    import queue as queue_mod
+    world, procs, q, tmp, t0 = started
+    kept = getattr(q, "_tp_kept", None)
+    if kept is None:
+        kept = q._tp_kept = []
+    got = [r for r in kept if r["job"] == job]
+    kept[:] = [r for r in kept if r["job"] != job]
+    while len(got) < world:
+        try:
+            r = q.get(timeout=5)
+        except queue_mod.Empty:
+            dead = [p.exitcode for p in procs
+                    if not p.is_alive() and p.exitcode != 0]
+            if dead or time.perf_counter() - t0 > TP_TIMEOUT:
+                raise RuntimeError(
+                    f"a rank of the {world}-rank world: " + (
+                        f"exit code {dead[0]}, no result" if dead else
+                        f"no result for job {job} within {TP_TIMEOUT} s"))
+            continue
+        if "error" in r:
+            raise RuntimeError(f"rank {r['rank']} of the {world}-rank "
+                               f"world failed job {r['job']}:\n"
+                               + r["error"])
+        (got if r["job"] == job else kept).append(r)
+    return sorted(got, key=lambda g: g["rank"]), time.perf_counter() - t0
+
+
+def _tp_train_open(started, gate):
+    """Open a job's gate; the world's clock starts now."""
+    world, procs, q, tmp, _ = started
+    open(gate, "w").close()
+    return world, procs, q, tmp, time.perf_counter()
+
+
+def _tp_train_warm(torch, mesh, dev, dtypes):
+    """olmo-1b's steps at the phase's shapes on ``mesh`` (full width cut to
+    1 layer, B8 S256, a step at each bound of the ramp), once with each of
+    ``dtypes`` as its activations, discarded. A process's first full-width
+    step costs ~8-13 s more than the next, on one device as on a mesh,
+    most of it ``torch.utils.checkpoint``'s first call importing
+    ``torch._dynamo`` (the layers are checkpointed from d_model 1024 on:
+    a smoke-width step does not pay it; PERF.md §6)."""
+    import gc
+
+    from repro_torch.models import registry
+    from repro_torch.train.loop import (init_train_state, make_train_step,
+                                        plan_mesh, rank_batch)
+    for dtype in dtypes:
+        cfg, _, pipe, nnz = _tp_train_job("olmo-1b", TP_TRAIN_STEPS)
+        cfg = cfg.replace(num_layers=1, dtype=dtype)
+        rc = _tp_train_runcfg(cfg)
+        params = registry.init_params(cfg, seed=1, device=dev)
+        plan = plan_mesh(params, rc, mesh)
+        state = init_train_state(rc, device=dev, params=params, plan=plan)
+        del params
+        for s in range(TP_TRAIN_STEPS):
+            batch = rank_batch(pipe.batch_at(s), plan)
+            state, _ = make_train_step(rc, nnz=nnz[s], plan=plan)(
+                state, {k: torch.as_tensor(v).to(dev)
+                        for k, v in batch.items()})
+        del state
+    _sync(torch, dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _tp_train_steps_rank(torch, job, dev, mesh):
+    import torch.distributed as dist
+
+    from repro_torch.core.sparsity import map_with_path
+    from repro_torch.dist.collectives import reduce_max
+    from repro_torch.dist.mesh_ctx import use_mesh
+    from repro_torch.dist.sharding import shard_tree
+    from repro_torch.models import registry
+    from repro_torch.train.loop import init_train_state, plan_mesh
+    cfg, rc, _, _ = _tp_train_job(job["arch"], job["steps"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = registry.init_params(cfg, seed=0, device=dev)
+    plan = plan_mesh(params, rc, mesh)
+    state = init_train_state(rc, device=dev, params=params, plan=plan)
+    del params
+    whole_b, mine_b = _tp_train_split_bytes(torch, plan, state.params,
+                                            state.opt_state)
+    # the initial shards, on the host: the peak device memory stays the
+    # run's own
+    p0, errs = {}, []
+    if job["single"]:
+        map_with_path(lambda p, t: p0.__setitem__(p, t.cpu()), state.params)
+
+    def compare(s, st):
+        """This rank's shards vs the single device's params after step s,
+        over every rank: max |diff|, the single device's max |update|
+        (what a mesh left at its initial state would read) and the
+        update's relative error."""
+        path = job["single"][s]
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if time.perf_counter() - t0 > TP_TIMEOUT:
+                raise RuntimeError(f"no single-device params at {path}")
+            time.sleep(0.05)
+        ref = torch.load(path, mmap=True)
+        specs = {}
+        map_with_path(lambda p, sp: specs.__setitem__(p, sp), plan.specs)
+        # max |diff|, max |update|, sum diff^2, sum update^2
+        acc = torch.zeros(4, dtype=torch.float64, device=dev)
+
+        def one(p, t):
+            want = shard_tree(ref[p], specs[p], mesh).to(dev)
+            d, u = (t - want).double(), (want - p0[p].to(dev)).double()
+            acc[0] = torch.maximum(acc[0], d.abs().max())
+            acc[1] = torch.maximum(acc[1], u.abs().max())
+            acc[2] += (d * d).sum()
+            acc[3] += (u * u).sum()
+        with torch.no_grad():
+            map_with_path(one, st.params)
+        with use_mesh(mesh):
+            top = reduce_max(acc[:2], mesh.axis_names)
+        sums = acc[2:].clone()
+        dist.all_reduce(sums)
+        errs.append((top[0].item(), top[1].item(),
+                     (sums[0] / sums[1]).sqrt().item()))
+
+    state, rows = _tp_train_steps(
+        torch, dev, job["arch"], job["steps"], plan=plan, state=state,
+        save=compare if job["single"] else None)
+    for r, (e, move, rel) in zip(rows, errs):
+        r.update(param_err=e, param_move=move, update_err=rel)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    zero = any(a in ("data", "pod") for sp in plan.gather.values()
+               for e in sp for a in ((e,) if isinstance(e, str) else e or ()))
+    return dict(rows=rows, peak=peak, split_bytes=(whole_b, mine_b),
+                split=sorted(plan.layout.split), zero=zero)
+
+
+def _tp_train_cli_rank(torch, rank, world, job, dev):
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import train as ttrain
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(job["port"]))
+    _tp_train_patch_cli(ttrain)
+    lines, rep = [], {}
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ttrain.main(job["argv"], device=str(dev), log=lines.append, report=rep)
+    return dict(lines=lines, history=rep["history"], backend=rep["backend"],
+                wall=time.perf_counter() - t0,
+                launches=sum(LAUNCHES.values()),
+                peak=(torch.cuda.max_memory_allocated(dev)
+                      if dev.type == "cuda" else 0))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _tp_train_spawn(torch, dev):
+    """Start the mesh-training phase's two worlds (called a phase early:
+    the ranks set up and warm up while the train phase runs): 2 ranks
+    (olmo 1 x 2, then arctic's EP) and 4 (olmo 2 x 2, then the CLI, then
+    its resume), every job gated: `_tp_train_phase` opens the gates. The
+    handle holds the worlds and the phase's paths under ``build/``."""
+    import tempfile
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build_dir)
+    root = tmp.name
+    gates = {k: os.path.join(root, f"gate_{k}")
+             for k in ("start", "ep", "resume")}
+    single = [os.path.join(root, f"single_{s}.pt")
+              for s in range(TP_TRAIN_STEPS)]
+    ck = os.path.join(root, "cli_ckpt")
+    argv = TP_TRAIN_ARGV.split() + ["--checkpoint-dir", ck, "--mesh", "2x2"]
+    base = dict(device=str(dev), smoke=TP_SMOKE)
+    olmo = dict(kind="steps", arch="olmo-1b", steps=TP_TRAIN_STEPS,
+                single=single, gate=gates["start"], warm=("float32",))
+    worlds = {
+        2: _tp_start(torch, 2, dict(base, jobs=[
+            dict(olmo, mesh=TP_TRAIN_MESHES[0]),
+            dict(kind="steps", arch=TP_TRAIN_MOE[0], mesh=(1, 2),
+                 steps=TP_TRAIN_MOE[3], single=None, gate=gates["ep"])]),
+            target=_tp_train_rank),
+        # the CLI's activations are the config's bf16
+        4: _tp_start(torch, 4, dict(base, jobs=[
+            dict(olmo, mesh=TP_TRAIN_MESHES[1],
+                 warm=("float32", "bfloat16")),
+            dict(kind="cli", argv=argv, port=_free_port()),
+            dict(kind="cli", argv=argv, port=_free_port(),
+                 gate=gates["resume"])]), target=_tp_train_rank)}
+    return dict(worlds=worlds, gates=gates, single=single, ck=ck, tmp=tmp)
+
+
+def _tp_train_stop(started):
+    """Stop a spawn's worlds and remove its files."""
+    for w in started["worlds"].values():
+        if any(p.is_alive() for p in w[1]):
+            _tp_stop(w)
+    started["tmp"].cleanup()
+
+
+def _tp_train_phase(torch, dev, report, started):
+    """Training on a mesh (module doc, phase 21): olmo-1b at full width on
+    1 x 2 and 2 x 2 meshes against one device step by step, arctic's
+    expert-parallel training on 1 x 2, the training CLI on 2 x 2 with a
+    bit-exact resume and a restore on one device, and the mesh-trained
+    tree served through the kernels against the one-device-trained one,
+    on the worlds `_tp_train_spawn` started, whose jobs run while this
+    process runs the single-device references. (by_path, ok)."""
+    import gc
+
+    from repro_torch.launch import train as ttrain
+    t_phase = time.perf_counter()
+    rec = report["tp_train"] = {}
+    card = report["card"]
+    print(f"tp_train: backend {TP_BACKEND}, every rank on cuda:0 (the ranks "
+          f"share one H100; steps are gloo- and host-bound: no speed "
+          f"claim; the worlds were spawned before the train phase) "
+          f"({card})")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    worlds, gates = started["worlds"], started["gates"]
+    for w in (2, 4):
+        worlds[w] = _tp_train_open(worlds[w], gates["start"])
+    undo = _tp_train_patch_cli(ttrain)
+    try:
+        return _tp_train_run(torch, dev, rec, card, worlds, gates,
+                             started["single"], started["ck"], t_phase)
+    finally:
+        undo()
+        _tp_train_stop(started)
+
+
+def _tp_train_save(torch, path):
+    """``save(step, state)`` writing the params to ``path[step]`` (a flat
+    ``{leaf path: CPU tensor}``; renamed into place once whole)."""
+    from repro_torch.core.sparsity import map_with_path
+
+    def save(s, st):
+        flat = {}
+        map_with_path(lambda p, t: flat.__setitem__(p, t.detach().cpu()),
+                      st.params)
+        torch.save(flat, path[s] + ".tmp")
+        os.replace(path[s] + ".tmp", path[s])
+    return save
+
+
+def _peak(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _tp_train_run(torch, dev, rec, card, worlds, gates, single, ck,
+                  t_phase):
+    """`_tp_train_phase` past the spawns. (by_path, ok)."""
+    import gc
+    import shutil
+
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import checkpoint as ckpt
+    ok = True
+    # -- one device: olmo-1b (the meshes' reference), then the CLI ----------
+    _reset_peak(torch, dev)
+    st1, rows1 = _tp_train_steps(torch, dev, "olmo-1b", TP_TRAIN_STEPS,
+                                 save=_tp_train_save(torch, single))
+    peak1 = _peak(torch, dev)
+    del st1
+    gc.collect()
+    print(f"tp_train: olmo-1b {TP_TRAIN_LAYERS} layers at full width, f32, "
+          f"B{TP_TRAIN_BATCH} S{TP_TRAIN_SEQ}, AdamW, DBB 8 -> 4 over "
+          f"{TP_TRAIN_STEPS} steps: one device "
+          + "; ".join(f"step {r['step']} (k {r['nnz']}) loss {r['loss']:.6f} "
+                      f"{r['ms']:.1f} ms" for r in rows1)
+          + f"; peak device memory {peak1 / 1e9:.3f} GB ({card})")
+    rec["single"] = dict(rows=rows1, peak_bytes=peak1)
+    rep1, lines1 = {}, []
+    ttrain.main(TP_TRAIN_ARGV.split() + ["--mesh", "none"],
+                device=str(dev), log=lines1.append, report=rep1)
+    for world, name in ((2, "1x2"), (4, "2x2")):
+        ranks, wall = _tp_train_collect(worlds[world], 0)
+        ok = _tp_train_mesh_check(name, ranks, wall, rows1, peak1, rec,
+                                  card) and ok
+    # -- the CLI on 2 x 2, then its resume ------------------------------------
+    ranks, wall = _tp_train_collect(worlds[4], 1)
+    r0 = ranks[0]
+    straight = os.path.join(os.path.dirname(ck), "straight_final")
+    steps_saved = ckpt.available_steps(ck)
+    last = f"step_{TP_TRAIN_CLI_STEPS:09d}"
+    shutil.move(os.path.join(ck, last), straight)
+    worlds[4] = _tp_train_open(worlds[4], gates["resume"])
+    first_ok = (r0["lines"][0] == "mesh 2x2 (data x model): torchrun world "
+                f"of 4, backend {TP_BACKEND}" and r0["backend"] == TP_BACKEND)
+    h_mesh, h_one = r0["history"], rep1["history"]
+    rels = [max(abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm"))
+            for a, b in zip(h_mesh, h_one)]
+    cli_loss_ok = ([h["step"] for h in h_mesh] == [h["step"] for h in h_one]
+                   == list(range(TP_TRAIN_CLI_STEPS))
+                   and max(rels) <= TP_TRAIN_LOSS_RTOL)
+    cli_ok = (first_ok and cli_loss_ok
+              and steps_saved == list(range(1, TP_TRAIN_CLI_STEPS + 1))
+              and not any(r["launches"] for r in ranks))
+    print(f"tp_train: cli: `python -m repro_torch.launch.train "
+          f"{TP_TRAIN_ARGV} --checkpoint-dir <build/...> --mesh 2x2` on 4 "
+          f"ranks (torchrun-style env://, in process, olmo-1b cut to "
+          f"{TP_TRAIN_LAYERS} layers): first line {r0['lines'][0]!r}; "
+          f"{r0['wall']:.1f} s; per step loss and grad norm vs --mesh none "
+          + "; ".join(f"step {a['step']}: {a['loss']:.6f} vs {b['loss']:.6f}"
+                      f", {a['grad_norm']:.6f} vs {b['grad_norm']:.6f} (rel "
+                      f"{r:.2e}), dt {a['dt']} s vs {b['dt']} s"
+                      for a, b, r in zip(h_mesh, h_one, rels))
+          + f" (tol {TP_TRAIN_LOSS_RTOL:g}); checkpoints {steps_saved}; "
+          f"rank peaks "
+          f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB; kernel "
+          f"launches while training {[r['launches'] for r in ranks]} "
+          f"{'ok' if cli_ok else 'FAIL'}")
+    ok = ok and cli_ok
+    ranks, wall = _tp_train_collect(worlds[4], 2)
+    resumed = os.path.join(ck, last)
+    names = sorted(n for n in os.listdir(straight) if n.startswith("leaf_"))
+    same = [n for n in names if open(os.path.join(straight, n), "rb").read()
+            == open(os.path.join(resumed, n), "rb").read()]
+    resume_ok = (ranks[0]["lines"][1]
+                 == f"resumed from step {TP_TRAIN_CLI_STEPS - 1}"
+                 and len(same) == len(names))
+    ok = ok and resume_ok
+    print(f"tp_train: cli resume: {ranks[0]['lines'][1]!r}; its step-"
+          f"{TP_TRAIN_CLI_STEPS} checkpoint vs the straight run's: {len(same)} "
+          f"of {len(names)} leaves bit-equal {'ok' if resume_ok else 'FAIL'}"
+          f" ({ranks[0]['wall']:.1f} s)")
+    # -- arctic: one device, then EP on 1 x 2 ---------------------------------
+    arch, experts, layers, steps = TP_TRAIN_MOE
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _reset_peak(torch, dev)
+    st, rows_ep1 = _tp_train_steps(torch, dev, arch, steps)
+    peak_ep1 = _peak(torch, dev)
+    del st
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    worlds[2] = _tp_train_open(worlds[2], gates["ep"])
+    ranks, wall = _tp_train_collect(worlds[2], 1)
+    ok = _tp_train_ep_check(ranks, wall, rows_ep1, peak_ep1, rec, card) and ok
+    # -- serve the mesh-trained tree on one device ---------------------------
+    counts, serve_ok = _tp_train_serve(torch, dev, rec, ck, rep1["state"])
+    ok = ok and serve_ok
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"tp_train: phase {rec['phase_s']:.1f} s ({card})")
+    return {"tp_train_serve_f32": counts}, ok
+
+
+def _tp_train_mesh_check(name, ranks, wall, rows1, peak1, rec, card):
+    """A mesh's olmo-1b run against one device: per step the loss, the
+    params' max |diff| and the ms; the ranks' peaks; the split leaves'
+    bytes per rank. ok."""
+    r0 = ranks[0]
+    d, m = (int(x) for x in name.split("x"))
+    ok = True
+    for a, b in zip(r0["rows"], rows1):
+        rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+        step_ok = (max(rel.values()) <= TP_TRAIN_LOSS_RTOL
+                   and a["param_err"] <= TP_TRAIN_PARAM_TOL
+                   and a["update_err"] <= TP_TRAIN_UPDATE_RTOL
+                   and all(r["rows"][a["step"]]["loss"] == a["loss"]
+                           for r in ranks) and a["launches"] == 0)
+        ok = ok and step_ok
+        print(f"tp_train: {name}: step {a['step']} (k {a['nnz']}): loss "
+              f"{a['loss']:.6f} vs one device {b['loss']:.6f} (rel "
+              f"{rel['loss']:.2e}), grad norm {a['grad_norm']:.6f} vs "
+              f"{b['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}; tol "
+              f"{TP_TRAIN_LOSS_RTOL:g}); the update's relative error "
+              f"{a['update_err']:.3e} (tol {TP_TRAIN_UPDATE_RTOL:g}; a mesh "
+              f"left at its initial state reads 1); params max |diff| "
+              f"{a['param_err']:.3e} (tol {TP_TRAIN_PARAM_TOL:g}; unchanged "
+              f"reads {a['param_move']:.3e}); step {a['ms']:.1f} ms (one "
+              f"device {b['ms']:.1f} ms); kernel launches {a['launches']} "
+              f"{'ok' if step_ok else 'FAIL'}")
+    whole, mine = r0["split_bytes"]
+    peaks = [r["peak"] for r in ranks]
+    want_split = {"vocab", "head", "attn", "mlp"}
+    lay_ok = set(r0["split"]) == want_split and r0["zero"] == (d > 1)
+    ok = ok and lay_ok
+    print(f"tp_train: {name}: split {r0['split']}, ZeRO "
+          f"{'on' if r0['zero'] else 'off'}, sequence-parallel residual; "
+          f"the split leaves and their Adam moments {whole / 1e9:.3f} GB "
+          f"whole, {mine / 1e9:.3f} GB on a rank (ratio "
+          f"{whole / max(mine, 1):.2f}, tp x data = {d * m}); peak device "
+          f"memory per rank {[round(p / 1e9, 3) for p in peaks]} GB vs one "
+          f"device {peak1 / 1e9:.3f} GB (ratio "
+          f"{peak1 / max(max(peaks), 1):.2f}); {wall:.1f} s "
+          f"{'ok' if lay_ok else 'FAIL'} ({card})")
+    rec[name] = dict(rows=r0["rows"], peaks=peaks, wall_s=wall,
+                     split_bytes=[whole, mine], split=r0["split"],
+                     zero=r0["zero"])
+    return ok
+
+
+def _tp_train_ep_check(ranks, wall, rows1, peak1, rec, card):
+    """arctic's EP training on 1 x 2 against one device: loss and aux per
+    step. ok."""
+    arch, experts, layers, steps = TP_TRAIN_MOE
+    r0 = ranks[0]
+    ok = "experts" in r0["split"]
+    for a, b in zip(r0["rows"], rows1):
+        rel = {k: abs(a[k] - b[k]) / abs(b[k])
+               for k in ("loss", "aux", "grad_norm")}
+        step_ok = (max(rel.values()) <= TP_TRAIN_LOSS_RTOL
+                   and a["launches"] == 0)
+        ok = ok and step_ok
+        print(f"tp_train: {arch} EP 1x2 ({experts} experts, {layers} layer, "
+              f"f32, SGD): step {a['step']}: loss {a['loss']:.6f} vs one device "
+              f"{b['loss']:.6f}, aux {a['aux']:.6f} vs {b['aux']:.6f}, grad "
+              f"norm {a['grad_norm']:.6f} vs {b['grad_norm']:.6f} (rel "
+              + ", ".join(f"{v:.2e}" for v in rel.values())
+              + f"; tol {TP_TRAIN_LOSS_RTOL:g}); step {a['ms']:.1f} ms (one "
+              f"device {b['ms']:.1f} ms) {'ok' if step_ok else 'FAIL'}")
+    peaks = [r["peak"] for r in ranks]
+    print(f"tp_train: {arch} EP: split {r0['split']}; peak device memory "
+          f"per rank {[round(p / 1e9, 3) for p in peaks]} GB vs one device "
+          f"{peak1 / 1e9:.3f} GB; {wall:.1f} s ({card})")
+    rec["ep"] = dict(rows=r0["rows"], single=rows1, peaks=peaks,
+                     single_peak=peak1, wall_s=wall)
+    return ok
+
+
+def _tp_train_serve(torch, dev, rec, ck, one_state):
+    """The 2 x 2 CLI run's last checkpoint restored on one device, and the
+    one-device run's state: each projected at k 4, packed as f32 planes
+    and greedy-served through the kernel route; the mesh-trained tree's
+    streams against the other's by the split rule. (counts, ok)."""
+    import gc
+
+    from repro_torch.core.dbb_linear import pack_tree
+    from repro_torch.core.sparsity import apply_dbb_to_tree
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.tree import tree_leaves
+    from repro_torch.launch import train as ttrain
+    cfg = _tp_train_config("olmo-1b", TP_TRAIN_LAYERS)
+    # the CLI's initial tree (its own run config): the restore's template
+    template = init_train_state(ttrain._run_cfg(
+        ttrain.build_parser().parse_args(TP_TRAIN_ARGV.split())), device=dev)
+    mesh_state, meta = ckpt.restore(ck, template)
+    trio = list(zip(tree_leaves(mesh_state.params),
+                    tree_leaves(one_state.params),
+                    tree_leaves(template.params)))
+    err = max((a - b).abs().max().item() for a, b, _ in trio)
+    move = max((b - c).abs().max().item() for _, b, c in trio)
+    rel = (sum(((a - b).double() ** 2).sum().item() for a, b, _ in trio)
+           / sum(((b - c).double() ** 2).sum().item() for _, b, c in trio)
+           ) ** 0.5
+    del template, trio
+    print(f"tp_train: the 2x2 CLI run's step-{meta['step']} checkpoint "
+          f"restored on one device; its params vs the --mesh none run's "
+          f"(bf16 activations): the update's relative error {rel:.3e} (tol "
+          f"{TP_TRAIN_CLI_UPDATE_RTOL:g}; unchanged reads 1), max |diff| "
+          f"{err:.3e} (tol {TP_TRAIN_PARAM_TOL:g}; unchanged reads "
+          f"{move:.3e})")
+    kcfg = cfg.replace(remat="none", gemm_impl="pallas")
+    engines = {}
+    for name, st in (("mesh", mesh_state), ("one", one_state)):
+        tree = pack_tree(apply_dbb_to_tree(st.params, cfg.dbb,
+                                           straight_through=False), cfg.dbb)
+        engines[name] = ServeEngine(kcfg, tree, max_batch=8, device=dev)
+    del mesh_state
+    gc.collect()
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (48, 41, 34, 27, 20, 13, 9, 5)]
+    outs, counts = {}, None
+    for name in ("mesh", "one"):
+        reset_launches()
+        outs[name] = engines[name].generate(prompts,
+                                            max_new_tokens=TP_TRAIN_NEW)
+        _sync(torch, dev)
+        from repro_torch.kernels.common import LAUNCHES
+        if name == "mesh":
+            counts = dict(LAUNCHES)
+    last = {n: _logits_fn(torch, dev, e) for n, e in engines.items()}
+    lg = {n: last[n](kcfg, prompts) for n in engines}
+    scale = lg["one"].abs().max().item()
+    tol = TP_TRAIN_LOGIT_TOL * scale
+    diff = (lg["mesh"] - lg["one"]).abs().max().item()
+    same, total, split = _split_rows(outs["mesh"], outs["one"])
+    gaps = _split_gaps(torch, last["one"], kcfg, prompts, outs["mesh"],
+                       outs["one"], split)
+    kern = {k: v for k, v in counts.items() if v and not k.endswith(
+        ("_tc", "_split", "_narrow", "_small"))}
+    ok = (err <= TP_TRAIN_PARAM_TOL and rel <= TP_TRAIN_CLI_UPDATE_RTOL
+          and diff <= tol
+          and all(g <= 2 * tol for g in gaps)
+          and kern.get("dbb_gemm_skinny", 0) > 0
+          and kern.get("flash_prefill", 0) > 0)
+    print(f"tp_train: serve: both trees projected (k {cfg.dbb.nnz}), packed "
+          f"f32 and greedy-generated on the kernel route, 8 prompts x "
+          f"{TP_TRAIN_NEW}: prefill logits max |diff| {diff:.3e} of max "
+          f"{scale:.3e} (tol {TP_TRAIN_LOGIT_TOL:g} of max); tokens "
+          f"{same}/{total} equal, splits (row, step, gap; bound "
+          f"{2 * tol:.3e}) {[(i, j, g) for (i, j), g in zip(split, gaps)]};"
+          f" the mesh-trained tree's launches {kern} "
+          f"{'ok' if ok else 'FAIL'}")
+    rec["serve"] = dict(param_err=err, update_err=rel, logit_diff=diff,
+                        logit_scale=scale,
+                        agreement=[same, total],
+                        splits=[[i, j, g] for (i, j), g in zip(split, gaps)])
+    return counts, ok
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -263,9 +263,9 @@ class ShapeSpec:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh's shape and axis names. Carried only: serving builds
-    its mesh with `dist.mesh_ctx.make_mesh`; training on a mesh is not
-    ported (ROADMAP.md, Queue 1, item 3)."""
+    """The device mesh's shape and axis names. Carried only: serving and
+    training build their mesh with `dist.mesh_ctx.make_mesh` (the training
+    CLI from ``--mesh``)."""
     shape: Tuple[int, ...] = (16, 16)
     axes: Tuple[str, ...] = ("data", "model")
 

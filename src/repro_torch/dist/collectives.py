@@ -1,61 +1,102 @@
-"""The LM-head cross-entropy on one device, and the serving collectives of
-tensor parallelism.
+"""The LM-head cross-entropy, and the collectives of tensor parallelism
+for serving and for training on a mesh.
 
 Logits are taken in f32, as in the JAX package. `cross_entropy` picks the
-token-chunked form when the full ``[tokens, V]`` logits would be large.
-The reference's vocab-parallel CE (the head column-sharded over a
-"model" mesh axis) needs gradients through collectives and comes with
-training on a mesh (ROADMAP.md, Queue 1, item 3).
+vocab-parallel form inside a training step whose LM head arrives split by
+column over a "model" axis (`dist.mesh_ctx.TrainLayout`), the
+token-chunked form when the full ``[tokens, V]`` logits would be large,
+and the plain dense form otherwise. On a mesh every form's mean is the
+global batch's: the masked sums are added over the batch axes before the
+division, as the reference's GSPMD graph computes ``_masked_mean``.
 
-The serving half runs on every rank of a live mesh (`dist.mesh_ctx`),
-each holding plain local tensors; where the reference's shard_map bodies
-call ``psum`` / ``all_gather``, these call ``torch.distributed`` over the
-mesh axis's process group:
+Every rank of a live mesh (`dist.mesh_ctx`) holds plain local tensors;
+where the reference's shard_map bodies call ``psum`` / ``all_gather`` /
+``psum_scatter``, these call ``torch.distributed`` over the mesh axis's
+process group. Under gloo, CUDA tensors take all-reduce and broadcast
+only, so every collective here is an all-reduce: a gather all-reduces a
+zero-filled ``[n, ...]`` buffer holding this rank's block at its index
+(x + 0 = x, exact), and a reduce-scatter is an all-reduce and a
+``narrow``. Every collective leaves its input as it was.
+
+Serving (no gradient):
 
   * `all_reduce`: the boundary all-reduce after a row-parallel block,
     issued once. The reference splits it into chunks so that XLA can
     start the first chunk's transfer while the producing GEMM's epilogue
     stores the rest; in eager PyTorch the GEMM has finished before a
     collective is issued, so a chunk would only be one more collective;
-  * `shard_embed_lookup`: the row-sharded embedding gather (in-range
-    rows, zeros elsewhere, one all-reduce);
+  * `vocab_parallel_embed` (below, under training) serves the
+    row-sharded embedding gather too: its forward is one all-reduce;
   * `shard_greedy` / `shard_sample`: the vocab-parallel heads — each rank
     reduces its column slice to one (score, global id) pair per row and a
     ``[tp, B]`` gather picks the winner, ties to the lowest global id as
-    ``argmax`` takes them.
+    ``argmax`` takes them; `greedy_vocab_parallel` and `greedy_scatter`
+    are the reference's forms for a whole head (column- and row-split on
+    the ranks).
 
-The reference's forms for a whole, unsharded head under a mesh
-(``greedy_vocab_parallel``, ``greedy_scatter``, ``vocab_parallel_embed``)
-serve its GSPMD path and come with training on a mesh (ROADMAP.md, Queue
-1, item 3).
+Training (Megatron's pairs, as ``torch.autograd.Function``s whose
+backward is the collective the forward's use calls for):
 
-`all_gather` is an all-reduce of a zero-filled ``[tp, ...]`` buffer that
-holds this rank's block at its index: x + 0 = x, so it is exact, and it
-runs on both backends (gloo on CUDA tensors takes all-reduce and
-broadcast only). Every collective leaves its input as it was.
+  * `copy_to` (identity; backward all-reduce) and `reduce_from`
+    (all-reduce; backward identity): the entry and exit of a TP block on a
+    replicated stream, and `sum_over`, `reduce_from` over several axes;
+  * `gather_partial` (all-gather; backward reduce-scatter) for a gather
+    whose consumers are split over the axis, each rank's gradient a share
+    of the whole (sequence parallelism's block entry, attention's K/V);
+    `gather_replicated` (all-gather; backward this rank's slice) for one
+    whose consumer is replicated, every rank's gradient the whole (the
+    CE's per-rank logsumexps);
+  * `reduce_scatter` (backward all-gather) and `scatter` (this rank's
+    slice; backward all-gather): sequence parallelism's block exit and
+    entry into the split stream;
+  * `scale_grad`: the identity with a scaled gradient.
+
+  On them `vocab_parallel_ce` and `vocab_parallel_embed` (the head split
+  by column and the table by row over "model").
+
+`all_gather` is the zero-filled all-reduce described above; it runs on
+both backends. A backward runs on the autograd engine's thread, where the
+mesh context is not set: each function takes its process group at the
+forward call.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["dense_ce", "dense_ce_chunked", "cross_entropy", "axis_size",
-           "all_reduce", "all_gather", "shard_embed_lookup", "shard_greedy",
-           "shard_sample"]
+__all__ = ["dense_ce", "dense_ce_chunked", "cross_entropy",
+           "vocab_parallel_ce", "vocab_parallel_embed", "axis_size",
+           "all_reduce", "all_gather", "reduce_max",
+           "shard_greedy", "shard_sample", "greedy_vocab_parallel",
+           "greedy_scatter", "copy_to", "reduce_from", "sum_over",
+           "gather_partial", "gather_replicated", "reduce_scatter",
+           "scatter", "scale_grad"]
 
 # live logits above this many elements (~1 GB f32) take the chunked form
 CHUNK_LOGITS_ABOVE = 1 << 28
 
 
-def _masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
+def _masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor],
+                 batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The token mean of ``nll`` under ``mask``; with ``batch_axes`` the
+    global batch's: the numerator and the count summed over those axes
+    before the division."""
+    if not batch_axes:
+        if mask is None:
+            return nll.mean()
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
     if mask is None:
-        return nll.mean()
-    m = mask.float()
-    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+        num, den = nll.sum(), torch.full((), float(nll.numel()),
+                                         device=nll.device)
+    else:
+        m = mask.float()
+        num, den = (nll * m).sum(), m.sum()
+    return sum_over(num, batch_axes) / torch.clamp(
+        sum_over(den.detach(), batch_axes), min=1.0)
 
 
 def _nll(h: torch.Tensor, w: torch.Tensor,
@@ -67,10 +108,11 @@ def _nll(h: torch.Tensor, w: torch.Tensor,
 
 
 def dense_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mask: Optional[torch.Tensor] = None,
+             batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """Token-mean CE with full ``[.., V]`` logits: h ``[B, S, d]`` · w
-    ``[d, V]``."""
-    return _masked_mean(_nll(h, w, labels), mask)
+    ``[d, V]`` (the mean over the batch axes' ranks with ``batch_axes``)."""
+    return _masked_mean(_nll(h, w, labels), mask, batch_axes)
 
 
 def _chunk_sums(hc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor,
@@ -80,7 +122,8 @@ def _chunk_sums(hc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor,
 
 def dense_ce_chunked(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,
-                     rows: int = 8192) -> torch.Tensor:
+                     rows: int = 8192,
+                     batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """CE with token-chunked logits: at most ``[rows, V]`` live. Each chunk
     runs under `torch.utils.checkpoint`, so its logits are recomputed in
     the backward pass instead of kept; the gradients equal `dense_ce`'s up
@@ -108,17 +151,72 @@ def dense_ce_chunked(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         n, m = checkpoint(_chunk_sums, hf[sl], w, lf[sl], mf[sl],
                           use_reentrant=False)
         nll_sum, m_sum = nll_sum + n, m_sum + m
+    if batch_axes:
+        nll_sum = sum_over(nll_sum, batch_axes)
+        m_sum = sum_over(m_sum.detach(), batch_axes)
     return nll_sum / torch.clamp(m_sum, min=1.0)
+
+
+def vocab_parallel_ce(h: torch.Tensor, w_local: torch.Tensor,
+                      labels: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None, *,
+                      axis: str = "model",
+                      batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """CE with the head split by column over ``axis``: this rank holds the
+    vocab slice ``w_local [d, V/tp]`` (rank i: ids ``[i·V/tp, (i+1)·V/tp)``)
+    and the rows ``h [B, S, d]`` whole. Its slice's logsumexp and, where
+    the label falls in the slice, the label's logit combine over the ranks
+    (a ``[tp, B, S]`` gather, a sum), so ``[tokens, V]`` logits never
+    exist. The loss is the same on every rank of ``axis``; its gradient
+    for ``h`` is this rank's slice's share, so ``h`` enters through
+    `copy_to` (a replicated stream) or `gather_partial` (a
+    sequence-split one), which add the shares."""
+    line = _line(axis)
+    idx = line[1]
+    v_loc = w_local.shape[-1]
+    logits = h.float() @ w_local.float()
+    lse_loc = torch.logsumexp(logits, dim=-1)
+    lse = torch.logsumexp(_GatherReplicated.apply(lse_loc, line, None),
+                          dim=0)
+    lab = labels.long() - idx * v_loc
+    in_range = (lab >= 0) & (lab < v_loc)
+    ll_loc = torch.gather(logits, -1, lab.clamp(0, v_loc - 1)[..., None])[
+        ..., 0]
+    ll = _ReduceFrom.apply(
+        torch.where(in_range, ll_loc, torch.zeros((), device=h.device)),
+        line)
+    return _masked_mean(lse - ll, mask, batch_axes)
 
 
 def cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
                   labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """LM-head CE dispatcher: token-chunked when the full logits tensor
-    would pass ``CHUNK_LOGITS_ABOVE`` elements, plain dense otherwise."""
+    """LM-head CE dispatcher. Inside a training step on a mesh
+    (`dist.mesh_ctx.train_layout`): vocab-parallel where the head arrives
+    split by column ("head" in the layout's ``split``; the reference's
+    test: a live model axis over 1 that divides V), the hidden rows
+    gathered along a sequence-parallel stream first; else the forms below
+    on the whole head, each a mean over the layout's batch axes. Elsewhere: token-chunked when the full logits tensor would pass
+    ``CHUNK_LOGITS_ABOVE`` elements, plain dense otherwise."""
+    from repro_torch.dist.mesh_ctx import train_layout
+    lay = train_layout()
+    axes: Tuple[str, ...] = ()
+    if lay is not None:
+        axes = lay.batch_axes
+        # the forward leaves a sequence-parallel stream split: its rows
+        # are shorter than the labels'
+        sp = hidden.shape[1] != labels.shape[1]
+        if "head" in lay.split:
+            h = (gather_partial(hidden, "model", 1) if sp
+                 else copy_to(hidden, "model"))
+            return vocab_parallel_ce(h, w_head, labels, mask,
+                                     batch_axes=axes)
+        if sp:
+            hidden = gather_replicated(hidden, "model", 1)
     if labels.numel() * w_head.shape[-1] > CHUNK_LOGITS_ABOVE:
-        return dense_ce_chunked(hidden, w_head, labels, mask)
-    return dense_ce(hidden, w_head, labels, mask)
+        return dense_ce_chunked(hidden, w_head, labels, mask,
+                                batch_axes=axes)
+    return dense_ce(hidden, w_head, labels, mask, batch_axes=axes)
 
 
 # ---------------------------------------------------------------------------
@@ -139,10 +237,11 @@ def _live(axis: str):
     return mesh
 
 
-def _axis(axis: str):
-    """(mesh, this rank's index on ``axis``, its process group or None)."""
+def _line(axis: str) -> Tuple[Any, int, int]:
+    """(the process group of ``axis`` or None, this rank's index on it,
+    its size), taken from the live mesh."""
     mesh = _live(axis)
-    return mesh, mesh.index[axis], mesh.groups.get(axis)
+    return mesh.groups.get(axis), mesh.index[axis], mesh.shape[axis]
 
 
 def axis_size(name: str = "model") -> int:
@@ -153,42 +252,14 @@ def axis_size(name: str = "model") -> int:
 def all_reduce(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``axis``, in x's dtype (a new
     tensor; every rank gets the same bits)."""
-    import torch.distributed as dist
-    _, _, group = _axis(axis)
-    y = x.clone(memory_format=torch.contiguous_format)
-    if group is not None:
-        dist.all_reduce(y, group=group)
-    return y
+    return _sum(x, _line(axis)[0])
 
 
 def all_gather(x: torch.Tensor, axis: str = "model",
                dim: Optional[int] = None) -> torch.Tensor:
     """Every rank's ``x`` along ``axis``: stacked ``[tp, *x.shape]``, or,
     with ``dim``, concatenated along it (rank order = index order)."""
-    mesh, idx, _ = _axis(axis)
-    tp = mesh.shape[axis]
-    buf = torch.zeros((tp, *x.shape), dtype=x.dtype, device=x.device)
-    buf[idx] = x
-    out = all_reduce(buf, axis)
-    if dim is None:
-        return out
-    return torch.cat(out.unbind(0), dim=dim)
-
-
-def shard_embed_lookup(table_local: torch.Tensor, tokens: torch.Tensor,
-                       dtype: torch.dtype, axis: str = "model"
-                       ) -> torch.Tensor:
-    """The row-sharded embedding gather of one rank: its table holds one
-    contiguous vocab slice; tokens in it gather, the others give zeros,
-    and one f32 all-reduce assembles the rows (exactly: one term is not
-    zero)."""
-    _, idx, _ = _axis(axis)
-    v_loc = table_local.shape[0]
-    loc = tokens.long() - idx * v_loc
-    in_range = (loc >= 0) & (loc < v_loc)
-    emb = table_local[loc.clamp(0, v_loc - 1)].float()
-    emb = torch.where(in_range[..., None], emb, torch.zeros((), device=emb.device))
-    return all_reduce(emb, axis).to(dtype)
+    return _stack(x, _line(axis), dim)
 
 
 def _combine(score: torch.Tensor, gid: torch.Tensor, axis: str
@@ -206,7 +277,7 @@ def _combine(score: torch.Tensor, gid: torch.Tensor, axis: str
 def _greedy_combine(logits_loc: torch.Tensor, axis: str = "model"
                     ) -> torch.Tensor:
     """Global greedy argmax from per-rank ``[B, V/tp]`` logit slices."""
-    _, idx, _ = _axis(axis)
+    _, idx, _ = _line(axis)
     v_loc = logits_loc.shape[-1]
     loc_max, loc_arg = logits_loc.max(dim=-1)    # first max within a slice
     return _combine(loc_max, loc_arg + idx * v_loc, axis)
@@ -240,7 +311,7 @@ def shard_sample(h: torch.Tensor, w_head_local: torch.Tensor,
     ranks gather the ``[B, V]`` logits and run the plain sampler alike."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.sample.ref import sample_logits
-    _, idx, _ = _axis(axis)
+    _, idx, _ = _line(axis)
     v_loc = w_head_local.shape[-1]
     base = idx * v_loc
     pallas = impl == "pallas"
@@ -255,3 +326,234 @@ def shard_sample(h: torch.Tensor, w_head_local: torch.Tensor,
         rep, pres, freq, seed, step, base=base, cfg=cfg, pallas=pallas,
         return_score=True)
     return _combine(score, tok.long() + base, axis)
+
+
+def greedy_vocab_parallel(hidden: torch.Tensor, w_head: torch.Tensor, *,
+                          impl: str = "xla", cfg=None, axis: str = "model"
+                          ) -> torch.Tensor:
+    """The reference's vocab-parallel greedy head for a whole head
+    ``[d, V]``: each rank takes its column slice, and `shard_greedy` runs
+    the head GEMV on it and the scalar combine; ``hidden [B, d]`` is the
+    last position's activations. The ranks' tokens are equal."""
+    _, idx, tp = _line(axis)
+    v = w_head.shape[-1]
+    if v % tp:
+        raise ValueError(f"vocab {v} does not divide the {axis} axis ({tp})")
+    v_loc = v // tp
+    return shard_greedy(hidden, w_head[:, idx * v_loc:(idx + 1) * v_loc],
+                        impl=impl, cfg=cfg, axis=axis)
+
+
+def greedy_scatter(hidden: torch.Tensor, w_head: torch.Tensor,
+                   axis: str = "model") -> torch.Tensor:
+    """The reference's greedy head for a head split along d (a ZeRO'd head
+    or a row-split tied table): each rank multiplies its d slice of
+    ``hidden [B, d]`` by its row slice of ``w_head [d, V]`` into partial
+    ``[B, V]`` logits, a reduce-scatter leaves it the sums of its vocab
+    slice ``[B, V/tp]``, and the scalar combine picks the token."""
+    line = _line(axis)
+    tp = line[2]
+    d, v = w_head.shape
+    if d % tp or v % tp:
+        raise ValueError(f"head {tuple(w_head.shape)} does not divide the "
+                         f"{axis} axis ({tp})")
+    hl = _own(hidden, line, hidden.ndim - 1)
+    wl = _own(w_head, line, 0)
+    partial = hl.float() @ wl.float()
+    return _greedy_combine(_own(_sum(partial, line[0]), line, -1), axis)
+
+
+def reduce_max(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``axes`` (no
+    gradient; a new tensor)."""
+    import torch.distributed as dist
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    for a in axes:
+        group = _line(a)[0]
+        if group is not None:
+            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# training collectives: Megatron's pairs with their backward rules
+# ---------------------------------------------------------------------------
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the sum of ``x`` over ``group`` (x itself copied when
+    the group is None)."""
+    import torch.distributed as dist
+    y = x.clone(memory_format=torch.contiguous_format)
+    if group is not None:
+        dist.all_reduce(y, group=group)
+    return y
+
+
+def _stack(x: torch.Tensor, line, dim: Optional[int]) -> torch.Tensor:
+    """Every rank's ``x``: stacked ``[n, ...]``, or concatenated along
+    ``dim`` (the zero-filled all-reduce)."""
+    group, idx, n = line
+    buf = torch.zeros((n, *x.shape), dtype=x.dtype, device=x.device)
+    buf[idx] = x
+    out = _sum(buf, group)
+    return out if dim is None else torch.cat(out.unbind(0), dim=dim)
+
+
+def _own(x: torch.Tensor, line, dim: Optional[int]) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (its row of a stacked
+    ``[n, ...]`` when None)."""
+    _, idx, n = line
+    if dim is None:
+        return x[idx]
+    size = x.shape[dim] // n
+    return x.narrow(dim, idx * size, size).contiguous()
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line):
+        return _sum(x, line[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.group = line[0]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _stack(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(_sum(g, ctx.line[0]), ctx.line, ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _stack(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.line, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _own(_sum(x, line[0]), line, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _stack(g.contiguous(), ctx.line, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _own(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _stack(g.contiguous(), ctx.line, ctx.dim), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def copy_to(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``axis`` (a replicated
+    stream or weight entering a block whose ranks each give a share)."""
+    return _CopyTo.apply(x, _line(axis))
+
+
+def reduce_from(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The sum of ``x`` over ``axis``; the gradient passed through (the
+    exit of a row-parallel block into a replicated stream)."""
+    return _ReduceFrom.apply(x, _line(axis))
+
+
+def sum_over(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """`reduce_from` over each of ``axes`` in turn (the sum over their
+    product)."""
+    for a in axes:
+        x = _ReduceFrom.apply(x, _line(a))
+    return x
+
+
+def gather_partial(x: torch.Tensor, axis: str = "model",
+                   dim: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; backward: the
+    gradient summed over ``axis``, this rank's block kept (the consumers
+    are split over the axis, each rank's gradient a share)."""
+    return _GatherPartial.apply(x, _line(axis), dim)
+
+
+def gather_replicated(x: torch.Tensor, axis: str = "model",
+                      dim: Optional[int] = 1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` (stacked ``[n, ...]``
+    when None); backward: this rank's block of the gradient (the consumer
+    is replicated, every rank's gradient the whole)."""
+    return _GatherReplicated.apply(x, _line(axis), dim)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str = "model",
+                   dim: int = 1) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axis``;
+    backward: the blocks' gradients gathered."""
+    return _ReduceScatter.apply(x, _line(axis), dim)
+
+
+def scatter(x: torch.Tensor, axis: str = "model",
+            dim: int = 1) -> torch.Tensor:
+    """This rank's block of the replicated ``x`` along ``dim``; backward:
+    the blocks' gradients gathered."""
+    return _Scatter.apply(x, _line(axis), dim)
+
+
+def scale_grad(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x`` as it is; its gradient times ``c``."""
+    return _ScaleGrad.apply(x, c)
+
+
+def vocab_parallel_embed(table_local: torch.Tensor, tokens: torch.Tensor,
+                         dtype: torch.dtype, axis: str = "model"
+                         ) -> torch.Tensor:
+    """The row-split embedding gather (a TP shard body's, or a training
+    step's): this rank's table holds one contiguous vocab slice; in-slice
+    tokens gather, the others give zeros, and one f32 all-reduce over
+    ``axis`` assembles the rows (exactly: one term is not zero). The rows
+    are replicated over the axis; each rank's table gradient is its own
+    rows'. The ``[V, d]`` table is never gathered."""
+    _, idx, _ = line = _line(axis)
+    v_loc = table_local.shape[0]
+    loc = tokens.long() - idx * v_loc
+    in_range = (loc >= 0) & (loc < v_loc)
+    emb = table_local[loc.clamp(0, v_loc - 1)].float()
+    emb = torch.where(in_range[..., None], emb,
+                      torch.zeros((), device=emb.device))
+    return _ReduceFrom.apply(emb, line).to(dtype)

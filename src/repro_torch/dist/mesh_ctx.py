@@ -3,7 +3,8 @@
 The reference keeps a live ``jax.sharding.Mesh`` in a contextvar that
 model code reads at trace time. Here every rank is one process holding
 its shard as plain local tensors, and a `Mesh` is the rank's view of the
-device grid: the axis names ``("data", "model")``, each axis's size, this
+device grid: the axis names (``("data", "model")``, or ``("pod", "data",
+"model")`` with the reference's outer pod axis), each axis's size, this
 rank's coordinate on each axis, the process group of each axis (the ranks
 that share this rank's other coordinates) and the backend. Collectives in
 `repro_torch.dist.collectives` run over ``mesh.groups[axis]``.
@@ -20,9 +21,18 @@ model code (`embed_apply`, attention's ``o_proj``, `mlp_apply`, the heads)
 knows its operands are per-shard slices whose partial results need the
 boundary collectives.
 
-The reference's ``shard_hint`` (a GSPMD sharding hint) is read only by
-its training graph and waits for that slice; ``repro.dist.compat`` is a
-shim for jax's ``shard_map`` spelling and has no counterpart.
+``use_train_layout(layout)`` marks the extent of a training step on a
+mesh (`train.loop`): a `TrainLayout` says which weights arrive split over
+the model axis (so the model's mesh branches run Megatron's column / row
+blocks on them), over which axes the batch is split, and whether the
+residual stream is sequence-parallel. It is the port's form of what the
+reference's GSPMD graph reads off its sharded arrays.
+
+`shard_hint` is the reference's ``shard_hint`` made concrete: where the
+reference asks GSPMD to lay a global array out along mesh axes, this cuts
+the rank's block out of it (a global batch, or a residual stream).
+``repro.dist.compat`` is a shim for jax's ``shard_map`` spelling and has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -33,19 +43,22 @@ from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["Mesh", "make_mesh", "make_smoke_mesh", "use_mesh",
            "current_mesh", "data_axes_of", "axis_size", "shard_tp_ctx",
-           "shard_tp"]
+           "shard_tp", "shard_hint", "TrainLayout", "use_train_layout",
+           "train_layout"]
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a ``data × model`` grid of ranks: ``shape`` maps
-    each axis to its size, ``index`` to this rank's coordinate, ``groups``
-    to the process group of the ranks on this rank's line along the axis
-    (None where the axis has size 1: no collective runs over it).
-    Rank r sits at ``(r // model, r % model)``: the model axis is the
-    fastest, as in the reference's row-major ``jax.make_mesh``."""
+    """One rank's view of a ``[pod ×] data × model`` grid of ranks:
+    ``shape`` maps each axis to its size, ``index`` to this rank's
+    coordinate, ``groups`` to the process group of the ranks on this
+    rank's line along the axis (None where the axis has size 1: no
+    collective runs over it). Ranks are laid out row-major over
+    ``axis_names``, the model axis the fastest, as in the reference's
+    ``jax.make_mesh``."""
     shape: Dict[str, int]
     index: Dict[str, int]
     groups: Dict[str, Any]
@@ -53,10 +66,12 @@ class Mesh:
     axis_names: Tuple[str, ...] = AXES
 
 
-def make_mesh(data: int, model: int, *, backend: str) -> Mesh:
-    """The mesh of ``data × model`` ranks over the initialised default
-    group (its world size must be ``data · model``). Every rank calls it
-    with the same arguments: the axis groups are made collectively."""
+def make_mesh(data: int, model: int, *, backend: str,
+              pod: Optional[int] = None) -> Mesh:
+    """The mesh of ``[pod ×] data × model`` ranks over the initialised
+    default group (its world size must be the product). ``pod`` adds the
+    reference's outermost "pod" axis (``launch/mesh.py``). Every rank calls
+    it with the same arguments: the axis groups are made collectively."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
@@ -66,33 +81,43 @@ def make_mesh(data: int, model: int, *, backend: str) -> Mesh:
     if dist.get_backend() != backend:
         raise ValueError(f"backend={backend!r} but the default group runs "
                          f"{dist.get_backend()!r}")
+    names = POD_AXES if pod else AXES
+    sizes = (pod, data, model) if pod else (data, model)
     world, rank = dist.get_world_size(), dist.get_rank()
-    if data * model != world:
-        raise ValueError(f"mesh {data}x{model} needs {data * model} ranks; "
-                         f"the world has {world}")
-    index = {"data": rank // model, "model": rank % model}
-    groups: Dict[str, Any] = {"data": None, "model": None}
+    n = 1
+    for s in sizes:
+        n *= s
+    if n != world:
+        raise ValueError(f"mesh {'x'.join(map(str, sizes))} needs {n} "
+                         f"ranks; the world has {world}")
+    strides = [1] * len(sizes)
+    for i in reversed(range(len(sizes) - 1)):
+        strides[i] = strides[i + 1] * sizes[i + 1]
+    coords = [(rank // strides[i]) % sizes[i] for i in range(len(sizes))]
+    groups: Dict[str, Any] = {}
     # new_group is collective over the whole world: every rank makes every
     # line's group in the same order, and keeps its own
-    for d in range(data):
-        ranks = [d * model + m for m in range(model)]
-        g = dist.new_group(ranks, backend=backend) if model > 1 else None
-        if d == index["data"]:
-            groups["model"] = g
-    for m in range(model):
-        ranks = [d * model + m for d in range(data)]
-        g = dist.new_group(ranks, backend=backend) if data > 1 else None
-        if m == index["model"]:
-            groups["data"] = g
-    return Mesh(shape={"data": data, "model": model}, index=index,
-                groups=groups, backend=backend)
+    for a, name in enumerate(names):
+        groups[name] = None
+        if sizes[a] == 1:
+            continue
+        for r0 in range(world):
+            if (r0 // strides[a]) % sizes[a]:
+                continue                     # not the first rank of a line
+            ranks = [r0 + i * strides[a] for i in range(sizes[a])]
+            g = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                groups[name] = g
+    return Mesh(shape=dict(zip(names, sizes)),
+                index=dict(zip(names, coords)), groups=groups,
+                backend=backend, axis_names=names)
 
 
-def make_smoke_mesh(data: int = 2, model: int = 4, *,
-                    backend: str = "gloo") -> Mesh:
+def make_smoke_mesh(data: int = 2, model: int = 4, *, backend: str = "gloo",
+                    pod: Optional[int] = None) -> Mesh:
     """The reference's small test mesh (``launch/mesh.make_smoke_mesh``),
     over the initialised world."""
-    return make_mesh(data, model, backend=backend)
+    return make_mesh(data, model, backend=backend, pod=pod)
 
 
 _MESH: contextvars.ContextVar[Optional[Any]] = contextvars.ContextVar(
@@ -100,6 +125,8 @@ _MESH: contextvars.ContextVar[Optional[Any]] = contextvars.ContextVar(
 # > 0 inside a TP shard body: the model-axis size of the split
 _SHARD_TP: contextvars.ContextVar[int] = contextvars.ContextVar(
     "repro_torch_shard_tp", default=0)
+_LAYOUT: contextvars.ContextVar[Optional["TrainLayout"]] = \
+    contextvars.ContextVar("repro_torch_train_layout", default=None)
 
 
 @contextlib.contextmanager
@@ -142,3 +169,61 @@ def axis_size(name: str) -> int:
     if mesh is None or name not in mesh.axis_names:
         return 1
     return mesh.shape[name]
+
+
+def shard_hint(x, *entries):
+    """This rank's block of the global ``x``: one entry per leading dim (an
+    axis name, a tuple of names, or None; missing entries None), the first
+    name of a tuple the major one, as a NamedSharding lays it out. Axes
+    absent from the live mesh are dropped, and a dim that does not divide
+    its axes' product stays whole, as the reference's hint falls back to
+    replication. ``x`` itself without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    for dim, e in enumerate(entries[:x.ndim]):
+        axes = tuple(a for a in ((e,) if isinstance(e, str) else (e or ()))
+                     if a in mesh.axis_names)
+        n, idx = 1, 0
+        for a in axes:
+            n *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + mesh.index[a]
+        if n > 1 and x.shape[dim] % n == 0:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, idx * size, size)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """How a training step's tensors lie on the live mesh.
+
+    ``tp``: the model axis's size. ``split``: the weight kinds that arrive
+    as this rank's model-axis slice — "vocab" (the embedding's rows),
+    "head" (the LM head's columns), "attn" (Q heads and KV columns, o_proj
+    rows), "mlp" (wi / wg columns, wo rows), "experts" (whole experts);
+    every other weight arrives whole. ``batch_axes``: the axes the batch
+    rows are split over (a loss mean sums over them). ``sp``: the residual
+    stream is split along the sequence over the model axis (Megatron's
+    sequence parallelism; set by the model's forward)."""
+    tp: int = 1
+    split: frozenset = frozenset()
+    batch_axes: Tuple[str, ...] = ()
+    sp: bool = False
+
+
+@contextlib.contextmanager
+def use_train_layout(layout: Optional[TrainLayout]):
+    """Make ``layout`` the training layout for the dynamic extent of the
+    block."""
+    token = _LAYOUT.set(layout)
+    try:
+        yield layout
+    finally:
+        _LAYOUT.reset(token)
+
+
+def train_layout() -> Optional[TrainLayout]:
+    """The live training layout (None outside a training step on a
+    mesh)."""
+    return _LAYOUT.get()

@@ -178,15 +178,86 @@ def attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Full-sequence (prefill) attention + output projection. ``ragged``:
     positions are per-row ladders of a left-padded batch.
     ``window_override`` replaces the config's sliding window. ``qkv``
-    reuses projections the caller already made for the cache fill."""
+    reuses projections the caller already made for the cache fill.
+
+    Inside a training step on a mesh whose layout splits attention
+    ("attn"; the heads dividing the model axis, one shared position
+    ladder), `_attention_tp`; with the weights whole, the plain block on
+    the whole sequence (`mlp.replicated_block`)."""
+    from repro_torch.dist.mesh_ctx import shard_tp, train_layout
+    if window_override is not None:
+        cfg = cfg.replace(sliding_window=window_override)
+    lay = train_layout()
+    if lay is not None and shard_tp() == 0:
+        if ("attn" in lay.split and cfg.num_heads % lay.tp == 0 and not ragged
+                and qkv is None and positions is None
+                and (x.shape[1] > 1 or lay.sp)):
+            return _attention_tp(p, cfg, x, lay.tp, lay.sp)
+        from repro_torch.models.mlp import replicated_block
+        return replicated_block(
+            lambda xx: _attention_plain(p, cfg, xx, positions, ragged, qkv),
+            x)
+    return _attention_plain(p, cfg, x, positions, ragged, qkv)
+
+
+def _attention_plain(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: Optional[torch.Tensor], ragged: bool,
+                     qkv: Optional[Tuple]) -> torch.Tensor:
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    if window_override is not None:
-        cfg = cfg.replace(sliding_window=window_override)
     q, k, v = qkv if qkv is not None else _project_qkv(p, cfg, x, positions)
     o = dispatch.attention(q, k, v, positions, cfg, ragged=ragged)
     return _o_proj(p, o.reshape(b, s, -1), cfg)
+
+
+def _attention_tp(p: Dict, cfg: ModelConfig, x: torch.Tensor, tp: int,
+                  sp: bool) -> torch.Tensor:
+    """The reference's explicit tensor-parallel attention on this rank's
+    slice: its ``hq / tp`` Q heads (``q_proj`` split by column), the K/V
+    projections split by column and then gathered, so every rank holds
+    every KV head and each local Q head reads its own, and ``o_proj``
+    split by row. A sequence-parallel stream is gathered at the entry and
+    reduce-scattered at the exit; a replicated one enters through
+    `copy_to` and leaves through one all-reduce. Where the KV width does
+    not divide the axis the K/V weights arrive whole, and their gradient
+    (each rank's a share: its heads' keys) is summed over the axis."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.mesh_ctx import current_mesh
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hq_l, g = hq // tp, hq // hkv
+    if p["q_proj"]["w"].shape[-1] != hq_l * hd:
+        raise ValueError(f"attention: q_proj holds "
+                         f"{p['q_proj']['w'].shape[-1]} columns, not this "
+                         f"rank's {hq_l} heads of {hd}")
+    midx = current_mesh().index["model"]
+    xl = col.gather_partial(x, "model", 1) if sp else col.copy_to(x, "model")
+    b, s, _ = xl.shape
+    kv_split = (hkv * hd) % tp == 0
+
+    def lin(pp, split):
+        w, bias = pp["w"], pp.get("b")
+        if not split:
+            w = col.copy_to(w, "model")
+            bias = None if bias is None else col.copy_to(bias, "model")
+        y = xl @ w.to(xl.dtype)
+        return y if bias is None else y + bias.to(xl.dtype)
+
+    q = lin(p["q_proj"], True).reshape(b, s, hq_l, hd)
+    k, v = lin(p["k_proj"], kv_split), lin(p["v_proj"], kv_split)
+    if kv_split:
+        k = col.gather_partial(k, "model", 2)
+        v = col.gather_partial(v, "model", 2)
+    k, v = k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
+    pos = torch.arange(s, device=x.device)[None, :]
+    if cfg.rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    kv_idx = (midx * hq_l + torch.arange(hq_l, device=x.device)) // g
+    o = dispatch.attention(q, k[:, :, kv_idx], v[:, :, kv_idx], pos, cfg)
+    y = o.reshape(b, s, hq_l * hd) @ p["o_proj"]["w"].to(o.dtype)
+    return (col.reduce_scatter(y, "model", 1) if sp
+            else col.reduce_from(y, "model"))
 
 
 def packed_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,

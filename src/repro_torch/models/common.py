@@ -136,16 +136,18 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
 
 def embed_apply(p: Dict, tokens: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-    """The embedding gather. Inside a TP shard body the table arrives
-    row-sharded over the vocab: each rank gathers its slice's rows and one
-    all-reduce assembles them (`dist.collectives.shard_embed_lookup`).
-    Outside one every rank holds the whole table, so the plain gather is
-    already local (the reference's GSPMD branch for a sharded table under
-    a mesh has no counterpart)."""
-    from repro_torch.dist.mesh_ctx import shard_tp
-    if shard_tp() > 1:
-        from repro_torch.dist.collectives import shard_embed_lookup
-        return shard_embed_lookup(p["table"], tokens, dtype)
+    """The embedding gather. Where the table arrives split by row over the
+    vocab (inside a TP shard body, or in a training step on a mesh whose
+    layout splits it: "vocab"), each rank gathers its slice's rows and one
+    sum over "model" assembles them (`dist.collectives.
+    vocab_parallel_embed`; the reference's branch for a live model axis
+    over 1). Otherwise the plain gather."""
+    from repro_torch.dist.mesh_ctx import shard_tp, train_layout
+    lay = train_layout()
+    if shard_tp() > 1 or (lay is not None and "vocab" in lay.split
+                          and tokens.ndim == 2):
+        from repro_torch.dist.collectives import vocab_parallel_embed
+        return vocab_parallel_embed(p["table"], tokens, dtype)
     # gather, then cast: the same values as casting the whole table first
     return p["table"][tokens.long()].to(dtype)
 

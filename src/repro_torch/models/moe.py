@@ -11,16 +11,23 @@ dense residual MLP and Kimi's shared expert are both ``dense_residual_ff``
 (an always-active MLP beside the experts).
 
 Expert parallelism (``impl="ep"``, or "auto" under a live mesh whose model
-axis divides the experts): every rank routes all tokens, runs the experts
-``[rank · e_loc, (rank + 1) · e_loc)`` through the same dispatch and
-combine, and one all-reduce over the model axis sums the ranks' partial
-outputs. The capacity is the local path's (the even share over all E
-experts), so a pair is kept or dropped exactly as without the split; only
-the order of the sum differs. Each rank holds the whole residual stream,
-so the reference's sequence-parallel all-gather / reduce-scatter pair
-would only split that all-reduce in two; it waits for training, as do the
-reference's 16k-token chunking of the dispatch and its ``mean_axes`` on
-the aux loss (each rank's aux is the whole batch's here).
+axis divides the experts), serving: every rank routes all tokens, runs the
+experts ``[rank · e_loc, (rank + 1) · e_loc)`` through the same dispatch
+and combine, and one all-reduce over the model axis sums the ranks'
+partial outputs. The capacity is the local path's (the even share over
+all E experts), so a pair is kept or dropped exactly as without the
+split; only the order of the sum differs. Each rank holds the whole
+residual stream and routes it in one chunk, and its aux loss is the whole
+batch's.
+
+In a training step on a mesh (`_moe_train_ep`, the layout splitting the
+experts) the block is the reference's EP body: the capacity comes from
+the tokens of one data shard, routed in chunks of at most 16,384 tokens
+with a capacity per chunk and the aux loss averaged over the chunks; a
+sequence-parallel stream is gathered at the entry and reduce-scattered at
+the exit; and ``_route(mean_axes=...)`` averages each expert's routed
+share ``f_e`` and mean gate ``P_e`` over the data shards before their
+product, so the aux loss is the global batch's.
 """
 from __future__ import annotations
 
@@ -160,7 +167,8 @@ def _dispatch_compute_combine(x: torch.Tensor, ew: Dict,
     return y
 
 
-def _route(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
+def _route(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
+           mean_axes: Tuple[str, ...] = ()
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(top_idx [T, k], top_p [T, k], aux loss) for ``x [T, d]``.
 
@@ -170,7 +178,8 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
     renormalised over the k. The Switch load-balance loss is ``E · Σ_e f_e
     P_e`` with ``f_e`` the share of routed pairs on expert e (counted by a
     scatter of ones, exact in f32, then divided) and ``P_e`` its mean
-    gate."""
+    gate; with ``mean_axes`` (mesh axes whose ranks hold other tokens)
+    both are averaged over those ranks before the product."""
     logits = x.float() @ router_w.float()                    # [T, E]
     gates = torch.softmax(logits, dim=-1)
     kk = cfg.moe.top_k
@@ -185,6 +194,14 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
     counts = counts.scatter_add(0, flat, torch.ones_like(flat,
                                                          dtype=torch.float32))
     fe = counts / flat.numel()
+    if mean_axes:
+        from repro_torch.dist.collectives import sum_over
+        from repro_torch.dist.mesh_ctx import current_mesh
+        n = 1
+        for a in mean_axes:
+            n *= current_mesh().shape[a]
+        pe = sum_over(pe, mean_axes) / n
+        fe = sum_over(fe, mean_axes) / n
     aux = e * torch.sum(fe * pe)
     return top_idx, top_p, aux
 
@@ -227,6 +244,10 @@ def moe_routed(p: Dict, cfg: ModelConfig, x: torch.Tensor
     included, as in the reference). Under expert parallelism (see the
     module doc) the expert planes may be whole ``[E, ...]`` (each rank
     takes its window) or already the rank's ``[E/tp, ...]``."""
+    from repro_torch.dist.mesh_ctx import shard_tp, train_layout
+    lay = train_layout()
+    if lay is not None and shard_tp() == 0:
+        return _moe_train(p, cfg, x, lay)
     mesh = _ep_mesh(cfg)
     b, s, d = x.shape
     e = cfg.moe.num_experts
@@ -245,6 +266,92 @@ def moe_routed(p: Dict, cfg: ModelConfig, x: torch.Tensor
     y = _dispatch_compute_combine(xt, ew, top_idx, top_p, e0, e_loc, cap,
                                   cfg)
     return all_reduce(y, "model").reshape(b, s, d), aux
+
+
+# the reference's token chunk of the EP dispatch (its [T·k, d] gather is
+# real memory; a chunk caps it at [chunk·k, d])
+EP_CHUNK_TOKENS = 16_384
+
+
+def _moe_train(p: Dict, cfg: ModelConfig, x: torch.Tensor, lay
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts in a training step on a mesh: the EP body where
+    the layout splits the experts (the reference's ``ep`` under "auto" or
+    "ep"), else the local path on the whole sequence."""
+    e, tp = cfg.moe.num_experts, lay.tp
+    impl = cfg.moe.impl
+    if "experts" in lay.split and impl != "local" and e % tp == 0:
+        return _moe_train_ep(p, cfg, x, lay)
+    if impl == "ep":
+        raise ValueError(f"moe.impl='ep' needs the experts split over a "
+                         f"model axis that divides num_experts={e}")
+    if lay.batch_axes:
+        # the reference's local path routes the global batch in one
+        # capacity; a data shard's tokens alone would drop other pairs
+        raise ValueError(
+            f"moe: the local path (impl={impl!r}, {e} experts on a model "
+            f"axis of {tp}) routes the whole batch, which is split over "
+            f"{lay.batch_axes}: train it on a mesh whose model axis divides "
+            "the experts, or without a data axis")
+    from repro_torch.models.mlp import replicated_block
+    out = {}
+
+    def local(xx):
+        b, s, d = xx.shape
+        xt = xx.reshape(b * s, d)
+        top_idx, top_p, out["aux"] = _route(xt, p["router"]["w"], cfg)
+        return _dispatch_compute_combine(xt, p["experts"], top_idx, top_p,
+                                         0, e, _capacity(b * s, cfg),
+                                         cfg).reshape(b, s, d)
+
+    y = replicated_block(local, x)
+    return y, out["aux"]
+
+
+def _moe_train_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, lay
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's EP body (``moe_apply``'s shard_fn) on this rank's
+    experts ``[E/tp, ...]``: the data shard's tokens (gathered along a
+    sequence-parallel stream) routed in equal chunks of at most
+    EP_CHUNK_TOKENS with a capacity per chunk, the aux loss averaged over
+    the chunks and over the data shards (``mean_axes``), the ranks'
+    partial outputs summed over the model axis. Every model rank routes
+    the same tokens: the router weight's gradient is summed over the axis
+    (each rank's a share: its experts' pairs) and the aux loss's gradient
+    taken a tp-th on each rank, so the shares add to the whole."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.mesh_ctx import current_mesh
+    e, tp, sp = cfg.moe.num_experts, lay.tp, lay.sp
+    e_loc = e // tp
+    ew = p["experts"]
+    if ew["wi"].shape[0] != e_loc:
+        raise ValueError(f"moe: {ew['wi'].shape[0]} experts on this rank, "
+                         f"not its {e_loc} of {e}")
+    e0 = current_mesh().index["model"] * e_loc
+    xl = col.gather_partial(x, "model", 1) if sp else col.copy_to(x, "model")
+    b, s, d = xl.shape
+    t_all = b * s
+    xt = xl.reshape(t_all, d)
+    nc = max(1, t_all // EP_CHUNK_TOKENS)
+    while t_all % nc:
+        nc -= 1
+    t_c = t_all // nc
+    cap_c = _capacity(t_c, cfg)
+    router_w = col.copy_to(p["router"]["w"], "model")
+    ys, aux = [], None
+    for c in range(nc):
+        xc = xt[c * t_c:(c + 1) * t_c]
+        top_idx, top_p, a = _route(xc, router_w, cfg,
+                                   mean_axes=lay.batch_axes)
+        ys.append(_dispatch_compute_combine(xc, ew, top_idx, top_p, e0,
+                                            e_loc, cap_c, cfg))
+        aux = a if aux is None else aux + a
+    if nc > 1:
+        aux = aux / nc
+    y = (ys[0] if nc == 1 else torch.cat(ys, 0)).reshape(b, s, d)
+    y = (col.reduce_scatter(y, "model", 1) if sp
+         else col.reduce_from(y, "model"))
+    return y, col.scale_grad(aux, 1.0 / tp)
 
 
 def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor

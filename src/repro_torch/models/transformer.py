@@ -29,6 +29,7 @@ does (its ``_STREAM_FAMILIES``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -37,6 +38,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.dbb import DbbWeight
 from repro_torch.core.dbb_linear import maybe_decompress_tree
 from repro_torch.device import resolve_device
+from repro_torch.dist.mesh_ctx import (current_mesh, train_layout, use_mesh,
+                                       use_train_layout)
 from repro_torch.kernels.attn.ref import gather_pages
 from repro_torch.kernels.dispatch import pallas_route_active
 from repro_torch.models import attention as attn
@@ -45,7 +48,8 @@ from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
                                        embed_scale, linear_init, norm_apply,
                                        norm_init, param_dtype_of)
-from repro_torch.models.mlp import mlp_apply, mlp_down, mlp_init, mlp_up
+from repro_torch.models.mlp import (mlp_apply, mlp_down, mlp_init, mlp_up,
+                                    seq_parallel_ok)
 from repro_torch.models.moe import (dense_mlp_cfg, moe_apply, moe_init,
                                     moe_routed)
 
@@ -215,15 +219,27 @@ def _ffn(lp: Dict, cfg: ModelConfig, h: torch.Tensor
     return mlp_apply(lp["mlp"], cfg, h), None
 
 
+def _norm(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """`norm_apply` on the residual stream. On a sequence-parallel stream
+    each rank normalises its own positions, so its gradient for the
+    (whole) norm weights is a share: they enter through `copy_to`, which
+    sums the shares over the model axis."""
+    lay = train_layout()
+    if lay is not None and lay.sp and p:
+        from repro_torch.dist.collectives import copy_to
+        p = {k: copy_to(v, "model") for k, v in p.items()}
+    return norm_apply(cfg.norm, p, x)
+
+
 def _attn_block(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
                 window_override: Optional[int]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A layer's attention half: (the residual after attention, its
     ``ln_mlp`` norm — the MLP's input)."""
-    h = norm_apply(cfg.norm, lp["ln_attn"], x)
+    h = _norm(cfg, lp["ln_attn"], x)
     x = x + attn.attention_apply(lp["attn"], cfg, h,
                                  window_override=window_override)
-    return x, norm_apply(cfg.norm, lp["ln_mlp"], x)
+    return x, _norm(cfg, lp["ln_mlp"], x)
 
 
 def _attn_mlp_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -309,6 +325,18 @@ def _wrap_remat(fn, cfg: ModelConfig, auto=_auto_remat_layer):
         return fn
     if cfg.remat not in ("full", "dots", "auto"):
         raise ValueError(f"remat={cfg.remat!r}")
+    lay = train_layout()
+    if lay is not None:
+        # a recompute runs on the autograd engine's thread, where the mesh
+        # context is not set: the body re-enters it. "auto" checkpoints the
+        # whole layer here (its split around the MLP's up-projections
+        # would bypass the MLP's tensor-parallel block; the values are the
+        # same under every policy)
+        mesh, inner, auto = current_mesh(), fn, None
+
+        def fn(*args):
+            with use_mesh(mesh), use_train_layout(lay):
+                return inner(*args)
     from torch.utils import checkpoint as ckpt
     if cfg.remat == "auto" and auto is not None:
         remat = auto
@@ -516,6 +544,24 @@ def forward(params: Dict, cfg: ModelConfig,
     checkpointed whole under "auto")."""
     _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds, prefix_embeds)
+    lay = train_layout()
+    if lay is not None and lay.tp > 1:
+        # a training step on a mesh: the residual stream stays split along
+        # the sequence over the model axis where the stack allows it (the
+        # blocks gather and reduce-scatter at their edges), else whole
+        sp = seq_parallel_ok(cfg, x.shape[1], lay.tp)
+        with use_train_layout(dataclasses.replace(lay, sp=sp)):
+            if sp:
+                from repro_torch.dist.collectives import scatter
+                x = scatter(x, "model", 1)
+            return _forward_layers(params, cfg, x, window_override)
+    return _forward_layers(params, cfg, x, window_override)
+
+
+def _forward_layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    window_override: Optional[int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`forward` past the embeddings: the layers and the final norm."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "rwkv6":
         body = _wrap_remat(_rwkv_layer, cfg, auto=None)
@@ -530,8 +576,7 @@ def forward(params: Dict, cfg: ModelConfig,
         x, a = body(lp, cfg, x, window_override)
         if a is not None:
             aux = aux + a
-    x = norm_apply(cfg.norm, params["final_norm"], x)
-    return x, aux
+    return _norm(cfg, params["final_norm"], x), aux
 
 
 def prefill(params: Dict, cfg: ModelConfig,

@@ -8,7 +8,10 @@ has no leaf), so a checkpoint either package writes restores in the
 other. Writes go to a temporary directory that is ``os.replace``d into
 place, so a crash mid-save never damages the latest checkpoint, and
 older steps are pruned to ``keep_last``. The arrays are whole (not
-sharded): a restore may land on any device.
+sharded): a restore may land on any device, and on any mesh. A run on a
+mesh gathers each leaf whole (`train.loop.gather_state`, every rank
+taking part) and rank 0 writes; a restore reads the whole tree and each
+rank cuts its shards (`train.loop.shard_state`).
 
 bf16 leaves: numpy has no bfloat16, so the port stores a bf16 leaf as
 float32 (every bf16 value is one, exactly) and casts it back to the
@@ -173,12 +176,16 @@ class CheckpointManager:
     save_every: int = 100
     keep_last: int = 3
 
+    def due(self, step: int, force: bool = False) -> bool:
+        """Whether `maybe_save` saves at ``step`` (on the writing rank)."""
+        return force or (self.save_every > 0 and step > 0
+                         and step % self.save_every == 0)
+
     def maybe_save(self, step: int, state: Any,
                    extra_meta: Optional[dict] = None,
                    force: bool = False) -> Optional[str]:
         if not should_write():
             return None
-        if force or (self.save_every > 0 and step > 0
-                     and step % self.save_every == 0):
+        if self.due(step, force):
             return save(self.root, step, state, extra_meta, self.keep_last)
         return None

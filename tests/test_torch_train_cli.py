@@ -2,7 +2,7 @@
 package's: the parser's flags and defaults, `train_loop`'s metric lines
 (keys and, from the same initial weights, losses within rtol 1e-4 over
 six AdamW steps with the bound annealing), the sparsity report at the
-end, the refusals (``--mesh``, no card), `StragglerMonitor` and
+end, the refusals (a malformed ``--mesh``, no card), `StragglerMonitor` and
 `retry_step` (device faults are never retried)."""
 import argparse
 import json
@@ -104,8 +104,12 @@ def test_main_runs_and_reports_sparsity(capsys):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(SystemExit, match="tensor parallelism"):
-        ttrain.main(["--arch", "olmo-1b", "--mesh", "2x4"], device="cpu")
+    # --mesh DxM trains (tests/test_torch_tp_train.py); a mesh that is not
+    # one exits before any rank starts
+    with pytest.raises(SystemExit, match="expected none or DxM"):
+        ttrain.main(["--arch", "olmo-1b", "--mesh", "2by4"], device="cpu")
+    with pytest.raises(SystemExit, match="axis sizes must be positive"):
+        ttrain.main(["--arch", "olmo-1b", "--mesh", "0x2"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         ttrain.main(["--arch", "lenet5-dbb", "--steps", "1"])

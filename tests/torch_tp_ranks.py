@@ -130,8 +130,8 @@ def _collectives(mesh, p):
     # embedding: the row-sharded gather against the whole table's
     table, toks = _t(p["table"]), _t(p["tokens"])
     v_loc = table.shape[0] // tp
-    got = C.shard_embed_lookup(table[i * v_loc:(i + 1) * v_loc], toks,
-                               torch.float32)
+    got = C.vocab_parallel_embed(table[i * v_loc:(i + 1) * v_loc], toks,
+                                 torch.float32)
     out["embed_equal"] = torch.equal(got, table[toks.long()])
     # greedy combine on logits with ties planted across the slices
     lg = _t(p["tie_logits"])
