@@ -484,15 +484,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
             through the kernels against the one-device run's tree
             (logits within TP_TRAIN_LOGIT_TOL, streams by the
             split rule; its launches are the ``tp_train_serve_f32`` path).
+22. dryrun  after serve (phase 5): per-step costs. (i) olmo-1b at full
+            width and depth (the slice phase's packed f32 planes, bf16,
+            ``gemm_impl="pallas"``): one B8 decode step on the serve
+            phase's paged pool (64-slot pages, DRYRUN_SMAX slots a row)
+            and one packed prefill of DRYRUN_PREFILL_LENS, each counted by
+            ``roofline.counts.count_step`` on the card and on the meta
+            device (the tree's meta twin, the same inputs as shapes):
+            flops, each route's calls, flops and bytes, and the collective
+            bytes must be equal, and each route's calls must equal its
+            kernel's launches (ROUTE_KERNEL); each step's measured time
+            (CUDA events around the whole step, median of
+            DRYRUN_STEP_REPS after warm-up) is printed beside
+            ``roofline_terms``' step_time_lb and roofline_fraction, and
+            the allocator's peak above the step's inputs
+            (``max_memory_allocated``) must lie within ALLOC_ROUND bytes
+            an allocation of the counter's peak. (ii) DRYRUN_CELLS through
+            ``python -m repro_torch.launch.dryrun`` (olmo-1b decode_32k
+            pod --packed, qwen2.5-14b train_4k pod), started on the host
+            after the build and run beside phases 3-5, must end "ok";
+            their roofline dicts are printed.
 
 Every bf16 launch of sta_gemm, dbb_gemm and the two flash prefills on the
-main paths of phases 4-6, 8, 9, 12-14, 16-18 and 20 (bf16) must have run the
-tensor-core body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
+main paths of phases 4-6, 8, 9, 12-14, 16-18, 20 (bf16) and 22 must have run
+the tensor-core body: ``sta_gemm_tc`` equals ``sta_gemm``, ``dbb_gemm_tc`` equals the f32,
 ``_i8`` and ``_w4`` branches' sum, ``flash_prefill_tc`` equals
 ``flash_prefill`` and ``flash_prefill_packed_tc`` equals
 ``flash_prefill_packed`` on each of those runs (their activations are bf16,
 D 64, 128 or 256), or the run fails. Likewise every float dbb_gemm_skinny
-launch of phases 4-9, 12-18 and 20 must have run the split-K body
+launch of phases 4-9, 12-18, 20 and 22 must have run the split-K body
 (``dbb_gemm_skinny_split`` equals the f32, ``_i8`` and ``_w4`` branches'
 sum) and every f32-x dbb_gemm launch (the CNN classifier, N 10) the narrow
 body (``dbb_gemm_narrow`` equals ``dbb_gemm`` on the CNN runs, 0 on the
@@ -500,7 +520,7 @@ LM runs).
 
 The line before the last is the per-kernel JSON record (``launches``: the
 sum over the main-path runs of phases 4-9, 11 (a)-(b), 12-18, 20 (rank
-0's counts) and 21 (the served tree);
+0's counts), 21 (the served tree) and 22 (the counted card steps);
 ``launches_by_path`` per run);
 the last line is ``{"ok": true, "device": {...}}``. ``--out DIR`` also
 writes the nvcc logs (``-Xptxas -v``), the full report and torch.profiler
@@ -752,6 +772,8 @@ def main() -> int:
             shutil.copy(f, os.path.join(args.out, f.name))
 
     report = {"card": card, "phase_s": {}}
+    # the dry-run cells run on the host beside the card's phases
+    dryrun_cells = _dryrun_spawn(args.out)
 
     def timed(name, fn, *a):
         t = time.perf_counter()
@@ -769,6 +791,10 @@ def main() -> int:
     if not ok:
         return _fail("the serve phase failed (see above)")
     by_path.update(serve_counts)
+    dryrun_counts, ok = timed("dryrun", _dryrun_phase, packed, dryrun_cells)
+    if not ok:
+        return _fail("the dryrun phase failed (see above)")
+    by_path["dryrun_steps"] = dryrun_counts
     del packed
     sample_counts, ok = timed("sample", _sample_phase, args.out)
     if not ok:
@@ -8400,6 +8426,257 @@ def _tp_train_serve(torch, dev, rec, ck, one_state):
                         logit_scale=scale,
                         agreement=[same, total],
                         splits=[[i, j, g] for (i, j), g in zip(split, gaps)])
+    return counts, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 22: per-step costs — the roofline counter on meta against the card
+# ---------------------------------------------------------------------------
+
+# the dry-run cells run as subprocesses (python -m repro_torch.launch.dryrun)
+DRYRUN_CELLS = (("olmo-1b", "decode_32k", ("--packed",)),
+                ("qwen2.5-14b", "train_4k", ()))
+DRYRUN_CELL_TIMEOUT_S = 600
+# the dispatcher route -> the kernel launch counter it must move
+ROUTE_KERNEL = {"skinny_dbb": "dbb_gemm_skinny", "dbb_packed": "dbb_gemm",
+                "skinny_sta": "sta_gemm_skinny", "sta": "sta_gemm",
+                "attn_flash": "flash_prefill",
+                "attn_packed_flash": "flash_prefill_packed",
+                "attn_decode_flash": "paged_decode",
+                "head_sample_fused": "head_sample_fused"}
+DRYRUN_SMAX = 1024               # slots a row of the paged pool holds
+DRYRUN_PREFILL_LENS = (512, 384, 256, 200, 128, 64, 33, 16)
+DRYRUN_STEP_REPS = 10
+# the caching allocator rounds every block up to 512 bytes: the card's peak
+# may exceed the counter's by that much for each allocation the step makes
+ALLOC_ROUND = 512
+
+
+def _dryrun_spawn(out_dir: str):
+    """Start the DRYRUN_CELLS as subprocesses on the host (no card:
+    CUDA_VISIBLE_DEVICES is empty), so they run beside the card's phases;
+    the dryrun phase reads their records (in ``out_dir``/dryrun, or a
+    temporary directory removed at exit). Killed at exit if still
+    running."""
+    import atexit
+    import tempfile
+    cells_dir = (os.path.join(out_dir, "dryrun") if out_dir
+                 else tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    started = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "pod", "--out", cells_dir,
+               *extra]
+        started.append((cmd, time.perf_counter(), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+
+    def stop():
+        for _, _, p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if not out_dir:
+            shutil.rmtree(cells_dir, ignore_errors=True)
+    atexit.register(stop)
+    return cells_dir, started
+
+
+def _paged_step_inputs(torch, cfg, eng, dev):
+    """(decode args, packed-prefill args) of olmo-1b on the serve phase's
+    paged pool (64-slot pages, DRYRUN_SMAX slots a row): B8 decode tokens
+    at lengths 300-1000, and DRYRUN_PREFILL_LENS prompts packed into one
+    call whose scatter addresses (rows, cols) stay on the host, as the
+    engine passes them. On ``dev`` "meta" every tensor is a shape."""
+    from repro_torch.serve.kv_cache import init_paged_cache
+    page = cfg.kv_page_size
+    n_log = DRYRUN_SMAX // page
+    pool = 8 * n_log + 1
+    cache = init_paged_cache(eng._lcfg, 8, pool, page, n_log, device=dev)
+    table = (1 + torch.arange(8 * n_log, dtype=torch.int32)).reshape(8, n_log)
+    gen = torch.Generator().manual_seed(5)
+    lengths = torch.randint(300, DRYRUN_SMAX - 1, (8,), generator=gen,
+                            dtype=torch.int32)
+    if dev.type != "meta":
+        cache["block_table"].copy_(table)
+        cache["length"].copy_(lengths)
+    tok = torch.randint(2, cfg.vocab_size, (8,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    total = sum(DRYRUN_PREFILL_LENS)
+    tp = 8
+    while tp < total:
+        tp *= 2
+    toks = torch.zeros((1, tp), dtype=torch.int32)
+    seg = torch.full((tp,), len(DRYRUN_PREFILL_LENS), dtype=torch.int32)
+    pos = torch.zeros((1, tp), dtype=torch.int32)
+    rows = torch.full((tp,), pool, dtype=torch.int32)
+    cols = torch.zeros((tp,), dtype=torch.int32)
+    gidx = torch.zeros((len(DRYRUN_PREFILL_LENS),), dtype=torch.int64)
+    off = 0
+    for i, n in enumerate(DRYRUN_PREFILL_LENS):
+        p = torch.arange(n)
+        toks[0, off:off + n] = torch.randint(2, cfg.vocab_size, (n,),
+                                             generator=gen)
+        seg[off:off + n] = i
+        pos[0, off:off + n] = p
+        rows[off:off + n] = table[i][p // page]
+        cols[off:off + n] = p % page
+        gidx[i] = off + n - 1
+        off += n
+    decode = (eng.params, eng.head, cache, tok)
+    prefill = (eng.params, eng.head, cache, toks.to(dev), seg.to(dev),
+               pos.to(dev), rows, cols, gidx.to(dev))
+    return decode, prefill
+
+
+def _step_ms(torch, step, args) -> float:
+    """Median over DRYRUN_STEP_REPS of one whole step (host enqueue
+    included) between CUDA events, after two warm-up steps."""
+    for _ in range(2):
+        step(*args)
+    times = []
+    for _ in range(DRYRUN_STEP_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _step_peak(torch, step, args):
+    """(the caching allocator's peak above the step's inputs, allocations
+    the step made) of one uncounted step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - n0
+    del out
+    return peak, allocs
+
+
+def _dryrun_phase(torch, dev, report, packed, spawned):
+    """(launch counts, ok): (i) olmo-1b at full width and depth, packed f32
+    planes, on the kernel routes: one B8 decode step on the serve phase's
+    paged pool and one packed prefill, each counted by
+    `roofline.counts.count_step` on the card and on the meta device from
+    the same config and shapes (the card tree's meta twin); flops, bytes by
+    route and collectives must be equal, each route's calls must equal its
+    kernel's launches, each step's measured time is printed beside its
+    roofline bound, and the allocator's peak beside the counter's; (ii)
+    the dry-run cells' records (started at the run's beginning) must be
+    "ok", their roofline dicts printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import step_terms
+    from repro_torch.roofline.analysis import model_flops_per_step
+    from repro_torch.roofline.counts import count_step
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("olmo-1b").replace(remat="none", gemm_impl="pallas",
+                                        kv_page_size=64)
+    meta = torch.device("meta")
+    card = ServeEngine(cfg, packed, max_batch=8, device=dev, paged=True)
+    twin = ServeEngine(cfg, specs.sds_tree(packed), max_batch=8,
+                       device=meta, paged=True)
+    steps = {"decode": ("_decode", 0), "prefill": ("_packed_prefill", 1)}
+    card_in = _paged_step_inputs(torch, cfg, card, dev)
+    meta_in = _paged_step_inputs(torch, cfg, twin, meta)
+    n_tok = {"decode": 8, "prefill": sum(DRYRUN_PREFILL_LENS)}
+    for name, (attr, i) in steps.items():       # warm-up: builds, cuBLAS
+        getattr(card, attr)(*card_in[i])
+    torch.cuda.synchronize()
+    ok = True
+    stats = {}
+    reset_launches()
+    for name, (attr, i) in steps.items():
+        _, stats[name] = count_step(getattr(card, attr), *card_in[i],
+                                    peak_device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    report["dryrun"] = {}
+    calls = collections.Counter()
+    for name, (attr, i) in steps.items():
+        out, mst = count_step(getattr(twin, attr), *meta_in[i],
+                              peak_device="meta")
+        cst = stats[name]
+        for k, v in cst.routes.items():
+            calls[k] += v[0]
+        same = (cst.flops == mst.flops and cst.routes == mst.routes
+                and cst.collective_bytes == mst.collective_bytes)
+        aten_same = cst.ops == mst.ops
+        ms = _step_ms(torch, getattr(card, attr), card_in[i])
+        peak, allocs = _step_peak(torch, getattr(card, attr), card_in[i])
+        mem_ok = abs(peak - mst.peak_bytes) <= ALLOC_ROUND * allocs
+        mf = model_flops_per_step(cfg.active_param_count(), n_tok[name],
+                                  False)
+        seq = DRYRUN_SMAX if name == "decode" else n_tok[name]
+        mem, terms = step_terms(mst, meta_in[i], out, kind=name,
+                                seq_len=seq, model_flops=mf)
+        lb_ms = terms.step_time_lb * 1e3
+        ok = ok and same and mem_ok
+        print(f"dryrun: olmo-1b {name} ({n_tok[name]} tokens): card "
+              f"{'==' if same else '!='} meta StepStats: flops "
+              f"{cst.flops:.6g} / {mst.flops:.6g}, hbm bytes "
+              f"{cst.hbm_bytes:.6g} / {mst.hbm_bytes:.6g} (aten ops "
+              f"{'equal' if aten_same else 'differ'}), routes "
+              f"{ {k: v[0] for k, v in mst.routes.items()} }; measured "
+              f"{ms:.3f} ms a step (median of {DRYRUN_STEP_REPS}, CUDA "
+              f"events) against step_time_lb {lb_ms:.4f} ms "
+              f"({terms.bottleneck}; the bound is "
+              f"{terms.step_time_lb * 1e3 / ms:.2%} of the step), "
+              f"roofline_fraction {terms.roofline_fraction:.4f}; allocator "
+              f"peak {peak} B over {allocs} allocations vs counter peak "
+              f"{mst.peak_bytes:.0f} B (card {cst.peak_bytes:.0f} B; within "
+              f"{ALLOC_ROUND} B an allocation: {'yes' if mem_ok else 'NO'})"
+              + ("" if same else "; FAIL: the counts differ"))
+        report["dryrun"][name] = dict(
+            step_ms=ms, memory=mem, roofline=terms.as_dict(),
+            allocator_peak=peak, allocations=allocs,
+            counter_peak=mst.peak_bytes, card_equal_meta=same,
+            aten_equal=aten_same,
+            routes=mst.routes)
+    for route, n in calls.items():
+        kernel = ROUTE_KERNEL.get(route)
+        if kernel is None or counts[kernel] != n:
+            ok = False
+            print(f"dryrun: FAIL: route {route} counted {n} calls, kernel "
+                  f"{kernel} launched {counts.get(kernel)} times")
+    print(f"dryrun: launches of the counted card steps {counts}")
+    cells_dir, started = spawned
+    for cmd, t0, p in started:
+        try:
+            _, err = p.communicate(timeout=max(
+                1.0, DRYRUN_CELL_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+        cell = f"{cmd[4]}__{cmd[6]}__pod" + ("__dbb" if "--packed" in cmd
+                                             else "")
+        path = os.path.join(cells_dir, cell + ".json")
+        rec = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+        good = p.returncode == 0 and rec.get("status") == "ok"
+        ok = ok and good
+        print(f"dryrun: {' '.join(cmd[1:])}: rc {p.returncode}, status "
+              f"{rec.get('status')}, {time.perf_counter() - t0:.1f} s since "
+              f"its start; roofline {json.dumps(rec.get('roofline'))}; "
+              f"memory {json.dumps(rec.get('memory'))}"
+              + ("" if good else f"; FAIL: {err[-2000:]}"))
+        report["dryrun"][cell] = rec
     return counts, ok
 
 

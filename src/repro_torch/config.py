@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 from typing import Tuple
 
 __all__ = ["DbbConfig", "StaConfig", "MoeConfig", "SsmConfig", "ModelConfig",
-           "ShapeSpec",
+           "ShapeSpec", "SHAPES", "shape_applicable",
            "MeshConfig", "TrainConfig", "ServeConfig", "RunConfig"]
 
 
@@ -259,6 +259,23 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str
+
+
+# the four cells of every assigned arch (the reference's)
+SHAPES = {
+    "train_4k":    ShapeSpec("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeSpec("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, and why not if it doesn't."""
+    if shape.name == "long_500k" and not model.supports_long_context:
+        return False, ("long_500k requires sub-quadratic attention; "
+                       f"{model.name} is a pure full-attention arch (skip per brief)")
+    return True, ""
 
 
 @dataclass(frozen=True)

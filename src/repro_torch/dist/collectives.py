@@ -67,6 +67,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.roofline.counts import collective
+
 __all__ = ["dense_ce", "dense_ce_chunked", "cross_entropy",
            "vocab_parallel_ce", "vocab_parallel_embed", "axis_size",
            "all_reduce", "all_gather", "reduce_max",
@@ -360,7 +362,8 @@ def greedy_scatter(hidden: torch.Tensor, w_head: torch.Tensor,
     hl = _own(hidden, line, hidden.ndim - 1)
     wl = _own(w_head, line, 0)
     partial = hl.float() @ wl.float()
-    return _greedy_combine(_own(_sum(partial, line[0]), line, -1), axis)
+    return _greedy_combine(
+        _own(_sum(partial, line[0], "reduce-scatter"), line, -1), axis)
 
 
 def reduce_max(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -371,6 +374,7 @@ def reduce_max(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     for a in axes:
         group = _line(a)[0]
         if group is not None:
+            collective("all-reduce", y, "reduce_max")
             dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
@@ -379,12 +383,17 @@ def reduce_max(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
 # training collectives: Megatron's pairs with their backward rules
 # ---------------------------------------------------------------------------
 
-def _sum(x: torch.Tensor, group) -> torch.Tensor:
+def _sum(x: torch.Tensor, group, kind: str = "all-reduce",
+         payload: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A new tensor: the sum of ``x`` over ``group`` (x itself copied when
-    the group is None)."""
+    the group is None). A step counter (`roofline.counts`) counts it as a
+    collective of the logical ``kind`` it implements, whose operand is
+    ``payload`` (default ``x``): an all-gather's is the rank's block, not
+    the zero-filled buffer the all-reduce carries."""
     import torch.distributed as dist
     y = x.clone(memory_format=torch.contiguous_format)
     if group is not None:
+        collective(kind, x if payload is None else payload)
         dist.all_reduce(y, group=group)
     return y
 
@@ -395,7 +404,7 @@ def _stack(x: torch.Tensor, line, dim: Optional[int]) -> torch.Tensor:
     group, idx, n = line
     buf = torch.zeros((n, *x.shape), dtype=x.dtype, device=x.device)
     buf[idx] = x
-    out = _sum(buf, group)
+    out = _sum(buf, group, "all-gather", x)
     return out if dim is None else torch.cat(out.unbind(0), dim=dim)
 
 
@@ -438,7 +447,8 @@ class _GatherPartial(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _own(_sum(g, ctx.line[0]), ctx.line, ctx.dim), None, None
+        return (_own(_sum(g, ctx.line[0], "reduce-scatter"), ctx.line,
+                     ctx.dim), None, None)
 
 
 class _GatherReplicated(torch.autograd.Function):
@@ -456,7 +466,7 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, line, dim):
         ctx.line, ctx.dim = line, dim
-        return _own(_sum(x, line[0]), line, dim)
+        return _own(_sum(x, line[0], "reduce-scatter"), line, dim)
 
     @staticmethod
     def backward(ctx, g):

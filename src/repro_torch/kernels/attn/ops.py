@@ -210,7 +210,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               softcap=softcap)
         return o.transpose(1, 2).contiguous()
     out = torch.empty_like(q)
-    if q.numel() == 0:
+    if q.numel() == 0 or dev.type == "meta":
         return out
     rc = _bind("flash_prefill", 6, 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
@@ -252,7 +252,7 @@ def packed_flash_attention(q: torch.Tensor, k: torch.Tensor,
                                softcap=softcap)
         return o.transpose(0, 1).contiguous()
     out = torch.empty_like(q)
-    if q.numel() == 0:
+    if q.numel() == 0 or dev.type == "meta":
         return out
     rc = _bind("flash_prefill_packed", 5, 4)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
@@ -308,6 +308,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     work = torch.empty(decode_workspace_elems(b, hkv, g, d, n_log, page),
                        dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return out
     rc = _bind("paged_decode", 8, 6)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), start.data_ptr(),

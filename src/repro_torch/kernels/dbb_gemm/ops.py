@@ -176,6 +176,8 @@ def dbb_gemm(x: torch.Tensor, values: torch.Tensor, bitmask: torch.Tensor,
         y = dbb_gemm_ref(x2, values, bitmask, bias, scale, act=act,
                          block=block, bits=bits, group=group, gscale=gscale,
                          out_dtype=out_dtype)
+    elif x.device.type == "meta":
+        y = torch.empty((m, n), dtype=out_dtype, device="meta")
     else:
         y = run_dbb_kernel("dbb_gemm", plane, x2, values, bitmask, bias,
                            scale, m=m, k_dim=k_dim, n=n, nnz=nnz, act=act,

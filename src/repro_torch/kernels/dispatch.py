@@ -52,6 +52,7 @@ own local tensors, with no global graph for a kernel to be kept out of.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import warnings
@@ -66,11 +67,13 @@ from repro_torch.kernels.common import (FLOAT_DTYPES, OPERAND_DTYPES,
                                         SKINNY_M_MAX, skinny_ok)
 from repro_torch.kernels.sample.ops import TILE_N as _HS_TILE
 from repro_torch.roofline.analysis import HW_H100, Hardware, collective_bw
+from repro_torch.roofline.counts import route_call
 
 __all__ = ["OpSpec", "Route", "RouteDecision", "select", "explain",
            "format_table", "matmul", "conv", "attention",
-           "packed_attention", "chunk_attention_route", "head_sample",
-           "decode_attention_route", "pallas_route_active",
+           "packed_attention", "chunk_attention_route", "chunk_attention",
+           "head_sample", "decode_attention_route", "attn_decode",
+           "pallas_route_active",
            "flash_backend_active", "forced_route", "routes_from_cfg",
            "FORCE_ROUTE_ENV", "COST_TIE_RTOL", "ROUTES", "KERNEL_ROUTES",
            "no_autograd"]
@@ -646,6 +649,22 @@ ROUTES: Dict[str, Tuple[Route, ...]] = {
 }
 
 
+_ROUTE_COST = {(domain, r.name): r.cost
+               for domain, table in ROUTES.items() for r in table}
+
+
+def _counted(spec: OpSpec, route: str, instances: int = 1):
+    """The extent of one front-door call that runs ``route`` on ``spec``
+    (`roofline.counts.route_call`): a live step counter adds the route's
+    costed flops and bytes ``instances`` times — an attention spec costs
+    one query head, a decode spec one (row, KV head) pair — and counts no
+    aten op inside."""
+    def cost():
+        flops, nbytes = _ROUTE_COST[(spec.domain, route)](spec)
+        return instances * flops, instances * nbytes
+    return route_call(route, cost)
+
+
 # ---------------------------------------------------------------------------
 # route family predicates and overrides
 # ---------------------------------------------------------------------------
@@ -912,7 +931,12 @@ def matmul(x: torch.Tensor, w, bias=None, scale=None, *, act: str = "none",
         int8_values=packed and w.values.dtype == torch.int8)
     name, _ = select(spec, routes_from_cfg(cfg))
     no_autograd(name, x, w, bias, scale)
+    with _counted(spec, name):
+        return _matmul_route(name, x, w, bias, scale, act, out_dtype)
 
+
+def _matmul_route(name: str, x, w, bias, scale, act: str, out_dtype):
+    """Run `matmul` on its chosen route."""
     if name == "sta":
         from repro_torch.kernels.sta_gemm.ops import sta_gemm
         return sta_gemm(x.contiguous(), w.to(x.dtype).contiguous(), bias,
@@ -1032,15 +1056,16 @@ def conv(x: torch.Tensor, w, bias=None, scale=None, *, kh: int, kw: int,
     no_autograd(name, x, w, bias, scale)
     geom = dict(kh=kh, kw=kw, stride=stride, padding=padding, act=act,
                 out_dtype=out_dtype)
-    if name == "conv_dbb":
-        return C.conv_gemm_packed(x.contiguous(), w, bias, **geom)
-    if name == "conv_sta":
-        return C.conv_gemm(x.contiguous(), w.to(x.dtype).contiguous(), bias,
-                           scale, **geom)
-    if packed:
-        return R.conv_gemm_dbb_ref(x, w.values, w.bitmask, bias, w.scale,
-                                   block=w.block, **geom)
-    return R.conv_gemm_ref(x, w, bias, scale, **geom)
+    with _counted(spec, name):
+        if name == "conv_dbb":
+            return C.conv_gemm_packed(x.contiguous(), w, bias, **geom)
+        if name == "conv_sta":
+            return C.conv_gemm(x.contiguous(), w.to(x.dtype).contiguous(),
+                               bias, scale, **geom)
+        if packed:
+            return R.conv_gemm_dbb_ref(x, w.values, w.bitmask, bias,
+                                       w.scale, block=w.block, **geom)
+        return R.conv_gemm_ref(x, w, bias, scale, **geom)
 
 
 _ATTN_IMPL_ROUTE = {"flash": "attn_flash", "chunked": "attn_chunked",
@@ -1080,19 +1105,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cfg_routes.setdefault("attention", _ATTN_IMPL_ROUTE[cfg.attn_impl])
     name, _ = select(spec, cfg_routes)
     no_autograd(name, q, k, v)
-    if name == "attn_flash":
-        from repro_torch.kernels.attn.ops import flash_attention
-        start = (-positions[..., 0]).to(torch.int32).expand(q.shape[0])
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), start.contiguous(),
-                               window=cfg.sliding_window,
-                               softcap=cfg.attn_logit_softcap)
-    if ragged:
-        return A._naive_attention(q, k, v, positions, positions, cfg)
-    if name == "attn_chunked":
-        return A._chunked_causal_attention(q, k, v, cfg, cfg.attn_chunk)
-    pos1d = positions[0] if positions.ndim > 1 else positions
-    return A._naive_attention(q, k, v, pos1d, pos1d, cfg)
+    with _counted(spec, name, q.shape[2]):
+        if name == "attn_flash":
+            from repro_torch.kernels.attn.ops import flash_attention
+            start = (-positions[..., 0]).to(torch.int32).expand(q.shape[0])
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), start.contiguous(),
+                                   window=cfg.sliding_window,
+                                   softcap=cfg.attn_logit_softcap)
+        if ragged:
+            return A._naive_attention(q, k, v, positions, positions, cfg)
+        if name == "attn_chunked":
+            return A._chunked_causal_attention(q, k, v, cfg, cfg.attn_chunk)
+        pos1d = positions[0] if positions.ndim > 1 else positions
+        return A._naive_attention(q, k, v, pos1d, pos1d, cfg)
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1117,21 +1143,19 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     no_autograd(name, q, k, v)
     seg = seg_ids.to(torch.int32).reshape(t).contiguous()
     kw = dict(window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-    if name == "attn_packed_flash":
-        return packed_flash_attention(q[0].contiguous(), k[0].contiguous(),
-                                      v[0].contiguous(), seg, **kw)[None]
-    o = packed_prefill_ref(q[0].transpose(0, 1), k[0].transpose(0, 1),
-                           v[0].transpose(0, 1), seg,
-                           sm_scale=1.0 / d ** 0.5, **kw)
-    return o.transpose(0, 1)[None]
+    with _counted(spec, name, q.shape[2]):
+        if name == "attn_packed_flash":
+            return packed_flash_attention(
+                q[0].contiguous(), k[0].contiguous(), v[0].contiguous(), seg,
+                **kw)[None]
+        o = packed_prefill_ref(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                               v[0].transpose(0, 1), seg,
+                               sm_scale=1.0 / d ** 0.5, **kw)
+        return o.transpose(0, 1)[None]
 
 
-def chunk_attention_route(cfg, *, t: int, s: int, d: int,
-                          itemsize: int = 4, floating: bool = True) -> str:
-    """Route of a chunked-prefill continuation: T chunk queries at an
-    absolute offset against one row's S cache slots. Flash takes it
-    through ``q_offset``; everything else takes the naive mask (a pin to
-    the chunked route too: it has no continuation)."""
+def _chunk_select(cfg, *, t: int, s: int, d: int, itemsize: int = 4,
+                  floating: bool = True) -> Tuple[OpSpec, str]:
     spec = OpSpec(domain="attention", m=t, k=d, n=s, itemsize=itemsize,
                   out_itemsize=itemsize, ragged=True, chunk=cfg.attn_chunk,
                   flash_active=flash_backend_active(cfg), float_ok=floating)
@@ -1140,8 +1164,37 @@ def chunk_attention_route(cfg, *, t: int, s: int, d: int,
         cfg_routes["attention"] = "attn_naive"
     if cfg.attn_impl in _CHUNK_IMPL_ROUTE:
         cfg_routes.setdefault("attention", _CHUNK_IMPL_ROUTE[cfg.attn_impl])
-    name, _ = select(spec, cfg_routes)
-    return name
+    return spec, select(spec, cfg_routes)[0]
+
+
+def chunk_attention_route(cfg, *, t: int, s: int, d: int,
+                          itemsize: int = 4, floating: bool = True) -> str:
+    """Route of a chunked-prefill continuation: T chunk queries at an
+    absolute offset against one row's S cache slots. Flash takes it
+    through ``q_offset``; everything else takes the naive mask (a pin to
+    the chunked route too: it has no continuation)."""
+    return _chunk_select(cfg, t=t, s=s, d=d, itemsize=itemsize,
+                         floating=floating)[1]
+
+
+@contextlib.contextmanager
+def chunk_attention(cfg, *, heads: int, t: int, s: int, d: int,
+                    itemsize: int = 4, floating: bool = True):
+    """The front door of a chunked-prefill continuation over ``heads``
+    query heads: yields `chunk_attention_route`'s route, and the block
+    that runs it is one counted dispatcher call."""
+    spec, name = _chunk_select(cfg, t=t, s=s, d=d, itemsize=itemsize,
+                               floating=floating)
+    with _counted(spec, name, heads):
+        yield name
+
+
+def _decode_spec(cfg, *, group: int, head_dim: int, page: int, smax: int,
+                 itemsize: int, ring: bool, floating: bool) -> OpSpec:
+    return OpSpec(domain="attn_decode", m=group, k=head_dim, n=smax,
+                  itemsize=itemsize, out_itemsize=itemsize, page=page,
+                  ring=ring, flash_active=flash_backend_active(cfg),
+                  float_ok=floating)
 
 
 def decode_attention_route(cfg, *, group: int, head_dim: int, page: int,
@@ -1150,12 +1203,28 @@ def decode_attention_route(cfg, *, group: int, head_dim: int, page: int,
     """Route of one-token decode attention (``attn_decode`` domain) on the
     contiguous cache; ``ring``: the cache is a ring buffer (zamba2's
     shared block), which the paged kernel does not take."""
-    spec = OpSpec(domain="attn_decode", m=group, k=head_dim, n=smax,
-                  itemsize=itemsize, out_itemsize=itemsize, page=page,
-                  ring=ring, flash_active=flash_backend_active(cfg),
-                  float_ok=floating)
-    name, _ = select(spec, routes_from_cfg(cfg))
-    return name
+    spec = _decode_spec(cfg, group=group, head_dim=head_dim, page=page,
+                        smax=smax, itemsize=itemsize, ring=ring,
+                        floating=floating)
+    return select(spec, routes_from_cfg(cfg))[0]
+
+
+@contextlib.contextmanager
+def attn_decode(cfg, *, pairs: int, group: int, head_dim: int, page: int,
+                smax: int, itemsize: int = 4, ring: bool = False,
+                floating: bool = True, paged: bool = False):
+    """The front door of one-token decode attention over ``pairs`` (row,
+    KV head) pairs: yields the route — `decode_attention_route`'s on the
+    contiguous cache, ``attn_decode_flash`` on a paged pool (``paged``:
+    the paged kernel runs on every route) — and the block that runs it is
+    one counted dispatcher call."""
+    spec = _decode_spec(cfg, group=group, head_dim=head_dim, page=page,
+                        smax=smax, itemsize=itemsize, ring=ring,
+                        floating=floating)
+    name = ("attn_decode_flash" if paged
+            else select(spec, routes_from_cfg(cfg))[0])
+    with _counted(spec, name, pairs):
+        yield name
 
 
 def head_sample(h: torch.Tensor, w_head: torch.Tensor, counts: torch.Tensor,
@@ -1193,15 +1262,17 @@ def head_sample(h: torch.Tensor, w_head: torch.Tensor, counts: torch.Tensor,
     no_autograd(name, h, w_head)
     rows = dict(temp=temp, rep=rep, pres=pres, freq=freq, seed=seed,
                 step=step)
-    if name == "head_sample_fused":
-        from repro_torch.kernels.sample.ops import head_sample_fused
-        score, tok = head_sample_fused(
-            h.float().contiguous(), w_head.float().contiguous(), counts,
-            base=base, **rows)
-    else:
-        from repro_torch.kernels.sample.ref import sample_argmax
-        logits = matmul(h.float(), w_head.float(), cfg=cfg,
-                        pallas=bool(pallas), gemv=True)
-        score, tok = sample_argmax(logits, counts, base=base, top_k=top_k,
-                                   top_p=top_p, use_tt=use_tt, **rows)
+    with _counted(spec, name):
+        if name == "head_sample_fused":
+            from repro_torch.kernels.sample.ops import head_sample_fused
+            score, tok = head_sample_fused(
+                h.float().contiguous(), w_head.float().contiguous(), counts,
+                base=base, **rows)
+        else:
+            from repro_torch.kernels.sample.ref import sample_argmax
+            logits = matmul(h.float(), w_head.float(), cfg=cfg,
+                            pallas=bool(pallas), gemv=True)
+            score, tok = sample_argmax(logits, counts, base=base,
+                                       top_k=top_k, top_p=top_p,
+                                       use_tt=use_tt, **rows)
     return (score, tok) if return_score else tok

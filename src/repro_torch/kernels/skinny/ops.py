@@ -118,7 +118,8 @@ def _checked_splits(kernel: str, s8: bool, k_dim: int, n: int) -> int:
 def _work(kernel: str, m: int, k_dim: int, n: int,
           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     s8 = dtype == torch.int8
-    _checked_splits(kernel, s8, k_dim, n)
+    if device.type != "meta":
+        _checked_splits(kernel, s8, k_dim, n)
     return torch.empty((workspace_elems(m, k_dim, n, dtype),),
                        dtype=torch.int32 if s8 else torch.float32,
                        device=device)
@@ -151,6 +152,11 @@ def dbb_gemm_skinny(x: torch.Tensor, values: torch.Tensor,
         y = dbb_gemm_ref(x2, values, bitmask, bias, scale, act=act,
                          block=block, bits=bits, group=group, gscale=gscale,
                          out_dtype=out_dtype)
+    elif x.device.type == "meta":
+        # the card's call holds its workspace beside the output
+        work = _work("dbb_gemm_skinny", m, k_dim, n, x.dtype, x.device)
+        y = torch.empty((m, n), dtype=out_dtype, device="meta")
+        del work
     else:
         split = split_body(x.dtype)
         work = _work("dbb_gemm_skinny", m, k_dim, n, x.dtype, x.device)
@@ -199,6 +205,8 @@ def sta_gemm_skinny(x: torch.Tensor, w: torch.Tensor, bias=None, scale=None,
         y = torch.empty((m, n), dtype=out_dtype, device=x.device)
         work = (_work("sta_gemm_skinny", m, k_dim, n, x.dtype, x.device)
                 if branch else None)
+        if x.device.type == "meta":
+            return y.reshape(*x.shape[:-1], n)
         rc = _sta_launcher(branch)(
             x2.data_ptr(), w.data_ptr(), build.ptr(scale), build.ptr(bias),
             y.data_ptr(), *([work.data_ptr()] if branch else []), m, k_dim,

@@ -285,20 +285,20 @@ def chunk_attention_apply(p: Dict, cfg: ModelConfig, q: torch.Tensor,
     Returns the o_proj output [1, C, d]."""
     c, s = q.shape[1], cache_k.shape[1]
     hq, hd = q.shape[2], q.shape[3]
-    route = dispatch.chunk_attention_route(
-        cfg, t=c, s=s, d=hd, itemsize=q.element_size(),
-        floating=q.dtype in FLOAT_DTYPES)
     off = offset.reshape(1).to(torch.int32)
-    dispatch.no_autograd(route, q, cache_k, cache_v)
-    if route == "attn_flash":
-        o = flash_attention(q.contiguous(), cache_k, cache_v,
-                            q_offset=off.contiguous(),
-                            window=cfg.sliding_window,
-                            softcap=cfg.attn_logit_softcap)
-    else:
-        qpos = off + torch.arange(c, device=q.device)
-        kpos = torch.arange(s, device=q.device)
-        o = _naive_attention(q, cache_k, cache_v, qpos, kpos, cfg)
+    with dispatch.chunk_attention(cfg, heads=hq, t=c, s=s, d=hd,
+                                  itemsize=q.element_size(),
+                                  floating=q.dtype in FLOAT_DTYPES) as route:
+        dispatch.no_autograd(route, q, cache_k, cache_v)
+        if route == "attn_flash":
+            o = flash_attention(q.contiguous(), cache_k, cache_v,
+                                q_offset=off.contiguous(),
+                                window=cfg.sliding_window,
+                                softcap=cfg.attn_logit_softcap)
+        else:
+            qpos = off + torch.arange(c, device=q.device)
+            kpos = torch.arange(s, device=q.device)
+            o = _naive_attention(q, cache_k, cache_v, qpos, kpos, cfg)
     return _o_proj(p, o.reshape(1, c, hq * hd), cfg)
 
 
@@ -340,37 +340,38 @@ def decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     cache_v[rows, ins] = v[:, 0].to(cache_v.dtype)
 
     page = cfg.kv_page_size or math.gcd(smax, DEFAULT_PAGE)
-    route = dispatch.decode_attention_route(
-        cfg, group=g, head_dim=hd, page=page, smax=smax,
-        itemsize=cache_k.element_size(), ring=ring,
-        floating=x.dtype in (torch.float32, torch.bfloat16))
-    if route == "attn_decode_flash":
-        dispatch.no_autograd(route, q, cache_k, cache_v)
-        n_log = smax // page
-        o = paged_decode_attention(
-            q.reshape(b, hkv, g, hd),
-            cache_k.view(b * n_log, page, hkv, hd),
-            cache_v.view(b * n_log, page, hkv, hd),
-            identity_block_table(b, n_log, x.device), lengths, start,
-            window=window, softcap=cfg.attn_logit_softcap)
-        return _o_proj(p, o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
-
-    qg = q.reshape(b, 1, hkv, g, hd)
-    sc = _scores(qg, cache_k, cfg)                       # [B,H,G,1,Smax]
-    kpos = torch.arange(smax, device=x.device)[None, :]
-    if ring:
-        valid = kpos < torch.clamp(lengths[:, None] + 1, max=smax)
-    else:
-        valid = kpos <= lengths[:, None]
-        if start is not None:
-            valid &= kpos >= start[:, None]
-        if window > 0:
-            valid &= kpos > (lengths[:, None] - window)
-    sc = sc + torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
-    pr = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhgts,bshd->bthgd", pr.to(cache_v.dtype).float(),
-                     cache_v.float())
-    o = o.reshape(b, 1, hq * hd).to(x.dtype).contiguous()
+    with dispatch.attn_decode(
+            cfg, pairs=b * hkv, group=g, head_dim=hd, page=page, smax=smax,
+            itemsize=cache_k.element_size(), ring=ring,
+            floating=x.dtype in (torch.float32, torch.bfloat16)) as route:
+        if route == "attn_decode_flash":
+            dispatch.no_autograd(route, q, cache_k, cache_v)
+            n_log = smax // page
+            o = paged_decode_attention(
+                q.reshape(b, hkv, g, hd),
+                cache_k.view(b * n_log, page, hkv, hd),
+                cache_v.view(b * n_log, page, hkv, hd),
+                identity_block_table(b, n_log, x.device), lengths, start,
+                window=window, softcap=cfg.attn_logit_softcap)
+            o = o.reshape(b, 1, hq * hd).to(x.dtype)
+        else:
+            qg = q.reshape(b, 1, hkv, g, hd)
+            sc = _scores(qg, cache_k, cfg)               # [B,H,G,1,Smax]
+            kpos = torch.arange(smax, device=x.device)[None, :]
+            if ring:
+                valid = kpos < torch.clamp(lengths[:, None] + 1, max=smax)
+            else:
+                valid = kpos <= lengths[:, None]
+                if start is not None:
+                    valid &= kpos >= start[:, None]
+                if window > 0:
+                    valid &= kpos > (lengths[:, None] - window)
+            sc = sc + torch.where(valid, 0.0,
+                                  _NEG_INF)[:, None, None, None, :]
+            pr = torch.softmax(sc, dim=-1)
+            o = torch.einsum("bhgts,bshd->bthgd",
+                             pr.to(cache_v.dtype).float(), cache_v.float())
+            o = o.reshape(b, 1, hq * hd).to(x.dtype).contiguous()
     return _o_proj(p, o, cfg)
 
 
@@ -402,9 +403,15 @@ def paged_decode_attention_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     k_pages[phys, off] = k[:, 0].to(k_pages.dtype)
     v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
     dispatch.no_autograd("attn_decode_flash", q, k_pages, v_pages)
-    o = paged_decode_attention(
-        q.reshape(b, hkv, g, hd), k_pages, v_pages, block_table, lengths,
-        start, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    with dispatch.attn_decode(
+            cfg, pairs=b * hkv, group=g, head_dim=hd, page=page,
+            smax=n_log * page, itemsize=k_pages.element_size(),
+            floating=x.dtype in (torch.float32, torch.bfloat16),
+            paged=True):
+        o = paged_decode_attention(
+            q.reshape(b, hkv, g, hd), k_pages, v_pages, block_table,
+            lengths, start, window=cfg.sliding_window,
+            softcap=cfg.attn_logit_softcap)
     return _o_proj(p, o.reshape(b, 1, hq * hd).to(x.dtype), cfg)
 
 

@@ -22,7 +22,8 @@ from repro_torch.core.dbb import DbbWeight
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.conv_gemm.ref import im2col
-from repro_torch.models.common import normal_init, param_dtype_of
+from repro_torch.models.common import (init_generator, normal_init,
+                                       param_dtype_of)
 
 __all__ = ["cnn_init", "cnn_apply", "max_pool_2x2"]
 
@@ -38,7 +39,7 @@ def cnn_init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     reference's fan-in scales, zero biases; its jax.random draws are not
     reproduced)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = init_generator(dev, seed)
     dt = param_dtype_of(cfg)
     params: Dict = {}
     cin, k = cfg.cnn_in_ch, cfg.cnn_kernel

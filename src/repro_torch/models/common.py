@@ -8,7 +8,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 
-__all__ = ["dtype_of", "param_dtype_of", "normal_init", "linear_init",
+__all__ = ["dtype_of", "param_dtype_of", "init_generator", "normal_init",
+           "linear_init",
            "linear_apply", "norm_init", "norm_apply", "rope_freqs",
            "apply_rope", "embed_init", "embed_apply", "embed_scale"]
 
@@ -27,6 +28,16 @@ def param_dtype_of(cfg: ModelConfig) -> torch.dtype:
 # init (explicit generator; the reference's jax.random draws differ, so
 # cross-checks move weights across with `repro_torch.interop` instead)
 # ---------------------------------------------------------------------------
+
+def init_generator(device: torch.device,
+                   seed: int) -> Optional[torch.Generator]:
+    """The generator an init draws from on ``device``, seeded with
+    ``seed``; None on the meta device, whose tensors carry shapes and
+    dtypes but no values (the dry run's trees), so nothing is drawn."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
 
 def normal_init(gen: torch.Generator, shape, scale: float,
                 dtype: torch.dtype, device) -> torch.Tensor:

@@ -52,8 +52,9 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     from repro_torch.core.dbb_linear import pack_tree
     from repro_torch.core.sparsity import apply_dbb_to_tree
     from repro_torch.device import resolve_device
-    from repro_torch.models.common import (embed_init, linear_init,
-                                           norm_init, param_dtype_of)
+    from repro_torch.models.common import (embed_init, init_generator,
+                                           linear_init, norm_init,
+                                           param_dtype_of)
     tf._check_family(cfg)
     dev = resolve_device(device)
     dt, d, n_l = param_dtype_of(cfg), cfg.d_model, cfg.num_layers
@@ -77,7 +78,7 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
     stack = None
     for l in range(n_l):
-        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + l)
+        gen = init_generator(dev, seed * 1000 + l)
         one = tf.layer_init(gen, (1,), cfg, dt, dev)
         if layer_hook is not None:
             one = layer_hook(one, gen)
@@ -88,7 +89,7 @@ def init_params_by_layer(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         stack = into(stack, one, l)
         del one
     if outer is None:
-        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + 999)
+        gen = init_generator(dev, seed * 1000 + 999)
         outer = {"embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
                  "final_norm": norm_init(cfg.norm, (), d, dt, dev)}
         if layer_hook is not None:

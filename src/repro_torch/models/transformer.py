@@ -46,8 +46,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (dtype_of, embed_apply, embed_init,
-                                       embed_scale, linear_init, norm_apply,
-                                       norm_init, param_dtype_of)
+                                       embed_scale, init_generator,
+                                       linear_init, norm_apply, norm_init,
+                                       param_dtype_of)
 from repro_torch.models.mlp import (mlp_apply, mlp_down, mlp_init, mlp_up,
                                     seq_parallel_ok)
 from repro_torch.models.moe import (dense_mlp_cfg, moe_apply, moe_init,
@@ -86,7 +87,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     jax.random draws are not reproduced)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = init_generator(dev, seed)
     dt = param_dtype_of(cfg)
     d = cfg.d_model
     params: Dict[str, Any] = {

@@ -149,13 +149,15 @@ def first_sample_head(cfg: ModelConfig, use_tt: bool = False):
 
 def make_prefill_step(cfg: ModelConfig, head_fn=None):
     """step(params, head, cache, tokens [B, S], start [B] | None,
-    *head_args) → (head_fn's output — by default the greedy first token
-    [B] — , cache)."""
+    *head_args, **inputs) → (head_fn's output — by default the greedy
+    first token [B] — , cache). ``inputs``: the vlm and audio families'
+    ``prefix_embeds`` / ``embeds`` (`registry.prefill`)."""
     head_fn = head_fn or greedy_head(cfg)
 
-    def step(params, head, cache, tokens, start=None, *head_args):
+    def step(params, head, cache, tokens, start=None, *head_args,
+             **inputs):
         hidden, cache = registry.prefill(params, cfg, tokens, cache,
-                                         start=start)
+                                         start=start, **inputs)
         return head_fn(hidden[:, -1:], head, *head_args), cache
 
     return step
@@ -468,9 +470,9 @@ class ServeEngine:
             return inner
         tp = self._tp
 
-        def stepped(*args):
+        def stepped(*args, **kwargs):
             with shard_tp_ctx(tp):
-                return inner(*args)
+                return inner(*args, **kwargs)
 
         return stepped
 
